@@ -1,0 +1,367 @@
+"""MedTsLLM on a llama backbone, serving path (port of
+``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
+host-side PromptBuilder).
+
+RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
+cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the decoder
+(kernels K1, K2) -> d_ff downsample -> FlattenHead -> RevIN denorm. The
+constant prompt head is prefilled once and served as per-layer prefix K/V.
+
+Scope of this slice: covariate mode ``concat``, the reconstruction task,
+an enabled llama backbone, no in-context examples and no per-clip prompt
+heads; anything else raises NotImplementedError naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.embed import PatchEmbedding
+from ..ops.kernels.reprogramming import reprogramming_attention
+from ..ops.revin import revin_denorm, revin_norm
+from .llm.config import resolve_config
+from .llm.tokenizer import get_tokenizer
+from .llm.transformer import Linear, TransformerDecoder
+
+# batch keys that enter the model as arrays (medtsllm_tpu/utils.py)
+ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
+
+# [setup] dtype -> storage dtype of every float parameter (the JAX
+# package's Precision; "mixed" and fp16 are not ported yet)
+STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                  "float32": torch.float32, "float": torch.float32,
+                  "fp32": torch.float32}
+
+
+def storage_dtype(config) -> torch.dtype:
+    name = str(config.setup.get("dtype", "float32"))
+    if name not in STORAGE_DTYPES:
+        raise NotImplementedError(f"setup.dtype {name!r}: the port stores f32 "
+                                  "or bf16 (ROADMAP queue 1 item 6)")
+    return STORAGE_DTYPES[name]
+
+
+class ReprogrammingLayer(nn.Module):
+    """Cross-attention from patch embeddings (queries) into the compressed
+    text-token basis (keys/values), eval path."""
+
+    def __init__(self, d_in: int, n_heads: int, d_keys: int, d_llm: int):
+        super().__init__()
+        self.n_heads, self.d_keys = n_heads, d_keys
+        self.query_projection = Linear(d_in, d_keys * n_heads)
+        self.key_projection = Linear(d_llm, d_keys * n_heads)
+        self.value_projection = Linear(d_llm, d_keys * n_heads)
+        self.out_projection = Linear(d_keys * n_heads, d_llm)
+
+    def forward(self, target, source, value):
+        B, L, _ = target.shape
+        S, H, E = source.shape[0], self.n_heads, self.d_keys
+        q = self.query_projection(target).reshape(B, L, H, E)
+        k = self.key_projection(source).reshape(S, H, E)
+        v = self.value_projection(value).reshape(S, H, E)
+        # the einsum in JAX promotes to q's type (f32): so does the kernel
+        dt = torch.promote_types(q.dtype, k.dtype)
+        out = reprogramming_attention(q.to(dt).contiguous(), k.to(dt).contiguous(),
+                                      v.to(dt).contiguous(), 1.0 / math.sqrt(E))
+        return self.out_projection(out.reshape(B, L, H * E))
+
+
+class MedTsLLM(nn.Module):
+    def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
+                 num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
+                 llm_dtype=torch.float32, prefix_cache=True, cache_dir=None):
+        super().__init__()
+        self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
+        self.d_model, self.d_ff = d_model, d_ff
+        self.patch_len, self.stride = patch_len, stride
+        self.llm_cfg, self.llm_id, self.cache_dir = llm_cfg, llm_id, cache_dir
+        self.prefix_cache = prefix_cache
+        self.n_outputs_per_step = n_features
+        self.llm = TransformerDecoder(
+            llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
+        self.patch_embedding = PatchEmbedding(d_model, patch_len, stride)
+        self.mapping_layer = Linear(llm_cfg.vocab_size, num_tokens)
+        self.reprogramming_layer = ReprogrammingLayer(
+            n_features * d_model, n_heads, d_ff, self.d_llm)
+        self.output_projection = Linear(d_ff * self.n_patches,
+                                        self.n_outputs_per_step * pred_len)
+        self.embedding_downsample_layer = Linear(self.d_llm, d_ff)
+
+    @classmethod
+    def model_config(cls, config):
+        models = config.models
+        return models.medtsllm if "medtsllm" in models else models.timellm
+
+    @classmethod
+    def from_config(cls, config, dataset):
+        mc = cls.model_config(config)
+        unported = []
+        if config.task != "reconstruction":
+            unported.append(f"task {config.task!r} (ROADMAP queue 1 item 7)")
+        if mc.covariate_mode != "concat":
+            unported.append(f"covariate_mode {mc.covariate_mode!r} "
+                            "(ROADMAP queue 1 item 4)")
+        if mc.embedding_downsample_mode != "linear":
+            unported.append(f"embedding_downsample_mode "
+                            f"{mc.embedding_downsample_mode!r} (ROADMAP queue 1 item 4)")
+        if not mc.llm.enabled:
+            unported.append("llm.enabled = false (ROADMAP queue 1 item 4)")
+        if mc.llm.get("load_in_4bit", False):
+            unported.append("load_in_4bit (ROADMAP queue 1 item 10)")
+        if mc.llm.get("load_in_8bit", False) and not mc.llm.get("int8_matmul", True):
+            unported.append("weight-only int8, int8_matmul = false (ROADMAP queue 1 item 3)")
+        if mc.llm.get("fuse_projections", False):
+            unported.append("llm.fuse_projections (ROADMAP queue 1 item 3)")
+        if "lora" in mc and mc.lora.enabled:
+            unported.append("LoRA (ROADMAP queue 1 item 8)")
+        for key in ("pipeline_parallel", "tensor_parallel", "expert_parallel"):
+            if int(config.setup.get(key, 1) or 1) > 1:
+                unported.append(f"setup.{key} (ROADMAP queue 1 item 14)")
+        if config.setup.get("tp_overlap", False):
+            unported.append("setup.tp_overlap (ROADMAP queue 1 item 14)")
+        if unported:
+            raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        cache_dir = config.get("paths", {}).get("llm_path") or None
+        if cache_dir in ("", "none"):
+            cache_dir = None
+        return cls(
+            seq_len=config.history_len, pred_len=config.pred_len,
+            n_features=dataset.n_features, d_model=mc.d_model, d_ff=mc.d_ff,
+            n_heads=mc.n_heads, num_tokens=mc.num_tokens,
+            patch_len=mc.patching.patch_len, stride=mc.patching.stride,
+            llm_cfg=resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1)),
+            llm_id=mc.llm.llm,
+            quantize=8 if mc.llm.get("load_in_8bit", False) else 0,
+            llm_dtype=storage_dtype(config),
+            prefix_cache=bool(mc.llm.get("prefix_cache", True)),
+            cache_dir=cache_dir)
+
+    # derived sizes (reference medtsllm.py:52,71-87)
+    @property
+    def n_patches(self) -> int:
+        return int((self.seq_len - self.patch_len) / self.stride + 2)
+
+    @property
+    def d_llm(self) -> int:
+        return self.llm_cfg.d_model
+
+    def encode_ts(self, x_enc):
+        """RevIN -> patch embed -> reprogramming. Returns (enc [B, P, d_llm],
+        revin stats)."""
+        B, L, C = x_enc.shape
+        xn, stats = revin_norm(x_enc)
+        enc = self.patch_embedding(xn.transpose(1, 2))  # [B*C, P, d_model]
+        P = enc.shape[1]
+        enc = enc.reshape(B, C, P, self.d_model).transpose(1, 2).reshape(
+            B, P, C * self.d_model)
+        source = self.mapping_layer(self.llm.wte.T).T  # [T, d_llm]
+        return self.reprogramming_layer(enc, source, source), stats
+
+    def forward(self, inputs: dict) -> torch.Tensor:
+        x_enc = inputs["x_enc"]
+        B = x_enc.shape[0]
+        ts_emb, stats = self.encode_ts(x_enc)
+
+        parts = []
+        prefix_kv = inputs.get("prefix_kv")
+        prefix_ids = inputs.get("prefix_ids")
+        if prefix_ids is not None:
+            # uncached: the prompt head embedded at positions 0..P-1
+            assert prefix_kv is None and prefix_ids.dim() == 1
+            parts.append(self.llm.embed(prefix_ids).to(ts_emb.dtype)[None].expand(
+                B, -1, -1))
+        prompt_ids = inputs.get("prompt_ids")
+        if prompt_ids is not None:
+            parts.append(self.llm.embed(prompt_ids).to(ts_emb.dtype))
+        enc = torch.cat(parts + [ts_emb], dim=1)
+        dec_out = self.llm(enc, prefix_kv=prefix_kv)
+        # linear d_llm -> d_ff downsample (medtsllm.py:352-367)
+        dec_out = self.embedding_downsample_layer(dec_out[:, -self.n_patches:, :])
+
+        # FlattenHead (medtsllm.py:541-552) on [B, d_ff, P]
+        dec_out = dec_out.transpose(1, 2).reshape(B, -1)
+        dec_out = self.output_projection(dec_out)
+        dec_out = dec_out.reshape(B, self.pred_len, self.n_outputs_per_step)
+        return revin_denorm(dec_out, stats)
+
+    def prefill(self, prefix_ids: torch.Tensor, embed_dtype=torch.float32):
+        """Per-layer (k, v) of the constant 1-D prompt head, computed once
+        per eval pass; ``embed_dtype`` is what ``forward`` feeds the LLM
+        (ts_emb's dtype, f32) so cached and uncached paths agree."""
+        return self.llm.prefill(self.llm.embed(prefix_ids).to(embed_dtype)[None])
+
+
+# ---------------------------------------------------------------------------
+# host-side prompt construction (numpy; no device work)
+# ---------------------------------------------------------------------------
+
+def calculate_lags(x: np.ndarray, n_lags: int = 5) -> np.ndarray:
+    """Top-k FFT autocorrelation lags (medtsllm.py:530-538)."""
+    x = np.transpose(x, (0, 2, 1)) if x.ndim == 3 else x[:, None, :]
+    q = np.fft.rfft(x, axis=-1)
+    corr = np.fft.irfft(q * np.conj(q), n=x.shape[-1], axis=-1)
+    mean_value = corr.mean(axis=1)
+    return np.argsort(-mean_value, axis=-1, kind="stable")[:, :n_lags]
+
+
+def _fmt_float(v):
+    if isinstance(v, (list, np.ndarray)):
+        return "[" + ", ".join(_fmt_float(x) for x in v) + "]"
+    return f"{float(v):.3f}"
+
+
+def _fmt_trend(v):
+    if isinstance(v, (list, np.ndarray)):
+        return "[" + ", ".join(_fmt_trend(x) for x in v) + "]"
+    return "upward" if v else "downward"
+
+
+class PromptBuilder:
+    """Batch preprocessor: prompt text -> token ids, grow-only bucket left
+    padding, input statistics (medtsllm.py:845-1200 of the JAX package).
+    With the prefix cache, the constant head [bos + dataset (+ task under
+    ``cache_order``)] is emitted unpadded as 1-D ``prefix_ids``."""
+
+    N_LAGS = 5
+
+    def __init__(self, config, dataset, model: MedTsLLM):
+        self.model = model
+        mc = MedTsLLM.model_config(config)
+        prompting = mc.get("prompting") or {}
+        self.cfg = {
+            "dataset": prompting.get("dataset", True),
+            "clip": prompting.get("clip", True),
+            "input_stats": prompting.get("input_stats", True),
+            "task": prompting.get("task", True),
+            "input_stats_dim": prompting.get("input_stats_dim", 0),
+            "input_stats_select": prompting.get("input_stats_select", "all"),
+            "cache_order": prompting.get("cache_order", False),
+        }
+        if prompting.get("examples", False):
+            raise NotImplementedError("prompting.examples (in-context examples) "
+                                      "is ROADMAP queue 1 item 4")
+        self.enabled = any(self.cfg[k] for k in
+                           ("dataset", "clip", "input_stats", "task"))
+        self.tokenizer = get_tokenizer(mc.llm.llm, model.cache_dir,
+                                       vocab_size=model.llm_cfg.vocab_size)
+        self.pad_id = self.tokenizer.pad_token_id
+        if self.pad_id is None:
+            self.pad_id = self.tokenizer.eos_token_id or 0
+        self.bos = getattr(self.tokenizer, "bos_token", None)
+        self.dataset_description = dataset.description
+        self.task_description = getattr(dataset, "task_description", None) or (
+            f"Reconstruct the past {config.history_len} steps of data as "
+            f"accurately as possible using the following information.")
+        self.split_prefix = model.prefix_cache
+        self.max_bucket = 16
+        self.max_bucket_suffix = 16
+        self._cache: dict[str, list[int]] = {}
+
+    def _encode(self, text: str) -> list[int]:
+        if text not in self._cache:
+            if len(self._cache) >= 4096:
+                self._cache.clear()
+            self._cache[text] = list(self.tokenizer(text).input_ids)
+        return self._cache[text]
+
+    def _stats_prompts(self, x: np.ndarray) -> list[str]:
+        """Input-statistics prompt (medtsllm.py:441-495)."""
+        if x.ndim == 2:
+            x = x[..., None]
+        if self.cfg["input_stats_select"] != "all":
+            raise ValueError("prompting.input_stats_select only supports 'all'")
+        dim = self.cfg["input_stats_dim"]
+        if dim == "all":
+            insert, s = "per feature", "s"
+        else:
+            insert, s = f"feature {dim}", ""
+            x = x[:, :, int(dim)]
+        mins = x.min(axis=1)
+        maxs = x.max(axis=1)
+        # torch.median's LOWER middle element for even n (the reference)
+        medians = np.sort(x.astype(np.float32), axis=1)[:, (x.shape[1] - 1) // 2]
+        trends = np.diff(x, axis=1).sum(axis=1) > 0
+        lags = calculate_lags(x.astype(np.float64), self.N_LAGS)
+        return [f"Input statistics ({insert}): "
+                f"min value{s} = {_fmt_float(mins[b])}, "
+                f"max value{s} = {_fmt_float(maxs[b])}, "
+                f"median value{s} = {_fmt_float(medians[b])}, "
+                f"the trend of input is {_fmt_trend(trends[b])}, "
+                f"the top {self.N_LAGS} lags are {[int(v) for v in lags[b]]}."
+                for b in range(x.shape[0])]
+
+    def build_prompts(self, batch: dict):
+        """(pre_parts, post_parts): ordered prompt strings per sample."""
+        bs = len(batch["x_enc"])
+        dataset_prompt = (f"Dataset: {self.dataset_description}"
+                          if self.cfg["dataset"] else "")
+        clip_prompts = (list(batch.get("descriptions", [""] * bs))
+                        if self.cfg["clip"] else [""] * bs)
+        stats_prompts = (self._stats_prompts(np.asarray(batch["x_enc"]))
+                         if self.cfg["input_stats"] else [""] * bs)
+        task_prompt = f"Task: {self.task_description}" if self.cfg["task"] else ""
+        bos = self.bos if self.bos is not None else ""
+        task_in_head = bool(self.cfg["cache_order"] and task_prompt)
+        pre_prompts, post_prompts = [], []
+        for b in range(bs):
+            pre = [bos, dataset_prompt] + ([task_prompt] if task_in_head else [])
+            post = [clip_prompts[b], stats_prompts[b],
+                    "" if task_in_head else task_prompt, "Time series:"]
+            pre = [p for p in pre if p != ""]
+            post = [p for p in post if p != ""]
+            pre_prompts.append([(p + " " if i != 0 else p) for i, p in enumerate(pre)])
+            post_prompts.append([p + " " for p in post])
+        return pre_prompts, post_prompts
+
+    def _pad_ids(self, ids: list[list[int]], bucket: int) -> np.ndarray:
+        out = np.full((len(ids), bucket), self.pad_id, dtype=np.int64)
+        for b, seq in enumerate(ids):
+            out[b, bucket - len(seq):] = seq  # LEFT pad (medtsllm.py:304-311)
+        return out
+
+    def _bucket_for(self, maxlen: int) -> int:
+        while self.max_bucket < maxlen:
+            self.max_bucket *= 2
+        return self.max_bucket
+
+    def _bucket_suffix(self, maxlen: int) -> int:
+        self.max_bucket_suffix = max(self.max_bucket_suffix,
+                                     ((maxlen + 15) // 16) * 16)
+        return self.max_bucket_suffix
+
+    def _head_part_count(self) -> int:
+        """Leading parts of ``pre`` that form the cacheable head."""
+        if not self.split_prefix:
+            return 0
+        return (int(bool(self.bos)) + int(bool(self.cfg["dataset"]))
+                + int(bool(self.cfg["task"] and self.cfg["cache_order"])))
+
+    def __call__(self, batch: dict) -> dict:
+        arrays = {k: v for k, v in batch.items() if k in ARRAY_BATCH_KEYS}
+        if not self.enabled:
+            return arrays
+        if self.split_prefix and self.cfg["clip"] and "descriptions" in batch:
+            raise NotImplementedError("per-clip prompt heads (the clip KV bank) "
+                                      "are ROADMAP queue 1 item 7")
+        pre_prompts, post_prompts = self.build_prompts(batch)
+        if not (pre_prompts[0] or post_prompts[0]):
+            return arrays
+        n_head = self._head_part_count()
+        has_head = False
+        if n_head:
+            head_ids = sum((self._encode(p) for p in pre_prompts[0][:n_head]), [])
+            if head_ids:
+                arrays["prefix_ids"] = np.asarray(head_ids, dtype=np.int64)
+                has_head = True
+            pre_prompts = [parts[n_head:] for parts in pre_prompts]
+        ids = [sum((self._encode(p) for p in pre + post), [])
+               for pre, post in zip(pre_prompts, post_prompts)]
+        if any(map(len, ids)) or not has_head:
+            bucket = (self._bucket_suffix if has_head else self._bucket_for)(
+                max(map(len, ids)))
+            arrays["prompt_ids"] = self._pad_ids(ids, bucket)
+        return arrays

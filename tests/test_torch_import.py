@@ -1,0 +1,33 @@
+"""The PyTorch port imports no jax: every module of ``medtsllm_tpu_torch``
+is imported in a fresh interpreter (this process already holds jax, see
+conftest.py), which then must not have jax, flax or the JAX package."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import medtsllm_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from medtsllm_tpu_torch.models.llm.tokenizer import get_tokenizer
+get_tokenizer("llama-tiny", None, vocab_size=512).encode("Dataset: probe 1.0")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "medtsllm_tpu"))
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15  # every module of the slice was imported
+    assert leaked == "[]", leaked
