@@ -1,14 +1,16 @@
-"""Decoder configuration and the llama presets the port serves.
+"""Backbone configurations and the presets the port serves.
 
 Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (llama
-fields only) and the ``PRESETS`` / ``resolve_config`` of
-``models/llm/loader.py``. The backbone is random-initialised with the
-preset's shapes (weights.py); local snapshots are not loaded yet.
+fields only), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
+``_mamba_presets`` / ``resolve_config`` of ``models/llm/loader.py``. The
+backbone is random-initialised with the preset's shapes (weights.py);
+local snapshots are not loaded yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 
 
@@ -38,6 +40,31 @@ class DecoderConfig:
         return self.n_kv_heads or self.n_heads
 
 
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None  # None -> ceil(d_model / 16) (HF "auto")
+    norm_eps: float = 1e-5
+    use_bias: bool = False  # in/out projection bias (HF use_bias)
+    use_conv_bias: bool = True
+    style: str = "mamba"
+    bos_token_id: int | None = 0
+    eos_token_id: int | None = 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def rank(self) -> int:
+        return self.dt_rank or math.ceil(self.d_model / 16)
+
+
 PRESETS = {
     "meta-llama/Llama-2-7b-hf": DecoderConfig(
         style="llama", vocab_size=32000, d_model=4096, n_layers=32,
@@ -53,15 +80,25 @@ PRESETS = {
         eos_token_id=2),
 }
 
+MAMBA_PRESETS = {
+    "mamba-130m": MambaConfig(  # state-spaces/mamba-130m-hf shape
+        vocab_size=50280, d_model=768, n_layers=24),
+    "mamba-tiny": MambaConfig(  # test-sized mamba backbone
+        vocab_size=512, d_model=64, n_layers=2, d_state=8, dt_rank=4),
+}
 
-def resolve_config(llm_id: str, llm_layers: int = -1) -> DecoderConfig:
-    """The preset for ``llm_id``, cut to ``llm_layers`` blocks when
-    0 < llm_layers < n_layers (medtsllm.py:145-146 of the reference)."""
-    if llm_id not in PRESETS:
+
+def resolve_config(llm_id: str, llm_layers: int = -1) -> DecoderConfig | MambaConfig:
+    """The preset for ``llm_id`` (a MambaConfig for the ``mamba`` ids), cut
+    to ``llm_layers`` blocks when 0 < llm_layers < n_layers
+    (medtsllm.py:145-146 of the reference)."""
+    presets = {**PRESETS, **MAMBA_PRESETS}
+    if llm_id not in presets:
         raise NotImplementedError(
-            f"backbone {llm_id!r}: the port has the presets {sorted(PRESETS)}; "
-            "other backbones and snapshot loading are ROADMAP queue 1 item 8")
-    cfg = PRESETS[llm_id]
+            f"backbone {llm_id!r}: the port has the presets {sorted(presets)}; "
+            "other backbones and snapshot loading are ROADMAP queue 1 items 8 "
+            "and 12")
+    cfg = presets[llm_id]
     if llm_layers and 0 < llm_layers < cfg.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=llm_layers)
     return cfg

@@ -1,8 +1,8 @@
 """Tokenizer resolution (port of medtsllm_tpu/models/llm/tokenizer.py).
 
 Copied whole: importing the JAX module would import its package's
-transformer (and jax). The BPE asset is the JAX package's own file, read
-from disk. The reference uses AutoTokenizer with pad=eos fallback
+transformer (and jax). The BPE asset is a byte-for-byte copy of the JAX
+package's (tests/test_torch_mamba.py holds the two equal). The reference uses AutoTokenizer with pad=eos fallback
 (models/medtsllm.py:206-217). Resolution order here:
   1. HF tokenizer from a local snapshot (no network),
   2. a real byte-level BPE trained in-repo (assets/fallback_bpe.json,
@@ -18,8 +18,7 @@ from __future__ import annotations
 import re
 from pathlib import Path
 
-_BPE_ASSET = (Path(__file__).resolve().parents[3] / "medtsllm_tpu" / "models"
-              / "llm" / "assets" / "fallback_bpe.json")
+_BPE_ASSET = Path(__file__).resolve().parent / "assets" / "fallback_bpe.json"
 
 
 class _SpecialTokensMixin:

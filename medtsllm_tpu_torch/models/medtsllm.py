@@ -1,15 +1,18 @@
-"""MedTsLLM on a llama backbone, serving path (port of
+"""MedTsLLM on a llama or Mamba backbone, serving path (port of
 ``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
 host-side PromptBuilder).
 
 RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
-cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the decoder
-(kernels K1, K2) -> d_ff downsample -> FlattenHead -> RevIN denorm. The
-constant prompt head is prefilled once and served as per-layer prefix K/V.
+cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
+(llama: kernels K1, K2; Mamba: the selective-scan kernel) -> d_ff
+downsample -> FlattenHead -> RevIN denorm. The constant prompt head is
+prefilled once and served as per-layer prefix K/V (llama) or per-layer
+(conv tail, SSM state) (Mamba).
 
-Scope of this slice: covariate mode ``concat``, the reconstruction task,
-an enabled llama backbone, no in-context examples and no per-clip prompt
-heads; anything else raises NotImplementedError naming its ROADMAP item.
+Scope: covariate mode ``concat``, the reconstruction task, an enabled
+llama or dense Mamba backbone, no in-context examples and no per-clip
+prompt heads; anything else raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..ops.embed import PatchEmbedding
 from ..ops.kernels.reprogramming import reprogramming_attention
 from ..ops.revin import revin_denorm, revin_norm
 from .llm.config import resolve_config
+from .llm.mamba import MambaBackbone
 from .llm.tokenizer import get_tokenizer
 from .llm.transformer import Linear, TransformerDecoder
 
@@ -81,7 +85,8 @@ class MedTsLLM(nn.Module):
         self.llm_cfg, self.llm_id, self.cache_dir = llm_cfg, llm_id, cache_dir
         self.prefix_cache = prefix_cache
         self.n_outputs_per_step = n_features
-        self.llm = TransformerDecoder(
+        backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
+        self.llm = backbone(
             llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
         self.patch_embedding = PatchEmbedding(d_model, patch_len, stride)
         self.mapping_layer = Linear(llm_cfg.vocab_size, num_tokens)
@@ -112,6 +117,9 @@ class MedTsLLM(nn.Module):
             unported.append("llm.enabled = false (ROADMAP queue 1 item 4)")
         if mc.llm.get("load_in_4bit", False):
             unported.append("load_in_4bit (ROADMAP queue 1 item 10)")
+        if str(mc.llm.llm).startswith("mamba") and (
+                mc.llm.get("load_in_8bit", False) or mc.llm.get("load_in_4bit", False)):
+            unported.append("quantized Mamba (ROADMAP queue 1 item 12)")
         if mc.llm.get("load_in_8bit", False) and not mc.llm.get("int8_matmul", True):
             unported.append("weight-only int8, int8_matmul = false (ROADMAP queue 1 item 3)")
         if mc.llm.get("fuse_projections", False):

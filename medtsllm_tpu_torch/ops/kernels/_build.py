@@ -1,9 +1,10 @@
 """Build and bind the hand-written Hopper kernels under ``csrc/``.
 
 Every ``medtsllm_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` at first
-use into ONE shared library with a plain C interface, named by a hash of
-the sources and the flags, under ``build/medtsllm_tpu_torch/`` at the repo
-root, and loaded with ``ctypes``. Each C entry point launches on the stream
+use (one ``nvcc`` per source, all started together) and linked into ONE
+shared library with a plain C interface, named by a hash of the sources and
+the flags, under ``build/medtsllm_tpu_torch/`` at the repo root, and loaded
+with ``ctypes``. Each C entry point launches on the stream
 it is given, allocates nothing, and returns ``cudaGetLastError()``; the
 caller raises when that is not 0. A failed build raises: nothing runs
 without its kernel.
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "medtsllm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); pointers and the stream are
@@ -41,6 +43,9 @@ SIGNATURES = {
     # q, k, v, out, B, L, H, E, S, scale, stream
     "mt_reprogramming_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                    _P),
+    # dt, x, Bs, Cs, A_T, D, h0, h0_batched, y, h_final, B, L, E, N, stream
+    "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _I, _P),
 }
 
 
@@ -64,21 +69,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmedtsllm_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with every failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the library unless a build of these exact sources exists."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = []
+        compiles = []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(str(Path(tmp) / f"{src.stem}.o"))
+            compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
+        _run(compiles)
+        lib = Path(tmp) / so.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs]])
+        os.replace(lib, so)  # atomic: a concurrent loader never sees half a file
     return so
 
 

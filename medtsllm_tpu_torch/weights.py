@@ -7,7 +7,9 @@ and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
   - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (nn.Linear);
   - int8 ``kernel_q`` [K, N] -> ``weight_q`` [N, K] (the w8a8 kernel's B
     operand, transposed once here);
-  - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d).
+  - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d);
+  - the Mamba block's depthwise ``conv_kernel`` [K, 1, E] -> [E, 1, K]
+    (F.conv1d with groups=E), under its own name.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.llm.mamba import MambaBackbone, MambaBlock
 from .models.llm.transformer import QuantLinear, RMSNorm, TransformerDecoder
 from .ops.embed import TokenEmbedding
 
@@ -61,6 +64,8 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
             leaf, arr = "weight_q", arr.T
         elif leaf == "kernel":
             leaf, arr = "weight", (arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T)
+        elif leaf == "conv_kernel":
+            arr = arr.transpose(2, 1, 0)
         state[".".join(parts[:-1] + [leaf])] = _to_torch(arr)
     return state
 
@@ -77,7 +82,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     word embeddings N(0, 0.02); RMSNorm ones; int8 projections
     clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; Dense
     lecun-normal kernels and zero biases; the conv patch embedding
-    N(0, 2 / fan_in). The values differ from JAX's (another generator)."""
+    N(0, 2 / fan_in); the Mamba block's depthwise conv lecun-normal (fan_in
+    = K), its conv bias 0, ``A_log = log(1..N)`` and ``D = 1``
+    (mamba.py:104-143 of the JAX package). The values differ from JAX's
+    (another generator)."""
     for module in model.modules():
         if isinstance(module, QuantLinear):
             w = torch.randn(module.weight_q.shape, generator=generator,
@@ -93,5 +101,14 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, TokenEmbedding):
             fan_in = module.weight.shape[1] * module.weight.shape[2]
             module.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
-        elif isinstance(module, TransformerDecoder):
+        elif isinstance(module, MambaBlock):
+            _lecun_normal_(module.conv_kernel, module.cfg.d_conv, generator)
+            if module.conv_bias is not None:
+                module.conv_bias.zero_()
+            N = module.cfg.d_state
+            module.A_log.copy_(torch.log(torch.arange(
+                1, N + 1, dtype=torch.float32, device=module.A_log.device)).expand(
+                    module.A_log.shape))
+            module.D.fill_(1.0)
+        elif isinstance(module, (TransformerDecoder, MambaBackbone)):
             module.wte.normal_(0.0, 0.02, generator=generator)

@@ -10,6 +10,7 @@ import torch
 
 from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
 from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
+from medtsllm_tpu_torch.ops.kernels import selective_scan as ss
 from medtsllm_tpu_torch.ops.kernels import w8a8 as k1
 
 
@@ -99,3 +100,55 @@ def test_reprogramming_kernel_vs_plain(cuda, B, L, H, E, S):
     # f32: online vs two-pass softmax and summation order
     torch.testing.assert_close(out, k3.reprogramming_attention_plain(q, k, v),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,E,N,h0_rows,final", [
+    (48, 144, 1536, 16, 1, False),  # the Mamba serving shape, cached head
+    (48, 158, 1536, 16, 0, False),  # the same, uncached
+    (1, 14, 1536, 16, 0, True),     # the prefill of the prompt head
+    (2, 37, 128, 4, 0, False),
+    (2, 37, 200, 8, 2, True),       # E not a multiple of the block, batch-B h0
+    (3, 1, 128, 8, 1, True),        # L = 1
+])
+def test_selective_scan_kernel_vs_plain(cuda, B, L, E, N, h0_rows, final):
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, device=cuda, generator=g)
+
+    dt, xs = r(B, L, E).abs() * 0.1, r(B, L, E)
+    A_T, Bs, Cs, D = -r(N, E).abs(), r(B, L, N), r(B, L, N), r(E)
+    h0 = r(h0_rows, N, E) if h0_rows else None
+    y0, hf0 = ss.selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0)
+    counts = (ss.selective_ssm.launches, ss.selective_ssm_h0.launches,
+              ss.selective_ssm_final.launches)
+    if final:
+        y, hf = ss.selective_ssm_final(dt, A_T, Bs, Cs, xs, D, h0)
+        assert ss.selective_ssm_final.launches == counts[2] + 1
+        torch.testing.assert_close(hf, hf0, rtol=1e-5, atol=1e-5 * hf0.abs().max().item())
+    elif h0 is not None:
+        y = ss.selective_ssm_h0(dt, A_T, Bs, Cs, xs, D, h0)
+        assert ss.selective_ssm_h0.launches == counts[1] + 1
+    else:
+        y = ss.selective_ssm(dt, A_T, Bs, Cs, xs, D)
+        assert ss.selective_ssm.launches == counts[0] + 1
+    assert sum((ss.selective_ssm.launches, ss.selective_ssm_h0.launches,
+                ss.selective_ssm_final.launches)) == sum(counts) + 1
+    # f32 with expf: fused multiply-adds and the order of the N-sum only
+    torch.testing.assert_close(y, y0, rtol=1e-5, atol=1e-5 * y0.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_rejects_bad_input(cuda):
+    def z(*s, dtype=torch.float32):
+        return torch.zeros(*s, device=cuda, dtype=dtype)
+
+    with pytest.raises(ValueError, match="state size"):  # N = 5 has no instance
+        ss.selective_ssm(z(1, 4, 32), z(5, 32), z(1, 4, 5), z(1, 4, 5), z(1, 4, 32), z(32))
+    with pytest.raises(ValueError, match="f32"):
+        ss.selective_ssm(z(1, 4, 32, dtype=torch.bfloat16), z(4, 32), z(1, 4, 4),
+                         z(1, 4, 4), z(1, 4, 32), z(32))
+    with pytest.raises(ValueError, match="h0"):
+        ss.selective_ssm_h0(z(2, 4, 32), z(4, 32), z(2, 4, 4), z(2, 4, 4), z(2, 4, 32),
+                            z(32), z(3, 4, 32))

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's serving step on one CUDA card.
+
+    python3 tools/torch_profile_serving.py [--path mamba|llama] [--steps 4]
+
+Builds the serving trainer of ``chip_smoke.py`` (the same configuration and
+random weights from its seed), runs one warm-up ``test()`` pass (it builds
+the kernels and the prompt-head cache), prepares ``--steps`` test batches on
+the host, then runs their eval steps under ``torch.profiler``. Prints the
+card, the host-clock time of each step, the device's busy time and idle
+share over the profiled span (first event to last kernel end), the device
+time and launch count by category and the top kernels by device time.
+Writes the Chrome trace to ``chiprun_out/torch_profile_<path>.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# device kernels by name, first match wins
+CATEGORIES = (
+    ("selective scan", r"selective_scan"),
+    ("K3 reprogramming", r"reprogramming"),
+    ("K1 w8a8", r"w8a8|act_quant"),
+    ("K2 rope attention", r"rope_attention"),
+    ("GEMM (cuBLAS)", r"gemm|gemv|xmma|cutlass|cublas|splitK|nvjet"),
+    ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
+    ("copy / cast", r"copy|cast|Memcpy|Memset"),
+)
+
+
+def category(name: str) -> str:
+    for label, pattern in CATEGORIES:
+        if re.search(pattern, name, re.IGNORECASE):
+            return label
+    return "other elementwise / reduction"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("mamba", "llama"), default="mamba")
+    ap.add_argument("--steps", type=int, default=4)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_serving: no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0])
+    dev = torch.device("cuda", 0)
+    cfg = (chip_smoke.mamba_config(Config) if args.path == "mamba"
+           else chip_smoke.bench_config(Config))
+    trainer = get_trainer(f"profile-{args.path}", cfg, device=dev)
+    trainer.test()  # warm-up: kernels built, the prompt-head cache filled
+    batches = [b for _, b in zip(range(args.steps), trainer.test_pipeline)]
+    prepared = [trainer.eval_prepare(b) for b in batches]
+    torch.cuda.synchronize()
+
+    step_ms = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for p in prepared:
+            t0 = time.perf_counter()
+            trainer.eval_dispatch(prepared=p)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    bsz = cfg.training.batch_size
+    print(f"[profile] {args.path}: {len(step_ms)} eval steps of batch {bsz}, host "
+          f"clock ms {step_ms} (p50 {statistics.median(step_ms):.3f})")
+
+    events = list(prof.events())
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("torch_profile_serving: the trace holds no device kernels")
+    span_start = min(e.time_range.start for e in events)
+    span_end = max(e.time_range.end for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None  # union of the kernels' intervals
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    busy += cur_e - cur_s
+    span = span_end - span_start
+    print(f"[profile] device busy {busy / 1e3:.3f} of {span / 1e3:.3f} ms, idle share "
+          f"{1 - busy / span:.4f}")
+
+    by_cat: dict[str, list[float]] = {}
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        for table, key in ((by_cat, category(e.name)), (by_name, e.name)):
+            acc = table.setdefault(key, [0.0, 0])
+            acc[0] += dur
+            acc[1] += 1
+    n = len(step_ms)
+    print("[profile] device time per step by category (ms, launches):")
+    for key, (us, cnt) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {key:32s} {us / 1e3 / n:9.4f} ms {cnt // n:6d} launches "
+              f"({us / busy:.3f} of busy)")
+    print("[profile] top kernels per step (ms, launches):")
+    for key, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / 1e3 / n:9.4f} ms {cnt // n:6d}  {key[:110]}")
+    out = ROOT / "chiprun_out" / f"torch_profile_{args.path}.json"
+    out.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    print(f"[profile] trace {out.relative_to(ROOT)}")
+
+
+if __name__ == "__main__":
+    main()
