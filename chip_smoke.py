@@ -25,7 +25,21 @@ nvidia-smi. Phases:
      the scan variants and K3; windows/s, p50 ms per batch, peak memory,
      finite scores; then one pass with prefix_cache = false, which runs the
      uncached scan and must agree with the cached pass;
-  7. a 2-layer mamba-130m f32 slice on the card against the CPU.
+  7. a 2-layer mamba-130m f32 slice on the card against the CPU;
+  8. the Mamba train path: ``get_trainer(...).train()`` of the same
+     mamba-130m configuration (one epoch of four shuffled batches of 48,
+     then ``val()``), the launches of K9 (the scan that records its
+     chunk-start states) and K10 (its backward) in that run and in each
+     further train step (24 each, and no K7/K8), the train step's p50 ms
+     per batch, windows/s and peak memory; one train step with the prompt
+     head embedded (K9/K10 at the uncached shape);
+  9. the llama finetune step: ``train()`` of the Llama-2-7B-shaped w8a8
+     bf16 configuration (frozen int8 backbone, trainable fusion layers,
+     batch 8): finite losses, changed fusion layers, an unchanged backbone,
+     K1 and K2 launched; p50 ms per step and peak memory;
+ 10. one f32 train step of 2-layer slices (mamba-130m widths; llama-1b
+     dense, GQA) on the card against the CPU with the same weights: the
+     loss and the gradient of every trainable parameter.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -50,18 +64,25 @@ MAMBA_TOML = ROOT / "configs" / "ablation" / "mamba-backbone.toml"
 # per second and peak operations per second by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# expf on the special-function units: 16 results per clock per SM, 132 SMs
+# at the 1.98 GHz boost clock (Hopper white paper); a floor the scan's
+# bound does not count, printed beside it
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
                  dtype="bf16", n_points=8192, num_tokens=1024, d_ff=128,
-                 llm_layers=-1, load_in_8bit=True):
-    """The serving configuration of ``bench.py`` (build_trainer defaults)."""
+                 llm_layers=-1, load_in_8bit=True, dropout=0.1):
+    """The configuration of ``bench.py`` (build_trainer defaults): served by
+    ``test()``, trained (the frozen-w8a8 finetune step) by ``train()``."""
     return Config({
         "task": "reconstruction", "model": "medtsllm",
         "history_len": history, "pred_len": history,
         "data": {"dataset": "synthetic", "mode": "multivariate", "cols": "all",
                  "normalize": True, "step": history // 2},
-        "training": {"batch_size": batch, "dropout": 0.1},
+        "training": {"epochs": 1, "batch_size": batch, "optimizer": "adam",
+                     "learning_rate": 1e-4, "dropout": dropout, "loss": "mse",
+                     "eval_metric": "mse", "eval_metric_direction": "min"},
         "datasets": {"synthetic": {"n_points": n_points, "n_features": 3}},
         "models": {"medtsllm": {
             "d_model": 32, "d_ff": d_ff, "n_heads": 8, "num_tokens": num_tokens,
@@ -78,15 +99,19 @@ def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
 
 
 def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
-                 llm_layers=-1, prefix_cache=True):
+                 llm_layers=-1, prefix_cache=True, epochs=None, dropout=None):
     """configs/ablation/mamba-backbone.toml (mamba-130m, reconstruction,
     concat covariates, history 256, patch 16 / 8, bf16, dense projections,
-    batch 48) on the synthetic 3-feature data: the ventilator files are not
-    in the repository. The default n_points gives 192 test windows, four
-    batches of 48."""
+    batch 48, adam at 1e-4, mse, dropout 0.1) on the synthetic 3-feature
+    data: the ventilator files are not in the repository. The default
+    n_points gives 192 test windows, four batches of 48."""
     raw = tomllib.loads(MAMBA_TOML.read_text())
     raw["data"]["dataset"] = "synthetic"
     raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": 3}}
+    if epochs is not None:
+        raw["training"]["epochs"] = epochs
+    if dropout is not None:
+        raw["training"]["dropout"] = dropout
     if batch is not None:
         raw["training"]["batch_size"] = batch
     if history is not None:
@@ -97,6 +122,10 @@ def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
     llm = raw["models"]["timellm"]["llm"]
     llm["llm_layers"], llm["prefix_cache"] = llm_layers, prefix_cache
     return Config(raw)
+
+
+def finite(values) -> bool:
+    return all(math.isfinite(v) for v in values)
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -358,12 +387,80 @@ def main() -> None:
     check_scan("selective_scan_final", ss.selective_ssm_final,
                "medtsllm_tpu/ops/pallas/selective_scan.py:91", 1, Pm, 0, True)
 
+    # K9 and K10 at the Mamba train shapes: the train step's scan records
+    # its chunk-start states (K9, from the cached head's state or from 0)
+    # and its backward runs K10 from them. A is frozen in training, so K10
+    # runs there without dA_T, and is timed so; its five outputs are
+    # compared here with dA_T. f32 with expf: the order of the sums over n
+    # and e and fused multiply-adds, held at 1e-4 x max |plain| (the JAX
+    # tests' tolerance for the Pallas backward)
+    def check_train_scan(label, Ls, h0_rows):
+        chunk = ss.CHUNK
+        dt = torch.rand(Bm, Ls, Em, device=dev, generator=g) * 0.1
+        xs = torch.randn(Bm, Ls, Em, device=dev, generator=g)
+        A_T = -torch.rand(Nm, Em, device=dev, generator=g) * Nm
+        Bs = torch.randn(Bm, Ls, Nm, device=dev, generator=g)
+        Cs = torch.randn(Bm, Ls, Nm, device=dev, generator=g)
+        Dv = torch.randn(Em, device=dev, generator=g)
+        gy = torch.randn(Bm, Ls, Em, device=dev, generator=g)
+        h0 = torch.randn(h0_rows, Nm, Em, device=dev, generator=g) if h0_rows else None
+        y, hb = ss.selective_ssm_bounds(dt, A_T, Bs, Cs, xs, Dv, h0, chunk)
+        y0, hb0 = ss.selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, Dv, h0, chunk)
+        nc = hb.shape[1]
+        bles, blns, blnes = Bm * Ls * Em, Bm * Ls * Nm, Bm * Ls * Nm * Em
+        # reads dt, x, B, C, A_T, D, h0; writes y, hb. Per (b, t, n, e) the
+        # forward's 7 operations; per (b, t, e) 3
+        err = max((y - y0).abs().max().item(), (hb - hb0).abs().max().item())
+        scale = max(y0.abs().max().item(), hb0.abs().max().item())
+        record(f"selective_scan_bounds{label}", "medtsllm_tpu_torch/csrc/selective_scan.cu",
+               "medtsllm_tpu/ops/pallas/selective_scan.py:358", err, 1e-4 * scale,
+               cuda_ms(torch, lambda: ss.selective_ssm_bounds(dt, A_T, Bs, Cs, xs, Dv, h0,
+                                                              chunk)),
+               cuda_ms(torch, lambda: ss.selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, Dv,
+                                                                    h0, chunk),
+                       iters=3, warmup=1),
+               bound(4 * (3 * bles + 2 * blns + Nm * Em + Em + h0_rows * Nm * Em
+                          + Bm * nc * Nm * Em), 7 * blnes + 3 * bles, "f32"), None,
+               f" (B={Bm} L={Ls} E={Em} N={Nm} chunk {chunk}, h0 rows {h0_rows}; "
+               f"expf floor {blnes / SFU_EXP_PER_S * 1e3:.4f} ms)")
+        got = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, gy, hb0, chunk)
+        want = ss.selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, gy, hb0, chunk)
+        # each of the five outputs within 1e-4 x its own max; the record
+        # holds the output nearest its tolerance
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        scales = [b.abs().max().item() for b in want]
+        worst = max(range(5), key=lambda i: errs[i] / scales[i])
+        for name, e_, s_ in zip(("ddt", "dx", "dB", "dC", "dA_T"), errs, scales):
+            check(e_ <= 1e-4 * s_, f"K10{label} {name}: max |kernel - plain| {e_} > "
+                  f"1e-4 x {s_}")
+        # reads dt, x, g, B, C, A_T, hb; writes ddt, dx, dB and dC (the
+        # per-block slabs summed into dB, dC are the kernel's choice, not
+        # the function's bytes). Per (b, t, n, e) ~20 operations: the
+        # forward recompute (4) and the reverse step (16); 2 expf
+        record(f"selective_scan_bwd{label}", "medtsllm_tpu_torch/csrc/selective_scan_bwd.cu",
+               "medtsllm_tpu/ops/pallas/selective_scan.py:414", errs[worst], 1e-4 * scales[worst],
+               cuda_ms(torch, lambda: ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, gy, hb, chunk,
+                                                           need_dA=False)),
+               cuda_ms(torch, lambda: ss.selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, gy, hb,
+                                                                 chunk),
+                       iters=3, warmup=1),
+               bound(4 * (5 * bles + 4 * blns + Nm * Em + Bm * nc * Nm * Em),
+                     20 * blnes + 6 * bles, "f32"), None,
+               f" (as K9, without dA_T as in training; error of "
+               f"{('ddt', 'dx', 'dB', 'dC', 'dA_T')[worst]}, the output nearest its "
+               f"tolerance; expf floor {2 * blnes / SFU_EXP_PER_S * 1e3:.4f} ms)")
+
+    check_train_scan("", Lm, 1)
+    check_train_scan("[uncached]", Pm + Lm, 0)
+
     wrappers = {"w8a8_quantize": k1.quantize_rows, "w8a8_gemm": k1.int8_gemm,
                 "rope_attention": k2.rope_attention,
                 "reprogramming_attention": k3.reprogramming_attention,
                 "selective_scan": ss.selective_ssm,
                 "selective_scan_h0": ss.selective_ssm_h0,
-                "selective_scan_final": ss.selective_ssm_final}
+                "selective_scan_final": ss.selective_ssm_final,
+                "selective_scan_bounds": ss.selective_ssm_bounds,
+                "selective_scan_bwd": ss.selective_ssm_bwd}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def serve(tr, label):
@@ -485,6 +582,172 @@ def main() -> None:
     check(err <= tol, f"mamba slice: card vs CPU max err {err} > {tol}")
     print(f"[reference] mamba-130m 2-layer f32 slice, card vs CPU: "
           f"max_abs_err {err:.3e} (tol {tol:.3e})")
+
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    def drive(fn):
+        """Run ``fn`` with every launch count set to 0 just before and read
+        just after; returns (counts, wall seconds)."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return {name: w.launches for name, w in wrappers.items()}, time.perf_counter() - t0
+
+    def step_p50(tr, label, n_steps, expect=None):
+        """p50 of ``train_step`` (CUDA events) over the next shuffled train
+        batches, their inputs prepared first; ``expect`` maps kernels to
+        their launches in every step."""
+        arrays = [tr.train_model_inputs(b) for _, b in zip(range(n_steps), tr.train_pipeline)]
+        step_ms = []
+        for a in arrays:
+            for w in wrappers.values():
+                w.launches = 0
+            start.record()
+            loss = tr.train_step(a, a["valid"])
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            counts = {name: w.launches for name, w in wrappers.items()}
+            check(math.isfinite(float(loss)), f"{label}: non-finite loss {float(loss)}")
+            for name, n in (expect or {}).items():
+                check(counts[name] == n, f"{label}: {name} launched {counts[name]} times "
+                      f"in a train step, not {n}: {counts}")
+        bsz = tr.config.training.batch_size
+        p50 = statistics.median(step_ms)
+        print(f"[{label}] train step p50 {p50:.2f} ms per batch of {bsz} "
+              f"({bsz * 1000 / p50:.1f} windows/s at p50; per step {step_ms}); launches "
+              f"in the last step {counts}")
+        return p50
+
+    # 8. the Mamba train path through the user's entry point: one epoch of
+    # four shuffled batches of 48 (n_points 24704: 192 train and val
+    # windows at step 128), then val()
+    n_layers = scfg.n_layers
+    tr = get_trainer("chip-smoke-mamba-train", mamba_config(Config, n_points=24704, epochs=1),
+                     device=dev)
+    n_steps = len(tr.train_pipeline)
+    check(n_steps == 4, f"the Mamba train split gives {n_steps} batches, not 4")
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    print(f"[mamba-train] train() {n_steps} steps of {Bm} and val() over "
+          f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; "
+          f"val {tr.val_scores}; launches {counts}")
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"losses {tr.losses}")
+    check(len(tr.val_scores) == 1 and finite(tr.val_scores[0].values()),
+          f"val scores {tr.val_scores}")
+    # the train steps run K9 and K10 once per layer and neither K7 nor K8;
+    # val() runs K8 per layer and batch, after the prefill of the head
+    check(counts["selective_scan_bounds"] == counts["selective_scan_bwd"] == n_layers * n_steps
+          and counts["selective_scan"] == 0
+          and counts["selective_scan_h0"] == n_layers * len(tr.val_pipeline),
+          f"Mamba train() launches {counts}")
+    set_launches(counts, {"selective_scan_bounds": "selective_scan_bounds",
+                          "selective_scan_bwd": "selective_scan_bwd"})
+    per_step = {"selective_scan_bounds": n_layers, "selective_scan_bwd": n_layers,
+                "selective_scan": 0, "selective_scan_h0": 0, "selective_scan_final": 0}
+    step_p50(tr, "mamba-train", n_steps, per_step)
+    print(f"[mamba-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # one step with the prompt head embedded in the graph: K9 from h = 0
+    # over [head | region], K10 from its states
+    batch = next(iter(tr.train_pipeline))
+    arrays = tr._to_device(tr.model_inputs(batch))
+    check("prefix_ids" in arrays, "the uncached train step needs the embedded head")
+    counts, _ = drive(lambda: check(math.isfinite(float(tr.train_step(arrays, arrays["valid"]))),
+                                    "non-finite uncached Mamba loss"))
+    check(all(counts[k] == n for k, n in per_step.items()),
+          f"uncached Mamba train step launches {counts}")
+    set_launches(counts, {"selective_scan_bounds[uncached]": "selective_scan_bounds",
+                          "selective_scan_bwd[uncached]": "selective_scan_bwd"})
+    del tr, arrays
+    torch.cuda.empty_cache()
+
+    # 9. the llama finetune step: the 7B-shaped w8a8 bf16 configuration
+    # trained through train() (n_points 3200: three shuffled batches of 8,
+    # then val() over 24 windows); the int8 backbone is frozen, the fusion
+    # layers train through K1's straight-through backward and K2's
+    tr = get_trainer("chip-smoke-llama-train", bench_config(Config, n_points=3200),
+                     device=dev)
+    trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                 if p.requires_grad}
+
+    def backbone():  # float tensors whole (0.27 GB), int8 weights by exact sums
+        return {n: t.detach().clone() if t.is_floating_point()
+                else torch.sum(t, dtype=torch.float64)
+                for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+    frozen = backbone()
+    check(trainable and not any(n.startswith("llm.") for n in trainable),
+          "the backbone must be frozen")
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    n_steps = len(tr.train_pipeline)
+    print(f"[llama-train] train() {n_steps} steps of {B} and val() in {wall:.2f} s wall; "
+          f"losses {tr.losses}; val {tr.val_scores}; launches {counts}")
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"losses {tr.losses}")
+    check(finite(tr.val_scores[0].values()), f"val scores {tr.val_scores}")
+    for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention"):
+        check(counts[name] > 0, f"kernel {name} was not launched by the finetune path")
+    state = tr.model.state_dict()
+    unchanged = [n for n, t in trainable.items() if torch.equal(state[n], t)]
+    check(not unchanged, f"trainable parameters that did not change: {unchanged}")
+    check(all(torch.equal(t, frozen[n]) for n, t in backbone().items()), "the backbone changed")
+    del trainable, frozen, state
+    n_block = lcfg.n_layers
+    step_p50(tr, "llama-train", n_steps, {"w8a8_quantize": 7 * n_block,
+                                          "w8a8_gemm": 7 * n_block,
+                                          "rope_attention": n_block})
+    print(f"[llama-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 10. one f32 train step of 2-layer slices on the card against the CPU
+    # (plain versions) with the same weights, dropout 0: the loss and the
+    # gradient of every trainable parameter, relative to that gradient's
+    # largest element. f32 end to end: summation order and fused
+    # multiply-adds only, so 1e-3. The reprogramming key bias is left out:
+    # its exact gradient is 0 (the softmax over keys ignores a constant
+    # added to a query's scores), both sides hold rounding noise; it is
+    # held below 1e-4 of the largest gradient instead
+    slices = (("mamba-130m 2-layer f32",
+               mamba_config(Config, n_points=512, batch=2, history=64, dtype="float32",
+                            llm_layers=2, dropout=0.0)),
+              ("llama-1b 2-layer GQA dense f32",
+               bench_config(Config, llm="llama-1b", batch=2, history=64, dtype="float32",
+                            n_points=256, num_tokens=128, d_ff=64, llm_layers=2,
+                            load_in_8bit=False, dropout=0.0)))
+    for label, scfg_t in slices:
+        gpu = get_trainer("chip-smoke-train-small", scfg_t, device=dev)
+        cpu = get_trainer("chip-smoke-train-small", scfg_t, device="cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+        batch = next(iter(gpu.train_pipeline))
+        ag, ac = gpu.train_model_inputs(batch), cpu.train_model_inputs(batch)
+        lg = float(gpu.train_step(ag, ag["valid"]))
+        lc = float(cpu.train_step(ac, ac["valid"]))
+        loss_err = abs(lg - lc) / abs(lc)
+        grads_c = {n: p.grad for n, p in cpu.model.named_parameters() if p.requires_grad}
+        grads_g = {n: p.grad.cpu() for n, p in gpu.model.named_parameters() if p.requires_grad}
+        top = max(t.abs().max().item() for t in grads_c.values())
+        worst, worst_name = 0.0, ""
+        for n, gc in grads_c.items():
+            diff = (grads_g[n] - gc).abs().max().item()
+            if n.endswith("key_projection.bias"):
+                check(max(gc.abs().max().item(), grads_g[n].abs().max().item()) <= 1e-4 * top,
+                      f"{label}: {n} should hold rounding noise only")
+                continue
+            rel = diff / max(gc.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, n
+        check(loss_err <= 1e-5, f"{label}: train loss card {lg} vs CPU {lc}")
+        check(worst <= 1e-3, f"{label}: gradient of {worst_name} differs by {worst} "
+              "of its largest element (tolerance 1e-3)")
+        print(f"[reference-train] {label} train step, card vs CPU: loss {lg:.6f} vs "
+              f"{lc:.6f} (relative {loss_err:.2e}, tol 1e-5); largest gradient error "
+              f"{worst:.3e} of its tensor's max ({worst_name}; tol 1e-3) over "
+              f"{len(grads_c)} trainable tensors")
+        del gpu, cpu
 
     check(all(e["launches"] for e in kernels), f"unlaunched kernels: {kernels}")
     print(json.dumps({"kernels": kernels}))

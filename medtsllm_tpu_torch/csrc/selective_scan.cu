@@ -1,13 +1,19 @@
-// K7/K8: the selective-SSM scan of the Mamba block, f32 throughout.
+// K7/K8/K9: the selective-SSM scan of the Mamba block, f32 throughout.
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t      (per channel e)
 //   y_t = sum_n C_t[n] * h_t[n] + D * x_t
 // dt, x, y [B, L, E]; B, C [B, L, N]; A_T [N, E]; D [E]; h0 [1 or B, N, E]
-// (optional); h_final [B, N, E] (optional).
+// (optional); h_final [B, N, E] (optional); hb [B, ceil(L/chunk), N, E]
+// (optional).
 //
 // Replaces medtsllm_tpu/ops/pallas/selective_scan.py::_ssm_pallas (h starts
 // at 0) and ::_ssm_pallas_h0 (h starts at a cached prefix state), and runs
 // the prefill form selective_ssm_final (JAX leaves that one to XLA) when
 // h_final is given, so the scan has no plain version on the card's path.
+// With hb given it is K9, ::_ssm_pallas_with_bounds (bodies
+// _ssm_kernel_bounds / _ssm_kernel_bounds_h0): the training forward, which
+// also records the state at the start of every chunk of `chunk` tokens,
+// hb[b, c] = h before token c * chunk (hb[:, 0] = h0 or 0), in the JAX
+// layout. The backward (selective_scan_bwd.cu) resumes from those states.
 // The TPU kernel tiled the sequence into chunks of 16 carried through VMEM
 // scratch by a sequential grid axis, padding L with dt = 0; here the whole
 // sequence is a loop inside one thread and runs the true L, so neither the
@@ -40,7 +46,7 @@ selective_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
                       const float* __restrict__ A_T, const float* __restrict__ D,
                       const float* __restrict__ h0, size_t h0_bstride,
                       float* __restrict__ y, float* __restrict__ h_final,
-                      int L, int E) {
+                      float* __restrict__ hb, int chunk, int L, int E) {
   __shared__ float s_dt[TT][EB];
   __shared__ float s_x[TT][EB];
   __shared__ float s_b[TT][N];
@@ -61,6 +67,7 @@ selective_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
   const float d = live ? D[e] : 0.f;
 
   const size_t row = static_cast<size_t>(b) * L;  // first token of batch b
+  const int n_chunks = hb != nullptr ? (L + chunk - 1) / chunk : 0;
   for (int t0 = 0; t0 < L; t0 += TT) {
     const int nt = min(TT, L - t0);
     __syncthreads();  // the previous tile is consumed
@@ -76,6 +83,11 @@ selective_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
     __syncthreads();
     if (!live) continue;
     for (int i = 0; i < nt; ++i) {
+      if (hb != nullptr && (t0 + i) % chunk == 0) {  // a chunk starts: record h
+        float* dst = hb + (static_cast<size_t>(b) * n_chunks + (t0 + i) / chunk) * N * E + e;
+#pragma unroll
+        for (int n = 0; n < N; ++n) dst[static_cast<size_t>(n) * E] = h[n];
+      }
       const float dtv = s_dt[i][tid], xv = s_x[i][tid];
       const float dbx = dtv * xv;
       float acc = 0.f;
@@ -97,23 +109,25 @@ selective_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
 template <int N>
 int launch(const float* dt, const float* x, const float* Bs, const float* Cs,
            const float* A_T, const float* D, const float* h0, int h0_batched,
-           float* y, float* h_final, int B, int L, int E, cudaStream_t stream) {
+           float* y, float* h_final, float* hb, int chunk, int B, int L, int E,
+           cudaStream_t stream) {
   const dim3 grid((E + EB - 1) / EB, B);
   const size_t h0_bstride = h0_batched ? static_cast<size_t>(N) * E : 0;
   selective_scan_kernel<N><<<grid, EB, 0, stream>>>(
-      dt, x, Bs, Cs, A_T, D, h0, h0_bstride, y, h_final, L, E);
+      dt, x, Bs, Cs, A_T, D, h0, h0_bstride, y, h_final, hb, chunk, L, E);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// h0 and h_final may be NULL; h0_batched = 0 lets every batch row read one
-// cached state (h0 [1, N, E]), 1 gives each row its own (h0 [B, N, E]).
+// h0, h_final and hb may be NULL; h0_batched = 0 lets every batch row read
+// one cached state (h0 [1, N, E]), 1 gives each row its own (h0 [B, N, E]);
+// chunk (> 0) is read only when hb is given.
 extern "C" int mt_selective_scan(const void* dt, const void* x, const void* Bs,
                                  const void* Cs, const void* A_T, const void* D,
                                  const void* h0, int h0_batched, void* y,
-                                 void* h_final, int B, int L, int E, int N,
-                                 void* stream) {
+                                 void* h_final, void* hb, int chunk, int B, int L,
+                                 int E, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* dtf = static_cast<const float*>(dt);
   const auto* xf = static_cast<const float*>(x);
@@ -124,11 +138,15 @@ extern "C" int mt_selective_scan(const void* dt, const void* x, const void* Bs,
   const auto* hf = static_cast<const float*>(h0);
   auto* yf = static_cast<float*>(y);
   auto* ff = static_cast<float*>(h_final);
+  auto* hbf = static_cast<float*>(hb);
   if (N == 16)
-    return launch<16>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, B, L, E, st);
+    return launch<16>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, hbf, chunk, B, L, E,
+                      st);
   if (N == 8)
-    return launch<8>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, B, L, E, st);
+    return launch<8>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, hbf, chunk, B, L, E,
+                     st);
   if (N == 4)
-    return launch<4>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, B, L, E, st);
+    return launch<4>(dtf, xf, bf, cf, af, df, hf, h0_batched, yf, ff, hbf, chunk, B, L, E,
+                     st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

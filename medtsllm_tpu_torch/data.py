@@ -1,5 +1,6 @@
 """Host data for the slice: the synthetic dataset family on the
-reconstruction task, fixed-shape batches and window stitching.
+reconstruction task (train, val and test splits), fixed-shape batches
+(shuffled for training) and window stitching.
 
 A copy of the parts of ``medtsllm_tpu/data`` (synthetic.py rng_for /
 sine_mixture, base.py StandardScaler and windowing, readers/synthetic.py,
@@ -93,20 +94,27 @@ class SyntheticDataset:
 
 
 class BatchPipeline:
-    """Fixed-shape batches in index order: the final batch is padded by
-    repeating its last window, with ``valid`` marking the real rows."""
+    """Fixed-shape batches: the final batch is padded by repeating its last
+    window, with ``valid`` marking the real rows. In index order, or with
+    ``shuffle`` in an order drawn anew each epoch from one
+    ``np.random.default_rng(seed)``, the JAX pipeline's draws."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
     def __iter__(self):
-        B, n = self.batch_size, len(self.dataset)
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        B, n = self.batch_size, len(order)
         for i in range(0, n, B):
-            idx = np.arange(i, min(i + B, n))
+            idx = order[i:i + B]
             n_valid = len(idx)
             idx = np.concatenate([idx, np.repeat(idx[-1], B - n_valid)])
             valid = np.zeros(B, dtype=bool)

@@ -1,4 +1,4 @@
-"""MedTsLLM on a llama or Mamba backbone, serving path (port of
+"""MedTsLLM on a llama or Mamba backbone (port of
 ``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
 host-side PromptBuilder).
 
@@ -8,6 +8,13 @@ cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
 downsample -> FlattenHead -> RevIN denorm. The constant prompt head is
 prefilled once and served as per-layer prefix K/V (llama) or per-layer
 (conv tail, SSM state) (Mamba).
+
+Training (``model.train()``): the backbone is frozen (``requires_grad =
+False`` under ``llm``, ``param_labels`` of the JAX model) and every fusion
+layer trains; dropout ``p`` acts after the patch embedding and on the
+reprogramming attention weights, with masks from the generator ``forward``
+is given. The reprogramming attention then runs the plain einsum/softmax
+graph, as JAX does (K3 has no backward).
 
 Scope: covariate mode ``concat``, the reconstruction task, an enabled
 llama or dense Mamba backbone, no in-context examples and no per-clip
@@ -23,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.embed import PatchEmbedding
+from ..ops.embed import PatchEmbedding, dropout
 from ..ops.kernels.reprogramming import reprogramming_attention
 from ..ops.revin import revin_denorm, revin_norm
 from .llm.config import resolve_config
@@ -51,17 +58,18 @@ def storage_dtype(config) -> torch.dtype:
 
 class ReprogrammingLayer(nn.Module):
     """Cross-attention from patch embeddings (queries) into the compressed
-    text-token basis (keys/values), eval path."""
+    text-token basis (keys/values): K3 in eval, the einsum graph with
+    dropout ``p`` on the attention weights in training."""
 
-    def __init__(self, d_in: int, n_heads: int, d_keys: int, d_llm: int):
+    def __init__(self, d_in: int, n_heads: int, d_keys: int, d_llm: int, p: float = 0.0):
         super().__init__()
-        self.n_heads, self.d_keys = n_heads, d_keys
+        self.n_heads, self.d_keys, self.p = n_heads, d_keys, p
         self.query_projection = Linear(d_in, d_keys * n_heads)
         self.key_projection = Linear(d_llm, d_keys * n_heads)
         self.value_projection = Linear(d_llm, d_keys * n_heads)
         self.out_projection = Linear(d_keys * n_heads, d_llm)
 
-    def forward(self, target, source, value):
+    def forward(self, target, source, value, generator=None):
         B, L, _ = target.shape
         S, H, E = source.shape[0], self.n_heads, self.d_keys
         q = self.query_projection(target).reshape(B, L, H, E)
@@ -69,15 +77,23 @@ class ReprogrammingLayer(nn.Module):
         v = self.value_projection(value).reshape(S, H, E)
         # the einsum in JAX promotes to q's type (f32): so does the kernel
         dt = torch.promote_types(q.dtype, k.dtype)
-        out = reprogramming_attention(q.to(dt).contiguous(), k.to(dt).contiguous(),
-                                      v.to(dt).contiguous(), 1.0 / math.sqrt(E))
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        scale = 1.0 / math.sqrt(E)
+        if self.training:
+            attn = torch.softmax(scale * torch.einsum("blhe,she->bhls", q, k), dim=-1)
+            attn = dropout(attn, self.p, generator)
+            out = torch.einsum("bhls,she->blhe", attn, v)
+        else:
+            out = reprogramming_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          scale)
         return self.out_projection(out.reshape(B, L, H * E))
 
 
 class MedTsLLM(nn.Module):
     def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
                  num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
-                 llm_dtype=torch.float32, prefix_cache=True, cache_dir=None):
+                 llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
+                 dropout=0.0):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
@@ -88,10 +104,11 @@ class MedTsLLM(nn.Module):
         backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
         self.llm = backbone(
             llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
-        self.patch_embedding = PatchEmbedding(d_model, patch_len, stride)
+        self.llm.requires_grad_(False)  # the frozen backbone (param_labels)
+        self.patch_embedding = PatchEmbedding(d_model, patch_len, stride, dropout)
         self.mapping_layer = Linear(llm_cfg.vocab_size, num_tokens)
         self.reprogramming_layer = ReprogrammingLayer(
-            n_features * d_model, n_heads, d_ff, self.d_llm)
+            n_features * d_model, n_heads, d_ff, self.d_llm, dropout)
         self.output_projection = Linear(d_ff * self.n_patches,
                                         self.n_outputs_per_step * pred_len)
         self.embedding_downsample_layer = Linear(self.d_llm, d_ff)
@@ -122,6 +139,9 @@ class MedTsLLM(nn.Module):
             unported.append("quantized Mamba (ROADMAP queue 1 item 12)")
         if mc.llm.get("load_in_8bit", False) and not mc.llm.get("int8_matmul", True):
             unported.append("weight-only int8, int8_matmul = false (ROADMAP queue 1 item 3)")
+        if mc.llm.get("int8_backward", False):
+            unported.append("llm.int8_backward, the int8 dx GEMM of the STE backward "
+                            "(ROADMAP queue 1 item 6)")
         if mc.llm.get("fuse_projections", False):
             unported.append("llm.fuse_projections (ROADMAP queue 1 item 3)")
         if "lora" in mc and mc.lora.enabled:
@@ -146,7 +166,8 @@ class MedTsLLM(nn.Module):
             quantize=8 if mc.llm.get("load_in_8bit", False) else 0,
             llm_dtype=storage_dtype(config),
             prefix_cache=bool(mc.llm.get("prefix_cache", True)),
-            cache_dir=cache_dir)
+            cache_dir=cache_dir,
+            dropout=float(config.training.get("dropout", 0.0) or 0.0))
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property
@@ -157,22 +178,31 @@ class MedTsLLM(nn.Module):
     def d_llm(self) -> int:
         return self.llm_cfg.d_model
 
-    def encode_ts(self, x_enc):
+    @property
+    def train_prefix_cache_safe(self) -> bool:
+        """The train step may serve the prompt head from the cache when the
+        cached values are constants of the optimization: a frozen backbone
+        (always, here: LoRA is not ported) without dropout. Gradients of
+        every trainable parameter are then those of the embedded head."""
+        return self.prefix_cache and getattr(self.llm_cfg, "dropout", 0.0) == 0.0
+
+    def encode_ts(self, x_enc, generator=None):
         """RevIN -> patch embed -> reprogramming. Returns (enc [B, P, d_llm],
         revin stats)."""
         B, L, C = x_enc.shape
         xn, stats = revin_norm(x_enc)
-        enc = self.patch_embedding(xn.transpose(1, 2))  # [B*C, P, d_model]
+        enc = self.patch_embedding(xn.transpose(1, 2), generator)  # [B*C, P, d_model]
         P = enc.shape[1]
         enc = enc.reshape(B, C, P, self.d_model).transpose(1, 2).reshape(
             B, P, C * self.d_model)
         source = self.mapping_layer(self.llm.wte.T).T  # [T, d_llm]
-        return self.reprogramming_layer(enc, source, source), stats
+        return self.reprogramming_layer(enc, source, source, generator), stats
 
-    def forward(self, inputs: dict) -> torch.Tensor:
+    def forward(self, inputs: dict, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training."""
         x_enc = inputs["x_enc"]
         B = x_enc.shape[0]
-        ts_emb, stats = self.encode_ts(x_enc)
+        ts_emb, stats = self.encode_ts(x_enc, generator)
 
         parts = []
         prefix_kv = inputs.get("prefix_kv")

@@ -1,11 +1,22 @@
 """Patch embedding (port of ``medtsllm_tpu/ops/embed.py``: TokenEmbedding,
-patch_unfold, PatchEmbedding with ``pos_embed=False`` as MedTsLLM uses it).
+patch_unfold, PatchEmbedding with ``pos_embed=False`` as MedTsLLM uses it)
+and the dropout of the fusion layers.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale it by 1 / (1 - p); the mask is drawn from ``generator`` (on x's
+    device), so a seeded trainer repeats its masks."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class TokenEmbedding(nn.Module):
@@ -33,15 +44,18 @@ def patch_unfold(x: torch.Tensor, patch_len: int, stride: int) -> torch.Tensor:
 
 
 class PatchEmbedding(nn.Module):
-    """[B, C, L] -> [B * C, n_patches, d_model] (no positional term)."""
+    """[B, C, L] -> [B * C, n_patches, d_model] (no positional term), with
+    dropout ``p`` in training."""
 
-    def __init__(self, d_model: int, patch_len: int, stride: int):
+    def __init__(self, d_model: int, patch_len: int, stride: int, p: float = 0.0):
         super().__init__()
         self.patch_len = patch_len
         self.stride = stride
+        self.p = p
         self.value_embedding = TokenEmbedding(patch_len, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         B, C, _ = x.shape
         patches = patch_unfold(x, self.patch_len, self.stride)
-        return self.value_embedding(patches.reshape(B * C, -1, self.patch_len))
+        out = self.value_embedding(patches.reshape(B * C, -1, self.patch_len))
+        return dropout(out, self.p, generator) if self.training else out

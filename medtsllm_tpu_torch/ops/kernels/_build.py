@@ -43,9 +43,14 @@ SIGNATURES = {
     # q, k, v, out, B, L, H, E, S, scale, stream
     "mt_reprogramming_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                    _P),
-    # dt, x, Bs, Cs, A_T, D, h0, h0_batched, y, h_final, B, L, E, N, stream
-    "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                          _I, _P),
+    # dt, x, Bs, Cs, A_T, D, h0, h0_batched, y, h_final, hb, chunk, B, L, E,
+    # N, stream
+    "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _P),
+    # dt, x, Bs, Cs, A_T, g, hb, ddt, dx, dB_slab, dC_slab, dA_slab, chunk, B,
+    # L, E, N, stream
+    "mt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -7,7 +7,8 @@ from f32 cos/sin tables [L, D/2] cast to the compute dtype, an optional
 already-rotated prefix K/V [1 or B, KV, P, D], the end-aligned causal mask,
 an f32 softmax normalised before the cast to v's dtype, and the output in
 [B, L, H, D]. KV may divide H. At the serving shape the cost is memory and
-latency, not FLOPs; see the CUDA source for the design.
+latency, not FLOPs; see the CUDA source for the design. The backward, as
+``_fra_bwd`` does, runs autograd through the plain version.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -67,10 +68,39 @@ def rope_attention_plain(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):
     return out.to(v.dtype).reshape(B, H, L, D).transpose(1, 2)
 
 
+class _RopeAttention(torch.autograd.Function):
+    """The custom_vjp of ``fused_rope_attention``: the forward is K2; the
+    backward (``_fra_bwd``) recomputes the plain version under autograd and
+    returns dq, dk, dv. The prefix K/V (a constant of the step, as the
+    cached train path requires) and the rope tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, pk, pv, sm_scale):
+        ctx.save_for_backward(q, k, v, cos, sin, pk, pv)
+        ctx.sm_scale = sm_scale
+        return _forward(q, k, v, cos, sin, pk, pv, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sin, pk, pv = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = rope_attention_plain(*qkv, cos, sin, pk, pv, ctx.sm_scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def rope_attention(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):
     """q [B, L, H, D], k/v [B, L, KV, D] (pre-rotary), cos/sin [L, D/2] f32,
     optional prefix pk/pv [1 or B, KV, P, D] (rotated) -> [B, L, H, D].
-    Counts CUDA launches in ``rope_attention.launches``."""
+    Counts CUDA launches in ``rope_attention.launches``. Differentiable in
+    q, k, v: the backward runs autograd through the plain version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _RopeAttention.apply(q, k, v, cos, sin, pk, pv, sm_scale)
+    return _forward(q, k, v, cos, sin, pk, pv, sm_scale)
+
+
+def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
     if q.device.type == "cpu":
         return rope_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale)
     B, L, H, D = q.shape

@@ -1,21 +1,27 @@
-"""K7/K8: the selective-SSM scan of the Mamba block
-(``csrc/selective_scan.cu``) and its plain version.
+"""K7-K10: the selective-SSM scan of the Mamba block, forward
+(``csrc/selective_scan.cu``) and backward (``csrc/selective_scan_bwd.cu``),
+and their plain versions.
 
 Replaces ``medtsllm_tpu/ops/pallas/selective_scan.py``: ``selective_ssm``
-(``_ssm_pallas``, the scan from h = 0), ``selective_ssm_h0``
-(``_ssm_pallas_h0``, the scan resumed from a cached prefix state) and the
-prefill form ``selective_ssm_final`` (XLA in the JAX package), with the
-same signatures and all operands f32:
+(``_ssm_pallas``, K7, the scan from h = 0), ``selective_ssm_h0``
+(``_ssm_pallas_h0``, K8, the scan resumed from a cached prefix state), the
+prefill form ``selective_ssm_final`` (XLA in the JAX package), and the
+training pair behind the two ``custom_vjp``s: ``selective_ssm_bounds``
+(``_ssm_pallas_with_bounds``, K9, the forward that also records the
+chunk-start states) and ``selective_ssm_bwd`` (``_ssm_pallas_bwd``, K10, the
+reverse adjoint). Same signatures and all operands f32:
 
     dt, xs [B, L, E]; A_T [N, E]; Bs, Cs [B, L, N]; D [E]; h0 [1 or B, N, E]
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t;  y_t = C_t . h_t + D x_t
 
-One CUDA entry point serves all three: h0 and the final state are optional
-operands. Each wrapper counts its own launches (``.launches``), so a run
-can tell the uncached scan, the cached scan and the prefill apart.
+``selective_ssm`` and ``selective_ssm_h0`` are differentiable: when grad is
+enabled and an operand requires it they run as a ``torch.autograd.Function``
+whose forward is K9 and whose backward is K10 (h0 is a constant of the
+step: no gradient); otherwise K7/K8 as in serving. Each wrapper counts its
+own launches (``.launches``), so a run can tell the variants apart.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+A CPU tensor takes the plain version (the backward's is autograd through
+the plain forward); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,43 +30,77 @@ import torch
 
 from . import _build
 
-STATE_SIZES = (4, 8, 16)  # the kernel's instances of N
+STATE_SIZES = (4, 8, 16)  # the kernels' instances of N
+CHUNK = 16  # tokens per recorded chunk-start state in training (JAX's _CHUNK)
+_BLOCK_E = 128  # channels per block of the backward kernel: one dB/dC slab each
 
 
-def selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0=None):
-    """(y [B, L, E], h_final [B, N, E]): a loop over L on the [B, N, E]
-    state."""
+def _plain_scan(dt, A_T, Bs, Cs, xs, D, h0, chunk):
+    """A loop over L on the [B, N, E] state -> (y [B, L, E], h_final
+    [B, N, E], the list of states before every token c * chunk; empty for
+    chunk 0)."""
     B, L, E = dt.shape
     N = A_T.shape[0]
     h = (torch.zeros(B, N, E, dtype=torch.float32, device=dt.device)
          if h0 is None else h0.float().expand(B, N, E))
-    ys = []
+    ys, hb = [], []
     for t in range(L):
+        if chunk and t % chunk == 0:
+            hb.append(h)
         dA = torch.exp(dt[:, t, None, :] * A_T[None])
         dBx = (dt[:, t] * xs[:, t])[:, None, :] * Bs[:, t, :, None]
         h = dA * h + dBx
         ys.append((h * Cs[:, t, :, None]).sum(dim=1))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dt)
-    return y + D * xs, h.contiguous()
+    return y + D * xs, h.contiguous(), hb
+
+
+def selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0=None):
+    """(y [B, L, E], h_final [B, N, E])."""
+    return _plain_scan(dt, A_T, Bs, Cs, xs, D, h0, 0)[:2]
 
 
 def selective_ssm_plain(dt, A_T, Bs, Cs, xs, D, h0=None):
-    return selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0)[0]
+    return _plain_scan(dt, A_T, Bs, Cs, xs, D, h0, 0)[0]
 
 
-def _scan(dt, A_T, Bs, Cs, xs, D, h0, final: bool):
-    """Check the operands and launch the kernel; returns (y, h_final or
-    None)."""
+def n_chunks(L: int, chunk: int) -> int:
+    return -(-L // chunk)
+
+
+def selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, D, h0=None, chunk=CHUNK):
+    """(y [B, L, E], hb [B, ceil(L / chunk), N, E]), hb[:, c] the state
+    before token c * chunk (hb[:, 0] = h0 or 0)."""
+    y, _, hb = _plain_scan(dt, A_T, Bs, Cs, xs, D, h0, chunk)
+    return y, torch.stack(hb, dim=1).contiguous()
+
+
+def selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK):
+    """(ddt, dx_ssm, dB, dC, dA_T), in THAT order (JAX's _ssm_pallas_bwd):
+    autograd through the plain forward seeded with hb[:, 0], with D = 0, so
+    dx_ssm leaves out the D * g term the caller adds. ``chunk`` is the one
+    hb was recorded with."""
+    if hb.shape[1] != n_chunks(dt.shape[1], chunk):
+        raise ValueError(f"hb {tuple(hb.shape)} does not hold ceil(L / {chunk}) chunks")
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (dt, A_T, Bs, Cs, xs)]
+        y = selective_ssm_plain(*ins, torch.zeros_like(dt[0, 0]), hb[:, 0])
+        ddt, dA_T, dB, dC, dx = torch.autograd.grad(y, ins, g)
+    return ddt, dx, dB, dC, dA_T
+
+
+def _check(dt, A_T, Bs, Cs, xs, D=None, h0=None):
+    """Check the scan's operands (D and h0 when given) for the kernels."""
     B, L, E = dt.shape
     N = A_T.shape[0]
     if N not in STATE_SIZES:
         raise ValueError(f"state size {N} not supported {STATE_SIZES}")
     if (xs.shape != dt.shape or A_T.shape != (N, E) or Bs.shape != (B, L, N)
-            or Cs.shape != Bs.shape or D.shape != (E,)):
+            or Cs.shape != Bs.shape or (D is not None and D.shape != (E,))):
         raise ValueError(f"dt {tuple(dt.shape)} A_T {tuple(A_T.shape)} Bs "
                          f"{tuple(Bs.shape)} Cs {tuple(Cs.shape)} xs "
-                         f"{tuple(xs.shape)} D {tuple(D.shape)}")
-    tensors = [dt, A_T, Bs, Cs, xs, D]
+                         f"{tuple(xs.shape)} D {None if D is None else tuple(D.shape)}")
+    tensors = [dt, A_T, Bs, Cs, xs] + ([] if D is None else [D])
     if h0 is not None:
         if h0.dim() != 3 or h0.shape[0] not in (1, B) or h0.shape[1:] != (N, E):
             raise ValueError(f"h0 must be [1 or {B}, {N}, {E}], got {tuple(h0.shape)}")
@@ -68,31 +108,51 @@ def _scan(dt, A_T, Bs, Cs, xs, D, h0, final: bool):
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"the scan takes f32 operands, got {[t.dtype for t in tensors]}")
     _build.check_cuda(*tensors)
+
+
+def _scan(dt, A_T, Bs, Cs, xs, D, h0, final: bool, chunk: int = 0):
+    """Check the operands and launch the forward kernel; returns (y, h_final
+    or None, hb or None). ``chunk`` > 0 records the chunk-start states."""
+    _check(dt, A_T, Bs, Cs, xs, D, h0)
+    B, L, E = dt.shape
+    N = A_T.shape[0]
     y = torch.empty_like(dt)
     h_final = torch.empty(B, N, E, dtype=torch.float32, device=dt.device) if final else None
+    hb = (torch.empty(B, n_chunks(L, chunk), N, E, dtype=torch.float32, device=dt.device)
+          if chunk else None)
     ptr = _build.ptr
     _build.launch("mt_selective_scan", dt.device, ptr(dt), ptr(xs), ptr(Bs), ptr(Cs),
                   ptr(A_T), ptr(D), ptr(h0), int(h0 is not None and h0.shape[0] > 1),
-                  ptr(y), ptr(h_final), B, L, E, N)
-    return y, h_final
+                  ptr(y), ptr(h_final), ptr(hb), chunk, B, L, E, N)
+    return y, h_final, hb
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def selective_ssm(dt, A_T, Bs, Cs, xs, D):
-    """The scan from h = 0 -> y [B, L, E]. Counts CUDA launches in
+    """The scan from h = 0 -> y [B, L, E]. Differentiable (K9 forward, K10
+    backward) when an operand requires grad; else K7, counted in
     ``selective_ssm.launches``."""
+    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
+        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, None)
     if dt.device.type == "cpu":
         return selective_ssm_plain(dt, A_T, Bs, Cs, xs, D)
-    y, _ = _scan(dt, A_T, Bs, Cs, xs, D, None, final=False)
+    y, _, _ = _scan(dt, A_T, Bs, Cs, xs, D, None, final=False)
     selective_ssm.launches += 1
     return y
 
 
 def selective_ssm_h0(dt, A_T, Bs, Cs, xs, D, h0):
-    """The scan resumed from h0 [1 or B, N, E] -> y [B, L, E]. Counts CUDA
-    launches in ``selective_ssm_h0.launches``."""
+    """The scan resumed from h0 [1 or B, N, E] -> y [B, L, E].
+    Differentiable in all but h0 (K9 forward, K10 backward) when an operand
+    requires grad; else K8, counted in ``selective_ssm_h0.launches``."""
+    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
+        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, h0)
     if dt.device.type == "cpu":
         return selective_ssm_plain(dt, A_T, Bs, Cs, xs, D, h0)
-    y, _ = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=False)
+    y, _, _ = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=False)
     selective_ssm_h0.launches += 1
     return y
 
@@ -102,11 +162,81 @@ def selective_ssm_final(dt, A_T, Bs, Cs, xs, D, h0=None):
     launches in ``selective_ssm_final.launches``."""
     if dt.device.type == "cpu":
         return selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0)
-    out = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=True)
+    y, h_final, _ = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=True)
     selective_ssm_final.launches += 1
-    return out
+    return y, h_final
+
+
+def selective_ssm_bounds(dt, A_T, Bs, Cs, xs, D, h0=None, chunk=CHUNK):
+    """K9: the scan from h0 (or 0) -> (y [B, L, E], hb [B, ceil(L / chunk),
+    N, E]), hb[:, c] the state before token c * chunk. Counts CUDA launches
+    in ``selective_ssm_bounds.launches``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if dt.device.type == "cpu":
+        return selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, D, h0, chunk)
+    y, _, hb = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=False, chunk=chunk)
+    selective_ssm_bounds.launches += 1
+    return y, hb
+
+
+def selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK, need_dA=True):
+    """K10: the reverse adjoint from the states K9 recorded -> (ddt, dx_ssm,
+    dB, dC, dA_T) in THAT order (as ``_ssm_pallas_bwd``: with N == E the
+    [B, L, E] and [B, L, N] gradients shape-match, so a swapped unpack would
+    be silent); dx_ssm leaves out D * g, the caller adds it and dD. dA_T is
+    None when ``need_dA`` is false (A frozen), and the kernel then skips it.
+    Counts CUDA launches in ``selective_ssm_bwd.launches``."""
+    if dt.device.type == "cpu":
+        ddt, dx, dB, dC, dA_T = selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, g, hb, chunk)
+        return ddt, dx, dB, dC, dA_T if need_dA else None
+    _check(dt, A_T, Bs, Cs, xs)
+    B, L, E = dt.shape
+    N = A_T.shape[0]
+    if g.shape != dt.shape or hb.shape != (B, n_chunks(L, chunk), N, E) or chunk < 1:
+        raise ValueError(f"g {tuple(g.shape)} hb {tuple(hb.shape)} chunk {chunk} for "
+                         f"dt {tuple(dt.shape)}, N {N}")
+    if g.dtype != torch.float32 or hb.dtype != torch.float32:
+        raise ValueError(f"g and hb must be f32, got {g.dtype} {hb.dtype}")
+    _build.check_cuda(dt, g, hb)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
+    slabs = torch.empty(2, -(-E // _BLOCK_E), B, L, N, dtype=torch.float32,
+                        device=dt.device)
+    dA_slab = (torch.empty(B, N, E, dtype=torch.float32, device=dt.device)
+               if need_dA else None)
+    ptr = _build.ptr
+    _build.launch("mt_selective_scan_bwd", dt.device, ptr(dt), ptr(xs), ptr(Bs), ptr(Cs),
+                  ptr(A_T), ptr(g), ptr(hb), ptr(ddt), ptr(dx), ptr(slabs[0]),
+                  ptr(slabs[1]), ptr(dA_slab), chunk, B, L, E, N)
+    selective_ssm_bwd.launches += 1
+    dB, dC = slabs.sum(dim=1)
+    return ddt, dx, dB, dC, None if dA_slab is None else dA_slab.sum(dim=0)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The custom_vjp of ``selective_ssm`` / ``selective_ssm_h0``: K9
+    records the chunk-start states, K10 runs the adjoint from them. h0 (the
+    cached prompt-head state, a constant of the step) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, dt, A_T, Bs, Cs, xs, D, h0):
+        y, hb = selective_ssm_bounds(dt, A_T, Bs, Cs, xs, D, h0, CHUNK)
+        ctx.save_for_backward(dt, A_T, Bs, Cs, xs, D, hb)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        dt, A_T, Bs, Cs, xs, D, hb = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g = g.float().contiguous()
+        ddt, dx, dB, dC, dA_T = selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, CHUNK,
+                                                  need_dA=need[1])
+        dD = (g * xs).sum(dim=(0, 1)) if need[5] else None
+        return ddt, dA_T, dB, dC, dx + D * g, dD, None
 
 
 selective_ssm.launches = 0
 selective_ssm_h0.launches = 0
 selective_ssm_final.launches = 0
+selective_ssm_bounds.launches = 0
+selective_ssm_bwd.launches = 0

@@ -11,6 +11,11 @@ design.
 Layout: the weight is the transposed int8 kernel ``wq_t [N, K]`` (the JAX
 package stores ``kernel_q [K, N]``; ``weights.py`` transposes once).
 
+Training: ``act_quant_matmul`` carries the straight-through backward of
+``_act_quant_matmul_bwd`` (``transformer.py:261-285``), so the gradient
+reaches the trainable layers below a frozen int8 backbone. The opt-in
+int8 dx GEMM (``llm.int8_backward``) is not ported (ROADMAP queue 1 item 6).
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -120,11 +125,40 @@ def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
 int8_gemm.launches = 0
 
 
-def act_quant_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
-                     out_dtype=torch.float32) -> torch.Tensor:
-    """x [..., K] -> [..., N]: quantize rows, int8 GEMM, rescale (the
-    transformer's w8a8 projection: two kernels on a CUDA tensor)."""
+def _act_quant_matmul(x, wq_t, w_scale, out_dtype):
     lead = x.shape[:-1]
     xq, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
     y = int8_gemm(xq, wq_t, x_scale, w_scale.float().contiguous(), out_dtype)
     return y.reshape(*lead, -1)
+
+
+class _ActQuantMatmul(torch.autograd.Function):
+    """The custom_vjp of ``transformer.py::_act_quant_matmul``: the forward is
+    K1; the backward is the straight-through estimator, the quantization
+    taken as identity and the gradient sent through the dequantized weight,
+    ``dx = (g * scale) @ W_q`` at g's dtype with the scale folded into g
+    (O(M N), not O(K N)). A plain matmul, as JAX leaves it to an XLA dot.
+    The int8 weight and its scale are frozen: no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wq_t, w_scale, out_dtype):
+        ctx.save_for_backward(wq_t, w_scale)
+        ctx.x_dtype = x.dtype
+        return _act_quant_matmul(x, wq_t, w_scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq_t, w_scale = ctx.saved_tensors
+        dx = (g * w_scale.to(g.dtype)) @ wq_t.to(g.dtype)
+        return dx.to(ctx.x_dtype), None, None, None
+
+
+def act_quant_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """x [..., K] -> [..., N]: quantize rows, int8 GEMM, rescale (the
+    transformer's w8a8 projection: two kernels on a CUDA tensor).
+    Differentiable in x through the straight-through estimator when x
+    requires grad."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ActQuantMatmul.apply(x, wq_t, w_scale, out_dtype)
+    return _act_quant_matmul(x, wq_t, w_scale, out_dtype)

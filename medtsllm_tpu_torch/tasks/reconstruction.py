@@ -1,6 +1,7 @@
-"""Reconstruction task, eval side (port of
-``medtsllm_tpu/tasks/reconstruction.py``): the target is the input window;
-predictions are stitched over the input range and scored by MSE and MAE."""
+"""Reconstruction task (port of ``medtsllm_tpu/tasks/reconstruction.py``):
+the target is the input window; predictions are stitched over the input
+range and scored by MSE and MAE, on the val split after each epoch and on
+the test split."""
 
 from __future__ import annotations
 
@@ -12,6 +13,10 @@ from .base import BaseTask
 
 class ReconstructionTask(BaseTask):
     task = "reconstruction"
+
+    def val(self):
+        preds, targets = self.predict(self.val_pipeline)
+        return {f"val/{k}": v for k, v in self.score(preds, targets).items()}
 
     def test(self):
         preds, targets = self.predict(self.test_pipeline)

@@ -19,8 +19,14 @@ from medtsllm_tpu_torch.models.llm.tokenizer import get_tokenizer
 get_tokenizer("llama-tiny", None, vocab_size=512).encode("Dataset: probe 1.0")
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "medtsllm_tpu"))
-print(len(names), leaked)
+print(" ".join(names), "|", leaked)
 """
+
+# every module of the training slice among them
+_TRAIN_MODULES = {"medtsllm_tpu_torch.runtime.optim", "medtsllm_tpu_torch.tasks.losses",
+                  "medtsllm_tpu_torch.ops.kernels.selective_scan",
+                  "medtsllm_tpu_torch.ops.kernels.w8a8",
+                  "medtsllm_tpu_torch.ops.kernels.rope_attention"}
 
 
 def test_port_imports_no_jax():
@@ -28,6 +34,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15  # every module of the slice was imported
+    names, leaked = out.stdout.strip().split(" | ")
+    names = set(names.split())
+    assert len(names) >= 17 and _TRAIN_MODULES <= names  # every module was imported
     assert leaked == "[]", leaked

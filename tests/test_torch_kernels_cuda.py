@@ -152,3 +152,64 @@ def test_selective_scan_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="h0"):
         ss.selective_ssm_h0(z(2, 4, 32), z(4, 32), z(2, 4, 4), z(2, 4, 4), z(2, 4, 32),
                             z(32), z(3, 4, 32))
+
+
+def _scan_operands(cuda, B, L, E, N, h0_rows):
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, device=cuda, generator=g)
+
+    dt, xs = r(B, L, E).abs() * 0.1, r(B, L, E)
+    A_T, Bs, Cs, D = -r(N, E).abs() * N, r(B, L, N), r(B, L, N), r(E)
+    h0 = r(h0_rows, N, E) if h0_rows else None
+    return dt, A_T, Bs, Cs, xs, D, h0, r(B, L, E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,E,N,h0_rows,chunk", [
+    (48, 144, 1536, 16, 1, 16),  # the Mamba train shape, cached head
+    (48, 158, 1536, 16, 0, 16),  # the same, uncached
+    (2, 37, 200, 8, 2, 8),       # E not a multiple of the block, batch-B h0
+    (3, 5, 128, 4, 0, 16),       # one partial chunk
+])
+def test_selective_scan_bounds_and_bwd_vs_plain(cuda, B, L, E, N, h0_rows, chunk):
+    """K9 (y and the chunk-start states) and K10 (all five outputs) against
+    their plain versions at 1e-4 x max |plain| (f32 with expf: the order of
+    the sums over n and e, and fused multiply-adds)."""
+    dt, A_T, Bs, Cs, xs, D, h0, g = _scan_operands(cuda, B, L, E, N, h0_rows)
+    n9, n10 = ss.selective_ssm_bounds.launches, ss.selective_ssm_bwd.launches
+    y, hb = ss.selective_ssm_bounds(dt, A_T, Bs, Cs, xs, D, h0, chunk)
+    y0, hb0 = ss.selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, D, h0, chunk)
+    assert hb.shape == (B, -(-L // chunk), N, E)
+    for got, want in ((y, y0), (hb, hb0)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    got = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb0, chunk)
+    want = ss.selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, g, hb0, chunk)
+    assert (ss.selective_ssm_bounds.launches, ss.selective_ssm_bwd.launches) == (n9 + 1, n10 + 1)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+    # A frozen: the kernel skips dA_T and the rest is unchanged; bit-stable
+    again = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb0, chunk, need_dA=False)
+    assert again[4] is None
+    for a, b in zip(again[:4], got[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_selective_scan_autograd_on_card(cuda):
+    """selective_ssm_h0 with grad enabled runs K9 forward and K10 backward,
+    not K8, and its six gradients match autograd of the plain loop."""
+    dt, A_T, Bs, Cs, xs, D, h0, g = _scan_operands(cuda, 4, 40, 256, 16, 1)
+    ins = [t.clone().requires_grad_() for t in (dt, A_T, Bs, Cs, xs, D)]
+    counts = (ss.selective_ssm_h0.launches, ss.selective_ssm_bounds.launches,
+              ss.selective_ssm_bwd.launches)
+    ss.selective_ssm_h0(*ins, h0).backward(g)
+    assert (ss.selective_ssm_h0.launches, ss.selective_ssm_bounds.launches,
+            ss.selective_ssm_bwd.launches) == (counts[0], counts[1] + 1, counts[2] + 1)
+    ref = [t.clone().requires_grad_() for t in (dt, A_T, Bs, Cs, xs, D)]
+    ss.selective_ssm_plain(*ref, h0).backward(g)
+    for a, b in zip(ins, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0,
+                                   atol=1e-4 * b.grad.abs().max().item())

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving step on one CUDA card.
+"""Profile the PyTorch port's serving step, or the Mamba train step, on one
+CUDA card.
 
-    python3 tools/torch_profile_serving.py [--path mamba|llama] [--steps 4]
+    python3 tools/torch_profile_serving.py [--path mamba|llama|mamba-train] [--steps 4]
 
-Builds the serving trainer of ``chip_smoke.py`` (the same configuration and
-random weights from its seed), runs one warm-up ``test()`` pass (it builds
-the kernels and the prompt-head cache), prepares ``--steps`` test batches on
-the host, then runs their eval steps under ``torch.profiler``. Prints the
-card, the host-clock time of each step, the device's busy time and idle
-share over the profiled span (first event to last kernel end), the device
-time and launch count by category and the top kernels by device time.
-Writes the Chrome trace to ``chiprun_out/torch_profile_<path>.json``.
+Builds the trainer of ``chip_smoke.py`` (the same configuration and random
+weights from its seed). For a serving path it runs one warm-up ``test()``
+pass (it builds the kernels and the prompt-head cache), prepares
+``--steps`` test batches on the host, then runs their eval steps under
+``torch.profiler``. For ``mamba-train`` it prepares ``--steps`` + 1
+shuffled train batches (the prompt-state cache included), runs one warm-up
+``train_step`` and profiles the next ``--steps`` train steps (forward,
+backward with K9/K10, Adam). Prints the card, the host-clock time of each
+step, the device's busy time and idle share over the profiled span (first
+event to last kernel end), the device time and launch count by category and
+the top kernels by device time. Writes the Chrome trace to
+``chiprun_out/torch_profile_<path>.json``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # device kernels by name, first match wins
 CATEGORIES = (
+    ("selective scan backward (K10)", r"selective_scan_bwd"),
     ("selective scan", r"selective_scan"),
     ("K3 reprogramming", r"reprogramming"),
     ("K1 w8a8", r"w8a8|act_quant"),
@@ -34,6 +40,7 @@ CATEGORIES = (
     ("GEMM (cuBLAS)", r"gemm|gemv|xmma|cutlass|cublas|splitK|nvjet"),
     ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
     ("copy / cast", r"copy|cast|Memcpy|Memset"),
+    ("optimizer (Adam)", r"multi_tensor|adam"),
 )
 
 
@@ -46,7 +53,7 @@ def category(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("mamba", "llama"), default="mamba")
+    ap.add_argument("--path", choices=("mamba", "llama", "mamba-train"), default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args()
 
@@ -64,24 +71,40 @@ def main() -> None:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0])
     dev = torch.device("cuda", 0)
-    cfg = (chip_smoke.mamba_config(Config) if args.path == "mamba"
-           else chip_smoke.bench_config(Config))
+    train = args.path == "mamba-train"
+    cfg = {"mamba": lambda: chip_smoke.mamba_config(Config),
+           "llama": lambda: chip_smoke.bench_config(Config),
+           # four train batches of 48 per epoch, as chip_smoke phase 8
+           "mamba-train": lambda: chip_smoke.mamba_config(Config, n_points=24704, epochs=1),
+           }[args.path]()
     trainer = get_trainer(f"profile-{args.path}", cfg, device=dev)
-    trainer.test()  # warm-up: kernels built, the prompt-head cache filled
-    batches = [b for _, b in zip(range(args.steps), trainer.test_pipeline)]
-    prepared = [trainer.eval_prepare(b) for b in batches]
+    if train:
+        batches = [b for _, b in zip(range(args.steps + 1), trainer.train_pipeline)]
+        prepared = [trainer.train_model_inputs(b) for b in batches]
+        trainer.train_step(prepared[0], prepared[0]["valid"])  # warm-up
+        prepared = prepared[1:]
+
+        def run(a):
+            trainer.train_step(a, a["valid"])
+    else:
+        trainer.test()  # warm-up: kernels built, the prompt-head cache filled
+        batches = [b for _, b in zip(range(args.steps), trainer.test_pipeline)]
+        prepared = [trainer.eval_prepare(b) for b in batches]
+
+        def run(p):
+            trainer.eval_dispatch(prepared=p)
     torch.cuda.synchronize()
 
     step_ms = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for p in prepared:
             t0 = time.perf_counter()
-            trainer.eval_dispatch(prepared=p)
+            run(p)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
     bsz = cfg.training.batch_size
-    print(f"[profile] {args.path}: {len(step_ms)} eval steps of batch {bsz}, host "
-          f"clock ms {step_ms} (p50 {statistics.median(step_ms):.3f})")
+    print(f"[profile] {args.path}: {len(step_ms)} {'train' if train else 'eval'} steps of "
+          f"batch {bsz}, host clock ms {step_ms} (p50 {statistics.median(step_ms):.3f})")
 
     events = list(prof.events())
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
