@@ -56,36 +56,9 @@ act_quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
         __float2int_rn(__fdiv_rn(mt::to_f32(xr[i]), scale)));
 }
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LDS = BK + 16;  // padded smem row (bytes): conflict-free frags
-constexpr int kGemmThreads = 256;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// stage rows [r0, r0 + 128) x k [k0, k0 + 64) of a row-major [R, K] int8
-// matrix into smem; out-of-range rows and k are zero (they add nothing)
-__device__ __forceinline__ void load_tile(int8_t* s, const int8_t* g, int r0,
-                                          int R, int k0, int K) {
-  for (int c = threadIdx.x; c < BM * BK / 16; c += kGemmThreads) {
-    const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r0 + r < R && k0 + kc < K)
-      v = *reinterpret_cast<const int4*>(g + static_cast<size_t>(r0 + r) * K +
-                                         k0 + kc);
-    *reinterpret_cast<int4*>(s + r * LDS + kc) = v;
-  }
-}
+constexpr int BM = mt::kTileM, BN = mt::kTileN, BK = mt::kTileK;
+constexpr int LDS = mt::kTileLds;
+constexpr int kGemmThreads = mt::kTileThreads;
 
 // OUT: 0 = f32, 1 = bf16 (scaled), 2 = raw s32 accumulators
 template <int OUT>
@@ -109,31 +82,10 @@ w8a8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(sA, A, m0, M, k0, K);
-    load_tile(sB, Bt, n0, N, k0, K);
+    mt::load_tile_s8(sA, A, m0, M, k0, K, K);
+    mt::load_tile_s8(sB, Bt, n0, N, k0, K, K);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = sA + (wm * 64 + mi * 16 + g) * LDS + kk + t4 * 4;
-        af[mi][0] = ld32(p);
-        af[mi][1] = ld32(p + 8 * LDS);
-        af[mi][2] = ld32(p + 16);
-        af[mi][3] = ld32(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = sB + (wn * 32 + ni * 8 + g) * LDS + kk + t4 * 4;
-        bf[ni][0] = ld32(p);
-        bf[ni][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
+    mt::mma_tile_s8(acc, sA, sB, wm, wn, g, t4);
     __syncthreads();
   }
 

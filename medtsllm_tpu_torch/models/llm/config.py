@@ -1,7 +1,7 @@
 """Backbone configurations and the presets the port serves.
 
 Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (llama
-fields only), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
+and mixtral-style MoE fields), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
 ``_mamba_presets`` / ``resolve_config`` of ``models/llm/loader.py``. The
 backbone is random-initialised with the preset's shapes (weights.py);
 local snapshots are not loaded yet.
@@ -30,6 +30,14 @@ class DecoderConfig:
     bos_token_id: int | None = None
     eos_token_id: int | None = None
     pad_token_id: int | None = None
+    # mixtral-style sparse MoE FFN (n_experts > 1): top-k routed SwiGLU
+    # experts; expert_capacity is the GShard capacity factor (0 = dropless)
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    expert_capacity: float = 0.0
+    # the dropless grouped-GEMM expert chain (K6) in place of the capacity
+    # bmm; resolved from models.<m>.llm.moe_grouped by MedTsLLM.from_config
+    moe_grouped: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -78,6 +86,21 @@ PRESETS = {
         style="llama", vocab_size=512, d_model=64, n_layers=2,
         n_heads=4, d_ff=128, max_position=512, bos_token_id=1,
         eos_token_id=2),
+    "mixtral-tiny": DecoderConfig(  # test-sized mixtral-style sparse MoE
+        style="llama", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, max_position=512, bos_token_id=1,
+        eos_token_id=2, n_experts=4, n_experts_per_tok=2),
+    "mixtral-tiny-128": DecoderConfig(  # MoE tiny at 128-multiple widths:
+        # the smallest shape the grouped-GEMM chain tiles
+        style="llama", vocab_size=512, d_model=128, n_layers=2,
+        n_heads=4, d_ff=256, max_position=512, bos_token_id=1,
+        eos_token_id=2, n_experts=4, n_experts_per_tok=2),
+    "moe-8x1b": DecoderConfig(  # 8-expert MoE on the TinyLlama-1.1B shape
+        # (~6.4B stored / ~1.8B active parameters, top-2 routing)
+        style="llama", vocab_size=32000, d_model=2048, n_layers=22,
+        n_heads=32, n_kv_heads=4, d_ff=5632, max_position=2048,
+        norm_eps=1e-5, bos_token_id=1, eos_token_id=2,
+        n_experts=8, n_experts_per_tok=2, expert_capacity=1.25),
 }
 
 MAMBA_PRESETS = {

@@ -1,7 +1,7 @@
 """The llama decoder (port of ``medtsllm_tpu/models/llm/transformer.py``:
 RMSNorm, rotary, QuantDense w8a8 / plain Dense, Attention, the SwiGLU MLP,
-the pre-norm Block and TransformerDecoder with ``prefill``; dense llama
-only).
+the mixtral-style sparse-MoE FFN (``MoEMLP``, single device, serving), the
+pre-norm Block and TransformerDecoder with ``prefill``).
 
 Dtypes follow the JAX module's: parameters are stored at the storage dtype
 (f32 or bf16); ``dtype`` (None for f32, else the compute dtype) is where
@@ -9,7 +9,9 @@ projections emit and attention runs, while the residual stream keeps the
 promoted type of the input embeddings (f32), as flax promotion does.
 Attention (all calls, prefill included) goes through the fused RoPE +
 prefix + causal kernel; every projection at ``quantize=8`` through the
-w8a8 kernel.
+w8a8 kernel. The MoE FFN routes each token to its top-k experts and runs
+them either as the dropless grouped chain (K6, ``moe_grouped``) or as the
+static-capacity per-expert bmm (K1 per expert at ``quantize=8``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
+                                            row_quant)
 from ...ops.kernels.rope_attention import rope, rope_attention, rope_tables
-from ...ops.kernels.w8a8 import act_quant_matmul
+from ...ops.kernels.w8a8 import act_quant_matmul, int8_gemm, quantize_rows
 from .config import DecoderConfig
 
 
@@ -127,15 +131,169 @@ class MLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+def moe_capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
+    """Static per-expert slot count. factor <= 0 means dropless: top_k
+    gives each token at most one slot per expert, so capacity = n_tokens
+    is exact. Positive factors give the GShard bound ceil(k*T/E * f),
+    rounded up to a multiple of 8, capped at T."""
+    if factor <= 0:
+        return n_tokens
+    cap = math.ceil(top_k * n_tokens / n_experts * factor)
+    return min(((cap + 7) // 8) * 8, n_tokens)
+
+
+def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-expert w8a8 matmul with per-row activation quantization (the
+    forward of ``transformer.py::_act_quant_bmm``): h [E, C, K] f32, wq
+    [E, N, K] int8, scale [E, N] -> [E, C, N] f32 = acc * (x_scale *
+    scale). K1's quantizer over the E*C rows, then K1's GEMM per expert.
+    Forward only: the straight-through backward comes with MoE training."""
+    E, C, K = h.shape
+    xq, xs = quantize_rows(h.reshape(E * C, K).contiguous())
+    xq, xs, ws = xq.reshape(E, C, K), xs.reshape(E, C), scale.float()
+    return torch.stack([int8_gemm(xq[e], wq[e], xs[e], ws[e].contiguous())
+                        for e in range(E)])
+
+
+def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d,
+                     kg, sg, ku, su, kd, sd):
+    """Quantize before dispatch, pack by gather, run the fused-requant gmm
+    chain (``transformer.py::_pack_and_run_gmm``). xt [T, D] at the compute
+    dtype (its per-row quantization reads the JAX ``astype(cd)`` round
+    trip); ``dest`` [n_slots] the packed row of each (token, slot). The one
+    scatter builds the int32 inverse permutation; tile tails point at a zero
+    row with the 1e-10 scale floor. Returns the down-gmm output [V*bm, D]
+    (f32)."""
+    n_rows, D = xt.shape
+    xq_t, xs_t = row_quant(xt)
+    inv = torch.full((V * bm,), n_slots, dtype=torch.int32, device=xt.device)
+    inv[dest] = torch.arange(n_slots, dtype=torch.int32, device=xt.device)
+    tok = torch.cat([src.to(torch.int32), inv.new_full((1,), n_rows)])[inv]
+    xq = torch.cat([xq_t, xq_t.new_zeros(1, D)])[tok]
+    xs = torch.cat([xs_t, xs_t.new_full((1, 1), 1e-10)])[tok]
+    # SwiGLU epilogue + per-(row, F-tile) requant in the first gmm, whose
+    # int8 rows and chunked scales feed the down gmm
+    aq, as_ = gmm(xq, xs, (kg, ku), (sg, su), ve, valid, block_m=bm, block_n=bn_f,
+                  fuse_silu=True, emit_quant=True)
+    (y,) = gmm(aq, as_, (kd,), (sd,), ve, valid, block_m=bm, block_n=bn_d)
+    return y
+
+
+class MoEMLP(nn.Module):
+    """Mixtral-style sparse-MoE SwiGLU FFN (``transformer.py::MoEMLP``,
+    single device, serving): router softmax in f32, top-k of the
+    probabilities renormalized, rank within expert by a cumsum over the
+    one-hot assignment. Experts run either as the dropless grouped chain
+    (``moe_grouped`` with int8 experts, in eval: K6 twice) or as the
+    static-capacity dispatch into an [E, C, d] buffer, slots beyond C
+    dropped in token order, then E-batched matmuls (K1 per expert at
+    ``quantize=8``, ``torch.bmm`` for dense experts).
+
+    Parameters: ``gate`` [D, E]; int8 experts ``w_{gate,up,down}_q``
+    [E, N, K] (the kernels' layout, the transpose of JAX's [E, K, N]) with
+    scales [E, N]; dense experts ``w_{gate,up,down}`` [E, K, N] (JAX's
+    layout)."""
+
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+        super().__init__()
+        if quantize not in (0, 8):
+            raise NotImplementedError(
+                f"quantize={quantize}: 4-bit experts are ROADMAP queue 1 item 10")
+        self.cfg, self.quantize, self.dtype = cfg, quantize, dtype
+        E, D, d_ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.gate = nn.Parameter(torch.zeros(D, E))
+        shapes = {"w_gate": (D, d_ff), "w_up": (D, d_ff), "w_down": (d_ff, D)}
+        for name, (d_in, d_out) in shapes.items():
+            if quantize:
+                self.register_buffer(name + "_q",
+                                     torch.zeros(E, d_out, d_in, dtype=torch.int8))
+                setattr(self, name + "_scale",
+                        nn.Parameter(torch.ones(E, d_out), requires_grad=False))
+            else:
+                setattr(self, name, nn.Parameter(torch.zeros(E, d_in, d_out)))
+
+    def _grouped(self, xt, eid, pos, src, cd):
+        """The dropless grouped chain -> per-(token, slot) outputs [T*k, D]
+        at ``cd``, or None when the widths have no multiple-of-128 block
+        (the caller takes the capacity path)."""
+        cfg = self.cfg
+        T, D = xt.shape
+        E, k = cfg.n_experts, cfg.n_experts_per_tok
+        # gate/up at the widest tile, down at 1024 (grouped_matmul.py's
+        # choice; block_n sets the requant tile)
+        bn_f, bn_d = pick_block_n(cfg.d_ff, target=1408), pick_block_n(D, 1024)
+        if not (bn_f and bn_d):
+            return None
+        bm = 128
+        V = gmm_visits(T * k, E, bm)
+        counts = torch.zeros(E, dtype=torch.int32, device=xt.device).index_add_(
+            0, eid, torch.ones_like(eid, dtype=torch.int32))
+        ve, valid, row_off = gmm_metadata(counts, bm, V)
+        dest = row_off[eid] + pos  # dropless: every slot lands in bounds
+        y = pack_and_run_gmm(xt.to(cd), src, dest, T * k, ve, valid, V, bm, bn_f, bn_d,
+                             self.w_gate_q, self.w_gate_scale, self.w_up_q,
+                             self.w_up_scale, self.w_down_q, self.w_down_scale)
+        return y[dest].to(cd)
+
+    def _bmm(self, h, name):
+        if self.quantize:
+            return act_quant_bmm(h.float(), getattr(self, name + "_q"),
+                                 getattr(self, name + "_scale")).to(h.dtype)
+        return torch.bmm(h, getattr(self, name).to(h.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "training through a MoE backbone (the straight-through backward "
+                "of the expert matmuls, router_aux_loss) is ROADMAP queue 1 item 11")
+        cfg = self.cfg
+        E, k = cfg.n_experts, cfg.n_experts_per_tok
+        B, L, D = x.shape
+        T = B * L
+        cd = self.dtype or x.dtype
+        xt = x.reshape(T, D)
+        probs = torch.softmax(xt.float() @ self.gate.float(), dim=-1)
+        # jax.lax.top_k keeps the lower index first among equal values; a
+        # stable descending sort does too (torch.topk does not promise it)
+        top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_p, top_i = top_p[:, :k], top_i[:, :k]
+        weights = (top_p / top_p.sum(dim=-1, keepdim=True)).reshape(T * k)
+        eid = top_i.reshape(T * k)
+        # rank of each slot within its expert: a running count over the slots,
+        # taken along the inner axis of an [E, T*k] one-hot (a cumsum over the
+        # outer axis of [T*k, E] is a slow kernel on the card)
+        onehot = (eid[None, :] == torch.arange(E, device=x.device)[:, None]).to(torch.int32)
+        pos = ((torch.cumsum(onehot, 1, dtype=torch.int32) - onehot) * onehot).sum(0)
+        src = torch.arange(T, device=x.device).repeat_interleave(k)
+
+        if cfg.moe_grouped and self.quantize == 8 and not self.training:
+            y = self._grouped(xt, eid, pos, src, cd)
+            if y is not None:
+                return (y * weights[:, None].to(cd)).reshape(T, k, D).sum(1).reshape(B, L, D)
+
+        C = moe_capacity(T, E, k, cfg.expert_capacity)
+        keep = pos < C
+        dest = torch.where(keep, eid * C + pos, E * C)  # drops -> the trash row
+        buf = torch.zeros(E * C + 1, D, dtype=cd, device=x.device)
+        buf[dest] = xt[src].to(cd)
+        h = buf[:E * C].reshape(E, C, D)
+        g, u = self._bmm(h, "w_gate"), self._bmm(h, "w_up")
+        out = self._bmm(F.silu(g) * u, "w_down")  # [E, C, D]
+        out_flat = torch.cat([out.reshape(E * C, D), out.new_zeros(1, D)])
+        y = out_flat[dest] * (weights * keep.float())[:, None].to(cd)
+        return y.reshape(T, k, D).sum(1).reshape(B, L, D)
+
+
 class Block(nn.Module):
-    """Pre-norm llama block."""
+    """Pre-norm llama block; the FFN is the MoE one when the config has
+    more than one expert."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.d_model, cfg.norm_eps)
         self.attn = Attention(cfg, quantize, dtype)
         self.post_attention_layernorm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.mlp = MLP(cfg, quantize, dtype)
+        self.mlp = (MoEMLP if cfg.n_experts > 1 else MLP)(cfg, quantize, dtype)
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
                 return_kv: bool = False):

@@ -17,13 +17,14 @@ is given. The reprogramming attention then runs the plain einsum/softmax
 graph, as JAX does (K3 has no backward).
 
 Scope: covariate mode ``concat``, the reconstruction task, an enabled
-llama or dense Mamba backbone, no in-context examples and no per-clip
-prompt heads; anything else raises NotImplementedError naming its ROADMAP
-item.
+llama (dense or mixtral-style MoE, served on one device) or dense Mamba
+backbone, no in-context examples and no per-clip prompt heads; anything
+else raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -119,7 +120,9 @@ class MedTsLLM(nn.Module):
         return models.medtsllm if "medtsllm" in models else models.timellm
 
     @classmethod
-    def from_config(cls, config, dataset):
+    def from_config(cls, config, dataset, device):
+        """``device`` is where the model will run: it resolves
+        ``llm.moe_grouped = "auto"``."""
         mc = cls.model_config(config)
         unported = []
         if config.task != "reconstruction":
@@ -156,14 +159,15 @@ class MedTsLLM(nn.Module):
         cache_dir = config.get("paths", {}).get("llm_path") or None
         if cache_dir in ("", "none"):
             cache_dir = None
+        quantize = 8 if mc.llm.get("load_in_8bit", False) else 0
+        llm_cfg = _resolve_moe(resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1)),
+                               mc.llm, quantize, torch.device(device))
         return cls(
             seq_len=config.history_len, pred_len=config.pred_len,
             n_features=dataset.n_features, d_model=mc.d_model, d_ff=mc.d_ff,
             n_heads=mc.n_heads, num_tokens=mc.num_tokens,
             patch_len=mc.patching.patch_len, stride=mc.patching.stride,
-            llm_cfg=resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1)),
-            llm_id=mc.llm.llm,
-            quantize=8 if mc.llm.get("load_in_8bit", False) else 0,
+            llm_cfg=llm_cfg, llm_id=mc.llm.llm, quantize=quantize,
             llm_dtype=storage_dtype(config),
             prefix_cache=bool(mc.llm.get("prefix_cache", True)),
             cache_dir=cache_dir,
@@ -231,6 +235,37 @@ class MedTsLLM(nn.Module):
         per eval pass; ``embed_dtype`` is what ``forward`` feeds the LLM
         (ts_emb's dtype, f32) so cached and uncached paths agree."""
         return self.llm.prefill(self.llm.embed(prefix_ids).to(embed_dtype)[None])
+
+
+def _resolve_moe(llm_cfg, llm, quantize: int, device: torch.device):
+    """``llm.expert_capacity`` and ``llm.moe_grouped`` on the backbone's
+    config (``medtsllm_tpu/models/medtsllm.py:194-202, 278-332``, with "on
+    the TPU" read as "on a CUDA device"). ``moe_grouped = "auto"`` is on
+    for a CUDA device with integer experts (``load_in_8bit`` with
+    ``int8_matmul``) and off on the CPU, as JAX resolves it off the TPU;
+    forced on, it needs integer experts and runs the plain grouped chain on
+    the CPU."""
+    moe = getattr(llm_cfg, "n_experts", 0) > 1
+    cap = llm.get("expert_capacity", None)
+    if cap is not None:
+        if not moe:
+            raise ValueError(f"models.llm.expert_capacity set but backbone "
+                             f"{llm.llm!r} is not a MoE (n_experts <= 1)")
+        llm_cfg = dataclasses.replace(llm_cfg, expert_capacity=float(cap))
+    mg = llm.get("moe_grouped", "auto")
+    if not moe:
+        if mg not in ("auto", False):
+            raise ValueError(f"models.llm.moe_grouped set but backbone {llm.llm!r} "
+                             "is not an enabled MoE (n_experts <= 1 or llm disabled)")
+        return llm_cfg
+    int_mxu = bool(llm.get("int8_matmul", True)) and quantize == 8
+    if mg == "auto":
+        mg = int_mxu and device.type == "cuda"
+    if mg and not int_mxu:
+        raise ValueError("models.llm.moe_grouped requires integer experts "
+                         "(load_in_8bit with int8_matmul): the grouped kernel's "
+                         "contraction is s8 x s8 only")
+    return dataclasses.replace(llm_cfg, moe_grouped=bool(mg))
 
 
 # ---------------------------------------------------------------------------

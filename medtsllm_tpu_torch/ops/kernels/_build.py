@@ -51,6 +51,11 @@ SIGNATURES = {
     # L, E, N, stream
     "mt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
+    # xq, x_scale, n_chunks, w0, w1, ws0, ws1, visit_e, visit_valid, out0,
+    # out1, out_kind, fuse_silu, q_out, q_scale, block_n, V, block_m, N, K,
+    # stream
+    "mt_gmm": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+               _I, _I, _I, _I, _P),
 }
 
 

@@ -54,7 +54,7 @@ class BaseTask:
         self.test_pipeline = BatchPipeline(self.test_dataset, bs)
 
         with torch.device(self.device):
-            self.model = MedTsLLM.from_config(config, self.train_dataset)
+            self.model = MedTsLLM.from_config(config, self.train_dataset, self.device)
         self.preprocessor = PromptBuilder(config, self.train_dataset, self.model)
         generator = torch.Generator(self.device).manual_seed(seed)
         init_random_(self.model, generator)

@@ -7,6 +7,9 @@ and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
   - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (nn.Linear);
   - int8 ``kernel_q`` [K, N] -> ``weight_q`` [N, K] (the w8a8 kernel's B
     operand, transposed once here);
+  - int8 MoE experts ``w_{gate,up,down}_q`` [E, K, N] -> [E, N, K] (the
+    grouped kernel's layout, under the same names); the router ``gate``
+    [D, E], the scales [E, N] and dense experts [E, K, N] keep theirs;
   - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d);
   - the Mamba block's depthwise ``conv_kernel`` [K, 1, E] -> [E, 1, K]
     (F.conv1d with groups=E), under its own name.
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 
 from .models.llm.mamba import MambaBackbone, MambaBlock
-from .models.llm.transformer import QuantLinear, RMSNorm, TransformerDecoder
+from .models.llm.transformer import MoEMLP, QuantLinear, RMSNorm, TransformerDecoder
 from .ops.embed import TokenEmbedding
 
 # QuantDense random init: one fixed quantization scale, 3.5 sigma of the
@@ -66,6 +69,8 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
             leaf, arr = "weight", (arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T)
         elif leaf == "conv_kernel":
             arr = arr.transpose(2, 1, 0)
+        elif re.fullmatch(r"w_(gate|up|down)_q", leaf):
+            arr = arr.transpose(0, 2, 1)
         state[".".join(parts[:-1] + [leaf])] = _to_torch(arr)
     return state
 
@@ -81,17 +86,32 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     ``generator`` (on that device) with the JAX init's distributions:
     word embeddings N(0, 0.02); RMSNorm ones; int8 projections
     clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; Dense
-    lecun-normal kernels and zero biases; the conv patch embedding
+    lecun-normal kernels and zero biases; the MoE router N(0, 0.02), int8
+    experts as the int8 projections (drawn expert by expert, so the f32
+    temporaries stay one expert's size) and dense experts lecun-normal over
+    each expert's fan-in (transformer.py:1040-1083); the conv patch embedding
     N(0, 2 / fan_in); the Mamba block's depthwise conv lecun-normal (fan_in
     = K), its conv bias 0, ``A_log = log(1..N)`` and ``D = 1``
     (mamba.py:104-143 of the JAX package). The values differ from JAX's
     (another generator)."""
+    def int8_(wq: torch.Tensor) -> None:
+        w = torch.randn(wq.shape, generator=generator, device=wq.device) * 0.02
+        wq.copy_(torch.clamp(torch.round(w / S_INIT), -127, 127))
+
     for module in model.modules():
         if isinstance(module, QuantLinear):
-            w = torch.randn(module.weight_q.shape, generator=generator,
-                            device=module.weight_q.device) * 0.02
-            module.weight_q.copy_(torch.clamp(torch.round(w / S_INIT), -127, 127))
+            int8_(module.weight_q)
             module.scale.fill_(S_INIT)
+        elif isinstance(module, MoEMLP):
+            module.gate.normal_(0.0, 0.02, generator=generator)
+            for name in ("w_gate", "w_up", "w_down"):
+                if module.quantize:
+                    for wq in getattr(module, name + "_q"):
+                        int8_(wq)
+                    getattr(module, name + "_scale").fill_(S_INIT)
+                else:
+                    w = getattr(module, name)
+                    _lecun_normal_(w, w.shape[1], generator)
         elif isinstance(module, nn.Linear):
             _lecun_normal_(module.weight, module.in_features, generator)
             if module.bias is not None:

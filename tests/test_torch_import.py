@@ -22,11 +22,12 @@ leaked = sorted(m for m in sys.modules
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the training slice among them
+# every module of the training and MoE slices among them
 _TRAIN_MODULES = {"medtsllm_tpu_torch.runtime.optim", "medtsllm_tpu_torch.tasks.losses",
                   "medtsllm_tpu_torch.ops.kernels.selective_scan",
                   "medtsllm_tpu_torch.ops.kernels.w8a8",
-                  "medtsllm_tpu_torch.ops.kernels.rope_attention"}
+                  "medtsllm_tpu_torch.ops.kernels.rope_attention",
+                  "medtsllm_tpu_torch.ops.kernels.grouped_matmul"}
 
 
 def test_port_imports_no_jax():

@@ -8,6 +8,7 @@ torch and the port, so it also runs on a machine without jax:
 import pytest
 import torch
 
+from medtsllm_tpu_torch.ops.kernels import grouped_matmul as gm
 from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
 from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
 from medtsllm_tpu_torch.ops.kernels import selective_scan as ss
@@ -213,3 +214,96 @@ def test_selective_scan_autograd_on_card(cuda):
     for a, b in zip(ins, ref):
         torch.testing.assert_close(a.grad, b.grad, rtol=0,
                                    atol=1e-4 * b.grad.abs().max().item())
+
+
+def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128):
+    """Expert-packed int8 rows for ``counts`` routed rows per expert, with
+    their visit list (invalid tail visits included), weights [E, N, K] and
+    scales."""
+    g = torch.Generator(cuda).manual_seed(0)
+    E = len(counts)
+    V = gm.gmm_visits(sum(counts), E, block_m)
+    ve, valid, _ = gm.gmm_metadata(torch.tensor(counts, dtype=torch.int32, device=cuda),
+                                   block_m, V)
+    R = V * block_m
+    xq = torch.randint(-127, 128, (R, K), device=cuda, dtype=torch.int8, generator=g)
+    shape = (n_chunks, 1, R) if n_chunks else (R, 1)
+    xs = torch.rand(*shape, device=cuda, generator=g) * 1e-2
+    w = [torch.randint(-127, 128, (E, N, K), device=cuda, dtype=torch.int8, generator=g)
+         for _ in range(n_weights)]
+    ws = [torch.rand(E, N, device=cuda, generator=g) * 1e-3 for _ in range(n_weights)]
+    return xq, xs, w, ws, ve, valid
+
+
+# the moe-8x1b serving shape (13824 routed rows of a batch of 48 x 144 tokens,
+# top-2 of 8 experts), a skewed routing (every row on two experts) and small
+# shapes with ragged tiles
+_ROUTED = [1650, 1800, 1700, 1777, 1733, 1711, 1690, 1763]
+_SKEWED = [0, 6912, 0, 0, 6912, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,K,N,block_n", [
+    (_ROUTED, 2048, 5632, 1408), (_SKEWED, 2048, 5632, 1408), ([200, 0, 37, 90], 256, 512, 256),
+], ids=["serving", "skewed", "small"])
+def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n):
+    """(a) gate + up, fused SwiGLU and per-(row, N-tile) requant: codes at
+    most 1 apart in at most 1e-3 of them (silu's expf may differ in the last
+    bit from the plain version's), scales 1e-6 relative."""
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 2)
+    n = gm.GATE_UP.launches
+    q, s = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True, emit_quant=True)
+    assert gm.GATE_UP.launches == n + 1
+    q0, s0 = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True,
+                          emit_quant=True)
+    dq = (q.int() - q0.int()).abs()
+    assert dq.max().item() <= 1 and (dq > 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(s, s0, rtol=1e-6, atol=0)
+    n_real = int(valid.sum())
+    assert not q[n_real * 128:].any() and bool((s[..., n_real * 128:] == 1e-10).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,K,N,n_chunks,block_n", [
+    (_ROUTED, 5632, 2048, 4, 1024), (_SKEWED, 5632, 2048, 4, 1024),
+    ([200, 0, 37, 90], 96, 200, 2, 200),  # chunks of 48: partial k steps
+], ids=["serving", "skewed", "small"])
+def test_gmm_down_kernel_vs_plain(cuda, counts, K, N, n_chunks, block_n):
+    """(b) chunked scales, f32 out: the same rounded f32 ops in the same
+    order, held within 1e-5 x max."""
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 1, n_chunks)
+    n = gm.DOWN.launches
+    (y,) = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n)
+    assert gm.DOWN.launches == n + 1
+    (y0,) = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n)
+    torch.testing.assert_close(y, y0, rtol=0, atol=1e-5 * y0.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_weights,K,N,block_m", [(1, 2048, 5632, 128), (2, 256, 200, 256),
+                                                   (2, 2048, 1408, 128)])
+def test_gmm_rows_kernel_vs_plain(cuda, n_weights, K, N, block_m):
+    """(c) the plain form: s32 accumulators bit-equal; f32 and bf16 outputs
+    equal (the same integers, the same f32 rescale order)."""
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [300, 0, 129, 1000], K, N, n_weights,
+                                             block_m=block_m)
+    kw = dict(block_m=block_m, block_n=N)
+    n = gm.PLAIN.launches
+    for got, want in zip(gm.gmm(xq, xs, w, ws, ve, valid, out_dtype=torch.int32, **kw),
+                         gm.gmm_plain(xq, xs, w, ws, ve, valid, out_dtype=torch.int32, **kw)):
+        assert torch.equal(got, want)
+    for dt in (torch.float32, torch.bfloat16):
+        for got, want in zip(gm.gmm(xq, xs, w, ws, ve, valid, out_dtype=dt, **kw),
+                             gm.gmm_plain(xq, xs, w, ws, ve, valid, out_dtype=dt, **kw)):
+            assert torch.equal(got, want)
+    assert gm.PLAIN.launches == n + 3
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_rejects_bad_input(cuda):
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 64, 128, 1, block_m=64)
+    with pytest.raises(ValueError, match="block_m"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_m=64, block_n=128)
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 72, 128, 1)
+    with pytest.raises(ValueError, match="16"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)

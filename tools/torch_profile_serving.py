@@ -2,7 +2,7 @@
 """Profile the PyTorch port's serving step, or the Mamba train step, on one
 CUDA card.
 
-    python3 tools/torch_profile_serving.py [--path mamba|llama|mamba-train] [--steps 4]
+    python3 tools/torch_profile_serving.py [--path mamba|llama|moe|mamba-train] [--steps 4]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
 weights from its seed). For a serving path it runs one warm-up ``test()``
@@ -34,11 +34,15 @@ ROOT = Path(__file__).resolve().parents[1]
 CATEGORIES = (
     ("selective scan backward (K10)", r"selective_scan_bwd"),
     ("selective scan", r"selective_scan"),
+    ("K6 grouped matmul (GEMM)", r"gmm_kernel"),
+    ("K6 requant pass", r"requant_kernel"),
     ("K3 reprogramming", r"reprogramming"),
     ("K1 w8a8", r"w8a8|act_quant"),
     ("K2 rope attention", r"rope_attention"),
     ("GEMM (cuBLAS)", r"gemm|gemv|xmma|cutlass|cublas|splitK|nvjet"),
     ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
+    ("MoE router / pack (sort, gather, scatter, cumsum, softmax)",
+     r"sort|index|scatter|gather|cumsum|scan_innermost|scan_outer|searchsorted|softmax"),
     ("copy / cast", r"copy|cast|Memcpy|Memset"),
     ("optimizer (Adam)", r"multi_tensor|adam"),
 )
@@ -53,7 +57,8 @@ def category(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("mamba", "llama", "mamba-train"), default="mamba")
+    ap.add_argument("--path", choices=("mamba", "llama", "moe", "mamba-train"),
+                    default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args()
 
@@ -74,6 +79,7 @@ def main() -> None:
     train = args.path == "mamba-train"
     cfg = {"mamba": lambda: chip_smoke.mamba_config(Config),
            "llama": lambda: chip_smoke.bench_config(Config),
+           "moe": lambda: chip_smoke.moe_config(Config),
            # four train batches of 48 per epoch, as chip_smoke phase 8
            "mamba-train": lambda: chip_smoke.mamba_config(Config, n_points=24704, epochs=1),
            }[args.path]()
