@@ -8,8 +8,10 @@ nvidia-smi. Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the hand-written kernels (csrc/*.cu) with its seconds;
   3. each kernel against its plain PyTorch version at the shapes the
-     serving and train paths give it (K1 integers bit-equal; K6 in its
-     gate+up and down forms on a random and a skewed routing), with both
+     serving and train paths give it (K1 and K5 integers and outputs
+     bit-equal, at the 7B and moe-8x1b blocks; K6 in its gate+up and down
+     forms with int8 and with packed int4 experts, on a random and a skewed
+     routing), with both
      times from CUDA events, the least time the card could take for the
      same work (bound) and, where one exists, the time of the one PyTorch
      call that computes the same function (timed here only; the port never
@@ -56,7 +58,19 @@ nvidia-smi. Phases:
      compute: JAX's own law at these widths is 0.032-0.033);
  13. the served MoE model with ``moe_grouped = false`` (the capacity-1.25
      bmm, K1 per expert): finite scores (it drops tokens, so it is not
-     compared).
+     compared);
+ 14. the int4 llama serving path: phase 4's configuration with
+     ``load_in_4bit`` (quant_type int4): K1's quantizer and K5 on all seven
+     projections of every block, K1's GEMM never; p50, windows/s, peak
+     memory, finite scores;
+ 15. the int4 MoE serving path: phase 11's configuration with
+     ``load_in_4bit``: K6's w_bits=4 forms twice and K5 four times per layer
+     per batch and in the prefill; p50, windows/s, peak memory, finite
+     scores;
+ 16. one int4 moe-8x1b layer, the card's grouped chain against the CPU's
+     and against the dropless int4 bmm (relative difference < 0.05: JAX's
+     own law at these widths is 0.032); a 2-layer llama-1b nf4 slice at f32
+     on the card against the CPU.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -92,9 +106,11 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
                  dtype="bf16", n_points=8192, num_tokens=1024, d_ff=128,
-                 llm_layers=-1, load_in_8bit=True, dropout=0.1):
+                 llm_layers=-1, load_in_8bit=True, dropout=0.1, quant_type=None):
     """The configuration of ``bench.py`` (build_trainer defaults): served by
-    ``test()``, trained (the frozen-w8a8 finetune step) by ``train()``."""
+    ``test()``, trained (the frozen-w8a8 finetune step) by ``train()``.
+    ``quant_type`` ("int4", "nf4", "fp4") loads the backbone in 4 bits in
+    place of 8 (``bench.py --quant 4``)."""
     return Config({
         "task": "reconstruction", "model": "medtsllm",
         "history_len": history, "pred_len": history,
@@ -113,7 +129,8 @@ def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
                           "input_stats_dim": 0, "input_stats_select": "all",
                           "cache_order": True},
             "llm": {"enabled": True, "llm": llm, "llm_layers": llm_layers,
-                    "prefix_cache": True, "load_in_8bit": load_in_8bit}}},
+                    "prefix_cache": True, "load_in_8bit": load_in_8bit and not quant_type,
+                    "load_in_4bit": bool(quant_type), "quant_type": quant_type or "int4"}}},
         "setup": {"seed": SEED, "dtype": dtype},
     })
 
@@ -144,12 +161,14 @@ def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
     return Config(raw)
 
 
-def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=None):
+def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=None,
+               int4=False):
     """configs/ablation/moe-backbone.toml (moe-8x1b, w8a8, bf16, batch 48,
     history 256, patch 16 / 8, expert capacity 1.25 for the bmm path,
     ``moe_grouped`` left at "auto") on the synthetic 3-feature data: the
     ventilator files are not in the repository. The default n_points gives
-    192 test windows, four batches of 48."""
+    192 test windows, four batches of 48. ``int4`` sets ``load_in_4bit``
+    (absmax int4, w4a8) in place of ``load_in_8bit``."""
     raw = tomllib.loads(MOE_TOML.read_text())
     raw["data"]["dataset"] = "synthetic"
     raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": 3}}
@@ -159,6 +178,8 @@ def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=No
     llm["llm_layers"] = llm_layers
     if moe_grouped is not None:
         llm["moe_grouped"] = moe_grouped
+    if int4:
+        llm["load_in_4bit"], llm["load_in_8bit"] = True, False
     return Config(raw)
 
 
@@ -216,6 +237,7 @@ def main() -> None:
     from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
     from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
     from medtsllm_tpu_torch.ops.kernels import selective_scan as ss
+    from medtsllm_tpu_torch.ops.kernels import w4a8 as k5
     from medtsllm_tpu_torch.ops.kernels import w8a8 as k1
     from medtsllm_tpu_torch.tasks import get_trainer
 
@@ -353,6 +375,44 @@ def main() -> None:
     d, hkv = xcfg.d_model, xcfg.kv_heads * xcfg.head_dim
     check_k1("[moe-8x1b]", Be * Le, ((torch.float32, d, 3), (torch.bfloat16, d, 2)),
              ((d, d, 2), (d, hkv, 2)), "4 attention GEMMs")
+
+    def check_k5(label, M, gemms, note):
+        """K5 over one decoder block at M = B * L rows: ``gemms`` (K, N,
+        calls), written as bf16 (as served); s32, f32 and bf16 outputs held
+        bit-equal to the plain version."""
+        err, ms, plain, lib, nbytes, ops = (0.0,) * 6
+        for K, N, n in gemms:
+            xq = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8, generator=g)
+            wq = torch.randint(-8, 8, (N, K), device=dev, dtype=torch.int8, generator=g)
+            packed = k5.pack4_split(wq)
+            xs = torch.rand(M, device=dev, generator=g) * 1e-2
+            ws = torch.rand(N, device=dev, generator=g) * 1e-2
+            for dt in (torch.int32, torch.float32, torch.bfloat16):
+                y = k5.w4a8_gemm(xq, packed, xs, ws, dt)
+                y0 = k5.w4a8_matmul_plain(xq, packed, xs, ws, dt)
+                check(torch.equal(y, y0), f"w4a8 {dt} not bit-equal at {M}x{K}x{N}")
+                err = max(err, (y.double() - y0.double()).abs().max().item())
+            ms += n * cuda_ms(torch, lambda: k5.w4a8_gemm(xq, packed, xs, ws, torch.bfloat16))
+            plain += n * cuda_ms(torch, lambda: k5.w4a8_matmul_plain(xq, packed, xs, ws,
+                                                                      torch.bfloat16))
+            # the library's int8 GEMM (cuBLASLt) on the unpacked int8 weight
+            lib += n * cuda_ms(torch, lambda: (torch._int_mm(xq, wq.T).float() * xs[:, None]
+                                               * ws[None, :]).to(torch.bfloat16))
+            nbytes += n * (M * K + N * K // 2 + M * 4 + N * 4 + M * N * 2)
+            ops += n * 2 * M * K * N
+        record("w4a8_gemm" + label, "medtsllm_tpu_torch/csrc/w4a8.cu",
+               "medtsllm_tpu/ops/pallas/quant_matmul.py:96", err, 0.0, ms, plain,
+               bound(nbytes, ops, "int8"), lib,
+               f" (per decoder block, {note}; s32, f32 and bf16 bit-equal; library = "
+               "torch._int_mm on the unpacked int8 weight + rescale, reading twice the "
+               "weight bytes)")
+
+    # K5 at the same blocks with int4 weights: the 7B block's seven GEMMs,
+    # the moe-8x1b block's four attention GEMMs
+    d, f = lcfg.d_model, lcfg.d_ff
+    check_k5("", B * L, ((d, d, 4), (d, f, 2), (f, d, 1)), "7 GEMMs")
+    d = xcfg.d_model
+    check_k5("[moe-8x1b]", Be * Le, ((d, d, 2), (d, hkv, 2)), "4 attention GEMMs")
 
     def check_k2(name, B, L, H, KV, D, P, theta):
         q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
@@ -526,80 +586,92 @@ def main() -> None:
 
     # K6 at the moe-8x1b serving shapes: the T * k routed rows of one batch
     # packed per expert, on the visit list of a random top-2 routing and of a
-    # skewed one (every token on the same two experts). Form (a) gate + up
-    # (fused SwiGLU, requant per 1408-wide tile), form (b) the down gmm on
-    # (a)'s codes and chunked scales, form (c) the plain form's s32. The
-    # bound counts what this routing needs: the routed rows' operations at
-    # the int8 peak; bytes: the routed rows of xq and their scales, the used
-    # experts' weights and scales, each output written once
+    # skewed one (every token on the same two experts), with int8 experts and
+    # with packed int4 ones (w_bits=4). Form (a) gate + up (fused SwiGLU,
+    # requant per 1408-wide tile), form (b) the down gmm on (a)'s codes and
+    # chunked scales, form (c) the plain form's s32. The bound counts what
+    # this routing needs: the routed rows' operations at the int8 peak;
+    # bytes: the routed rows of xq and their scales, the used experts'
+    # weights (half a byte each at w_bits=4) and scales, each output once
     Te, E_, k_ = Be * Le, xcfg.n_experts, xcfg.n_experts_per_tok
     Dm, Ff = xcfg.d_model, xcfg.d_ff
     bn_f, bn_d = gm.pick_block_n(Ff, 1408), gm.pick_block_n(Dm, 1024)
     V = gm.gmm_visits(Te * k_, E_, 128)
     R_pad = V * 128
-    w_g, w_u = (torch.randint(-127, 128, (E_, Ff, Dm), device=dev, dtype=torch.int8,
-                              generator=g) for _ in range(2))
-    w_d = torch.randint(-127, 128, (E_, Dm, Ff), device=dev, dtype=torch.int8, generator=g)
-    s_g, s_u, s_d = (torch.rand(E_, n, device=dev, generator=g) * 1e-3
-                     for n in (Ff, Ff, Dm))
     routings = {
         "random": torch.rand(Te, E_, device=dev, generator=g).argsort(-1)[:, :k_],
         "skewed": torch.tensor([1, 4], device=dev).expand(Te, k_),
     }
-    for label, top in routings.items():
-        counts = torch.zeros(E_, dtype=torch.int32, device=dev).index_add_(
-            0, top.reshape(-1), torch.ones(Te * k_, dtype=torch.int32, device=dev))
-        ve, valid, _ = gm.gmm_metadata(counts, 128, V)
-        routed, used = Te * k_, int((counts > 0).sum())
-        xq = torch.randint(-127, 128, (R_pad, Dm), device=dev, dtype=torch.int8, generator=g)
-        xs = torch.rand(R_pad, 1, device=dev, generator=g) * 1e-2
-        up_args = (xq, xs, (w_g, w_u), (s_g, s_u), ve, valid)
-        kw_up = dict(block_n=bn_f, fuse_silu=True, emit_quant=True)
-        aq, as_ = gm.gmm(*up_args, **kw_up)
-        aq0, as0 = gm.gmm_plain(*up_args, **kw_up)
-        dq = (aq.int() - aq0.int()).abs()
-        share = (dq > 0).float().mean().item()
-        # codes at most 1 apart in at most 1e-3 of them (silu's expf may
-        # round otherwise than the plain version's), scales 1e-6 relative
-        check(dq.max().item() <= 1 and share <= 1e-3,
-              f"K6 gate_up[{label}] codes: max diff {dq.max().item()}, share {share}")
-        s_err = ((as_ - as0).abs() / as0).max().item()
-        check(s_err <= 1e-6, f"K6 gate_up[{label}] scales: relative error {s_err}")
-        ops_up = 2 * routed * Dm * Ff * 2
-        bytes_up = routed * (Dm + 4) + used * 2 * Ff * (Dm + 4) + R_pad * Ff + (Ff // bn_f) * R_pad * 4
-        name = "grouped_matmul_gate_up" + ("" if label == "random" else f"[{label}]")
-        record(name, "medtsllm_tpu_torch/csrc/grouped_matmul.cu",
-               "medtsllm_tpu/ops/pallas/grouped_matmul.py:205", s_err, 1e-6,
-               cuda_ms(torch, lambda: gm.gmm(*up_args, **kw_up)),
-               cuda_ms(torch, lambda: gm.gmm_plain(*up_args, **kw_up), iters=3, warmup=1),
-               bound(bytes_up, ops_up, "int8"), None,
-               f" (R_pad={R_pad} K={Dm} N={Ff} block_n={bn_f}, {label} routing over {used} "
-               f"experts; error = scales' relative, codes differing {share:.2e}; no single "
-               "PyTorch call computes a grouped int8 GEMM)")
-        down_args = (aq, as_, (w_d,), (s_d,), ve, valid)
-        (y,) = gm.gmm(*down_args, block_n=bn_d)
-        (y0,) = gm.gmm_plain(*down_args, block_n=bn_d)
-        ops_dn = 2 * routed * Ff * Dm
-        bytes_dn = routed * Ff + (Ff // bn_f) * routed * 4 + used * Dm * (Ff + 4) + R_pad * Dm * 4
-        name = "grouped_matmul_down" + ("" if label == "random" else f"[{label}]")
-        # the same rounded f32 ops in the same order: 1e-5 x max
-        record(name, "medtsllm_tpu_torch/csrc/grouped_matmul.cu",
-               "medtsllm_tpu/ops/pallas/grouped_matmul.py:205",
-               (y - y0).abs().max().item(), 1e-5 * y0.abs().max().item(),
-               cuda_ms(torch, lambda: gm.gmm(*down_args, block_n=bn_d)),
-               cuda_ms(torch, lambda: gm.gmm_plain(*down_args, block_n=bn_d), iters=3,
-                       warmup=1),
-               bound(bytes_dn, ops_dn, "int8"), None,
-               f" (R_pad={R_pad} K={Ff} N={Dm} KB={Ff // bn_f} block_n={bn_d}, {label} "
-               "routing)")
-        raw = gm.gmm(xq, xs, (w_g,), (s_g,), ve, valid, block_n=bn_f, out_dtype=torch.int32)
-        check(torch.equal(raw[0], gm.gmm_plain(xq, xs, (w_g,), (s_g,), ve, valid,
-                                               block_n=bn_f, out_dtype=torch.int32)[0]),
-              f"K6 plain form[{label}]: s32 accumulators not bit-equal")
-        print(f"[kernel] grouped_matmul plain form[{label}]: s32 bit-equal at R_pad={R_pad} "
-              f"K={Dm} N={Ff}")
-    # out of the later phases' peak memory
-    del w_g, w_u, w_d, xq, xs, aq, as_, aq0, as0, y, y0, raw, up_args, down_args
+    for wb in (8, 4):
+        lo, hi = (-127, 128) if wb == 8 else (-8, 8)
+
+        def expert_weights(n_out, n_in):
+            w = torch.randint(lo, hi, (E_, n_out, n_in), device=dev, dtype=torch.int8,
+                              generator=g)
+            return w if wb == 8 else k5.pack4_split(w)
+        w_g, w_u, w_d = expert_weights(Ff, Dm), expert_weights(Ff, Dm), expert_weights(Dm, Ff)
+        s_g, s_u, s_d = (torch.rand(E_, n, device=dev, generator=g) * 1e-3
+                         for n in (Ff, Ff, Dm))
+        prefix = "grouped_matmul" if wb == 8 else "grouped_matmul_w4"
+        replaces = ("medtsllm_tpu/ops/pallas/grouped_matmul.py:205" if wb == 8 else
+                    "medtsllm_tpu/ops/pallas/grouped_matmul.py:106")
+        for label, top in routings.items():
+            counts = torch.zeros(E_, dtype=torch.int32, device=dev).index_add_(
+                0, top.reshape(-1), torch.ones(Te * k_, dtype=torch.int32, device=dev))
+            ve, valid, _ = gm.gmm_metadata(counts, 128, V)
+            routed, used = Te * k_, int((counts > 0).sum())
+            xq = torch.randint(-127, 128, (R_pad, Dm), device=dev, dtype=torch.int8,
+                               generator=g)
+            xs = torch.rand(R_pad, 1, device=dev, generator=g) * 1e-2
+            up_args = (xq, xs, (w_g, w_u), (s_g, s_u), ve, valid)
+            kw_up = dict(block_n=bn_f, fuse_silu=True, emit_quant=True, w_bits=wb)
+            aq, as_ = gm.gmm(*up_args, **kw_up)
+            aq0, as0 = gm.gmm_plain(*up_args, **kw_up)
+            dq = (aq.int() - aq0.int()).abs()
+            share = (dq > 0).float().mean().item()
+            # codes at most 1 apart in at most 1e-3 of them (silu's expf may
+            # round otherwise than the plain version's), scales 1e-6 relative
+            check(dq.max().item() <= 1 and share <= 1e-3,
+                  f"K6 w{wb} gate_up[{label}] codes: max diff {dq.max().item()}, share {share}")
+            s_err = ((as_ - as0).abs() / as0).max().item()
+            check(s_err <= 1e-6, f"K6 w{wb} gate_up[{label}] scales: relative error {s_err}")
+            ops_up = 2 * routed * Dm * Ff * 2
+            bytes_up = (routed * (Dm + 4) + used * 2 * Ff * (Dm * wb // 8 + 4) + R_pad * Ff
+                        + (Ff // bn_f) * R_pad * 4)
+            suffix = "" if label == "random" else f"[{label}]"
+            record(prefix + "_gate_up" + suffix, "medtsllm_tpu_torch/csrc/grouped_matmul.cu",
+                   replaces, s_err, 1e-6,
+                   cuda_ms(torch, lambda: gm.gmm(*up_args, **kw_up)),
+                   cuda_ms(torch, lambda: gm.gmm_plain(*up_args, **kw_up), iters=3, warmup=1),
+                   bound(bytes_up, ops_up, "int8"), None,
+                   f" (w_bits={wb}, R_pad={R_pad} K={Dm} N={Ff} block_n={bn_f}, {label} "
+                   f"routing over {used} experts; error = scales' relative, codes differing "
+                   f"{share:.2e}; no single PyTorch call computes a grouped int8 GEMM)")
+            down_args = (aq, as_, (w_d,), (s_d,), ve, valid)
+            (y,) = gm.gmm(*down_args, block_n=bn_d, w_bits=wb)
+            (y0,) = gm.gmm_plain(*down_args, block_n=bn_d, w_bits=wb)
+            ops_dn = 2 * routed * Ff * Dm
+            bytes_dn = (routed * Ff + (Ff // bn_f) * routed * 4 + used * Dm * (Ff * wb // 8 + 4)
+                        + R_pad * Dm * 4)
+            # the same rounded f32 ops in the same order: 1e-5 x max
+            record(prefix + "_down" + suffix, "medtsllm_tpu_torch/csrc/grouped_matmul.cu",
+                   replaces, (y - y0).abs().max().item(), 1e-5 * y0.abs().max().item(),
+                   cuda_ms(torch, lambda: gm.gmm(*down_args, block_n=bn_d, w_bits=wb)),
+                   cuda_ms(torch, lambda: gm.gmm_plain(*down_args, block_n=bn_d, w_bits=wb),
+                           iters=3, warmup=1),
+                   bound(bytes_dn, ops_dn, "int8"), None,
+                   f" (w_bits={wb}, R_pad={R_pad} K={Ff} N={Dm} KB={Ff // bn_f} "
+                   f"block_n={bn_d}, {label} routing)")
+            raw = gm.gmm(xq, xs, (w_g,), (s_g,), ve, valid, block_n=bn_f,
+                         out_dtype=torch.int32, w_bits=wb)
+            check(torch.equal(raw[0], gm.gmm_plain(xq, xs, (w_g,), (s_g,), ve, valid,
+                                                   block_n=bn_f, out_dtype=torch.int32,
+                                                   w_bits=wb)[0]),
+                  f"K6 w{wb} plain form[{label}]: s32 accumulators not bit-equal")
+            print(f"[kernel] {prefix} plain form[{label}]: s32 bit-equal at R_pad={R_pad} "
+                  f"K={Dm} N={Ff}")
+        # out of the later phases' peak memory
+        del w_g, w_u, w_d, xq, xs, aq, as_, aq0, as0, y, y0, raw, up_args, down_args
 
     wrappers = {"w8a8_quantize": k1.quantize_rows, "w8a8_gemm": k1.int8_gemm,
                 "rope_attention": k2.rope_attention,
@@ -609,7 +681,9 @@ def main() -> None:
                 "selective_scan_final": ss.selective_ssm_final,
                 "selective_scan_bounds": ss.selective_ssm_bounds,
                 "selective_scan_bwd": ss.selective_ssm_bwd,
-                "grouped_matmul_gate_up": gm.GATE_UP, "grouped_matmul_down": gm.DOWN}
+                "grouped_matmul_gate_up": gm.GATE_UP, "grouped_matmul_down": gm.DOWN,
+                "w4a8_gemm": k5.w4a8_gemm, "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
+                "grouped_matmul_w4_down": gm.DOWN_W4}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def serve(tr, label):
@@ -994,6 +1068,111 @@ def main() -> None:
           and counts["w8a8_gemm"] > 0, f"the bmm pass must run K1 per expert, not K6: {counts}")
     del bmm
     torch.cuda.empty_cache()
+
+    # 14. configuration (A): the 7B llama with int4 weights (load_in_4bit,
+    # quant_type int4: absmax, w4a8); every projection runs K1's quantizer
+    # and K5, K1's GEMM never
+    tr = get_trainer("chip-smoke-int4", bench_config(Config, quant_type="int4"), device=dev)
+    check(tr.model.llm.blocks[0].attn.q_proj.bits == 4, "the int4 backbone")
+    counts, _ = serve(tr, "int4")
+    n_calls = lcfg.n_layers * (len(tr.test_pipeline) + 1)  # every batch + the prefill
+    check(counts["w4a8_gemm"] == 7 * n_calls and counts["w8a8_gemm"] == 0
+          and counts["w8a8_quantize"] == 7 * n_calls,
+          f"the int4 path must run K1's quantizer and K5 on all 7 projections, not "
+          f"K1's GEMM: {counts}")
+    set_launches(counts, {"w4a8_gemm": "w4a8_gemm"})
+    del tr
+    torch.cuda.empty_cache()
+
+    # 15. configuration (B): moe-8x1b with int4 experts (load_in_4bit): K6's
+    # w_bits=4 forms for the experts, K5 for the attention projections
+    etrainer = get_trainer("chip-smoke-moe-int4", moe_config(Config, int4=True), device=dev)
+    check(etrainer.model.llm_cfg.moe_grouped, "moe_grouped = \"auto\" must resolve on for "
+          "absmax int4 experts on the card")
+    counts, _ = serve(etrainer, "moe-int4")
+    n_calls = xcfg.n_layers * (len(etrainer.test_pipeline) + 1)
+    check(counts["grouped_matmul_w4_gate_up"] == counts["grouped_matmul_w4_down"] == n_calls
+          and counts["w4a8_gemm"] == 4 * n_calls and counts["grouped_matmul_gate_up"] == 0
+          and counts["w8a8_gemm"] == 0,
+          f"K6-w4 twice and K5 four times per layer per batch and in the prefill: {counts}")
+    set_launches(counts, {"grouped_matmul_w4_gate_up": "grouped_matmul_w4_gate_up",
+                          "grouped_matmul_w4_down": "grouped_matmul_w4_down",
+                          "grouped_matmul_w4_gate_up[skewed]": "grouped_matmul_w4_gate_up",
+                          "grouped_matmul_w4_down[skewed]": "grouped_matmul_w4_down",
+                          "w4a8_gemm[moe-8x1b]": "w4a8_gemm"})
+
+    # 16. references of the int4 paths. One int4 moe-8x1b layer (block 0's
+    # served weights, 256 tokens, bf16 as served): the grouped chain on the
+    # card against the plain chain on the CPU, then against the dropless
+    # int4 bmm (the unpacked experts on K1) on the card at f32 compute. The
+    # JAX package's own int4 MoEMLP at these widths puts max |grouped - bmm|
+    # / max |bmm| at 0.0316 and 0.0320, rms ratio 0.0275 and 0.0274
+    # (tools/moe_requant_law.py --quantize 4, two seeds, on the CPU): held
+    # below 0.05
+    moe = etrainer.model.llm.blocks[0].mlp
+    seen = []
+
+    def spy4(*a, **kw):
+        out = gm.gmm(*a, **kw)
+        seen.append(out)
+        return out
+    tfm.gmm = spy4
+    try:
+        with torch.inference_mode():
+            y_card = moe(x).float()
+            cpu_moe = copy.deepcopy(moe).cpu()
+            y_cpu = cpu_moe(x.cpu()).float()
+    finally:
+        tfm.gmm = gm.gmm
+    (aq_card, as_card), _, (aq_cpu, as_cpu), _ = seen
+    dq = (aq_card.cpu().int() - aq_cpu.int()).abs()
+    share = (dq > 0).float().mean().item()
+    s_err = ((as_card.cpu() - as_cpu).abs() / as_cpu).max().item()
+    err = (y_card.cpu() - y_cpu).abs().max().item()
+    tol = 2.0 ** -6 * y_cpu.abs().max().item()  # bf16 ulps and the rare flipped code
+    check(dq.max().item() <= 1 and share <= 1e-3 and s_err <= 1e-6 and err <= tol,
+          f"int4 MoE layer card vs CPU: codes max diff {dq.max().item()}, share {share}, "
+          f"scales {s_err}, output max err {err} > {tol}")
+    print(f"[moe-int4-reference] moe-8x1b int4 layer 0, 256 tokens, grouped chain card vs "
+          f"CPU: requantized codes differing {share:.3e} (max diff {dq.max().item()}), scales "
+          f"relative {s_err:.2e}, output max_abs_err {err:.3e} (tol {tol:.3e})")
+    grouped_cfg, served_dtype = moe.cfg, moe.dtype
+    try:
+        with torch.inference_mode():
+            moe.dtype = None  # f32 compute
+            y_g = moe(x).float()
+            moe.cfg = dataclasses.replace(grouped_cfg, moe_grouped=False, expert_capacity=0.0)
+            y_b = moe(x).float()
+    finally:
+        moe.cfg, moe.dtype = grouped_cfg, served_dtype
+    rel = ((y_g - y_b).abs().max() / y_b.abs().max()).item()
+    rms = ((y_g - y_b).square().mean() / y_b.square().mean()).sqrt().item()
+    check(rel < 0.05, f"int4 MoE layer grouped vs dropless bmm at f32: relative "
+          f"difference {rel}")
+    print(f"[moe-int4-reference] grouped (K6 w4) vs dropless int4 bmm (K1 per expert) on "
+          f"the card: max |diff| / max |bmm| {rel:.4f}, rms ratio {rms:.4f} at f32 compute "
+          f"(tolerance 0.05)")
+    del cpu_moe, moe, etrainer
+    torch.cuda.empty_cache()
+    # a 2-layer llama-1b slice with nf4 weights (the bnb codebook: table
+    # dequant, then an f32 matmul) on the card against the CPU; f32 end to
+    # end: summation order only
+    small = bench_config(Config, llm="llama-1b", batch=2, history=64, dtype="float32",
+                         n_points=256, num_tokens=128, d_ff=64, llm_layers=2,
+                         quant_type="nf4")
+    gpu = get_trainer("chip-smoke-nf4", small, device=dev)
+    cpu = get_trainer("chip-smoke-nf4", small, device="cpu")
+    check(gpu.model.llm.blocks[0].mlp.down_proj.codebook == "nf4", "the nf4 backbone")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+    batch = next(iter(gpu.test_pipeline))
+    out_gpu = gpu.eval_dispatch(batch).cpu()
+    out_cpu = cpu.eval_dispatch(batch)
+    err = (out_gpu - out_cpu).abs().max().item()
+    tol = 1e-3 * max(1.0, out_cpu.abs().max().item())
+    check(err <= tol, f"nf4 slice: card vs CPU max err {err} > {tol}")
+    print(f"[reference] llama-1b 2-layer nf4 f32 slice, card vs CPU: max_abs_err {err:.3e} "
+          f"(tol {tol:.3e})")
+    del gpu, cpu
 
     check(all(e["launches"] for e in kernels), f"unlaunched kernels: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -67,6 +67,41 @@ __device__ __forceinline__ void load_tile_s8(int8_t* s, const int8_t* g, int r0,
   }
 }
 
+// the four high (low) nibbles of a packed word, sign-extended to four int8
+// lanes: (n ^ 8) - 8 per byte maps 0..15 onto 0..7, -8..-1
+__device__ __forceinline__ uint32_t hi_nibbles_s8(uint32_t w) {
+  return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ uint32_t lo_nibbles_s8(uint32_t w) {
+  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// stage rows [r0, r0 + 128) x packed columns [p0, p0 + 64) of a row-major
+// [R, K2] split-halves int4 matrix (column p holds logical k = p in its high
+// nibble and k = p + K/2 in its low one) as two k-contiguous int8 tiles: the
+// high nibbles into sHi, the low ones into sLo; either may be null (one half
+// staged). Each packed byte is read once. Rows >= R and columns >= p_end are
+// zero; p_end - p0 is a multiple of 16 where it is < 64.
+__device__ __forceinline__ void load_tile_s4(int8_t* sHi, int8_t* sLo,
+                                             const int8_t* g, int r0, int R,
+                                             int p0, int p_end, int K2) {
+  for (int c = threadIdx.x; c < kTileM * kTileK / 16; c += kTileThreads) {
+    const int r = c / (kTileK / 16), kc = (c % (kTileK / 16)) * 16;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < R && p0 + kc < p_end)
+      v = *reinterpret_cast<const uint4*>(g + static_cast<size_t>(r0 + r) * K2 +
+                                          p0 + kc);
+    if (sHi)
+      *reinterpret_cast<uint4*>(sHi + r * kTileLds + kc) =
+          make_uint4(hi_nibbles_s8(v.x), hi_nibbles_s8(v.y), hi_nibbles_s8(v.z),
+                     hi_nibbles_s8(v.w));
+    if (sLo)
+      *reinterpret_cast<uint4*>(sLo + r * kTileLds + kc) =
+          make_uint4(lo_nibbles_s8(v.x), lo_nibbles_s8(v.y), lo_nibbles_s8(v.z),
+                     lo_nibbles_s8(v.w));
+  }
+}
+
 // one staged 64-deep k step: warp (wm, wn) adds its 64 x 32 product of the
 // A tile sA [128 rows] and the k-contiguous B tile sB [128 columns]
 __device__ __forceinline__ void mma_tile_s8(int (&acc)[4][4][4],

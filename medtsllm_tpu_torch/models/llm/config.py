@@ -38,6 +38,10 @@ class DecoderConfig:
     # the dropless grouped-GEMM expert chain (K6) in place of the capacity
     # bmm; resolved from models.<m>.llm.moe_grouped by MedTsLLM.from_config
     moe_grouped: bool = False
+    # 4-bit weights (quantize=4): "absmax" (linear int4, the w4a8 kernels)
+    # or a bnb codebook, "nf4" / "fp4" (table dequant, then a matmul at the
+    # compute dtype); resolved from models.<m>.llm.quant_type
+    quant4_codebook: str = "absmax"
 
     @property
     def head_dim(self) -> int:

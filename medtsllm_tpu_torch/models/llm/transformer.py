@@ -1,5 +1,5 @@
 """The llama decoder (port of ``medtsllm_tpu/models/llm/transformer.py``:
-RMSNorm, rotary, QuantDense w8a8 / plain Dense, Attention, the SwiGLU MLP,
+RMSNorm, rotary, QuantDense w8a8 / w4a8 / plain Dense, Attention, the SwiGLU MLP,
 the mixtral-style sparse-MoE FFN (``MoEMLP``, single device, serving), the
 pre-norm Block and TransformerDecoder with ``prefill``).
 
@@ -9,9 +9,11 @@ projections emit and attention runs, while the residual stream keeps the
 promoted type of the input embeddings (f32), as flax promotion does.
 Attention (all calls, prefill included) goes through the fused RoPE +
 prefix + causal kernel; every projection at ``quantize=8`` through the
-w8a8 kernel. The MoE FFN routes each token to its top-k experts and runs
-them either as the dropless grouped chain (K6, ``moe_grouped``) or as the
-static-capacity per-expert bmm (K1 per expert at ``quantize=8``).
+w8a8 kernel (K1), at ``quantize=4`` with the absmax codebook through K1's
+quantizer and the w4a8 kernel (K5). The MoE FFN routes each token to its
+top-k experts and runs them either as the dropless grouped chain (K6,
+``moe_grouped``, int8 or absmax int4 experts) or as the static-capacity
+per-expert bmm (K1 per expert for integer experts).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
                                             row_quant)
 from ...ops.kernels.rope_attention import rope, rope_attention, rope_tables
+from ...ops.kernels.w4a8 import act_quant_w4a8_matmul, dequant_codebook, unpack4_split
 from ...ops.kernels.w8a8 import act_quant_matmul, int8_gemm, quantize_rows
 from .config import DecoderConfig
 
@@ -41,20 +44,43 @@ class RMSNorm(nn.Module):
 
 
 class QuantLinear(nn.Module):
-    """w8a8 projection (JAX QuantDense bits=8 with act_quant): int8 weight
-    [N, K] (transposed from the JAX [K, N] kernel_q), per-channel scale
-    [N]; activations quantized per row inside the kernel. The f32 product
-    is rounded to ``dtype`` (the input's dtype when None) in the kernel's
-    epilogue, as JAX casts the f32 result."""
+    """Quantized projection (JAX QuantDense with act_quant): per-channel
+    scale [N], the weight transposed from the JAX kernel_q.
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype | None = None):
+    bits=8: int8 weight [N, K]; w8a8 (K1), activations quantized per row.
+    bits=4: split-halves packed int4 [N, ceil(K/2)], three routes as in
+    ``QuantDense.__call__``: the absmax codebook with K even runs K1's
+    quantizer and K5; with K odd, the unpacked weight on K1; the bnb
+    codebooks ("nf4", "fp4") a table dequant and ``(x @ w) * scale`` at the
+    compute dtype (weight-only, as JAX's XLA dot). The f32 product is
+    rounded to ``dtype`` (the input's dtype when None), as JAX casts the f32
+    result. Forward only at bits=4: the straight-through backward of K5 is
+    not ported."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype | None = None,
+                 bits: int = 8, codebook: str = "absmax"):
         super().__init__()
-        self.dtype = dtype
-        self.register_buffer("weight_q", torch.zeros(d_out, d_in, dtype=torch.int8))
+        self.dtype, self.d_in, self.bits = dtype, d_in, bits
+        self.codebook = codebook if bits == 4 else "absmax"
+        cols = d_in if bits == 8 else (d_in + 1) // 2
+        self.register_buffer("weight_q", torch.zeros(d_out, cols, dtype=torch.int8))
         self.scale = nn.Parameter(torch.ones(d_out), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return act_quant_matmul(x, self.weight_q, self.scale, self.dtype or x.dtype)
+        cd = self.dtype or x.dtype
+        if self.bits == 8:
+            return act_quant_matmul(x, self.weight_q, self.scale, cd)
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "training through 4-bit projections (the straight-through backward "
+                "of the w4a8 GEMM) is ROADMAP queue 1 item 6")
+        if self.codebook != "absmax":
+            w = dequant_codebook(self.weight_q, self.d_in, self.codebook).to(cd)
+            return (x.to(cd) @ w.T) * self.scale.to(cd)
+        if self.d_in % 2:
+            return act_quant_matmul(x, unpack4_split(self.weight_q, self.d_in),
+                                    self.scale, cd)
+        return act_quant_w4a8_matmul(x, self.weight_q, self.scale, cd)
 
 
 class Linear(nn.Linear):
@@ -72,12 +98,10 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-def projection(d_in: int, d_out: int, quantize: int, dtype) -> nn.Module:
-    if quantize == 8:
-        return QuantLinear(d_in, d_out, dtype)
+def projection(d_in: int, d_out: int, quantize: int, dtype,
+               codebook: str = "absmax") -> nn.Module:
     if quantize:
-        raise NotImplementedError(
-            f"quantize={quantize}: 4-bit weights are ROADMAP queue 1 item 10")
+        return QuantLinear(d_in, d_out, dtype, quantize, codebook)
     return Linear(d_in, d_out, bias=False, dtype=dtype)
 
 
@@ -87,10 +111,11 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = projection(cfg.d_model, H * D, quantize, dtype)
-        self.k_proj = projection(cfg.d_model, KV * D, quantize, dtype)
-        self.v_proj = projection(cfg.d_model, KV * D, quantize, dtype)
-        self.o_proj = projection(H * D, cfg.d_model, quantize, dtype)
+        cb = cfg.quant4_codebook
+        self.q_proj = projection(cfg.d_model, H * D, quantize, dtype, cb)
+        self.k_proj = projection(cfg.d_model, KV * D, quantize, dtype, cb)
+        self.v_proj = projection(cfg.d_model, KV * D, quantize, dtype, cb)
+        self.o_proj = projection(H * D, cfg.d_model, quantize, dtype, cb)
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
                 return_kv: bool = False):
@@ -123,9 +148,10 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
         super().__init__()
-        self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype)
-        self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype)
-        self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype)
+        cb = cfg.quant4_codebook
+        self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
+        self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
+        self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -155,15 +181,15 @@ def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> tor
                         for e in range(E)])
 
 
-def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d,
+def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d, wb,
                      kg, sg, ku, su, kd, sd):
     """Quantize before dispatch, pack by gather, run the fused-requant gmm
     chain (``transformer.py::_pack_and_run_gmm``). xt [T, D] at the compute
     dtype (its per-row quantization reads the JAX ``astype(cd)`` round
     trip); ``dest`` [n_slots] the packed row of each (token, slot). The one
     scatter builds the int32 inverse permutation; tile tails point at a zero
-    row with the 1e-10 scale floor. Returns the down-gmm output [V*bm, D]
-    (f32)."""
+    row with the 1e-10 scale floor. ``wb`` is the experts' weight width (8,
+    or 4 for packed int4). Returns the down-gmm output [V*bm, D] (f32)."""
     n_rows, D = xt.shape
     xq_t, xs_t = row_quant(xt)
     inv = torch.full((V * bm,), n_slots, dtype=torch.int32, device=xt.device)
@@ -174,8 +200,8 @@ def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d,
     # SwiGLU epilogue + per-(row, F-tile) requant in the first gmm, whose
     # int8 rows and chunked scales feed the down gmm
     aq, as_ = gmm(xq, xs, (kg, ku), (sg, su), ve, valid, block_m=bm, block_n=bn_f,
-                  fuse_silu=True, emit_quant=True)
-    (y,) = gmm(aq, as_, (kd,), (sd,), ve, valid, block_m=bm, block_n=bn_d)
+                  fuse_silu=True, emit_quant=True, w_bits=wb)
+    (y,) = gmm(aq, as_, (kd,), (sd,), ve, valid, block_m=bm, block_n=bn_d, w_bits=wb)
     return y
 
 
@@ -184,29 +210,29 @@ class MoEMLP(nn.Module):
     single device, serving): router softmax in f32, top-k of the
     probabilities renormalized, rank within expert by a cumsum over the
     one-hot assignment. Experts run either as the dropless grouped chain
-    (``moe_grouped`` with int8 experts, in eval: K6 twice) or as the
-    static-capacity dispatch into an [E, C, d] buffer, slots beyond C
-    dropped in token order, then E-batched matmuls (K1 per expert at
-    ``quantize=8``, ``torch.bmm`` for dense experts).
+    (``moe_grouped`` with int8 or absmax int4 experts, in eval: K6 twice) or
+    as the static-capacity dispatch into an [E, C, d] buffer, slots beyond C
+    dropped in token order, then E-batched matmuls (K1 per expert for int8
+    and absmax int4 experts, the int4 unpacked first; a table dequant and
+    ``torch.bmm`` for the nf4 / fp4 codebooks; ``torch.bmm`` for dense
+    experts).
 
     Parameters: ``gate`` [D, E]; int8 experts ``w_{gate,up,down}_q``
-    [E, N, K] (the kernels' layout, the transpose of JAX's [E, K, N]) with
-    scales [E, N]; dense experts ``w_{gate,up,down}`` [E, K, N] (JAX's
-    layout)."""
+    [E, N, K] (the kernels' layout, the transpose of JAX's [E, K, N]) or
+    packed int4 [E, N, ceil(K/2)], with scales [E, N]; dense experts
+    ``w_{gate,up,down}`` [E, K, N] (JAX's layout)."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
         super().__init__()
-        if quantize not in (0, 8):
-            raise NotImplementedError(
-                f"quantize={quantize}: 4-bit experts are ROADMAP queue 1 item 10")
         self.cfg, self.quantize, self.dtype = cfg, quantize, dtype
         E, D, d_ff = cfg.n_experts, cfg.d_model, cfg.d_ff
         self.gate = nn.Parameter(torch.zeros(D, E))
         shapes = {"w_gate": (D, d_ff), "w_up": (D, d_ff), "w_down": (d_ff, D)}
         for name, (d_in, d_out) in shapes.items():
             if quantize:
+                cols = d_in if quantize == 8 else (d_in + 1) // 2
                 self.register_buffer(name + "_q",
-                                     torch.zeros(E, d_out, d_in, dtype=torch.int8))
+                                     torch.zeros(E, d_out, cols, dtype=torch.int8))
                 setattr(self, name + "_scale",
                         nn.Parameter(torch.ones(E, d_out), requires_grad=False))
             else:
@@ -218,28 +244,42 @@ class MoEMLP(nn.Module):
         (the caller takes the capacity path)."""
         cfg = self.cfg
         T, D = xt.shape
-        E, k = cfg.n_experts, cfg.n_experts_per_tok
+        E, k, F_ = cfg.n_experts, cfg.n_experts_per_tok, cfg.d_ff
         # gate/up at the widest tile, down at 1024 (grouped_matmul.py's
         # choice; block_n sets the requant tile)
-        bn_f, bn_d = pick_block_n(cfg.d_ff, target=1408), pick_block_n(D, 1024)
+        bn_f, bn_d = pick_block_n(F_, target=1408), pick_block_n(D, 1024)
         if not (bn_f and bn_d):
             return None
+        wb = self.quantize
+        if wb == 4:
+            # JAX's packed-int4 fallback conditions (transformer.py:887-891):
+            # even contraction widths, an even chunk count for the down gmm
+            # (no chunk straddles the nibble halves), the down block at 512
+            bn_d = pick_block_n(D, 512)
+            if D % 2 or F_ % 2 or (F_ // bn_f) % 2 or not bn_d:
+                return None
         bm = 128
         V = gmm_visits(T * k, E, bm)
         counts = torch.zeros(E, dtype=torch.int32, device=xt.device).index_add_(
             0, eid, torch.ones_like(eid, dtype=torch.int32))
         ve, valid, row_off = gmm_metadata(counts, bm, V)
         dest = row_off[eid] + pos  # dropless: every slot lands in bounds
-        y = pack_and_run_gmm(xt.to(cd), src, dest, T * k, ve, valid, V, bm, bn_f, bn_d,
+        y = pack_and_run_gmm(xt.to(cd), src, dest, T * k, ve, valid, V, bm, bn_f, bn_d, wb,
                              self.w_gate_q, self.w_gate_scale, self.w_up_q,
                              self.w_up_scale, self.w_down_q, self.w_down_scale)
         return y[dest].to(cd)
 
     def _bmm(self, h, name):
-        if self.quantize:
-            return act_quant_bmm(h.float(), getattr(self, name + "_q"),
-                                 getattr(self, name + "_scale")).to(h.dtype)
-        return torch.bmm(h, getattr(self, name).to(h.dtype))
+        if not self.quantize:
+            return torch.bmm(h, getattr(self, name).to(h.dtype))
+        wq, scale = getattr(self, name + "_q"), getattr(self, name + "_scale")
+        if self.quantize == 4:
+            d_in, cb = h.shape[-1], self.cfg.quant4_codebook
+            if cb != "absmax":  # the table dequant, a bmm at the compute dtype
+                w = dequant_codebook(wq, d_in, cb).to(h.dtype)
+                return torch.bmm(h, w.transpose(1, 2)) * scale[:, None, :].to(h.dtype)
+            wq = unpack4_split(wq, d_in)
+        return act_quant_bmm(h.float(), wq, scale).to(h.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and x.requires_grad:
@@ -266,7 +306,9 @@ class MoEMLP(nn.Module):
         pos = ((torch.cumsum(onehot, 1, dtype=torch.int32) - onehot) * onehot).sum(0)
         src = torch.arange(T, device=x.device).repeat_interleave(k)
 
-        if cfg.moe_grouped and self.quantize == 8 and not self.training:
+        int_experts = self.quantize == 8 or (self.quantize == 4
+                                             and cfg.quant4_codebook == "absmax")
+        if cfg.moe_grouped and int_experts and not self.training:
             y = self._grouped(xt, eid, pos, src, cd)
             if y is not None:
                 return (y * weights[:, None].to(cd)).reshape(T, k, D).sum(1).reshape(B, L, D)

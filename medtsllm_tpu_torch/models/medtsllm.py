@@ -42,6 +42,10 @@ from .llm.transformer import Linear, TransformerDecoder
 # batch keys that enter the model as arrays (medtsllm_tpu/utils.py)
 ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
 
+# models.<m>.llm.quant_type under load_in_4bit -> the 4-bit codebook
+# (medtsllm_tpu/models/medtsllm.py:259-267)
+QUANT4_CODEBOOKS = {"int4": "absmax", "linear": "absmax", "nf4": "nf4", "fp4": "fp4"}
+
 # [setup] dtype -> storage dtype of every float parameter (the JAX
 # package's Precision; "mixed" and fp16 are not ported yet)
 STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -135,13 +139,19 @@ class MedTsLLM(nn.Module):
                             f"{mc.embedding_downsample_mode!r} (ROADMAP queue 1 item 4)")
         if not mc.llm.enabled:
             unported.append("llm.enabled = false (ROADMAP queue 1 item 4)")
-        if mc.llm.get("load_in_4bit", False):
-            unported.append("load_in_4bit (ROADMAP queue 1 item 10)")
-        if str(mc.llm.llm).startswith("mamba") and (
-                mc.llm.get("load_in_8bit", False) or mc.llm.get("load_in_4bit", False)):
+        in4, in8 = mc.llm.get("load_in_4bit", False), mc.llm.get("load_in_8bit", False)
+        codebook = "absmax"
+        if in4:
+            qt = str(mc.llm.get("quant_type", "int4")).lower()
+            codebook = QUANT4_CODEBOOKS.get(qt)
+            if codebook is None:
+                raise ValueError(f"models.llm.quant_type must be int4/nf4/fp4; got {qt!r}")
+        if str(mc.llm.llm).startswith("mamba") and (in8 or in4):
             unported.append("quantized Mamba (ROADMAP queue 1 item 12)")
-        if mc.llm.get("load_in_8bit", False) and not mc.llm.get("int8_matmul", True):
-            unported.append("weight-only int8, int8_matmul = false (ROADMAP queue 1 item 3)")
+        if ((in4 and codebook == "absmax") or (in8 and not in4)) and not mc.llm.get(
+                "int8_matmul", True):
+            unported.append("weight-only int8 / int4, int8_matmul = false (ROADMAP queue "
+                            "1 item 3)")
         if mc.llm.get("int8_backward", False):
             unported.append("llm.int8_backward, the int8 dx GEMM of the STE backward "
                             "(ROADMAP queue 1 item 6)")
@@ -159,9 +169,11 @@ class MedTsLLM(nn.Module):
         cache_dir = config.get("paths", {}).get("llm_path") or None
         if cache_dir in ("", "none"):
             cache_dir = None
-        quantize = 8 if mc.llm.get("load_in_8bit", False) else 0
-        llm_cfg = _resolve_moe(resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1)),
-                               mc.llm, quantize, torch.device(device))
+        quantize = 4 if in4 else 8 if in8 else 0  # 4 wins, as in JAX
+        llm_cfg = resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1))
+        if quantize == 4:
+            llm_cfg = dataclasses.replace(llm_cfg, quant4_codebook=codebook)
+        llm_cfg = _resolve_moe(llm_cfg, mc.llm, quantize, torch.device(device))
         return cls(
             seq_len=config.history_len, pred_len=config.pred_len,
             n_features=dataset.n_features, d_model=mc.d_model, d_ff=mc.d_ff,
@@ -241,10 +253,10 @@ def _resolve_moe(llm_cfg, llm, quantize: int, device: torch.device):
     """``llm.expert_capacity`` and ``llm.moe_grouped`` on the backbone's
     config (``medtsllm_tpu/models/medtsllm.py:194-202, 278-332``, with "on
     the TPU" read as "on a CUDA device"). ``moe_grouped = "auto"`` is on
-    for a CUDA device with integer experts (``load_in_8bit`` with
-    ``int8_matmul``) and off on the CPU, as JAX resolves it off the TPU;
-    forced on, it needs integer experts and runs the plain grouped chain on
-    the CPU."""
+    for a CUDA device with integer experts (``load_in_8bit``, or
+    ``load_in_4bit`` with the absmax codebook, with ``int8_matmul``) and off
+    on the CPU, as JAX resolves it off the TPU; forced on, it needs integer
+    experts and runs the plain grouped chain on the CPU."""
     moe = getattr(llm_cfg, "n_experts", 0) > 1
     cap = llm.get("expert_capacity", None)
     if cap is not None:
@@ -258,13 +270,15 @@ def _resolve_moe(llm_cfg, llm, quantize: int, device: torch.device):
             raise ValueError(f"models.llm.moe_grouped set but backbone {llm.llm!r} "
                              "is not an enabled MoE (n_experts <= 1 or llm disabled)")
         return llm_cfg
-    int_mxu = bool(llm.get("int8_matmul", True)) and quantize == 8
+    int_mxu = bool(llm.get("int8_matmul", True)) and (
+        quantize == 8 or (quantize == 4 and llm_cfg.quant4_codebook == "absmax"))
     if mg == "auto":
         mg = int_mxu and device.type == "cuda"
     if mg and not int_mxu:
         raise ValueError("models.llm.moe_grouped requires integer experts "
-                         "(load_in_8bit with int8_matmul): the grouped kernel's "
-                         "contraction is s8 x s8 only")
+                         "(load_in_8bit, or load_in_4bit with the absmax codebook, "
+                         "with int8_matmul): the grouped kernel's contraction is "
+                         "s8 x s8 only")
     return dataclasses.replace(llm_cfg, moe_grouped=bool(mg))
 
 

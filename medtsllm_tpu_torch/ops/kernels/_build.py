@@ -36,6 +36,8 @@ SIGNATURES = {
     "mt_act_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
     # xq, wq_t, x_scale, w_scale, out, out_kind, M, N, K, stream
     "mt_w8a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xq, packed, x_scale, w_scale, out, out_kind, M, N, K, stream
+    "mt_w4a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, cos, sin, pk, pv, out, is_bf16, B, L, H, KV, D, P, PB,
     # sm_scale, stream
     "mt_rope_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -53,9 +55,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _P),
     # xq, x_scale, n_chunks, w0, w1, ws0, ws1, visit_e, visit_valid, out0,
     # out1, out_kind, fuse_silu, q_out, q_scale, block_n, V, block_m, N, K,
-    # stream
+    # w_bits, stream
     "mt_gmm": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-               _I, _I, _I, _I, _P),
+               _I, _I, _I, _I, _I, _P),
 }
 
 

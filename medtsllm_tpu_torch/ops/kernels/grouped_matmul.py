@@ -1,12 +1,14 @@
-"""K6: the grouped per-expert w8a8 matmul ("gmm") of the dropless MoE chain
-(``csrc/grouped_matmul.cu``) and its plain version.
+"""K6: the grouped per-expert w8a8 / w4a8 matmul ("gmm") of the dropless MoE
+chain (``csrc/grouped_matmul.cu``) and its plain version.
 
-Replaces ``medtsllm_tpu/ops/pallas/grouped_matmul.py::gmm`` (``w_bits=8``)
-with its signature and semantics. Rows of ``xq`` are packed per expert into
+Replaces ``medtsllm_tpu/ops/pallas/grouped_matmul.py::gmm`` (``w_bits`` 8
+and 4) with its signature and semantics. Rows of ``xq`` are packed per expert into
 tile-aligned groups (``gmm_metadata``): visit v computes row tile v
 (``block_m`` rows) against expert ``visit_e[v]``; invalid tail visits write
 zeros (and the 1e-10 floor in a scale output). The forms the MoE chain
-launches, each with its own launch count (``GATE_UP``, ``DOWN``, ``PLAIN``):
+launches, each with its own launch count per weight width (``GATE_UP``,
+``DOWN``, ``PLAIN`` at ``w_bits=8``; ``GATE_UP_W4``, ``DOWN_W4``,
+``PLAIN_W4`` at 4):
   (a) gate + up: two weights share the activation sweep, per-row x_scale,
       ``fuse_silu`` + ``emit_quant`` -> (int8 [R_pad, N], per-(row, N-tile)
       scales [N / block_n, 1, R_pad]);
@@ -17,7 +19,9 @@ launches, each with its own launch count (``GATE_UP``, ``DOWN``, ``PLAIN``):
 
 Layout: the expert weights are ``[E, N, K]`` int8 (K contiguous, K1's B
 operand), the transpose of the JAX package's ``[E, K, N]``; ``weights.py``
-transposes once. ``w_bits=4`` (packed int4 experts) is not ported.
+transposes once. At ``w_bits=4`` they are split-halves packed int4 ``[E, N,
+K/2]`` (``w4a8.pack4_split`` per expert row), K even; a chunked form then
+needs an even chunk count, so that no chunk straddles the nibble halves.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -28,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .w4a8 import unpack4_split
 from .w8a8 import int8_matmul_plain, quantize_rows
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -41,6 +46,7 @@ class Form:
 
 
 GATE_UP, DOWN, PLAIN = Form(), Form(), Form()
+GATE_UP_W4, DOWN_W4, PLAIN_W4 = Form(), Form(), Form()
 
 
 # --------------------------------------------------------------------------
@@ -101,24 +107,24 @@ def _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n, out_dtype,
            fuse_silu, emit_quant, w_bits) -> int:
     """Validate as the JAX ``gmm`` asserts; returns the K-chunk count (0 =
     per-row scales)."""
-    if w_bits == 4:
-        raise NotImplementedError("gmm w_bits=4 (packed int4 experts) is ROADMAP "
-                                  "queue 1 item 10")
-    if w_bits != 8:
-        raise ValueError(f"w_bits must be 8, got {w_bits}")
+    if w_bits not in (4, 8):
+        raise ValueError(f"w_bits must be 8 or 4, got {w_bits}")
     if not weights or len(weights) != len(w_scales) or len(weights) > 2:
         raise ValueError("gmm takes 1 or 2 weights, one scale each")
     R_pad, K = xq.shape
+    if w_bits == 4 and K % 2:
+        raise ValueError(f"w_bits=4 needs an even K, got {K}")
+    wk = K if w_bits == 8 else K // 2
     E, N, K2 = weights[0].shape
     V = visit_e.shape[0]
-    if K2 != K or R_pad != V * block_m:
-        raise ValueError(f"xq {tuple(xq.shape)}, weights [E, N, K] "
+    if K2 != wk or R_pad != V * block_m:
+        raise ValueError(f"xq {tuple(xq.shape)}, weights [E, N, {wk}] at w_bits={w_bits}: "
                          f"{tuple(weights[0].shape)}, {V} visits of {block_m} rows")
     if N % block_n:
         raise ValueError(f"N {N} is not a multiple of block_n {block_n}")
     for w, s in zip(weights, w_scales):
-        if w.shape != (E, N, K) or w.dtype != torch.int8 or s.shape != (E, N):
-            raise ValueError("every weight is int8 [E, N, K] with a scale [E, N]")
+        if w.shape != (E, N, wk) or w.dtype != torch.int8 or s.shape != (E, N):
+            raise ValueError(f"every weight is int8 [E, N, {wk}] with a scale [E, N]")
     if fuse_silu and len(weights) != 2:
         raise ValueError("fuse_silu takes (gate, up)")
     if emit_quant and not fuse_silu:
@@ -134,6 +140,9 @@ def _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n, out_dtype,
             raise ValueError(f"chunked x_scale {tuple(x_scale.shape)} for K {K}")
     elif x_scale.shape != (R_pad, 1):
         raise ValueError(f"x_scale {tuple(x_scale.shape)}: [R_pad, 1] or [KB, 1, R_pad]")
+    if w_bits == 4 and n_chunks % 2:
+        raise ValueError(f"w_bits=4 needs an even chunk count (a chunk must not "
+                         f"straddle the nibble halves), got {n_chunks}")
     if out_dtype == torch.int32 and (n_chunks or fuse_silu):
         raise ValueError("the s32 accumulators are returned by the plain form only "
                          "(per-row scales, no fuse_silu)")
@@ -149,10 +158,15 @@ def gmm_plain(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=1
               w_bits=8):
     """Every form of ``gmm`` in plain PyTorch: per expert, the exact s8 x s8
     products of its valid rows, then JAX's f32 rescale order,
-    ``(acc * x_scale) * w_scale``, with chunk partials summed in order."""
+    ``(acc * x_scale) * w_scale``, with chunk partials summed in order. Packed
+    int4 weights are unpacked first: a chunk then reads the unpacked columns
+    of its half, and a full-K product sums the hi and lo halves in s32, the
+    integers of the JAX kernel's nibble dots."""
     n_chunks = _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n,
                       out_dtype, fuse_silu, emit_quant, w_bits)
     R_pad, K = xq.shape
+    if w_bits == 4:
+        weights = [unpack4_split(w, K) for w in weights]
     E, N, _ = weights[0].shape
     row_e = visit_e.long().repeat_interleave(block_m)
     row_ok = visit_valid.bool().repeat_interleave(block_m)
@@ -206,10 +220,11 @@ def gmm_plain(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=1
 def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
         block_n=512, out_dtype=torch.float32, fuse_silu=False, emit_quant=False,
         w_bits=8):
-    """Grouped w8a8 matmul(s) over expert-packed rows (the JAX ``gmm``).
+    """Grouped w8a8 / w4a8 matmul(s) over expert-packed rows (the JAX ``gmm``).
 
     xq [R_pad, K] int8 (R_pad = V * block_m); x_scale [R_pad, 1] f32 or
-    chunked [KB, 1, R_pad]; weights: 1 or 2 int8 [E, N, K]; w_scales: one
+    chunked [KB, 1, R_pad]; weights: 1 or 2 int8 [E, N, K], or packed int4
+    [E, N, K/2] at ``w_bits=4``; w_scales: one
     [E, N] each; visit_e / visit_valid [V] int32 from ``gmm_metadata``.
     Returns a tuple of [R_pad, N] ``out_dtype`` arrays, one per weight (one
     under ``fuse_silu``: silu(out0) * out1), or (int8 [R_pad, N], scales
@@ -227,8 +242,9 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
         raise ValueError("the kernel takes chunked scales with one weight (the down gmm)")
     R_pad, K = xq.shape
     E, N, _ = weights[0].shape
-    if K % 16 or (n_chunks and (K // n_chunks) % 16):
-        raise ValueError("the kernel loads 16-byte rows: K and K / KB multiples of 16")
+    if K % 16 or (n_chunks and (K // n_chunks) % 16) or (w_bits == 4 and K % 32):
+        raise ValueError("the kernel loads 16-byte rows: K and K / KB multiples of 16 "
+                         "(K / 2 at w_bits=4)")
     x_scale = x_scale.float().contiguous()
     w_scales = [s.float().contiguous() for s in w_scales]
     if visit_e.dtype != torch.int32 or visit_valid.dtype != torch.int32:
@@ -255,6 +271,8 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
                   _build.ptr(s1), _build.ptr(visit_e), _build.ptr(visit_valid),
                   _build.ptr(outs[0]), _build.ptr(outs[1] if n_out == 2 else None),
                   kind, int(fuse_silu), _build.ptr(q), _build.ptr(scales), block_n,
-                  V, block_m, N, K)
-    (GATE_UP if emit_quant else DOWN if n_chunks else PLAIN).launches += 1
+                  V, block_m, N, K, w_bits)
+    gate_up, down, plain = (GATE_UP, DOWN, PLAIN) if w_bits == 8 else (
+        GATE_UP_W4, DOWN_W4, PLAIN_W4)
+    (gate_up if emit_quant else down if n_chunks else plain).launches += 1
     return (q, scales) if emit_quant else tuple(outs)

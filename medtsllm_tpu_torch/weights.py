@@ -6,9 +6,11 @@ State-dict names follow the flax paths: ``/`` becomes ``.``, the decoder's
 and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
   - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (nn.Linear);
   - int8 ``kernel_q`` [K, N] -> ``weight_q`` [N, K] (the w8a8 kernel's B
-    operand, transposed once here);
+    operand, transposed once here); packed int4 [ceil(K/2), N] -> [N,
+    ceil(K/2)] alike (each byte keeps its nibble pair);
   - int8 MoE experts ``w_{gate,up,down}_q`` [E, K, N] -> [E, N, K] (the
-    grouped kernel's layout, under the same names); the router ``gate``
+    grouped kernel's layout, under the same names), packed int4 [E,
+    ceil(K/2), N] -> [E, N, ceil(K/2)]; the router ``gate``
     [D, E], the scales [E, N] and dense experts [E, K, N] keep theirs;
   - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d);
   - the Mamba block's depthwise ``conv_kernel`` [K, 1, E] -> [E, 1, K]
@@ -27,10 +29,14 @@ from torch import nn
 from .models.llm.mamba import MambaBackbone, MambaBlock
 from .models.llm.transformer import MoEMLP, QuantLinear, RMSNorm, TransformerDecoder
 from .ops.embed import TokenEmbedding
+from .ops.kernels.w4a8 import CODEBOOKS, pack4_split
 
 # QuantDense random init: one fixed quantization scale, 3.5 sigma of the
-# N(0, 0.02) init mapped to 127 (transformer.py:381-407 of the JAX package)
+# N(0, 0.02) init mapped to qmax, 127 for int8 and 7 for absmax int4; a
+# 4-bit codebook maps 3.5 sigma to its table's 1.0 (transformer.py:376-407,
+# 1040-1070 of the JAX package)
 S_INIT = 3.5 * 0.02 / 127.0
+S_INIT4 = {"absmax": 3.5 * 0.02 / 7.0, "nf4": 3.5 * 0.02, "fp4": 3.5 * 0.02}
 # jax.nn.initializers.truncated_normal's std correction for the [-2, 2] cut
 _TRUNC_STD = 0.87962566103423978
 
@@ -85,7 +91,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in place, on the model's device, drawing from
     ``generator`` (on that device) with the JAX init's distributions:
     word embeddings N(0, 0.02); RMSNorm ones; int8 projections
-    clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; Dense
+    clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; int4 ones
+    clip(round(w / S_INIT4), +-7) (absmax) or the nearest table entry of
+    w / S_INIT4 (nf4, fp4: the first on ties, so fp4's -0 is never drawn)
+    minus 8, packed, with scale S_INIT4; Dense
     lecun-normal kernels and zero biases; the MoE router N(0, 0.02), int8
     experts as the int8 projections (drawn expert by expert, so the f32
     temporaries stay one expert's size) and dense experts lecun-normal over
@@ -98,17 +107,41 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         w = torch.randn(wq.shape, generator=generator, device=wq.device) * 0.02
         wq.copy_(torch.clamp(torch.round(w / S_INIT), -127, 127))
 
+    def int4_(wq: torch.Tensor, n_in: int, codebook: str) -> None:
+        """One packed [N, ceil(n_in/2)] weight, drawn in slices of rows (the
+        codebook's [rows, n_in, 16] distances stay small)."""
+        s = S_INIT4[codebook]
+        for r in range(0, wq.shape[0], 512):
+            w = torch.randn(min(512, wq.shape[0] - r), n_in, generator=generator,
+                            device=wq.device) * 0.02
+            if codebook == "absmax":
+                q = torch.clamp(torch.round(w / s), -7, 7)
+            else:
+                table = torch.tensor(CODEBOOKS[codebook], device=wq.device)
+                q = torch.argmin((w[..., None] / s - table).abs(), dim=-1) - 8
+            wq[r:r + 512] = pack4_split(q.to(torch.int8))
+
+    def quant_(wq: torch.Tensor, bits: int, n_in: int, codebook: str) -> float:
+        """Draw one quantized weight in place; returns its scale."""
+        if bits == 8:
+            int8_(wq)
+            return S_INIT
+        int4_(wq, n_in, codebook)
+        return S_INIT4[codebook]
+
     for module in model.modules():
         if isinstance(module, QuantLinear):
-            int8_(module.weight_q)
-            module.scale.fill_(S_INIT)
+            module.scale.fill_(quant_(module.weight_q, module.bits, module.d_in,
+                                      module.codebook))
         elif isinstance(module, MoEMLP):
             module.gate.normal_(0.0, 0.02, generator=generator)
-            for name in ("w_gate", "w_up", "w_down"):
+            cfg = module.cfg
+            for name, n_in in (("w_gate", cfg.d_model), ("w_up", cfg.d_model),
+                               ("w_down", cfg.d_ff)):
                 if module.quantize:
                     for wq in getattr(module, name + "_q"):
-                        int8_(wq)
-                    getattr(module, name + "_scale").fill_(S_INIT)
+                        s = quant_(wq, module.quantize, n_in, cfg.quant4_codebook)
+                    getattr(module, name + "_scale").fill_(s)
                 else:
                     w = getattr(module, name)
                     _lecun_normal_(w, w.shape[1], generator)

@@ -22,10 +22,11 @@ leaked = sorted(m for m in sys.modules
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the training and MoE slices among them
+# every module of the training, MoE and int4 slices among them
 _TRAIN_MODULES = {"medtsllm_tpu_torch.runtime.optim", "medtsllm_tpu_torch.tasks.losses",
                   "medtsllm_tpu_torch.ops.kernels.selective_scan",
                   "medtsllm_tpu_torch.ops.kernels.w8a8",
+                  "medtsllm_tpu_torch.ops.kernels.w4a8",
                   "medtsllm_tpu_torch.ops.kernels.rope_attention",
                   "medtsllm_tpu_torch.ops.kernels.grouped_matmul"}
 
@@ -37,5 +38,5 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, leaked = out.stdout.strip().split(" | ")
     names = set(names.split())
-    assert len(names) >= 17 and _TRAIN_MODULES <= names  # every module was imported
+    assert len(names) >= 18 and _TRAIN_MODULES <= names  # every module was imported
     assert leaked == "[]", leaked

@@ -12,6 +12,7 @@ from medtsllm_tpu_torch.ops.kernels import grouped_matmul as gm
 from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
 from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
 from medtsllm_tpu_torch.ops.kernels import selective_scan as ss
+from medtsllm_tpu_torch.ops.kernels import w4a8 as k5
 from medtsllm_tpu_torch.ops.kernels import w8a8 as k1
 
 
@@ -51,6 +52,41 @@ def test_w8a8_kernel_rejects_bad_input(cuda):
         k1.int8_gemm(xq, w, s, torch.ones(8, device=cuda))
     with pytest.raises(ValueError):
         k1.quantize_rows(torch.zeros(4, 32, dtype=torch.float16, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (896, 11008, 4096), (37, 160, 72),
+                                   (5, 64, 200)])
+def test_w4a8_kernel_bit_equal(cuda, M, K, N):
+    """K5 vs plain on the card: s32, f32 and bf16 outputs bit-equal (the same
+    integers, the same f32 epilogue order), and the act-quant chain launches
+    K1's quantizer and K5 once each."""
+    g = torch.Generator(cuda).manual_seed(0)
+    xq = torch.randint(-127, 128, (M, K), device=cuda, dtype=torch.int8, generator=g)
+    q = torch.randint(-8, 8, (N, K), device=cuda, dtype=torch.int8, generator=g)
+    packed = k5.pack4_split(q)
+    xs = torch.rand(M, device=cuda, generator=g) * 1e-2
+    ws = torch.rand(N, device=cuda, generator=g) * 1e-2
+    for dt in (torch.int32, torch.float32, torch.bfloat16):
+        assert torch.equal(k5.w4a8_gemm(xq, packed, xs, ws, dt),
+                           k5.w4a8_matmul_plain(xq, packed, xs, ws, dt))
+    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    nq, n5 = k1.quantize_rows.launches, k5.w4a8_gemm.launches
+    y = k5.act_quant_w4a8_matmul(x, packed, ws, torch.bfloat16)
+    assert (k1.quantize_rows.launches, k5.w4a8_gemm.launches) == (nq + 1, n5 + 1)
+    xq0, xs0 = k1.quantize_rows_plain(x)
+    assert torch.equal(y, k5.w4a8_matmul_plain(xq0, packed, xs0, ws, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_w4a8_kernel_rejects_bad_input(cuda):
+    xq = torch.zeros(4, 48, dtype=torch.int8, device=cuda)  # K / 2 % 16 != 0
+    w = torch.zeros(8, 24, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        k5.w4a8_gemm(xq, w, torch.ones(4, device=cuda), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):  # packed width is not K / 2
+        k5.w4a8_gemm(torch.zeros(4, 64, dtype=torch.int8, device=cuda), w,
+                     torch.ones(4, device=cuda), torch.ones(8, device=cuda))
 
 
 @pytest.mark.cuda
@@ -216,10 +252,10 @@ def test_selective_scan_autograd_on_card(cuda):
                                    atol=1e-4 * b.grad.abs().max().item())
 
 
-def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128):
+def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128, w_bits=8):
     """Expert-packed int8 rows for ``counts`` routed rows per expert, with
-    their visit list (invalid tail visits included), weights [E, N, K] and
-    scales."""
+    their visit list (invalid tail visits included), weights [E, N, K] (or
+    packed int4 [E, N, K/2] at ``w_bits=4``) and scales."""
     g = torch.Generator(cuda).manual_seed(0)
     E = len(counts)
     V = gm.gmm_visits(sum(counts), E, block_m)
@@ -229,8 +265,11 @@ def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128):
     xq = torch.randint(-127, 128, (R, K), device=cuda, dtype=torch.int8, generator=g)
     shape = (n_chunks, 1, R) if n_chunks else (R, 1)
     xs = torch.rand(*shape, device=cuda, generator=g) * 1e-2
-    w = [torch.randint(-127, 128, (E, N, K), device=cuda, dtype=torch.int8, generator=g)
+    lo, hi = (-127, 128) if w_bits == 8 else (-8, 8)
+    w = [torch.randint(lo, hi, (E, N, K), device=cuda, dtype=torch.int8, generator=g)
          for _ in range(n_weights)]
+    if w_bits == 4:
+        w = [k5.pack4_split(a) for a in w]
     ws = [torch.rand(E, N, device=cuda, generator=g) * 1e-3 for _ in range(n_weights)]
     return xq, xs, w, ws, ve, valid
 
@@ -242,20 +281,26 @@ _ROUTED = [1650, 1800, 1700, 1777, 1733, 1711, 1690, 1763]
 _SKEWED = [0, 6912, 0, 0, 6912, 0, 0, 0]
 
 
+_W_BITS = pytest.mark.parametrize("w_bits", [8, 4])
+
+
 @pytest.mark.cuda
+@_W_BITS
 @pytest.mark.parametrize("counts,K,N,block_n", [
     (_ROUTED, 2048, 5632, 1408), (_SKEWED, 2048, 5632, 1408), ([200, 0, 37, 90], 256, 512, 256),
 ], ids=["serving", "skewed", "small"])
-def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n):
+def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n, w_bits):
     """(a) gate + up, fused SwiGLU and per-(row, N-tile) requant: codes at
     most 1 apart in at most 1e-3 of them (silu's expf may differ in the last
     bit from the plain version's), scales 1e-6 relative."""
-    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 2)
-    n = gm.GATE_UP.launches
-    q, s = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True, emit_quant=True)
-    assert gm.GATE_UP.launches == n + 1
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 2, w_bits=w_bits)
+    form = gm.GATE_UP if w_bits == 8 else gm.GATE_UP_W4
+    n = form.launches
+    q, s = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True, emit_quant=True,
+                  w_bits=w_bits)
+    assert form.launches == n + 1
     q0, s0 = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True,
-                          emit_quant=True)
+                          emit_quant=True, w_bits=w_bits)
     dq = (q.int() - q0.int()).abs()
     assert dq.max().item() <= 1 and (dq > 0).float().mean().item() <= 1e-3
     torch.testing.assert_close(s, s0, rtol=1e-6, atol=0)
@@ -264,31 +309,35 @@ def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n):
 
 
 @pytest.mark.cuda
+@_W_BITS
 @pytest.mark.parametrize("counts,K,N,n_chunks,block_n", [
     (_ROUTED, 5632, 2048, 4, 1024), (_SKEWED, 5632, 2048, 4, 1024),
     ([200, 0, 37, 90], 96, 200, 2, 200),  # chunks of 48: partial k steps
 ], ids=["serving", "skewed", "small"])
-def test_gmm_down_kernel_vs_plain(cuda, counts, K, N, n_chunks, block_n):
+def test_gmm_down_kernel_vs_plain(cuda, counts, K, N, n_chunks, block_n, w_bits):
     """(b) chunked scales, f32 out: the same rounded f32 ops in the same
     order, held within 1e-5 x max."""
-    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 1, n_chunks)
-    n = gm.DOWN.launches
-    (y,) = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n)
-    assert gm.DOWN.launches == n + 1
-    (y0,) = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n)
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 1, n_chunks, w_bits=w_bits)
+    form = gm.DOWN if w_bits == 8 else gm.DOWN_W4
+    n = form.launches
+    (y,) = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n, w_bits=w_bits)
+    assert form.launches == n + 1
+    (y0,) = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n, w_bits=w_bits)
     torch.testing.assert_close(y, y0, rtol=0, atol=1e-5 * y0.abs().max().item())
 
 
 @pytest.mark.cuda
+@_W_BITS
 @pytest.mark.parametrize("n_weights,K,N,block_m", [(1, 2048, 5632, 128), (2, 256, 200, 256),
                                                    (2, 2048, 1408, 128)])
-def test_gmm_rows_kernel_vs_plain(cuda, n_weights, K, N, block_m):
+def test_gmm_rows_kernel_vs_plain(cuda, n_weights, K, N, block_m, w_bits):
     """(c) the plain form: s32 accumulators bit-equal; f32 and bf16 outputs
     equal (the same integers, the same f32 rescale order)."""
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [300, 0, 129, 1000], K, N, n_weights,
-                                             block_m=block_m)
-    kw = dict(block_m=block_m, block_n=N)
-    n = gm.PLAIN.launches
+                                             block_m=block_m, w_bits=w_bits)
+    kw = dict(block_m=block_m, block_n=N, w_bits=w_bits)
+    form = gm.PLAIN if w_bits == 8 else gm.PLAIN_W4
+    n = form.launches
     for got, want in zip(gm.gmm(xq, xs, w, ws, ve, valid, out_dtype=torch.int32, **kw),
                          gm.gmm_plain(xq, xs, w, ws, ve, valid, out_dtype=torch.int32, **kw)):
         assert torch.equal(got, want)
@@ -296,7 +345,7 @@ def test_gmm_rows_kernel_vs_plain(cuda, n_weights, K, N, block_m):
         for got, want in zip(gm.gmm(xq, xs, w, ws, ve, valid, out_dtype=dt, **kw),
                              gm.gmm_plain(xq, xs, w, ws, ve, valid, out_dtype=dt, **kw)):
             assert torch.equal(got, want)
-    assert gm.PLAIN.launches == n + 3
+    assert form.launches == n + 3
 
 
 @pytest.mark.cuda
@@ -307,3 +356,10 @@ def test_gmm_kernel_rejects_bad_input(cuda):
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 72, 128, 1)
     with pytest.raises(ValueError, match="16"):
         gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)
+    # int4: K / 2 % 16 != 0, and an odd chunk count
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 48, 128, 1, w_bits=4)
+    with pytest.raises(ValueError, match="16"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128, w_bits=4)
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 192, 128, 1, 3, w_bits=4)
+    with pytest.raises(ValueError, match="even chunk count"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128, w_bits=4)

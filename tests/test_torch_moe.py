@@ -144,7 +144,7 @@ def test_gmm_plain_rows_matches_jax(n_weights):
 
 def test_gmm_argument_checks():
     _, targs = _gmm_case(3, [5, 0], 64, 128, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="w_bits=4"):  # it takes packed [E, N, K/2]
         gm.gmm(*targs, block_n=128, w_bits=4)
     with pytest.raises(ValueError, match="emit_quant"):
         gm.gmm(*targs, block_n=128, emit_quant=True)
@@ -301,8 +301,9 @@ def test_from_config_resolves_moe(tmp_path):
     assert build(dense).moe_grouped is False
     with pytest.raises(ValueError, match="not a MoE"):
         build(_cfg(tmp_path, llm="llama-tiny", expert_capacity=1.25))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build(_cfg(tmp_path, load_in_4bit=True))
+    # load_in_4bit wins over load_in_8bit: absmax int4 experts, integer experts
+    int4 = build(_cfg(tmp_path, load_in_4bit=True))
+    assert int4.quant4_codebook == "absmax" and int4.moe_grouped is False
     cfg = _cfg(tmp_path)
     cfg.setup["expert_parallel"] = 2
     with pytest.raises(NotImplementedError, match="item 14"):

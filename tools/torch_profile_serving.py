@@ -2,10 +2,13 @@
 """Profile the PyTorch port's serving step, or the Mamba train step, on one
 CUDA card.
 
-    python3 tools/torch_profile_serving.py [--path mamba|llama|moe|mamba-train] [--steps 4]
+    python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|mamba-train]
+                                           [--steps 4]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
-weights from its seed). For a serving path it runs one warm-up ``test()``
+weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
+4 bits, absmax int4, as chip_smoke phases 14 and 15). For a serving path it
+runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache), prepares
 ``--steps`` test batches on the host, then runs their eval steps under
 ``torch.profiler``. For ``mamba-train`` it prepares ``--steps`` + 1
@@ -36,6 +39,7 @@ CATEGORIES = (
     ("selective scan", r"selective_scan"),
     ("K6 grouped matmul (GEMM)", r"gmm_kernel"),
     ("K6 requant pass", r"requant_kernel"),
+    ("K5 w4a8", r"w4a8"),
     ("K3 reprogramming", r"reprogramming"),
     ("K1 w8a8", r"w8a8|act_quant"),
     ("K2 rope attention", r"rope_attention"),
@@ -57,8 +61,8 @@ def category(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("mamba", "llama", "moe", "mamba-train"),
-                    default="mamba")
+    ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
+                                       "mamba-train"), default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args()
 
@@ -80,6 +84,8 @@ def main() -> None:
     cfg = {"mamba": lambda: chip_smoke.mamba_config(Config),
            "llama": lambda: chip_smoke.bench_config(Config),
            "moe": lambda: chip_smoke.moe_config(Config),
+           "llama-int4": lambda: chip_smoke.bench_config(Config, quant_type="int4"),
+           "moe-int4": lambda: chip_smoke.moe_config(Config, int4=True),
            # four train batches of 48 per epoch, as chip_smoke phase 8
            "mamba-train": lambda: chip_smoke.mamba_config(Config, n_points=24704, epochs=1),
            }[args.path]()
