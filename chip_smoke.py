@@ -70,7 +70,24 @@ nvidia-smi. Phases:
  16. one int4 moe-8x1b layer, the card's grouped chain against the CPU's
      and against the dropless int4 bmm (relative difference < 0.05: JAX's
      own law at these widths is 0.032); a 2-layer llama-1b nf4 slice at f32
-     on the card against the CPU.
+     on the card against the CPU;
+ 17. the long-window llama serving path: ``test()`` of phase 4's
+     configuration at history 16384 (2048 patches, ~2,167 keys, past K2's
+     2048) with d_ff 64, batch 8, two test batches: K4 32 times per batch,
+     K2 only in the prefill of the prompt head; windows/s, p50, peak memory
+     (reset after the build), finite scores; then one batch with the head
+     embedded in the graph (L == S, JAX's padded-kernel route) against the
+     same batch served from a cache prefilled on K4 (1e-5 x max);
+ 18. the crossover window: ``test()`` at history 4096 (~630 keys, d_ff
+     128): the launches ``K4_MIN_KEYS`` says (K2 or K4);
+ 19. a 2-layer llama-1b dense f32 slice with every attention forced onto
+     K4 (``K4_MIN_KEYS`` set to 1 for the phase, then restored) on the card
+     against the CPU.
+Phase 3 also prints the route table behind ``K4_MIN_KEYS``: K2, RoPE + K4
+and RoPE + SDPA at 512, 1024, 2048 and 4096 keys of the 7B layout; phase 17
+first checks K4 (the flash-attention kernel) against its plain version at
+the long window's shapes (cached, uncached L == S, non-causal, GQA 32 / 4 x
+64), each query row within 2^-6 x the largest |plain| of that row.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -183,6 +200,34 @@ def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=No
     return Config(raw)
 
 
+def long_config(Config, history=16384, d_ff=64):
+    """``bench_config`` at a long window with 16 test windows, two batches
+    of 8. At history 16384 the FlattenHead (d_ff x n_patches -> 3 x
+    history) holds 6.4 G parameters at d_ff 64, the width of
+    configs/datasets/bidmc.toml and ventilator.toml: 25.8 GB at the f32
+    init, 12.9 GB at bf16 (bench.py's d_ff 128 would need 77 GB in
+    flight)."""
+    return bench_config(Config, history=history, d_ff=d_ff, n_points=16 * history)
+
+
+def window_shapes(tr):
+    """(P, L): the prompt head and the computed region (prompt suffix +
+    patches) of a built trainer's first test batch (host only)."""
+    first = tr.model_inputs(next(iter(tr.test_pipeline)))
+    return len(first["prefix_ids"]), first["prompt_ids"].shape[1] + tr.model.n_patches
+
+
+def row_share(out, ref, rel=2.0 ** -6):
+    """The largest share, over query rows (the last dim is D), of a row's
+    max |out - ref| in ``rel`` x max |ref| of that row; at most 1 passes.
+    Taken per row because an attention row that sees a few keys has outputs
+    tens of times larger than a row that averages thousands, so one bound
+    for the whole tensor would pass a wrong row of the second kind."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    lim = rel * ref.float().abs().amax(-1)
+    return (err / lim.clamp_min(1e-30)).max().item()
+
+
 def finite(values) -> bool:
     return all(math.isfinite(v) for v in values)
 
@@ -233,6 +278,7 @@ def main() -> None:
     from medtsllm_tpu_torch.config import Config
     from medtsllm_tpu_torch.models.llm import transformer as tfm
     from medtsllm_tpu_torch.ops.kernels import _build
+    from medtsllm_tpu_torch.ops.kernels import flash_attention as k4
     from medtsllm_tpu_torch.ops.kernels import grouped_matmul as gm
     from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
     from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
@@ -261,9 +307,7 @@ def main() -> None:
     cfg = bench_config(Config)
     trainer = get_trainer("chip-smoke", cfg, device=dev)
     model, lcfg = trainer.model, trainer.model.llm_cfg
-    first = trainer.model_inputs(next(iter(trainer.test_pipeline)))
-    P = len(first["prefix_ids"])
-    L = first["prompt_ids"].shape[1] + model.n_patches
+    P, L = window_shapes(trainer)
     B = cfg.training.batch_size
     H, KV, D = lcfg.n_heads, lcfg.kv_heads, lcfg.head_dim
     print(f"[shapes] llama: tokenizer {type(trainer.preprocessor.tokenizer).__name__} "
@@ -271,9 +315,7 @@ def main() -> None:
     mcfg = mamba_config(Config)
     mtrainer = get_trainer("chip-smoke-mamba", mcfg, device=dev)
     mmodel, scfg = mtrainer.model, mtrainer.model.llm_cfg
-    mfirst = mtrainer.model_inputs(next(iter(mtrainer.test_pipeline)))
-    Pm = len(mfirst["prefix_ids"])
-    Lm = mfirst["prompt_ids"].shape[1] + mmodel.n_patches
+    Pm, Lm = window_shapes(mtrainer)
     Bm, Em, Nm = mcfg.training.batch_size, scfg.d_inner, scfg.d_state
     print(f"[shapes] mamba-130m: P={Pm} L={Lm} B={Bm} E={Em} N={Nm} "
           f"layers={scfg.n_layers}")
@@ -281,9 +323,7 @@ def main() -> None:
     etrainer = get_trainer("chip-smoke-moe", ecfg, device=dev)
     emodel, xcfg = etrainer.model, etrainer.model.llm_cfg
     check(xcfg.moe_grouped, "moe_grouped = \"auto\" must resolve on for the card")
-    efirst = etrainer.model_inputs(next(iter(etrainer.test_pipeline)))
-    Pe = len(efirst["prefix_ids"])
-    Le = efirst["prompt_ids"].shape[1] + emodel.n_patches
+    Pe, Le = window_shapes(etrainer)
     Be = ecfg.training.batch_size
     print(f"[shapes] moe-8x1b: P={Pe} L={Le} B={Be} H={xcfg.n_heads} KV={xcfg.kv_heads} "
           f"D={xcfg.head_dim} experts={xcfg.n_experts} top-{xcfg.n_experts_per_tok} "
@@ -298,12 +338,24 @@ def main() -> None:
     kernels = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms,
-               extra=""):
-        check(err <= tol, f"{name}: max |kernel - plain| {err} > tolerance {tol}")
+               extra="", listed=True, share=None):
+        """Check and print one kernel at one shape; ``listed`` shapes enter
+        the kernels line (a shape no main path runs is printed only). The
+        check is ``err <= tol``, or with ``share`` (from ``row_share``, and
+        ``tol`` None) a bound for each query row."""
+        if share is None:
+            check(err <= tol, f"{name}: max |kernel - plain| {err} > tolerance {tol}")
+            tol_txt = f"tol {tol:.3e}"
+        else:
+            check(share <= 1, f"{name}: a query row's max |kernel - plain| is {share} of "
+                  f"its tolerance, 2^-6 x max |plain| of the row")
+            tol_txt = f"worst row at {share:.4f} of its tolerance, 2^-6 x max |plain| of the row"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+        print(f"[kernel] {name}: max_abs_err {err:.3e} ({tol_txt}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd[0]:.4f} ms "
               f"({bnd[1]}) library {lib}{extra}")
+        if not listed:
+            return
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": None, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
@@ -448,6 +500,55 @@ def main() -> None:
     check_k2("rope_attention", B, L, H, KV, D, P, lcfg.rope_theta)
     check_k2("rope_attention[moe-8x1b]", Be, Le, xcfg.n_heads, xcfg.kv_heads,
              xcfg.head_dim, Pe, xcfg.rope_theta)
+
+    # the route table behind K4_MIN_KEYS: one block's attention at the 7B
+    # layout (batch 8, the P-token head as prefix) by K2, by RoPE + the
+    # transposes + K4 (tfm.flash_route, as Attention runs it) and by RoPE +
+    # SDPA, at 512, 1024 and 2048 keys (K2's limit), and 4096
+    def route_row(keys):
+        Lr = keys - P
+        q = torch.randn(B, Lr, H, D, device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn(B, Lr, KV, D, device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn(B, Lr, KV, D, device=dev, generator=g).to(torch.bfloat16)
+        pk = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+        pv = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+        cos, sin = k2.rope_tables(torch.arange(P, P + Lr, device=dev), D, lcfg.rope_theta)
+        scale = 1.0 / math.sqrt(D)
+        mask = torch.ones(Lr, keys, dtype=torch.bool, device=dev).tril(P)
+
+        def k4_route():
+            return tfm.flash_route(q, k, v, cos, sin, pk, pv, scale).reshape(B, Lr, H * D)
+
+        def rope_sdpa():
+            kr = torch.cat([pk.expand(B, -1, -1, -1), k2.rope(k, cos, sin).transpose(1, 2)], 2)
+            vv = torch.cat([pv.expand(B, -1, -1, -1), v.transpose(1, 2)], 2)
+            return F.scaled_dot_product_attention(
+                k2.rope(q, cos, sin).transpose(1, 2), kr, vv, attn_mask=mask,
+                enable_gqa=KV < H).transpose(1, 2).reshape(B, Lr, H * D)
+        row = {"keys": keys, "k4": cuda_ms(torch, k4_route), "sdpa": cuda_ms(torch, rope_sdpa)}
+        k2_txt = "- (past its limit)"
+        if keys <= k2.MAX_KEYS:
+            # one bound for the tensor, not per row: K2 rotates q and k in
+            # f32 with one rounding, the route with torch's bf16 ops (two),
+            # so their scores differ by a bf16 ulp of the rotated inputs
+            # (per row that reached 1.15 x 2^-6 x max |K2| of the row at 512
+            # keys on an H100); K4 itself is held per row in phase 17
+            out2 = k2.rope_attention(q, k, v, cos, sin, pk, pv, scale).reshape(B, Lr, H * D)
+            err = (k4_route().float() - out2.float()).abs().max().item()
+            tol = 2.0 ** -6 * out2.float().abs().max().item()
+            check(err <= tol, f"route table at {keys} keys: |K4 route - K2| {err} > {tol}")
+            row["k2"] = cuda_ms(torch, lambda: k2.rope_attention(q, k, v, cos, sin, pk, pv,
+                                                                 scale))
+            k2_txt = f"{row['k2']:.4f} ms"
+        print(f"[route] {keys} keys (L={Lr}, P={P}, B={B} H={H} D={D}): K2 {k2_txt}, "
+              f"RoPE + K4 {row['k4']:.4f} ms, RoPE + SDPA {row['sdpa']:.4f} ms")
+        return row
+
+    route = [route_row(keys) for keys in (512, 1024, 2048, 4096)]
+    picked = next((r["keys"] for r in route if "k2" in r and r["k4"] < r["k2"]),
+                  k2.MAX_KEYS + 1)
+    print(f"[route] least listed key count at which RoPE + K4 beats K2: {picked}; the "
+          f"code's K4_MIN_KEYS = {tfm.K4_MIN_KEYS}")
 
     def check_k3(name, Bq, Lq, Hr, E, S):
         qr = torch.randn(Bq, Lq, Hr, E, device=dev, generator=g)
@@ -674,7 +775,7 @@ def main() -> None:
         del w_g, w_u, w_d, xq, xs, aq, as_, aq0, as0, y, y0, raw, up_args, down_args
 
     wrappers = {"w8a8_quantize": k1.quantize_rows, "w8a8_gemm": k1.int8_gemm,
-                "rope_attention": k2.rope_attention,
+                "rope_attention": k2.rope_attention, "flash_attention": k4.flash_attention,
                 "reprogramming_attention": k3.reprogramming_attention,
                 "selective_scan": ss.selective_ssm,
                 "selective_scan_h0": ss.selective_ssm_h0,
@@ -736,6 +837,7 @@ def main() -> None:
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                  "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the serving path")
+    check(counts["flash_attention"] == 0, f"{P + L} keys stay on K2: {counts}")
     set_launches(counts, {n: n for n in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                                          "reprogramming_attention")})
 
@@ -1172,6 +1274,169 @@ def main() -> None:
     check(err <= tol, f"nf4 slice: card vs CPU max err {err} > {tol}")
     print(f"[reference] llama-1b 2-layer nf4 f32 slice, card vs CPU: max_abs_err {err:.3e} "
           f"(tol {tol:.3e})")
+    del gpu, cpu
+
+    torch.cuda.empty_cache()
+
+    # 17. the long-window llama serving path: history 16384, d_ff 64, two
+    # test batches of 8; every decoder attention has P + L keys, past K2's
+    # limit, so K4 runs 32 times per batch; the prefill of the prompt head
+    # (P keys) runs K2
+    n_block = lcfg.n_layers
+    cfg_long = long_config(Config)
+    tr = get_trainer("chip-smoke-long", cfg_long, device=dev)
+    P_long, L_long = window_shapes(tr)
+    S_long = P_long + L_long
+    print(f"[shapes] llama long window: history {cfg_long.history_len} P={P_long} "
+          f"L={L_long} keys={S_long}")
+
+    # K4 against its plain version at the long window's shapes (the cached
+    # region and the uncached form, L == S), non-causal, and the GQA 32 / 4
+    # x 64 layout of llama-1b and moe-8x1b, all bf16; S % 64 != 0 leaves a
+    # partial last k-tile. Bound: the products of the (query, key) pairs
+    # the mask keeps (QK^T and PV, 4 x D operations each) at the bf16 peak,
+    # or q, k and v read and the output written once; library: SDPA with
+    # the same mask
+    def check_k4(name, B, H, KV, L, S, D, causal, listed=True):
+        q = torch.randn(B, H, L, D, device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn(B, KV, S, D, device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn(B, KV, S, D, device=dev, generator=g).to(torch.bfloat16)
+        o = k4.flash_attention(q, k, v, causal)
+        o0 = k4.flash_attention_plain(q, k, v, causal)
+        check(bool(torch.isfinite(o).all()), f"{name}: non-finite output")
+        # bf16 output: the kernel normalises after PV, the plain version
+        # before its cast, so a bf16 ulp or so of each row's largest output
+        err, share = (o.float() - o0.float()).abs().max().item(), row_share(o, o0)
+        del o, o0
+        mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L) if causal else None
+        pairs = L * (S - L) + L * (L + 1) // 2 if causal else L * S
+        record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
+               "medtsllm_tpu/ops/pallas/flash_attention.py:196", err, None,
+               cuda_ms(torch, lambda: k4.flash_attention(q, k, v, causal)),
+               cuda_ms(torch, lambda: k4.flash_attention_plain(q, k, v, causal), iters=3,
+                       warmup=1),
+               bound(2 * (2 * B * H * L * D + 2 * B * KV * S * D), 4 * B * H * D * pairs,
+                     "bf16"),
+               cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, enable_gqa=KV < H)),
+               f" (B={B} H={H} KV={KV} L={L} S={S} D={D} causal={causal}; library = "
+               "SDPA with the same mask)", listed, share)
+
+    check_k4("flash_attention", B, H, KV, L_long, S_long, D, True)
+    check_k4("flash_attention[uncached]", B, H, KV, S_long, S_long, D, True)
+    # shapes no served path runs (the llama decoder is causal; the GQA
+    # backbones serve below 2048 keys): checked and printed, not listed
+    check_k4("flash_attention[non-causal]", B, H, KV, L_long, S_long, D, False, listed=False)
+    check_k4("flash_attention[gqa]", B, xcfg.n_heads, xcfg.kv_heads, L_long, S_long,
+             xcfg.head_dim, True, listed=False)
+
+    n_batches = len(tr.test_pipeline)
+    check(n_batches == 2, f"the long window gives {n_batches} test batches, not 2")
+    counts, preds = serve(tr, "long")
+    check(counts["flash_attention"] == n_block * n_batches
+          and counts["rope_attention"] == n_block,
+          f"the long window must run K4 {n_block} times per batch and K2 only in the "
+          f"prefill: {counts}")
+    set_launches(counts, {"flash_attention": "flash_attention"})
+    # one batch with the prompt head embedded in the graph (the uncached form:
+    # L == S, JAX's padded-kernel route), K4 in every block; block 0's K4
+    # call is held against the plain version on those served activations
+    batch = next(iter(tr.test_pipeline))
+    arrays = tr._to_device(tr.model_inputs(batch))
+    check("prefix_ids" in arrays, "the uncached form needs the embedded head")
+    out, seen = [], []
+
+    def spy(q, k, v, *a, **kw):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone()))
+        return k4.flash_attention(q, k, v, *a, **kw)
+    tfm.flash_attention = spy
+    try:
+        counts, _ = drive(lambda: out.append(tr.eval_step(arrays).float()))
+    finally:
+        tfm.flash_attention = k4.flash_attention
+    check(counts["flash_attention"] == n_block and counts["rope_attention"] == 0,
+          f"the uncached long batch must run K4 only: {counts}")
+    set_launches(counts, {"flash_attention[uncached]": "flash_attention"})
+    uncached = out[0]
+    check(bool(torch.isfinite(uncached).all()), "non-finite uncached long batch")
+    q, k, v = seen.pop()
+    o, o0 = k4.flash_attention(q, k, v), k4.flash_attention_plain(q, k, v)
+    err, share = (o.float() - o0.float()).abs().max().item(), row_share(o, o0)
+    check(share <= 1, f"K4 on block 0's served activations: a query row's error is {share} "
+          f"of its tolerance, 2^-6 x max |plain| of the row")
+    print(f"[long-uncached] K4 on block 0's served activations (q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}) vs its plain version: max_abs_err {err:.3e}, worst row at "
+          f"{share:.4f} of its tolerance (2^-6 x max |plain| of the row)")
+    del q, k, v, o, o0
+    # the same batch served from a cache whose prefill also ran on K4
+    # (K4_MIN_KEYS set to 1 for that batch, then restored): K4 computes each
+    # query row alike whatever L is, K1's integer GEMM and per-row quantizer
+    # alike whatever M is, so cached and uncached agree to rounding:
+    # 1e-5 x max |cached|. (Against the served cache, prefilled on K2, the
+    # head's K/V would enter block 1 a few bf16 ulps apart, and the w8a8
+    # projections turn such last-bit differences into int8 flips that 32
+    # blocks compound: ROADMAP queue 3. That pair bounds nothing, so it is
+    # not compared.)
+    saved, tfm.K4_MIN_KEYS = tfm.K4_MIN_KEYS, 1
+    try:
+        tr._prefix_kv_cache.clear()
+        cached_k4 = tr.eval_dispatch(batch).float()
+    finally:
+        tfm.K4_MIN_KEYS = saved
+        tr._prefix_kv_cache.clear()
+    err = (uncached - cached_k4).abs().max().item()
+    tol = 1e-5 * cached_k4.abs().max().item()
+    check(err <= tol, f"long window uncached vs cached (K4 prefill): {err} > {tol}")
+    print(f"[long-uncached] head embedded (L = S = {S_long}) vs the same batch served "
+          f"from a cache prefilled on K4: max_abs_err {err:.3e} (tol {tol:.3e})")
+    del tr, arrays, cached_k4, uncached, out, preds
+    torch.cuda.empty_cache()
+
+    # 18. the crossover window: history 4096 (d_ff 128) has P + L keys
+    # between 512 and 2048, so K4_MIN_KEYS decides the route
+    cfg_x = long_config(Config, history=4096, d_ff=128)
+    tr = get_trainer("chip-smoke-crossover", cfg_x, device=dev)
+    P_x, L_x = window_shapes(tr)
+    counts, _ = serve(tr, "crossover")
+    n_batches = len(tr.test_pipeline)
+    on_k4 = P_x + L_x >= tfm.K4_MIN_KEYS
+    want = ({"flash_attention": n_block * n_batches, "rope_attention": n_block} if on_k4
+            else {"flash_attention": 0, "rope_attention": n_block * (n_batches + 1)})
+    check(all(counts[k] == n for k, n in want.items()),
+          f"history 4096 ({P_x + L_x} keys, K4_MIN_KEYS {tfm.K4_MIN_KEYS}) must launch "
+          f"{want}: {counts}")
+    print(f"[crossover] {P_x + L_x} keys, K4_MIN_KEYS {tfm.K4_MIN_KEYS}: the "
+          f"{'K4' if on_k4 else 'K2'} route, as launched")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 19. a 2-layer llama-1b dense f32 slice (GQA 32 / 4 x 64) with every
+    # attention, the prefill included, forced onto K4 by setting K4_MIN_KEYS
+    # to 1 for this phase: the card's f32 K4 against the CPU's plain version,
+    # same weights; f32 end to end, summation order only: 1e-5 x scale
+    small = bench_config(Config, llm="llama-1b", batch=2, history=64, dtype="float32",
+                         n_points=256, num_tokens=128, d_ff=64, llm_layers=2,
+                         load_in_8bit=False)
+    saved, tfm.K4_MIN_KEYS = tfm.K4_MIN_KEYS, 1
+    try:
+        gpu = get_trainer("chip-smoke-k4-small", small, device=dev)
+        cpu = get_trainer("chip-smoke-k4-small", small, device="cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+        batch = next(iter(gpu.test_pipeline))
+        out = []
+        counts, _ = drive(lambda: out.append(gpu.eval_dispatch(batch).cpu()))
+        out_cpu = cpu.eval_dispatch(batch)
+    finally:
+        tfm.K4_MIN_KEYS = saved
+    check(counts["flash_attention"] == 2 * 2 and counts["rope_attention"] == 0,
+          f"the forced slice must run K4 in both layers of the prefill and the batch: {counts}")
+    err = (out[0] - out_cpu).abs().max().item()
+    tol = 1e-5 * max(1.0, out_cpu.abs().max().item())
+    check(err <= tol, f"K4 slice: card vs CPU max err {err} > {tol}")
+    print(f"[reference] llama-1b 2-layer GQA dense f32 slice, every attention forced onto "
+          f"K4 (K4_MIN_KEYS set to 1 for this phase, then restored), card vs CPU: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); K4 launches {counts['flash_attention']}")
     del gpu, cpu
 
     check(all(e["launches"] for e in kernels), f"unlaunched kernels: {kernels}")

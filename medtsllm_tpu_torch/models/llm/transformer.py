@@ -7,8 +7,10 @@ Dtypes follow the JAX module's: parameters are stored at the storage dtype
 (f32 or bf16); ``dtype`` (None for f32, else the compute dtype) is where
 projections emit and attention runs, while the residual stream keeps the
 promoted type of the input embeddings (f32), as flax promotion does.
-Attention (all calls, prefill included) goes through the fused RoPE +
-prefix + causal kernel; every projection at ``quantize=8`` through the
+Attention (prefill included) goes through the fused RoPE + prefix + causal
+kernel (K2) up to ``K4_MIN_KEYS`` keys, and above that, or past K2's 2048,
+through RoPE, the head transpose and the flash-attention kernel (K4), as
+JAX's unfused path does; every projection at ``quantize=8`` through the
 w8a8 kernel (K1), at ``quantize=4`` with the absmax codebook through K1's
 quantizer and the w4a8 kernel (K5). The MoE FFN routes each token to its
 top-k experts and runs them either as the dropless grouped chain (K6,
@@ -24,12 +26,39 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
                                             row_quant)
-from ...ops.kernels.rope_attention import rope, rope_attention, rope_tables
+from ...ops.kernels.rope_attention import MAX_KEYS, rope, rope_attention, rope_tables
 from ...ops.kernels.w4a8 import act_quant_w4a8_matmul, dequant_codebook, unpack4_split
 from ...ops.kernels.w8a8 import act_quant_matmul, int8_gemm, quantize_rows
 from .config import DecoderConfig
+
+
+# Least key count (prefix + region) at which an attention that needs no
+# gradient takes K4 in place of K2; K4 also takes every call past K2's
+# MAX_KEYS. Set from the route table of chip_smoke.py phase 3 on an H100
+# (the 7B layout, batch 8, a 37-token prefix): RoPE + K4 beats K2 at the
+# first point, 512 keys (0.95 against 4.77 ms), and by more at 1024 and
+# 2048 (PERF.md §6).
+K4_MIN_KEYS = 512
+
+
+def flash_route(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):
+    """The K4 form of attention (``transformer.py:591-633`` of the JAX
+    package): q [B, L, H, D], k/v [B, L, KV, D] pre-rotary, cos/sin
+    [L, D/2], an optional rotated prefix pk/pv [1 or B, KV, P, D]. Rotates q
+    and k in the projection layout, transposes to [B, H|KV, L, D], puts the
+    prefix ahead of k/v and runs end-aligned causal flash attention.
+    Returns [B, L, H, D]."""
+    B = q.shape[0]
+    qr = rope(q, cos, sin).transpose(1, 2).contiguous()
+    kr = rope(k, cos, sin).transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    if pk is not None:
+        kr = torch.cat([pk.to(kr.dtype).expand(B, -1, -1, -1), kr], dim=2)
+        vt = torch.cat([pv.to(vt.dtype).expand(B, -1, -1, -1), vt], dim=2)
+    return flash_attention(qr, kr, vt, causal=True, sm_scale=sm_scale).transpose(1, 2)
 
 
 class RMSNorm(nn.Module):
@@ -122,7 +151,12 @@ class Attention(nn.Module):
         """x [B, L, d]. ``prefix_kv`` = (k, v) each [1 or B, KV, P, D],
         already rotated at positions 0..P-1, with x at positions P.. (pass
         ``position_offset=P``). ``return_kv`` also returns this call's
-        rotated (k, v) [B, KV, L, D] — the prefill cache."""
+        rotated (k, v) [B, KV, L, D] — the prefill cache.
+
+        The route: K2 when the call has at most ``K4_MIN_KEYS - 1`` keys and
+        at most K2's ``MAX_KEYS``, else K4 (``flash_route``). K4 has no
+        backward, so a call that needs a gradient keeps K2 and raises past
+        its key limit."""
         cfg = self.cfg
         B, L, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -136,7 +170,18 @@ class Attention(nn.Module):
                                  device=x.device)
         cos, sin = rope_tables(positions, D, cfg.rope_theta)
         pk, pv = prefix_kv if prefix_kv is not None else (None, None)
-        out = rope_attention(q, k, v, cos, sin, pk, pv, 1.0 / math.sqrt(D))
+        keys = L + (pk.shape[2] if pk is not None else 0)
+        sm_scale = 1.0 / math.sqrt(D)
+        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        if needs_grad and keys > MAX_KEYS:
+            raise NotImplementedError(
+                f"training through attention over {keys} keys needs a backward of the "
+                "flash-attention kernel, which the JAX package does not have (ROADMAP "
+                "queue 1 item 4)")
+        if not needs_grad and (keys > MAX_KEYS or keys >= K4_MIN_KEYS):
+            out = flash_route(q, k, v, cos, sin, pk, pv, sm_scale)
+        else:
+            out = rope_attention(q, k, v, cos, sin, pk, pv, sm_scale)
         out = self.o_proj(out.reshape(B, L, H * D))
         if not return_kv:
             return out

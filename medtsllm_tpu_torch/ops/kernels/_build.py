@@ -42,6 +42,8 @@ SIGNATURES = {
     # sm_scale, stream
     "mt_rope_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, is_bf16, causal, B, H, KV, L, S, D, sm_scale, stream
+    "mt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, out, B, L, H, E, S, scale, stream
     "mt_reprogramming_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                    _P),

@@ -24,7 +24,7 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-_MAX_KEYS = 2048  # the kernel keeps a 16 x S score block in shared memory
+MAX_KEYS = 2048  # the kernel keeps a 16 x S score block in shared memory
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -126,8 +126,8 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
             raise ValueError(f"prefix K/V must be [1 or B, KV, P, D] {q.dtype}, "
                              f"got {tuple(pk.shape)} {pk.dtype}")
         tensors += [pk, pv]
-    if P + L > _MAX_KEYS:
-        raise ValueError(f"{P + L} keys exceed the kernel's {_MAX_KEYS}")
+    if P + L > MAX_KEYS:
+        raise ValueError(f"{P + L} keys exceed the kernel's {MAX_KEYS}")
     _build.check_cuda(*tensors)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)

@@ -22,12 +22,13 @@ leaked = sorted(m for m in sys.modules
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the training, MoE and int4 slices among them
+# every module of the training, MoE, int4 and long-window slices among them
 _TRAIN_MODULES = {"medtsllm_tpu_torch.runtime.optim", "medtsllm_tpu_torch.tasks.losses",
                   "medtsllm_tpu_torch.ops.kernels.selective_scan",
                   "medtsllm_tpu_torch.ops.kernels.w8a8",
                   "medtsllm_tpu_torch.ops.kernels.w4a8",
                   "medtsllm_tpu_torch.ops.kernels.rope_attention",
+                  "medtsllm_tpu_torch.ops.kernels.flash_attention",
                   "medtsllm_tpu_torch.ops.kernels.grouped_matmul"}
 
 

@@ -8,6 +8,7 @@ torch and the port, so it also runs on a machine without jax:
 import pytest
 import torch
 
+from medtsllm_tpu_torch.ops.kernels import flash_attention as k4
 from medtsllm_tpu_torch.ops.kernels import grouped_matmul as gm
 from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
 from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
@@ -121,6 +122,76 @@ def test_rope_attention_kernel_rejects_bad_input(cuda):
     cos = torch.zeros(4, 16, device=cuda)
     with pytest.raises(ValueError):
         k2.rope_attention(q, q, q, cos, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,L,S,D,causal", [
+    (8, 32, 32, 2128, 2165, 128, True),  # the long window: prefix + region
+    (8, 32, 32, 2165, 2165, 128, True),  # uncached, L == S
+    (2, 32, 4, 300, 2165, 64, True),     # GQA 32 / 4 x 64
+    (2, 8, 2, 100, 333, 128, False),     # non-causal, partial last k-tile
+    (3, 4, 2, 40, 40, 64, True),         # the first k-tile is partial
+    (1, 2, 1, 1, 1, 128, True),          # one query, one key
+])
+def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal):
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, device=cuda, generator=g).to(dtype)
+
+    q, k, v = r(B, H, L, D), r(B, KV, S, D), r(B, KV, S, D)
+    n = k4.flash_attention.launches
+    out = k4.flash_attention(q, k, v, causal)
+    assert k4.flash_attention.launches == n + 1
+    ref = k4.flash_attention_plain(q, k, v, causal)
+    assert torch.isfinite(out).all()
+    # f32: summation order and the online softmax; bf16: the kernel
+    # normalises after PV, the plain version before the cast: a bf16 ulp or
+    # so of the row's largest output, so each query row within 2^-6 x max
+    # |ref| of that row (a row that sees few keys has outputs tens of times
+    # larger than one that averages thousands: one bound for the tensor
+    # would pass a wrong row of the second kind)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        err = (out.float() - ref.float()).abs().amax(-1)
+        assert (err <= 2 ** -6 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_its_own_batch_row(cuda):
+    """GQA indexing: NaN in batch 1's K/V must not reach batch 0."""
+    g = torch.Generator(cuda).manual_seed(1)
+    q = torch.randn(2, 8, 70, 64, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, 2, 130, 64, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 2, 130, 64, device=cuda, generator=g).to(torch.bfloat16)
+    k[1], v[1] = float("nan"), float("nan")
+    out = k4.flash_attention(q, k, v)
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[:1], k4.flash_attention(q[:1], k[:1], v[:1]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_bad_input(cuda):
+    z = torch.zeros
+    with pytest.raises(ValueError):  # head dim 80 has no instance
+        k4.flash_attention(z(1, 2, 4, 80, device=cuda), z(1, 2, 4, 80, device=cuda),
+                           z(1, 2, 4, 80, device=cuda))
+    with pytest.raises(ValueError):  # mixed dtypes
+        k4.flash_attention(z(1, 2, 4, 64, device=cuda),
+                           z(1, 2, 4, 64, device=cuda, dtype=torch.bfloat16),
+                           z(1, 2, 4, 64, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # 3 kv heads do not divide 4
+        k4.flash_attention(z(1, 4, 4, 64, device=cuda), z(1, 3, 4, 64, device=cuda),
+                           z(1, 3, 4, 64, device=cuda))
+    with pytest.raises(ValueError):  # not contiguous
+        q = z(1, 4, 2, 64, device=cuda).transpose(1, 2)
+        k4.flash_attention(q, z(1, 2, 4, 64, device=cuda), z(1, 2, 4, 64, device=cuda))
+    with pytest.raises(ValueError):  # causal with more queries than keys
+        k4.flash_attention(z(1, 2, 8, 64, device=cuda), z(1, 2, 4, 64, device=cuda),
+                           z(1, 2, 4, 64, device=cuda))
 
 
 @pytest.mark.cuda

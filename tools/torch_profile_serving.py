@@ -2,12 +2,14 @@
 """Profile the PyTorch port's serving step, or the Mamba train step, on one
 CUDA card.
 
-    python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|mamba-train]
-                                           [--steps 4]
+    python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|
+                                                   llama-long|mamba-train] [--steps 4]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
 weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
-4 bits, absmax int4, as chip_smoke phases 14 and 15). For a serving path it
+4 bits, absmax int4, as chip_smoke phases 14 and 15; ``llama-long`` is the
+long window of phase 17, history 16384 with d_ff 64, two test batches of 8,
+whose decoder attention runs on K4). For a serving path it
 runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache), prepares
 ``--steps`` test batches on the host, then runs their eval steps under
@@ -43,6 +45,7 @@ CATEGORIES = (
     ("K3 reprogramming", r"reprogramming"),
     ("K1 w8a8", r"w8a8|act_quant"),
     ("K2 rope attention", r"rope_attention"),
+    ("K4 flash attention", r"flash_bf16|flash_f32"),
     ("GEMM (cuBLAS)", r"gemm|gemv|xmma|cutlass|cublas|splitK|nvjet"),
     ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
     ("MoE router / pack (sort, gather, scatter, cumsum, softmax)",
@@ -62,7 +65,7 @@ def category(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
-                                       "mamba-train"), default="mamba")
+                                       "llama-long", "mamba-train"), default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args()
 
@@ -86,6 +89,7 @@ def main() -> None:
            "moe": lambda: chip_smoke.moe_config(Config),
            "llama-int4": lambda: chip_smoke.bench_config(Config, quant_type="int4"),
            "moe-int4": lambda: chip_smoke.moe_config(Config, int4=True),
+           "llama-long": lambda: chip_smoke.long_config(Config),
            # four train batches of 48 per epoch, as chip_smoke phase 8
            "mamba-train": lambda: chip_smoke.mamba_config(Config, n_points=24704, epochs=1),
            }[args.path]()
