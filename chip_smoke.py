@@ -87,7 +87,13 @@ Phase 3 also prints the route table behind ``K4_MIN_KEYS``: K2, RoPE + K4
 and RoPE + SDPA at 512, 1024, 2048 and 4096 keys of the 7B layout; phase 17
 first checks K4 (the flash-attention kernel) against its plain version at
 the long window's shapes (cached, uncached L == S, non-causal, GQA 32 / 4 x
-64), each query row within 2^-6 x the largest |plain| of that row.
+64), each query row within 2^-6 x the largest |plain| of that row, then K1
+over one 7B block at the long window's M (8 x 2,128 = 17,024 rows; rows
+``w8a8_quantize[long]`` and ``w8a8_gemm[long]``, bit-equal, with the
+library's time) and K3 at the long window's shape (B 8, L 2048, H 8, E 64
+= the cell's d_ff, S 1024; row ``reprogramming_attention[long]``, with
+SDPA's time; E 128 printed beside it), all three listed with the launches
+of the long run.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -550,7 +556,7 @@ def main() -> None:
     print(f"[route] least listed key count at which RoPE + K4 beats K2: {picked}; the "
           f"code's K4_MIN_KEYS = {tfm.K4_MIN_KEYS}")
 
-    def check_k3(name, Bq, Lq, Hr, E, S):
+    def check_k3(name, Bq, Lq, Hr, E, S, listed=True):
         qr = torch.randn(Bq, Lq, Hr, E, device=dev, generator=g)
         kr = torch.randn(S, Hr, E, device=dev, generator=g)
         vr = torch.randn(S, Hr, E, device=dev, generator=g)
@@ -568,8 +574,9 @@ def main() -> None:
                      4 * Bq * Lq * Hr * S * E, "f32"),
                cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                    qr.transpose(1, 2), kb, vb)),
-               f" (B={Bq} L={Lq} H={Hr} E={E} S={S}; library = SDPA over the "
-               "basis expanded across the batch)")
+               f" (B={Bq} L={Lq} H={Hr} E={E} S={S}, {k3.split_plan(Bq * Lq, Hr, S)[0]} "
+               "split(s) of S; library = SDPA over the basis expanded across the batch)",
+               listed)
 
     mc = cfg.models.medtsllm
     check_k3("reprogramming_attention", B, model.n_patches, mc.n_heads, mc.d_ff,
@@ -1330,6 +1337,20 @@ def main() -> None:
     check_k4("flash_attention[gqa]", B, xcfg.n_heads, xcfg.kv_heads, L_long, S_long,
              xcfg.head_dim, True, listed=False)
 
+    # K1 over one 7B block at the long window's M = B * L rows (17,024) and
+    # K3 at its shape (the long cell's d_ff, 64, is K3's width; E 128, the
+    # llama cell's width at this L, is printed beside it, not listed)
+    d, f = lcfg.d_model, lcfg.d_ff
+    check_k1("[long]", B * L_long, ((torch.float32, d, 5), (torch.bfloat16, d, 1),
+                                    (torch.bfloat16, f, 1)),
+             ((d, d, 4), (d, f, 2), (f, d, 1)), "7 GEMMs")
+    mcl = cfg_long.models.medtsllm
+    check_k3("reprogramming_attention[long]", B, tr.model.n_patches, mcl.n_heads, mcl.d_ff,
+             mcl.num_tokens)
+    check_k3("reprogramming_attention[long, E 128]", B, tr.model.n_patches, mcl.n_heads, 128,
+             mcl.num_tokens, listed=False)
+    torch.cuda.empty_cache()
+
     n_batches = len(tr.test_pipeline)
     check(n_batches == 2, f"the long window gives {n_batches} test batches, not 2")
     counts, preds = serve(tr, "long")
@@ -1337,7 +1358,10 @@ def main() -> None:
           and counts["rope_attention"] == n_block,
           f"the long window must run K4 {n_block} times per batch and K2 only in the "
           f"prefill: {counts}")
-    set_launches(counts, {"flash_attention": "flash_attention"})
+    set_launches(counts, {"flash_attention": "flash_attention",
+                          "w8a8_quantize[long]": "w8a8_quantize",
+                          "w8a8_gemm[long]": "w8a8_gemm",
+                          "reprogramming_attention[long]": "reprogramming_attention"})
     # one batch with the prompt head embedded in the graph (the uncached form:
     # L == S, JAX's padded-kernel route), K4 in every block; block 0's K4
     # call is held against the plain version on those served activations

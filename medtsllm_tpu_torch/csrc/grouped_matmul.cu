@@ -20,13 +20,13 @@
 // What bounds it: at the moe-8x1b serving shape (R_pad ~ 15k rows, K 2048,
 // N 5632 and back) the two calls do ~1 TOP per layer; with each weight read
 // once per group it is compute-bound on the int8 tensor cores (~0.5 ms per
-// layer at peak). The design is K1's simple one, made grouped: one 128 x 128
-// block tile per (N tile, 128-row tile of a visit), the expert's weight
-// block picked from visit_e, 64-deep k steps staged through padded shared
-// memory, eight warps of mma.sync m16n8k32 (common.cuh). Two weights share
-// each staged activation tile. Consecutive blocks share one activation tile
-// and walk the expert's N tiles, so an expert's weights stay in L2 across
-// its visits.
+// layer at peak). The design is common.cuh's mma.sync tile, made grouped:
+// one 128 x 128 block tile per (N tile, 128-row tile of a visit), the
+// expert's weight block picked from visit_e, 64-deep k steps staged
+// through padded shared memory, eight warps of mma.sync m16n8k32. Two
+// weights share each staged activation tile. Consecutive blocks share one
+// activation tile and walk the expert's N tiles, so an expert's weights
+// stay in L2 across its visits.
 //
 // The requant tile is semantic: one scale per row over a block_n = 1408-wide
 // N tile, wider than any block tile. The activated f32 tile t goes through a

@@ -44,9 +44,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _F, _P),
     # q, k, v, out, is_bf16, causal, B, H, KV, L, S, D, sm_scale, stream
     "mt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, out, B, L, H, E, S, scale, stream
-    "mt_reprogramming_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                   _P),
+    # q, k, v, out, part, part_ml, B, L, H, E, S, scale, stream
+    "mt_reprogramming_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _F, _P),
+    # rows, heads, keys -> the split count of that launch (host only, no stream)
+    "mt_reprogramming_splits": (_I, _I, _I),
     # dt, x, Bs, Cs, A_T, D, h0, h0_batched, y, h_final, hb, chunk, B, L, E,
     # N, stream
     "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

@@ -5,8 +5,9 @@ w8a8_smallm_matmul_pallas`` and the XLA dot of
 ``models/llm/transformer.py::_act_quant_matmul`` it stands in for:
 per-row absmax int8 activation quantization, an s8 x s8 -> s32 product,
 then ``acc * (x_scale * w_scale)``. On this card the product is bound by
-the int8 tensor cores at the serving shapes; see the CUDA source for the
-design.
+the int8 tensor cores at the serving shapes: the kernel stages 128 x 256
+tiles by TMA into a shared-memory ring and multiplies them with wgmma;
+see the CUDA source for the design.
 
 Layout: the weight is the transposed int8 kernel ``wq_t [N, K]`` (the JAX
 package stores ``kernel_q [K, N]``; ``weights.py`` transposes once).
@@ -112,7 +113,7 @@ def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
         raise ValueError(f"shapes xq {tuple(xq.shape)} wq_t {tuple(wq_t.shape)} "
                          f"x_scale {tuple(x_scale.shape)} w_scale {tuple(w_scale.shape)}")
     if K % 16 or xq.data_ptr() % 16 or wq_t.data_ptr() % 16:
-        raise ValueError("the kernel loads 16-byte rows: K % 16 == 0 and "
+        raise ValueError("TMA reads rows 16-byte aligned: K % 16 == 0 and "
                          "16-byte aligned operands")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     _build.launch("mt_w8a8_gemm", xq.device, _build.ptr(xq), _build.ptr(wq_t),

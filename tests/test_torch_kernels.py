@@ -199,6 +199,50 @@ def test_reprogramming_matches_jax(B, L, H, E, S):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("rows,heads,keys,want", [
+    (256, 8, 1024, (8, 2)),      # llama: 32 row blocks, 16 key tiles
+    (256, 8, 1025, (9, 2)),      # the last split holds one key
+    (1536, 8, 1024, (2, 8)),     # Mamba and MoE: 192 row blocks
+    (16384, 8, 1024, (1, 16)),   # the long window: 2048 row blocks, no split
+    (14, 2, 33, (1, 1)),         # one key tile
+    (65, 8, 1024, (16, 1)),      # rows not a multiple of the row tile
+])
+def test_reprogramming_split_plan(rows, heads, keys, want):
+    """The kernel's split rule: no split from two blocks per SM (264) up,
+    else about that many blocks, never more splits than key tiles, every
+    split non-empty and the tiles all covered."""
+    splits, per = k3.split_plan(rows, heads, keys)
+    assert (splits, per) == want
+    tiles = -(-keys // k3.KEY_TILE)
+    base = heads * -(-rows // k3.ROW_TILE)
+    assert 1 <= splits <= tiles and per * (splits - 1) < tiles <= per * splits
+    if base >= 2 * k3.SMS:
+        assert splits == 1
+    else:  # the tiles per split that the wanted count needs
+        assert per == -(-tiles // min(tiles, -(-2 * k3.SMS // base)))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_reprogramming_split_merge_matches_jax(splits):
+    """The kernel's algorithm (key ranges of whole tiles, each with its
+    unnormalised acc, row max and sum, then the exact merge) against
+    reprogramming.py's _reference at several split counts; 300 keys are
+    five tiles, the last partial. f32, summation order only."""
+    rng = np.random.default_rng(splits)
+    B, L, H, E, S = 3, 7, 4, 32, 300
+    q = rng.standard_normal((B, L, H, E)).astype(np.float32)
+    k = rng.standard_normal((S, H, E)).astype(np.float32)
+    v = rng.standard_normal((S, H, E)).astype(np.float32)
+    scale = float(1.0 / np.sqrt(E))
+    ref = jax_repro._reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    out = k3.reprogramming_attention_split(_t(q), _t(k), _t(v), scale, splits)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    # the default takes split_plan's count
+    torch.testing.assert_close(k3.reprogramming_attention_split(_t(q), _t(k), _t(v), scale),
+                               k3.reprogramming_attention_split(_t(q), _t(k), _t(v), scale,
+                                                                k3.split_plan(B * L, H, S)[0]))
+
+
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,7 @@ torch and the port, so it also runs on a machine without jax:
 import pytest
 import torch
 
+from medtsllm_tpu_torch.ops.kernels import _build
 from medtsllm_tpu_torch.ops.kernels import flash_attention as k4
 from medtsllm_tpu_torch.ops.kernels import grouped_matmul as gm
 from medtsllm_tpu_torch.ops.kernels import reprogramming as k3
@@ -42,6 +43,56 @@ def test_w8a8_kernel_bit_equal(cuda, M, K, N):
     y = k1.act_quant_matmul(x, wq, ws, torch.bfloat16)
     assert (k1.quantize_rows.launches, k1.int8_gemm.launches) == (nq + 1, ng + 1)
     assert torch.equal(y, k1.act_quant_matmul_plain(x, wq, ws, torch.bfloat16))
+
+
+def _int8_operands(cuda, M, K, N, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (M, K), device=cuda, dtype=torch.int8, generator=g)
+    wq = torch.randint(-127, 128, (N, K), device=cuda, dtype=torch.int8, generator=g)
+    xs = torch.rand(M, device=cuda, generator=g) * 1e-2
+    ws = torch.rand(N, device=cuda, generator=g) * 1e-3
+    return xq, wq, xs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 64, 8), (37, 176, 72), (129, 4096, 200),
+                                   (896, 11008, 4096), (17024, 4096, 4096), (37, 176, 75)])
+def test_w8a8_gemm_bit_equal_in_every_output_kind(cuda, M, K, N):
+    """s32, f32 and bf16 outputs bit-equal to the plain version: K shorter
+    than one 128-byte stage and K tails (64, 176), ragged M and N, the
+    7B down projection and the long window's M; N 75 leaves output rows
+    that are not 16-byte aligned (the epilogue's element-wise stores)."""
+    xq, wq, xs, ws = _int8_operands(cuda, M, K, N)
+    n = k1.int8_gemm.launches
+    for dt in (torch.int32, torch.float32, torch.bfloat16):
+        assert torch.equal(k1.int8_gemm(xq, wq, xs, ws, dt),
+                           k1.int8_gemm_plain(xq, wq, xs, ws, dt))
+    assert k1.int8_gemm.launches == n + 3
+
+
+@pytest.mark.cuda
+def test_w8a8_gemm_on_expert_views_at_an_offset(cuda):
+    """act_quant_bmm hands the GEMM per-expert views xq[e] of one [E, M, K]
+    tensor, at e * M * K bytes from its start."""
+    E, M, K, N = 3, 100, 176, 72
+    xq, _, xs, _ = _int8_operands(cuda, E * M, K, N)
+    xq = xq.reshape(E, M, K)
+    w = [_int8_operands(cuda, 1, K, N, seed=e + 1)[1:4:2] for e in range(E)]
+    for e, (wq, ws) in enumerate(w):
+        assert xq[e].data_ptr() - xq.data_ptr() == e * M * K
+        for dt in (torch.int32, torch.bfloat16):
+            assert torch.equal(k1.int8_gemm(xq[e], wq, xs[e * M:(e + 1) * M], ws, dt),
+                               k1.int8_gemm_plain(xq[e], wq, xs[e * M:(e + 1) * M], ws, dt))
+
+
+@pytest.mark.cuda
+def test_w8a8_gemm_rows_do_not_depend_on_m(cuda):
+    """The first 37 rows of an M 896 product equal the M 37 product bit for
+    bit (the cached and uncached serving batches rest on it)."""
+    xq, wq, xs, ws = _int8_operands(cuda, 896, 4096, 4096)
+    for dt in (torch.int32, torch.bfloat16):
+        full = k1.int8_gemm(xq, wq, xs, ws, dt)
+        assert torch.equal(full[:37], k1.int8_gemm(xq[:37].contiguous(), wq, xs[:37], ws, dt))
 
 
 @pytest.mark.cuda
@@ -195,8 +246,15 @@ def test_flash_attention_kernel_rejects_bad_input(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,H,E,S", [(8, 32, 8, 128, 1024), (3, 20, 4, 64, 100),
-                                       (2, 7, 2, 32, 33)])
+@pytest.mark.parametrize("B,L,H,E,S", [
+    (8, 32, 8, 128, 1024), (3, 20, 4, 64, 100), (2, 7, 2, 32, 33),
+    (8, 32, 8, 128, 1025),    # llama rows, nine splits, the last holding one key
+    (48, 32, 8, 64, 1024),    # Mamba and MoE: two splits
+    (8, 2048, 8, 128, 1024),  # the long window: no split
+    (5, 13, 8, 128, 1024),    # B * L = 65 rows: a partial row tile, 16 splits
+    (3, 7, 2, 32, 100),       # a partial second key tile, two splits
+    (7, 9, 8, 64, 1025),
+])
 def test_reprogramming_kernel_vs_plain(cuda, B, L, H, E, S):
     g = torch.Generator(cuda).manual_seed(0)
     q = torch.randn(B, L, H, E, device=cuda, generator=g)
@@ -208,6 +266,40 @@ def test_reprogramming_kernel_vs_plain(cuda, B, L, H, E, S):
     # f32: online vs two-pass softmax and summation order
     torch.testing.assert_close(out, k3.reprogramming_attention_plain(q, k, v),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reprogramming_split_rule_matches_the_kernels(cuda):
+    """The launcher's split count (which sizes the wrapper's scratch) is
+    split_plan's, the CPU reference's rule: across the 264-block edge, one
+    key tile to many, the serving shapes."""
+    lib = _build.library()
+    for rows in (1, 14, 64, 65, 256, 1056, 1057, 1536, 2112, 16384):
+        for heads in (1, 2, 8, 32):
+            for keys in (1, 33, 64, 100, 1000, 1024, 1025, 4096):
+                assert lib.mt_reprogramming_splits(rows, heads, keys) == \
+                    k3.split_plan(rows, heads, keys)[0], (rows, heads, keys)
+
+
+@pytest.mark.cuda
+def test_reprogramming_kernel_rejects_misaligned_views(cuda):
+    """q, k and v are read as 16-byte vectors: a contiguous view one float
+    from an aligned start raises instead of faulting on the card."""
+    B, L, H, E, S = 2, 3, 2, 32, 40
+    q = torch.randn(B, L, H, E, device=cuda)
+    k = torch.randn(S, H, E, device=cuda)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for args in ((shifted(q), k, k), (q, shifted(k), k), (q, k, shifted(k))):
+        assert args[0].is_contiguous() and args[1].is_contiguous()
+        with pytest.raises(ValueError):
+            k3.reprogramming_attention(*args)
+    torch.testing.assert_close(k3.reprogramming_attention(q, k, k),
+                               k3.reprogramming_attention_plain(q, k, k), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
