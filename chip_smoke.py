@@ -492,16 +492,25 @@ def main() -> None:
         pairs = L * P + L * (L + 1) // 2
         # bf16 output: the kernel rounds each rotation once, the plain version
         # after each of its three ops, so probabilities and outputs may differ
-        # by a few bf16 ulps (2^-8 relative each)
+        # by a few bf16 ulps (2^-8 relative each). Held per query row (2^-6 x
+        # max |plain| of the row, as K4 is) where every row keeps it, else by
+        # the whole-tensor bound with the worst row's share printed
+        err = (o.float() - o0.float()).abs().max().item()
+        share = row_share(o, o0)
+        per_row = share <= 1
         tol = 2.0 ** -6 * o0.float().abs().max().item()
         record(name, "medtsllm_tpu_torch/csrc/rope_attention.cu",
-               "medtsllm_tpu/ops/pallas/rope_attention.py:182",
-               (o.float() - o0.float()).abs().max().item(), tol,
+               "medtsllm_tpu/ops/pallas/rope_attention.py:182", err,
+               None if per_row else tol,
                cuda_ms(torch, lambda: k2.rope_attention(q, k, v, cos, sin, pk, pv)),
                cuda_ms(torch, lambda: k2.rope_attention_plain(q, k, v, cos, sin, pk, pv)),
                bound(2 * (2 * B * L * H * D + 2 * B * L * KV * D + 2 * KV * P * D)
                      + 4 * L * D, 4 * B * H * D * pairs, "bf16"),
-               cuda_ms(torch, rope_sdpa), f" (B={B} L={L} H={H} KV={KV} D={D} P={P})")
+               cuda_ms(torch, rope_sdpa),
+               f" (B={B} L={L} H={H} KV={KV} D={D} P={P}"
+               + (")" if per_row else f"; worst row at {share:.4f} of 2^-6 x its max "
+                  "|plain|, so the whole-tensor bound holds it)"),
+               share=share if per_row else None)
 
     check_k2("rope_attention", B, L, H, KV, D, P, lcfg.rope_theta)
     check_k2("rope_attention[moe-8x1b]", Be, Le, xcfg.n_heads, xcfg.kv_heads,

@@ -38,15 +38,16 @@
 // consumer tiles, six stages) at every GEMM of the serving blocks, it was
 // faster or level at each (PERF.md).
 //
-// The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint: no -lcuda) and passed by value
+// The tensor maps are encoded on the host per call (hopper.cuh, which also
+// holds the barrier, TMA and wgmma helpers K5 shares) and passed by value
 // as __grid_constant__ parameters.
 
-#include <cuda.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace mt::hopper;
 
 constexpr int kQuantThreads = 256;
 
@@ -83,7 +84,7 @@ act_quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
 
 constexpr int kBM = 128;       // rows of a block tile: two consumer warpgroups
 constexpr int kBN = 256;       // columns of a block tile
-constexpr int kBK = 128;       // k bytes per stage: one 128-byte swizzle row
+constexpr int kBK = kSwizzleBytes;  // k bytes per stage: one swizzle row
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 4;
 constexpr int kABytes = kBM * kBK;
@@ -91,69 +92,6 @@ constexpr int kStageBytes = kABytes + kBN * kBK;
 constexpr int kRingBytes = kStages * kStageBytes;
 // + barriers, + slack to align the ring to the 1024-byte swizzle atom
 constexpr int kSmem = kRingBytes + 2 * kStages * 8 + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// one 2-D tile (c0 = k, c1 = row) of the tensor map into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// shared-memory descriptor of a K-major tile in the 128-byte swizzle: rows
-// of 128 bytes, 8-row atoms 1024 bytes apart (SBO), layout type 1 (B128)
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // m64n256k32, s8 x s8 -> s32, A and B from shared memory; d accumulates
 __device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
@@ -208,7 +146,7 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(&full[s], 1);   // the producer's expect_tx arrival
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -311,41 +249,6 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &status);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return status == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// the row-major int8 [rows, K] matrix as 2-D tiles of box_rows x 128 bytes,
-// 128-byte swizzled; out-of-bounds elements read as zero
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int OUT>
 int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb, const float* xs, const float* ws,
                 void* out, int M, int N, int K, cudaStream_t s) {
@@ -387,7 +290,7 @@ int mt_w8a8_gemm(const void* xq, const void* wq_t, const void* x_scale,
   const auto* xs = static_cast<const float*>(x_scale);
   const auto* ws = static_cast<const float*>(w_scale);
   CUtensorMap ma, mb;
-  if (!make_map(&ma, xq, M, K, kBM) || !make_map(&mb, wq_t, N, K, kBN))
+  if (!make_map_s8(&ma, xq, M, K, kBM) || !make_map_s8(&mb, wq_t, N, K, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_kind == 0) return launch_gemm<0>(ma, mb, xs, ws, out, M, N, K, s);
   if (out_kind == 1) return launch_gemm<1>(ma, mb, xs, ws, out, M, N, K, s);

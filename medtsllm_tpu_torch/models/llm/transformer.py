@@ -38,10 +38,11 @@ from .config import DecoderConfig
 # Least key count (prefix + region) at which an attention that needs no
 # gradient takes K4 in place of K2; K4 also takes every call past K2's
 # MAX_KEYS. Set from the route table of chip_smoke.py phase 3 on an H100
-# (the 7B layout, batch 8, a 37-token prefix): RoPE + K4 beats K2 at the
-# first point, 512 keys (0.95 against 4.77 ms), and by more at 1024 and
-# 2048 (PERF.md §6).
-K4_MIN_KEYS = 512
+# (the 7B layout, batch 8, a 37-token prefix; PERF.md §6): the tensor-core
+# K2 beats RoPE + K4 at every listed count up to its limit, 512, 1024 and
+# 2048 keys (0.34 / 0.99 / 3.29 against 0.95 / 2.13 / 5.12 ms), so K4 takes
+# only the calls past MAX_KEYS.
+K4_MIN_KEYS = MAX_KEYS + 1
 
 
 def flash_route(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):

@@ -38,9 +38,9 @@ SIGNATURES = {
     "mt_w8a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # xq, packed, x_scale, w_scale, out, out_kind, M, N, K, stream
     "mt_w4a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, cos, sin, pk, pv, out, is_bf16, B, L, H, KV, D, P, PB,
+    # q, k, v, cos, sin, pk, pv, out, k_rot, is_bf16, B, L, H, KV, D, P, PB,
     # sm_scale, stream
-    "mt_rope_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "mt_rope_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _F, _P),
     # q, k, v, out, is_bf16, causal, B, H, KV, L, S, D, sm_scale, stream
     "mt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

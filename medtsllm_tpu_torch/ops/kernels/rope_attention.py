@@ -7,8 +7,12 @@ from f32 cos/sin tables [L, D/2] cast to the compute dtype, an optional
 already-rotated prefix K/V [1 or B, KV, P, D], the end-aligned causal mask,
 an f32 softmax normalised before the cast to v's dtype, and the output in
 [B, L, H, D]. KV may divide H. At the serving shape the cost is memory and
-latency, not FLOPs; see the CUDA source for the design. The backward, as
-``_fra_bwd`` does, runs autograd through the plain version.
+latency, not FLOPs: in bf16 a first kernel rotates the keys once into a
+scratch copy, then one block per 64 query rows of a KV group runs on
+tensor cores, each K/V tile staged once for the G heads that share it (two
+kernels, one launch counted); f32 runs an exact FMA kernel. See the CUDA
+source for the design. The backward, as ``_fra_bwd`` does, runs autograd
+through the plain version.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -24,7 +28,10 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-MAX_KEYS = 2048  # the kernel keeps a 16 x S score block in shared memory
+# keys a call may have: the f32 kernel keeps a 16 x S score block in shared
+# memory (the bf16 kernel has no limit of its own); the decoder's routes and
+# its raise for gradients past it depend on this value
+MAX_KEYS = 2048
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -129,12 +136,17 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
     if P + L > MAX_KEYS:
         raise ValueError(f"{P + L} keys exceed the kernel's {MAX_KEYS}")
     _build.check_cuda(*tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernel copies 16-byte rows: q, k, v, cos, sin and the "
+                         "prefix must be 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    k_rot = torch.empty_like(k) if bf16 else None  # the bf16 form's rotated keys
     ptr = _build.ptr
     _build.launch("mt_rope_attention", q.device, ptr(q), ptr(k), ptr(v), ptr(cos),
-                  ptr(sin), ptr(pk), ptr(pv), ptr(out), int(q.dtype == torch.bfloat16),
+                  ptr(sin), ptr(pk), ptr(pv), ptr(out), ptr(k_rot), int(bf16),
                   B, L, H, KV, D, P, PB, ctypes.c_float(sm_scale))
     rope_attention.launches += 1
     return out

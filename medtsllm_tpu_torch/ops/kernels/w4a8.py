@@ -12,8 +12,10 @@ Layout: ``pack4_split`` along the last axis. The weight is ``[N,
 ceil(K/2)]`` int8, the JAX ``kernel_q [ceil(K/2), N]`` transposed
 (``weights.py``); byte p of a row holds logical k = p in its high nibble and
 k = p + ceil(K/2) in its low one (odd K pads the last low nibble with 0).
-The kernel streams the packed bytes once and unpacks them in shared memory:
-half the weight bytes of K1.
+The kernel (K1's wgmma + TMA pipeline with the operands swapped) stages the
+packed tile by TMA and unpacks each thread's nibbles in registers straight
+into wgmma's A fragments: no unpacked copy of the weight exists, and it
+reads half the weight bytes of K1.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Forward only: the straight-through backward is not ported.
@@ -27,6 +29,7 @@ from . import _build
 from .w8a8 import int8_matmul_plain, quantize_rows
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+MAX_K = 131072  # the kernel accumulates 16 x w: 16 * K * 127 * 8 < 2^31
 
 # bnb 4-bit dequant codebooks (medtsllm_tpu/models/llm/transformer.py
 # _NF4_TABLE / _FP4_TABLE): code c (0..15) stands for table[c], stored as
@@ -103,8 +106,11 @@ def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
         raise ValueError(f"shapes xq {tuple(xq.shape)} packed {tuple(packed.shape)} "
                          f"x_scale {tuple(x_scale.shape)} w_scale {tuple(w_scale.shape)}")
     if K2 % 16 or xq.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise ValueError("the kernel loads 16-byte rows of each half: K / 2 % 16 == 0 "
-                         "and 16-byte aligned operands")
+        raise ValueError("TMA reads rows 16-byte aligned: K / 2 % 16 == 0 and "
+                         "16-byte aligned operands")
+    if K > MAX_K:
+        raise ValueError(f"K {K} > {MAX_K}: the kernel's s32 sums of 16 x the int4 "
+                         "values could wrap")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     _build.launch("mt_w4a8_gemm", xq.device, _build.ptr(xq), _build.ptr(packed),
                   _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),

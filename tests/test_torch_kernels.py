@@ -170,6 +170,42 @@ def test_rope_attention_gqa_matches_flash_reference(KV):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,KV,P,PB", [
+    (2, 17, 16, 2, 0, 1),   # the head prefill: no prefix, G 8
+    (3, 17, 16, 2, 6, 3),   # a per-row prefix (PB = B), G 8
+    (2, 17, 8, 8, 11, 2),   # KV = H, PB = B
+])
+def test_rope_attention_plain_matches_jax_at_the_tiling_edges(dtype, B, L, H, KV, P, PB):
+    """The plain version (what the card's bf16 kernel is held to) against
+    JAX's XLA attention at the shapes the kernel's tiling must cover: 64-row
+    tiles drawn from all G heads of a KV group (G 8: 136 rows, a partial
+    last tile), no prefix, a per-row prefix, L 17. Against
+    _attention_reference over JAX's rotary and the concatenated prefix, and
+    against rope_attention._reference where KV = H."""
+    D = 64
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, k, v, cos, sin, pk, pv = _rope_inputs(B * 10 + P, B, L, H, KV, D, P, PB, jdt)
+    scale = 1.0 / np.sqrt(D)
+    pos = P + jnp.arange(L)
+    qr = jax_tf.rotary_embedding(q, pos, 10000.0, seq_axis=1).transpose(0, 2, 1, 3)
+    kr = jax_tf.rotary_embedding(k, pos, 10000.0, seq_axis=1).transpose(0, 2, 1, 3)
+    vv = v.transpose(0, 2, 1, 3)
+    if P:
+        kr = jnp.concatenate([jnp.broadcast_to(pk, (B,) + pk.shape[1:]), kr], axis=2)
+        vv = jnp.concatenate([jnp.broadcast_to(pv, (B,) + pv.shape[1:]), vv], axis=2)
+    refs = [_attention_reference(qr, kr, vv, True, scale).transpose(0, 2, 1, 3)]
+    if KV == H:
+        refs.append(jax_rope._reference(q, k, v, cos, sin, pk, pv, scale))
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    args = [_torch(t).to(tdt) for t in (q, k, v)] + [_torch(cos), _torch(sin)]
+    pre = [None if t is None else _torch(t).to(tdt) for t in (pk, pv)]
+    out = k2.rope_attention_plain(*args, *pre, scale).float().numpy()
+    for want in refs:
+        np.testing.assert_allclose(out, np.asarray(want.astype(jnp.float32)),
+                                   **_ROPE_TOL[dtype])
+
+
 def test_rope_tables_match_jax():
     pos = np.arange(40, 57)
     cj, sj = jax_rope.rope_tables(jnp.asarray(pos), 128, 10000.0)

@@ -130,23 +130,81 @@ def test_w4a8_kernel_bit_equal(cuda, M, K, N):
     assert torch.equal(y, k5.w4a8_matmul_plain(xq0, packed, xs0, ws, torch.bfloat16))
 
 
+def _int4_operands(cuda, M, K, N, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (M, K), device=cuda, dtype=torch.int8, generator=g)
+    q = torch.randint(-8, 8, (N, K), device=cuda, dtype=torch.int8, generator=g)
+    xs = torch.rand(M, device=cuda, generator=g) * 1e-2
+    ws = torch.rand(N, device=cuda, generator=g) * 1e-2
+    return xq, k5.pack4_split(q), xs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 37, 129, 896, 6912])
+@pytest.mark.parametrize("K,N", [(11008, 4096), (2080, 72), (4096, 200)])
+def test_w4a8_gemm_bit_equal_in_every_output_kind(cuda, M, K, N):
+    """s32, f32 and bf16 outputs bit-equal to the plain version at ragged M
+    (one row to the MoE block's 6,912: partial 256-row tiles), N 72 / 200
+    (partial 128-row weight tiles; 72 leaves bf16 rows that are not 16-byte
+    aligned), the down projection's K / 2 = 5504 and K / 2 = 1040, which is
+    not a multiple of the kernel's 128-byte step."""
+    xq, packed, xs, ws = _int4_operands(cuda, M, K, N)
+    n = k5.w4a8_gemm.launches
+    for dt in (torch.int32, torch.float32, torch.bfloat16):
+        assert torch.equal(k5.w4a8_gemm(xq, packed, xs, ws, dt),
+                           k5.w4a8_matmul_plain(xq, packed, xs, ws, dt))
+    assert k5.w4a8_gemm.launches == n + 3
+
+
+@pytest.mark.cuda
+def test_w4a8_gemm_rows_do_not_depend_on_m(cuda):
+    """The first 37 rows of an M 896 product equal the M 37 product bit for
+    bit, as K1's do."""
+    xq, packed, xs, ws = _int4_operands(cuda, 896, 4096, 4096)
+    for dt in (torch.int32, torch.bfloat16):
+        full = k5.w4a8_gemm(xq, packed, xs, ws, dt)
+        assert torch.equal(full[:37], k5.w4a8_gemm(xq[:37].contiguous(), packed, xs[:37],
+                                                   ws, dt))
+
+
 @pytest.mark.cuda
 def test_w4a8_kernel_rejects_bad_input(cuda):
     xq = torch.zeros(4, 48, dtype=torch.int8, device=cuda)  # K / 2 % 16 != 0
     w = torch.zeros(8, 24, dtype=torch.int8, device=cuda)
+    s4, s8 = torch.ones(4, device=cuda), torch.ones(8, device=cuda)
     with pytest.raises(ValueError):
-        k5.w4a8_gemm(xq, w, torch.ones(4, device=cuda), torch.ones(8, device=cuda))
+        k5.w4a8_gemm(xq, w, s4, s8)
     with pytest.raises(ValueError):  # packed width is not K / 2
-        k5.w4a8_gemm(torch.zeros(4, 64, dtype=torch.int8, device=cuda), w,
-                     torch.ones(4, device=cuda), torch.ones(8, device=cuda))
+        k5.w4a8_gemm(torch.zeros(4, 64, dtype=torch.int8, device=cuda), w, s4, s8)
+    with pytest.raises(ValueError):  # a view 8 bytes in: TMA needs 16-byte alignment
+        big = torch.zeros(5 * 64 + 8, dtype=torch.int8, device=cuda)
+        k5.w4a8_gemm(big[8:].view(5, 64)[:4], torch.zeros(8, 32, dtype=torch.int8,
+                                                          device=cuda), s4, s8)
+    with pytest.raises(ValueError):  # K past the s32 accumulator's range
+        K = k5.MAX_K + 32
+        k5.w4a8_gemm(torch.zeros(1, K, dtype=torch.int8, device=cuda),
+                     torch.zeros(8, K // 2, dtype=torch.int8, device=cuda),
+                     torch.ones(1, device=cuda), s8)
+    with pytest.raises(ValueError):  # scales must be f32
+        k5.w4a8_gemm(torch.zeros(4, 64, dtype=torch.int8, device=cuda),
+                     torch.zeros(8, 32, dtype=torch.int8, device=cuda), s4.half(), s8)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,KV,D,P,PB", [
-    (8, 112, 32, 32, 128, 48, 1),  # the serving shape
+    (8, 112, 32, 32, 128, 48, 1),  # the 7B serving shape (G 1)
     (2, 40, 8, 2, 64, 13, 2),      # GQA, per-row prefix, P % 16 != 0
     (1, 48, 32, 32, 128, 0, 1),    # prefill: no prefix
+    (48, 144, 32, 4, 64, 14, 1),   # the moe-8x1b serving shape (G 8)
+    (8, 37, 32, 4, 64, 0, 1),      # the moe-8x1b head prefill (G 8, P 0)
+    (3, 17, 16, 2, 64, 5, 3),      # G 8, L 17, PB = B
+    (2, 1, 8, 2, 128, 9, 1),       # one query (G 4)
+    (2, 15, 8, 8, 64, 0, 1),       # L 15 < one tile, KV = H
+    (2, 113, 8, 1, 128, 20, 2),    # G 8, L 113, PB = B; 133 keys: a partial last tile
+    (2, 144, 16, 4, 128, 30, 2),   # G 4, PB = B
+    (1, 2011, 4, 4, 128, 37, 1),   # 2048 keys, K2's limit
+    (1, 1000, 8, 1, 64, 48, 1),    # 1048 keys, G 8
 ])
 def test_rope_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
     g = torch.Generator(cuda).manual_seed(0)
@@ -161,10 +219,43 @@ def test_rope_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
     out = k2.rope_attention(q, k, v, cos, sin, pk, pv)
     assert k2.rope_attention.launches == n + 1
     ref = k2.rope_attention_plain(q, k, v, cos, sin, pk, pv)
-    # f32: summation order only; bf16: the kernel rounds each rotation once,
-    # the plain version after each of its ops, so a few bf16 ulps (2^-8)
-    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:  # summation order only
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        return
+    # bf16: the kernel rounds each rotation once, the plain version after
+    # each of its three ops, so q and k differ by a bf16 ulp here and there
+    # and scores, probabilities and outputs by a few bf16 ulps (2^-8): every
+    # element within 2^-6 (1 + |ref|). That rounding alone moves some rows
+    # of a long average past 2^-6 of their own max (the worst row's share is
+    # printed), so each query row is also held within 2^-6 x its max against
+    # the plain version fed the kernel's once-rounded rotation (an element
+    # bound alone would pass a wrong row that averages many keys, as K4's
+    # checks found)
+    tol = 2 ** -6
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    print(f"worst query row against the plain version at {_row_share(out, ref):.4f} of "
+          "2^-6 x its max")
+    ones, zeros = torch.ones_like(cos), torch.zeros_like(sin)  # the identity rotation
+    ref1 = k2.rope_attention_plain(_rope_once(q, cos, sin), _rope_once(k, cos, sin), v, ones,
+                                   zeros, pk, pv)
+    assert _row_share(out, ref1) <= 1
+
+
+def _rope_once(x, cos, sin):
+    """The kernel's rotation of x [B, L, H, D]: f32 products with the tables
+    rounded to x's dtype, one rounding to x's dtype at the end."""
+    c = cos.to(x.dtype).float()[None, :, None, :]
+    s = sin.to(x.dtype).float()[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def _row_share(out, ref):
+    """The largest, over query rows, of a row's max |out - ref| in 2^-6 x
+    max |ref| of that row."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    return (err / (2 ** -6 * ref.float().abs().amax(-1)).clamp_min(1e-30)).max().item()
 
 
 @pytest.mark.cuda
