@@ -11,7 +11,9 @@ nvidia-smi. Phases:
      serving and train paths give it (K1 and K5 integers and outputs
      bit-equal, at the 7B and moe-8x1b blocks; K6 in its gate+up and down
      forms with int8 and with packed int4 experts, on a random and a skewed
-     routing), with both
+     routing, with its requant pass timed apart (``[requant]``, beside the
+     workspace's bytes), its raster at group_m 1 and 16 (``[raster]``) and
+     K1's GEMM per expert over the same rows (``[yardstick]``)), with both
      times from CUDA events, the least time the card could take for the
      same work (bound) and, where one exists, the time of the one PyTorch
      call that computes the same function (timed here only; the port never
@@ -252,6 +254,24 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters=20, warmup=3):
+    """Mean device milliseconds per call of a host-bound ``fn`` (many small
+    launches): the timed calls queue behind a sleeping kernel (~0.1 s), so
+    the events time the device's work, not the host's enqueueing."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """(ms, what bounds it): the larger of the bytes over the memory rate
     and the operations over the peak rate of their type."""
@@ -366,6 +386,9 @@ def main() -> None:
                         "replaces": replaces, "launches": None, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                         "bound_by": bnd[1], "library_ms": library_ms})
+
+    def kernels_ms(name):
+        return next(e["ms"] for e in kernels if e["name"] == name)
 
     def check_k1(label, M, quants, gemms, note):
         """K1 over one decoder block at M = B * L rows: ``quants`` (input
@@ -779,6 +802,71 @@ def main() -> None:
                    bound(bytes_dn, ops_dn, "int8"), None,
                    f" (w_bits={wb}, R_pad={R_pad} K={Ff} N={Dm} KB={Ff // bn_f} "
                    f"block_n={bn_d}, {label} routing)")
+            # the requant pass alone, on the gate+up call's activated f32
+            # workspace (written once, read once): codes and scales
+            # bit-equal to the plain requantization of the same workspace
+            (t_ws,) = gm.gmm(xq, xs, (w_g, w_u), (s_g, s_u), ve, valid, block_n=bn_f,
+                             fuse_silu=True, w_bits=wb)
+            rq, rs = gm.requant_tiles(t_ws, bn_f)
+            rq0, rs0 = gm.requant_tiles_plain(t_ws, bn_f)
+            check(torch.equal(rq, rq0) and torch.equal(rs, rs0),
+                  f"K6 w{wb} requant[{label}]: codes or scales differ from the plain pass")
+            ws_bytes = R_pad * Ff * 4
+            rq_ms = cuda_ms(torch, lambda: gm.requant_tiles(t_ws, bn_f))
+            rq_bound = bound(ws_bytes + R_pad * Ff + (Ff // bn_f) * R_pad * 4, 0, "int8")
+            print(f"[requant] K6 w{wb} gate_up[{label}]: requant pass {rq_ms:.4f} ms of the "
+                  f"call (bound {rq_bound[0]:.4f} ms, {rq_bound[1]}); workspace [{R_pad}, {Ff}] "
+                  f"f32 = {ws_bytes} bytes, written once and read once")
+            if wb == 8 and label == "random":
+                record("grouped_matmul_requant", "medtsllm_tpu_torch/csrc/grouped_matmul.cu",
+                       "medtsllm_tpu/ops/pallas/grouped_matmul.py:173", 0.0, 0.0, rq_ms,
+                       cuda_ms(torch, lambda: gm.requant_tiles_plain(t_ws, bn_f), iters=3,
+                               warmup=1),
+                       rq_bound, None, f" (emit_quant's second pass, R_pad={R_pad} N={Ff} "
+                       f"block_n={bn_f}; codes and scales bit-equal; launched once per gate_up "
+                       f"call, at both weight widths)")
+            # the raster: each form at group_m 1 (the plain order: each row
+            # tile's columns in turn) and 16; the wrapper ships the faster
+            shipped = dict(gm.TILE_GROUP_M)
+            raster = {}
+            try:
+                for gmv in (1, 16):
+                    gm.TILE_GROUP_M.update(rows=gmv, chunked=gmv)
+                    raster[gmv] = (cuda_ms(torch, lambda: gm.gmm(*up_args, **kw_up)),
+                                   cuda_ms(torch, lambda: gm.gmm(*down_args, block_n=bn_d,
+                                                                 w_bits=wb)))
+            finally:
+                gm.TILE_GROUP_M.update(shipped)
+            print(f"[raster] K6 w{wb}[{label}]: gate_up {raster[1][0]:.4f} / "
+                  f"{raster[16][0]:.4f} ms, down {raster[1][1]:.4f} / {raster[16][1]:.4f} ms "
+                  f"at group_m 1 / 16; shipped: gate_up {shipped['rows']}, down "
+                  f"{shipped['chunked']}")
+            if wb == 8:
+                # a yardstick, not a library call: K1's own GEMM per used
+                # expert over the same routed rows (f32 out, unit row scales;
+                # no SwiGLU, no requant, per-row scales in the down GEMM);
+                # one launch per expert and weight is host-bound: queued_ms
+                _, _, row_off = gm.gmm_metadata(counts, 128, V)
+                rows = [(e, o, c) for e, (o, c) in
+                        enumerate(zip(row_off.tolist(), counts.tolist())) if c]
+                ones = torch.ones(R_pad, device=dev)
+
+                def k1_up():
+                    for e, o, c in rows:
+                        for w_, s_ in ((w_g, s_g), (w_u, s_u)):
+                            k1.int8_gemm(xq[o:o + c], w_[e], ones[o:o + c], s_[e], torch.float32)
+
+                def k1_down():
+                    for e, o, c in rows:
+                        k1.int8_gemm(aq[o:o + c], w_d[e], ones[o:o + c], s_d[e], torch.float32)
+                print(f"[yardstick] K1 int8_gemm per expert over the {routed} routed rows "
+                      f"[{label}]: gate+up {queued_ms(torch, k1_up):.4f} ms, down "
+                      f"{queued_ms(torch, k1_down):.4f} ms (device time; {len(rows)} experts; "
+                      f"K6 gate_up "
+                      f"{kernels_ms(prefix + '_gate_up' + suffix):.4f} ms with its requant, "
+                      f"down {kernels_ms(prefix + '_down' + suffix):.4f} ms)")
+                del ones
+            del t_ws, rq, rs, rq0, rs0
             raw = gm.gmm(xq, xs, (w_g,), (s_g,), ve, valid, block_n=bn_f,
                          out_dtype=torch.int32, w_bits=wb)
             check(torch.equal(raw[0], gm.gmm_plain(xq, xs, (w_g,), (s_g,), ve, valid,
@@ -799,7 +887,8 @@ def main() -> None:
                 "selective_scan_bounds": ss.selective_ssm_bounds,
                 "selective_scan_bwd": ss.selective_ssm_bwd,
                 "grouped_matmul_gate_up": gm.GATE_UP, "grouped_matmul_down": gm.DOWN,
-                "w4a8_gemm": k5.w4a8_gemm, "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
+                "grouped_matmul_requant": gm.REQUANT, "w4a8_gemm": k5.w4a8_gemm,
+                "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
                 "grouped_matmul_w4_down": gm.DOWN_W4}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -1095,14 +1184,17 @@ def main() -> None:
     etrainer = get_trainer("chip-smoke-moe", ecfg, device=dev)
     counts, _ = serve(etrainer, "moe")
     n_calls = n_layers * (len(etrainer.test_pipeline) + 1)  # every batch + the prefill
-    check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"] == n_calls,
-          f"K6 must run twice per layer per batch and in the prefill: {counts}")
+    check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
+          == counts["grouped_matmul_requant"] == n_calls,
+          f"K6 must run twice per layer per batch and in the prefill, the gate_up call "
+          f"with its requant pass: {counts}")
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention", "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the MoE path")
     set_launches(counts, {"grouped_matmul_gate_up": "grouped_matmul_gate_up",
                           "grouped_matmul_down": "grouped_matmul_down",
                           "grouped_matmul_gate_up[skewed]": "grouped_matmul_gate_up",
                           "grouped_matmul_down[skewed]": "grouped_matmul_down",
+                          "grouped_matmul_requant": "grouped_matmul_requant",
                           "rope_attention[moe-8x1b]": "rope_attention",
                           "w8a8_quantize[moe-8x1b]": "w8a8_quantize",
                           "w8a8_gemm[moe-8x1b]": "w8a8_gemm"})
@@ -1182,8 +1274,9 @@ def main() -> None:
     del etrainer
     torch.cuda.empty_cache()
     counts, _ = serve(bmm, "moe-bmm")
-    check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"] == 0
-          and counts["w8a8_gemm"] > 0, f"the bmm pass must run K1 per expert, not K6: {counts}")
+    check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
+          == counts["grouped_matmul_requant"] == 0 and counts["w8a8_gemm"] > 0,
+          f"the bmm pass must run K1 per expert, not K6: {counts}")
     del bmm
     torch.cuda.empty_cache()
 
@@ -1209,7 +1302,8 @@ def main() -> None:
           "absmax int4 experts on the card")
     counts, _ = serve(etrainer, "moe-int4")
     n_calls = xcfg.n_layers * (len(etrainer.test_pipeline) + 1)
-    check(counts["grouped_matmul_w4_gate_up"] == counts["grouped_matmul_w4_down"] == n_calls
+    check(counts["grouped_matmul_w4_gate_up"] == counts["grouped_matmul_w4_down"]
+          == counts["grouped_matmul_requant"] == n_calls
           and counts["w4a8_gemm"] == 4 * n_calls and counts["grouped_matmul_gate_up"] == 0
           and counts["w8a8_gemm"] == 0,
           f"K6-w4 twice and K5 four times per layer per batch and in the prefill: {counts}")

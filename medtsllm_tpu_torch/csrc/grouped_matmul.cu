@@ -16,215 +16,423 @@
 //                    clipped to +-127 (equal to JAX's unclipped cast
 //                    whenever t is finite)
 // Invalid visits write zeros; their requantized rows get the 1e-10 scale.
+// Integer sums are exact in any order, so every rounding above sees the
+// same operands as the plain version's.
 //
-// What bounds it: at the moe-8x1b serving shape (R_pad ~ 15k rows, K 2048,
-// N 5632 and back) the two calls do ~1 TOP per layer; with each weight read
-// once per group it is compute-bound on the int8 tensor cores (~0.5 ms per
-// layer at peak). The design is common.cuh's mma.sync tile, made grouped:
-// one 128 x 128 block tile per (N tile, 128-row tile of a visit), the
-// expert's weight block picked from visit_e, 64-deep k steps staged
-// through padded shared memory, eight warps of mma.sync m16n8k32. Two
-// weights share each staged activation tile. Consecutive blocks share one
-// activation tile and walk the expert's N tiles, so an expert's weights
-// stay in L2 across its visits.
+// What bounds it: at the moe-8x1b serving shape (R_pad 14,848 rows, 13,824
+// routed; gate + up K 2048 -> N 2 x 5632, down K 5632 -> N 2048) the two
+// calls do ~0.96 TOP per layer against ~0.2 GB: the int8 tensor cores
+// (0.32 + 0.16 ms at peak). Only wgmma reaches their rate, so the design is
+// K1's pipeline (w8a8.cu), made grouped:
+//   - a block owns one 128-row tile of a visit x 128 output columns. One
+//     producer thread (its warpgroup gives its registers away with
+//     setmaxnreg) reads visit_e / visit_valid and keeps TMA loads in flight
+//     into a ring of 192 KB of stages under full / empty mbarriers: per
+//     128-byte k step, the visit's 128 x 128-byte activation box and a
+//     128 x 128-byte box of each weight. An invalid visit loads nothing and
+//     writes zeros.
+//   - the TMA maps give the chunks their own dimension: xq is viewed as
+//     [R_pad, KB, K / KB] and each weight as [E, N, KB, K / KB], so a box
+//     never crosses a chunk's end (TMA's zero fill covers the chunk tail,
+//     a ragged K and a ragged N, the expert being a dimension of its own)
+//     and a chunk boundary always falls on a stage boundary.
+//   - two consumer warpgroups of 64 rows each run, per 32-byte k step, one
+//     wgmma m64n128k32 s8 per weight; the gate and up accumulators of one
+//     (row, column) then sit in the same thread, so the SwiGLU is done in
+//     registers. At a chunk's end a consumer waits for its wgmma group,
+//     folds the chunk into the f32 running sum in the order above and
+//     zeroes the accumulators.
+//   - the epilogue rescales, stages the tile in the free ring and stores it
+//     in coalesced 16-byte rows.
+// w_bits = 4 (split-halves packed [E, N, K/2]: byte p holds k = p in its
+// high nibble and k = p + K/2 in its low one) is K5's operand swap
+// (w4a8.cu): the packed weight rows are wgmma's A, read from the TMA-staged
+// packed tile straight into registers as 16 x each nibble (the accumulator
+// is shifted right by 4 at the end: every term is a multiple of 16, so the
+// shift is exact), and the visit's 128 activation rows are B (m64n128k32
+// with A from registers). A full-K step stages x's columns [p0, p0 + 128)
+// and [K/2 + p0, ...) beside the packed tiles and runs the high nibbles
+// against the first, the low ones against the second; a chunk lies wholly
+// in one half (an even chunk count), the high nibbles of packed columns
+// [kb * ck, ...) or the low ones of [kb * ck - K/2, ...).
 //
-// The requant tile is semantic: one scale per row over a block_n = 1408-wide
-// N tile, wider than any block tile. The activated f32 tile t goes through a
-// workspace [R_pad, N] (written once, read once: ~0.67 GB of traffic per
-// layer at the serving shape), then a second kernel, one warp per (row,
-// N tile), takes the amax and quantizes. Fusing the two is later work, as
-// are wgmma / TMA pipelines.
+// Raster: the block index goes through gmm_tile_map, which walks group_m
+// row tiles down before it moves to the next 128 columns (group_m = 1: each
+// row tile's columns in turn), so a wave of blocks shares a few weight
+// column tiles in L2. The wrapper picks group_m per form (16 for gate + up,
+// 1 for down: the faster of the two at the served shape on an H100);
+// mt_gmm_tile_map exports the mapping for the host's mirror.
 //
-// Weight layout: [E, N, K] int8 (k contiguous, the "col" operand of
-// mma.sync), the transpose of the JAX [E, K, N]; scales [E, N] f32.
+// emit_quant's requant tile (one scale per row over block_n = 1408
+// columns) is wider than a block tile, so the activated f32 tile t goes
+// through a workspace [R_pad, N] (written once, read once), then a second
+// kernel, one warp per (row, N tile), takes the amax and quantizes.
 //
-// w_bits = 4 (packed int4 experts [E, N, K/2], split halves: byte p holds
-// k = p in its high nibble and k = p + K/2 in its low one) unpacks while
-// staging, as K5 does (common.cuh load_tile_s4): the weight bytes read are
-// half of w8's. The per-row form (gate + up) stages, per 64-deep packed
-// step, the activation columns of both halves and each weight's hi and lo
-// nibbles from one read, and runs two mma steps per weight (six tiles, 60 KB
-// of dynamic shared memory). The chunked down form needs an even chunk
-// count, so a chunk lies wholly in one half: it stages the hi nibbles of
-// packed columns k0 or the lo nibbles of k0 - K/2. The integer sums, and so
-// every rounding above, are those of w8 on the unpacked weights.
+// Weight layout: [E, N, K] int8 (K-major, wgmma's B operand), the
+// transpose of the JAX [E, K, N]; scales [E, N] f32.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using mt::kTileK;
-using mt::kTileLds;
-using mt::kTileM;
-using mt::kTileN;
-using mt::kTileThreads;
+using namespace mt::hopper;
+
+constexpr int kTile = 128;                         // rows and columns of a block tile
+constexpr int kTileBytes = kTile * kSwizzleBytes;  // one staged 128 x 128-byte box
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kRingTarget = 192 * 1024;
+constexpr int kMaxK = 131072;  // |acc| <= K * 128 * 127 < 2^31 (16 x the nibble at w4)
+constexpr uint32_t kHiMask = 0xF0F0F0F0u;
+
+// the ring of a kernel instance: per stage the activation box (two under
+// the full-K int4 step: x's hi and lo columns) and one box per weight
+template <int NW, bool CHUNKED, bool W4>
+struct Ring {
+  static constexpr int kXTiles = W4 && !CHUNKED ? 2 : 1;
+  static constexpr int kXBytes = kXTiles * kTileBytes;
+  static constexpr int kStageBytes = kXBytes + NW * kTileBytes;
+  static constexpr int kStages = kRingTarget / kStageBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // + barriers, + slack to align the ring to the 1024-byte swizzle atom
+  static constexpr int kSmem = kRingBytes + 2 * kStages * 8 + 1024;
+};
+
+// block index -> row tile * n_cols + column tile: group_m row tiles are
+// walked down before the next column tile (the last group may be shorter)
+__host__ __device__ inline int gmm_tile_map(int lin, int n_rows, int n_cols, int group_m) {
+  const int per_group = group_m * n_cols;
+  const int grp = lin / per_group, first = grp * group_m;
+  const int rows = n_rows - first < group_m ? n_rows - first : group_m;
+  const int in = lin - grp * per_group;
+  return (first + in % rows) * n_cols + in / rows;
+}
+
+// m64n128k32, s8 x s8 -> s32, A and B from shared memory; d accumulates
+__device__ __forceinline__ void wgmma_ss(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// m64n128k32, s8 x s8 -> s32: A (64 weight rows x 32 k) from registers in
+// the m16n8k32 fragment order of each warp, B (128 activation rows,
+// K-major) from shared memory; d accumulates
+__device__ __forceinline__ void wgmma_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the accumulators' reads stay after the wgmma wait that precedes them
+__device__ __forceinline__ void hold(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the packed words of this thread's m16n8k32 A fragments, for the four k32
+// steps of a staged packed tile (rows ra and ra + 8), each nibble as 16 x
+// its value: the high nibbles (HI) or the low ones
+template <bool HI>
+__device__ __forceinline__ void nibble_frags(uint32_t (&a)[4][4], const unsigned char* tile,
+                                             int ra, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // m16n8k32 order: (ra, k), (ra + 8, k), then k + 16
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          tile + swizzle128(ra + (i & 1) * 8, kk * 32 + (i >> 1) * 16 + t4 * 4));
+      a[kk][i] = HI ? w & kHiMask : (w << 4) & kHiMask;
+    }
+}
+
+// one int4 batch: the fragments of the packed tile wt (high or low
+// nibbles) against the four k32 steps of the activation box dx
+__device__ __forceinline__ void w4_batch(int (&d)[64], uint32_t (&a)[4][4],
+                                         const unsigned char* wt, int ra, int t4, bool hi,
+                                         uint64_t dx) {
+  if (hi)
+    nibble_frags<true>(a, wt, ra, t4);
+  else
+    nibble_frags<false>(a, wt, ra, t4);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(d, a[kk], dx + 2 * kk);
+  wgmma_commit();
+}
 
 __device__ __forceinline__ float silu_f32(float x) {
   return __fmul_rn(x, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x))));
 }
 
-template <int OUT>
-__device__ __forceinline__ void store(void* out, size_t o, float y) {
-  if (OUT == 0)
-    static_cast<float*>(out)[o] = y;
-  else
-    static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-}
-
-// tiles of shared memory a gmm_kernel instance stages per k step: the
-// activation tile and one per weight, both halves of each under the paired
-// int4 steps
-template <bool CHUNKED, bool W4>
-__host__ __device__ constexpr int gmm_halves() { return W4 && !CHUNKED ? 2 : 1; }
-template <int NW, bool CHUNKED, bool W4>
-constexpr size_t gmm_smem_bytes() {
-  return static_cast<size_t>(gmm_halves<CHUNKED, W4>()) * (1 + NW) * kTileM *
-         kTileLds;
-}
+struct GmmParams {
+  const float* xs;  // [R_pad] or [n_chunks, R_pad]
+  const float* ws0;  // [E, N]
+  const float* ws1;
+  const int* visit_e;
+  const int* visit_valid;
+  void* out0;  // [R_pad, N]
+  void* out1;
+  int R_pad, N;
+  int n_rows, n_cols, tiles_per_visit, group_m;  // block tiles and raster
+  int n_chunks;     // K chunks, each with its own scales (1: per-row scales)
+  int chunk_steps;  // 128-byte stages per chunk
+  int w_chunks;     // chunks of the weight map (int4 chunked: those of one half)
+};
 
 // NW weights (1 or 2); CHUNKED: per-(K-chunk, row) activation scales
-// [n_chunks, R_pad] (NW == 1); SILU: out0 = silu(y0) * y1 (NW == 2);
-// OUT: 0 = f32, 1 = bf16, 2 = raw s32 accumulators (per-row form only);
-// W4: split-halves packed int4 weights [E, N, K/2]
+// (NW == 1); SILU: out0 = silu(y0) * y1 (NW == 2); OUT: 0 = f32, 1 = bf16,
+// 2 = raw s32 accumulators (per-row form only); W4: packed int4 weights
 template <int NW, bool CHUNKED, bool SILU, int OUT, bool W4>
-__global__ void __launch_bounds__(kTileThreads)
-gmm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B0,
-           const int8_t* __restrict__ B1, const float* __restrict__ xs,
-           const float* __restrict__ ws0, const float* __restrict__ ws1,
-           const int* __restrict__ visit_e, const int* __restrict__ visit_valid,
-           void* __restrict__ out0, void* __restrict__ out1,
-           int tiles_per_visit, int R_pad, int N, int K, int n_chunks) {
-  constexpr int kHalves = gmm_halves<CHUNKED, W4>();
-  constexpr int kTile = kTileM * kTileLds;
-  // sA[h] at h * kTile; weight w's half h at (kHalves * (1 + w) + h) * kTile
-  extern __shared__ __align__(16) int8_t smem[];
-  const int8_t* sA = smem;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 x 32 each
-  const int v = blockIdx.y / tiles_per_visit;
-  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
-  const bool ok = visit_valid[v] != 0;
-  const size_t e = static_cast<size_t>(visit_e[v]);
-  const int half = K / 2;
-  const int KW = W4 ? half : K;  // bytes of a weight row
-  const int8_t* b[NW];
-  const float* wsc[NW];
-  int8_t* sB[NW];
-  b[0] = B0 + e * N * KW;
-  wsc[0] = ws0 + e * N;
-  sB[0] = smem + kHalves * kTile;
-  if constexpr (NW == 2) {
-    b[1] = B1 + e * N * KW;
-    wsc[1] = ws1 + e * N;
-    sB[1] = smem + 2 * kHalves * kTile;
-  }
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w0,
+           const __grid_constant__ CUtensorMap map_w1, const GmmParams p) {
+  using R = Ring<NW, CHUNKED, W4>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kRingBytes);
+  uint64_t* empty = full + R::kStages;
+  const int tile = gmm_tile_map(blockIdx.x, p.n_rows, p.n_cols, p.group_m);
+  const int mt = tile / p.n_cols;
+  const int m0 = mt * kTile, n0 = (tile - mt * p.n_cols) * kTile;
+  const int v = mt / p.tiles_per_visit;
+  const bool ok = p.visit_valid[v] != 0;
+  const int e = p.visit_e[v];
+  const int wg = threadIdx.x / 128;
 
-  int acc[NW][4][4][4];
-  float res[4][4][4];  // CHUNKED: the running sum of the chunk partials
-  if (ok) {
-    const int nck = CHUNKED ? n_chunks : 1;
-    const int ck = K / nck;
-    for (int kb = 0; kb < nck; ++kb) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[w][i][j][q] = 0;
-      if constexpr (W4 && !CHUNKED) {
-        // full K: each packed step stages the activation columns of both
-        // halves and the hi / lo nibbles of every weight, then two mma steps
-        for (int p0 = 0; p0 < half; p0 += kTileK) {
-          mt::load_tile_s8(smem, A, m0, R_pad, p0, half, K);
-          mt::load_tile_s8(smem + kTile, A + half, m0, R_pad, p0, half, K);
-#pragma unroll
-          for (int w = 0; w < NW; ++w)
-            mt::load_tile_s4(sB[w], sB[w] + kTile, b[w], n0, N, p0, half, half);
-          __syncthreads();
-#pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            mt::mma_tile_s8(acc[w], sA, sB[w], wm, wn, g, t4);
-            mt::mma_tile_s8(acc[w], sA + kTile, sB[w] + kTile, wm, wn, g, t4);
-          }
-          __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: nothing to load for an invalid visit
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0 && ok) {
+      int s = 0, ph = 0;
+      for (int kb = 0; kb < p.n_chunks; ++kb) {
+        const int wc = kb % p.w_chunks;
+        for (int j = 0; j < p.chunk_steps; ++j) {
+          const int k = j * kSwizzleBytes;
+          mbar_wait(&empty[s], ph ^ 1);  // passes at once on the first lap
+          mbar_expect_tx(&full[s], R::kStageBytes);
+          unsigned char* st = ring + s * R::kStageBytes;
+          tma_load_3d(st, &map_x, k, kb, m0, &full[s]);
+          if constexpr (R::kXTiles == 2) tma_load_3d(st + kTileBytes, &map_x, k, 1, m0, &full[s]);
+          tma_load_4d(st + R::kXBytes, &map_w0, k, wc, n0, e, &full[s]);
+          if constexpr (NW == 2)
+            tma_load_4d(st + R::kXBytes + kTileBytes, &map_w1, k, wc, n0, e, &full[s]);
+          if (++s == R::kStages) s = 0, ph ^= 1;
         }
-      } else {
-        // a chunk of the int4 form lies wholly in the hi or the lo half
-        // (n_chunks even): stage those nibbles of packed columns k0 or
-        // k0 - K/2
-        const int k_end = (kb + 1) * ck;
-        const bool lo = W4 && kb * ck >= half;
-        for (int k0 = kb * ck; k0 < k_end; k0 += kTileK) {
-          mt::load_tile_s8(smem, A, m0, R_pad, k0, k_end, K);
-#pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            if constexpr (W4) {
-              const int off = lo ? half : 0;
-              mt::load_tile_s4(lo ? nullptr : sB[w], lo ? sB[w] : nullptr, b[w], n0,
-                               N, k0 - off, k_end - off, half);
-            } else {
-              mt::load_tile_s8(sB[w], b[w], n0, N, k0, k_end, K);
-            }
-          }
-          __syncthreads();
-#pragma unroll
-          for (int w = 0; w < NW; ++w)
-            mt::mma_tile_s8(acc[w], sA, sB[w], wm, wn, g, t4);
-          __syncthreads();
-        }
-      }
-      if constexpr (CHUNKED) {
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int r = m0 + wm * 64 + mi * 16 + g + (q >> 1) * 8;
-              const float part =
-                  __fmul_rn(__int2float_rn(acc[0][mi][ni][q]),
-                            xs[static_cast<size_t>(kb) * R_pad + r]);
-              res[mi][ni][q] = kb == 0 ? part : __fadd_rn(res[mi][ni][q], part);
-            }
       }
     }
+    return;
   }
 
+  // consumers: w8, warpgroup c owns activation rows [64 c, 64 c + 64) of
+  // the tile; w4, weight rows (output columns) [64 c, 64 c + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int w = t / 32, g = lane / 4, t4 = lane % 4;
+  const int ra = c * 64 + w * 16 + g;  // int4: this thread's fragment rows ra, ra + 8
+  int acc[NW][64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int wi = 0; wi < NW; ++wi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int i = 0; i < 64; ++i) acc[wi][i] = 0;
+  float res[CHUNKED ? 64 : 1];  // CHUNKED: the running sum of the chunk partials
+  uint32_t fa[4][4], fb[4][4];  // int4 chunked: the two fragment sets
+  if (ok) {
+    int s = 0, ph = 0, prev = -1;
+    for (int kb = 0; kb < p.n_chunks; ++kb) {
+      const bool hi = !CHUNKED || kb < p.w_chunks;  // int4: the chunk's nibble half
+      for (int j = 0; j < p.chunk_steps; ++j) {
+        mbar_wait(&full[s], ph);
+        const unsigned char* st = ring + s * R::kStageBytes;
+        const uint64_t dx = smem_desc(st + (W4 ? 0 : c * 64 * kSwizzleBytes));
+        if constexpr (!W4) {
+          uint64_t dw[NW];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = m0 + wm * 64 + mi * 16 + g + (q >> 1) * 8;
-        const int c = n0 + wn * 32 + ni * 8 + t4 * 2 + (q & 1);
-        if (c >= N) continue;  // r < R_pad: the grid covers R_pad exactly
-        const size_t o = static_cast<size_t>(r) * N + c;
-        if constexpr (OUT == 2) {
-          static_cast<int*>(out0)[o] = ok ? acc[0][mi][ni][q] : 0;
-          if constexpr (NW == 2)
-            static_cast<int*>(out1)[o] = ok ? acc[NW - 1][mi][ni][q] : 0;
+          for (int wi = 0; wi < NW; ++wi) dw[wi] = smem_desc(st + R::kXBytes + wi * kTileBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // 32 bytes = 2 descriptor units
+#pragma unroll
+            for (int wi = 0; wi < NW; ++wi) wgmma_ss(acc[wi], dx + 2 * kk, dw[wi] + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's batch is done: release it
+          if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        } else if constexpr (CHUNKED) {
+          // one batch per stage, the nibbles of the chunk's half; its
+          // fragments alternate between two register sets, since the batch
+          // before may still read the other
+          const unsigned char* wt = st + R::kXBytes;
+          if (j & 1)
+            w4_batch(acc[0], fb, wt, ra, t4, hi, dx);
+          else
+            w4_batch(acc[0], fa, wt, ra, t4, hi, dx);
+          wgmma_wait<1>();  // the previous stage's batch is done: release it
+          if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
         } else {
-          float y[NW];
+          // the high nibbles against x's columns [p0, p0 + 128)
+          uint32_t a[NW][4][4];
 #pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            float base = 0.f;
-            if (ok)
-              base = CHUNKED ? res[mi][ni][q]
-                             : __fmul_rn(__int2float_rn(acc[w][mi][ni][q]), xs[r]);
-            y[w] = ok ? __fmul_rn(base, wsc[w][c]) : 0.f;
-          }
-          if constexpr (SILU) {
-            store<OUT>(out0, o, ok ? __fmul_rn(silu_f32(y[0]), y[NW - 1]) : 0.f);
-          } else {
-            store<OUT>(out0, o, y[0]);
-            if constexpr (NW == 2) store<OUT>(out1, o, y[NW - 1]);
-          }
+          for (int wi = 0; wi < NW; ++wi)
+            nibble_frags<true>(a[wi], st + R::kXBytes + wi * kTileBytes, ra, t4);
+          wgmma_fence();
+#pragma unroll
+          for (int wi = 0; wi < NW; ++wi)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[wi], a[wi][kk], dx + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's low batch is done: release it
+          if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+          // the low nibbles against x's columns [K/2 + p0, ...), from the
+          // same packed words
+          uint32_t b[NW][4][4];
+#pragma unroll
+          for (int wi = 0; wi < NW; ++wi)
+            nibble_frags<false>(b[wi], st + R::kXBytes + wi * kTileBytes, ra, t4);
+          const uint64_t dx2 = smem_desc(st + kTileBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int wi = 0; wi < NW; ++wi)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[wi], b[wi][kk], dx2 + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<1>();  // the high batch is done: its registers are free
+        }
+        prev = s;
+        if (++s == R::kStages) s = 0, ph ^= 1;
+      }
+      if constexpr (CHUNKED) {
+        // the chunk's end: fold its partial into the running sum
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        prev = -1;
+        hold(acc[0]);
+        const float* xk = p.xs + static_cast<size_t>(kb) * p.R_pad;
+        const int r8 = m0 + c * 64 + w * 16 + g;
+        const float x_lo = W4 ? 0.f : xk[r8], x_hi = W4 ? 0.f : xk[r8 + 8];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float xr = W4 ? xk[m0 + (i >> 2) * 8 + t4 * 2 + (i & 1)] : (i & 2) ? x_hi : x_lo;
+          const int a = W4 ? acc[0][i] >> 4 : acc[0][i];
+          const float part = __fmul_rn(__int2float_rn(a), xr);
+          if constexpr (CHUNKED) res[i] = kb == 0 ? part : __fadd_rn(res[i], part);
+          acc[0][i] = 0;
         }
       }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int wi = 0; wi < NW; ++wi) hold(acc[wi]);
+  }
+
+  // epilogue: the ring is free once both consumer warpgroups are done.
+  // Consumer c stages its slice of the output tile row-major: w8 64 rows x
+  // 128 columns; w4 (transposed fragments) 128 rows x 64 columns.
+  named_bar(1, 256);
+  constexpr int ROWS = W4 ? 128 : 64, COLS = W4 ? 64 : 128;
+  constexpr int ES = OUT == 1 ? 2 : 4;                             // output element bytes
+  constexpr int PITCH = COLS * ES + (W4 || ES == 2 ? 16 : 32);  // conflict-free fragment stores
+  static_assert(2 * ROWS * PITCH <= R::kRingBytes, "the staged tile must fit the ring");
+  unsigned char* stile = ring + c * ROWS * PITCH;
+  const int row0 = W4 ? m0 : m0 + c * 64, col0 = W4 ? n0 + c * 64 : n0;
+  const size_t e_off = static_cast<size_t>(e) * p.N;
+  constexpr int n_out = SILU ? 1 : NW;
+#pragma unroll
+  for (int o = 0; o < n_out; ++o) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      // fragment i: accumulator row (w * 16 + g) + 8 (i & 2), column
+      // 8 (i >> 2) + 2 t4 + (i & 1); at w4 the row is the output column
+      const int fr = w * 16 + g + ((i & 2) ? 8 : 0), fc = (i >> 2) * 8 + t4 * 2 + (i & 1);
+      const int lr = W4 ? fc : fr, lc = W4 ? fr : fc;  // local output row, column
+      const int gr = row0 + lr, gc = col0 + lc;
+      unsigned char* dst = stile + lr * PITCH + lc * ES;
+      if constexpr (OUT == 2) {
+        const int a = acc[o][i];
+        *reinterpret_cast<int*>(dst) = ok ? (W4 ? a >> 4 : a) : 0;
+      } else {
+        float y[NW];
+        const float xr = CHUNKED ? 0.f : p.xs[gr];
+#pragma unroll
+        for (int wi = 0; wi < NW; ++wi) {
+          if (SILU || wi == o) {
+            const float* wsp = wi == 0 ? p.ws0 : p.ws1;
+            const float wsc = gc < p.N ? wsp[e_off + gc] : 0.f;
+            float base;
+            if constexpr (CHUNKED)
+              base = res[i];
+            else
+              base = __fmul_rn(__int2float_rn(W4 ? acc[wi][i] >> 4 : acc[wi][i]), xr);
+            y[wi] = __fmul_rn(base, wsc);
+          } else {
+            y[wi] = 0.f;
+          }
+        }
+        float val = SILU ? __fmul_rn(silu_f32(y[0]), y[NW - 1]) : y[o];
+        if (!ok) val = 0.f;
+        if constexpr (OUT == 0)
+          *reinterpret_cast<float*>(dst) = val;
+        else
+          *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(val);
+      }
+    }
+    named_bar(2 + c, 128);
+    // coalesced stores: 16-byte chunks along the rows; element by element
+    // where the chunk crosses N or the rows are not 16-byte aligned
+    constexpr int VEC = 16 / ES, CHUNKS = COLS / VEC;
+    const bool aligned = (static_cast<size_t>(p.N) * ES) % 16 == 0;
+    unsigned char* out = static_cast<unsigned char*>(o == 0 ? p.out0 : p.out1);
+    for (int i = t; i < ROWS * CHUNKS; i += 128) {
+      const int r = i / CHUNKS, ch = i % CHUNKS;
+      const int gr = row0 + r, gc = col0 + ch * VEC;
+      if (gc >= p.N) continue;  // gr < R_pad: the grid covers R_pad exactly
+      const unsigned char* src = stile + r * PITCH + ch * 16;
+      unsigned char* dst = out + (static_cast<size_t>(gr) * p.N + gc) * ES;
+      if (aligned && gc + VEC <= p.N) {
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      } else {
+        for (int x = 0; x < VEC && gc + x < p.N; ++x)
+          for (int b = 0; b < ES; ++b) dst[x * ES + b] = src[x * ES + b];
+      }
+    }
+    if (o + 1 < n_out) named_bar(2 + c, 128);  // the staging is read before it is reused
+  }
 }
 
 constexpr int kRequantWarps = 8;
@@ -251,53 +459,38 @@ requant_kernel(const float* __restrict__ t, int8_t* __restrict__ q,
         max(-127, min(127, __float2int_rn(__fdiv_rn(tr[i], s)))));
 }
 
-struct GmmArgs {
-  const int8_t* A;
-  const int8_t* B0;
-  const int8_t* B1;
-  const float* xs;
-  const float* ws0;
-  const float* ws1;
-  const int* ve;
-  const int* valid;
-  void* out0;
-  void* out1;
-  int tiles_per_visit, R_pad, N, K, n_chunks;
-  dim3 grid;
-};
-
 template <int NW, bool CHUNKED, bool SILU, int OUT, bool W4>
-cudaError_t launch(const GmmArgs& a, cudaStream_t s) {
-  constexpr size_t smem = gmm_smem_bytes<NW, CHUNKED, W4>();
-  if constexpr (smem > 48 * 1024) {  // dynamic shared memory above 48 KB
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        gmm_kernel<NW, CHUNKED, SILU, OUT, W4>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (attr != cudaSuccess) return attr;
-  }
-  gmm_kernel<NW, CHUNKED, SILU, OUT, W4><<<a.grid, kTileThreads, smem, s>>>(
-      a.A, a.B0, a.B1, a.xs, a.ws0, a.ws1, a.ve, a.valid, a.out0, a.out1,
-      a.tiles_per_visit, a.R_pad, a.N, a.K, a.n_chunks);
+cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw0, const CUtensorMap& mw1,
+                   const GmmParams& p, cudaStream_t s) {
+  using R = Ring<NW, CHUNKED, W4>;
+  auto* kernel = gmm_kernel<NW, CHUNKED, SILU, OUT, W4>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<p.n_rows * p.n_cols, kThreads, R::kSmem, s>>>(mx, mw0, mw1, p);
   return cudaGetLastError();
 }
 
 // the instances: out_kind 0 / 1 (f32 / bf16) everywhere, 2 (s32) when S32
 template <int NW, bool CHUNKED, bool SILU, bool S32, bool W4>
-cudaError_t launch_by_out(int out_kind, const GmmArgs& a, cudaStream_t s) {
-  if (out_kind == 0) return launch<NW, CHUNKED, SILU, 0, W4>(a, s);
-  if (out_kind == 1) return launch<NW, CHUNKED, SILU, 1, W4>(a, s);
-  if (S32 && out_kind == 2) return launch<NW, CHUNKED, SILU, S32 ? 2 : 0, W4>(a, s);
+cudaError_t launch_by_out(int out_kind, const CUtensorMap& mx, const CUtensorMap& mw0,
+                          const CUtensorMap& mw1, const GmmParams& p, cudaStream_t s) {
+  if (out_kind == 0) return launch<NW, CHUNKED, SILU, 0, W4>(mx, mw0, mw1, p, s);
+  if (out_kind == 1) return launch<NW, CHUNKED, SILU, 1, W4>(mx, mw0, mw1, p, s);
+  if (S32 && out_kind == 2)
+    return launch<NW, CHUNKED, SILU, S32 ? 2 : 0, W4>(mx, mw0, mw1, p, s);
   return cudaErrorInvalidValue;
 }
 
 template <bool W4>
-cudaError_t launch_form(int nw, bool chunked, bool silu, int out_kind,
-                        const GmmArgs& a, cudaStream_t s) {
+cudaError_t launch_form(int nw, bool chunked, bool silu, int out_kind, const CUtensorMap& mx,
+                        const CUtensorMap& mw0, const CUtensorMap& mw1, const GmmParams& p,
+                        cudaStream_t s) {
   if (nw == 1)
-    return chunked ? launch_by_out<1, true, false, false, W4>(out_kind, a, s)
-                   : launch_by_out<1, false, false, true, W4>(out_kind, a, s);
-  return silu ? launch_by_out<2, false, true, false, W4>(out_kind, a, s)
-              : launch_by_out<2, false, false, true, W4>(out_kind, a, s);
+    return chunked ? launch_by_out<1, true, false, false, W4>(out_kind, mx, mw0, mw1, p, s)
+                   : launch_by_out<1, false, false, true, W4>(out_kind, mx, mw0, mw1, p, s);
+  return silu ? launch_by_out<2, false, true, false, W4>(out_kind, mx, mw0, mw1, p, s)
+              : launch_by_out<2, false, false, true, W4>(out_kind, mx, mw0, mw1, p, s);
 }
 
 }  // namespace
@@ -307,40 +500,81 @@ extern "C" {
 // xq [V * block_m, K] int8; x_scale [R_pad] or [n_chunks, R_pad] f32; w0/w1
 // [E, N, K] int8, or [E, N, K/2] split-halves int4 when w_bits is 4 (w1
 // NULL for one weight); ws0/ws1 [E, N] f32; visit_e, visit_valid [V] int32;
-// out0/out1 [R_pad, N] (out_kind 0 f32, 1 bf16, 2 s32). With q_out
-// (emit_quant, needs fuse_silu and out_kind 0) out0 is the f32 workspace of
-// t and the kernel also writes q_out [R_pad, N] int8 and q_scale
-// [N / block_n, R_pad] f32.
+// out0/out1 [R_pad, N] (out_kind 0 f32, 1 bf16, 2 s32). block_m % 128 == 0;
+// the k extent of a TMA box row (K, K / n_chunks, K / 2 at w_bits 4) a
+// multiple of 16; K <= 131072; group_m >= 1 (the raster); xq and the
+// weights 16-byte aligned.
 int mt_gmm(const void* xq, const void* x_scale, int n_chunks, const void* w0,
            const void* w1, const void* ws0, const void* ws1, const void* visit_e,
-           const void* visit_valid, void* out0, void* out1, int out_kind,
-           int fuse_silu, void* q_out, void* q_scale, int block_n, int V,
-           int block_m, int N, int K, int w_bits, void* stream) {
+           const void* visit_valid, void* out0, void* out1, int out_kind, int fuse_silu,
+           int V, int block_m, int E, int N, int K, int w_bits, int group_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nw = w1 ? 2 : 1;
-  const bool chunked = n_chunks > 0, emit = q_out != nullptr;
-  if (block_m % kTileM || (chunked && nw != 1) || (fuse_silu && nw != 2) ||
-      (emit && (!fuse_silu || out_kind != 0)) || (emit && N % block_n) ||
-      (w_bits != 8 && w_bits != 4) ||
-      (w_bits == 4 && (K % 32 || (chunked && n_chunks % 2))))
+  const bool chunked = n_chunks > 0, w4 = w_bits == 4;
+  const int nck = chunked ? n_chunks : 1;
+  if (block_m % kTile || (chunked && nw != 1) || (fuse_silu && nw != 2) ||
+      (w_bits != 8 && !w4) || K > kMaxK || K % nck || group_m < 1 ||
+      (w4 && (K % 2 || (chunked && n_chunks % 2))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_per_visit = block_m / kTileM;
+  // chunk widths in bytes: x's and the weight's (the full-K int4 step
+  // stages x's two halves as two chunks against one packed chunk)
+  const int cw = w4 && !chunked ? K / 2 : K / nck;
+  const int x_chunks = w4 && !chunked ? 2 : nck;
+  const int w_chunks = w4 ? (chunked ? nck / 2 : 1) : nck;
+  const int KW = w4 ? K / 2 : K;  // bytes of a weight row
+  if (cw % 16) return static_cast<int>(cudaErrorInvalidValue);
   const int R_pad = V * block_m;
-  GmmArgs a{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w0),
-            static_cast<const int8_t*>(w1), static_cast<const float*>(x_scale),
-            static_cast<const float*>(ws0), static_cast<const float*>(ws1),
-            static_cast<const int*>(visit_e), static_cast<const int*>(visit_valid),
-            out0, out1, tiles_per_visit, R_pad, N, K, n_chunks,
-            dim3((N + kTileN - 1) / kTileN, V * tiles_per_visit)};
-  cudaError_t err =
-      w_bits == 4 ? launch_form<true>(nw, chunked, fuse_silu, out_kind, a, s)
-                  : launch_form<false>(nw, chunked, fuse_silu, out_kind, a, s);
-  if (err != cudaSuccess || !emit) return static_cast<int>(err);
+  const uint32_t box3[3] = {kSwizzleBytes, 1, kTile}, box4[4] = {kSwizzleBytes, 1, kTile, 1};
+  const uint64_t xd[3] = {static_cast<uint64_t>(cw), static_cast<uint64_t>(x_chunks),
+                          static_cast<uint64_t>(R_pad)};
+  const uint64_t xst[2] = {static_cast<uint64_t>(cw), static_cast<uint64_t>(K)};
+  const uint64_t wd[4] = {static_cast<uint64_t>(cw), static_cast<uint64_t>(w_chunks),
+                          static_cast<uint64_t>(N), static_cast<uint64_t>(E)};
+  const uint64_t wst[3] = {static_cast<uint64_t>(cw), static_cast<uint64_t>(KW),
+                           static_cast<uint64_t>(N) * KW};
+  CUtensorMap mx, mw0, mw1;
+  if (!make_map_s8_nd(&mx, xq, 3, xd, xst, box3) || !make_map_s8_nd(&mw0, w0, 4, wd, wst, box4) ||
+      !make_map_s8_nd(&mw1, nw == 2 ? w1 : w0, 4, wd, wst, box4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GmmParams p{static_cast<const float*>(x_scale),
+              static_cast<const float*>(ws0),
+              static_cast<const float*>(ws1),
+              static_cast<const int*>(visit_e),
+              static_cast<const int*>(visit_valid),
+              out0,
+              out1,
+              R_pad,
+              N,
+              R_pad / kTile,
+              (N + kTile - 1) / kTile,
+              block_m / kTile,
+              group_m,
+              nck,
+              (cw + kSwizzleBytes - 1) / kSwizzleBytes,
+              w_chunks};
+  return static_cast<int>(w4 ? launch_form<true>(nw, chunked, fuse_silu, out_kind, mx, mw0,
+                                                  mw1, p, s)
+                             : launch_form<false>(nw, chunked, fuse_silu, out_kind, mx, mw0,
+                                                  mw1, p, s));
+}
+
+// emit_quant's second pass: t [R_pad, N] f32 (the activated workspace) ->
+// q [R_pad, N] int8 and q_scale [N / block_n, R_pad] f32; N % block_n == 0
+int mt_gmm_requant(const void* t, void* q, void* q_scale, int R_pad, int N, int block_n,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_n <= 0 || N % block_n) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((R_pad + kRequantWarps - 1) / kRequantWarps, N / block_n);
   requant_kernel<<<grid, kRequantWarps * 32, 0, s>>>(
-      static_cast<const float*>(out0), static_cast<int8_t*>(q_out),
-      static_cast<float*>(q_scale), R_pad, N, block_n);
+      static_cast<const float*>(t), static_cast<int8_t*>(q), static_cast<float*>(q_scale),
+      R_pad, N, block_n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel's raster on the host: block lin -> row tile * n_cols + column
+// tile (no stream: nothing launches)
+int mt_gmm_tile_map(int lin, int n_rows, int n_cols, int group_m) {
+  return gmm_tile_map(lin, n_rows, n_cols, group_m);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Hopper building blocks of the wgmma + TMA GEMMs (K1, K5): mbarriers, TMA
-// tile loads, shared-memory matrix descriptors, wgmma's fence / commit /
+// Hopper building blocks of the wgmma + TMA GEMMs (K1, K5, K6): mbarriers,
+// TMA tile loads, shared-memory matrix descriptors, wgmma's fence / commit /
 // wait, named barriers, and the host-side encoding of a 128-byte-swizzled
 // int8 tensor map. sm_90a only.
 #pragma once
@@ -60,6 +60,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// the 3-D and 4-D forms (c0 contiguous; K6's chunked and per-expert views)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // shared-memory descriptor of a K-major tile in the 128-byte swizzle: rows
 // of 128 bytes, 8-row atoms 1024 bytes apart (SBO), layout type 1 (B128).
 // Adding 2 to it steps 32 bytes along k inside the atom.
@@ -113,21 +132,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the row-major 8-bit [rows, cols] matrix as 2-D tiles of box_rows x 128
-// bytes, 128-byte swizzled; out-of-bounds elements read as zero. cols is
-// the row stride in bytes (a multiple of 16), ptr 16-byte aligned.
-inline bool make_map_s8(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// an 8-bit tensor of `rank` (<= 5) dimensions, dims[0] contiguous and
+// strides[i] the byte stride of dims[i + 1] (multiples of 16), as tiles of
+// box[] elements with box[0] = 128 bytes, 128-byte swizzled; out-of-bounds
+// elements read as zero. ptr 16-byte aligned.
+inline bool make_map_s8_nd(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSwizzleBytes),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (!encode || rank < 1 || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    elem[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), d, st, b,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the row-major 8-bit [rows, cols] matrix as 2-D tiles of box_rows x 128
+// bytes. cols is the row stride in bytes (a multiple of 16).
+inline bool make_map_s8(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols)};
+  const uint32_t box[2] = {static_cast<uint32_t>(kSwizzleBytes),
+                           static_cast<uint32_t>(box_rows)};
+  return make_map_s8_nd(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace mt::hopper

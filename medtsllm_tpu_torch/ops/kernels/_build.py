@@ -58,10 +58,14 @@ SIGNATURES = {
     "mt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
     # xq, x_scale, n_chunks, w0, w1, ws0, ws1, visit_e, visit_valid, out0,
-    # out1, out_kind, fuse_silu, q_out, q_scale, block_n, V, block_m, N, K,
-    # w_bits, stream
-    "mt_gmm": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-               _I, _I, _I, _I, _I, _P),
+    # out1, out_kind, fuse_silu, V, block_m, E, N, K, w_bits, group_m, stream
+    "mt_gmm": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               _I, _I, _I, _I, _P),
+    # t, q, q_scale, R_pad, N, block_n, stream
+    "mt_gmm_requant": (_P, _P, _P, _I, _I, _I, _P),
+    # block, row tiles, column tiles, group_m -> the block's tile (host only,
+    # no stream)
+    "mt_gmm_tile_map": (_I, _I, _I, _I),
 }
 
 

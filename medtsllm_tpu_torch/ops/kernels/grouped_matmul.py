@@ -17,6 +17,13 @@ launches, each with its own launch count per weight width (``GATE_UP``,
   (c) the plain form: 1-2 weights, per-row scales, f32 / bf16 out, or the
       raw s32 accumulators (``out_dtype=torch.int32``).
 
+The kernel is a wgmma + TMA pipeline (K1's, made grouped; K5's operand swap
+at ``w_bits=4``) over 128 x 128 block tiles, launched in the raster
+``gmm_tile_order`` mirrors; ``emit_quant`` writes the activated f32 tile to a
+workspace that a second kernel requantizes (``requant_tiles``). The shapes
+it takes are ``kernel_shape_error``'s: the wrapper refuses the others before
+the launch.
+
 Layout: the expert weights are ``[E, N, K]`` int8 (K contiguous, K1's B
 operand), the transpose of the JAX package's ``[E, K, N]``; ``weights.py``
 transposes once. At ``w_bits=4`` they are split-halves packed int4 ``[E, N,
@@ -36,7 +43,13 @@ from .w4a8 import unpack4_split
 from .w8a8 import int8_matmul_plain, quantize_rows
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_TILE_M = 128  # rows of the kernel's block tile: block_m is a multiple
+_TILE = 128  # rows and columns of the kernel's block tile: block_m is a multiple
+MAX_K = 131072  # the kernel's s32 accumulators cannot wrap up to this K
+# the kernel's raster per form, row tiles walked down per column tile (1:
+# each row tile's columns in turn): per-row scales (gate + up, the plain
+# form) and chunked (down). Each is the faster of 1 and 16 at the served
+# shape (chip_smoke.py's [raster] lines).
+TILE_GROUP_M = {"rows": 16, "chunked": 1}
 
 
 class Form:
@@ -47,6 +60,7 @@ class Form:
 
 GATE_UP, DOWN, PLAIN = Form(), Form(), Form()
 GATE_UP_W4, DOWN_W4, PLAIN_W4 = Form(), Form(), Form()
+REQUANT = Form()  # emit_quant's second pass, at either weight width
 
 
 # --------------------------------------------------------------------------
@@ -97,6 +111,40 @@ def row_quant(x: torch.Tensor):
     round trip."""
     xq, xs = quantize_rows(x.contiguous())
     return xq, xs[:, None]
+
+
+def gmm_tile_order(n_row_tiles: int, n_col_tiles: int, group_m: int):
+    """The kernel's raster (``gmm_tile_map`` in ``csrc/grouped_matmul.cu``):
+    the (row tile, column tile) of each block in launch order. ``group_m``
+    row tiles are walked down before the next column tile; the last group
+    may hold fewer."""
+    order = []
+    for lin in range(n_row_tiles * n_col_tiles):
+        grp, inner = divmod(lin, group_m * n_col_tiles)
+        first = grp * group_m
+        rows = min(n_row_tiles - first, group_m)
+        order.append((first + inner % rows, inner // rows))
+    return order
+
+
+def kernel_shape_error(K: int, block_m: int, n_chunks: int, n_weights: int,
+                       w_bits: int) -> str | None:
+    """Why the kernel refuses a shape that ``gmm``'s arguments allow, or None
+    when it takes it. Its block tiles are 128 rows of one visit; its TMA
+    boxes read rows of a chunk (K, K / KB, or each half K / 2 of the
+    full-K int4 step) that must be 16-byte multiples; its s32 accumulators
+    hold K up to ``MAX_K``. N and ragged K tails are free (zero fill)."""
+    if block_m % _TILE:
+        return f"the kernel tiles {_TILE} rows: block_m % {_TILE} == 0, got {block_m}"
+    if n_chunks and n_weights != 1:
+        return "the kernel takes chunked scales with one weight (the down gmm)"
+    rows = [K] + ([K // n_chunks] if n_chunks else []) + ([K // 2] if w_bits == 4 else [])
+    if any(r % 16 for r in rows):
+        return (f"the kernel's TMA rows are multiples of 16 bytes: K, K / KB and, at "
+                f"w_bits=4, K / 2 (K {K}, {n_chunks} chunks)")
+    if K > MAX_K:
+        return f"K {K} is past {MAX_K}: the kernel's s32 accumulators could wrap"
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -203,6 +251,14 @@ def gmm_plain(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=1
     t = res[0] * torch.sigmoid(res[0]) * res[1]  # jax.nn.silu(g) * u
     if not emit_quant:
         return (t.to(out_dtype),)
+    return requant_tiles_plain(t, block_n)
+
+
+def requant_tiles_plain(t, block_n):
+    """emit_quant's requantization: t [R_pad, N] f32 -> (int8 codes [R_pad,
+    N], scales [N / block_n, 1, R_pad]), one scale max(amax / 127, 1e-10) per
+    (row, block_n-wide tile), codes rounded half to even and clipped."""
+    R_pad, N = t.shape
     tiles = t.reshape(R_pad, N // block_n, block_n)
     amax = tiles.abs().amax(dim=-1, keepdim=True)
     # a tensor divisor: true division, as in K1's plain quantizer
@@ -235,16 +291,11 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
                          fuse_silu=fuse_silu, emit_quant=emit_quant, w_bits=w_bits)
     n_chunks = _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n,
                       out_dtype, fuse_silu, emit_quant, w_bits)
-    if block_m % _TILE_M:
-        raise ValueError(f"the kernel tiles {_TILE_M} rows: block_m % {_TILE_M} == 0, "
-                         f"got {block_m}")
-    if n_chunks and len(weights) != 1:
-        raise ValueError("the kernel takes chunked scales with one weight (the down gmm)")
     R_pad, K = xq.shape
     E, N, _ = weights[0].shape
-    if K % 16 or (n_chunks and (K // n_chunks) % 16) or (w_bits == 4 and K % 32):
-        raise ValueError("the kernel loads 16-byte rows: K and K / KB multiples of 16 "
-                         "(K / 2 at w_bits=4)")
+    err = kernel_shape_error(K, block_m, n_chunks, len(weights), w_bits)
+    if err:
+        raise ValueError(err)
     x_scale = x_scale.float().contiguous()
     w_scales = [s.float().contiguous() for s in w_scales]
     if visit_e.dtype != torch.int32 or visit_valid.dtype != torch.int32:
@@ -258,21 +309,36 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
     s1 = w_scales[1] if len(weights) == 2 else None
     n_out = 1 if fuse_silu else len(weights)
     # emit_quant: the activated f32 tile goes through a workspace, then the
-    # per-(row, N-tile) requantization pass (csrc/grouped_matmul.cu)
+    # per-(row, N-tile) requantization pass
     kind = 0 if emit_quant else _OUT_KIND[out_dtype]
     outs = [torch.empty(R_pad, N, dtype=torch.float32 if emit_quant else out_dtype,
                         device=dev) for _ in range(n_out)]
-    q = scales = None
-    if emit_quant:
-        q = torch.empty(R_pad, N, dtype=torch.int8, device=dev)
-        scales = torch.empty(N // block_n, 1, R_pad, dtype=torch.float32, device=dev)
     _build.launch("mt_gmm", dev, _build.ptr(xq), _build.ptr(x_scale), n_chunks,
                   _build.ptr(weights[0]), _build.ptr(w1), _build.ptr(w_scales[0]),
                   _build.ptr(s1), _build.ptr(visit_e), _build.ptr(visit_valid),
                   _build.ptr(outs[0]), _build.ptr(outs[1] if n_out == 2 else None),
-                  kind, int(fuse_silu), _build.ptr(q), _build.ptr(scales), block_n,
-                  V, block_m, N, K, w_bits)
+                  kind, int(fuse_silu), V, block_m, E, N, K, w_bits,
+                  TILE_GROUP_M["chunked" if n_chunks else "rows"])
     gate_up, down, plain = (GATE_UP, DOWN, PLAIN) if w_bits == 8 else (
         GATE_UP_W4, DOWN_W4, PLAIN_W4)
     (gate_up if emit_quant else down if n_chunks else plain).launches += 1
-    return (q, scales) if emit_quant else tuple(outs)
+    return requant_tiles(outs[0], block_n) if emit_quant else tuple(outs)
+
+
+def requant_tiles(t, block_n):
+    """emit_quant's second pass (``requant_kernel``) on the activated f32
+    workspace t [R_pad, N]: ``requant_tiles_plain``'s codes and scales.
+    Counts its launches in ``REQUANT``."""
+    if t.device.type == "cpu":
+        return requant_tiles_plain(t, block_n)
+    R_pad, N = t.shape
+    if t.dtype != torch.float32 or N % block_n:
+        raise ValueError(f"requant takes f32 [R_pad, N] with N % block_n == 0: "
+                         f"{t.dtype} {tuple(t.shape)}, block_n {block_n}")
+    _build.check_cuda(t)
+    q = torch.empty(R_pad, N, dtype=torch.int8, device=t.device)
+    scales = torch.empty(N // block_n, 1, R_pad, dtype=torch.float32, device=t.device)
+    _build.launch("mt_gmm_requant", t.device, _build.ptr(t), _build.ptr(q), _build.ptr(scales),
+                  R_pad, N, block_n)
+    REQUANT.launches += 1
+    return q, scales

@@ -215,6 +215,20 @@ def test_gmm4_rows_matches_jax(n_weights):
         assert torch.equal(a, want_acc)
 
 
+@pytest.mark.parametrize("K,n_chunks", [(2816, 2), (832, 4), (224, 0), (352, 0)],
+                         ids=["2-chunks", "4-chunk-tails", "k-tail-224", "k-tail-352"])
+def test_gmm4_plain_matches_jax_at_kernel_edges(K, n_chunks):
+    """w_bits=4 at the wgmma kernel's edges: 2 chunks (one per nibble half),
+    4 chunks of 208 (ragged chunk tails), and full-K halves of 112 / 176
+    packed bytes; f32 outputs within 1e-6 x max, an empty expert between
+    full ones."""
+    jargs, targs = _gmm4_case(5, [300, 0, 0, 260], K, 256, 1, n_chunks=n_chunks)
+    (want,) = jgm.gmm(*jargs, block_m=128, block_n=128, interpret=True, w_bits=4)
+    (got,) = gm.gmm_plain(*targs, block_m=128, block_n=128, w_bits=4)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
 def test_gmm4_argument_checks():
     _, targs = _gmm4_case(3, [5, 0], 64, 128, 1)
     xq, xs, w, ws, ve, valid = targs

@@ -529,48 +529,83 @@ def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128, w_bits
 
 
 # the moe-8x1b serving shape (13824 routed rows of a batch of 48 x 144 tokens,
-# top-2 of 8 experts), a skewed routing (every row on two experts) and small
-# shapes with ragged tiles
+# top-2 of 8 experts), a skewed routing (every row on two experts), one expert
+# holding every row while the others are empty, and small shapes with ragged
+# tiles and invalid tail visits
 _ROUTED = [1650, 1800, 1700, 1777, 1733, 1711, 1690, 1763]
 _SKEWED = [0, 6912, 0, 0, 6912, 0, 0, 0]
+_ONE = [0, 0, 0, 13824, 0, 0, 0, 0]
 
 
 _W_BITS = pytest.mark.parametrize("w_bits", [8, 4])
 
 
+def _assert_tail_zero(outs, valid, block_m):
+    """Rows of invalid tail visits are zero (a scale output: the 1e-10 floor)."""
+    n_real = int(valid.sum()) * block_m
+    for o in outs:
+        if o.dim() == 3:
+            assert bool((o[..., n_real:] == 1e-10).all())
+        else:
+            assert not o[n_real:].any()
+
+
 @pytest.mark.cuda
 @_W_BITS
-@pytest.mark.parametrize("counts,K,N,block_n", [
-    (_ROUTED, 2048, 5632, 1408), (_SKEWED, 2048, 5632, 1408), ([200, 0, 37, 90], 256, 512, 256),
-], ids=["serving", "skewed", "small"])
-def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n, w_bits):
+@pytest.mark.parametrize("counts,K,N,block_n,block_m", [
+    (_ROUTED, 2048, 5632, 1408, 128), (_SKEWED, 2048, 5632, 1408, 128),
+    ([200, 0, 37, 90], 256, 512, 256, 128), (_ONE, 2048, 5632, 1408, 128),
+    ([300, 0, 129, 1000], 256, 512, 256, 256),
+], ids=["serving", "skewed", "small", "one-expert", "block_m-256"])
+def test_gmm_gate_up_kernel_vs_plain(cuda, counts, K, N, block_n, block_m, w_bits):
     """(a) gate + up, fused SwiGLU and per-(row, N-tile) requant: codes at
     most 1 apart in at most 1e-3 of them (silu's expf may differ in the last
     bit from the plain version's), scales 1e-6 relative."""
-    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 2, w_bits=w_bits)
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 2, block_m=block_m,
+                                             w_bits=w_bits)
     form = gm.GATE_UP if w_bits == 8 else gm.GATE_UP_W4
     n = form.launches
-    q, s = gm.gmm(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True, emit_quant=True,
-                  w_bits=w_bits)
+    kw = dict(block_m=block_m, block_n=block_n, fuse_silu=True, emit_quant=True, w_bits=w_bits)
+    q, s = gm.gmm(xq, xs, w, ws, ve, valid, **kw)
     assert form.launches == n + 1
-    q0, s0 = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n, fuse_silu=True,
-                          emit_quant=True, w_bits=w_bits)
+    q0, s0 = gm.gmm_plain(xq, xs, w, ws, ve, valid, **kw)
     dq = (q.int() - q0.int()).abs()
     assert dq.max().item() <= 1 and (dq > 0).float().mean().item() <= 1e-3
     torch.testing.assert_close(s, s0, rtol=1e-6, atol=0)
-    n_real = int(valid.sum())
-    assert not q[n_real * 128:].any() and bool((s[..., n_real * 128:] == 1e-10).all())
+    _assert_tail_zero((q, s), valid, block_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_bits,K", [(8, 208), (8, 336), (4, 224), (4, 352)])
+def test_gmm_k_tail_kernel_vs_plain(cuda, w_bits, K):
+    """K tails short of a 128-byte stage (w8 K 208 / 336; w4 halves of 112 /
+    176 packed bytes): the zero-filled box tail adds nothing. The gate+up
+    form held as above, the plain form's s32 bit-equal."""
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [200, 0, 37, 90], K, 384, 2, w_bits=w_bits)
+    kw = dict(block_n=128, fuse_silu=True, emit_quant=True, w_bits=w_bits)
+    q, s = gm.gmm(xq, xs, w, ws, ve, valid, **kw)
+    q0, s0 = gm.gmm_plain(xq, xs, w, ws, ve, valid, **kw)
+    dq = (q.int() - q0.int()).abs()
+    assert dq.max().item() <= 1 and (dq > 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(s, s0, rtol=1e-6, atol=0)
+    kw = dict(block_n=384, out_dtype=torch.int32, w_bits=w_bits)
+    for got, want in zip(gm.gmm(xq, xs, w, ws, ve, valid, **kw),
+                         gm.gmm_plain(xq, xs, w, ws, ve, valid, **kw)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 @_W_BITS
 @pytest.mark.parametrize("counts,K,N,n_chunks,block_n", [
     (_ROUTED, 5632, 2048, 4, 1024), (_SKEWED, 5632, 2048, 4, 1024),
-    ([200, 0, 37, 90], 96, 200, 2, 200),  # chunks of 48: partial k steps
-], ids=["serving", "skewed", "small"])
+    ([200, 0, 37, 90], 96, 200, 2, 200),  # chunks of 48: a stage's box past the chunk's end
+    (_ONE, 5632, 2048, 4, 1024),
+    ([200, 0, 37, 90], 2816, 256, 2, 256),  # chunks of 1408 in two halves
+    ([200, 0, 37, 90], 832, 256, 4, 256),  # chunks of 208: ragged chunk tails
+], ids=["serving", "skewed", "small", "one-expert", "two-chunks", "chunk-tails"])
 def test_gmm_down_kernel_vs_plain(cuda, counts, K, N, n_chunks, block_n, w_bits):
     """(b) chunked scales, f32 out: the same rounded f32 ops in the same
-    order, held within 1e-5 x max."""
+    order, held within 1e-5 x max; invalid tail visits zero."""
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, counts, K, N, 1, n_chunks, w_bits=w_bits)
     form = gm.DOWN if w_bits == 8 else gm.DOWN_W4
     n = form.launches
@@ -578,6 +613,7 @@ def test_gmm_down_kernel_vs_plain(cuda, counts, K, N, n_chunks, block_n, w_bits)
     assert form.launches == n + 1
     (y0,) = gm.gmm_plain(xq, xs, w, ws, ve, valid, block_n=block_n, w_bits=w_bits)
     torch.testing.assert_close(y, y0, rtol=0, atol=1e-5 * y0.abs().max().item())
+    _assert_tail_zero((y,), valid, 128)
 
 
 @pytest.mark.cuda
@@ -603,6 +639,18 @@ def test_gmm_rows_kernel_vs_plain(cuda, n_weights, K, N, block_m, w_bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group_m", [1, 2, 3, 8, 16])
+def test_gmm_tile_map_matches_host_mirror(cuda, group_m):
+    """The kernel's raster (``mt_gmm_tile_map``) equals ``gmm_tile_order``
+    block for block, at row-tile counts that leave a short last group."""
+    lib = _build.library()
+    for n_rows, n_cols in [(1, 1), (116, 44), (116, 16), (7, 3), (25, 5)]:
+        want = [r * n_cols + c for r, c in gm.gmm_tile_order(n_rows, n_cols, group_m)]
+        got = [lib.mt_gmm_tile_map(i, n_rows, n_cols, group_m) for i in range(n_rows * n_cols)]
+        assert got == want
+
+
+@pytest.mark.cuda
 def test_gmm_kernel_rejects_bad_input(cuda):
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 64, 128, 1, block_m=64)
     with pytest.raises(ValueError, match="block_m"):
@@ -617,3 +665,16 @@ def test_gmm_kernel_rejects_bad_input(cuda):
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 192, 128, 1, 3, w_bits=4)
     with pytest.raises(ValueError, match="even chunk count"):
         gm.gmm(xq, xs, w, ws, ve, valid, block_n=128, w_bits=4)
+    # a chunk whose rows are not 16-byte multiples (K 96 in 4 chunks of 24)
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 96, 128, 1, 4)
+    with pytest.raises(ValueError, match="16"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)
+    # K past the s32 accumulators' reach
+    K = gm.MAX_K + 16
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], K, 128, 1)
+    with pytest.raises(ValueError, match="past"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)
+    # chunked scales with two weights
+    xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 256, 128, 2, 2)
+    with pytest.raises(ValueError, match="one weight"):
+        gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)

@@ -142,6 +142,83 @@ def test_gmm_plain_rows_matches_jax(n_weights):
         assert torch.equal(a, want_acc)
 
 
+# the kernel's edge shapes: K tails short of a 128-byte stage, block_m 256,
+# empty experts between full ones, chunk tails
+_EDGE_CASES = {
+    "k-tail-208": dict(counts=_COUNTS, K=208, N=256, n_weights=2, gate_up=True),
+    "k-tail-336": dict(counts=_COUNTS, K=336, N=384, n_weights=2),
+    "block_m-256": dict(counts=[300, 0, 129, 1000], K=256, N=512, n_weights=2, gate_up=True,
+                        bm=256),
+    "empty-between": dict(counts=[300, 0, 0, 260, 0, 129], K=256, N=256, n_weights=2,
+                          gate_up=True),
+    "chunk-tails": dict(counts=[300, 0, 0, 260], K=832, N=256, n_weights=1, n_chunks=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_CASES))
+def test_gmm_plain_matches_jax_at_kernel_edges(case):
+    """gmm_plain against the JAX gmm (interpret mode) at the shapes that the
+    wgmma kernel's box tails, row tiles and visit lists reach: codes and
+    scales under the gate+up law, f32 outputs within 1e-6 x max."""
+    c = dict(_EDGE_CASES[case])
+    gate_up, bm = c.pop("gate_up", False), c.pop("bm", 128)
+    jargs, targs = _gmm_case(4, c["counts"], c["K"], c["N"], c["n_weights"],
+                             c.get("n_chunks", 0), bm=bm)
+    bn = 128
+    if gate_up:
+        want = jgm.gmm(*jargs, block_m=bm, block_n=bn, interpret=True, fuse_silu=True,
+                       emit_quant=True)
+        q, s = gm.gmm_plain(*targs, block_m=bm, block_n=bn, fuse_silu=True, emit_quant=True)
+        dq = np.abs(q.numpy().astype(int) - np.asarray(want[0]).astype(int))
+        assert dq.max() <= 1 and (dq > 0).mean() <= 1e-3
+        np.testing.assert_allclose(s.numpy(), np.asarray(want[1]), rtol=1e-6)
+        return
+    want = jgm.gmm(*jargs, block_m=bm, block_n=bn, interpret=True)
+    got = gm.gmm_plain(*targs, block_m=bm, block_n=bn)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-6 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("n_rows,n_cols,group_m", [
+    (116, 44, 1), (116, 44, 8), (116, 16, 8), (116, 16, 16), (7, 3, 3), (25, 5, 4),
+    (1, 1, 8), (3, 50, 2),
+])
+def test_gmm_tile_order_covers_every_tile_once(n_rows, n_cols, group_m):
+    """The kernel's raster mirror visits each (row tile, column tile) once;
+    within a group the row tile moves fastest; group_m 1 is row-major."""
+    order = gm.gmm_tile_order(n_rows, n_cols, group_m)
+    assert sorted(order) == [(r, c) for r in range(n_rows) for c in range(n_cols)]
+    first = order[: min(group_m, n_rows)]
+    assert first == [(r, 0) for r in range(min(group_m, n_rows))]
+    if group_m == 1:
+        assert order == [(r, c) for r in range(n_rows) for c in range(n_cols)]
+
+
+@pytest.mark.parametrize("K,block_m,n_chunks,n_weights,w_bits,refused", [
+    (2048, 128, 0, 2, 8, None),      # gate + up at the serving shape
+    (5632, 128, 4, 1, 8, None),      # down: chunks of 1408
+    (5632, 128, 4, 1, 4, None),
+    (208, 256, 0, 2, 8, None),       # a K tail, block_m 256
+    (96, 128, 2, 1, 8, None),        # chunks of 48
+    (224, 128, 0, 1, 4, None),       # int4 halves of 112
+    (64, 64, 0, 1, 8, "block_m"),
+    (72, 128, 0, 1, 8, "16"),
+    (96, 128, 4, 1, 8, "16"),        # chunks of 24
+    (48, 128, 0, 1, 4, "16"),        # int4 halves of 24
+    (256, 128, 2, 2, 8, "one weight"),
+    (131088, 128, 0, 1, 8, "past"),
+])
+def test_gmm_kernel_shape_rule(K, block_m, n_chunks, n_weights, w_bits, refused):
+    """The wrapper's rule for the shapes the kernel takes, a pure function
+    (the card's wrapper raises its message before the launch)."""
+    err = gm.kernel_shape_error(K, block_m, n_chunks, n_weights, w_bits)
+    if refused is None:
+        assert err is None
+    else:
+        assert err is not None and refused in err
+
+
 def test_gmm_argument_checks():
     _, targs = _gmm_case(3, [5, 0], 64, 128, 1)
     with pytest.raises(ValueError, match="w_bits=4"):  # it takes packed [E, N, K/2]
