@@ -75,27 +75,39 @@ nvidia-smi. Phases:
      on the card against the CPU;
  17. the long-window llama serving path: ``test()`` of phase 4's
      configuration at history 16384 (2048 patches, ~2,167 keys, past K2's
-     2048) with d_ff 64, batch 8, two test batches: K4 32 times per batch,
-     K2 only in the prefill of the prompt head; windows/s, p50, peak memory
-     (reset after the build), finite scores; then one batch with the head
-     embedded in the graph (L == S, JAX's padded-kernel route) against the
-     same batch served from a cache prefilled on K4 (1e-5 x max);
+     2048) with d_ff 64, batch 8, two test batches: the K4 route
+     (``rope_flash_attention``: the pre-pass ``rope_flash_keys``, then K4
+     with q rotated at load) 32 times per batch, K2 only in the prefill of
+     the prompt head; windows/s, p50, peak memory (reset after the build),
+     finite scores; then one batch with the head embedded in the graph
+     (L == S, JAX's padded-kernel route) against the same batch served
+     from a cache prefilled on the K4 route (1e-5 x max);
  18. the crossover window: ``test()`` at history 4096 (~630 keys, d_ff
-     128): the launches ``K4_MIN_KEYS`` says (K2 or K4);
+     128): the launches ``K4_MIN_KEYS`` says (K2 or the K4 route);
  19. a 2-layer llama-1b dense f32 slice with every attention forced onto
-     K4 (``K4_MIN_KEYS`` set to 1 for the phase, then restored) on the card
-     against the CPU.
-Phase 3 also prints the route table behind ``K4_MIN_KEYS``: K2, RoPE + K4
-and RoPE + SDPA at 512, 1024, 2048 and 4096 keys of the 7B layout; phase 17
-first checks K4 (the flash-attention kernel) against its plain version at
+     the K4 route (``K4_MIN_KEYS`` set to 1 for the phase, then restored) on
+     the card against the CPU.
+Phase 3 also prints the route table behind ``K4_MIN_KEYS``: K2, the K4
+route and RoPE + SDPA at 512, 1024, 2048 and 4096 keys of the 7B layout,
+the route held in three parts up to 2048 keys (the pre-pass and q's
+rotation bit-equal to one f32 rotation, each query row of the attention on
+those inputs within 2^-6 x its max, the whole route within 2^-6 x the
+output's max of its plain version, which rounds the rotation three times);
+the quantizer's rows also print its device time (``queued_ms``); K10 is
+held bit-equal from one call to the next. Phase 17 first checks K4 through
+its JAX interface (q rotated, [B, H, L, D]) against its plain version at
 the long window's shapes (cached, uncached L == S, non-causal, GQA 32 / 4 x
-64), each query row within 2^-6 x the largest |plain| of that row, then K1
-over one 7B block at the long window's M (8 x 2,128 = 17,024 rows; rows
-``w8a8_quantize[long]`` and ``w8a8_gemm[long]``, bit-equal, with the
-library's time) and K3 at the long window's shape (B 8, L 2048, H 8, E 64
-= the cell's d_ff, S 1024; row ``reprogramming_attention[long]``, with
-SDPA's time; E 128 printed beside it), all three listed with the launches
-of the long run.
+64), each query row within 2^-6 x the largest |plain| of that row (printed,
+not listed: the served path reaches K4 through the route), then the route
+at the served cached and uncached shapes (rows
+``rope_flash_attention[long]`` / ``[uncached]``, held in the three parts,
+with RoPE + SDPA's time, and the pre-pass ``rope_flash_keys[long]`` /
+``[uncached]`` with its byte bound), then K1 over one 7B block at the long
+window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
+``w8a8_gemm[long]``, bit-equal, with the library's time) and K3 at the long
+window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
+``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
+it), all listed with the launches of the long run.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -394,7 +406,7 @@ def main() -> None:
         """K1 over one decoder block at M = B * L rows: ``quants`` (input
         dtype, K, calls) of the quantizer, ``gemms`` (K, N, calls) of the
         GEMM, written as bf16; each held bit-equal to its plain version."""
-        q_err = q_ms = q_plain = q_bytes = 0.0
+        q_err = q_ms = q_dev = q_plain = q_bytes = 0.0
         for dt, K, n in quants:
             x = torch.randn(M, K, device=dev, generator=g).to(dt)
             xq, xs = k1.quantize_rows(x)
@@ -404,6 +416,9 @@ def main() -> None:
             q_err = max(q_err, (xq.int() - xq0.int()).abs().max().item(),
                         (xs - xs0).abs().max().item())
             q_ms += n * cuda_ms(torch, lambda: k1.quantize_rows(x))
+            # the same calls queued behind a sleeping kernel: the device's
+            # time, without the host's per-call cost
+            q_dev += n * queued_ms(torch, lambda: k1.quantize_rows(x))
             q_plain += n * cuda_ms(torch, lambda: k1.quantize_rows_plain(x))
             q_bytes += n * (M * K * x.element_size() + M * K + M * 4)
         # no single PyTorch call quantizes rows to int8 with their absmax scale
@@ -411,7 +426,7 @@ def main() -> None:
                "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", q_err, 0.0, q_ms, q_plain,
                bound(q_bytes, 0, "int8"), None,
                f" (per decoder block, {sum(n for *_, n in quants)} calls at M={M}; xq and "
-               "x_scale bit-equal)")
+               f"x_scale bit-equal; device time, queued: {q_dev:.4f} ms)")
         g_err, g_ms, g_plain, g_dense, g_lib, g_bytes, g_ops = (0.0,) * 7
         for K, N, n in gemms:
             xq = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8,
@@ -539,10 +554,38 @@ def main() -> None:
     check_k2("rope_attention[moe-8x1b]", Be, Le, xcfg.n_heads, xcfg.kv_heads,
              xcfg.head_dim, Pe, xcfg.rope_theta)
 
+    def hold_route(q, k, v, cos, sin, pk, pv, label):
+        """The long-window route (the pre-pass, then K4 with q rotated at
+        load) held in three parts: the rotation (the pre-pass's keys and
+        values bit-equal to their plain version, f32 with one rounding;
+        the route's output bit-equal to K4's JAX interface fed q rotated
+        the same way), the attention on those rotated inputs (each query
+        row within 2^-6 x its max |plain|), and the whole route against its
+        plain version, whose torch bf16 rope rounds three times (K2's
+        bound, 2^-6 x the output's max). Returns (max |route - plain|,
+        the worst row's share)."""
+        out = k4.rope_flash_attention(q, k, v, cos, sin, pk, pv)
+        keys, values = k4.rope_flash_keys(k, v, cos, sin, pk, pv)
+        keys0, values0 = k4.rope_flash_keys_plain(k, v, cos, sin, pk, pv)
+        check(torch.equal(keys, keys0) and torch.equal(values, values0),
+              f"{label}: the pre-pass's keys or values differ from one f32 rotation")
+        qr = k4.rope_once(q, cos, sin).transpose(1, 2).contiguous()
+        check(torch.equal(out, k4.flash_attention(qr, keys, values).transpose(1, 2)),
+              f"{label}: q rotated at load differs from one f32 rotation")
+        share = row_share(out, k4.flash_attention_plain(qr, keys, values).transpose(1, 2))
+        check(share <= 1, f"{label}: a query row's error is {share} of 2^-6 x its max")
+        del keys, values, keys0, values0, qr
+        ref = k4.rope_flash_attention_plain(q, k, v, cos, sin, pk, pv)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0 ** -6 * ref.float().abs().max().item()
+        check(err <= tol, f"{label}: |route - plain| {err} > {tol}")
+        return err, share
+
     # the route table behind K4_MIN_KEYS: one block's attention at the 7B
-    # layout (batch 8, the P-token head as prefix) by K2, by RoPE + the
-    # transposes + K4 (tfm.flash_route, as Attention runs it) and by RoPE +
-    # SDPA, at 512, 1024 and 2048 keys (K2's limit), and 4096
+    # layout (batch 8, the P-token head as prefix) by K2, by the K4 route
+    # (rope_flash_attention: the pre-pass, then K4 with q rotated at load,
+    # as Attention runs it) and by RoPE + SDPA, at 512, 1024 and 2048 keys
+    # (K2's limit), and 4096; the route held in its three parts up to 2048
     def route_row(keys):
         Lr = keys - P
         q = torch.randn(B, Lr, H, D, device=dev, generator=g).to(torch.bfloat16)
@@ -555,7 +598,8 @@ def main() -> None:
         mask = torch.ones(Lr, keys, dtype=torch.bool, device=dev).tril(P)
 
         def k4_route():
-            return tfm.flash_route(q, k, v, cos, sin, pk, pv, scale).reshape(B, Lr, H * D)
+            return k4.rope_flash_attention(q, k, v, cos, sin, pk, pv, scale).reshape(
+                B, Lr, H * D)
 
         def rope_sdpa():
             kr = torch.cat([pk.expand(B, -1, -1, -1), k2.rope(k, cos, sin).transpose(1, 2)], 2)
@@ -564,13 +608,13 @@ def main() -> None:
                 k2.rope(q, cos, sin).transpose(1, 2), kr, vv, attn_mask=mask,
                 enable_gqa=KV < H).transpose(1, 2).reshape(B, Lr, H * D)
         row = {"keys": keys, "k4": cuda_ms(torch, k4_route), "sdpa": cuda_ms(torch, rope_sdpa)}
-        k2_txt = "- (past its limit)"
+        k2_txt, held = "- (past its limit)", ""
         if keys <= k2.MAX_KEYS:
-            # one bound for the tensor, not per row: K2 rotates q and k in
-            # f32 with one rounding, the route with torch's bf16 ops (two),
-            # so their scores differ by a bf16 ulp of the rotated inputs
-            # (per row that reached 1.15 x 2^-6 x max |K2| of the row at 512
-            # keys on an H100); K4 itself is held per row in phase 17
+            err, share = hold_route(q, k, v, cos, sin, pk, pv, f"route at {keys} keys")
+            held = (f"; held: rotation bit-equal, worst row {share:.4f}, |route - plain| "
+                    f"{err:.3e}")
+            # one bound for the tensor, not per row: both round the
+            # rotation once, but each in its own order of sums
             out2 = k2.rope_attention(q, k, v, cos, sin, pk, pv, scale).reshape(B, Lr, H * D)
             err = (k4_route().float() - out2.float()).abs().max().item()
             tol = 2.0 ** -6 * out2.float().abs().max().item()
@@ -579,13 +623,13 @@ def main() -> None:
                                                                  scale))
             k2_txt = f"{row['k2']:.4f} ms"
         print(f"[route] {keys} keys (L={Lr}, P={P}, B={B} H={H} D={D}): K2 {k2_txt}, "
-              f"RoPE + K4 {row['k4']:.4f} ms, RoPE + SDPA {row['sdpa']:.4f} ms")
+              f"K4 route {row['k4']:.4f} ms, RoPE + SDPA {row['sdpa']:.4f} ms{held}")
         return row
 
     route = [route_row(keys) for keys in (512, 1024, 2048, 4096)]
     picked = next((r["keys"] for r in route if "k2" in r and r["k4"] < r["k2"]),
                   k2.MAX_KEYS + 1)
-    print(f"[route] least listed key count at which RoPE + K4 beats K2: {picked}; the "
+    print(f"[route] least listed key count at which the K4 route beats K2: {picked}; the "
           f"code's K4_MIN_KEYS = {tfm.K4_MIN_KEYS}")
 
     def check_k3(name, Bq, Lq, Hr, E, S, listed=True):
@@ -696,6 +740,10 @@ def main() -> None:
                f"expf floor {blnes / SFU_EXP_PER_S * 1e3:.4f} ms)")
         got = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, gy, hb0, chunk)
         want = ss.selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, gy, hb0, chunk)
+        # no float atomics: a second call gives the same bits
+        again = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, gy, hb0, chunk)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K10{label}: two calls differ")
         # each of the five outputs within 1e-4 x its own max; the record
         # holds the output nearest its tolerance
         errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
@@ -706,8 +754,9 @@ def main() -> None:
                   f"1e-4 x {s_}")
         # reads dt, x, g, B, C, A_T, hb; writes ddt, dx, dB and dC (the
         # per-block slabs summed into dB, dC are the kernel's choice, not
-        # the function's bytes). Per (b, t, n, e) ~20 operations: the
-        # forward recompute (4) and the reverse step (16); 2 expf
+        # the function's bytes). Per (b, t, n, e) ~16 operations: the
+        # states recomputed from hb (4) and the reverse step (12); one expf
+        # on the special-function units, a floor printed beside the bound
         record(f"selective_scan_bwd{label}", "medtsllm_tpu_torch/csrc/selective_scan_bwd.cu",
                "medtsllm_tpu/ops/pallas/selective_scan.py:414", errs[worst], 1e-4 * scales[worst],
                cuda_ms(torch, lambda: ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, gy, hb, chunk,
@@ -716,10 +765,11 @@ def main() -> None:
                                                                  chunk),
                        iters=3, warmup=1),
                bound(4 * (5 * bles + 4 * blns + Nm * Em + Bm * nc * Nm * Em),
-                     20 * blnes + 6 * bles, "f32"), None,
+                     16 * blnes + 6 * bles, "f32"), None,
                f" (as K9, without dA_T as in training; error of "
                f"{('ddt', 'dx', 'dB', 'dC', 'dA_T')[worst]}, the output nearest its "
-               f"tolerance; expf floor {2 * blnes / SFU_EXP_PER_S * 1e3:.4f} ms)")
+               f"tolerance; expf floor {blnes / SFU_EXP_PER_S * 1e3:.4f} ms, one a "
+               f"(b, t, n, e); two calls bit-equal)")
 
     check_train_scan("", Lm, 1)
     check_train_scan("[uncached]", Pm + Lm, 0)
@@ -880,6 +930,8 @@ def main() -> None:
 
     wrappers = {"w8a8_quantize": k1.quantize_rows, "w8a8_gemm": k1.int8_gemm,
                 "rope_attention": k2.rope_attention, "flash_attention": k4.flash_attention,
+                "rope_flash_attention": k4.rope_flash_attention,
+                "rope_flash_keys": k4.rope_flash_keys,
                 "reprogramming_attention": k3.reprogramming_attention,
                 "selective_scan": ss.selective_ssm,
                 "selective_scan_h0": ss.selective_ssm_h0,
@@ -942,7 +994,8 @@ def main() -> None:
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                  "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the serving path")
-    check(counts["flash_attention"] == 0, f"{P + L} keys stay on K2: {counts}")
+    check(counts["flash_attention"] == counts["rope_flash_attention"] == 0,
+          f"{P + L} keys stay on K2: {counts}")
     set_launches(counts, {n: n for n in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                                          "reprogramming_attention")})
 
@@ -1400,14 +1453,16 @@ def main() -> None:
     print(f"[shapes] llama long window: history {cfg_long.history_len} P={P_long} "
           f"L={L_long} keys={S_long}")
 
-    # K4 against its plain version at the long window's shapes (the cached
-    # region and the uncached form, L == S), non-causal, and the GQA 32 / 4
-    # x 64 layout of llama-1b and moe-8x1b, all bf16; S % 64 != 0 leaves a
-    # partial last k-tile. Bound: the products of the (query, key) pairs
-    # the mask keeps (QK^T and PV, 4 x D operations each) at the bf16 peak,
-    # or q, k and v read and the output written once; library: SDPA with
-    # the same mask
-    def check_k4(name, B, H, KV, L, S, D, causal, listed=True):
+    # K4 through its JAX interface (q already rotated, [B, H, L, D]) against
+    # its plain version at the long window's shapes (the cached region and
+    # the uncached form, L == S), non-causal, and the GQA 32 / 4 x 64 layout
+    # of llama-1b and moe-8x1b, all bf16; S % 128 != 0 leaves a partial last
+    # k-tile. Bound: the products of the (query, key) pairs the mask keeps
+    # (QK^T and PV, 4 x D operations each) at the bf16 peak, or q, k and v
+    # read and the output written once; library: SDPA with the same mask.
+    # The served path reaches the kernel through the route (below), so these
+    # are printed, not listed
+    def check_k4(name, B, H, KV, L, S, D, causal):
         q = torch.randn(B, H, L, D, device=dev, generator=g).to(torch.bfloat16)
         k = torch.randn(B, KV, S, D, device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn(B, KV, S, D, device=dev, generator=g).to(torch.bfloat16)
@@ -1430,15 +1485,68 @@ def main() -> None:
                cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, enable_gqa=KV < H)),
                f" (B={B} H={H} KV={KV} L={L} S={S} D={D} causal={causal}; library = "
-               "SDPA with the same mask)", listed, share)
+               "SDPA with the same mask)", False, share)
 
     check_k4("flash_attention", B, H, KV, L_long, S_long, D, True)
     check_k4("flash_attention[uncached]", B, H, KV, S_long, S_long, D, True)
-    # shapes no served path runs (the llama decoder is causal; the GQA
-    # backbones serve below 2048 keys): checked and printed, not listed
-    check_k4("flash_attention[non-causal]", B, H, KV, L_long, S_long, D, False, listed=False)
+    check_k4("flash_attention[non-causal]", B, H, KV, L_long, S_long, D, False)
     check_k4("flash_attention[gqa]", B, xcfg.n_heads, xcfg.kv_heads, L_long, S_long,
-             xcfg.head_dim, True, listed=False)
+             xcfg.head_dim, True)
+
+    # the route the decoder runs (rope_flash_attention: the pre-pass, then K4
+    # with q rotated at load and the output in [B, L, H, D]) at the served
+    # shapes, held in its three parts (hold_route); the pre-pass apart.
+    # Bounds: the route reads q, k, v, the prefix and the tables once and
+    # writes the output once, with K4's products; the pre-pass reads k, v,
+    # the prefix and the tables and writes the concatenated keys and values.
+    # Library: RoPE + SDPA with the same mask (the concat included)
+    def check_route(label, Lq, Pq):
+        q = torch.randn(B, Lq, H, D, device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn(B, Lq, KV, D, device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn(B, Lq, KV, D, device=dev, generator=g).to(torch.bfloat16)
+        pk = pv = None
+        if Pq:
+            pk = torch.randn(1, KV, Pq, D, device=dev, generator=g).to(torch.bfloat16)
+            pv = torch.randn(1, KV, Pq, D, device=dev, generator=g).to(torch.bfloat16)
+        cos, sin = k2.rope_tables(torch.arange(Pq, Pq + Lq, device=dev), D, lcfg.rope_theta)
+        Sq = Pq + Lq
+        err, share = hold_route(q, k, v, cos, sin, pk, pv, f"rope_flash_attention{label}")
+        mask = torch.ones(Lq, Sq, dtype=torch.bool, device=dev).tril(Pq)
+
+        def rope_sdpa():
+            kr, vv = k2.rope(k, cos, sin).transpose(1, 2), v.transpose(1, 2)
+            if Pq:
+                kr = torch.cat([pk.expand(B, -1, -1, -1), kr], 2)
+                vv = torch.cat([pv.expand(B, -1, -1, -1), vv], 2)
+            return F.scaled_dot_product_attention(
+                k2.rope(q, cos, sin).transpose(1, 2), kr, vv, attn_mask=mask,
+                enable_gqa=KV < H).transpose(1, 2)
+        pairs = Lq * Pq + Lq * (Lq + 1) // 2
+        io = 2 * (2 * B * Lq * H * D + 2 * B * Lq * KV * D + 2 * KV * Pq * D) + 8 * Lq * D // 2
+        lib = cuda_ms(torch, rope_sdpa)
+        record(f"rope_flash_attention{label}", "medtsllm_tpu_torch/csrc/flash_attention.cu",
+               "medtsllm_tpu/ops/pallas/flash_attention.py:196", err, None,
+               cuda_ms(torch, lambda: k4.rope_flash_attention(q, k, v, cos, sin, pk, pv)),
+               cuda_ms(torch, lambda: k4.rope_flash_attention_plain(q, k, v, cos, sin, pk, pv),
+                       iters=3, warmup=1),
+               bound(io, 4 * B * H * D * pairs, "bf16"), lib,
+               f" (B={B} L={Lq} H={H} KV={KV} D={D} P={Pq}; the pre-pass included; "
+               f"|route - plain| {err:.3e} within 2^-6 x max; library = RoPE + SDPA with "
+               "the same mask)", share=share)
+        kv_bytes = 2 * (2 * B * Lq * KV * D + 2 * KV * Pq * D + 2 * B * KV * Sq * D) \
+            + 8 * Lq * D // 2
+        record(f"rope_flash_keys{label}", "medtsllm_tpu_torch/csrc/flash_attention.cu",
+               "medtsllm_tpu/ops/pallas/flash_attention.py:196", 0.0, 0.0,
+               cuda_ms(torch, lambda: k4.rope_flash_keys(k, v, cos, sin, pk, pv)),
+               cuda_ms(torch, lambda: k4.rope_flash_keys_plain(k, v, cos, sin, pk, pv)),
+               bound(kv_bytes, 0, "bf16"), None,
+               f" (the route's pre-pass: keys rotated once and the prefix put ahead, "
+               f"[B={B}, KV={KV}, S={Sq}, D={D}]; bit-equal to its plain version; no single "
+               "PyTorch call computes it)")
+
+    check_route("[long]", L_long, P_long)
+    check_route("[uncached]", S_long, 0)
+    torch.cuda.empty_cache()
 
     # K1 over one 7B block at the long window's M = B * L rows (17,024) and
     # K3 at its shape (the long cell's d_ff, 64, is K3's width; E 128, the
@@ -1457,50 +1565,59 @@ def main() -> None:
     n_batches = len(tr.test_pipeline)
     check(n_batches == 2, f"the long window gives {n_batches} test batches, not 2")
     counts, preds = serve(tr, "long")
-    check(counts["flash_attention"] == n_block * n_batches
-          and counts["rope_attention"] == n_block,
-          f"the long window must run K4 {n_block} times per batch and K2 only in the "
-          f"prefill: {counts}")
-    set_launches(counts, {"flash_attention": "flash_attention",
+    check(counts["rope_flash_attention"] == counts["rope_flash_keys"] == n_block * n_batches
+          and counts["rope_attention"] == n_block and counts["flash_attention"] == 0,
+          f"the long window must run the K4 route {n_block} times per batch and K2 only in "
+          f"the prefill: {counts}")
+    set_launches(counts, {"rope_flash_attention[long]": "rope_flash_attention",
+                          "rope_flash_keys[long]": "rope_flash_keys",
                           "w8a8_quantize[long]": "w8a8_quantize",
                           "w8a8_gemm[long]": "w8a8_gemm",
                           "reprogramming_attention[long]": "reprogramming_attention"})
     # one batch with the prompt head embedded in the graph (the uncached form:
-    # L == S, JAX's padded-kernel route), K4 in every block; block 0's K4
-    # call is held against the plain version on those served activations
+    # L == S, JAX's padded-kernel route), the K4 route in every block; block
+    # 0's call is held against the plain version on those served
+    # activations: each query row against K4's plain version fed the same
+    # once-rounded rotation
     batch = next(iter(tr.test_pipeline))
     arrays = tr._to_device(tr.model_inputs(batch))
     check("prefix_ids" in arrays, "the uncached form needs the embedded head")
     out, seen = [], []
 
-    def spy(q, k, v, *a, **kw):
+    def spy(q, k, v, cos, sin, *a, **kw):
         if not seen:
-            seen.append((q.clone(), k.clone(), v.clone()))
-        return k4.flash_attention(q, k, v, *a, **kw)
-    tfm.flash_attention = spy
+            seen.append((q.clone(), k.clone(), v.clone(), cos.clone(), sin.clone()))
+        return k4.rope_flash_attention(q, k, v, cos, sin, *a, **kw)
+    tfm.rope_flash_attention = spy
     try:
         counts, _ = drive(lambda: out.append(tr.eval_step(arrays).float()))
     finally:
-        tfm.flash_attention = k4.flash_attention
-    check(counts["flash_attention"] == n_block and counts["rope_attention"] == 0,
-          f"the uncached long batch must run K4 only: {counts}")
-    set_launches(counts, {"flash_attention[uncached]": "flash_attention"})
+        tfm.rope_flash_attention = k4.rope_flash_attention
+    check(counts["rope_flash_attention"] == n_block and counts["rope_attention"] == 0,
+          f"the uncached long batch must run the K4 route only: {counts}")
+    set_launches(counts, {"rope_flash_attention[uncached]": "rope_flash_attention",
+                          "rope_flash_keys[uncached]": "rope_flash_keys"})
     uncached = out[0]
     check(bool(torch.isfinite(uncached).all()), "non-finite uncached long batch")
-    q, k, v = seen.pop()
-    o, o0 = k4.flash_attention(q, k, v), k4.flash_attention_plain(q, k, v)
+    q, k, v, cos, sin = seen.pop()
+    o = k4.rope_flash_attention(q, k, v, cos, sin)
+    keys, values = k4.rope_flash_keys(k, v, cos, sin)
+    o0 = k4.flash_attention_plain(k4.rope_once(q, cos, sin).transpose(1, 2), keys,
+                                  values).transpose(1, 2)
     err, share = (o.float() - o0.float()).abs().max().item(), row_share(o, o0)
     check(share <= 1, f"K4 on block 0's served activations: a query row's error is {share} "
           f"of its tolerance, 2^-6 x max |plain| of the row")
-    print(f"[long-uncached] K4 on block 0's served activations (q {tuple(q.shape)}, k/v "
-          f"{tuple(k.shape)}) vs its plain version: max_abs_err {err:.3e}, worst row at "
-          f"{share:.4f} of its tolerance (2^-6 x max |plain| of the row)")
-    del q, k, v, o, o0
+    print(f"[long-uncached] the K4 route on block 0's served activations (q "
+          f"{tuple(q.shape)}, k/v {tuple(k.shape)}) vs K4's plain version on the same "
+          f"rotation: max_abs_err {err:.3e}, worst row at {share:.4f} of its tolerance "
+          "(2^-6 x max |plain| of the row)")
+    del q, k, v, cos, sin, o, o0, keys, values
     # the same batch served from a cache whose prefill also ran on K4
-    # (K4_MIN_KEYS set to 1 for that batch, then restored): K4 computes each
-    # query row alike whatever L is, K1's integer GEMM and per-row quantizer
-    # alike whatever M is, so cached and uncached agree to rounding:
-    # 1e-5 x max |cached|. (Against the served cache, prefilled on K2, the
+    # (K4_MIN_KEYS set to 1 for that batch, then restored): the prefill
+    # returns the pre-pass's own rotated keys, K4 computes each query row
+    # alike whatever L is, K1's integer GEMM and per-row quantizer alike
+    # whatever M is, so cached and uncached agree to rounding: 1e-5 x max
+    # |cached|. (Against the served cache, prefilled on K2, the
     # head's K/V would enter block 1 a few bf16 ulps apart, and the w8a8
     # projections turn such last-bit differences into int8 flips that 32
     # blocks compound: ROADMAP queue 3. That pair bounds nothing, so it is
@@ -1528,8 +1645,9 @@ def main() -> None:
     counts, _ = serve(tr, "crossover")
     n_batches = len(tr.test_pipeline)
     on_k4 = P_x + L_x >= tfm.K4_MIN_KEYS
-    want = ({"flash_attention": n_block * n_batches, "rope_attention": n_block} if on_k4
-            else {"flash_attention": 0, "rope_attention": n_block * (n_batches + 1)})
+    want = ({"rope_flash_attention": n_block * n_batches, "rope_attention": n_block}
+            if on_k4 else
+            {"rope_flash_attention": 0, "rope_attention": n_block * (n_batches + 1)})
     check(all(counts[k] == n for k, n in want.items()),
           f"history 4096 ({P_x + L_x} keys, K4_MIN_KEYS {tfm.K4_MIN_KEYS}) must launch "
           f"{want}: {counts}")
@@ -1556,14 +1674,15 @@ def main() -> None:
         out_cpu = cpu.eval_dispatch(batch)
     finally:
         tfm.K4_MIN_KEYS = saved
-    check(counts["flash_attention"] == 2 * 2 and counts["rope_attention"] == 0,
+    check(counts["rope_flash_attention"] == 2 * 2 and counts["rope_attention"] == 0,
           f"the forced slice must run K4 in both layers of the prefill and the batch: {counts}")
     err = (out[0] - out_cpu).abs().max().item()
     tol = 1e-5 * max(1.0, out_cpu.abs().max().item())
     check(err <= tol, f"K4 slice: card vs CPU max err {err} > {tol}")
     print(f"[reference] llama-1b 2-layer GQA dense f32 slice, every attention forced onto "
           f"K4 (K4_MIN_KEYS set to 1 for this phase, then restored), card vs CPU: "
-          f"max_abs_err {err:.3e} (tol {tol:.3e}); K4 launches {counts['flash_attention']}")
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); K4 route launches "
+          f"{counts['rope_flash_attention']}")
     del gpu, cpu
 
     check(all(e["launches"] for e in kernels), f"unlaunched kernels: {kernels}")

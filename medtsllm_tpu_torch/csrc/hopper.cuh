@@ -1,7 +1,7 @@
-// Hopper building blocks of the wgmma + TMA GEMMs (K1, K5, K6): mbarriers,
-// TMA tile loads, shared-memory matrix descriptors, wgmma's fence / commit /
-// wait, named barriers, and the host-side encoding of a 128-byte-swizzled
-// int8 tensor map. sm_90a only.
+// Hopper building blocks of the wgmma + TMA kernels (K1, K4, K5, K6):
+// mbarriers, TMA tile loads and stores, shared-memory matrix descriptors,
+// wgmma's fence / commit / wait, named barriers, and the host-side encoding
+// of 128-byte-swizzled int8 and bf16 tensor maps. sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -79,11 +79,46 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// one 4-D tile from shared memory to the tensor map's tensor (the box's
+// out-of-bounds elements are not written); a bulk group the caller commits
+// and waits for
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed bulk stores have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory become visible to the async proxy
+// (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // shared-memory descriptor of a K-major tile in the 128-byte swizzle: rows
 // of 128 bytes, 8-row atoms 1024 bytes apart (SBO), layout type 1 (B128).
 // Adding 2 to it steps 32 bytes along k inside the atom.
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// shared-memory descriptor of an MN-major (transposed) 16-bit operand in the
+// 128-byte swizzle: k runs down the 128-byte rows (8-row groups 1024 bytes
+// apart, SBO), each row holds 64 consecutive elements of m or n, and the
+// next 64 of them start lbo bytes further on (LBO)
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -132,12 +167,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// an 8-bit tensor of `rank` (<= 5) dimensions, dims[0] contiguous and
+// a tensor of `type` and `rank` (<= 5) dimensions, dims[0] contiguous and
 // strides[i] the byte stride of dims[i + 1] (multiples of 16), as tiles of
 // box[] elements with box[0] = 128 bytes, 128-byte swizzled; out-of-bounds
 // elements read as zero. ptr 16-byte aligned.
-inline bool make_map_s8_nd(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+inline bool make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                        const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (!encode || rank < 1 || rank > 5) return false;
   cuuint64_t d[5], st[4];
@@ -148,10 +183,21 @@ inline bool make_map_s8_nd(CUtensorMap* map, const void* ptr, int rank, const ui
     elem[i] = 1;
     if (i + 1 < rank) st[i] = strides[i];
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), d, st, b,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, rank, const_cast<void*>(ptr), d, st, b, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool make_map_s8_nd(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return make_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, rank, dims, strides, box);
+}
+
+// the bf16 form (box[0] = 64 elements)
+inline bool make_map_bf16_nd(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                             const uint64_t* strides, const uint32_t* box) {
+  return make_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box);
 }
 
 // the row-major 8-bit [rows, cols] matrix as 2-D tiles of box_rows x 128

@@ -255,20 +255,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the half-split rotation of the pair (x1, x2) = (x[d], x[d + D/2]) at
-// position row c/s, in f32 with the tables rounded to bf16 first, rounded
-// once to bf16 (the f32 kernel's rope_elem, two lanes at a time)
-__device__ __forceinline__ void rope_pair(__nv_bfloat162& a, __nv_bfloat162& b, float2 c,
-                                          float2 s) {
-  const float c0 = mt::round_to<bf16>(c.x), c1 = mt::round_to<bf16>(c.y);
-  const float s0 = mt::round_to<bf16>(s.x), s1 = mt::round_to<bf16>(s.y);
-  const float2 x1 = __bfloat1622float2(a), x2 = __bfloat1622float2(b);
-  a = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(x1.x, c0), __fmul_rn(x2.x, s0)),
-                            __fsub_rn(__fmul_rn(x1.y, c1), __fmul_rn(x2.y, s1)));
-  b = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(x2.x, c0), __fmul_rn(x1.x, s0)),
-                            __fadd_rn(__fmul_rn(x2.y, c1), __fmul_rn(x1.y, s1)));
-}
-
 // k [B * L * KV rows, D] rotated once into kr, row (b, l, kvh) at position
 // l: one thread a pair of pairs (d, d + 1) and (d + D/2, d + D/2 + 1)
 template <int D>
@@ -284,8 +270,8 @@ rope_attention_keys_kernel(const bf16* __restrict__ k, const float* __restrict__
   const size_t o = static_cast<size_t>(row) * D + d;
   __nv_bfloat162 x1 = *reinterpret_cast<const __nv_bfloat162*>(k + o);
   __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(k + o + HALF);
-  rope_pair(x1, x2, *reinterpret_cast<const float2*>(cosb + l * HALF + d),
-            *reinterpret_cast<const float2*>(sinb + l * HALF + d));
+  mt::rope_pair(x1, x2, *reinterpret_cast<const float2*>(cosb + l * HALF + d),
+                *reinterpret_cast<const float2*>(sinb + l * HALF + d));
   *reinterpret_cast<__nv_bfloat162*>(kr + o) = x1;
   *reinterpret_cast<__nv_bfloat162*>(kr + o + HALF) = x2;
 }
@@ -370,7 +356,7 @@ rope_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = tid + (it0 + j) * kTcThreads, r = i / PAIRS, d = 2 * (i % PAIRS);
-      if (r < rows) rope_pair(x1[j], x2[j], c[j], sn[j]);
+      if (r < rows) mt::rope_pair(x1[j], x2[j], c[j], sn[j]);
       *reinterpret_cast<__nv_bfloat162*>(sQ + r * LDS + d) = x1[j];
       *reinterpret_cast<__nv_bfloat162*>(sQ + r * LDS + d + HALF) = x2[j];
     }

@@ -9,8 +9,9 @@ projections emit and attention runs, while the residual stream keeps the
 promoted type of the input embeddings (f32), as flax promotion does.
 Attention (prefill included) goes through the fused RoPE + prefix + causal
 kernel (K2) up to ``K4_MIN_KEYS`` keys, and above that, or past K2's 2048,
-through RoPE, the head transpose and the flash-attention kernel (K4), as
-JAX's unfused path does; every projection at ``quantize=8`` through the
+through the flash-attention route (K4 with the rotation, the head
+transpose and the prefix concat of JAX's unfused path folded in); every
+projection at ``quantize=8`` through the
 w8a8 kernel (K1), at ``quantize=4`` with the absmax codebook through K1's
 quantizer and the w4a8 kernel (K5). The MoE FFN routes each token to its
 top-k experts and runs them either as the dropless grouped chain (K6,
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.kernels.flash_attention import flash_attention
+from ...ops.kernels.flash_attention import rope_flash_attention
 from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
                                             row_quant)
 from ...ops.kernels.rope_attention import MAX_KEYS, rope, rope_attention, rope_tables
@@ -36,30 +37,13 @@ from .config import DecoderConfig
 
 
 # Least key count (prefix + region) at which an attention that needs no
-# gradient takes K4 in place of K2; K4 also takes every call past K2's
-# MAX_KEYS. Set from the route table of chip_smoke.py phase 3 on an H100
-# (the 7B layout, batch 8, a 37-token prefix; PERF.md §6): the tensor-core
-# K2 beats RoPE + K4 at every listed count up to its limit, 512, 1024 and
-# 2048 keys (0.34 / 0.99 / 3.29 against 0.95 / 2.13 / 5.12 ms), so K4 takes
-# only the calls past MAX_KEYS.
-K4_MIN_KEYS = MAX_KEYS + 1
-
-
-def flash_route(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):
-    """The K4 form of attention (``transformer.py:591-633`` of the JAX
-    package): q [B, L, H, D], k/v [B, L, KV, D] pre-rotary, cos/sin
-    [L, D/2], an optional rotated prefix pk/pv [1 or B, KV, P, D]. Rotates q
-    and k in the projection layout, transposes to [B, H|KV, L, D], puts the
-    prefix ahead of k/v and runs end-aligned causal flash attention.
-    Returns [B, L, H, D]."""
-    B = q.shape[0]
-    qr = rope(q, cos, sin).transpose(1, 2).contiguous()
-    kr = rope(k, cos, sin).transpose(1, 2).contiguous()
-    vt = v.transpose(1, 2).contiguous()
-    if pk is not None:
-        kr = torch.cat([pk.to(kr.dtype).expand(B, -1, -1, -1), kr], dim=2)
-        vt = torch.cat([pv.to(vt.dtype).expand(B, -1, -1, -1), vt], dim=2)
-    return flash_attention(qr, kr, vt, causal=True, sm_scale=sm_scale).transpose(1, 2)
+# gradient takes the K4 route in place of K2; K4 also takes every call past
+# K2's MAX_KEYS. Set from the route table of chip_smoke.py phase 3 on an
+# H100 (the 7B layout, batch 8, a 37-token prefix; PERF.md §6): the route
+# (the pre-pass, then K4 with q rotated at load) beats the tensor-core K2 at
+# every listed count, 512, 1024 and 2048 keys, so K4 takes every call from
+# 512 keys on. The main path (149 keys) and the MoE path (158) stay on K2.
+K4_MIN_KEYS = 512
 
 
 class RMSNorm(nn.Module):
@@ -155,7 +139,8 @@ class Attention(nn.Module):
         rotated (k, v) [B, KV, L, D] — the prefill cache.
 
         The route: K2 when the call has at most ``K4_MIN_KEYS - 1`` keys and
-        at most K2's ``MAX_KEYS``, else K4 (``flash_route``). K4 has no
+        at most K2's ``MAX_KEYS``, else K4's route (``rope_flash_attention``,
+        ``transformer.py:591-633`` of the JAX package). K4 has no
         backward, so a call that needs a gradient keeps K2 and raises past
         its key limit."""
         cfg = self.cfg
@@ -179,16 +164,18 @@ class Attention(nn.Module):
                 f"training through attention over {keys} keys needs a backward of the "
                 "flash-attention kernel, which the JAX package does not have (ROADMAP "
                 "queue 1 item 4)")
+        new_kv = None
         if not needs_grad and (keys > MAX_KEYS or keys >= K4_MIN_KEYS):
-            out = flash_route(q, k, v, cos, sin, pk, pv, sm_scale)
+            out = rope_flash_attention(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
+            if return_kv:
+                out, new_kv = out
         else:
             out = rope_attention(q, k, v, cos, sin, pk, pv, sm_scale)
+            if return_kv:
+                new_kv = (rope(k, cos, sin).transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous())
         out = self.o_proj(out.reshape(B, L, H * D))
-        if not return_kv:
-            return out
-        new_kv = (rope(k, cos, sin).transpose(1, 2).contiguous(),
-                  v.transpose(1, 2).contiguous())
-        return out, new_kv
+        return (out, new_kv) if return_kv else out
 
 
 class MLP(nn.Module):

@@ -44,6 +44,12 @@ SIGNATURES = {
                           _I, _I, _I, _I, _F, _P),
     # q, k, v, out, is_bf16, causal, B, H, KV, L, S, D, sm_scale, stream
     "mt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # k, v, cos, sin, pk, pv, kc, vc, is_bf16, B, L, KV, D, P, PB, stream
+    "mt_flash_keys": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, kc, vc, cos, sin, out, q_rot, is_bf16, B, L, H, KV, D, S, sm_scale,
+    # stream
+    "mt_rope_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _P),
     # q, k, v, out, part, part_ml, B, L, H, E, S, scale, stream
     "mt_reprogramming_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _P),
@@ -53,10 +59,13 @@ SIGNATURES = {
     # N, stream
     "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                           _I, _I, _I, _P),
-    # dt, x, Bs, Cs, A_T, g, hb, ddt, dx, dB_slab, dC_slab, dA_slab, chunk, B,
-    # L, E, N, stream
+    # dt, x, Bs, Cs, A_T, g, hb, ddt, dx, dB_slab, dC_slab, dA_slab, n_slabs,
+    # chunk, B, L, E, N, stream
     "mt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _I, _P),
+    # channels, state size -> the dB / dC slab count of that launch (host
+    # only, no stream)
+    "mt_selective_scan_bwd_slabs": (_I, _I),
     # xq, x_scale, n_chunks, w0, w1, ws0, ws1, visit_e, visit_valid, out0,
     # out1, out_kind, fuse_silu, V, block_m, E, N, K, w_bits, group_m, stream
     "mt_gmm": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

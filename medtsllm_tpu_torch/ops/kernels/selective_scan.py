@@ -32,7 +32,16 @@ from . import _build
 
 STATE_SIZES = (4, 8, 16)  # the kernels' instances of N
 CHUNK = 16  # tokens per recorded chunk-start state in training (JAX's _CHUNK)
-_BLOCK_E = 128  # channels per block of the backward kernel: one dB/dC slab each
+# K10's decomposition (csrc/selective_scan_bwd.cu): 4 states a thread,
+# sub-chunks of up to 16 tokens whose states stay in registers, 256-thread
+# blocks of 1024 / N channels, one dB/dC slab each
+BWD_STATES_PER_LANE = 4
+BWD_SUB_CHUNK = 16
+
+
+def bwd_block_channels(N: int) -> int:
+    """The channels one block of K10 covers at state size N."""
+    return 256 * BWD_STATES_PER_LANE // N
 
 
 def _plain_scan(dt, A_T, Bs, Cs, xs, D, h0, chunk):
@@ -87,6 +96,61 @@ def selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK):
         y = selective_ssm_plain(*ins, torch.zeros_like(dt[0, 0]), hb[:, 0])
         ddt, dA_T, dB, dC, dx = torch.autograd.grad(y, ins, g)
     return ddt, dx, dB, dC, dA_T
+
+
+def selective_ssm_bwd_split(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK):
+    """K10's decomposition in PyTorch -> (ddt, dx_ssm, dB, dC, dA_T), the
+    plain version's outputs: the recorded chunks right to left, each in
+    sub-chunks of up to ``BWD_SUB_CHUNK`` tokens that run forward once from
+    the chunk's recorded start, keeping h_{t-1} and exp(dt A) (one
+    exponential per (t, n)), then backward from them; ddt and dx summed
+    within each group of ``BWD_STATES_PER_LANE`` states, then over the
+    groups; dB and dC summed per block of ``bwd_block_channels(N)`` channels
+    (the kernel's slabs), then over the blocks; dA_T per batch row, then over
+    them. The CPU tests hold it against the plain version and the Pallas
+    kernel."""
+    B, L, E = dt.shape
+    N = A_T.shape[0]
+    nc, cpb = n_chunks(L, chunk), bwd_block_channels(N)
+    n_slabs, groups = -(-E // cpb), N // BWD_STATES_PER_LANE
+
+    def per_group(t):  # [B, N, E] -> [B, E]
+        return t.reshape(B, groups, BWD_STATES_PER_LANE, E).sum(2).sum(1)
+
+    def per_block(t):  # [B, N, E] -> [n_slabs, B, N]
+        t = torch.nn.functional.pad(t, (0, n_slabs * cpb - E))
+        return t.reshape(B, N, n_slabs, cpb).sum(-1).permute(2, 0, 1)
+
+    ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
+    slab_b, slab_c = (dt.new_zeros(n_slabs, B, L, N) for _ in range(2))
+    dA_T, hhat = dt.new_zeros(B, N, E), dt.new_zeros(B, N, E)
+    for c in reversed(range(nc)):
+        cs, s_end = c * chunk, min(L, (c + 1) * chunk)
+        while s_end > cs:
+            s0 = cs + (s_end - 1 - cs) // BWD_SUB_CHUNK * BWD_SUB_CHUNK
+            h, hist, das = hb[:, c], [], []
+            for t in range(cs, s_end):
+                dA = torch.exp(dt[:, t, None, :] * A_T)
+                if t >= s0:
+                    hist.append(h)
+                    das.append(dA)
+                h = dA * h + (dt[:, t] * xs[:, t])[:, None, :] * Bs[:, t, :, None]
+            for i in reversed(range(s_end - s0)):
+                t = s0 + i
+                hp, dA = hist[i], das[i]
+                dbx = (dt[:, t] * xs[:, t])[:, None, :]
+                b_, g_ = Bs[:, t, :, None], g[:, t, None, :]
+                hh = Cs[:, t, :, None] * g_ + hhat
+                hp_dA = hh * hp * dA
+                s_hb = per_group(hh * b_)
+                ddt[:, t] = per_group(hp_dA * A_T) + s_hb * xs[:, t]
+                dx[:, t] = s_hb * dt[:, t]
+                slab_b[:, :, t] = per_block(hh * dbx)
+                slab_c[:, :, t] = per_block((dA * hp + dbx * b_) * g_)
+                dA_T += hp_dA * dt[:, t, None, :]
+                hhat = dA * hh
+            s_end = s0
+    return ddt, dx, slab_b.sum(0), slab_c.sum(0), dA_T.sum(0)
 
 
 def _check(dt, A_T, Bs, Cs, xs, D=None, h0=None):
@@ -200,14 +264,14 @@ def selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK, need_dA=True):
         raise ValueError(f"g and hb must be f32, got {g.dtype} {hb.dtype}")
     _build.check_cuda(dt, g, hb)
     ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
-    slabs = torch.empty(2, -(-E // _BLOCK_E), B, L, N, dtype=torch.float32,
-                        device=dt.device)
+    n_slabs = _build.library().mt_selective_scan_bwd_slabs(E, N)  # one per block
+    slabs = torch.empty(2, n_slabs, B, L, N, dtype=torch.float32, device=dt.device)
     dA_slab = (torch.empty(B, N, E, dtype=torch.float32, device=dt.device)
                if need_dA else None)
     ptr = _build.ptr
     _build.launch("mt_selective_scan_bwd", dt.device, ptr(dt), ptr(xs), ptr(Bs), ptr(Cs),
                   ptr(A_T), ptr(g), ptr(hb), ptr(ddt), ptr(dx), ptr(slabs[0]),
-                  ptr(slabs[1]), ptr(dA_slab), chunk, B, L, E, N)
+                  ptr(slabs[1]), ptr(dA_slab), n_slabs, chunk, B, L, E, N)
     selective_ssm_bwd.launches += 1
     dB, dC = slabs.sum(dim=1)
     return ddt, dx, dB, dC, None if dA_slab is None else dA_slab.sum(dim=0)

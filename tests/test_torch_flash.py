@@ -3,9 +3,13 @@ JAX package's ``_attention_reference`` and against the TPU kernel's own
 body (``_flash_kernel``) run through a test-side ``pl.pallas_call`` in
 interpret mode with the specs of ``_flash_attention_pallas`` and small
 blocks (16 x 32), so that partial k-tiles, partial q-tiles and skipped
-causal blocks occur; then the decoder on the K4 route (``K4_MIN_KEYS`` set
-low) against the JAX decoder, the MedTsLLM slice on that route against the
-JAX trainer, and the route's rules.
+causal blocks occur; the long-window route's plain version
+(``rope_flash_attention_plain``, with its prefill cache and the pre-pass's
+plain version) against JAX's own route, rotary in the projection layout,
+the transposes and the prefix concat, then the reference or the Pallas
+kernel; then the decoder on the K4 route (``K4_MIN_KEYS`` set low) against
+the JAX decoder, the MedTsLLM slice on that route against the JAX trainer,
+and the route's rules.
 
 Tolerances: f32 differs only in summation order and the online against
 the two-pass softmax: rtol = atol = 1e-5. bf16 rounds the probabilities to
@@ -36,7 +40,7 @@ from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
 from medtsllm_tpu_torch.models.llm import transformer as ttf
 from medtsllm_tpu_torch.models.llm.config import PRESETS
 from medtsllm_tpu_torch.ops.kernels import flash_attention as k4
-from medtsllm_tpu_torch.ops.kernels.rope_attention import MAX_KEYS
+from medtsllm_tpu_torch.ops.kernels.rope_attention import MAX_KEYS, rope_tables
 from medtsllm_tpu_torch.tasks import get_trainer
 from medtsllm_tpu_torch.weights import from_flax
 
@@ -131,6 +135,92 @@ def test_plain_matches_reference_and_tpu_kernel(B, H, KV, L, S, D, causal, dtype
     assert k4.flash_attention.launches == n
 
 
+def _jax_route(q, k, v, positions, theta, pk, pv, scale, attend):
+    """JAX's long-window route (transformer.py:591-633): rotary in the
+    projection layout, the head transposes, the prefix ahead of k/v, then
+    ``attend`` (end-aligned causal), the output back in [B, L, H, D]."""
+    qr = jtf.rotary_embedding(q, positions, theta, seq_axis=1).transpose(0, 2, 1, 3)
+    kr = jtf.rotary_embedding(k, positions, theta, seq_axis=1).transpose(0, 2, 1, 3)
+    vt = v.transpose(0, 2, 1, 3)
+    if pk is not None:
+        B = q.shape[0]
+        kr = jnp.concatenate([jnp.broadcast_to(pk, (B,) + pk.shape[1:]), kr], axis=2)
+        vt = jnp.concatenate([jnp.broadcast_to(pv, (B,) + pv.shape[1:]), vt], axis=2)
+    return attend(qr, kr, vt, True, scale).transpose(0, 2, 1, 3), kr, vt
+
+
+# (B, L, H, KV, D, P, PB): no prefix; the served 37-token head shared by the
+# batch (PB 1) and per row (PB = B); GQA with KV 4, 2 and 1; L and S = P + L
+# no multiple of 64 or 128 (S 146 leaves a partial second 128-key tile)
+_ROUTE_CASES = [(2, 50, 4, 4, 64, 0, 1),
+                (2, 70, 8, 2, 128, 37, 1),
+                (2, 45, 8, 4, 64, 37, 2),
+                (1, 133, 4, 1, 128, 13, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,KV,D,P,PB", _ROUTE_CASES)
+def test_route_plain_matches_jax_route(B, L, H, KV, D, P, PB, dtype):
+    """``rope_flash_attention_plain`` against JAX's route on the reference
+    and on the Pallas kernel, its prefill cache against JAX's ``new_kv``,
+    and the pre-pass's plain version: the same keys and values, rotated
+    with one rounding (equal to torch's rope in f32, within a bf16 ulp of
+    it in bf16)."""
+    rng = np.random.default_rng(B * L + D + P)
+
+    def mk(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    qn, kn, vn = mk(B, L, H, D), mk(B, L, KV, D), mk(B, L, KV, D)
+    pkn, pvn = (mk(PB, KV, P, D), mk(PB, KV, P, D)) if P else (None, None)
+    theta, scale = 10000.0, 1.0 / np.sqrt(D)
+
+    def j(a):
+        return None if a is None else jnp.asarray(a).astype(JDT[dtype])
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(TDT[dtype])
+    positions = jnp.arange(P, P + L)
+    jargs = (j(qn), j(kn), j(vn), positions, theta, j(pkn), j(pvn), scale)
+    ref, jk, jv = _jax_route(*jargs, _attention_reference)
+    kern = _jax_route(*jargs, _pallas_flash)[0]
+    cos, sin = rope_tables(torch.arange(P, P + L), D, theta)
+    targs = (t(qn), t(kn), t(vn), cos, sin, t(pkn), t(pvn), scale)
+    got, (kr, vt) = k4.rope_flash_attention_plain(*targs, return_kv=True)
+    assert got.shape == (B, L, H, D) and got.dtype == TDT[dtype]
+    _close(_f32(got), _f32(ref), dtype)
+    _close(_f32(got), _f32(kern), dtype)
+    # the prefill's cache is the region's rotated k and v, as JAX's new_kv
+    # (the sin/cos tables of the two frameworks may differ in an f32 ulp,
+    # which can move a bf16 rounding by one ulp, 2^-8 relative)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(_f32(kr), _f32(jk[:, :, P:]), rtol=tol, atol=tol)
+    np.testing.assert_array_equal(_f32(vt), _f32(jv[:, :, P:]))
+    # the wrapper takes the plain version for a CPU tensor and counts no launch
+    n = (k4.rope_flash_attention.launches, k4.rope_flash_keys.launches)
+    np.testing.assert_array_equal(_f32(k4.rope_flash_attention(*targs)), _f32(got))
+    assert (k4.rope_flash_attention.launches, k4.rope_flash_keys.launches) == n
+    # the pre-pass: [prefix | keys rotated once] and [prefix | values]
+    keys, values = k4.rope_flash_keys(t(kn), t(vn), cos, sin, t(pkn), t(pvn))
+    assert keys.shape == values.shape == (B, KV, P + L, D)
+    np.testing.assert_array_equal(_f32(values), _f32(jv))
+    np.testing.assert_array_equal(_f32(keys[:, :, :P]), _f32(jk[:, :, :P]))
+    if dtype == "float32":  # one rounding is torch's rounding in f32
+        np.testing.assert_array_equal(_f32(keys[:, :, P:]), _f32(kr))
+    else:  # one rounding against torch's three: a bf16 ulp (2^-8) apart at most
+        np.testing.assert_allclose(_f32(keys[:, :, P:]), _f32(kr), rtol=2.0 ** -7,
+                                   atol=2.0 ** -7)
+
+
+def test_wrapper_route_raises_on_grad():
+    q = torch.zeros(1, 4, 2, 64, requires_grad=True)
+    k = torch.zeros(1, 4, 2, 64)
+    cos, sin = rope_tables(torch.arange(4), 64, 10000.0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        k4.rope_flash_attention(q, k, k, cos, sin)
+    with torch.no_grad():
+        assert k4.rope_flash_attention(q, k, k, cos, sin).shape == q.shape
+
+
 def test_row_bound_catches_a_dropped_partial_k_tile():
     """At the long window's layout (39 head tokens, 2128 queries, 2167 keys:
     a last k-tile of 64 holds only the 55 keys past 2112), an output that
@@ -165,11 +255,12 @@ def test_wrapper_raises_on_grad():
 # --------------------------------------------------------------------------
 
 class _Spy:
-    """Counts the calls of the attention functions the decoder module uses."""
+    """Counts the calls of the attention functions the decoder module uses
+    (K2, and K4's route)."""
 
     def __init__(self, monkeypatch):
         self.k2 = self.k4 = 0
-        k2_fn, k4_fn = ttf.rope_attention, ttf.flash_attention
+        k2_fn, k4_fn = ttf.rope_attention, ttf.rope_flash_attention
 
         def k2(*a, **kw):
             self.k2 += 1
@@ -179,7 +270,7 @@ class _Spy:
             self.k4 += 1
             return k4_fn(*a, **kw)
         monkeypatch.setattr(ttf, "rope_attention", k2)
-        monkeypatch.setattr(ttf, "flash_attention", k4_)
+        monkeypatch.setattr(ttf, "rope_flash_attention", k4_)
 
 
 def _cfgs(gqa):

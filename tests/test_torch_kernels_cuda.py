@@ -237,18 +237,9 @@ def test_rope_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
     print(f"worst query row against the plain version at {_row_share(out, ref):.4f} of "
           "2^-6 x its max")
     ones, zeros = torch.ones_like(cos), torch.zeros_like(sin)  # the identity rotation
-    ref1 = k2.rope_attention_plain(_rope_once(q, cos, sin), _rope_once(k, cos, sin), v, ones,
-                                   zeros, pk, pv)
+    ref1 = k2.rope_attention_plain(k4.rope_once(q, cos, sin), k4.rope_once(k, cos, sin), v,
+                                   ones, zeros, pk, pv)
     assert _row_share(out, ref1) <= 1
-
-
-def _rope_once(x, cos, sin):
-    """The kernel's rotation of x [B, L, H, D]: f32 products with the tables
-    rounded to x's dtype, one rounding to x's dtype at the end."""
-    c = cos.to(x.dtype).float()[None, :, None, :]
-    s = sin.to(x.dtype).float()[None, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
 def _row_share(out, ref):
@@ -334,6 +325,107 @@ def test_flash_attention_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):  # causal with more queries than keys
         k4.flash_attention(z(1, 2, 8, 64, device=cuda), z(1, 2, 4, 64, device=cuda),
                            z(1, 2, 4, 64, device=cuda))
+
+
+# (B, L, H, KV, D, P, PB): the long window's served shape (cached, 39-token
+# head) and its uncached form (L == S); GQA 32 / 4 x 64 with the head; a
+# per-row prefix (PB = B); L and S no multiple of 64 or 128; one query
+_ROUTE_SHAPES = [(8, 2128, 32, 32, 128, 39, 1),
+                 (8, 2167, 32, 32, 128, 0, 1),
+                 (2, 300, 32, 4, 64, 37, 1),
+                 (3, 130, 8, 2, 128, 13, 3),
+                 (2, 45, 8, 4, 64, 37, 2),
+                 (1, 1, 2, 1, 128, 0, 1)]
+
+
+def _route_operands(cuda, dtype, B, L, H, KV, D, P, PB, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, device=cuda, generator=g).to(dtype)
+    q, k, v = r(B, L, H, D), r(B, L, KV, D), r(B, L, KV, D)
+    pk, pv = (r(PB, KV, P, D), r(PB, KV, P, D)) if P else (None, None)
+    cos, sin = k2.rope_tables(torch.arange(P, P + L, device=cuda), D, 10000.0)
+    return q, k, v, cos, sin, pk, pv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KV,D,P,PB", _ROUTE_SHAPES)
+def test_rope_flash_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
+    """The long-window route (pre-pass + K4 with q rotated at load) in three
+    parts: the rotation (the pre-pass's keys and values bit-equal to its
+    plain version, one rounding; the route's output bit-equal to the JAX
+    interface's K4 fed q rotated the same way, so q's in-kernel rotation is
+    that rotation), the attention on those rotated inputs (each query row
+    within 2^-6 x its max against the plain version), and the whole route
+    against its plain version, which rotates with torch's bf16 ops (three
+    roundings): K2's bound, 2^-6 x the output's max. f32: 1e-5."""
+    q, k, v, cos, sin, pk, pv = _route_operands(cuda, dtype, B, L, H, KV, D, P, PB)
+    n = (k4.rope_flash_attention.launches, k4.rope_flash_keys.launches)
+    out = k4.rope_flash_attention(q, k, v, cos, sin, pk, pv)
+    assert (k4.rope_flash_attention.launches, k4.rope_flash_keys.launches) == (n[0] + 1,
+                                                                               n[1] + 1)
+    assert out.shape == (B, L, H, D) and out.is_contiguous() and torch.isfinite(out).all()
+    keys, values = k4.rope_flash_keys(k, v, cos, sin, pk, pv)
+    keys0, values0 = k4.rope_flash_keys_plain(k, v, cos, sin, pk, pv)
+    assert torch.equal(keys, keys0) and torch.equal(values, values0)
+    ref = k4.rope_flash_attention_plain(q, k, v, cos, sin, pk, pv)
+    if dtype == torch.float32:  # summation order and the online softmax only
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        return
+    qr = k4.rope_once(q, cos, sin).transpose(1, 2).contiguous()
+    same = k4.flash_attention(qr, keys, values).transpose(1, 2)
+    assert torch.equal(out, same)
+    ref1 = k4.flash_attention_plain(qr, keys, values).transpose(1, 2)
+    print(f"worst query row at {_row_share(out, ref1):.4f} of 2^-6 x its max against the "
+          f"plain attention on the same rotation, {_row_share(out, ref):.4f} against the "
+          "plain route")
+    assert _row_share(out, ref1) <= 1
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -6 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_flash_attention_prefill_returns_the_attended_bits(cuda, dtype):
+    """A prefill on the fused route returns the pre-pass's own rotated keys
+    and values, so a batch served from that cache attends with the bits the
+    uncached call did: its query rows are bit-equal to the same rows of the
+    uncached call over [head | region]."""
+    B, P, L, H, KV, D = 2, 37, 200, 8, 2, 128
+    ops = _route_operands(cuda, dtype, B, P + L, H, KV, D, 0, 1, seed=3)[:5]
+    full = k4.rope_flash_attention(*ops)
+    head_ops = [t[:, :P].contiguous() for t in ops[:3]] + [t[:P].contiguous() for t in ops[3:]]
+    tail_ops = [t[:, P:].contiguous() for t in ops[:3]] + [t[P:].contiguous() for t in ops[3:]]
+    head, (kh, vh) = k4.rope_flash_attention(*head_ops, return_kv=True)
+    keys, values = k4.rope_flash_keys(*head_ops[1:])
+    assert torch.equal(kh, keys) and torch.equal(vh, values)
+    assert kh.shape == (B, KV, P, D)
+    tail, (kt, vt) = k4.rope_flash_attention(*tail_ops, kh, vh, return_kv=True)
+    keys, values = k4.rope_flash_keys(*tail_ops[1:], kh, vh)
+    assert torch.equal(kt, keys[:, :, P:]) and torch.equal(vt, values[:, :, P:])
+    assert torch.equal(head, full[:, :P]) and torch.equal(tail, full[:, P:])
+
+
+@pytest.mark.cuda
+def test_rope_flash_attention_kernel_rejects_bad_input(cuda):
+    q, k, v, cos, sin, pk, pv = _route_operands(cuda, torch.bfloat16, 2, 40, 8, 2, 64, 5, 1)
+    with pytest.raises(ValueError):  # a transposed (strided) q
+        k4.rope_flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, cos,
+                                sin)
+    with pytest.raises(ValueError):  # q off the 16-byte boundary
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+        k4.rope_flash_attention(buf[1:].view(q.shape), k, v, cos, sin)
+    with pytest.raises(ValueError):  # bf16 tables
+        k4.rope_flash_attention(q, k, v, cos.bfloat16(), sin.bfloat16())
+    with pytest.raises(ValueError):  # a prefix of 3 rows for a batch of 2
+        k4.rope_flash_attention(q, k, v, cos, sin, pk.expand(3, -1, -1, -1).contiguous(),
+                                pv.expand(3, -1, -1, -1).contiguous())
+    with pytest.raises(ValueError):  # head dim 80 has no instance
+        z = torch.zeros(1, 4, 2, 80, device=cuda, dtype=torch.bfloat16)
+        k4.rope_flash_attention(z, z, z, torch.zeros(4, 40, device=cuda),
+                                torch.zeros(4, 40, device=cuda))
 
 
 @pytest.mark.cuda
@@ -486,6 +578,35 @@ def test_selective_scan_bounds_and_bwd_vs_plain(cuda, B, L, E, N, h0_rows, chunk
     assert again[4] is None
     for a, b in zip(again[:4], got[:4]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,E,N,chunk", [
+    (4, 1, 200, 16, 16),    # one token
+    (4, 15, 200, 8, 16),    # under one sub-chunk
+    (4, 17, 96, 4, 16),     # one token past it
+    (48, 144, 1536, 16, 16),  # the Mamba train shape
+    (3, 40, 72, 16, 32),    # a recorded chunk longer than the kernel's sub-chunk
+    (2, 37, 200, 8, 8),     # a short recorded chunk
+])
+def test_selective_scan_bwd_edges_and_bits(cuda, B, L, E, N, chunk):
+    """K10 against its plain version (1e-4 x max |plain| per output) at the
+    sequence edges of its 16-token sub-chunks, E no multiple of its block
+    (512 / N channels), N 4 / 8 / 16, with and without dA_T; two calls give
+    the same bits (no float atomics); the slab count the C side reports
+    matches the Python rule."""
+    dt, A_T, Bs, Cs, xs, D, h0, g = _scan_operands(cuda, B, L, E, N, 1)
+    _, hb = ss.selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, D, h0, chunk)
+    got = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk)
+    want = ss.selective_ssm_bwd_plain(dt, A_T, Bs, Cs, xs, g, hb, chunk)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+    again = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    frozen = ss.selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk, need_dA=False)
+    assert frozen[4] is None and all(torch.equal(a, b) for a, b in zip(got[:4], frozen[:4]))
+    assert _build.library().mt_selective_scan_bwd_slabs(E, N) == -(-E // ss.bwd_block_channels(N))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@
       ``_ssm_pallas_with_bounds`` in interpret mode: y and the chunk-start
       states, with and without h0, chunk 8 and 16, L not a multiple of it;
   (b) ``selective_ssm_bwd_plain`` (K10's) against ``_ssm_pallas_bwd`` in
-      interpret mode, all five outputs in order;
+      interpret mode, all five outputs in order; K10's decomposition
+      (``selective_ssm_bwd_split``) against both;
   (c) the scan's autograd Function: six gradients against ``jax.vjp`` of
       ``selective_ssm`` and ``selective_ssm_h0``;
   (d) the STE backward of the w8a8 projection against ``jax.vjp`` of
@@ -132,6 +133,43 @@ def test_bwd_plain_matches_pallas(chunk):
     assert frozen[4] is None
     for g_, f_ in zip(got[:4], frozen[:4]):
         assert torch.equal(g_, f_)
+
+
+# (B, L, E, N, chunk): one token; under one 16-token sub-chunk; one past
+# it; the train window (9 chunks); a recorded chunk longer than the
+# kernel's sub-chunk (32), so its first sub-chunk is reached by a forward
+# from the chunk start. E is no multiple of 128 nor of the kernel's block
+# (512 / N channels), so the last block and its slab are partial
+_SPLIT_CASES = [(2, 1, 200, 16, 16), (2, 15, 200, 8, 16), (2, 17, 96, 4, 16),
+                (2, 144, 130, 16, 16), (1, 40, 72, 16, 32)]
+
+
+@pytest.mark.parametrize("B,L,E,N,chunk", _SPLIT_CASES)
+def test_bwd_split_matches_plain_and_pallas(B, L, E, N, chunk):
+    """K10's decomposition (``selective_ssm_bwd_split``: the states in
+    groups of 4, sub-chunks of up to 16 tokens run forward once from the
+    recorded chunk start, per-block dB/dC slabs) against the plain version
+    and ``_ssm_pallas_bwd`` in interpret mode, from the same chunk-start
+    states (an h0, so dA_T is not zero at L 1); the wrapper without dA_T.
+    1e-4 of the largest, as (b)."""
+    a = _scan_inputs(L + N, B=B, L=L, E=E, N=N, h0_rows=1)
+    jin = _j(a, *_ORDER)
+    _, hb = jss._ssm_pallas_with_bounds(*jin, chunk=chunk, block_e=E, interpret=True,
+                                        h0=_j(a, "h0")[0])
+    want = jss._ssm_pallas_bwd(*jin[:5], jnp.asarray(a["g"]), hb, chunk=chunk, block_e=E,
+                               interpret=True)
+    hb = torch.from_numpy(np.array(hb))
+    tin = _t(a, *_ORDER[:5], "g")
+    got = kss.selective_ssm_bwd_split(*tin, hb, chunk)
+    plain = kss.selective_ssm_bwd_plain(*tin, hb, chunk)
+    for g_, p_, w_ in zip(got, plain, want):
+        assert tuple(g_.shape) == tuple(p_.shape) == w_.shape
+        _close(g_, p_, 1e-4, 1e-5)
+        _close(g_, w_, 1e-4, 1e-5)
+    frozen = kss.selective_ssm_bwd(*tin, hb, chunk, need_dA=False)
+    assert frozen[4] is None
+    for f_, p_ in zip(frozen[:4], plain[:4]):
+        assert torch.equal(f_, p_)
 
 
 @pytest.mark.parametrize("with_h0", [False, True])

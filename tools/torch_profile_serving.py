@@ -45,7 +45,8 @@ CATEGORIES = (
     ("K3 reprogramming", r"reprogramming"),
     ("K1 w8a8", r"w8a8|act_quant"),
     ("K2 rope attention", r"rope_attention"),
-    ("K4 flash attention", r"flash_bf16|flash_f32"),
+    ("K4 route pre-pass (keys rotated, prefix put ahead)", r"flash_keys"),
+    ("K4 flash attention", r"flash_wgmma|flash_f32|rotate_rows"),
     ("GEMM (cuBLAS)", r"gemm|gemv|xmma|cutlass|cublas|splitK|nvjet"),
     ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
     ("MoE router / pack (sort, gather, scatter, cumsum, softmax)",
