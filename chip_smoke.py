@@ -28,7 +28,8 @@ nvidia-smi. Phases:
   6. the Mamba serving path: ``get_trainer(...).test()`` of
      configs/ablation/mamba-backbone.toml's model (mamba-130m, 24 layers,
      bf16, batch 48, prompt-state cache) on synthetic data; the launches of
-     the scan variants and K3; windows/s, p50 ms per batch, peak memory,
+     the scan's forms (through the gated interface, ``selective_ssm_gated``)
+     and K3; windows/s, p50 ms per batch, peak memory,
      finite scores; then one pass with prefix_cache = false, which runs the
      uncached scan and must agree with the cached pass;
   7. a 2-layer mamba-130m f32 slice on the card against the CPU;
@@ -94,7 +95,14 @@ rotation bit-equal to one f32 rotation, each query row of the attention on
 those inputs within 2^-6 x its max, the whole route within 2^-6 x the
 output's max of its plain version, which rounds the rotation three times);
 the quantizer's rows also print its device time (``queued_ms``); K10 is
-held bit-equal from one call to the next. Phase 17 first checks K4 through
+held bit-equal from one call to the next. The scan's forward forms are held
+twice: through the raw f32 interface (``selective_scan``, ``_h0``,
+``_final``: printed, not listed, since serving reaches them through the
+gated interface; ``selective_scan_bounds``, K9, listed) and through the
+mixer's gated bf16 interface on strided views (``selective_scan_gated``,
+``_gated_h0``, ``_gated_final``, listed; each element finite and within one
+bf16 step of y and of the product), each with the special-function units'
+floor beside its bound. Phase 17 first checks K4 through
 its JAX interface (q rotated, [B, H, L, D]) against its plain version at
 the long window's shapes (cached, uncached L == S, non-causal, GQA 32 / 4 x
 64), each query row within 2^-6 x the largest |plain| of that row (printed,
@@ -307,8 +315,8 @@ def main() -> None:
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     # plain f32 references: no TF32 in matmuls, nor in f32 convolutions,
-    # which cuDNN would run in TF32 by default (the f32 Mamba slice of
-    # phase 7 runs a depthwise conv)
+    # which cuDNN would run in TF32 by default (the port's mixer keeps its
+    # own f32 depthwise conv at f32 whatever this flag says)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.nn.functional as F
@@ -376,18 +384,20 @@ def main() -> None:
     kernels = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms,
-               extra="", listed=True, share=None):
+               extra="", listed=True, share=None,
+               share_of="its tolerance, 2^-6 x max |plain| of the row", share_unit="row"):
         """Check and print one kernel at one shape; ``listed`` shapes enter
         the kernels line (a shape no main path runs is printed only). The
-        check is ``err <= tol``, or with ``share`` (from ``row_share``, and
-        ``tol`` None) a bound for each query row."""
+        check is ``err <= tol``, or with ``share`` (``tol`` None) a bound for
+        each query row (from ``row_share``) or each ``share_unit``, which
+        ``share_of`` names."""
         if share is None:
             check(err <= tol, f"{name}: max |kernel - plain| {err} > tolerance {tol}")
             tol_txt = f"tol {tol:.3e}"
         else:
-            check(share <= 1, f"{name}: a query row's max |kernel - plain| is {share} of "
-                  f"its tolerance, 2^-6 x max |plain| of the row")
-            tol_txt = f"worst row at {share:.4f} of its tolerance, 2^-6 x max |plain| of the row"
+            check(share <= 1, f"{name}: a {share_unit}'s |kernel - plain| is {share} of "
+                  f"{share_of}")
+            tol_txt = f"worst {share_unit} at {share:.4f} of {share_of}"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"[kernel] {name}: max_abs_err {err:.3e} ({tol_txt}) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd[0]:.4f} ms "
@@ -663,7 +673,11 @@ def main() -> None:
 
     # the scan at the Mamba serving shapes: the cached window (K8, batch-1
     # h0), the uncached window over [head | region] (K7) and the prefill of
-    # the head (batch 1, final state); no single PyTorch call computes it
+    # the head (batch 1, final state); no single PyTorch call computes it.
+    # Its floor is the special-function units' (SFU_EXP_PER_S): one
+    # exponential a (b, t, n, e), printed beside the bound. Printed, not
+    # listed: the serving path launches these forms through the gated
+    # interface below, whose rows carry their launches
     def check_scan(name, fn, replaces, Bs_, Ls, h0_rows, final):
         dt = torch.rand(Bs_, Ls, Em, device=dev, generator=g) * 0.1
         xs = torch.randn(Bs_, Ls, Em, device=dev, generator=g)
@@ -686,14 +700,16 @@ def main() -> None:
         # per (b, t, n, e): dt*A, exp, dA*h, dBx*B, +, h*C, +; per (b, t, e):
         # dt*x, D*x, +
         ops = 7 * Bs_ * Ls * Nm * Em + 3 * Bs_ * Ls * Em
-        # f32 with expf: fused multiply-adds and the order of the N-sum only
+        # f32, exp(dt A) as 2^(dt (A log2 e)) on the special-function unit:
+        # fused multiply-adds, the order of the N-sum and ex2's last bits
         record(name, "medtsllm_tpu_torch/csrc/selective_scan.cu", replaces, err,
                1e-5 * max(1.0, scale),
                cuda_ms(torch, lambda: fn(dt, A_T, Bs, Cs, xs, Dv, *h0)),
                cuda_ms(torch, lambda: ss.selective_ssm_final_plain(dt, A_T, Bs, Cs, xs,
                                                                    Dv, *h0)),
                bound(nbytes, ops, "f32"), None,
-               f" (B={Bs_} L={Ls} E={Em} N={Nm}, h0 rows {h0_rows}, final {final})")
+               f" (B={Bs_} L={Ls} E={Em} N={Nm}, h0 rows {h0_rows}, final {final}; expf "
+               f"floor {Bs_ * Ls * Nm * Em / SFU_EXP_PER_S * 1e3:.4f} ms)", listed=False)
 
     check_scan("selective_scan_h0", ss.selective_ssm_h0,
                "medtsllm_tpu/ops/pallas/selective_scan.py:272", Bm, Lm, 1, False)
@@ -702,13 +718,75 @@ def main() -> None:
     check_scan("selective_scan_final", ss.selective_ssm_final,
                "medtsllm_tpu/ops/pallas/selective_scan.py:91", 1, Pm, 0, True)
 
+    # the same three forms as the mixer serves them (selective_ssm_gated):
+    # bf16 dt_proj output, conv output and gate, B / C and z as column views
+    # of x_proj- and in_proj-shaped buffers, A_log and D at bf16; the
+    # softplus, the casts and the silu(z) gate inside the kernel. Held per
+    # element: the kernel's f32 y moves from the plain loop's within the f32
+    # tolerance (1e-5 x max |y|) and that can flip round(y) by one bf16 step
+    # (2^-7 |y|), both carried by |silu(z)|; then one step of the product's
+    # rounding (2^-7 |plain|)
+    def check_gated(name, replaces, Bs_, Ls, h0_rows, final):
+        R = scfg.rank
+        bf = torch.bfloat16
+        xdbc = torch.randn(Bs_, Ls, R + 2 * Nm, device=dev, generator=g).to(bf)
+        xz = torch.randn(Bs_, Ls, 2 * Em, device=dev, generator=g).to(bf)
+        A_log = (torch.log(torch.arange(1, Nm + 1, device=dev, dtype=torch.float32))
+                 .expand(Em, Nm) + 0.1 * torch.randn(Em, Nm, device=dev, generator=g)).to(bf)
+        ops = ((torch.randn(Bs_, Ls, Em, device=dev, generator=g) - 3).to(bf), A_log,
+               xdbc[..., R:R + Nm], xdbc[..., R + Nm:],
+               torch.randn(Bs_, Ls, Em, device=dev, generator=g).to(bf),
+               torch.randn(Em, device=dev, generator=g).to(bf), xz[..., Em:])
+        h0 = torch.randn(h0_rows, Nm, Em, device=dev, generator=g) if h0_rows else None
+        out = ss.selective_ssm_gated(*ops, h0, final)
+        ref = ss.selective_ssm_gated_plain(*ops, h0, final)
+        if final:
+            (out, hf), (ref, hf0) = out, ref
+            check(bool(torch.isfinite(hf).all()), f"{name}: non-finite h_final")
+            herr = (hf - hf0).abs().max().item()
+            check(herr <= 1e-5 * max(1.0, hf0.abs().max().item()),
+                  f"{name}: h_final max |kernel - plain| {herr}")
+        y = ss._plain_scan(*ss.scan_operands(*ops[:6]), h0, 0)[0]
+        lim = (F.silu(ops[6]).float().abs() * (1e-5 * y.abs().max() + 2.0 ** -7 * y.abs())
+               + 2.0 ** -7 * ref.float().abs())
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        bles, blnes = Bs_ * Ls * Em, Bs_ * Ls * Nm * Em
+        # reads dt_raw, x, z (bf16), the B / C elements, A_log, D, h0; writes
+        # out (bf16) and h_final. Per (b, t, n, e) the scan's 7 operations;
+        # per (b, t, e) dt x, D x, +, softplus (2), silu (2), the product.
+        # Exponentials: one a (b, t, n, e), the softplus's and silu's a (b, t, e)
+        nbytes = (2 * (4 * bles + 2 * Bs_ * Ls * Nm + 2 * Em * Nm + Em)
+                  + 4 * (h0_rows * Nm * Em + (Bs_ * Nm * Em if final else 0)))
+        record(name, "medtsllm_tpu_torch/csrc/selective_scan.cu", replaces,
+               diff.max().item(), None,
+               cuda_ms(torch, lambda: ss.selective_ssm_gated(*ops, h0, final)),
+               cuda_ms(torch, lambda: ss.selective_ssm_gated_plain(*ops, h0, final)),
+               bound(nbytes, 7 * blnes + 9 * bles, "f32"), None,
+               f" (bf16, B={Bs_} L={Ls} E={Em} N={Nm} R={R}, h0 rows {h0_rows}, final "
+               f"{final}; expf floor {(blnes + 2 * bles) / SFU_EXP_PER_S * 1e3:.4f} ms; "
+               f"{(diff > 2.0 ** -8 * ref.float().abs()).float().mean().item():.2e} of the "
+               f"elements past 2^-8 |plain|)",
+               # a NaN share stays NaN (max() propagates it) and fails the check
+               share=torch.where(diff == 0, 0.0, diff / lim).max().item(),
+               share_of="its bound (one bf16 step of y and of the product)",
+               share_unit="element")
+
+    check_gated("selective_scan_gated_h0", "medtsllm_tpu/ops/pallas/selective_scan.py:272",
+                Bm, Lm, 1, False)
+    check_gated("selective_scan_gated", "medtsllm_tpu/ops/pallas/selective_scan.py:234",
+                Bm, Pm + Lm, 0, False)
+    check_gated("selective_scan_gated_final", "medtsllm_tpu/ops/pallas/selective_scan.py:91",
+                1, Pm, 0, True)
+
     # K9 and K10 at the Mamba train shapes: the train step's scan records
     # its chunk-start states (K9, from the cached head's state or from 0)
     # and its backward runs K10 from them. A is frozen in training, so K10
     # runs there without dA_T, and is timed so; its five outputs are
-    # compared here with dA_T. f32 with expf: the order of the sums over n
-    # and e and fused multiply-adds, held at 1e-4 x max |plain| (the JAX
-    # tests' tolerance for the Pallas backward)
+    # compared here with dA_T. f32 with exp(dt A) as ex2.approx of a rounded
+    # exponent: the order of the sums over n and e and fused
+    # multiply-adds, held at 1e-4 x max |plain| (the JAX tests' tolerance
+    # for the Pallas backward)
     def check_train_scan(label, Ls, h0_rows):
         chunk = ss.CHUNK
         dt = torch.rand(Bm, Ls, Em, device=dev, generator=g) * 0.1
@@ -1026,8 +1104,11 @@ def main() -> None:
     counts, preds = serve(mtrainer, "mamba")
     for name in ("selective_scan_h0", "selective_scan_final", "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the Mamba path")
-    set_launches(counts, {"selective_scan_h0": "selective_scan_h0",
-                          "selective_scan_final": "selective_scan_final",
+    # the serving path runs the scan's forms through the gated interface;
+    # each form has one counter (one kernel template behind both
+    # interfaces), read for the gated rows, the only ones listed
+    set_launches(counts, {"selective_scan_gated_h0": "selective_scan_h0",
+                          "selective_scan_gated_final": "selective_scan_final",
                           "reprogramming_attention[mamba-130m]":
                               "reprogramming_attention"})
     unc = get_trainer("chip-smoke-mamba-uncached",
@@ -1036,7 +1117,7 @@ def main() -> None:
     counts, preds_u = serve(unc, "mamba-uncached")
     check(counts["selective_scan"] > 0 and counts["selective_scan_h0"] == 0,
           f"the uncached pass must run the scan from h = 0: {counts}")
-    set_launches(counts, {"selective_scan": "selective_scan"})
+    set_launches(counts, {"selective_scan_gated": "selective_scan"})
     # bf16 storage: the two passes compute the head's activations at other
     # batch sizes (1 in the prefill, 48 in-graph), so cuBLAS may round them
     # differently, and 24 layers carry that on: the CPU tests' bf16
@@ -1049,8 +1130,8 @@ def main() -> None:
     del mtrainer, mmodel, unc
     torch.cuda.empty_cache()
 
-    # 7. a 2-layer mamba-130m f32 slice on the card against the CPU (f32 in
-    # the depthwise conv too: cuDNN's TF32 is off above)
+    # 7. a 2-layer mamba-130m f32 slice on the card against the CPU (the
+    # mixer's f32 depthwise conv keeps f32 under any TF32 flag)
     small = mamba_config(Config, n_points=512, batch=2, history=64, dtype="float32",
                          llm_layers=2)
     gpu = get_trainer("chip-smoke-mamba-small", small, device=dev)

@@ -54,6 +54,10 @@
 
 namespace {
 
+using mt::cp_async4;
+using mt::cp_async_commit;
+using mt::ex2;
+
 constexpr int kThreads = 256;
 constexpr int NW = kThreads / 32;  // warps per block
 constexpr int NPT = 4;             // states per thread
@@ -62,13 +66,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // the channels a block covers at state size N (N / NPT lanes a channel)
 __host__ __device__ constexpr int block_channels(int N) { return kThreads * NPT / N; }
-
-// 2^x on the special-function unit (subnormal results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One level of the reduce-scatter over the lanes of a state group (lane
 // stride S): a lane keeps half of its 2K values (the upper half when its
@@ -96,20 +93,6 @@ __device__ __forceinline__ float reduce_scatter_channels(float (&v)[V], int el) 
 #pragma unroll
   for (int off = V; off < EPW; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off * S);
   return s;
-}
-
-// 4-byte copy global -> shared, asynchronously; ok false writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // the dynamic shared memory of a block at state size N, in floats: exp(dt A)
@@ -214,7 +197,7 @@ selective_scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict_
     const bool more = next_sub(nx, chunk, L);
     if (more) stage(nx, buf ^ 1);
     cp_async_commit();  // an empty group keeps the wait count
-    cp_async_wait1();
+    mt::cp_async_wait<1>();
     __syncthreads();  // this sub-chunk's staging has landed for every thread
     const float* st = stage_base + buf * M::kStage;
     const float* s_dt = st;

@@ -12,21 +12,47 @@ else the compute dtype); the conv runs at the parameters' dtype, then
 ``+ conv_bias``; softplus(dt) and the scan run in f32 (``A = -exp(A_log)``
 in f32); y rounds back to the projections' dtype before the ``silu(z)``
 gate; the residual stream keeps the input embeddings' f32. The scan goes
-through the hand-written kernel (csrc/selective_scan.cu); the depthwise
-conv and the projections are PyTorch's, as the JAX package leaves them to
-XLA.
+through the hand-written kernel (csrc/selective_scan.cu): when no operand
+needs a gradient (serving, the prefill) as ``selective_ssm_gated``, which
+takes dt_proj's output, A_log, the x_proj / in_proj outputs' views and the
+conv output as they are and does the softplus, the casts and the gate
+itself; in training as ``selective_ssm`` / ``selective_ssm_h0`` behind the
+PyTorch glue, whose autograd covers the softplus and the gate. The
+depthwise conv and the projections are PyTorch's, as the JAX package
+leaves them to XLA.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.kernels.selective_scan import (selective_ssm, selective_ssm_final,
+from ...ops.kernels.selective_scan import (_wants_grad, scan_operands, selective_ssm,
+                                           selective_ssm_final, selective_ssm_gated,
                                            selective_ssm_h0)
 from .config import MambaConfig
 from .transformer import Linear, RMSNorm
+
+
+@contextlib.contextmanager
+def _f32_conv_flags(w: torch.Tensor):
+    """cuDNN runs f32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), the mixer's channels-last
+    depthwise conv among them; the f32 conv keeps f32 whatever the global
+    flag says, as the JAX package's does. Only that flag is turned off, and
+    restored after."""
+    cudnn = torch.backends.cudnn
+    if w.dtype != torch.float32 or not w.is_cuda or not cudnn.allow_tf32:
+        yield
+        return
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = True
 
 
 class MambaBlock(nn.Module):
@@ -68,25 +94,36 @@ class MambaBlock(nn.Module):
         else:
             conv_in = F.pad(xs, (0, 0, K - 1, 0))
         w = self.conv_kernel
-        xc = F.conv1d(conv_in.to(w.dtype).transpose(1, 2), w, groups=E).transpose(1, 2)
+        # the depthwise conv over [B, E, 1, L] in channels-last memory, which
+        # is conv_in's own [B, L, E] layout: cuDNN reads it and writes xc
+        # row-major [B, L, E], the layout x_proj and the scan read, where
+        # F.conv1d would copy its input to [B, E, L] and its output back
+        # (the same bits)
+        with _f32_conv_flags(w):
+            xc = F.conv2d(conv_in.to(w.dtype).unsqueeze(1).permute(0, 3, 1, 2), w.unsqueeze(2),
+                          groups=E).permute(0, 2, 3, 1).squeeze(1).contiguous()
         if self.conv_bias is not None:
             xc = xc + self.conv_bias
         xs = F.silu(xc).to(xz.dtype)
 
         dt, Bs, Cs = self.x_proj(xs).split([R, N, N], dim=-1)
-        # softplus in f32; jax.nn.softplus is logaddexp(x, 0), F.softplus
-        # returns x above 20, where the two differ by less than exp(-20)
-        dt = F.softplus(self.dt_proj(dt).float())
-        A_T = (-torch.exp(self.A_log.float())).T.contiguous()  # [N, E]
-        args = (dt, A_T, Bs.float().contiguous(), Cs.float().contiguous(),
-                xs.float().contiguous(), self.D.float())
-        if return_state:
-            y, h_final = selective_ssm_final(*args)
-        elif prefix_state is not None:
-            y = selective_ssm_h0(*args, prefix_state[1])
+        dt = self.dt_proj(dt)
+        h0 = None if prefix_state is None else prefix_state[1]
+        if not _wants_grad(dt, Bs, Cs, xs, z, self.A_log, self.D):
+            # serving and the prefill: the glue runs inside the kernel
+            y = selective_ssm_gated(dt, self.A_log, Bs, Cs, xs, self.D, z, h0, return_state)
+            if return_state:
+                y, h_final = y
         else:
-            y = selective_ssm(*args)
-        out = residual + self.out_proj(y.to(xz.dtype) * F.silu(z))
+            args = scan_operands(dt, self.A_log, Bs, Cs, xs, self.D)
+            if return_state:
+                y, h_final = selective_ssm_final(*args)
+            elif h0 is not None:
+                y = selective_ssm_h0(*args, h0)
+            else:
+                y = selective_ssm(*args)
+            y = y.to(xz.dtype) * F.silu(z)
+        out = residual + self.out_proj(y)
         if return_state:
             return out, (conv_tail, h_final)
         return out
@@ -101,7 +138,7 @@ class MambaBackbone(nn.Module):
         if quantize:
             raise NotImplementedError(
                 f"quantize={quantize} on the mamba backbone: quantized Mamba is "
-                "ROADMAP queue 1 item 12")
+                "ROADMAP queue 1, \"Mamba, open parts\"")
         self.cfg = cfg
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)

@@ -147,7 +147,7 @@ class MedTsLLM(nn.Module):
             if codebook is None:
                 raise ValueError(f"models.llm.quant_type must be int4/nf4/fp4; got {qt!r}")
         if str(mc.llm.llm).startswith("mamba") and (in8 or in4):
-            unported.append("quantized Mamba (ROADMAP queue 1 item 12)")
+            unported.append("quantized Mamba (ROADMAP queue 1, \"Mamba, open parts\")")
         if ((in4 and codebook == "absmax") or (in8 and not in4)) and not mc.llm.get(
                 "int8_matmul", True):
             unported.append("weight-only int8 / int4, int8_matmul = false (ROADMAP queue "

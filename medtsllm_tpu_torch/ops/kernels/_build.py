@@ -55,10 +55,13 @@ SIGNATURES = {
                                    _F, _P),
     # rows, heads, keys -> the split count of that launch (host only, no stream)
     "mt_reprogramming_splits": (_I, _I, _I),
-    # dt, x, Bs, Cs, A_T, D, h0, h0_batched, y, h_final, hb, chunk, B, L, E,
-    # N, stream
-    "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _P),
+    # dt, x, z, Bs, Cs, A, D, h0, h0_batched, y, h_final, hb, chunk, B, L, E,
+    # N, ld_dt, ld_x, ld_z, ld_bc, is_bf16, params_bf16, stream
+    "mt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # state size -> the groups a channel's states are split over (host
+    # only, no stream)
+    "mt_selective_scan_groups": (_I,),
     # dt, x, Bs, Cs, A_T, g, hb, ddt, dx, dB_slab, dC_slab, dA_slab, n_slabs,
     # chunk, B, L, E, N, stream
     "mt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

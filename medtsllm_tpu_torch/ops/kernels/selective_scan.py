@@ -17,8 +17,15 @@ reverse adjoint). Same signatures and all operands f32:
 ``selective_ssm`` and ``selective_ssm_h0`` are differentiable: when grad is
 enabled and an operand requires it they run as a ``torch.autograd.Function``
 whose forward is K9 and whose backward is K10 (h0 is a constant of the
-step: no gradient); otherwise K7/K8 as in serving. Each wrapper counts its
-own launches (``.launches``), so a run can tell the variants apart.
+step: no gradient); otherwise K7/K8 as in serving.
+
+``selective_ssm_gated`` is the mixer's serving form of K7, K8 and the
+prefill: it takes the mixer's raw tensors (dt_proj's output before the
+softplus, A_log, strided views of x_proj's and in_proj's outputs) at the
+compute dtype and returns the gated output ``y.to(dtype) * silu(z)``, with
+the glue inside the same kernel. It counts its launches in the form's own
+counter. Each wrapper counts its own launches (``.launches``), so a run can
+tell the variants apart.
 
 A CPU tensor takes the plain version (the backward's is autograd through
 the plain forward); a CUDA tensor launches the kernel or raises.
@@ -27,16 +34,26 @@ the plain forward); a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 STATE_SIZES = (4, 8, 16)  # the kernels' instances of N
+# the forward's decomposition (csrc/selective_scan.cu): a channel's N states
+# in N / 4 groups of 4, a thread each; exp(dt A) taken as 2^(dt (A log2 e))
+FWD_STATES_PER_THREAD = 4
+LOG2E = 1.4426950408889634
 CHUNK = 16  # tokens per recorded chunk-start state in training (JAX's _CHUNK)
 # K10's decomposition (csrc/selective_scan_bwd.cu): 4 states a thread,
 # sub-chunks of up to 16 tokens whose states stay in registers, 256-thread
 # blocks of 1024 / N channels, one dB/dC slab each
 BWD_STATES_PER_LANE = 4
 BWD_SUB_CHUNK = 16
+
+
+def fwd_groups(N: int) -> int:
+    """The groups one channel's states are split over in the forward."""
+    return N // FWD_STATES_PER_THREAD
 
 
 def bwd_block_channels(N: int) -> int:
@@ -75,6 +92,58 @@ def selective_ssm_plain(dt, A_T, Bs, Cs, xs, D, h0=None):
 
 def n_chunks(L: int, chunk: int) -> int:
     return -(-L // chunk)
+
+
+def selective_ssm_split(dt, A_T, Bs, Cs, xs, D, h0=None, chunk=0):
+    """The forward kernel's decomposition in PyTorch -> (y [B, L, E],
+    h_final [B, N, E], hb [B, ceil(L / chunk), N, E] or None for chunk 0),
+    the plain version's outputs: log2(e) folded into A once, one 2^x a (t,
+    n); dt * x once a (t, e); each group's ``FWD_STATES_PER_THREAD`` states
+    summed in order, then the groups pairwise ((g0 + g1) + (g2 + g3)); y +
+    D x last. The CPU tests hold it against the plain version and the
+    Pallas kernels."""
+    B, L, E = dt.shape
+    N = A_T.shape[0]
+    groups = fwd_groups(N)
+    a2 = A_T * LOG2E
+    dbx = dt * xs
+    h = (torch.zeros(B, N, E, dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.float().expand(B, N, E))
+    ys, hb = [], []
+    for t in range(L):
+        if chunk and t % chunk == 0:
+            hb.append(h)
+        h = torch.exp2(dt[:, t, None, :] * a2) * h + dbx[:, t, None, :] * Bs[:, t, :, None]
+        terms = (h * Cs[:, t, :, None]).reshape(B, groups, FWD_STATES_PER_THREAD, E)
+        acc = terms[:, :, 0]
+        for k in range(1, FWD_STATES_PER_THREAD):
+            acc = acc + terms[:, :, k]
+        while acc.shape[1] > 1:
+            acc = acc[:, 0::2] + acc[:, 1::2]
+        ys.append(acc[:, 0])
+    y = torch.stack(ys, dim=1) + D * xs
+    return y, h.contiguous(), torch.stack(hb, dim=1) if chunk else None
+
+
+def scan_operands(dt_raw, A_log, Bs, Cs, xs, D):
+    """The mixer's glue in front of the scan (JAX's mamba.py:131-151) ->
+    (dt, A_T, Bs, Cs, xs, D), the raw interface's f32 operands:
+    softplus(dt_raw) in f32, A_T = -exp(A_log) in f32, transposed."""
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
+    # where the two differ by less than exp(-20)
+    dt = F.softplus(dt_raw.float())
+    A_T = (-torch.exp(A_log.float())).T.contiguous()  # [N, E]
+    return (dt, A_T, Bs.float().contiguous(), Cs.float().contiguous(),
+            xs.float().contiguous(), D.float())
+
+
+def selective_ssm_gated_plain(dt_raw, A_log, Bs, Cs, xs, D, z, h0=None, final=False):
+    """The mixer's composition around the scan -> out [B, L, E] at z's
+    dtype (and h_final [B, N, E] f32 when ``final``): ``scan_operands``, the
+    plain scan, then y.to(z.dtype) * silu(z) (JAX's mamba.py:157)."""
+    y, h_final, _ = _plain_scan(*scan_operands(dt_raw, A_log, Bs, Cs, xs, D), h0, 0)
+    out = y.to(z.dtype) * F.silu(z)
+    return (out, h_final) if final else out
 
 
 def selective_ssm_bounds_plain(dt, A_T, Bs, Cs, xs, D, h0=None, chunk=CHUNK):
@@ -174,6 +243,18 @@ def _check(dt, A_T, Bs, Cs, xs, D=None, h0=None):
     _build.check_cuda(*tensors)
 
 
+def _launch(dt, xs, z, Bs, Cs, A, D, h0, out, h_final, hb, chunk, lds, is_bf16,
+            params_bf16):
+    """One call of ``mt_selective_scan`` (z None: the raw interface)."""
+    B, L, E = dt.shape
+    N = Bs.shape[2]
+    ptr = _build.ptr
+    _build.launch("mt_selective_scan", dt.device, ptr(dt), ptr(xs), ptr(z), ptr(Bs), ptr(Cs),
+                  ptr(A), ptr(D), ptr(h0), int(h0 is not None and h0.shape[0] > 1), ptr(out),
+                  ptr(h_final), ptr(hb), chunk, B, L, E, N, *lds, int(is_bf16),
+                  int(params_bf16))
+
+
 def _scan(dt, A_T, Bs, Cs, xs, D, h0, final: bool, chunk: int = 0):
     """Check the operands and launch the forward kernel; returns (y, h_final
     or None, hb or None). ``chunk`` > 0 records the chunk-start states."""
@@ -184,11 +265,59 @@ def _scan(dt, A_T, Bs, Cs, xs, D, h0, final: bool, chunk: int = 0):
     h_final = torch.empty(B, N, E, dtype=torch.float32, device=dt.device) if final else None
     hb = (torch.empty(B, n_chunks(L, chunk), N, E, dtype=torch.float32, device=dt.device)
           if chunk else None)
-    ptr = _build.ptr
-    _build.launch("mt_selective_scan", dt.device, ptr(dt), ptr(xs), ptr(Bs), ptr(Cs),
-                  ptr(A_T), ptr(D), ptr(h0), int(h0 is not None and h0.shape[0] > 1),
-                  ptr(y), ptr(h_final), ptr(hb), chunk, B, L, E, N)
+    _launch(dt, xs, None, Bs, Cs, A_T, D, h0, y, h_final, hb, chunk, (E, E, 0, N), False,
+            False)
     return y, h_final, hb
+
+
+def _row_stride(t, name: str) -> int:
+    """The elements between the rows of a [B, L, W] view whose rows are
+    contiguous and evenly spaced (a column slice of a contiguous [B, L, W']
+    buffer); raises for any other layout."""
+    B, L, W = t.shape
+    ld = t.stride(1) if L > 1 else t.stride(0) if B > 1 else W
+    if t.stride(2) != 1 or ld < W or (B > 1 and t.stride(0) != L * ld):
+        raise ValueError(f"{name} {tuple(t.shape)} strides {t.stride()}: the kernel reads "
+                         "rows of contiguous elements, evenly spaced")
+    return ld
+
+
+def _check_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0):
+    """Check the gated form's operands; returns the row strides (dt_raw, xs,
+    z, Bs and Cs)."""
+    B, L, E = dt_raw.shape
+    N = Bs.shape[-1]
+    if N not in STATE_SIZES:
+        raise ValueError(f"state size {N} not supported {STATE_SIZES}")
+    if (xs.shape != dt_raw.shape or z.shape != dt_raw.shape or Bs.shape != (B, L, N)
+            or Cs.shape != Bs.shape or A_log.shape != (E, N) or D.shape != (E,)):
+        raise ValueError(f"dt_raw {tuple(dt_raw.shape)} A_log {tuple(A_log.shape)} Bs "
+                         f"{tuple(Bs.shape)} Cs {tuple(Cs.shape)} xs {tuple(xs.shape)} D "
+                         f"{tuple(D.shape)} z {tuple(z.shape)}")
+    if L < 1:
+        raise ValueError("the scan needs at least one token")
+    kinds = (torch.float32, torch.bfloat16)
+    if (z.dtype not in kinds or any(t.dtype != z.dtype for t in (dt_raw, xs, Bs, Cs))
+            or A_log.dtype not in kinds or D.dtype != A_log.dtype):
+        raise ValueError("the gated scan takes dt_raw, Bs, Cs, xs, z at one dtype and A_log, "
+                         "D at one dtype, each f32 or bf16; got "
+                         f"{[t.dtype for t in (dt_raw, A_log, Bs, Cs, xs, D, z)]}")
+    tensors = [dt_raw, A_log, Bs, Cs, xs, D, z]
+    if h0 is not None:
+        if h0.dim() != 3 or h0.shape[0] not in (1, B) or h0.shape[1:] != (N, E):
+            raise ValueError(f"h0 must be [1 or {B}, {N}, {E}], got {tuple(h0.shape)}")
+        if h0.dtype != torch.float32 or not h0.is_contiguous():
+            raise ValueError(f"h0 must be contiguous f32, got {h0.dtype}")
+        tensors.append(h0)
+    dev = dt_raw.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the kernel runs on CUDA tensors on one device")
+    if not (A_log.is_contiguous() and D.is_contiguous()):
+        raise ValueError("A_log and D must be contiguous")
+    ld_bc = _row_stride(Bs, "Bs")
+    if _row_stride(Cs, "Cs") != ld_bc:
+        raise ValueError("Bs and Cs must share their row stride (views of one x_proj output)")
+    return (_row_stride(dt_raw, "dt_raw"), _row_stride(xs, "xs"), _row_stride(z, "z"), ld_bc)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -297,6 +426,38 @@ class _SelectiveScan(torch.autograd.Function):
                                                   need_dA=need[1])
         dD = (g * xs).sum(dim=(0, 1)) if need[5] else None
         return ddt, dA_T, dB, dC, dx + D * g, dD, None
+
+
+def selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0=None, final=False):
+    """The mixer's serving form of the scan -> out [B, L, E] at z's dtype,
+    and h_final [B, N, E] f32 when ``final`` (the prefill): the kernel
+    softplus'es dt_raw (dt_proj's output [B, L, E]) in f32, takes A = -exp(
+    A_log [E, N]), scans from h0 [1 or B, N, E] (or 0), adds D x and writes
+    round(round(y) * round(silu(z))) at the compute dtype, the plain
+    version's ``y.to(dtype) * F.silu(z)``. dt_raw, Bs, Cs, xs and z are at
+    the compute dtype (f32 or bf16) and may be column slices of wider
+    buffers (x_proj's, in_proj's outputs); A_log and D at theirs. Serving
+    only: raises when an operand wants a gradient (training runs
+    ``selective_ssm`` / ``selective_ssm_h0``). Counts CUDA launches in the
+    form's counter: ``selective_ssm_final`` with ``final``, else
+    ``selective_ssm_h0`` with h0, else ``selective_ssm``."""
+    if _wants_grad(dt_raw, A_log, Bs, Cs, xs, D, z):
+        raise ValueError("selective_ssm_gated is the serving form and has no backward; a "
+                         "step that needs gradients runs selective_ssm / selective_ssm_h0")
+    if dt_raw.device.type == "cpu":
+        return selective_ssm_gated_plain(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final)
+    lds = _check_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0)
+    B, L, E = dt_raw.shape
+    N = Bs.shape[-1]
+    out = torch.empty(B, L, E, dtype=z.dtype, device=z.device)
+    h_final = (torch.empty(B, N, E, dtype=torch.float32, device=z.device) if final
+               else None)
+    _launch(dt_raw, xs, z, Bs, Cs, A_log, D, h0, out, h_final, None, 0, lds,
+            z.dtype == torch.bfloat16, A_log.dtype == torch.bfloat16)
+    counter = (selective_ssm_final if final else selective_ssm_h0 if h0 is not None
+               else selective_ssm)
+    counter.launches += 1
+    return (out, h_final) if final else out
 
 
 selective_ssm.launches = 0

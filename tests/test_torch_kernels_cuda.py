@@ -7,6 +7,7 @@ torch and the port, so it also runs on a machine without jax:
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from medtsllm_tpu_torch.ops.kernels import _build
 from medtsllm_tpu_torch.ops.kernels import flash_attention as k4
@@ -625,6 +626,153 @@ def test_selective_scan_autograd_on_card(cuda):
     for a, b in zip(ins, ref):
         torch.testing.assert_close(a.grad, b.grad, rtol=0,
                                    atol=1e-4 * b.grad.abs().max().item())
+
+
+def _gated_operands(cuda, B, L, E, N, R, h0_rows, dtype, seed=0):
+    """The gated form's operands as the mixer holds them: dt_raw (dt_proj's
+    output, softplus inputs around -3), A_log = log(1..N) + noise and D at
+    the dtype, Bs / Cs column slices of an x_proj-shaped [B, L, R + 2N]
+    buffer, z the second half of an in_proj-shaped [B, L, 2E] one; h0 f32."""
+    g = torch.Generator(cuda).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, device=cuda, generator=g)
+
+    xdbc, xz = r(B, L, R + 2 * N).to(dtype), r(B, L, 2 * E).to(dtype)
+    A_log = (torch.log(torch.arange(1, N + 1, device=cuda, dtype=torch.float32))
+             + 0.1 * r(E, N)).to(dtype)
+    ops = ((r(B, L, E) - 3).to(dtype), A_log, xdbc[..., R:R + N], xdbc[..., R + N:],
+           r(B, L, E).to(dtype), r(E).to(dtype), xz[..., E:])
+    return ops, (r(h0_rows, N, E) if h0_rows else None)
+
+
+def _gated_bf16_bound(ops, h0, plain):
+    """The bf16 gated output's per-element bound against its plain version.
+    The kernel's f32 y differs from the plain loop's by FMA order and 2^x
+    (the f32 tolerance, 1e-5 x max |y|), and that can flip round(y) by one
+    bf16 step (at most 2^-7 |y|); both reach the output times
+    |round(silu(z))|; the product's own rounding can then move it by one
+    more step, 2^-7 |plain|."""
+    y = ss._plain_scan(*ss.scan_operands(*ops[:6]), h0, 0)[0]
+    s = F.silu(ops[6]).float().abs()
+    return s * (1e-5 * y.abs().max() + 2.0 ** -7 * y.abs()) + 2.0 ** -7 * plain.float().abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,L,E,N,R,h0_rows,final", [
+    (48, 144, 1536, 16, 48, 1, False),  # the Mamba serving shape, cached head
+    (48, 158, 1536, 16, 48, 0, False),  # the same, uncached
+    (1, 14, 1536, 16, 48, 0, True),     # the prefill of the prompt head
+    (2, 37, 200, 8, 4, 2, True),        # E off the block, batch-B h0; B/C 4-byte rows
+    (3, 1, 128, 4, 5, 1, False),        # L = 1, N 4; bf16 B/C at odd offsets
+    (2, 37, 202, 16, 48, 1, True),      # rows of 4-byte multiples, not 16
+    (2, 21, 201, 8, 48, 0, False),      # E odd: bf16 z at an odd offset
+])
+def test_selective_scan_gated_kernel_vs_plain(cuda, B, L, E, N, R, h0_rows, final, dtype):
+    """The gated form against ``selective_ssm_gated_plain`` on strided
+    views: f32 at the raw form's 1e-5, bf16 each element within
+    ``_gated_bf16_bound``; h_final f32 at 1e-5; the form's counter counts
+    the launch; two calls give the same bits."""
+    ops, h0 = _gated_operands(cuda, B, L, E, N, R, h0_rows, dtype)
+    assert not ops[2].is_contiguous() and not ops[6].is_contiguous()
+    counter = ss.selective_ssm_final if final else ss.selective_ssm_h0 if h0_rows else \
+        ss.selective_ssm
+    n = counter.launches
+    got = ss.selective_ssm_gated(*ops, h0, final)
+    assert counter.launches == n + 1
+    want = ss.selective_ssm_gated_plain(*ops, h0, final)
+    again = ss.selective_ssm_gated(*ops, h0, final)
+    if final:
+        (got, got_h), (want, want_h), (again, again_h) = got, want, again
+        torch.testing.assert_close(got_h, want_h, rtol=1e-5,
+                                   atol=1e-5 * want_h.abs().max().item())
+        assert torch.equal(got_h, again_h)
+    assert got.dtype == dtype and got.shape == (B, L, E) and torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    else:
+        err = (got.float() - want.float()).abs()
+        # a NaN share stays NaN (max() propagates it) and fails the assert
+        share = torch.where(err == 0, 0.0, err / _gated_bf16_bound(ops, h0, want)).max().item()
+        print(f"gated bf16 B={B} L={L} E={E} N={N}: worst element at {share:.3f} of its "
+              f"bound, {(err > 2.0 ** -8 * want.float().abs()).float().mean().item():.2e} "
+              f"of the elements past 2^-8 |plain|")
+        assert share <= 1
+
+
+@pytest.mark.cuda
+def test_selective_scan_gated_rejects_bad_input(cuda):
+    ops, h0 = _gated_operands(cuda, 2, 9, 64, 8, 4, 1, torch.bfloat16)
+    dt_raw, A_log, Bs, Cs, xs, D, z = ops
+    with pytest.raises(ValueError, match="one dtype"):  # x at f32, the rest bf16
+        ss.selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs.float(), D, z, h0)
+    with pytest.raises(ValueError, match="one dtype"):  # A_log and D disagree
+        ss.selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D.float(), z, h0)
+    with pytest.raises(ValueError, match="row stride"):  # B, C from two buffers
+        ss.selective_ssm_gated(dt_raw, A_log, Bs, Cs.contiguous(), xs, D, z, h0)
+    with pytest.raises(ValueError, match="rows"):  # a column-strided view
+        ss.selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs[..., ::2].repeat(1, 1, 2), D,
+                               z.transpose(0, 1).contiguous().transpose(0, 1), h0)
+    with pytest.raises(ValueError, match="h0"):
+        ss.selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0.bfloat16())
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_ssm_gated(dt_raw, A_log[:, :5], Bs[..., :5], Cs[..., :5], xs, D, z)
+    with pytest.raises(ValueError, match="serving form"):
+        ss.selective_ssm_gated(dt_raw.float().requires_grad_(), A_log, Bs, Cs, xs, D, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [False, True])
+def test_selective_scan_raw_forms_repeat_their_bits(cuda, final):
+    """The raw forms (K8, the prefill; K9) give the same bits call to call,
+    and the kernel splits a channel's states into the groups the CPU mirror
+    ``selective_ssm_split`` assumes."""
+    dt, A_T, Bs, Cs, xs, D, h0, _ = _scan_operands(cuda, 8, 40, 512, 16, 1)
+    fn = ss.selective_ssm_final if final else ss.selective_ssm_h0
+    one, two = fn(dt, A_T, Bs, Cs, xs, D, h0), fn(dt, A_T, Bs, Cs, xs, D, h0)
+    assert all(torch.equal(a, b) for a, b in zip(one, two)) if final else torch.equal(one, two)
+    k9 = [ss.selective_ssm_bounds(dt, A_T, Bs, Cs, xs, D, h0) for _ in range(2)]
+    assert torch.equal(k9[0][0], k9[1][0]) and torch.equal(k9[0][1], k9[1][1])
+    assert [_build.library().mt_selective_scan_groups(n) for n in ss.STATE_SIZES] == \
+        [ss.fwd_groups(n) for n in ss.STATE_SIZES]
+
+
+@pytest.mark.cuda
+def test_mamba_f32_slice_ignores_cudnn_tf32(cuda):
+    """With ``torch.backends.cudnn.allow_tf32`` on (PyTorch's default), the
+    2-layer mamba-130m f32 slice on the card against the CPU at chip_smoke
+    phase 7's tolerance, and its first block at 1e-5 (TF32 keeps ~3
+    digits); the flag is on again after."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import mamba_config
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        small = mamba_config(Config, n_points=512, batch=2, history=64, dtype="float32",
+                             llm_layers=2)
+        gpu = get_trainer("tf32", small, device=cuda)
+        cpu = get_trainer("tf32", small, device="cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+        batch = next(iter(gpu.test_pipeline))
+        out_gpu, out_cpu = gpu.eval_dispatch(batch).cpu(), cpu.eval_dispatch(batch)
+        err = (out_gpu - out_cpu).abs().max().item()
+        assert err <= 1e-3 * max(1.0, out_cpu.abs().max().item())
+        x = torch.randn(2, 40, gpu.model.llm.cfg.d_model,
+                        generator=torch.Generator().manual_seed(0))
+        block_g, block_c = gpu.model.llm.blocks[0], cpu.model.llm.blocks[0]
+        with torch.no_grad():
+            yg, yc = block_g(x.to(cuda)).cpu(), block_c(x)
+        torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5 * yc.abs().max().item())
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _gmm_operands(cuda, counts, K, N, n_weights, n_chunks=0, block_m=128, w_bits=8):

@@ -18,9 +18,9 @@ shuffled train batches (the prompt-state cache included), runs one warm-up
 ``train_step`` and profiles the next ``--steps`` train steps (forward,
 backward with K9/K10, Adam). Prints the card, the host-clock time of each
 step, the device's busy time and idle share over the profiled span (first
-event to last kernel end), the device time and launch count by category and
-the top kernels by device time. Writes the Chrome trace to
-``chiprun_out/torch_profile_<path>.json``.
+event to last kernel end), the device time and launch count by category,
+the top kernels by device time and every depthwise-conv kernel. Writes the
+Chrome trace to ``chiprun_out/torch_profile_<path>.json``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,9 @@ CATEGORIES = (
     ("depthwise conv", r"conv|cudnn|depthwise|implicit"),
     ("MoE router / pack (sort, gather, scatter, cumsum, softmax)",
      r"sort|index|scatter|gather|cumsum|scan_innermost|scan_outer|searchsorted|softmax"),
-    ("copy / cast", r"copy|cast|Memcpy|Memset"),
+    # (not "nocast": PyTorch's elementwise kernels carry gpu_kernel_impl_nocast
+    # in their names)
+    ("copy / cast", r"copy|(?<!no)cast|Memcpy|Memset"),
     ("optimizer (Adam)", r"multi_tensor|adam"),
 )
 
@@ -158,6 +160,10 @@ def main() -> None:
     print("[profile] top kernels per step (ms, launches):")
     for key, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3 / n:9.4f} ms {cnt // n:6d}  {key[:110]}")
+    print("[profile] depthwise conv kernels per step (forward and, in training, backward):")
+    for key, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        if category(key) == "depthwise conv":
+            print(f"  {us / 1e3 / n:9.4f} ms {cnt // n:6d}  {key[:110]}")
     out = ROOT / "chiprun_out" / f"torch_profile_{args.path}.json"
     out.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out))
