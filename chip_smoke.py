@@ -116,6 +116,17 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
+Every served path (phases 4, 6, 11, 13, 14, 15, 17 and 18) runs through
+``serve()``: the eager step (``eval_step_eager``) on each test batch, then
+``test()``, whose eval step replays one CUDA graph per input signature
+(``runtime/graph.py``; the first batch of a signature runs eagerly and is
+captured); it prints the eager and the graphed p50 side by side, the graphs
+and their capture ms, the peak memory of both and the pool the graphs
+hold, ``test()``'s windows/s (first pass, captures included, and a second
+pass that must score the same), and holds every replay bit-equal to the
+eager step with the eager step's launches; ``test()``'s launches are the
+prefill's and the eager batches', and they are what the kernels line
+carries.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -1022,44 +1033,111 @@ def main() -> None:
                 "grouped_matmul_w4_down": gm.DOWN_W4}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def serve(tr, label):
-        """``test()`` with every launch count set to 0 just before and read
-        just after; then the p50 of the eval step over the test batches."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    def counted(fn):
+        """fn() with every launch count set to 0 just before; (its result,
+        the counts just after)."""
         for w in wrappers.values():
             w.launches = 0
+        out = fn()
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    def serve(tr, label):
+        """A served path through ``test()``, eager and graphed. First the
+        eager step (``eval_step_eager``) on every test batch, its inputs
+        prepared first: launches, p50 by CUDA events, peak memory. Then
+        ``test()`` with every launch count set to 0 just before and read
+        just after (the first batch of each input signature runs eagerly as
+        the warm-up and is captured, the others replay): its launches must
+        be the prefill's and the eager batches'. Then a second pass (every
+        graph captured, the prompt-head cache refilled in place) must score
+        the same, and each test batch replayed must equal its eager output
+        bit for bit, with the eager step's launches and no new capture."""
+        graphs = tr.step_graphs
+        # the prompt buckets only grow: settle them (host only), so every
+        # prepared batch has the signature test() serves
+        for batch in tr.test_pipeline:
+            tr.model_inputs(batch)
+        prepared = [tr.eval_prepare(batch) for batch in tr.test_pipeline]
+        first = next(iter(tr.test_pipeline))
+        _, prefill = counted(lambda: (tr._prefix_kv_cache.clear(), tr.eval_prepare(first)))
+        tr.eval_step_eager(prepared[0][1])  # warm, untimed
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms, eager_out, eager_counts = [], [], []
+        for _, arrays in prepared:
+            start.record()
+            out, c = counted(lambda: tr.eval_step_eager(arrays))
+            end.record()
+            end.synchronize()
+            eager_ms.append(start.elapsed_time(end))
+            eager_out.append(out)
+            eager_counts.append(c)
+        eager_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n_graphs, n_captures = len(graphs), len(graphs.capture_ms)
         t0 = time.perf_counter()
         start.record()
-        scores = tr.test()
+        scores, counts = counted(tr.test)
         end.record()
         end.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in wrappers.items()}
-        peak = torch.cuda.max_memory_allocated()
+        test_peak = torch.cuda.max_memory_allocated()
+        want = {name: prefill[name] + sum(c[name] for c in eager_counts) for name in counts}
+        check(counts == want, f"[{label}] test() launches {counts} are not the prefill's "
+              f"and the eager batches' {want}")
         n_windows = len(tr.test_dataset)
+        capture_ms = graphs.capture_ms[n_captures:]
+        check(len(graphs) > n_graphs, f"[{label}] test() captured no graph")
         print(f"[{label}] test() {n_windows} windows in {len(tr.test_pipeline)} "
-              f"batches: {start.elapsed_time(end):.1f} ms (CUDA events, prefill "
-              f"and host prep included), {n_windows / wall:.2f} windows/s wall")
-        print(f"[{label}] launches {counts}; peak memory {peak / 2**30:.2f} GiB")
+              f"batches: {start.elapsed_time(end):.1f} ms (CUDA events, prefill, host prep "
+              f"and {len(capture_ms)} capture(s) included), {n_windows / wall:.2f} "
+              f"windows/s wall")
+        print(f"[{label}] launches {counts} (the prefill's and the eager batches'); peak "
+              f"memory {test_peak / 2**30:.2f} GiB")
         print(f"[{label}] scores {scores}")
         check(all(math.isfinite(s) for s in scores.values()), f"non-finite {scores}")
+        t0 = time.perf_counter()
         preds, targets = tr.predict(tr.test_pipeline)
+        wall2 = time.perf_counter() - t0
         check(preds.shape == targets.shape == (tr.eval_n_points(tr.test_dataset), 3),
               f"prediction shape {preds.shape}")
         check(bool(torch.isfinite(torch.from_numpy(preds)).all()), "non-finite preds")
-        batch_ms = []
-        for batch in tr.test_pipeline:
-            prepared = tr.eval_prepare(batch)
+        check(tr.score(preds, targets) == {k[len("test/"):]: v for k, v in scores.items()},
+              f"[{label}] the second pass scores {tr.score(preds, targets)}, not {scores}")
+        torch.cuda.reset_peak_memory_stats()
+        graph_ms = []
+        for i, ((kind, arrays), ref, ref_counts) in enumerate(
+                zip(prepared, eager_out, eager_counts)):
             start.record()
-            tr.eval_dispatch(prepared=prepared)
+            out, c = counted(lambda: tr.eval_dispatch(prepared=(kind, arrays)))
             end.record()
             end.synchronize()
-            batch_ms.append(start.elapsed_time(end))
+            graph_ms.append(start.elapsed_time(end))
+            check(torch.equal(out, ref), f"[{label}] batch {i}: the replay differs from the "
+                  f"eager step by {(out.float() - ref.float()).abs().max().item()}")
+            check(c == ref_counts, f"[{label}] batch {i}: replay launches {c}, eager "
+                  f"{ref_counts}")
+        check(len(graphs.capture_ms) == n_captures + len(capture_ms),
+              f"[{label}] the second pass or the replays captured anew")
+        replay_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         bsz = tr.config.training.batch_size
-        p50 = statistics.median(batch_ms)
-        print(f"[{label}] eval step p50 {p50:.2f} ms per batch of {bsz} "
-              f"({bsz * 1000 / p50:.1f} windows/s at p50; per batch {batch_ms})")
+        p50, p50_graph = statistics.median(eager_ms), statistics.median(graph_ms)
+        print(f"[{label}] eval step p50 eager {p50:.2f} ms, graphed {p50_graph:.2f} ms per "
+              f"batch of {bsz} ({bsz * 1000 / p50:.1f} / {bsz * 1000 / p50_graph:.1f} "
+              f"windows/s at p50; per batch eager {eager_ms}, graphed {graph_ms})")
+        print(f"[{label}] {len(graphs)} graph(s), capture {sum(capture_ms):.1f} ms "
+              f"({capture_ms}); replay bit-equal to the eager step and with its launches "
+              f"on all {len(prepared)} test batches; second pass {n_windows / wall2:.2f} "
+              f"windows/s wall, the same scores")
+        print(f"[{label}] peak memory: eager steps {eager_peak / 2**30:.2f} GiB; test() "
+              f"(prefill, warm-up, capture, replays) {test_peak / 2**30:.2f} GiB; replays "
+              f"{replay_peak / 2**30:.2f} GiB; after, {held / 2**30:.2f} GiB allocated and "
+              f"{reserved / 2**30:.2f} GiB reserved (the graphs' pool "
+              f"{(reserved - held) / 2**30:.2f} GiB)")
         return counts, preds
 
     def set_launches(counts, names):
@@ -1154,12 +1232,9 @@ def main() -> None:
         """Run ``fn`` with every launch count set to 0 just before and read
         just after; returns (counts, wall seconds)."""
         torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return {name: w.launches for name, w in wrappers.items()}, time.perf_counter() - t0
+        _, counts = counted(lambda: (fn(), torch.cuda.synchronize()))
+        return counts, time.perf_counter() - t0
 
     def step_p50(tr, label, n_steps, expect=None):
         """p50 of ``train_step`` (CUDA events) over the next shuffled train
@@ -1656,10 +1731,13 @@ def main() -> None:
                           "w8a8_gemm[long]": "w8a8_gemm",
                           "reprogramming_attention[long]": "reprogramming_attention"})
     # one batch with the prompt head embedded in the graph (the uncached form:
-    # L == S, JAX's padded-kernel route), the K4 route in every block; block
-    # 0's call is held against the plain version on those served
-    # activations: each query row against K4's plain version fed the same
-    # once-rounded rotation
+    # L == S, JAX's padded-kernel route), the K4 route in every block, run by
+    # the eager step; block 0's call is held against the plain version on
+    # those served activations: each query row against K4's plain version
+    # fed the same once-rounded rotation. The served graph goes first: its
+    # pool and the eager step's working set would not fit together
+    tr.step_graphs.clear()
+    torch.cuda.empty_cache()
     batch = next(iter(tr.test_pipeline))
     arrays = tr._to_device(tr.model_inputs(batch))
     check("prefix_ids" in arrays, "the uncached form needs the embedded head")
@@ -1671,7 +1749,7 @@ def main() -> None:
         return k4.rope_flash_attention(q, k, v, cos, sin, *a, **kw)
     tfm.rope_flash_attention = spy
     try:
-        counts, _ = drive(lambda: out.append(tr.eval_step(arrays).float()))
+        counts, _ = drive(lambda: out.append(tr.eval_step_eager(arrays).float()))
     finally:
         tfm.rope_flash_attention = k4.rope_flash_attention
     check(counts["rope_flash_attention"] == n_block and counts["rope_attention"] == 0,
@@ -1706,7 +1784,7 @@ def main() -> None:
     saved, tfm.K4_MIN_KEYS = tfm.K4_MIN_KEYS, 1
     try:
         tr._prefix_kv_cache.clear()
-        cached_k4 = tr.eval_dispatch(batch).float()
+        cached_k4 = tr.eval_step_eager(tr.eval_model_inputs(batch)).float()
     finally:
         tfm.K4_MIN_KEYS = saved
         tr._prefix_kv_cache.clear()

@@ -1,10 +1,12 @@
 """Host data for the slice: the synthetic dataset family on the
 reconstruction task (train, val and test splits), fixed-shape batches
-(shuffled for training) and window stitching.
+(shuffled for training), the background prefetch of batches and window
+stitching.
 
 A copy of the parts of ``medtsllm_tpu/data`` (synthetic.py rng_for /
 sine_mixture, base.py StandardScaler and windowing, readers/synthetic.py,
-pipeline.py BatchPipeline, windowing.py AlignedWindows / stitch_windows)
+pipeline.py BatchPipeline and prefetch, windowing.py AlignedWindows /
+stitch_windows)
 the serving path runs, so the port runs without the JAX package. The same
 config gives the same numbers as the JAX package's data
 (tests/test_torch_medtsllm.py).
@@ -12,6 +14,8 @@ config gives the same numbers as the JAX package's data
 
 from __future__ import annotations
 
+import queue
+import threading
 import zlib
 
 import numpy as np
@@ -47,13 +51,14 @@ class SyntheticDataset:
         if config.data.dataset != "synthetic" or config.task != "reconstruction":
             raise NotImplementedError(
                 f"dataset {config.data.dataset!r} / task {config.task!r}: the "
-                "port reads the synthetic reconstruction data (ROADMAP queue 1 "
-                "item 7)")
+                "port reads the synthetic reconstruction data (ROADMAP queue 1, "
+                "\"The other tasks, the mixed dtype, the data and the CLIs\")")
         if config.data.mode != "multivariate" or config.data.cols != "all":
             raise NotImplementedError("the port reads multivariate, all-column data")
         ds = config.get("datasets", {}).get("synthetic", {})
         if ds.get("clips", False):
-            raise NotImplementedError("clip datasets are ROADMAP queue 1 item 7")
+            raise NotImplementedError("clip datasets are ROADMAP queue 1, \"The other "
+                                      "tasks, the mixed dtype, the data and the CLIs\"")
         if config.history_len != config.pred_len:
             raise ValueError("reconstruction requires history_len == pred_len")
         self.split = split
@@ -121,6 +126,48 @@ class BatchPipeline:
             valid[:n_valid] = True
             yield {"x_enc": np.stack([self.dataset[j]["x_enc"] for j in idx]),
                    "index": idx.astype(np.int32), "valid": valid}
+
+
+def prefetch(iterator, size: int = 2):
+    """Yield ``iterator``'s items, produced ahead by a daemon thread into a
+    queue of ``size``, so host batch assembly overlaps the device's work.
+
+    An exception in the producer re-raises in the consumer (a dead producer
+    must not look like a clean end of epoch), and a consumer that stops
+    early (close or GC of this generator) sets the stop event, so neither
+    the thread nor its queued batches leak."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    end = object()
+    stop = threading.Event()
+    error: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+        except BaseException as e:
+            error.append(e)
+        finally:
+            put(end)
+
+    threading.Thread(target=producer, name="medtsllm-prefetch", daemon=True).start()
+    try:
+        while (item := q.get()) is not end:
+            yield item
+        if error:
+            raise error[0]
+    finally:
+        stop.set()
 
 
 def stitch_windows(values: np.ndarray, starts: np.ndarray, n_points: int,

@@ -99,7 +99,9 @@ def gmm_metadata(counts: torch.Tensor, block_m: int, n_visits: int):
     ve = torch.clamp(ve, max=E - 1)  # in bounds even when every group is empty
     n_real = tile_off[-1]
     valid = (t_idx < n_real).to(i32)
-    last_e = ve[torch.clamp(n_real - 1, min=0)]
+    # a 1-element index: indexing by a 0-d tensor reads it back to the host,
+    # which a captured CUDA graph cannot do
+    last_e = ve[torch.clamp(n_real - 1, min=0).reshape(1)]
     ve = torch.where(valid == 1, ve, last_e)
     return ve, valid, tile_off[:-1] * block_m
 

@@ -23,6 +23,8 @@ raises. Forward only: the straight-through backward is not ported.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -67,11 +69,19 @@ def unpack4_split(packed: torch.Tensor, n_in: int) -> torch.Tensor:
     return torch.cat([hi, lo], dim=-1)[..., :n_in]
 
 
+@functools.cache
+def codebook_table(codebook: str, device: torch.device) -> torch.Tensor:
+    """The codebook's f32 table on ``device``, made once per device: a step
+    captured into a CUDA graph reads it with no host-to-device copy. A
+    normal tensor even when first asked for under inference mode."""
+    with torch.inference_mode(False):
+        return torch.tensor(CODEBOOKS[codebook], dtype=torch.float32).to(device)
+
+
 def dequant_codebook(packed: torch.Tensor, n_in: int, codebook: str) -> torch.Tensor:
     """Packed codebook weights -> their f32 table values [..., n_in] (the
     scale is applied after the matmul)."""
-    table = torch.tensor(CODEBOOKS[codebook], dtype=torch.float32, device=packed.device)
-    return table[unpack4_split(packed, n_in).long() + 8]
+    return codebook_table(codebook, packed.device)[unpack4_split(packed, n_in).long() + 8]
 
 
 def w4a8_matmul_plain(xq, packed, x_scale, w_scale, out_dtype=torch.float32):

@@ -6,9 +6,18 @@ the epoch loop ``train``, ``train_model_inputs`` / ``eval_model_inputs``,
 ``finalize_series``.
 
 Everything lives on one explicit device. The constant prompt head is
-prefilled once and every window attends it as prefix K/V (or resumes the
-Mamba scan from its state); the train step serves it from the same cache
-when the model says that is safe (frozen backbone, no backbone dropout).
+prefilled once per eval pass and every window attends it as prefix K/V (or
+resumes the Mamba scan from its state); each pass refills the same tensors
+in place. The train step serves it from the same cache when the model says
+that is safe (frozen backbone, no backbone dropout).
+
+On a CUDA device the eval step replays one captured CUDA graph per input
+signature (``runtime/graph.py``, the counterpart of JAX's jitted
+``eval_step``); ``eval_step_eager`` is the same step run op by op, which is
+what the CPU runs. Both loops take their batches from a prefetch thread,
+host inputs go to the card by pinned, non-blocking copies, and ``run_eval``
+reads batch i-1 back while batch i runs, as the JAX loops do.
+
 Dropout masks come from a generator on the trainer's device seeded from
 ``setup.seed``. No logger or checkpoint files yet: the losses and each
 epoch's val scores are kept in ``self.losses`` and ``self.val_scores`` and
@@ -23,9 +32,10 @@ import warnings
 import numpy as np
 import torch
 
-from ..data import BatchPipeline, SyntheticDataset
+from ..data import BatchPipeline, SyntheticDataset, prefetch
 from ..device import resolve_device
 from ..models.medtsllm import MedTsLLM, PromptBuilder, storage_dtype
+from ..runtime.graph import StepGraphs
 from ..runtime.optim import Optimizer
 from ..weights import init_random_
 from .losses import build_loss
@@ -36,8 +46,9 @@ class BaseTask:
 
     def __init__(self, run_id, config, device="cuda"):
         if config.model not in ("medtsllm", "timellm"):
-            raise NotImplementedError(f"model {config.model!r}: the port has "
-                                      "MedTsLLM (ROADMAP queue 1 item 9)")
+            raise NotImplementedError(f"model {config.model!r}: the port has MedTsLLM "
+                                      "(ROADMAP queue 1, \"Baseline models and the ops "
+                                      "library\")")
         self.run_id = run_id
         self.config = config
         self.device = resolve_device(device)
@@ -62,7 +73,13 @@ class BaseTask:
                       "random init (shapes and throughput faithful; task "
                       "quality not meaningful)")
         self.model.to(storage_dtype(config)).eval()
+        # head ids -> per-layer prefix tensors: ``_prefix_kv_store`` keeps
+        # them for the trainer's life (a captured step reads them where they
+        # lie); ``_prefix_kv_cache`` holds the entries filled this pass
+        self._prefix_kv_store = {}
         self._prefix_kv_cache = {}
+        self.step_graphs = (StepGraphs(self.model, self.device)
+                            if self.device.type == "cuda" else None)
 
         self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
         self.optimizer = Optimizer(config, self.model.parameters())
@@ -96,14 +113,21 @@ class BaseTask:
         return self.preprocessor(batch)
 
     def _to_device(self, arrays: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in arrays.items()}
+        """Host arrays -> tensors on the device; to a card through pinned
+        memory without blocking the host (the caching host allocator keeps
+        each pinned block until its copy has run)."""
+        tensors = {k: torch.as_tensor(np.asarray(v)) for k, v in arrays.items()}
+        if self.device.type == "cpu":
+            return tensors
+        return {k: t.pin_memory().to(self.device, non_blocking=True)
+                for k, t in tensors.items()}
 
     def eval_model_inputs(self, batch: dict) -> dict:
         """Model inputs with the constant prompt head (``prefix_ids``)
         swapped for its cached per-layer KV."""
-        arrays = self._to_device(self.model_inputs(batch))
-        ids = arrays.pop("prefix_ids", None)
+        host = self.model_inputs(batch)
+        ids = host.pop("prefix_ids", None)
+        arrays = self._to_device(host)
         if ids is not None:
             arrays["prefix_kv"] = self._prefix_kv(ids)
         return arrays
@@ -113,11 +137,12 @@ class BaseTask:
         ``model.train_prefix_cache_safe`` (the cache is then a constant of
         the optimization: same loss, same gradients), else embedded in the
         graph."""
-        arrays = self._to_device(self.model_inputs(batch))
-        ids = arrays.get("prefix_ids")
-        if ids is not None and ids.dim() == 1 and self.model.train_prefix_cache_safe:
-            arrays["prefix_kv"] = self._prefix_kv(arrays.pop("prefix_ids"))
-        return arrays
+        host = self.model_inputs(batch)
+        ids = host.get("prefix_ids")
+        if ids is not None and ids.ndim == 1 and self.model.train_prefix_cache_safe:
+            del host["prefix_ids"]
+            return dict(self._to_device(host), prefix_kv=self._prefix_kv(ids))
+        return self._to_device(host)
 
     def train_step(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch of model inputs -> the loss
@@ -140,8 +165,16 @@ class BaseTask:
         host preparation apart from the device work)."""
         return ("plain", self.eval_model_inputs(batch))
 
-    @torch.inference_mode()
     def eval_step(self, arrays: dict) -> torch.Tensor:
+        """The eval step: on a card the captured graph of the inputs'
+        signature (captured at its first call), on the CPU the eager step."""
+        if self.step_graphs is None:
+            return self.eval_step_eager(arrays)
+        return self.step_graphs(arrays)
+
+    @torch.inference_mode()
+    def eval_step_eager(self, arrays: dict) -> torch.Tensor:
+        """The eval step op by op, whatever the device."""
         return self.model(arrays)
 
     def eval_dispatch(self, batch: dict | None = None, prepared=None):
@@ -152,20 +185,29 @@ class BaseTask:
         return self.eval_step(arrays)
 
     @torch.no_grad()
-    def _prefix_kv(self, ids: torch.Tensor):
-        """Per-layer K/V of the 1-D prompt head, prefilled once per eval
-        pass and kept through the epoch's train steps (the backbone is
-        frozen). The head embeds at ts_emb's dtype, f32 (the fusion layers
+    def _prefix_kv(self, ids: np.ndarray):
+        """Per-layer K/V of the 1-D prompt head (host token ids), prefilled
+        once per eval pass and kept through the epoch's train steps (the
+        backbone is frozen). A head seen before is prefilled into the
+        tensors it had, in place, so a captured step that reads them stays
+        valid. The head embeds at ts_emb's dtype, f32 (the fusion layers
         promote to f32), so cached and uncached forwards agree. Built under
         ``no_grad``, not ``inference_mode``: the train step's backward saves
         the cached K/V (K2) and SSM state (K9)."""
-        if ids.dim() != 1:
-            raise NotImplementedError("per-clip 2-D prompt heads are ROADMAP "
-                                      "queue 1 item 7")
-        key = ids.cpu().numpy().tobytes()
+        if ids.ndim != 1:
+            raise NotImplementedError("per-clip 2-D prompt heads are ROADMAP queue 1, "
+                                      "\"The other tasks, the mixed dtype, the data and "
+                                      "the CLIs\"")
+        key = ids.tobytes()
         kv = self._prefix_kv_cache.get(key)
         if kv is None:
-            kv = self.model.prefill(ids, torch.float32)
+            fresh = self.model.prefill(torch.as_tensor(ids, device=self.device),
+                                       torch.float32)
+            kv = self._prefix_kv_store.setdefault(key, fresh)
+            if kv is not fresh:
+                for layer, new in zip(kv, fresh):
+                    for t, n in zip(layer, new):
+                        t.copy_(n)
             self._prefix_kv_cache[key] = kv
         return kv
 
@@ -182,7 +224,7 @@ class BaseTask:
             print(f"Epoch {epoch + 1}/{epochs}")
             self.optimizer.set_epoch(epoch)
             pending = None
-            for batch in self.train_pipeline:
+            for batch in prefetch(iter(self.train_pipeline)):
                 arrays = self.train_model_inputs(batch)
                 loss = self.train_step(arrays, arrays["valid"])
                 if pending is not None:
@@ -212,17 +254,43 @@ class BaseTask:
     # eval loop
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _readback(out: torch.Tensor, valid: np.ndarray):
+        """Start the copy of a step's output to the host; returns a function
+        that waits for it and gives the valid rows in f32. On a card the
+        copy goes to pinned memory without blocking, then an event, so the
+        wait is for this batch only."""
+        out = out.float()
+        if out.device.type == "cpu":
+            return lambda: out.numpy()[valid]
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(out.device))
+
+        def wait() -> np.ndarray:
+            done.synchronize()
+            return host.numpy()[valid]
+        return wait
+
     def run_eval(self, pipeline, extra_keys=()):
         """Run the eval step over a pipeline; returns the stacked valid
-        per-window predictions and the requested batch keys."""
+        per-window predictions and the requested batch keys. One deep, as
+        JAX's loop (``medtsllm_tpu/tasks/base.py:623-648``): batch i-1 is
+        read back after batch i is dispatched."""
         self._prefix_kv_cache.clear()  # parameters may have changed
         preds, extras = [], {k: [] for k in extra_keys}
-        for batch in pipeline:
-            out = self.eval_dispatch(batch)
+        pending = None
+        for batch in prefetch(iter(pipeline)):
             v = batch["valid"]
-            preds.append(out.float().cpu().numpy()[v])
+            fetch = self._readback(self.eval_dispatch(batch), v)
             for k in extra_keys:
                 extras[k].append(np.asarray(batch[k])[v])
+            if pending is not None:
+                preds.append(pending())
+            pending = fetch
+        if pending is not None:
+            preds.append(pending())
         result = {"pred": np.concatenate(preds)}
         for k in extra_keys:
             result[k] = np.concatenate(extras[k])

@@ -947,3 +947,128 @@ def test_gmm_kernel_rejects_bad_input(cuda):
     xq, xs, w, ws, ve, valid = _gmm_operands(cuda, [5, 0], 256, 128, 2, 2)
     with pytest.raises(ValueError, match="one weight"):
         gm.gmm(xq, xs, w, ws, ve, valid, block_n=128)
+
+
+# --------------------------------------------------------------------------
+# the captured serving step (runtime/graph.py)
+# --------------------------------------------------------------------------
+
+def _served_trainer(cuda, path):
+    """A 2-layer cut of a served configuration at its published widths,
+    batch 4, a few test batches; ``nf4`` is the llama cut with nf4 weights
+    (the codebook table). (llama-tiny and mixtral-tiny-128 have head dims
+    16 and 32, which K2 refuses on the card; llama-1b and moe-8x1b have
+    64.)"""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import bench_config, mamba_config, moe_config
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    cfg = {"llama": lambda: bench_config(Config, llm="llama-1b", batch=4, history=64,
+                                         n_points=512, num_tokens=128, d_ff=64,
+                                         llm_layers=2),
+           "nf4": lambda: bench_config(Config, llm="llama-1b", batch=4, history=64,
+                                       n_points=512, num_tokens=128, d_ff=64, llm_layers=2,
+                                       quant_type="nf4"),
+           "mamba": lambda: mamba_config(Config, n_points=768, batch=4, history=64,
+                                         llm_layers=2),
+           "moe": lambda: moe_config(Config, n_points=1536, batch=4, llm_layers=2)}[path]()
+    return get_trainer(f"graph-{path}", cfg, device=cuda)
+
+
+def _eager_then_graphed(tr, counters):
+    """Every test batch through the eager step, then through the graphed
+    one (after ``test()`` captured): bit-equal outputs, equal launches."""
+    from medtsllm_tpu_torch.runtime.graph import read_counts
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        return out, read_counts(counters)
+    prepared = [tr.eval_prepare(b) for b in tr.test_pipeline]
+    eager = [counted(lambda: tr.eval_step_eager(a)) for _, a in prepared]
+    graphed = [counted(lambda: tr.eval_dispatch(prepared=p)) for p in prepared]
+    for (out_e, n_e), (out_g, n_g) in zip(eager, graphed):
+        assert torch.equal(out_g, out_e)
+        assert n_g == n_e and any(n_e.values())
+    return [out for out, _ in graphed]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["llama", "nf4", "mamba", "moe"])
+def test_graphed_step_bit_equal_to_eager(cuda, path):
+    """The replay equals ``eval_step_eager`` bit for bit on every test batch
+    and launches what it launches: after ``test()`` captured, after a
+    second pass (the prompt-head cache refilled in place) and after
+    ``load_state_dict`` of new weights, with no capture past the first."""
+    from medtsllm_tpu_torch.runtime.graph import launch_counters
+
+    counters = launch_counters()
+    tr = _served_trainer(cuda, path)
+    assert len(tr.test_pipeline) >= 2
+    for batch in tr.test_pipeline:  # settle the prompt buckets (host only)
+        tr.model_inputs(batch)
+    tr.test()
+    graphs = tr.step_graphs
+    n = len(graphs)
+    assert n >= 1
+    (kv,) = tr._prefix_kv_store.values()
+    ptrs = [t.data_ptr() for layer in kv for t in layer]
+    before = _eager_then_graphed(tr, counters)
+    tr.test()  # a second pass
+    _eager_then_graphed(tr, counters)
+    g = torch.Generator(cuda).manual_seed(1)
+    state = {k: v + 0.05 * v.abs().amax() * torch.randn(v.shape, device=cuda, generator=g
+                                                          ).to(v.dtype)
+             if v.is_floating_point() else v for k, v in tr.model.state_dict().items()}
+    tr.load_state_dict(state)
+    after = _eager_then_graphed(tr, counters)
+    assert not any(torch.equal(a, b) for a, b in zip(after, before))
+    assert [t.data_ptr() for layer in kv for t in layer] == ptrs
+    assert tr._prefix_kv_store[next(iter(tr._prefix_kv_store))] is kv
+    assert len(graphs) == n
+
+
+@pytest.mark.cuda
+def test_graphed_step_alternates_two_buckets(cuda):
+    """Two prompt buckets, two graphs on one memory pool, replayed in turn:
+    each replay equals the eager step on its own inputs."""
+    tr = _served_trainer(cuda, "llama")
+    _, arrays = tr.eval_prepare(next(iter(tr.test_pipeline)))
+    ids = arrays["prompt_ids"]
+    pad = torch.full((ids.shape[0], 16), tr.preprocessor.pad_id, dtype=ids.dtype, device=cuda)
+    wide = dict(arrays, prompt_ids=torch.cat([pad, ids], dim=1))
+    want = [tr.eval_step_eager(a) for a in (arrays, wide)]
+    assert not torch.equal(want[0], want[1])
+    for i in range(6):
+        assert torch.equal(tr.eval_step(wide if i % 2 else arrays), want[i % 2])
+    assert len(tr.step_graphs) == 2
+
+
+@pytest.mark.cuda
+def test_graph_capture_that_cannot_succeed_raises(cuda):
+    """A forward that reads a value back to the host runs as the warm-up,
+    then its capture raises: no graph is kept, the counters and the current
+    stream are as before."""
+    from types import SimpleNamespace
+
+    from medtsllm_tpu_torch.runtime.graph import StepGraphs
+
+    class ReadsBack(torch.nn.Module):
+        def forward(self, arrays):
+            counter.launches += 1
+            x = arrays["x"]
+            return x * x.sum().item()
+
+    counter = SimpleNamespace(launches=0)
+    graphs = StepGraphs(ReadsBack(), cuda, {"fake": counter})
+    stream = torch.cuda.current_stream(cuda)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        graphs({"x": x})
+    assert len(graphs) == 0 and counter.launches == 1  # the warm-up only
+    assert torch.cuda.current_stream(cuda) == stream
+    assert torch.equal(x * 2, torch.full((4,), 2.0, device=cuda))

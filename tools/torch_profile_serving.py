@@ -4,6 +4,7 @@ CUDA card.
 
     python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|
                                                    llama-long|mamba-train] [--steps 4]
+                                           [--eager]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
 weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
@@ -11,9 +12,11 @@ weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
 long window of phase 17, history 16384 with d_ff 64, two test batches of 8,
 whose decoder attention runs on K4). For a serving path it
 runs one warm-up ``test()``
-pass (it builds the kernels and the prompt-head cache), prepares
-``--steps`` test batches on the host, then runs their eval steps under
-``torch.profiler``. For ``mamba-train`` it prepares ``--steps`` + 1
+pass (it builds the kernels and the prompt-head cache and captures the
+step's CUDA graph), prepares ``--steps`` test batches on the host, then
+runs their eval steps under ``torch.profiler``: the graph's replays, as
+serving runs them, or with ``--eager`` the step op by op
+(``eval_step_eager``). For ``mamba-train`` it prepares ``--steps`` + 1
 shuffled train batches (the prompt-state cache included), runs one warm-up
 ``train_step`` and profiles the next ``--steps`` train steps (forward,
 backward with K9/K10, Adam). Prints the card, the host-clock time of each
@@ -70,6 +73,8 @@ def main() -> None:
     ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
                                        "llama-long", "mamba-train"), default="mamba")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the serving step op by op, not its CUDA graph")
     args = ap.parse_args()
 
     import torch
@@ -111,7 +116,10 @@ def main() -> None:
         prepared = [trainer.eval_prepare(b) for b in batches]
 
         def run(p):
-            trainer.eval_dispatch(prepared=p)
+            if args.eager:
+                trainer.eval_step_eager(p[1])
+            else:
+                trainer.eval_dispatch(prepared=p)
     torch.cuda.synchronize()
 
     step_ms = []
@@ -122,7 +130,8 @@ def main() -> None:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
     bsz = cfg.training.batch_size
-    print(f"[profile] {args.path}: {len(step_ms)} {'train' if train else 'eval'} steps of "
+    kind = "train" if train else "eager eval" if args.eager else "graphed eval"
+    print(f"[profile] {args.path}: {len(step_ms)} {kind} steps of "
           f"batch {bsz}, host clock ms {step_ms} (p50 {statistics.median(step_ms):.3f})")
 
     events = list(prof.events())
