@@ -25,6 +25,21 @@ nvidia-smi. Phases:
      memory; finite scores;
   5. a small 2-layer GQA slice (dense f32 projections) on the card against
      the same slice on the CPU (plain versions) with the same weights;
+  6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
+     configs/datasets/*.toml on synthetic data, ``prompting.clip =
+     false``; a dense Llama-2-7B backbone stored at bf16, f32 fusion
+     layers, batch 16): bidmc.toml's segmentation: the build's seconds and
+     peak memory, K2 and K3 held at its shapes (printed), ``train()`` four
+     steps and ``val()`` (finite losses, the full key set, a frozen
+     backbone, K2 per layer per step), the train step's p50 over 16 steps
+     after one untimed, and its peak, then ``serve()`` over 32 test
+     batches on a trainer that loads the trained weights;
+  6b. ecgmit-anom.toml's anomaly detection through ``serve()`` (32 test
+     batches);
+  6c. ventilator.toml's semantic segmentation (binary) at 4 layers
+     through ``serve()`` (32 test batches);
+  6d. each task's window predictions on a 2-layer llama-1b slice under
+     mixed, card against the CPU's plain versions (2^-5 x max);
   6. the Mamba serving path: ``get_trainer(...).test()`` of
      configs/ablation/mamba-backbone.toml's model (mamba-130m, 24 layers,
      bf16, batch 48, prompt-state cache) on synthetic data; the launches of
@@ -116,7 +131,7 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6, 11, 13, 14, 15, 17 and 18) runs through
+Every served path (phases 4, 6a-6c, 6, 11, 13, 14, 15, 17 and 18) runs through
 ``serve()``: the eager step (``eval_step_eager``) on each test batch, then
 ``test()``, whose eval step replays one CUDA graph per input signature
 (``runtime/graph.py``; the first batch of a signature runs eagerly and is
@@ -136,6 +151,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -145,10 +161,27 @@ import time
 import tomllib
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 MAMBA_TOML = ROOT / "configs" / "ablation" / "mamba-backbone.toml"
 MOE_TOML = ROOT / "configs" / "ablation" / "moe-backbone.toml"
+BIDMC_TOML = ROOT / "configs" / "datasets" / "bidmc.toml"
+ECG_ANOM_TOML = ROOT / "configs" / "datasets" / "ecgmit-anom.toml"
+VENTILATOR_TOML = ROOT / "configs" / "datasets" / "ventilator.toml"
+# points a split of a served task path, by history (= pred_len = the test
+# split's step): 512 test windows, 32 batches of 16
+SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
+# each task's score keys (without the split's prefix)
+TASK_KEYS = {
+    "segmentation": {"point_mae", "point_rmse", "segment_miou", "pred_label_ratio",
+                     "point_acc@50", "point_acc@100", "point_acc@200", "segment_acc@50iou",
+                     "segment_acc@75iou", "segment_acc@90iou"},
+    "anomaly_detection": {"accuracy", "f1", "auroc", "precision", "recall", "iou",
+                          "recon_mse", "recon_mae", "anomaly_quantile", "anomaly_threshold"},
+    "semantic_segmentation": {"accuracy", "f1", "precision", "recall", "iou"},
+}
 
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): HBM bytes
 # per second and peak operations per second by operand type
@@ -247,6 +280,34 @@ def long_config(Config, history=16384, d_ff=64):
     init, 12.9 GB at bf16 (bench.py's d_ff 128 would need 77 GB in
     flight)."""
     return bench_config(Config, history=history, d_ff=d_ff, n_points=16 * history)
+
+
+def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
+                history=None, batch=None):
+    """A shipped dataset config (configs/datasets/*.toml) as it is, its
+    model and task settings, ``setup.dtype = "mixed"`` and the Llama-2-7B
+    shapes included, on the synthetic 3-feature data (the recordings are
+    not in the repository), with ``prompting.clip = false`` (per-clip heads
+    are not ported), one epoch and ``n_points`` points a split; ``llm``,
+    ``llm_layers``, ``history`` (step = history / 2) and ``batch`` cut the
+    card-vs-CPU slices."""
+    from medtsllm_tpu_torch.config import load_config
+    raw = load_config(toml).to_dict()
+    raw["data"]["dataset"] = "synthetic"
+    raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": 3}}
+    raw["training"]["epochs"] = epochs
+    mc = raw["models"]["timellm"]
+    mc["prompting"]["clip"] = False
+    if llm is not None:
+        mc["llm"]["llm"] = llm
+    if llm_layers is not None:
+        mc["llm"]["llm_layers"] = llm_layers
+    if history is not None:
+        raw["history_len"] = raw["pred_len"] = history
+        raw["data"]["step"] = history // 2
+    if batch is not None:
+        raw["training"]["batch_size"] = batch
+    return Config(raw)
 
 
 def window_shapes(tr):
@@ -531,7 +592,7 @@ def main() -> None:
     d = xcfg.d_model
     check_k5("[moe-8x1b]", Be * Le, ((d, d, 2), (d, hkv, 2)), "4 attention GEMMs")
 
-    def check_k2(name, B, L, H, KV, D, P, theta):
+    def check_k2(name, B, L, H, KV, D, P, theta, listed=True):
         q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
         k = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
@@ -569,7 +630,7 @@ def main() -> None:
                f" (B={B} L={L} H={H} KV={KV} D={D} P={P}"
                + (")" if per_row else f"; worst row at {share:.4f} of 2^-6 x its max "
                   "|plain|, so the whole-tensor bound holds it)"),
-               share=share if per_row else None)
+               listed=listed, share=share if per_row else None)
 
     check_k2("rope_attention", B, L, H, KV, D, P, lcfg.rope_theta)
     check_k2("rope_attention[moe-8x1b]", Be, Le, xcfg.n_heads, xcfg.kv_heads,
@@ -1099,13 +1160,12 @@ def main() -> None:
         print(f"[{label}] scores {scores}")
         check(all(math.isfinite(s) for s in scores.values()), f"non-finite {scores}")
         t0 = time.perf_counter()
-        preds, targets = tr.predict(tr.test_pipeline)
+        second = tr.test()
         wall2 = time.perf_counter() - t0
-        check(preds.shape == targets.shape == (tr.eval_n_points(tr.test_dataset), 3),
-              f"prediction shape {preds.shape}")
-        check(bool(torch.isfinite(torch.from_numpy(preds)).all()), "non-finite preds")
-        check(tr.score(preds, targets) == {k[len("test/"):]: v for k, v in scores.items()},
-              f"[{label}] the second pass scores {tr.score(preds, targets)}, not {scores}")
+        check(second == scores, f"[{label}] the second pass scores {second}, not {scores}")
+        preds = tr.run_eval(tr.test_pipeline)["pred"]  # the window predictions
+        check(preds.shape[0] == n_windows and bool(np.isfinite(preds).all()),
+              f"[{label}] window predictions {preds.shape}, finite {np.isfinite(preds).all()}")
         torch.cuda.reset_peak_memory_stats()
         graph_ms = []
         for i, ((kind, arrays), ref, ref_counts) in enumerate(
@@ -1138,15 +1198,52 @@ def main() -> None:
               f"{replay_peak / 2**30:.2f} GiB; after, {held / 2**30:.2f} GiB allocated and "
               f"{reserved / 2**30:.2f} GiB reserved (the graphs' pool "
               f"{(reserved - held) / 2**30:.2f} GiB)")
-        return counts, preds
+        return counts, preds, scores
 
     def set_launches(counts, names):
         for entry in kernels:
             if entry["name"] in names:
                 entry["launches"] = counts[names[entry["name"]]]
 
+    def drive(fn):
+        """Run ``fn`` with every launch count set to 0 just before and read
+        just after; returns (counts, wall seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, counts = counted(lambda: (fn(), torch.cuda.synchronize()))
+        return counts, time.perf_counter() - t0
+
+    def step_p50(tr, label, n_steps, expect=None, warmup=0):
+        """p50 of ``train_step`` (CUDA events) over the next ``n_steps``
+        shuffled train batches (epoch after epoch), their inputs prepared
+        first, after ``warmup`` untimed steps; ``expect`` maps kernels to
+        their launches in every step."""
+        epochs = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
+        arrays = [tr.train_model_inputs(b) for b in itertools.islice(epochs, warmup + n_steps)]
+        step_ms = []
+        for i, a in enumerate(arrays):
+            for w in wrappers.values():
+                w.launches = 0
+            start.record()
+            loss = tr.train_step(a, a["valid"])
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                step_ms.append(start.elapsed_time(end))
+            counts = {name: w.launches for name, w in wrappers.items()}
+            check(math.isfinite(float(loss)), f"{label}: non-finite loss {float(loss)}")
+            for name, n in (expect or {}).items():
+                check(counts[name] == n, f"{label}: {name} launched {counts[name]} times "
+                      f"in a train step, not {n}: {counts}")
+        bsz = tr.config.training.batch_size
+        p50 = statistics.median(step_ms)
+        print(f"[{label}] train step p50 {p50:.2f} ms per batch of {bsz} "
+              f"({bsz * 1000 / p50:.1f} windows/s at p50; {len(step_ms)} steps after {warmup} "
+              f"untimed: {step_ms}); launches in the last step {counts}")
+        return p50
+
     # 4. the llama serving path, through the user's entry point
-    counts, _ = serve(trainer, "slice")
+    counts, _, _ = serve(trainer, "slice")
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                  "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the serving path")
@@ -1178,8 +1275,159 @@ def main() -> None:
           f"max_abs_err {err:.3e} (tol {tol:.3e})")
     del gpu, cpu
 
+    # 6a-6d. the tasks under "mixed" at the shipped configs' widths
+    # (configs/datasets/*.toml on synthetic data): a dense Llama-2-7B backbone
+    # stored at bf16 (no quantization: K1 never runs), f32 fusion layers; K2
+    # at bf16 over the cached [bos + dataset] head, K3 at f32 in eval (the
+    # train step runs the einsum graph at bf16). Their K2 / K3 launches and
+    # shapes are printed here; the kernels line keeps the main paths'
+    def build_task(label, cfg):
+        """Build a task's trainer on the card: seconds, peak memory, the
+        storage policy; K2 and K3 held at the shapes its eval step gives
+        them (printed, not listed)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = get_trainer(f"chip-smoke-{label}", cfg, device=dev)
+        torch.cuda.synchronize()
+        wrong = [n for n, p in tr.model.named_parameters() if p.is_floating_point()
+                 and (p.dtype, p.requires_grad) != ((torch.bfloat16, False)
+                                                    if n.startswith("llm.")
+                                                    else (torch.float32, True))]
+        check(not wrong, f"[{label}] parameters off the mixed policy: {wrong[:5]}")
+        n_all = sum(p.numel() for p in tr.model.parameters())
+        n_train = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+        print(f"[{label}] model built in {time.perf_counter() - t0:.1f} s: {n_all:,} "
+              f"parameters, {n_train:,} trainable at f32, the backbone at bf16; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        Pt, Lt = window_shapes(tr)
+        Bt, tl, tm = cfg.training.batch_size, tr.model.llm_cfg, cfg.models.timellm
+        print(f"[shapes] {label}: task {cfg.task}, P={Pt} L={Lt} B={Bt} "
+              f"patches={tr.model.n_patches} layers={tl.n_layers} d={tl.d_model}")
+        check_k2(f"rope_attention[{label}]", Bt, Lt, tl.n_heads, tl.kv_heads, tl.head_dim, Pt,
+                 tl.rope_theta, listed=False)
+        check_k3(f"reprogramming_attention[{label}]", Bt, tr.model.n_patches, tm.n_heads,
+                 tm.d_ff, tm.num_tokens, listed=False)
+        return tr
+
+    def check_scores(label, task, scores, split):
+        want = {f"{split}/{k}" for k in TASK_KEYS[task]}
+        check(set(scores) == want, f"[{label}] {split} keys {sorted(scores)}, not {sorted(want)}")
+        check(finite(scores.values()), f"[{label}] non-finite {split} scores {scores}")
+
+    def serve_task(tr, label):
+        """``serve()`` (the graphs an earlier ``val()`` captured dropped
+        first, so ``test()`` captures its own) over 32 test batches; then K2
+        once per layer per test batch and in the prefill, K3 once per batch,
+        K1 never."""
+        tr.step_graphs.clear()
+        counts, _, scores = serve(tr, label)
+        check_scores(label, tr.config.task, scores, "test")
+        n_b, n_l = len(tr.test_pipeline), tr.model.llm_cfg.n_layers
+        check(n_b == 32, f"[{label}] the test split gives {n_b} batches, not 32")
+        check(counts["rope_attention"] == n_l * (n_b + 1)
+              and counts["reprogramming_attention"] == n_b
+              and counts["w8a8_gemm"] == counts["w8a8_quantize"] == 0,
+              f"[{label}] test() launches {counts}")
+        print(f"[{label}] K2 launches {counts['rope_attention']} ({n_l} layers x ({n_b} "
+              f"batches + the prefill)), K3 {counts['reprogramming_attention']}, K1 0")
+
+    # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
+    # bce, history 256, batch 16): train() on 8320 points a split (64 train
+    # windows, four batches; 64 val windows), then served from a trainer of
+    # SERVED_POINTS[history] points a split (the synthetic splits share one
+    # length) that loads the trained weights
+    cfg_t = task_config(Config, BIDMC_TOML, n_points=8320)
+    tr = build_task("bidmc", cfg_t)
+    n_steps, n_l = len(tr.train_pipeline), tr.model.llm_cfg.n_layers
+    check(n_steps == 4, f"the bidmc train split gives {n_steps} batches, not 4")
+    trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                 if p.requires_grad}
+    frozen = {n: torch.sum(t, dtype=torch.float64) for n, t in tr.model.state_dict().items()
+              if n.startswith("llm.")}
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    print(f"[bidmc-train] train() {n_steps} steps of {cfg_t.training.batch_size} and val() "
+          f"over {len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; "
+          f"val {tr.val_scores}; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"bidmc losses {tr.losses}")
+    check_scores("bidmc", "segmentation", tr.val_scores[0], "val")
+    check(counts["rope_attention"] == n_l * (n_steps + len(tr.val_pipeline) + 2)
+          and counts["reprogramming_attention"] == len(tr.val_pipeline)
+          and counts["w8a8_gemm"] == 0,
+          f"bidmc train(): K2 once per layer per step, per val batch and in each of the two "
+          f"prefills (the train cache at bf16, the eval cache at f32), K3 per val batch "
+          f"(training runs the einsum graph): {counts}")
+    state = tr.model.state_dict()
+    unchanged = [n for n, t in trainable.items() if torch.equal(state[n], t)]
+    check(not unchanged, f"bidmc trainable parameters that did not change: {unchanged}")
+    check(all(torch.sum(state[n], dtype=torch.float64) == v for n, v in frozen.items()),
+          "the bidmc backbone changed")
+    del trainable, frozen, state
+    step_p50(tr, "bidmc-train", 16, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                     "w8a8_gemm": 0}, warmup=1)
+    print(f"[bidmc-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_scores("bidmc", "segmentation", tr.val(), "val")
+    served = get_trainer("chip-smoke-bidmc-served",
+                         task_config(Config, BIDMC_TOML, n_points=SERVED_POINTS[256]), device=dev)
+    served.load_state_dict(tr.model.state_dict())
+    del tr
+    torch.cuda.empty_cache()
+    serve_task(served, "bidmc")
+    del served
+    torch.cuda.empty_cache()
+
+    # 6b. anomaly detection, configs/datasets/ecgmit-anom.toml (history 128,
+    # mse, threshold auto, normalize_by_feature)
+    tr = build_task("ecgmit-anom", task_config(Config, ECG_ANOM_TOML,
+                                               n_points=SERVED_POINTS[128]))
+    serve_task(tr, "ecgmit-anom")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 6c. semantic segmentation, configs/datasets/ventilator.toml's settings
+    # (binary, bce, input statistics in the prompt) at llm_layers = 4
+    tr = build_task("ventilator", task_config(Config, VENTILATOR_TOML,
+                                              n_points=SERVED_POINTS[256], llm_layers=4))
+    check(tr.model.n_classes == 2 and tr.model.n_outputs_per_step == 1,
+          "the ventilator slice is binary: one logit a step")
+    serve_task(tr, "ventilator")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 6d. each task's window predictions on the card against the CPU's plain
+    # versions, same seeded weights: 2-layer llama-1b (GQA 32 / 4 x 64),
+    # history 64, batch 2, under mixed. The card's K2 rounds the rotation once
+    # where the plain version rounds it three times (a bf16 row within 1.1-1.3
+    # x 2^-6 of its max, PERF.md), and cuBLAS and the CPU sum the bf16
+    # matmuls in their own orders: 2^-5 x max |CPU|
+    for label, toml in (("bidmc", BIDMC_TOML), ("ecgmit-anom", ECG_ANOM_TOML),
+                        ("ventilator", VENTILATOR_TOML)):
+        small = task_config(Config, toml, n_points=512, llm="llama-1b", llm_layers=2,
+                            history=64, batch=2)
+        gpu = get_trainer("chip-smoke-task-small", small, device=dev)
+        cpu = get_trainer("chip-smoke-task-small", small, device="cpu")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+        counts, _ = drive(lambda: gpu.run_eval(gpu.test_pipeline))
+        out_gpu = gpu.run_eval(gpu.test_pipeline)["pred"]
+        out_cpu = cpu.run_eval(cpu.test_pipeline)["pred"]
+        err = float(np.abs(out_gpu - out_cpu).max())
+        tol = 2.0 ** -5 * float(np.abs(out_cpu).max())
+        check(counts["rope_attention"] > 0 and counts["reprogramming_attention"] > 0,
+              f"[reference-task] {label}: the card's pass must launch K2 and K3: {counts}")
+        check(err <= tol, f"[reference-task] {label}: card vs CPU max err {err} > {tol}")
+        sg, sc = gpu.test(), cpu.test()
+        check_scores(label, small.task, sg, "test")
+        print(f"[reference-task] {label} ({small.task}) llama-1b 2-layer mixed slice, card vs "
+              f"CPU test() window predictions {out_cpu.shape}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); scores card {sg} / CPU {sc}")
+        del gpu, cpu
+    torch.cuda.empty_cache()
+
     # 6. the Mamba serving path (prompt-state cache), then one uncached pass
-    counts, preds = serve(mtrainer, "mamba")
+    counts, preds, _ = serve(mtrainer, "mamba")
     for name in ("selective_scan_h0", "selective_scan_final", "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the Mamba path")
     # the serving path runs the scan's forms through the gated interface;
@@ -1192,7 +1440,7 @@ def main() -> None:
     unc = get_trainer("chip-smoke-mamba-uncached",
                       mamba_config(Config, prefix_cache=False), device=dev)
     unc.load_state_dict(mtrainer.model.state_dict())
-    counts, preds_u = serve(unc, "mamba-uncached")
+    counts, preds_u, _ = serve(unc, "mamba-uncached")
     check(counts["selective_scan"] > 0 and counts["selective_scan_h0"] == 0,
           f"the uncached pass must run the scan from h = 0: {counts}")
     set_launches(counts, {"selective_scan_gated": "selective_scan"})
@@ -1227,40 +1475,6 @@ def main() -> None:
 
     del gpu, cpu
     torch.cuda.empty_cache()
-
-    def drive(fn):
-        """Run ``fn`` with every launch count set to 0 just before and read
-        just after; returns (counts, wall seconds)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, counts = counted(lambda: (fn(), torch.cuda.synchronize()))
-        return counts, time.perf_counter() - t0
-
-    def step_p50(tr, label, n_steps, expect=None):
-        """p50 of ``train_step`` (CUDA events) over the next shuffled train
-        batches, their inputs prepared first; ``expect`` maps kernels to
-        their launches in every step."""
-        arrays = [tr.train_model_inputs(b) for _, b in zip(range(n_steps), tr.train_pipeline)]
-        step_ms = []
-        for a in arrays:
-            for w in wrappers.values():
-                w.launches = 0
-            start.record()
-            loss = tr.train_step(a, a["valid"])
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            counts = {name: w.launches for name, w in wrappers.items()}
-            check(math.isfinite(float(loss)), f"{label}: non-finite loss {float(loss)}")
-            for name, n in (expect or {}).items():
-                check(counts[name] == n, f"{label}: {name} launched {counts[name]} times "
-                      f"in a train step, not {n}: {counts}")
-        bsz = tr.config.training.batch_size
-        p50 = statistics.median(step_ms)
-        print(f"[{label}] train step p50 {p50:.2f} ms per batch of {bsz} "
-              f"({bsz * 1000 / p50:.1f} windows/s at p50; per step {step_ms}); launches "
-              f"in the last step {counts}")
-        return p50
 
     # 8. the Mamba train path through the user's entry point: one epoch of
     # four shuffled batches of 48 (n_points 24704: 192 train and val
@@ -1391,7 +1605,7 @@ def main() -> None:
     # 11. the MoE serving path (K6 both forms, K1, K2, K3)
     n_layers = xcfg.n_layers
     etrainer = get_trainer("chip-smoke-moe", ecfg, device=dev)
-    counts, _ = serve(etrainer, "moe")
+    counts, _, _ = serve(etrainer, "moe")
     n_calls = n_layers * (len(etrainer.test_pipeline) + 1)  # every batch + the prefill
     check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
           == counts["grouped_matmul_requant"] == n_calls,
@@ -1482,7 +1696,7 @@ def main() -> None:
     bmm.load_state_dict(etrainer.model.state_dict())
     del etrainer
     torch.cuda.empty_cache()
-    counts, _ = serve(bmm, "moe-bmm")
+    counts, _, _ = serve(bmm, "moe-bmm")
     check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
           == counts["grouped_matmul_requant"] == 0 and counts["w8a8_gemm"] > 0,
           f"the bmm pass must run K1 per expert, not K6: {counts}")
@@ -1494,7 +1708,7 @@ def main() -> None:
     # and K5, K1's GEMM never
     tr = get_trainer("chip-smoke-int4", bench_config(Config, quant_type="int4"), device=dev)
     check(tr.model.llm.blocks[0].attn.q_proj.bits == 4, "the int4 backbone")
-    counts, _ = serve(tr, "int4")
+    counts, _, _ = serve(tr, "int4")
     n_calls = lcfg.n_layers * (len(tr.test_pipeline) + 1)  # every batch + the prefill
     check(counts["w4a8_gemm"] == 7 * n_calls and counts["w8a8_gemm"] == 0
           and counts["w8a8_quantize"] == 7 * n_calls,
@@ -1509,7 +1723,7 @@ def main() -> None:
     etrainer = get_trainer("chip-smoke-moe-int4", moe_config(Config, int4=True), device=dev)
     check(etrainer.model.llm_cfg.moe_grouped, "moe_grouped = \"auto\" must resolve on for "
           "absmax int4 experts on the card")
-    counts, _ = serve(etrainer, "moe-int4")
+    counts, _, _ = serve(etrainer, "moe-int4")
     n_calls = xcfg.n_layers * (len(etrainer.test_pipeline) + 1)
     check(counts["grouped_matmul_w4_gate_up"] == counts["grouped_matmul_w4_down"]
           == counts["grouped_matmul_requant"] == n_calls
@@ -1720,7 +1934,7 @@ def main() -> None:
 
     n_batches = len(tr.test_pipeline)
     check(n_batches == 2, f"the long window gives {n_batches} test batches, not 2")
-    counts, preds = serve(tr, "long")
+    counts, preds, _ = serve(tr, "long")
     check(counts["rope_flash_attention"] == counts["rope_flash_keys"] == n_block * n_batches
           and counts["rope_attention"] == n_block and counts["flash_attention"] == 0,
           f"the long window must run the K4 route {n_block} times per batch and K2 only in "
@@ -1801,7 +2015,7 @@ def main() -> None:
     cfg_x = long_config(Config, history=4096, d_ff=128)
     tr = get_trainer("chip-smoke-crossover", cfg_x, device=dev)
     P_x, L_x = window_shapes(tr)
-    counts, _ = serve(tr, "crossover")
+    counts, _, _ = serve(tr, "crossover")
     n_batches = len(tr.test_pipeline)
     on_k4 = P_x + L_x >= tfm.K4_MIN_KEYS
     want = ({"rope_flash_attention": n_block * n_batches, "rope_attention": n_block}

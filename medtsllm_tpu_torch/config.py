@@ -1,17 +1,21 @@
-"""Attribute-access config trees (the subset of ``medtsllm_tpu/config.py``
-the port reads). Any mapping with attribute access and ``.get`` works as a
-config, the JAX package's ``Config`` included; this one lets the port run
-without that package.
+"""Config trees: TOML loading, attribute access and the schema checks of
+the keys the port reads (the subset of ``medtsllm_tpu/config.py``:
+``Config``, ``load_config``, ``loads_config`` and ``validate_config``).
+
+Any mapping with attribute access and ``.get`` works as a config, the JAX
+package's ``Config`` included; this one lets the port run without that
+package.
 """
 
 from __future__ import annotations
 
+import tomllib
 from typing import Any
 
 
 class Config:
     """Recursive attribute-access wrapper over a nested dict: attribute and
-    item access, ``in`` and ``.get(key, default)``."""
+    item access, ``in``, ``.get(key, default)`` and ``to_dict``."""
 
     __slots__ = ("_data",)
 
@@ -33,6 +37,82 @@ class Config:
     def get(self, key: str, default: Any = None) -> Any:
         return self._data.get(key, _wrap(default))
 
+    def to_dict(self) -> dict:
+        return {k: v.to_dict() if isinstance(v, Config) else v
+                for k, v in self._data.items()}
+
 
 def _wrap(v: Any) -> Any:
     return Config(v) if isinstance(v, dict) else v
+
+
+def load_config(path) -> Config:
+    with open(path, "rb") as f:
+        return Config(tomllib.load(f))
+
+
+def loads_config(text: str) -> Config:
+    return Config(tomllib.loads(text))
+
+
+# the names validate_config knows (medtsllm_tpu/config.py:239-254)
+KNOWN_TASKS = ("forecasting", "reconstruction", "anomaly_detection", "segmentation",
+               "semantic_segmentation", "pretraining", "classification", "imputation")
+KNOWN_MODELS = ("medtsllm", "timellm", "gpt4ts", "dlinear", "patchtst", "timesnet",
+                "fedformer")
+KNOWN_OPTIMIZERS = ("adam", "adamw", "sgd", "ranger", "ranger21", "ranger_classic")
+KNOWN_SCHEDULERS = ("none", "constant", "cosine", "linear")
+KNOWN_DTYPES = ("bfloat16", "bf16", "float16", "half", "fp16", "16", "float32", "float",
+                "fp32", "32", "mixed")
+
+
+class ConfigError(ValueError):
+    pass
+
+
+def validate_config(config):
+    """The checks of ``medtsllm_tpu/config.py:256-341`` on the keys the
+    port reads: task, model, lengths, dataset, optimizer, scheduler,
+    ``setup.dtype``, the aligned-window tasks' equal lengths and the
+    anomaly-detection and segmentation tables."""
+    def require(cond, msg):
+        if not cond:
+            raise ConfigError(msg)
+
+    require("task" in config, "config missing top-level `task`")
+    require("model" in config, "config missing top-level `model`")
+    require(config.task in KNOWN_TASKS, f"unknown task {config.task!r}")
+    require(config.model in KNOWN_MODELS, f"unknown model {config.model!r}")
+    require("history_len" in config and "pred_len" in config,
+            "config missing history_len/pred_len")
+    require("data" in config and "dataset" in config.data, "config missing [data] dataset")
+    require("training" in config, "config missing [training]")
+    t = config.training
+    require(t.get("optimizer", "adam") in KNOWN_OPTIMIZERS,
+            f"invalid optimizer {t.get('optimizer')!r}")
+    require(t.get("lr_scheduler") in (None,) + KNOWN_SCHEDULERS,
+            f"invalid lr_scheduler {t.get('lr_scheduler')!r}")
+    require(int(t.get("grad_accum_steps", 1) or 1) >= 1,
+            "training.grad_accum_steps must be >= 1")
+    require(float(t.get("grad_clip_norm", 0) or 0) >= 0,
+            "training.grad_clip_norm must be >= 0")
+    if "setup" in config:
+        dt = config.setup.get("dtype", "float32")
+        require(dt in KNOWN_DTYPES or isinstance(dt, int), f"invalid dtype {dt!r}")
+    if config.task in ("reconstruction", "anomaly_detection", "semantic_segmentation",
+                       "segmentation", "classification", "imputation"):
+        require(config.history_len == config.pred_len,
+                f"{config.task} requires history_len == pred_len "
+                f"(got {config.history_len} != {config.pred_len})")
+    tasks = config.get("tasks", {})
+    if config.task == "anomaly_detection":
+        ad = tasks.get("anomaly_detection", None)
+        require(ad is not None and "threshold" in ad and "normalize_by_feature" in ad,
+                "anomaly_detection requires [tasks.anomaly_detection] with `threshold` "
+                "and `normalize_by_feature`")
+    if config.task == "segmentation":
+        sg = tasks.get("segmentation", None)
+        require(sg is not None and "mode" in sg and "distance_thresh" in sg,
+                "segmentation requires [tasks.segmentation] with `mode` and "
+                "`distance_thresh`")
+    return config

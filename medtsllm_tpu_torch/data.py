@@ -1,15 +1,16 @@
-"""Host data for the slice: the synthetic dataset family on the
-reconstruction task (train, val and test splits), fixed-shape batches
-(shuffled for training), the background prefetch of batches and window
-stitching.
+"""Host data: the synthetic dataset family on the reconstruction,
+anomaly-detection, segmentation and semantic-segmentation tasks (train,
+val and test splits, with their labels), fixed-shape batches (shuffled for
+training), the background prefetch of batches and window stitching.
 
 A copy of the parts of ``medtsllm_tpu/data`` (synthetic.py rng_for /
-sine_mixture, base.py StandardScaler and windowing, readers/synthetic.py,
-pipeline.py BatchPipeline and prefetch, windowing.py AlignedWindows /
-stitch_windows)
-the serving path runs, so the port runs without the JAX package. The same
-config gives the same numbers as the JAX package's data
-(tests/test_torch_medtsllm.py).
+sine_mixture / inject_anomalies / periodic_boundaries /
+segment_class_labels, base.py StandardScaler, label conversion and
+windowing, readers/synthetic.py, pipeline.py BatchPipeline and prefetch,
+windowing.py AlignedWindows / steps_to_boundary_labels / stitch_windows /
+dedup_eval_series) the port runs, so it runs without the JAX package. The
+same config gives the same arrays as the JAX package's ``get_dataset``
+(tests/test_torch_tasks.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import threading
 import zlib
 
 import numpy as np
+
 
 
 def rng_for(family: str, split: str = "") -> np.random.Generator:
@@ -40,44 +42,128 @@ def sine_mixture(rng, n: int, n_features: int, n_components: int = 4,
     return out
 
 
+def inject_anomalies(rng, data: np.ndarray, rate: float = 0.02, min_len: int = 5,
+                     max_len: int = 50):
+    """Insert contiguous anomalous segments (spikes / level shifts) in
+    place. Returns (data, labels [n] int)."""
+    n = data.shape[0]
+    labels = np.zeros(n, dtype=np.int64)
+    n_anom_pts = int(rate * n)
+    pts = 0
+    while pts < n_anom_pts:
+        length = int(rng.integers(min_len, max_len + 1))
+        start = int(rng.integers(0, max(1, n - length)))
+        kind = rng.integers(0, 2)
+        seg = slice(start, start + length)
+        if kind == 0:
+            data[seg] += rng.normal(0, 3.0, size=data[seg].shape)
+        else:
+            data[seg] += rng.uniform(2.0, 5.0) * rng.choice([-1.0, 1.0])
+        labels[seg] = 1
+        pts += length
+    return data, labels
+
+
+def periodic_boundaries(rng, n: int, mean_period: float, jitter: float = 0.2) -> np.ndarray:
+    """Binary boundary indicators with jittered periodic spacing."""
+    labels = np.zeros(n, dtype=np.int64)
+    pos = float(rng.uniform(0.3, 1.0) * mean_period)
+    while pos < n:
+        labels[int(pos)] = 1
+        pos += mean_period * float(rng.uniform(1 - jitter, 1 + jitter))
+    return labels
+
+
+def segment_class_labels(rng, n: int, n_classes: int, mean_seg: float) -> np.ndarray:
+    """Piecewise-constant class labels, the classes in turn."""
+    labels = np.zeros(n, dtype=np.int64)
+    pos = cls = 0
+    while pos < n:
+        length = max(3, int(rng.normal(mean_seg, mean_seg * 0.3)))
+        labels[pos:pos + length] = cls
+        cls = (cls + 1) % n_classes
+        pos += length
+    return labels
+
+
+def steps_to_boundary_labels(labels_binary: np.ndarray) -> np.ndarray:
+    """Boundary indicators -> the distance to the next boundary (the end of
+    the series counts as one) over the length of the segment it ends."""
+    n = len(labels_binary)
+    changepts = np.append(np.flatnonzero(labels_binary), n)
+    seg_idx = np.searchsorted(changepts, np.arange(n), side="left")
+    cp = changepts[seg_idx]
+    prev_cp = np.where(seg_idx > 0, changepts[np.maximum(seg_idx - 1, 0)], 0)
+    seg_len = (cp - prev_cp).astype(np.float32)
+    return ((cp - np.arange(n)) / seg_len).astype(np.float32)
+
+
 class SyntheticDataset:
-    """The synthetic sinusoid-mixture family, reconstruction windows
-    [i * step, i * step + pred_len), z-scored with train-split statistics;
-    test windows do not overlap (step = pred_len)."""
+    """The synthetic sinusoid-mixture family for one (task, split): windows
+    [i * step, i * step + pred_len) (step = pred_len on the test split),
+    z-scored with train-split statistics, with the task's labels:
+    anomalies injected into val and test (anomaly detection), jittered
+    periodic boundaries (segmentation; as distances to the next one in
+    ``steps-to-boundary`` mode) or piecewise-constant classes (semantic
+    segmentation, ``datasets.synthetic.n_classes``, default 2)."""
 
     description = "A synthetic sinusoid-mixture dataset used for testing."
+    univariate = False
+    clip_dataset = False
 
     def __init__(self, config, split: str):
-        if config.data.dataset != "synthetic" or config.task != "reconstruction":
+        self.task = config.task
+        if config.data.dataset != "synthetic":
             raise NotImplementedError(
-                f"dataset {config.data.dataset!r} / task {config.task!r}: the "
-                "port reads the synthetic reconstruction data (ROADMAP queue 1, "
-                "\"The other tasks, the mixed dtype, the data and the CLIs\")")
+                f"dataset {config.data.dataset!r}: the port reads the synthetic family "
+                "(ROADMAP queue 1, \"The file readers\")")
         if config.data.mode != "multivariate" or config.data.cols != "all":
-            raise NotImplementedError("the port reads multivariate, all-column data")
+            raise NotImplementedError("the port reads multivariate, all-column data "
+                                      "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
         ds = config.get("datasets", {}).get("synthetic", {})
         if ds.get("clips", False):
-            raise NotImplementedError("clip datasets are ROADMAP queue 1, \"The other "
-                                      "tasks, the mixed dtype, the data and the CLIs\"")
+            raise NotImplementedError("clip datasets are ROADMAP queue 1, \"Clip "
+                                      "datasets, per-clip heads and the banked eval\"")
         if config.history_len != config.pred_len:
-            raise ValueError("reconstruction requires history_len == pred_len")
+            raise ValueError(f"{self.task} requires history_len == pred_len")
+        self.task_config = config.get("tasks", {}).get(self.task, {})
+        self.dataset_config = ds
         self.split = split
         self.pred_len = config.pred_len
         self.step_size = config.pred_len if split == "test" else config.data.step
-        n = int(ds.get("n_points", 2048))
-        C = int(ds.get("n_features", 3))
-
-        def series(s):
-            return sine_mixture(rng_for("synthetic:synthetic", s), n, C,
-                                period_range=(16, 256), noise=0.1)
-
-        data = series(split)
+        got = self.generate(split)
+        data = got["data"]
         if config.data.normalize:
-            train = data if split == "train" else series("train")
+            train = data if split == "train" else self.generate("train")["data"]
             mean, std = train.mean(axis=0), train.std(axis=0)
             data = (data - mean) / np.where(std == 0.0, 1.0, std)
         self.data = data.astype(np.float32)
+        self.labels = got.get("labels")
+        if self.labels is not None:
+            n_labels = len(np.unique(self.labels))
+            self.labels = self.labels.astype(np.int64 if n_labels > 2 else np.int32)
+        if self.task == "segmentation":
+            mode = self.task_config.mode
+            if mode == "steps-to-boundary":
+                self.labels = steps_to_boundary_labels(self.labels)
+            elif mode != "boundary-prediction":
+                raise ValueError(f"Segmentation mode {mode} not supported")
         self._len = max(0, (self.n_points - self.pred_len) // self.step_size + 1)
+
+    def generate(self, split: str) -> dict:
+        n = int(self.dataset_config.get("n_points", 2048))
+        C = int(self.dataset_config.get("n_features", 3))
+        rng = rng_for("synthetic:synthetic", split)
+        data = sine_mixture(rng, n, C, period_range=(16, 256), noise=0.1)
+        out = {"data": data}
+        if self.task == "anomaly_detection":
+            if split != "train":
+                out["data"], out["labels"] = inject_anomalies(rng, data, rate=0.05)
+        elif self.task == "segmentation":
+            out["labels"] = periodic_boundaries(rng, n, mean_period=100)
+        elif self.task == "semantic_segmentation":
+            out["labels"] = segment_class_labels(rng, n, self.n_classes, mean_seg=64)
+        return out
 
     def __len__(self) -> int:
         return self._len
@@ -90,12 +176,23 @@ class SyntheticDataset:
     def n_features(self) -> int:
         return self.data.shape[1]
 
+    real_features = n_features
+
+    @property
+    def n_classes(self) -> int:
+        if self.task == "semantic_segmentation":
+            return int(self.dataset_config.get("n_classes", 2))
+        return 0
+
     def x_starts(self, idx) -> np.ndarray:
         return np.asarray(idx) * self.step_size
 
     def __getitem__(self, idx: int) -> dict:
         s = int(idx) * self.step_size
-        return {"x_enc": self.data[s:s + self.pred_len]}
+        out = {"x_enc": self.data[s:s + self.pred_len]}
+        if self.labels is not None:
+            out["labels"] = self.labels[s:s + self.pred_len]
+        return out
 
 
 class BatchPipeline:
@@ -124,8 +221,9 @@ class BatchPipeline:
             idx = np.concatenate([idx, np.repeat(idx[-1], B - n_valid)])
             valid = np.zeros(B, dtype=bool)
             valid[:n_valid] = True
-            yield {"x_enc": np.stack([self.dataset[j]["x_enc"] for j in idx]),
-                   "index": idx.astype(np.int32), "valid": valid}
+            items = [self.dataset[j] for j in idx]
+            batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+            yield dict(batch, index=idx.astype(np.int32), valid=valid)
 
 
 def prefetch(iterator, size: int = 2):
@@ -171,10 +269,30 @@ def prefetch(iterator, size: int = 2):
 
 
 def stitch_windows(values: np.ndarray, starts: np.ndarray, n_points: int,
-                   n_channels: int) -> np.ndarray:
-    """Scatter [W, L, C] window values into one [n_points, C] series; later
-    windows overwrite earlier ones; uncovered points stay NaN."""
-    out = np.full((n_points, n_channels), np.nan, dtype=np.float32)
-    time_idx = np.asarray(starts)[:, None] + np.arange(values.shape[1])[None, :]
-    out[time_idx.ravel()] = values.reshape(-1, n_channels)
+                   n_channels: int | None = None, features: np.ndarray | None = None,
+                   fill=np.nan) -> np.ndarray:
+    """Scatter per-window values [W, L] or [W, L, C] into one series [n_points]
+    (``n_channels`` None) or [n_points, n_channels]; with ``features`` [W]
+    each window fills its own channel. Later windows overwrite earlier ones;
+    uncovered points keep ``fill``."""
+    starts = np.asarray(starts)
+    shape = (n_points,) if n_channels is None else (n_points, n_channels)
+    out = np.full(shape, fill, dtype=np.float32)
+    if len(starts) == 0:
+        return out
+    time_idx = starts[:, None] + np.arange(values.shape[1])[None, :]
+    if n_channels is None:
+        out[time_idx.ravel()] = values.reshape(-1)
+    elif features is not None:
+        feat_idx = np.broadcast_to(np.asarray(features)[:, None], time_idx.shape)
+        out[time_idx.ravel(), feat_idx.ravel()] = values.reshape(-1)
+    else:
+        out[time_idx.ravel()] = values.reshape(time_idx.size, -1)
     return out
+
+
+def dedup_eval_series(arr: np.ndarray, step: int, pred_len: int) -> np.ndarray:
+    """step > pred_len: cut to a multiple of step, then keep the first
+    pred_len points of every step-sized block."""
+    arr = arr[:arr.shape[0] - arr.shape[0] % step]
+    return arr.reshape(-1, step, *arr.shape[1:])[:, :pred_len].reshape(-1, *arr.shape[1:])

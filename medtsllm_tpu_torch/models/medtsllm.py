@@ -5,9 +5,12 @@ host-side PromptBuilder).
 RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
 cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
 (llama: kernels K1, K2; Mamba: the selective-scan kernel) -> d_ff
-downsample -> FlattenHead -> RevIN denorm. The constant prompt head is
-prefilled once and served as per-layer prefix K/V (llama) or per-layer
-(conv tail, SSM state) (Mamba).
+downsample -> FlattenHead -> the task's head: RevIN denorm
+(reconstruction, anomaly detection) or the per-step scores of
+segmentation (one logit) and semantic segmentation (one logit, or one per
+class past two), with the sigmoid / softmax in eval. The constant prompt
+head is prefilled once and served as per-layer prefix K/V (llama) or
+per-layer (conv tail, SSM state) (Mamba).
 
 Training (``model.train()``): the backbone is frozen (``requires_grad =
 False`` under ``llm``, ``param_labels`` of the JAX model) and every fusion
@@ -16,10 +19,11 @@ reprogramming attention weights, with masks from the generator ``forward``
 is given. The reprogramming attention then runs the plain einsum/softmax
 graph, as JAX does (K3 has no backward).
 
-Scope: covariate mode ``concat``, the reconstruction task, an enabled
-llama (dense or mixtral-style MoE, served on one device) or dense Mamba
-backbone, no in-context examples and no per-clip prompt heads; anything
-else raises NotImplementedError naming its ROADMAP item.
+Scope: covariate mode ``concat``, an enabled llama (dense or
+mixtral-style MoE, served on one device) or dense Mamba backbone, no
+in-context examples and no per-clip prompt heads; anything else raises
+NotImplementedError naming its ROADMAP item. The tasks are those of
+``tasks.task_lookup`` (``get_trainer`` refuses the others).
 """
 
 from __future__ import annotations
@@ -42,23 +46,62 @@ from .llm.transformer import Linear, TransformerDecoder
 # batch keys that enter the model as arrays (medtsllm_tpu/utils.py)
 ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
 
+# the task prompts (medtsllm_tpu/models/medtsllm.py:926-945), by task
+TASK_DESCRIPTIONS = {
+    "reconstruction": "Reconstruct the past {seq} steps of data as accurately as possible "
+                      "using the following information.",
+    "anomaly_detection": "Reconstruct the past {seq} steps of data as accurately as "
+                         "possible using the following information.",
+    "semantic_segmentation": "Classify the past {seq} steps of data as accurately as "
+                             "possible using the following information.",
+    "segmentation": "Identify the change points in the past {seq} steps of data to segment "
+                    "the sequence.",
+}
+
 # models.<m>.llm.quant_type under load_in_4bit -> the 4-bit codebook
 # (medtsllm_tpu/models/medtsllm.py:259-267)
 QUANT4_CODEBOOKS = {"int4": "absmax", "linear": "absmax", "nf4": "nf4", "fp4": "fp4"}
 
-# [setup] dtype -> storage dtype of every float parameter (the JAX
-# package's Precision; "mixed" and fp16 are not ported yet)
-STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-                  "float32": torch.float32, "float": torch.float32,
-                  "fp32": torch.float32}
+# [setup] dtype -> the dtype of every float parameter and of the compute
+# (the JAX package's Precision, medtsllm_tpu/utils.py:45-82)
+_f32, _bf16, _f16 = torch.float32, torch.bfloat16, torch.float16
+DTYPES = {"bfloat16": _bf16, "bf16": _bf16, "float16": _f16, "half": _f16, "fp16": _f16,
+          "16": _f16, 16: _f16, "float32": _f32, "float": _f32, "fp32": _f32, "32": _f32,
+          32: _f32}
+# [setup] dtype -> the backbone's compute dtype (the JAX model's llm_dtype,
+# medtsllm_tpu/models/medtsllm.py:414-419): bf16 under "mixed"; the names
+# it lacks, "16" and 16 among them, compute at f32
+LLM_DTYPES = {"bfloat16": _bf16, "bf16": _bf16, "mixed": _bf16, "float16": _f16,
+              "half": _f16, "fp16": _f16}
 
 
-def storage_dtype(config) -> torch.dtype:
-    name = str(config.setup.get("dtype", "float32"))
-    if name not in STORAGE_DTYPES:
-        raise NotImplementedError(f"setup.dtype {name!r}: the port stores f32 "
-                                  "or bf16 (ROADMAP queue 1 item 6)")
-    return STORAGE_DTYPES[name]
+class Precision:
+    """``param_dtype``: where parameters are stored; ``compute_dtype``: the
+    train step's. "mixed" stores trainable parameters at f32 and the frozen
+    backbone at bf16, and runs the train step at bf16 over bf16 casts of
+    the parameters and of the float inputs; eval runs in the parameters'
+    own precision."""
+
+    def __init__(self, name: str | int = "float32"):
+        self.mixed = name == "mixed"
+        if self.mixed:
+            self.param_dtype, self.compute_dtype = _f32, _bf16
+        elif name in DTYPES:
+            self.param_dtype = self.compute_dtype = DTYPES[name]
+        else:
+            raise ValueError(f"Invalid dtype selection: {name}")
+
+    @classmethod
+    def from_config(cls, config) -> "Precision":
+        return cls(config.setup.get("dtype", "float32"))
+
+    def storage(self, frozen: bool) -> torch.dtype:
+        """The storage dtype of a float parameter."""
+        return _bf16 if self.mixed and frozen else self.param_dtype
+
+
+def llm_dtype(config) -> torch.dtype:
+    return LLM_DTYPES.get(str(config.setup.get("dtype", "float32")), _f32)
 
 
 class ReprogrammingLayer(nn.Module):
@@ -98,14 +141,19 @@ class MedTsLLM(nn.Module):
     def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
                  num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
-                 dropout=0.0):
+                 dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
         self.patch_len, self.stride = patch_len, stride
         self.llm_cfg, self.llm_id, self.cache_dir = llm_cfg, llm_id, cache_dir
         self.prefix_cache = prefix_cache
-        self.n_outputs_per_step = n_features
+        self.task, self.n_classes, self.seg_mode = task, n_classes, seg_mode
+        # medtsllm_tpu/models/medtsllm.py:161-181
+        self.n_outputs_per_step = {
+            "segmentation": 1,
+            "semantic_segmentation": n_classes if n_classes > 2 else 1,
+        }.get(task, n_features)
         backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
         self.llm = backbone(
             llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
@@ -129,16 +177,20 @@ class MedTsLLM(nn.Module):
         ``llm.moe_grouped = "auto"``."""
         mc = cls.model_config(config)
         unported = []
-        if config.task != "reconstruction":
-            unported.append(f"task {config.task!r} (ROADMAP queue 1 item 7)")
+        task = config.task
+        seg_mode = config.tasks.segmentation.mode if task == "segmentation" else None
+        if seg_mode not in (None, "boundary-prediction", "steps-to-boundary"):
+            raise ValueError(f"Segmentation mode {seg_mode} not supported")
         if mc.covariate_mode != "concat":
             unported.append(f"covariate_mode {mc.covariate_mode!r} "
-                            "(ROADMAP queue 1 item 4)")
+                            "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
         if mc.embedding_downsample_mode != "linear":
             unported.append(f"embedding_downsample_mode "
-                            f"{mc.embedding_downsample_mode!r} (ROADMAP queue 1 item 4)")
+                            f"{mc.embedding_downsample_mode!r} (ROADMAP queue 1, "
+                            "\"MedTsLLM's remaining modes\")")
         if not mc.llm.enabled:
-            unported.append("llm.enabled = false (ROADMAP queue 1 item 4)")
+            unported.append("llm.enabled = false (ROADMAP queue 1, \"MedTsLLM's "
+                            "remaining modes\")")
         in4, in8 = mc.llm.get("load_in_4bit", False), mc.llm.get("load_in_8bit", False)
         codebook = "absmax"
         if in4:
@@ -151,19 +203,20 @@ class MedTsLLM(nn.Module):
         if ((in4 and codebook == "absmax") or (in8 and not in4)) and not mc.llm.get(
                 "int8_matmul", True):
             unported.append("weight-only int8 / int4, int8_matmul = false (ROADMAP queue "
-                            "1 item 3)")
+                            "1, \"Llama decoder, open parts\")")
         if mc.llm.get("int8_backward", False):
             unported.append("llm.int8_backward, the int8 dx GEMM of the STE backward "
-                            "(ROADMAP queue 1 item 6)")
+                            "(ROADMAP queue 1, \"Training on the served backbones\")")
         if mc.llm.get("fuse_projections", False):
-            unported.append("llm.fuse_projections (ROADMAP queue 1 item 3)")
+            unported.append("llm.fuse_projections (ROADMAP queue 1, \"Llama decoder, open "
+                            "parts\")")
         if "lora" in mc and mc.lora.enabled:
-            unported.append("LoRA (ROADMAP queue 1 item 8)")
+            unported.append("LoRA (ROADMAP queue 1, \"Other backbone families and LoRA\")")
         for key in ("pipeline_parallel", "tensor_parallel", "expert_parallel"):
             if int(config.setup.get(key, 1) or 1) > 1:
-                unported.append(f"setup.{key} (ROADMAP queue 1 item 14)")
+                unported.append(f"setup.{key} (ROADMAP queue 1, \"Parallelism\")")
         if config.setup.get("tp_overlap", False):
-            unported.append("setup.tp_overlap (ROADMAP queue 1 item 14)")
+            unported.append("setup.tp_overlap (ROADMAP queue 1, \"Parallelism\")")
         if unported:
             raise NotImplementedError("not ported yet: " + "; ".join(unported))
         cache_dir = config.get("paths", {}).get("llm_path") or None
@@ -180,10 +233,12 @@ class MedTsLLM(nn.Module):
             n_heads=mc.n_heads, num_tokens=mc.num_tokens,
             patch_len=mc.patching.patch_len, stride=mc.patching.stride,
             llm_cfg=llm_cfg, llm_id=mc.llm.llm, quantize=quantize,
-            llm_dtype=storage_dtype(config),
+            llm_dtype=llm_dtype(config),
             prefix_cache=bool(mc.llm.get("prefix_cache", True)),
             cache_dir=cache_dir,
-            dropout=float(config.training.get("dropout", 0.0) or 0.0))
+            dropout=float(config.training.get("dropout", 0.0) or 0.0),
+            task=task, n_classes=dataset.n_classes if task == "semantic_segmentation" else 0,
+            seg_mode=seg_mode)
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property
@@ -240,7 +295,18 @@ class MedTsLLM(nn.Module):
         dec_out = dec_out.transpose(1, 2).reshape(B, -1)
         dec_out = self.output_projection(dec_out)
         dec_out = dec_out.reshape(B, self.pred_len, self.n_outputs_per_step)
-        return revin_denorm(dec_out, stats)
+        # the task's head (medtsllm.py:669-681)
+        if self.task in ("reconstruction", "anomaly_detection"):
+            return revin_denorm(dec_out, stats)
+        if dec_out.shape[-1] == 1:
+            dec_out = dec_out.squeeze(-1)
+        if not self.training:  # the scores, in eval only
+            if self.task == "semantic_segmentation":
+                dec_out = (torch.softmax(dec_out, dim=-1) if self.n_classes > 2
+                           else torch.sigmoid(dec_out))
+            elif self.seg_mode == "boundary-prediction":
+                dec_out = torch.sigmoid(dec_out)
+        return dec_out
 
     def prefill(self, prefix_ids: torch.Tensor, embed_dtype=torch.float32):
         """Per-layer (k, v) of the constant 1-D prompt head, computed once
@@ -341,8 +407,7 @@ class PromptBuilder:
         self.bos = getattr(self.tokenizer, "bos_token", None)
         self.dataset_description = dataset.description
         self.task_description = getattr(dataset, "task_description", None) or (
-            f"Reconstruct the past {config.history_len} steps of data as "
-            f"accurately as possible using the following information.")
+            TASK_DESCRIPTIONS[config.task].format(seq=config.history_len))
         self.split_prefix = model.prefix_cache
         self.max_bucket = 16
         self.max_bucket_suffix = 16
@@ -432,8 +497,9 @@ class PromptBuilder:
         if not self.enabled:
             return arrays
         if self.split_prefix and self.cfg["clip"] and "descriptions" in batch:
-            raise NotImplementedError("per-clip prompt heads (the clip KV bank) "
-                                      "are ROADMAP queue 1 item 7")
+            raise NotImplementedError("per-clip prompt heads (the clip KV bank) are "
+                                      "ROADMAP queue 1, \"Clip datasets, per-clip heads "
+                                      "and the banked eval\"")
         pre_prompts, post_prompts = self.build_prompts(batch)
         if not (pre_prompts[0] or post_prompts[0]):
             return arrays

@@ -2,8 +2,18 @@
 pipelines, parameter init, the optimizer and the loss, ``train_step`` and
 the epoch loop ``train``, ``train_model_inputs`` / ``eval_model_inputs``,
 ``eval_prepare`` / ``eval_dispatch`` for the plain kind, the prefill of the
-1-D prompt-head cache, ``run_eval``, ``eval_n_points`` and
-``finalize_series``.
+1-D prompt-head cache, ``run_eval``, ``eval_n_points``, ``finalize_series``
+and the score bookkeeping (``log_scores``, ``best_score``).
+
+The dtype policy is the JAX package's (``setup.dtype``, ``Precision``):
+every float parameter at one dtype, or under "mixed" the trainable fusion
+layers at f32 and the frozen backbone at bf16. The mixed train step runs
+the model at bf16 over bf16 casts of the parameters and of the float
+inputs (``torch.func.functional_call``; the gradients reach the f32
+parameters through the casts and Adam updates those), takes the loss on
+the f32 predictions against the uncast inputs, and serves the prompt head
+from a cache of its own, prefilled at bf16; eval runs in the parameters'
+own precision, the residual stream f32.
 
 Everything lives on one explicit device. The constant prompt head is
 prefilled once per eval pass and every window attends it as prefix K/V (or
@@ -21,7 +31,8 @@ reads batch i-1 back while batch i runs, as the JAX loops do.
 Dropout masks come from a generator on the trainer's device seeded from
 ``setup.seed``. No logger or checkpoint files yet: the losses and each
 epoch's val scores are kept in ``self.losses`` and ``self.val_scores`` and
-printed (``runtime/checkpoint.py`` is ROADMAP queue 1 item 6).
+printed (checkpoints are ROADMAP queue 1, "Checkpoints, the loggers and
+the torch CLIs").
 """
 
 from __future__ import annotations
@@ -32,9 +43,10 @@ import warnings
 import numpy as np
 import torch
 
-from ..data import BatchPipeline, SyntheticDataset, prefetch
+from ..config import validate_config
+from ..data import BatchPipeline, SyntheticDataset, dedup_eval_series, prefetch
 from ..device import resolve_device
-from ..models.medtsllm import MedTsLLM, PromptBuilder, storage_dtype
+from ..models.medtsllm import MedTsLLM, Precision, PromptBuilder
 from ..runtime.graph import StepGraphs
 from ..runtime.optim import Optimizer
 from ..weights import init_random_
@@ -49,9 +61,11 @@ class BaseTask:
             raise NotImplementedError(f"model {config.model!r}: the port has MedTsLLM "
                                       "(ROADMAP queue 1, \"Baseline models and the ops "
                                       "library\")")
+        validate_config(config)
         self.run_id = run_id
         self.config = config
         self.device = resolve_device(device)
+        self.precision = Precision.from_config(config)
         seed = int(config.setup.seed)
         random.seed(seed)
         np.random.seed(seed)
@@ -72,10 +86,12 @@ class BaseTask:
         warnings.warn(f"LLM {self.model.llm_id!r}: no weights are loaded — "
                       "random init (shapes and throughput faithful; task "
                       "quality not meaningful)")
-        self.model.to(storage_dtype(config)).eval()
-        # head ids -> per-layer prefix tensors: ``_prefix_kv_store`` keeps
-        # them for the trainer's life (a captured step reads them where they
-        # lie); ``_prefix_kv_cache`` holds the entries filled this pass
+        self._apply_param_dtype()
+        self.model.eval()
+        # (head ids, mixed train) -> per-layer prefix tensors:
+        # ``_prefix_kv_store`` keeps them for the trainer's life (a captured
+        # step reads them where they lie); ``_prefix_kv_cache`` holds the
+        # entries filled this pass
         self._prefix_kv_store = {}
         self._prefix_kv_cache = {}
         self.step_graphs = (StepGraphs(self.model, self.device)
@@ -83,7 +99,8 @@ class BaseTask:
 
         self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
         self.optimizer = Optimizer(config, self.model.parameters())
-        self.loss_fn = build_loss(config.training.loss, self.task)
+        self.loss_fn = build_loss(config.training.loss, self.task,
+                                  getattr(self.train_dataset, "n_classes", 0))
         self.epoch = 1
         self.step = 0
         self.losses: list[float] = []
@@ -95,17 +112,23 @@ class BaseTask:
     # eval step
     # ------------------------------------------------------------------
 
+    def _apply_param_dtype(self) -> None:
+        """Store each float parameter at the policy's dtype: ``param_dtype``,
+        or under "mixed" bf16 for the frozen ones (``_apply_param_dtype``
+        of the JAX trainer)."""
+        for p in self.model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(self.precision.storage(frozen=not p.requires_grad))
+
     def load_state_dict(self, state: dict) -> None:
-        """Replace every parameter (e.g. ``weights.from_flax``); the
-        storage dtype of the run is kept."""
-        dt = storage_dtype(self.config)
+        """Replace every parameter (e.g. ``weights.from_flax``); each keeps
+        its own storage dtype."""
         own = self.model.state_dict()
         if set(state) != set(own):
             raise KeyError(f"state dict mismatch: missing {sorted(set(own) - set(state))}, "
                            f"unexpected {sorted(set(state) - set(own))}")
-        self.model.load_state_dict({
-            k: v.to(self.device, dt if v.is_floating_point() else v.dtype)
-            for k, v in state.items()})
+        self.model.load_state_dict({k: v.to(self.device, own[k].dtype)
+                                    for k, v in state.items()})
         self._prefix_kv_cache.clear()
 
     def model_inputs(self, batch: dict) -> dict:
@@ -141,17 +164,27 @@ class BaseTask:
         ids = host.get("prefix_ids")
         if ids is not None and ids.ndim == 1 and self.model.train_prefix_cache_safe:
             del host["prefix_ids"]
-            return dict(self._to_device(host), prefix_kv=self._prefix_kv(ids))
+            return dict(self._to_device(host), prefix_kv=self._prefix_kv(ids, train=True))
         return self._to_device(host)
 
     def train_step(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch of model inputs -> the loss
         (detached, on the device). The model runs in train mode (dropout,
-        the einsum reprogramming graph), its predictions are taken in f32,
-        and only the fusion layers update."""
+        the einsum reprogramming graph), under "mixed" at bf16 over bf16
+        casts of the parameters and the float inputs; its predictions are
+        taken in f32 against the uncast inputs, and only the fusion layers
+        update."""
         self.model.train()
         try:
-            pred = self.model(arrays, generator=self.dropout_generator).float()
+            if self.precision.mixed:
+                cd = self.precision.compute_dtype
+                params = {n: _cast(p, cd) for n, p in self.model.named_parameters()}
+                pred = torch.func.functional_call(
+                    self.model, params, (_cast(arrays, cd),),
+                    {"generator": self.dropout_generator})
+            else:
+                pred = self.model(arrays, generator=self.dropout_generator)
+            pred = pred.float()
             loss = self.loss_fn(pred, arrays, valid)
             self.optimizer.zero_grad()
             loss.backward()
@@ -185,24 +218,29 @@ class BaseTask:
         return self.eval_step(arrays)
 
     @torch.no_grad()
-    def _prefix_kv(self, ids: np.ndarray):
+    def _prefix_kv(self, ids: np.ndarray, train: bool = False):
         """Per-layer K/V of the 1-D prompt head (host token ids), prefilled
         once per eval pass and kept through the epoch's train steps (the
         backbone is frozen). A head seen before is prefilled into the
         tensors it had, in place, so a captured step that reads them stays
-        valid. The head embeds at ts_emb's dtype, f32 (the fusion layers
-        promote to f32), so cached and uncached forwards agree. Built under
+        valid. The head embeds at ts_emb's dtype, so cached and uncached
+        forwards agree: f32 (the fusion layers promote to f32), except in
+        the mixed train step, whose cache is its own (keyed by
+        ``mixed_train``, as JAX's) and embeds at bf16 over the backbone's
+        parameters, which are stored at bf16 already. Built under
         ``no_grad``, not ``inference_mode``: the train step's backward saves
         the cached K/V (K2) and SSM state (K9)."""
         if ids.ndim != 1:
             raise NotImplementedError("per-clip 2-D prompt heads are ROADMAP queue 1, "
-                                      "\"The other tasks, the mixed dtype, the data and "
-                                      "the CLIs\"")
-        key = ids.tobytes()
+                                      "\"Clip datasets, per-clip heads and the banked "
+                                      "eval\"")
+        mixed_train = train and self.precision.mixed
+        key = (ids.tobytes(), mixed_train)
         kv = self._prefix_kv_cache.get(key)
         if kv is None:
-            fresh = self.model.prefill(torch.as_tensor(ids, device=self.device),
-                                       torch.float32)
+            fresh = self.model.prefill(
+                torch.as_tensor(ids, device=self.device),
+                self.precision.compute_dtype if mixed_train else torch.float32)
             kv = self._prefix_kv_store.setdefault(key, fresh)
             if kv is not fresh:
                 for layer, new in zip(kv, fresh):
@@ -240,15 +278,19 @@ class BaseTask:
         print(f"step {self.step}: train/loss {self.losses[-1]:.6f}")
 
     def log_epoch(self, scores: dict) -> None:
+        """Keep an epoch's val scores; ``best_score`` follows
+        ``training.eval_metric`` in its direction."""
         self.val_scores.append(dict(scores))
-        scores = dict(scores, **{"train/lr": self.optimizer.get_last_lr()[0]})
-        print(f"epoch {self.epoch}: {scores}")
+        self.log_scores(dict(scores, **{"train/lr": self.optimizer.get_last_lr()[0]}))
         self.epoch += 1
         metric = scores["val/" + self.config.training.get("eval_metric", "mse")]
         if self.config.training.get("eval_metric_direction", "min") == "min":
             self.best_score = min(self.best_score, metric)
         else:
             self.best_score = max(self.best_score, metric)
+
+    def log_scores(self, scores: dict) -> None:
+        print(f"epoch {self.epoch}: {scores}")
 
     # ------------------------------------------------------------------
     # eval loop
@@ -296,19 +338,45 @@ class BaseTask:
             result[k] = np.concatenate(extras[k])
         return result
 
-    def eval_n_points(self, dataset) -> int:
-        """Full-series buffer length (tasks/forecasting.py:59)."""
-        return self.config.pred_len + (len(dataset) - 1) * dataset.step_size
+    def eval_n_points(self, dataset, include_history: bool = False) -> int:
+        """Full-series buffer length (``eval_n_points`` of the JAX trainer;
+        the port's datasets are neither clip nor univariate datasets)."""
+        n = self.config.pred_len + (len(dataset) - 1) * dataset.step_size
+        return n + self.config.history_len if include_history else n
 
-    def finalize_series(self, *series):
-        """Assert the stitched series are complete."""
-        for arr in series:
-            if np.isnan(arr).any():
+    def finalize_series(self, dataset, *series):
+        """Apply the step > pred_len de-duplication and check that every
+        float series is complete."""
+        step, pred = dataset.step_size, self.config.pred_len
+        out = [dedup_eval_series(arr, step, pred) if step > pred else arr for arr in series]
+        for arr in out:
+            if np.issubdtype(arr.dtype, np.floating) and np.isnan(arr).any():
                 raise ValueError("unfilled points after stitching")
-        return series if len(series) > 1 else series[0]
+        return out if len(out) > 1 else out[0]
+
+    def evaluate(self, pipeline) -> dict:
+        """A split's scores, unprefixed: ``score`` of ``predict``'s series."""
+        return self.score(*self.predict(pipeline))
+
+    def _eval_split(self, pipeline, split: str) -> dict:
+        scores = {f"{split}/{k}": v for k, v in self.evaluate(pipeline).items()}
+        self.log_scores(scores)
+        return scores
 
     def val(self):
-        raise NotImplementedError
+        return self._eval_split(self.val_pipeline, "val")
 
     def test(self):
-        raise NotImplementedError
+        return self._eval_split(self.test_pipeline, "test")
+
+
+def _cast(tree, dtype: torch.dtype):
+    """Float tensors of a tensor, tuple, list or dict at ``dtype``; the
+    rest as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast(t, dtype) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree

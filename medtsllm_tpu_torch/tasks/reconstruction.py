@@ -14,25 +14,17 @@ from .base import BaseTask
 class ReconstructionTask(BaseTask):
     task = "reconstruction"
 
-    def val(self):
-        preds, targets = self.predict(self.val_pipeline)
-        return {f"val/{k}": v for k, v in self.score(preds, targets).items()}
-
-    def test(self):
-        preds, targets = self.predict(self.test_pipeline)
-        return {f"test/{k}": v for k, v in self.score(preds, targets).items()}
-
     def predict(self, pipeline):
         dataset = pipeline.dataset
-        n_points = self.eval_n_points(dataset)
-        n_features = dataset.n_features
+        n_points = self.eval_n_points(dataset, include_history=False)
         out = self.run_eval(pipeline, extra_keys=("x_enc", "index"))
         pred = out["pred"].reshape(out["pred"].shape[0], self.config.pred_len, -1)
         target = out["x_enc"].reshape(pred.shape)
         starts = np.asarray(dataset.x_starts(out["index"]))
-        preds = stitch_windows(pred, starts, n_points, n_features)
-        targets = stitch_windows(target, starts, n_points, n_features)
-        return self.finalize_series(preds, targets)
+        kw = dict(n_points=n_points, n_channels=dataset.real_features)
+        preds = stitch_windows(pred, starts, **kw)
+        targets = stitch_windows(target, starts, **kw)
+        return self.finalize_series(dataset, preds, targets)
 
     def score(self, pred, target):
         err = pred - target

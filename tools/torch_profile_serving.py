@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving step, or the Mamba train step, on one
-CUDA card.
+"""Profile the PyTorch port's serving step, or a train step, on one CUDA
+card.
 
     python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|
-                                                   llama-long|mamba-train] [--steps 4]
-                                           [--eager]
+                                                   llama-long|mamba-train|bidmc|
+                                                   ecgmit-anom|ventilator|bidmc-train]
+                                           [--steps 4] [--eager]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
 weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
 4 bits, absmax int4, as chip_smoke phases 14 and 15; ``llama-long`` is the
 long window of phase 17, history 16384 with d_ff 64, two test batches of 8,
-whose decoder attention runs on K4). For a serving path it
+whose decoder attention runs on K4; ``bidmc``, ``ecgmit-anom`` and
+``ventilator`` are the task paths of phases 6a-6c under ``mixed``, 32 test
+batches of 16, and ``bidmc-train`` bidmc.toml's train step at four batches
+an epoch). For a serving path it
 runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache and captures the
 step's CUDA graph), prepares ``--steps`` test batches on the host, then
 runs their eval steps under ``torch.profiler``: the graph's replays, as
 serving runs them, or with ``--eager`` the step op by op
-(``eval_step_eager``). For ``mamba-train`` it prepares ``--steps`` + 1
-shuffled train batches (the prompt-state cache included), runs one warm-up
-``train_step`` and profiles the next ``--steps`` train steps (forward,
-backward with K9/K10, Adam). Prints the card, the host-clock time of each
+(``eval_step_eager``). For a train path it prepares ``--steps`` + 1
+shuffled train batches, epoch after epoch (the prompt-head or prompt-state
+cache included), runs one warm-up ``train_step`` and profiles the next
+``--steps`` train steps (forward, backward, Adam). Prints the card, the host-clock time of each
 step, the device's busy time and idle share over the profiled span (first
 event to last kernel end), the device time and launch count by category,
 the top kernels by device time and every depthwise-conv kernel. Writes the
@@ -29,6 +33,7 @@ Chrome trace to ``chiprun_out/torch_profile_<path>.json``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import re
 import statistics
 import subprocess
@@ -71,7 +76,8 @@ def category(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
-                                       "llama-long", "mamba-train"), default="mamba")
+                                       "llama-long", "mamba-train", "bidmc", "ecgmit-anom",
+                                       "ventilator", "bidmc-train"), default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--eager", action="store_true",
                     help="profile the serving step op by op, not its CUDA graph")
@@ -91,7 +97,8 @@ def main() -> None:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0])
     dev = torch.device("cuda", 0)
-    train = args.path == "mamba-train"
+    train = args.path.endswith("-train")
+    served = chip_smoke.SERVED_POINTS
     cfg = {"mamba": lambda: chip_smoke.mamba_config(Config),
            "llama": lambda: chip_smoke.bench_config(Config),
            "moe": lambda: chip_smoke.moe_config(Config),
@@ -100,10 +107,20 @@ def main() -> None:
            "llama-long": lambda: chip_smoke.long_config(Config),
            # four train batches of 48 per epoch, as chip_smoke phase 8
            "mamba-train": lambda: chip_smoke.mamba_config(Config, n_points=24704, epochs=1),
+           "bidmc": lambda: chip_smoke.task_config(Config, chip_smoke.BIDMC_TOML,
+                                                   n_points=served[256]),
+           "ecgmit-anom": lambda: chip_smoke.task_config(Config, chip_smoke.ECG_ANOM_TOML,
+                                                         n_points=served[128]),
+           "ventilator": lambda: chip_smoke.task_config(Config, chip_smoke.VENTILATOR_TOML,
+                                                        n_points=served[256], llm_layers=4),
+           # four train batches of 16 per epoch, as chip_smoke phase 6a
+           "bidmc-train": lambda: chip_smoke.task_config(Config, chip_smoke.BIDMC_TOML,
+                                                         n_points=8320),
            }[args.path]()
     trainer = get_trainer(f"profile-{args.path}", cfg, device=dev)
     if train:
-        batches = [b for _, b in zip(range(args.steps + 1), trainer.train_pipeline)]
+        epochs = itertools.chain.from_iterable(itertools.repeat(trainer.train_pipeline))
+        batches = list(itertools.islice(epochs, args.steps + 1))
         prepared = [trainer.train_model_inputs(b) for b in batches]
         trainer.train_step(prepared[0], prepared[0]["valid"])  # warm-up
         prepared = prepared[1:]
