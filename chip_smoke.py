@@ -13,7 +13,9 @@ nvidia-smi. Phases:
      forms with int8 and with packed int4 experts, on a random and a skewed
      routing, with its requant pass timed apart (``[requant]``, beside the
      workspace's bytes), its raster at group_m 1 and 16 (``[raster]``) and
-     K1's GEMM per expert over the same rows (``[yardstick]``)), with both
+     K1's GEMM per expert over the same rows (``[yardstick]``); K2 with a
+     per-row prefix at ecgmit-seg.toml's clip shape, each query row held
+     against the plain version fed the once-rounded rotation), with both
      times from CUDA events, the least time the card could take for the
      same work (bound) and, where one exists, the time of the one PyTorch
      call that computes the same function (timed here only; the port never
@@ -26,20 +28,31 @@ nvidia-smi. Phases:
   5. a small 2-layer GQA slice (dense f32 projections) on the card against
      the same slice on the CPU (plain versions) with the same weights;
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
-     configs/datasets/*.toml on synthetic data, ``prompting.clip =
-     false``; a dense Llama-2-7B backbone stored at bf16, f32 fusion
-     layers, batch 16): bidmc.toml's segmentation: the build's seconds and
-     peak memory, K2 and K3 held at its shapes (printed), ``train()`` four
-     steps and ``val()`` (finite losses, the full key set, a frozen
-     backbone, K2 per layer per step), the train step's p50 over 16 steps
-     after one untimed, and its peak, then ``serve()`` over 32 test
-     batches on a trainer that loads the trained weights;
+     configs/datasets/*.toml as they are but for synthetic data; a dense
+     Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
+     bidmc.toml's segmentation: the build's seconds and peak memory, K2
+     and K3 held at its shapes (printed), ``train()`` four steps and
+     ``val()`` (finite losses, the full key set, a frozen backbone, K2 per
+     layer per step), the train step's p50 over 16 steps after one
+     untimed, and its peak, then ``serve()`` over 32 test batches on a
+     trainer that loads the trained weights;
   6b. ecgmit-anom.toml's anomaly detection through ``serve()`` (32 test
      batches);
-  6c. ventilator.toml's semantic segmentation (binary) at 4 layers
-     through ``serve()`` (32 test batches);
+  6c. ventilator.toml's semantic segmentation (binary) as shipped
+     (``prompting.clip``: per-clip head rows from the KV bank) on 64 clips
+     at 4 layers through ``serve()`` (32 test batches);
+  6e. ecgmit-seg.toml's boundary segmentation as shipped at full depth:
+     ``train()`` four steps on 32 clips (the per-clip heads embedded in the
+     train step) and ``val()`` (banked), the train step's p50 and peak,
+     then ``serve()`` over 33 test batches of 48 clips (MIT-BIH's record
+     count) through a bank of 16 rows, on a trainer that loads the trained
+     weights;
+  6f. ludb.toml's 4-class semantic segmentation as shipped at full depth
+     (``covariate_mode = "univariate"``, one feature, history 512, 64
+     patches, K3 at E 128) on 200 clips through ``serve()`` (38 batches);
   6d. each task's window predictions on a 2-layer llama-1b slice under
-     mixed, card against the CPU's plain versions (2^-5 x max);
+     mixed, card against the CPU's plain versions (2^-5 x max), ecgmit-seg
+     on 12 clips through a bank of 8 rows on both;
   6. the Mamba serving path: ``get_trainer(...).test()`` of
      configs/ablation/mamba-backbone.toml's model (mamba-130m, 24 layers,
      bf16, batch 48, prompt-state cache) on synthetic data; the launches of
@@ -131,8 +144,10 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6a-6c, 6, 11, 13, 14, 15, 17 and 18) runs through
-``serve()``: the eager step (``eval_step_eager``) on each test batch, then
+Every served path (phases 4, 6a-6c, 6e, 6f, 6, 11, 13, 14, 15, 17 and 18) runs
+through ``serve()``: the eager step (``eval_step_eager``) on each test batch,
+each batch prepared just before it (its head's or its bank misses' prefill
+counted apart), then
 ``test()``, whose eval step replays one CUDA graph per input signature
 (``runtime/graph.py``; the first batch of a signature runs eagerly and is
 captured); it prints the eager and the graphed p50 side by side, the graphs
@@ -140,8 +155,11 @@ and their capture ms, the peak memory of both and the pool the graphs
 hold, ``test()``'s windows/s (first pass, captures included, and a second
 pass that must score the same), and holds every replay bit-equal to the
 eager step with the eager step's launches; ``test()``'s launches are the
-prefill's and the eager batches', and they are what the kernels line
-carries.
+preparations' and the eager batches', and they are what the kernels line
+carries. A path with a per-clip KV bank (6c, 6e) also prints each pass's
+hits, misses and evictions (evictions required), the bank's GiB and one
+miss's prefill ms, and holds the banked step against the same batch with
+its head embedded (2^-6 x max); its replays run across evictions.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -170,9 +188,18 @@ MOE_TOML = ROOT / "configs" / "ablation" / "moe-backbone.toml"
 BIDMC_TOML = ROOT / "configs" / "datasets" / "bidmc.toml"
 ECG_ANOM_TOML = ROOT / "configs" / "datasets" / "ecgmit-anom.toml"
 VENTILATOR_TOML = ROOT / "configs" / "datasets" / "ventilator.toml"
+ECG_SEG_TOML = ROOT / "configs" / "datasets" / "ecgmit-seg.toml"
+LUDB_TOML = ROOT / "configs" / "datasets" / "ludb.toml"
 # points a split of a served task path, by history (= pred_len = the test
 # split's step): 512 test windows, 32 batches of 16
 SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
+# ecgmit-seg.toml's served clip dataset (phase 6e): the 48 records of
+# MIT-BIH Arrhythmia, 11 test windows of 256 a clip (528 windows, 33
+# batches of 16), three times the per-clip KV bank's 16 rows
+SEG_CLIPS, SEG_CLIP_POINTS = 48, 11 * 256
+# ludb.toml's (phase 6f): LUDB's 200 records, 3 test windows of 512 a clip
+# (600 windows, 38 batches)
+LUDB_CLIPS, LUDB_CLIP_POINTS = 200, 3 * 512
 # each task's score keys (without the split's prefix)
 TASK_KEYS = {
     "segmentation": {"point_mae", "point_rmse", "segment_miou", "pred_label_ratio",
@@ -283,21 +310,26 @@ def long_config(Config, history=16384, d_ff=64):
 
 
 def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
-                history=None, batch=None):
+                history=None, batch=None, n_clips=None, n_features=3, n_classes=None):
     """A shipped dataset config (configs/datasets/*.toml) as it is, its
-    model and task settings, ``setup.dtype = "mixed"`` and the Llama-2-7B
-    shapes included, on the synthetic 3-feature data (the recordings are
-    not in the repository), with ``prompting.clip = false`` (per-clip heads
-    are not ported), one epoch and ``n_points`` points a split; ``llm``,
-    ``llm_layers``, ``history`` (step = history / 2) and ``batch`` cut the
-    card-vs-CPU slices."""
+    model, prompting and task settings, ``setup.dtype = "mixed"`` and the
+    Llama-2-7B shapes included, on the synthetic data (the recordings are
+    not in the repository): ``n_points`` points a split of ``n_features``
+    features (and ``n_classes`` classes, when given), in ``n_clips`` clips
+    when given (each clip with its description: a clip dataset), one
+    epoch; ``llm``, ``llm_layers``,
+    ``history`` (step = history / 2) and ``batch`` cut the card-vs-CPU
+    slices."""
     from medtsllm_tpu_torch.config import load_config
     raw = load_config(toml).to_dict()
     raw["data"]["dataset"] = "synthetic"
-    raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": 3}}
+    raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": n_features}}
+    if n_clips is not None:
+        raw["datasets"]["synthetic"].update(clips=True, n_clips=n_clips)
+    if n_classes is not None:
+        raw["datasets"]["synthetic"]["n_classes"] = n_classes
     raw["training"]["epochs"] = epochs
     mc = raw["models"]["timellm"]
-    mc["prompting"]["clip"] = False
     if llm is not None:
         mc["llm"]["llm"] = llm
     if llm_layers is not None:
@@ -311,10 +343,11 @@ def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
 
 
 def window_shapes(tr):
-    """(P, L): the prompt head and the computed region (prompt suffix +
-    patches) of a built trainer's first test batch (host only)."""
+    """(P, L): the prompt head (its bucket, for per-clip head rows) and the
+    computed region (prompt suffix + patches) of a built trainer's first
+    test batch (host only)."""
     first = tr.model_inputs(next(iter(tr.test_pipeline)))
-    return len(first["prefix_ids"]), first["prompt_ids"].shape[1] + tr.model.n_patches
+    return first["prefix_ids"].shape[-1], first["prompt_ids"].shape[1] + tr.model.n_patches
 
 
 def row_share(out, ref, rel=2.0 ** -6):
@@ -592,12 +625,14 @@ def main() -> None:
     d = xcfg.d_model
     check_k5("[moe-8x1b]", Be * Le, ((d, d, 2), (d, hkv, 2)), "4 attention GEMMs")
 
-    def check_k2(name, B, L, H, KV, D, P, theta, listed=True):
+    def check_k2(name, B, L, H, KV, D, P, theta, listed=True, PB=1):
+        """K2 with a prefix of PB rows: 1 (the constant head) or B (per-clip
+        head rows gathered from the bank)."""
         q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
         k = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
-        pk = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
-        pv = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+        pk = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+        pv = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
         cos, sin = k2.rope_tables(torch.arange(P, P + L, device=dev), D, theta)
         o = k2.rope_attention(q, k, v, cos, sin, pk, pv)
         o0 = k2.rope_attention_plain(q, k, v, cos, sin, pk, pv)
@@ -617,24 +652,47 @@ def main() -> None:
         # the whole-tensor bound with the worst row's share printed
         err = (o.float() - o0.float()).abs().max().item()
         share = row_share(o, o0)
-        per_row = share <= 1
         tol = 2.0 ** -6 * o0.float().abs().max().item()
+        if PB > 1:
+            # per-row prefix: each query row within 2^-6 x its max against
+            # the plain version fed K2's once-rounded rotation, and the
+            # whole tensor within 2^-6 x max |plain| of the plain version
+            ones, zeros = torch.ones_like(cos), torch.zeros_like(sin)
+            share1 = row_share(o, k2.rope_attention_plain(
+                k4.rope_once(q, cos, sin), k4.rope_once(k, cos, sin), v, ones, zeros, pk, pv))
+            check(share1 <= 1, f"{name}: a query row is {share1} of 2^-6 x its max against "
+                  "the plain version fed the once-rounded rotation")
+        per_row = PB == 1 and share <= 1
         record(name, "medtsllm_tpu_torch/csrc/rope_attention.cu",
                "medtsllm_tpu/ops/pallas/rope_attention.py:182", err,
                None if per_row else tol,
                cuda_ms(torch, lambda: k2.rope_attention(q, k, v, cos, sin, pk, pv)),
                cuda_ms(torch, lambda: k2.rope_attention_plain(q, k, v, cos, sin, pk, pv)),
-               bound(2 * (2 * B * L * H * D + 2 * B * L * KV * D + 2 * KV * P * D)
+               bound(2 * (2 * B * L * H * D + 2 * B * L * KV * D + 2 * PB * KV * P * D)
                      + 4 * L * D, 4 * B * H * D * pairs, "bf16"),
                cuda_ms(torch, rope_sdpa),
-               f" (B={B} L={L} H={H} KV={KV} D={D} P={P}"
-               + (")" if per_row else f"; worst row at {share:.4f} of 2^-6 x its max "
-                  "|plain|, so the whole-tensor bound holds it)"),
+               f" (B={B} L={L} H={H} KV={KV} D={D} P={P} PB={PB}"
+               + (f"; each query row at most {share1:.4f} of 2^-6 x its max against the "
+                  f"plain version fed the once-rounded rotation, {share:.4f} against the "
+                  "plain version itself)" if PB > 1 else ")" if per_row
+                  else f"; worst row at {share:.4f} of 2^-6 x its max |plain|, so the "
+                  "whole-tensor bound holds it)"),
                listed=listed, share=share if per_row else None)
 
     check_k2("rope_attention", B, L, H, KV, D, P, lcfg.rope_theta)
     check_k2("rope_attention[moe-8x1b]", Be, Le, xcfg.n_heads, xcfg.kv_heads,
              xcfg.head_dim, Pe, xcfg.rope_theta)
+    # the per-row prefix at ecgmit-seg.toml's clip shape (phase 6e): the head
+    # bucket and region the prompt builder gives a batch of 16 clip windows
+    # (a one-layer build: the builder's output does not depend on depth)
+    clip_tr = get_trainer("chip-smoke-clip-shapes", task_config(
+        Config, ECG_SEG_TOML, n_points=SEG_CLIPS * SEG_CLIP_POINTS, n_clips=SEG_CLIPS,
+        llm_layers=1), device=dev)
+    Pc, Lc = window_shapes(clip_tr)
+    Bc = clip_tr.config.training.batch_size
+    del clip_tr
+    torch.cuda.empty_cache()
+    check_k2("rope_attention[ecgmit-seg]", Bc, Lc, H, KV, D, Pc, lcfg.rope_theta, PB=Bc)
 
     def hold_route(q, k, v, cos, sin, pk, pv, label):
         """The long-window route (the pre-pass, then K4 with q rotated at
@@ -1102,31 +1160,41 @@ def main() -> None:
         out = fn()
         return out, {name: w.launches for name, w in wrappers.items()}
 
+    def bank_book(tr):
+        """This pass's per-clip KV bank bookkeeping (None without a bank)."""
+        return next((b for k, b in tr._prefix_kv_cache.items() if k[0] == "clip_bank"), None)
+
     def serve(tr, label):
         """A served path through ``test()``, eager and graphed. First the
-        eager step (``eval_step_eager``) on every test batch, its inputs
-        prepared first: launches, p50 by CUDA events, peak memory. Then
-        ``test()`` with every launch count set to 0 just before and read
-        just after (the first batch of each input signature runs eagerly as
-        the warm-up and is captured, the others replay): its launches must
-        be the prefill's and the eager batches'. Then a second pass (every
-        graph captured, the prompt-head cache refilled in place) must score
-        the same, and each test batch replayed must equal its eager output
-        bit for bit, with the eager step's launches and no new capture."""
+        eager step (``eval_step_eager``) on every test batch, each batch's
+        inputs prepared just before it (the prefill of its head or of its
+        bank's misses, counted apart from the step): launches, p50 by CUDA
+        events, peak memory. Then ``test()`` with every launch count set to
+        0 just before and read just after (the first batch of each input
+        signature runs eagerly as the warm-up and is captured, the others
+        replay): its launches must be the preparations' and the eager
+        batches'. Then a second pass (every graph captured, the prompt-head
+        cache and the bank refilled in place) must score the same, and each
+        test batch, prepared anew in the same order, replayed must equal its
+        eager output bit for bit, with the eager step's launches and no new
+        capture. With a per-clip KV bank also: each pass's hits, misses and
+        evictions, the bank's GiB, a prefill's ms, and the banked step
+        against the same batch with its head embedded (2^-6 x max)."""
         graphs = tr.step_graphs
         # the prompt buckets only grow: settle them (host only), so every
         # prepared batch has the signature test() serves
         for batch in tr.test_pipeline:
             tr.model_inputs(batch)
-        prepared = [tr.eval_prepare(batch) for batch in tr.test_pipeline]
-        first = next(iter(tr.test_pipeline))
-        _, prefill = counted(lambda: (tr._prefix_kv_cache.clear(), tr.eval_prepare(first)))
-        tr.eval_step_eager(prepared[0][1])  # warm, untimed
+        tr._prefix_kv_cache.clear()
+        tr.eval_step_eager(tr.eval_prepare(next(iter(tr.test_pipeline)))[1])  # warm, untimed
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        eager_ms, eager_out, eager_counts = [], [], []
-        for _, arrays in prepared:
+        tr._prefix_kv_cache.clear()
+        eager_ms, eager_out, eager_counts, prep_counts = [], [], [], []
+        for batch in tr.test_pipeline:
+            (kind, arrays), c = counted(lambda: tr.eval_prepare(batch))
+            prep_counts.append(c)
             start.record()
             out, c = counted(lambda: tr.eval_step_eager(arrays))
             end.record()
@@ -1135,6 +1203,7 @@ def main() -> None:
             eager_out.append(out)
             eager_counts.append(c)
         eager_peak = torch.cuda.max_memory_allocated()
+        banked = kind == "banked"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         n_graphs, n_captures = len(graphs), len(graphs.capture_ms)
@@ -1145,8 +1214,9 @@ def main() -> None:
         end.synchronize()
         wall = time.perf_counter() - t0
         test_peak = torch.cuda.max_memory_allocated()
-        want = {name: prefill[name] + sum(c[name] for c in eager_counts) for name in counts}
-        check(counts == want, f"[{label}] test() launches {counts} are not the prefill's "
+        books = [dict(bank_book(tr) or {})]
+        want = {name: sum(c[name] for c in prep_counts + eager_counts) for name in counts}
+        check(counts == want, f"[{label}] test() launches {counts} are not the preparations' "
               f"and the eager batches' {want}")
         n_windows = len(tr.test_dataset)
         capture_ms = graphs.capture_ms[n_captures:]
@@ -1155,23 +1225,26 @@ def main() -> None:
               f"batches: {start.elapsed_time(end):.1f} ms (CUDA events, prefill, host prep "
               f"and {len(capture_ms)} capture(s) included), {n_windows / wall:.2f} "
               f"windows/s wall")
-        print(f"[{label}] launches {counts} (the prefill's and the eager batches'); peak "
+        print(f"[{label}] launches {counts} (the preparations' and the eager batches'); peak "
               f"memory {test_peak / 2**30:.2f} GiB")
         print(f"[{label}] scores {scores}")
         check(all(math.isfinite(s) for s in scores.values()), f"non-finite {scores}")
         t0 = time.perf_counter()
         second = tr.test()
         wall2 = time.perf_counter() - t0
+        books.append(dict(bank_book(tr) or {}))
         check(second == scores, f"[{label}] the second pass scores {second}, not {scores}")
         preds = tr.run_eval(tr.test_pipeline)["pred"]  # the window predictions
         check(preds.shape[0] == n_windows and bool(np.isfinite(preds).all()),
               f"[{label}] window predictions {preds.shape}, finite {np.isfinite(preds).all()}")
         torch.cuda.reset_peak_memory_stats()
         graph_ms = []
-        for i, ((kind, arrays), ref, ref_counts) in enumerate(
-                zip(prepared, eager_out, eager_counts)):
+        tr._prefix_kv_cache.clear()
+        for i, (batch, ref, ref_counts) in enumerate(
+                zip(tr.test_pipeline, eager_out, eager_counts)):
+            prepared = tr.eval_prepare(batch)
             start.record()
-            out, c = counted(lambda: tr.eval_dispatch(prepared=(kind, arrays)))
+            out, c = counted(lambda: tr.eval_dispatch(prepared=prepared))
             end.record()
             end.synchronize()
             graph_ms.append(start.elapsed_time(end))
@@ -1191,14 +1264,46 @@ def main() -> None:
               f"windows/s at p50; per batch eager {eager_ms}, graphed {graph_ms})")
         print(f"[{label}] {len(graphs)} graph(s), capture {sum(capture_ms):.1f} ms "
               f"({capture_ms}); replay bit-equal to the eager step and with its launches "
-              f"on all {len(prepared)} test batches; second pass {n_windows / wall2:.2f} "
+              f"on all {len(eager_out)} test batches; second pass {n_windows / wall2:.2f} "
               f"windows/s wall, the same scores")
         print(f"[{label}] peak memory: eager steps {eager_peak / 2**30:.2f} GiB; test() "
               f"(prefill, warm-up, capture, replays) {test_peak / 2**30:.2f} GiB; replays "
               f"{replay_peak / 2**30:.2f} GiB; after, {held / 2**30:.2f} GiB allocated and "
               f"{reserved / 2**30:.2f} GiB reserved (the graphs' pool "
               f"{(reserved - held) / 2**30:.2f} GiB)")
-        return counts, preds, scores
+        if banked:
+            hold_bank(tr, label, books)
+        return counts, preds, scores, books
+
+    def hold_bank(tr, label, books):
+        """The per-clip KV bank of a served path: each test() pass's hits,
+        misses and evictions (evictions required), its GiB, one miss's
+        prefill (CUDA events), and the banked step against the same first
+        batch with its head embedded in the step (no cache), within 2^-6 x
+        max |embedded|."""
+        first = next(iter(tr.test_pipeline))
+        ids = tr.model_inputs(first)["prefix_ids"]
+        key = ("clip_bank", ids.shape[1], False)
+        bank = tr._prefix_kv_store[key]
+        gib = sum(t.numel() * t.element_size() for layer in bank for t in layer) / 2**30
+        for i, b in enumerate(books, 1):
+            check(b["evictions"] > 0, f"[{label}] pass {i} evicted no bank row: {b}")
+            print(f"[{label}] bank, test() pass {i}: {b['tick'] - b['misses']} hits, "
+                  f"{b['misses']} misses, {b['evictions']} evictions, {b['cap']} rows")
+        row = torch.as_tensor(ids[:1], device=dev)
+        with torch.inference_mode():
+            prefill_ms = cuda_ms(torch, lambda: tr.model.prefill(row), iters=5, warmup=1)
+        tr._prefix_kv_cache.clear()
+        banked_out = tr.eval_step_eager(tr.eval_prepare(first)[1]).float()
+        embedded = tr.eval_step_eager(tr._to_device(tr.model_inputs(first))).float()
+        err = (banked_out - embedded).abs().max().item()
+        tol = 2.0 ** -6 * embedded.abs().max().item()
+        check(err <= tol, f"[{label}] banked vs head embedded: {err} > {tol}")
+        print(f"[{label}] bank {tuple(bank[0][0].shape)} per tensor, {len(bank)} layers x "
+              f"(k, v): {gib:.3f} GiB; prefill of one miss (batch 1, P={ids.shape[1]}) "
+              f"{prefill_ms:.2f} ms; banked vs head embedded: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e})")
+        tr._prefix_kv_cache.clear()
 
     def set_launches(counts, names):
         for entry in kernels:
@@ -1243,7 +1348,7 @@ def main() -> None:
         return p50
 
     # 4. the llama serving path, through the user's entry point
-    counts, _, _ = serve(trainer, "slice")
+    counts, *_ = serve(trainer, "slice")
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
                  "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the serving path")
@@ -1275,12 +1380,14 @@ def main() -> None:
           f"max_abs_err {err:.3e} (tol {tol:.3e})")
     del gpu, cpu
 
-    # 6a-6d. the tasks under "mixed" at the shipped configs' widths
+    # 6a-6f. the tasks under "mixed" at the shipped configs' widths
     # (configs/datasets/*.toml on synthetic data): a dense Llama-2-7B backbone
     # stored at bf16 (no quantization: K1 never runs), f32 fusion layers; K2
-    # at bf16 over the cached [bos + dataset] head, K3 at f32 in eval (the
-    # train step runs the einsum graph at bf16). Their K2 / K3 launches and
-    # shapes are printed here; the kernels line keeps the main paths'
+    # at bf16 over the cached [bos + dataset] head or, on a clip dataset with
+    # prompting.clip, over per-clip head rows gathered from the KV bank (a
+    # per-row prefix, PB = B); K3 at f32 in eval (the train step runs the
+    # einsum graph at bf16). Their K2 / K3 launches and shapes are printed
+    # here; the kernels line keeps the main paths' and ecgmit-seg's per-row K2
     def build_task(label, cfg):
         """Build a task's trainer on the card: seconds, peak memory, the
         storage policy; K2 and K3 held at the shapes its eval step gives
@@ -1303,10 +1410,13 @@ def main() -> None:
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         Pt, Lt = window_shapes(tr)
         Bt, tl, tm = cfg.training.batch_size, tr.model.llm_cfg, cfg.models.timellm
+        per_clip = tr.model_inputs(next(iter(tr.test_pipeline)))["prefix_ids"].ndim == 2
         print(f"[shapes] {label}: task {cfg.task}, P={Pt} L={Lt} B={Bt} "
-              f"patches={tr.model.n_patches} layers={tl.n_layers} d={tl.d_model}")
+              f"patches={tr.model.n_patches} layers={tl.n_layers} d={tl.d_model}"
+              f"{', clips ' + str(len(np.unique(tr.test_dataset.clip_ids))) if tr.test_dataset.clip_dataset else ''}"
+              f"{', per-clip head rows' if per_clip else ''}")
         check_k2(f"rope_attention[{label}]", Bt, Lt, tl.n_heads, tl.kv_heads, tl.head_dim, Pt,
-                 tl.rope_theta, listed=False)
+                 tl.rope_theta, listed=False, PB=Bt if per_clip else 1)
         check_k3(f"reprogramming_attention[{label}]", Bt, tr.model.n_patches, tm.n_heads,
                  tm.d_ff, tm.num_tokens, listed=False)
         return tr
@@ -1318,58 +1428,75 @@ def main() -> None:
 
     def serve_task(tr, label):
         """``serve()`` (the graphs an earlier ``val()`` captured dropped
-        first, so ``test()`` captures its own) over 32 test batches; then K2
-        once per layer per test batch and in the prefill, K3 once per batch,
-        K1 never."""
+        first, so ``test()`` captures its own) over at least 32 test
+        batches; then K2 once per layer per test batch and in each prefill
+        (the constant head's, or each bank miss's), K3 once per batch, K1
+        never. Returns test()'s launches."""
         tr.step_graphs.clear()
-        counts, _, scores = serve(tr, label)
+        counts, _, scores, books = serve(tr, label)
         check_scores(label, tr.config.task, scores, "test")
         n_b, n_l = len(tr.test_pipeline), tr.model.llm_cfg.n_layers
-        check(n_b == 32, f"[{label}] the test split gives {n_b} batches, not 32")
-        check(counts["rope_attention"] == n_l * (n_b + 1)
+        prefills = books[0]["misses"] if books[0] else 1
+        check(n_b >= 32, f"[{label}] the test split gives {n_b} batches, not 32 or more")
+        check(counts["rope_attention"] == n_l * (n_b + prefills)
               and counts["reprogramming_attention"] == n_b
               and counts["w8a8_gemm"] == counts["w8a8_quantize"] == 0,
               f"[{label}] test() launches {counts}")
         print(f"[{label}] K2 launches {counts['rope_attention']} ({n_l} layers x ({n_b} "
-              f"batches + the prefill)), K3 {counts['reprogramming_attention']}, K1 0")
+              f"batches + {prefills} prefill(s))), K3 {counts['reprogramming_attention']}, "
+              "K1 0")
+        return counts
+
+    def train_task(label, cfg, val_prefills):
+        """``train()`` (4 shuffled steps of 16, then ``val()``) on a built
+        task: finite losses, the val scores, the launches (K2 once per layer
+        per step, per val batch and in each prefill, ``val_prefills(tr)`` of
+        them beside the train step's own), a frozen backbone and changed
+        fusion layers; then the train step's p50 over 16 steps after one
+        untimed. Returns the trainer."""
+        tr = build_task(label, cfg)
+        n_steps, n_l = len(tr.train_pipeline), tr.model.llm_cfg.n_layers
+        check(n_steps == 4, f"the {label} train split gives {n_steps} batches, not 4")
+        trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                     if p.requires_grad}
+        frozen = {n: torch.sum(t, dtype=torch.float64)
+                  for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+        torch.cuda.reset_peak_memory_stats()
+        counts, wall = drive(tr.train)
+        print(f"[{label}-train] train() {n_steps} steps of {cfg.training.batch_size} and val() "
+              f"over {len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; "
+              f"val {tr.val_scores}; launches {counts}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(len(tr.losses) == n_steps and finite(tr.losses), f"{label} losses {tr.losses}")
+        check_scores(label, cfg.task, tr.val_scores[0], "val")
+        n_val = len(tr.val_pipeline)
+        check(counts["rope_attention"] == n_l * (n_steps + n_val + val_prefills(tr))
+              and counts["reprogramming_attention"] == n_val
+              and counts["w8a8_gemm"] == 0,
+              f"{label} train(): K2 once per layer per step, per val batch and in each "
+              f"prefill, K3 per val batch (training runs the einsum graph): {counts}")
+        state = tr.model.state_dict()
+        unchanged = [n for n, t in trainable.items() if torch.equal(state[n], t)]
+        check(not unchanged, f"{label} trainable parameters that did not change: {unchanged}")
+        check(all(torch.sum(state[n], dtype=torch.float64) == v for n, v in frozen.items()),
+              f"the {label} backbone changed")
+        del trainable, frozen, state
+        step_p50(tr, f"{label}-train", 16, {"rope_attention": n_l,
+                                             "reprogramming_attention": 0, "w8a8_gemm": 0},
+                 warmup=1)
+        print(f"[{label}-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              "GiB")
+        check_scores(label, cfg.task, tr.val(), "val")
+        return tr
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train
-    # windows, four batches; 64 val windows), then served from a trainer of
+    # windows, four batches; 64 val windows; the train cache at bf16 and the
+    # eval cache at f32: two prefills), then served from a trainer of
     # SERVED_POINTS[history] points a split (the synthetic splits share one
     # length) that loads the trained weights
-    cfg_t = task_config(Config, BIDMC_TOML, n_points=8320)
-    tr = build_task("bidmc", cfg_t)
-    n_steps, n_l = len(tr.train_pipeline), tr.model.llm_cfg.n_layers
-    check(n_steps == 4, f"the bidmc train split gives {n_steps} batches, not 4")
-    trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
-                 if p.requires_grad}
-    frozen = {n: torch.sum(t, dtype=torch.float64) for n, t in tr.model.state_dict().items()
-              if n.startswith("llm.")}
-    torch.cuda.reset_peak_memory_stats()
-    counts, wall = drive(tr.train)
-    print(f"[bidmc-train] train() {n_steps} steps of {cfg_t.training.batch_size} and val() "
-          f"over {len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; "
-          f"val {tr.val_scores}; launches {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(len(tr.losses) == n_steps and finite(tr.losses), f"bidmc losses {tr.losses}")
-    check_scores("bidmc", "segmentation", tr.val_scores[0], "val")
-    check(counts["rope_attention"] == n_l * (n_steps + len(tr.val_pipeline) + 2)
-          and counts["reprogramming_attention"] == len(tr.val_pipeline)
-          and counts["w8a8_gemm"] == 0,
-          f"bidmc train(): K2 once per layer per step, per val batch and in each of the two "
-          f"prefills (the train cache at bf16, the eval cache at f32), K3 per val batch "
-          f"(training runs the einsum graph): {counts}")
-    state = tr.model.state_dict()
-    unchanged = [n for n, t in trainable.items() if torch.equal(state[n], t)]
-    check(not unchanged, f"bidmc trainable parameters that did not change: {unchanged}")
-    check(all(torch.sum(state[n], dtype=torch.float64) == v for n, v in frozen.items()),
-          "the bidmc backbone changed")
-    del trainable, frozen, state
-    step_p50(tr, "bidmc-train", 16, {"rope_attention": n_l, "reprogramming_attention": 0,
-                                     "w8a8_gemm": 0}, warmup=1)
-    print(f"[bidmc-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check_scores("bidmc", "segmentation", tr.val(), "val")
+    tr = train_task("bidmc", task_config(Config, BIDMC_TOML, n_points=8320),
+                    lambda tr: 2)
     served = get_trainer("chip-smoke-bidmc-served",
                          task_config(Config, BIDMC_TOML, n_points=SERVED_POINTS[256]), device=dev)
     served.load_state_dict(tr.model.state_dict())
@@ -1387,26 +1514,71 @@ def main() -> None:
     del tr
     torch.cuda.empty_cache()
 
-    # 6c. semantic segmentation, configs/datasets/ventilator.toml's settings
-    # (binary, bce, input statistics in the prompt) at llm_layers = 4
+    # 6c. semantic segmentation, configs/datasets/ventilator.toml as shipped
+    # (binary, bce, input statistics, prompting.clip: per-clip head rows
+    # from the KV bank) on 64 clips of 2048 points at llm_layers = 4
     tr = build_task("ventilator", task_config(Config, VENTILATOR_TOML,
-                                              n_points=SERVED_POINTS[256], llm_layers=4))
+                                              n_points=SERVED_POINTS[256], llm_layers=4,
+                                              n_clips=64))
     check(tr.model.n_classes == 2 and tr.model.n_outputs_per_step == 1,
           "the ventilator slice is binary: one logit a step")
     serve_task(tr, "ventilator")
     del tr
     torch.cuda.empty_cache()
 
+    # 6e. boundary segmentation, configs/datasets/ecgmit-seg.toml as shipped
+    # (prompting.clip: per-clip head rows [bos + dataset + clip] from the KV
+    # bank, input_stats off, history 256, step 256, bce, dropout 0.1) at full
+    # depth: train() on 32 clips of 512 points (64 train windows, four
+    # batches; the per-clip heads embedded in the train step's graph; val()
+    # through the banked step, a batch-1 prefill per miss), then served from
+    # a trainer with SEG_CLIPS clips of SEG_CLIP_POINTS points a split that
+    # loads the trained weights (33 test batches; 48 clips through a bank of
+    # 16 rows: evictions in every pass)
+    seg_cfg = task_config(Config, ECG_SEG_TOML, n_points=32 * 512, n_clips=32)
+    tr = train_task("ecgmit-seg", seg_cfg,
+                    lambda tr: sum(b["misses"] for k, b in tr._prefix_kv_cache.items()
+                                   if k[0] == "clip_bank"))
+    served = get_trainer("chip-smoke-ecgmit-seg-served", task_config(
+        Config, ECG_SEG_TOML, n_points=SEG_CLIPS * SEG_CLIP_POINTS, n_clips=SEG_CLIPS),
+        device=dev)
+    served.load_state_dict(tr.model.state_dict())
+    del tr
+    torch.cuda.empty_cache()
+    counts = serve_task(served, "ecgmit-seg")
+    set_launches(counts, {"rope_attention[ecgmit-seg]": "rope_attention"})
+    del served
+    torch.cuda.empty_cache()
+
+    # 6f. 4-class semantic segmentation, configs/datasets/ludb.toml as
+    # shipped (covariate_mode univariate: one feature; LUDB's 4 classes
+    # (background, P, QRS, T); ce, history 512, 64
+    # patches, d_ff 128: K3 at E 128; prompting.clip off, so the constant
+    # head is cached) at full depth on LUDB_CLIPS clips of LUDB_CLIP_POINTS
+    # points (38 test batches)
+    tr = build_task("ludb", task_config(Config, LUDB_TOML,
+                                        n_points=LUDB_CLIPS * LUDB_CLIP_POINTS,
+                                        n_clips=LUDB_CLIPS, n_features=1, n_classes=4))
+    check(tr.model.n_outputs_per_step == 4 and tr.model.n_patches == 64
+          and tr.model.covariate_mode == "univariate",
+          "ludb: four classes a step, 64 patches, univariate")
+    serve_task(tr, "ludb")
+    del tr
+    torch.cuda.empty_cache()
+
     # 6d. each task's window predictions on the card against the CPU's plain
     # versions, same seeded weights: 2-layer llama-1b (GQA 32 / 4 x 64),
-    # history 64, batch 2, under mixed. The card's K2 rounds the rotation once
-    # where the plain version rounds it three times (a bf16 row within 1.1-1.3
-    # x 2^-6 of its max, PERF.md), and cuBLAS and the CPU sum the bf16
-    # matmuls in their own orders: 2^-5 x max |CPU|
-    for label, toml in (("bidmc", BIDMC_TOML), ("ecgmit-anom", ECG_ANOM_TOML),
-                        ("ventilator", VENTILATOR_TOML)):
-        small = task_config(Config, toml, n_points=512, llm="llama-1b", llm_layers=2,
-                            history=64, batch=2)
+    # history 64, batch 2, under mixed; ecgmit-seg on 12 clips (per-clip
+    # heads through a bank of 8 rows, banked on both). The card's K2 rounds
+    # the rotation once where the plain version rounds it three times (a
+    # bf16 row within 1.1-1.3 x 2^-6 of its max, PERF.md), and cuBLAS and the
+    # CPU sum the bf16 matmuls in their own orders: 2^-5 x max |CPU|
+    for label, toml, n_points, n_clips in (
+            ("bidmc", BIDMC_TOML, 512, None), ("ecgmit-anom", ECG_ANOM_TOML, 512, None),
+            ("ventilator", VENTILATOR_TOML, 512, None),
+            ("ecgmit-seg", ECG_SEG_TOML, 12 * 128, 12)):
+        small = task_config(Config, toml, n_points=n_points, llm="llama-1b", llm_layers=2,
+                            history=64, batch=2, n_clips=n_clips)
         gpu = get_trainer("chip-smoke-task-small", small, device=dev)
         cpu = get_trainer("chip-smoke-task-small", small, device="cpu")
         cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
@@ -1418,6 +1590,9 @@ def main() -> None:
         check(counts["rope_attention"] > 0 and counts["reprogramming_attention"] > 0,
               f"[reference-task] {label}: the card's pass must launch K2 and K3: {counts}")
         check(err <= tol, f"[reference-task] {label}: card vs CPU max err {err} > {tol}")
+        if n_clips:
+            check(bank_book(gpu)["evictions"] > 0 and bank_book(cpu)["evictions"] > 0,
+                  f"[reference-task] {label}: no bank row evicted")
         sg, sc = gpu.test(), cpu.test()
         check_scores(label, small.task, sg, "test")
         print(f"[reference-task] {label} ({small.task}) llama-1b 2-layer mixed slice, card vs "
@@ -1427,7 +1602,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. the Mamba serving path (prompt-state cache), then one uncached pass
-    counts, preds, _ = serve(mtrainer, "mamba")
+    counts, preds, *_ = serve(mtrainer, "mamba")
     for name in ("selective_scan_h0", "selective_scan_final", "reprogramming_attention"):
         check(counts[name] > 0, f"kernel {name} was not launched by the Mamba path")
     # the serving path runs the scan's forms through the gated interface;
@@ -1440,7 +1615,7 @@ def main() -> None:
     unc = get_trainer("chip-smoke-mamba-uncached",
                       mamba_config(Config, prefix_cache=False), device=dev)
     unc.load_state_dict(mtrainer.model.state_dict())
-    counts, preds_u, _ = serve(unc, "mamba-uncached")
+    counts, preds_u, *_ = serve(unc, "mamba-uncached")
     check(counts["selective_scan"] > 0 and counts["selective_scan_h0"] == 0,
           f"the uncached pass must run the scan from h = 0: {counts}")
     set_launches(counts, {"selective_scan_gated": "selective_scan"})
@@ -1605,7 +1780,7 @@ def main() -> None:
     # 11. the MoE serving path (K6 both forms, K1, K2, K3)
     n_layers = xcfg.n_layers
     etrainer = get_trainer("chip-smoke-moe", ecfg, device=dev)
-    counts, _, _ = serve(etrainer, "moe")
+    counts, *_ = serve(etrainer, "moe")
     n_calls = n_layers * (len(etrainer.test_pipeline) + 1)  # every batch + the prefill
     check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
           == counts["grouped_matmul_requant"] == n_calls,
@@ -1696,7 +1871,7 @@ def main() -> None:
     bmm.load_state_dict(etrainer.model.state_dict())
     del etrainer
     torch.cuda.empty_cache()
-    counts, _, _ = serve(bmm, "moe-bmm")
+    counts, *_ = serve(bmm, "moe-bmm")
     check(counts["grouped_matmul_gate_up"] == counts["grouped_matmul_down"]
           == counts["grouped_matmul_requant"] == 0 and counts["w8a8_gemm"] > 0,
           f"the bmm pass must run K1 per expert, not K6: {counts}")
@@ -1708,7 +1883,7 @@ def main() -> None:
     # and K5, K1's GEMM never
     tr = get_trainer("chip-smoke-int4", bench_config(Config, quant_type="int4"), device=dev)
     check(tr.model.llm.blocks[0].attn.q_proj.bits == 4, "the int4 backbone")
-    counts, _, _ = serve(tr, "int4")
+    counts, *_ = serve(tr, "int4")
     n_calls = lcfg.n_layers * (len(tr.test_pipeline) + 1)  # every batch + the prefill
     check(counts["w4a8_gemm"] == 7 * n_calls and counts["w8a8_gemm"] == 0
           and counts["w8a8_quantize"] == 7 * n_calls,
@@ -1723,7 +1898,7 @@ def main() -> None:
     etrainer = get_trainer("chip-smoke-moe-int4", moe_config(Config, int4=True), device=dev)
     check(etrainer.model.llm_cfg.moe_grouped, "moe_grouped = \"auto\" must resolve on for "
           "absmax int4 experts on the card")
-    counts, _, _ = serve(etrainer, "moe-int4")
+    counts, *_ = serve(etrainer, "moe-int4")
     n_calls = xcfg.n_layers * (len(etrainer.test_pipeline) + 1)
     check(counts["grouped_matmul_w4_gate_up"] == counts["grouped_matmul_w4_down"]
           == counts["grouped_matmul_requant"] == n_calls
@@ -1934,7 +2109,7 @@ def main() -> None:
 
     n_batches = len(tr.test_pipeline)
     check(n_batches == 2, f"the long window gives {n_batches} test batches, not 2")
-    counts, preds, _ = serve(tr, "long")
+    counts, preds, *_ = serve(tr, "long")
     check(counts["rope_flash_attention"] == counts["rope_flash_keys"] == n_block * n_batches
           and counts["rope_attention"] == n_block and counts["flash_attention"] == 0,
           f"the long window must run the K4 route {n_block} times per batch and K2 only in "
@@ -2015,7 +2190,7 @@ def main() -> None:
     cfg_x = long_config(Config, history=4096, d_ff=128)
     tr = get_trainer("chip-smoke-crossover", cfg_x, device=dev)
     P_x, L_x = window_shapes(tr)
-    counts, _, _ = serve(tr, "crossover")
+    counts, *_ = serve(tr, "crossover")
     n_batches = len(tr.test_pipeline)
     on_k4 = P_x + L_x >= tfm.K4_MIN_KEYS
     want = ({"rope_flash_attention": n_block * n_batches, "rope_attention": n_block}

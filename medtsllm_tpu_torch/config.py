@@ -74,7 +74,8 @@ def validate_config(config):
     """The checks of ``medtsllm_tpu/config.py:256-341`` on the keys the
     port reads: task, model, lengths, dataset, optimizer, scheduler,
     ``setup.dtype``, the aligned-window tasks' equal lengths and the
-    anomaly-detection and segmentation tables."""
+    anomaly-detection and segmentation tables; and the prompting keys of
+    the per-clip head, ``clip_head`` and ``clip_cache_slots``."""
     def require(cond, msg):
         if not cond:
             raise ConfigError(msg)
@@ -115,4 +116,13 @@ def validate_config(config):
         require(sg is not None and "mode" in sg and "distance_thresh" in sg,
                 "segmentation requires [tasks.segmentation] with `mode` and "
                 "`distance_thresh`")
+    # the per-clip head's switch and its KV bank's rows (PromptBuilder)
+    models = config.models.to_dict() if "models" in config else {}
+    for mc in models.values():
+        prompting = (mc.get("prompting") if isinstance(mc, dict) else None) or {}
+        require(isinstance(prompting.get("clip_head", True), bool),
+                "prompting.clip_head must be true or false")
+        slots = prompting.get("clip_cache_slots", 8)
+        require(type(slots) is int and slots >= 1,
+                f"prompting.clip_cache_slots must be a positive integer, not {slots!r}")
     return config

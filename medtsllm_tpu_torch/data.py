@@ -1,16 +1,19 @@
 """Host data: the synthetic dataset family on the reconstruction,
 anomaly-detection, segmentation and semantic-segmentation tasks (train,
-val and test splits, with their labels), fixed-shape batches (shuffled for
-training), the background prefetch of batches and window stitching.
+val and test splits, with their labels), as one series or as clips
+(``datasets.synthetic.clips``: windows that never cross a clip, each with
+its clip's description), fixed-shape batches (shuffled for training), the
+background prefetch of batches and window stitching.
 
 A copy of the parts of ``medtsllm_tpu/data`` (synthetic.py rng_for /
 sine_mixture / inject_anomalies / periodic_boundaries /
-segment_class_labels, base.py StandardScaler, label conversion and
-windowing, readers/synthetic.py, pipeline.py BatchPipeline and prefetch,
-windowing.py AlignedWindows / steps_to_boundary_labels / stitch_windows /
-dedup_eval_series) the port runs, so it runs without the JAX package. The
-same config gives the same arrays as the JAX package's ``get_dataset``
-(tests/test_torch_tasks.py).
+segment_class_labels / patient_descriptions, base.py StandardScaler, label
+conversion, windowing and item access, readers/synthetic.py, pipeline.py
+BatchPipeline and prefetch, windowing.py ClipWindows /
+steps_to_boundary_labels / stitch_windows / dedup_eval_series) the port
+runs, so it runs without the JAX package. The same config gives the same
+arrays as the JAX package's ``get_dataset`` (tests/test_torch_tasks.py,
+tests/test_torch_clip.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import zlib
 
 import numpy as np
 
+# batch keys stacked into arrays; the others (descriptions) stay host lists
+ARRAY_KEYS = ("x_enc", "y", "labels")
 
 
 def rng_for(family: str, split: str = "") -> np.random.Generator:
@@ -86,6 +91,45 @@ def segment_class_labels(rng, n: int, n_classes: int, mean_seg: float) -> np.nda
     return labels
 
 
+def patient_descriptions(ids, prefix="Patient description") -> dict:
+    return {int(i): f"{prefix}: synthetic subject {int(i)} with stable vitals."
+            for i in np.unique(ids)}
+
+
+class ClipWindows:
+    """Windows that never cross a clip (``clip_ids`` non-decreasing): each
+    clip holds ``(len - pred_len) // step + 1`` windows, indexed clip after
+    clip. ``mask`` marks the points a stitched series keeps: within the
+    span a clip's windows cover, those with ``(t % step) // pred_len ==
+    0``; a clip's trailing remainder never."""
+
+    def __init__(self, clip_ids: np.ndarray, pred_len: int, step: int):
+        clip_ids = np.asarray(clip_ids)
+        if not (np.diff(clip_ids) >= 0).all():
+            raise ValueError("clip_ids must be non-decreasing")
+        change = np.flatnonzero(np.diff(clip_ids)) + 1
+        self.clip_starts = np.concatenate([[0], change])
+        clip_lens = np.concatenate([change, [len(clip_ids)]]) - self.clip_starts
+        segs = (clip_lens - pred_len) // step + 1
+        if (segs < 1).any():
+            raise ValueError(f"clip shorter than window: min clip len {clip_lens.min()} "
+                             f"< pred_len {pred_len}")
+        self.step = step
+        self.segs_cumsum = np.concatenate([[0], np.cumsum(segs)])
+        covered = (segs - 1) * step + pred_len
+        proto = ((np.arange(int(covered.max())) % step) // pred_len) == 0
+        self.mask = np.concatenate([part for cp, n in zip(covered, clip_lens)
+                                    for part in (proto[:cp], np.zeros(n - cp, dtype=bool))])
+
+    def __len__(self) -> int:
+        return int(self.segs_cumsum[-1])
+
+    def x_starts(self, idx) -> np.ndarray:
+        idx = np.asarray(idx)
+        clip = np.searchsorted(self.segs_cumsum, idx, side="right") - 1
+        return self.clip_starts[clip] + (idx - self.segs_cumsum[clip]) * self.step
+
+
 def steps_to_boundary_labels(labels_binary: np.ndarray) -> np.ndarray:
     """Boundary indicators -> the distance to the next boundary (the end of
     the series counts as one) over the length of the segment it ends."""
@@ -105,11 +149,16 @@ class SyntheticDataset:
     anomalies injected into val and test (anomaly detection), jittered
     periodic boundaries (segmentation; as distances to the next one in
     ``steps-to-boundary`` mode) or piecewise-constant classes (semantic
-    segmentation, ``datasets.synthetic.n_classes``, default 2)."""
+    segmentation, ``datasets.synthetic.n_classes``, default 2).
+
+    With ``datasets.synthetic.clips`` the series is ``n_clips`` (default 4)
+    equal clips, the last taking the remainder (``clip_ids``), each with a
+    patient description (``clip_descriptions``); the windows never cross a
+    clip (``ClipWindows``), every item carries its clip's description, and a
+    stitched series keeps the points of ``mask``."""
 
     description = "A synthetic sinusoid-mixture dataset used for testing."
     univariate = False
-    clip_dataset = False
 
     def __init__(self, config, split: str):
         self.task = config.task
@@ -121,9 +170,6 @@ class SyntheticDataset:
             raise NotImplementedError("the port reads multivariate, all-column data "
                                       "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
         ds = config.get("datasets", {}).get("synthetic", {})
-        if ds.get("clips", False):
-            raise NotImplementedError("clip datasets are ROADMAP queue 1, \"Clip "
-                                      "datasets, per-clip heads and the banked eval\"")
         if config.history_len != config.pred_len:
             raise ValueError(f"{self.task} requires history_len == pred_len")
         self.task_config = config.get("tasks", {}).get(self.task, {})
@@ -142,13 +188,23 @@ class SyntheticDataset:
         if self.labels is not None:
             n_labels = len(np.unique(self.labels))
             self.labels = self.labels.astype(np.int64 if n_labels > 2 else np.int32)
+        self.clip_ids = got.get("clip_ids")
+        self.clip_descriptions = got.get("clip_descriptions")
+        if self.clip_ids is not None:
+            self.clip_ids = self.clip_ids.astype(np.int32)
+        # clip windows for every task but forecasting, which the port lacks
+        self.clip_dataset = self.clip_ids is not None and self.task != "forecasting"
         if self.task == "segmentation":
             mode = self.task_config.mode
             if mode == "steps-to-boundary":
                 self.labels = steps_to_boundary_labels(self.labels)
             elif mode != "boundary-prediction":
                 raise ValueError(f"Segmentation mode {mode} not supported")
-        self._len = max(0, (self.n_points - self.pred_len) // self.step_size + 1)
+        if self.clip_dataset:
+            self.windows = ClipWindows(self.clip_ids, self.pred_len, self.step_size)
+            self._len = len(self.windows)
+        else:
+            self._len = max(0, (self.n_points - self.pred_len) // self.step_size + 1)
 
     def generate(self, split: str) -> dict:
         n = int(self.dataset_config.get("n_points", 2048))
@@ -163,6 +219,11 @@ class SyntheticDataset:
             out["labels"] = periodic_boundaries(rng, n, mean_period=100)
         elif self.task == "semantic_segmentation":
             out["labels"] = segment_class_labels(rng, n, self.n_classes, mean_seg=64)
+        if self.dataset_config.get("clips", False):
+            n_clips = int(self.dataset_config.get("n_clips", 4))
+            ids = np.repeat(np.arange(n_clips), n // n_clips)
+            out["clip_ids"] = np.pad(ids, (0, n - len(ids)), constant_values=n_clips - 1)
+            out["clip_descriptions"] = patient_descriptions(out["clip_ids"])
         return out
 
     def __len__(self) -> int:
@@ -184,14 +245,22 @@ class SyntheticDataset:
             return int(self.dataset_config.get("n_classes", 2))
         return 0
 
+    @property
+    def mask(self) -> np.ndarray:
+        return self.windows.mask
+
     def x_starts(self, idx) -> np.ndarray:
+        if self.clip_dataset:
+            return self.windows.x_starts(idx)
         return np.asarray(idx) * self.step_size
 
     def __getitem__(self, idx: int) -> dict:
-        s = int(idx) * self.step_size
+        s = int(self.x_starts(int(idx)))
         out = {"x_enc": self.data[s:s + self.pred_len]}
         if self.labels is not None:
             out["labels"] = self.labels[s:s + self.pred_len]
+        if self.clip_descriptions is not None:
+            out["descriptions"] = self.clip_descriptions[int(self.clip_ids[s])]
         return out
 
 
@@ -199,7 +268,8 @@ class BatchPipeline:
     """Fixed-shape batches: the final batch is padded by repeating its last
     window, with ``valid`` marking the real rows. In index order, or with
     ``shuffle`` in an order drawn anew each epoch from one
-    ``np.random.default_rng(seed)``, the JAX pipeline's draws."""
+    ``np.random.default_rng(seed)``, the JAX pipeline's draws. The
+    ``ARRAY_KEYS`` are stacked; the rest (``descriptions``) stay lists."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0):
         self.dataset = dataset
@@ -222,7 +292,8 @@ class BatchPipeline:
             valid = np.zeros(B, dtype=bool)
             valid[:n_valid] = True
             items = [self.dataset[j] for j in idx]
-            batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+            batch = {k: np.stack([it[k] for it in items]) if k in ARRAY_KEYS
+                     else [it[k] for it in items] for k in items[0]}
             yield dict(batch, index=idx.astype(np.int32), valid=valid)
 
 

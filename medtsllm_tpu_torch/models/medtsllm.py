@@ -10,7 +10,9 @@ downsample -> FlattenHead -> the task's head: RevIN denorm
 segmentation (one logit) and semantic segmentation (one logit, or one per
 class past two), with the sigmoid / softmax in eval. The constant prompt
 head is prefilled once and served as per-layer prefix K/V (llama) or
-per-layer (conv tail, SSM state) (Mamba).
+per-layer (conv tail, SSM state) (Mamba); on a clip dataset with a llama
+backbone the head also holds the clip's description, one row per window
+([B, P] ``prefix_ids``, served from the task's per-clip KV bank).
 
 Training (``model.train()``): the backbone is frozen (``requires_grad =
 False`` under ``llm``, ``param_labels`` of the JAX model) and every fusion
@@ -19,9 +21,9 @@ reprogramming attention weights, with masks from the generator ``forward``
 is given. The reprogramming attention then runs the plain einsum/softmax
 graph, as JAX does (K3 has no backward).
 
-Scope: covariate mode ``concat``, an enabled llama (dense or
-mixtral-style MoE, served on one device) or dense Mamba backbone, no
-in-context examples and no per-clip prompt heads; anything else raises
+Scope: covariate modes ``concat`` and ``univariate`` (one feature), an
+enabled llama (dense or mixtral-style MoE, served on one device) or dense
+Mamba backbone, no in-context examples; anything else raises
 NotImplementedError naming its ROADMAP item. The tasks are those of
 ``tasks.task_lookup`` (``get_trainer`` refuses the others).
 """
@@ -57,6 +59,10 @@ TASK_DESCRIPTIONS = {
     "segmentation": "Identify the change points in the past {seq} steps of data to segment "
                     "the sequence.",
 }
+
+# the covariate modes the JAX model knows (medtsllm_tpu/models/medtsllm.py:242)
+COVARIATE_MODES = ("univariate", "independent", "concat", "interleave", "add",
+                   "weighted-average", "merge-end")
 
 # models.<m>.llm.quant_type under load_in_4bit -> the 4-bit codebook
 # (medtsllm_tpu/models/medtsllm.py:259-267)
@@ -141,7 +147,8 @@ class MedTsLLM(nn.Module):
     def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
                  num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
-                 dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None):
+                 dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None,
+                 covariate_mode="concat"):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
@@ -149,6 +156,7 @@ class MedTsLLM(nn.Module):
         self.llm_cfg, self.llm_id, self.cache_dir = llm_cfg, llm_id, cache_dir
         self.prefix_cache = prefix_cache
         self.task, self.n_classes, self.seg_mode = task, n_classes, seg_mode
+        self.covariate_mode = covariate_mode
         # medtsllm_tpu/models/medtsllm.py:161-181
         self.n_outputs_per_step = {
             "segmentation": 1,
@@ -181,8 +189,15 @@ class MedTsLLM(nn.Module):
         seg_mode = config.tasks.segmentation.mode if task == "segmentation" else None
         if seg_mode not in (None, "boundary-prediction", "steps-to-boundary"):
             raise ValueError(f"Segmentation mode {seg_mode} not supported")
-        if mc.covariate_mode != "concat":
-            unported.append(f"covariate_mode {mc.covariate_mode!r} "
+        covariate_mode = mc.covariate_mode
+        if covariate_mode not in COVARIATE_MODES:
+            raise ValueError(f"Unknown covariate_mode {covariate_mode!r}; "
+                             f"expected one of {COVARIATE_MODES}")
+        if covariate_mode == "univariate" and dataset.n_features != 1:
+            raise ValueError(f"covariate_mode \"univariate\" needs one feature, not "
+                             f"{dataset.n_features}")
+        if covariate_mode not in ("concat", "univariate"):
+            unported.append(f"covariate_mode {covariate_mode!r} "
                             "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
         if mc.embedding_downsample_mode != "linear":
             unported.append(f"embedding_downsample_mode "
@@ -238,7 +253,7 @@ class MedTsLLM(nn.Module):
             cache_dir=cache_dir,
             dropout=float(config.training.get("dropout", 0.0) or 0.0),
             task=task, n_classes=dataset.n_classes if task == "semantic_segmentation" else 0,
-            seg_mode=seg_mode)
+            seg_mode=seg_mode, covariate_mode=covariate_mode)
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property
@@ -263,9 +278,10 @@ class MedTsLLM(nn.Module):
         B, L, C = x_enc.shape
         xn, stats = revin_norm(x_enc)
         enc = self.patch_embedding(xn.transpose(1, 2), generator)  # [B*C, P, d_model]
-        P = enc.shape[1]
-        enc = enc.reshape(B, C, P, self.d_model).transpose(1, 2).reshape(
-            B, P, C * self.d_model)
+        if self.covariate_mode == "concat":  # univariate: C == 1, [B, P, d_model]
+            P = enc.shape[1]
+            enc = enc.reshape(B, C, P, self.d_model).transpose(1, 2).reshape(
+                B, P, C * self.d_model)
         source = self.mapping_layer(self.llm.wte.T).T  # [T, d_llm]
         return self.reprogramming_layer(enc, source, source, generator), stats
 
@@ -279,10 +295,11 @@ class MedTsLLM(nn.Module):
         prefix_kv = inputs.get("prefix_kv")
         prefix_ids = inputs.get("prefix_ids")
         if prefix_ids is not None:
-            # uncached: the prompt head embedded at positions 0..P-1
-            assert prefix_kv is None and prefix_ids.dim() == 1
-            parts.append(self.llm.embed(prefix_ids).to(ts_emb.dtype)[None].expand(
-                B, -1, -1))
+            # uncached: the prompt head embedded at positions 0..P-1, 1-D
+            # (constant) or [B, P] (per clip, left-padded to its bucket)
+            assert prefix_kv is None
+            pe = self.llm.embed(prefix_ids).to(ts_emb.dtype)
+            parts.append(pe[None].expand(B, -1, -1) if prefix_ids.dim() == 1 else pe)
         prompt_ids = inputs.get("prompt_ids")
         if prompt_ids is not None:
             parts.append(self.llm.embed(prompt_ids).to(ts_emb.dtype))
@@ -309,10 +326,12 @@ class MedTsLLM(nn.Module):
         return dec_out
 
     def prefill(self, prefix_ids: torch.Tensor, embed_dtype=torch.float32):
-        """Per-layer (k, v) of the constant 1-D prompt head, computed once
-        per eval pass; ``embed_dtype`` is what ``forward`` feeds the LLM
+        """Per-layer (k, v) of a prompt head: the constant 1-D head (once per
+        eval pass) or [N, P] per-clip head rows (once per clip, banked by
+        the task); ``embed_dtype`` is what ``forward`` feeds the LLM
         (ts_emb's dtype, f32) so cached and uncached paths agree."""
-        return self.llm.prefill(self.llm.embed(prefix_ids).to(embed_dtype)[None])
+        emb = self.llm.embed(prefix_ids).to(embed_dtype)
+        return self.llm.prefill(emb[None] if prefix_ids.dim() == 1 else emb)
 
 
 def _resolve_moe(llm_cfg, llm, quantize: int, device: torch.device):
@@ -377,7 +396,12 @@ class PromptBuilder:
     """Batch preprocessor: prompt text -> token ids, grow-only bucket left
     padding, input statistics (medtsllm.py:845-1200 of the JAX package).
     With the prefix cache, the constant head [bos + dataset (+ task under
-    ``cache_order``)] is emitted unpadded as 1-D ``prefix_ids``."""
+    ``cache_order``)] is emitted unpadded as 1-D ``prefix_ids``; under
+    ``clip_head`` (default on) a batch with clip descriptions on a llama
+    backbone gets per-window head rows [bos + dataset (+ task) + clip],
+    left-padded into a grow-only 16-granular bucket: [B, P] ``prefix_ids``
+    for the task's per-clip KV bank (``clip_cache_slots`` rows, default
+    8)."""
 
     N_LAGS = 5
 
@@ -393,10 +417,12 @@ class PromptBuilder:
             "input_stats_dim": prompting.get("input_stats_dim", 0),
             "input_stats_select": prompting.get("input_stats_select", "all"),
             "cache_order": prompting.get("cache_order", False),
+            "clip_head": prompting.get("clip_head", True),
+            "clip_cache_slots": int(prompting.get("clip_cache_slots", 8)),
         }
         if prompting.get("examples", False):
-            raise NotImplementedError("prompting.examples (in-context examples) "
-                                      "is ROADMAP queue 1 item 4")
+            raise NotImplementedError("prompting.examples (in-context examples): ROADMAP "
+                                      "queue 1, \"MedTsLLM's remaining modes\"")
         self.enabled = any(self.cfg[k] for k in
                            ("dataset", "clip", "input_stats", "task"))
         self.tokenizer = get_tokenizer(mc.llm.llm, model.cache_dir,
@@ -411,6 +437,7 @@ class PromptBuilder:
         self.split_prefix = model.prefix_cache
         self.max_bucket = 16
         self.max_bucket_suffix = 16
+        self.max_bucket_head = 16
         self._cache: dict[str, list[int]] = {}
 
     def _encode(self, text: str) -> list[int]:
@@ -458,10 +485,14 @@ class PromptBuilder:
         task_prompt = f"Task: {self.task_description}" if self.cfg["task"] else ""
         bos = self.bos if self.bos is not None else ""
         task_in_head = bool(self.cfg["cache_order"] and task_prompt)
+        clip_in_head = self.clip_in_head(batch)
         pre_prompts, post_prompts = [], []
         for b in range(bs):
-            pre = [bos, dataset_prompt] + ([task_prompt] if task_in_head else [])
-            post = [clip_prompts[b], stats_prompts[b],
+            # the clip joins the per-clip head; the token order is the same
+            # either way (the clip precedes the stats)
+            pre = ([bos, dataset_prompt] + ([task_prompt] if task_in_head else [])
+                   + ([clip_prompts[b]] if clip_in_head else []))
+            post = ["" if clip_in_head else clip_prompts[b], stats_prompts[b],
                     "" if task_in_head else task_prompt, "Time series:"]
             pre = [p for p in pre if p != ""]
             post = [p for p in post if p != ""]
@@ -485,32 +516,46 @@ class PromptBuilder:
                                      ((maxlen + 15) // 16) * 16)
         return self.max_bucket_suffix
 
-    def _head_part_count(self) -> int:
+    def _bucket_head(self, maxlen: int) -> int:
+        self.max_bucket_head = max(self.max_bucket_head, ((maxlen + 15) // 16) * 16)
+        return self.max_bucket_head
+
+    def clip_in_head(self, batch: dict) -> bool:
+        """Whether the clip description joins the cacheable head (the
+        per-clip KV bank): the prefix cache, clip prompting under
+        ``clip_head`` with descriptions in the batch, and a llama backbone
+        (the Mamba state cache keeps one entry)."""
+        return bool(self.split_prefix and self.cfg["clip"] and self.cfg["clip_head"]
+                    and "descriptions" in batch
+                    and self.model.llm_cfg.style != "mamba")
+
+    def _head_part_count(self, batch: dict) -> int:
         """Leading parts of ``pre`` that form the cacheable head."""
         if not self.split_prefix:
             return 0
         return (int(bool(self.bos)) + int(bool(self.cfg["dataset"]))
-                + int(bool(self.cfg["task"] and self.cfg["cache_order"])))
+                + int(bool(self.cfg["task"] and self.cfg["cache_order"]))
+                + int(self.clip_in_head(batch)))
 
     def __call__(self, batch: dict) -> dict:
         arrays = {k: v for k, v in batch.items() if k in ARRAY_BATCH_KEYS}
         if not self.enabled:
             return arrays
-        if self.split_prefix and self.cfg["clip"] and "descriptions" in batch:
-            raise NotImplementedError("per-clip prompt heads (the clip KV bank) are "
-                                      "ROADMAP queue 1, \"Clip datasets, per-clip heads "
-                                      "and the banked eval\"")
         pre_prompts, post_prompts = self.build_prompts(batch)
         if not (pre_prompts[0] or post_prompts[0]):
             return arrays
-        n_head = self._head_part_count()
+        n_head = self._head_part_count(batch)
         has_head = False
-        if n_head:
+        if n_head and self.clip_in_head(batch):
+            rows = [sum((self._encode(p) for p in pre[:n_head]), []) for pre in pre_prompts]
+            arrays["prefix_ids"] = self._pad_ids(rows, self._bucket_head(max(map(len, rows))))
+            has_head = True
+        elif n_head:
             head_ids = sum((self._encode(p) for p in pre_prompts[0][:n_head]), [])
             if head_ids:
                 arrays["prefix_ids"] = np.asarray(head_ids, dtype=np.int64)
                 has_head = True
-            pre_prompts = [parts[n_head:] for parts in pre_prompts]
+        pre_prompts = [parts[n_head:] for parts in pre_prompts]
         ids = [sum((self._encode(p) for p in pre + post), [])
                for pre, post in zip(pre_prompts, post_prompts)]
         if any(map(len, ids)) or not has_head:

@@ -1,12 +1,16 @@
 """The captured serving step: the port's counterpart of ``jax.jit`` on the
 eval step (``medtsllm_tpu/tasks/base.py:547``).
 
-``StepGraphs`` runs a model's forward as one CUDA graph per input
-signature. The key (``step_key``) is the shape and dtype of every input
-array, plus the shape, dtype and address of every prefix K/V tensor: the
-prompt-head cache is bound into the graph by address, not copied, and the
-task refills those same tensors in place each eval pass. As with
-``jax.jit``, a new prompt bucket captures a new graph.
+``StepGraphs`` runs a step function (the task's eval forward) as one CUDA
+graph per input signature. The key (``step_key``) is the shape and dtype of
+every input array, plus the shape, dtype and address of every prefix K/V
+tensor and every tensor of the per-clip KV bank: the prompt-head cache and
+the bank are bound into the graph by address, not copied, and the task
+refills those same tensors in place (the bank row by row, on the step's
+stream, so a write is ordered after every replay enqueued before it). The
+bank's slots are an input like any other: the gather of the rows runs
+inside the graph. As with ``jax.jit``, a new prompt bucket captures a new
+graph.
 
 - The first call of a key runs the forward eagerly on a side stream (the
   warm-up: each launcher's one-time setup and cuBLAS / cuDNN handles and
@@ -25,8 +29,8 @@ a trace does.
 
 Memory: the graphs of one ``StepGraphs`` share one memory pool. This is
 safe because every replay runs on the caller's one stream, so no two
-graphs run at once; the static inputs and the prefix K/V are allocated
-outside the pool; and each graph's static output stays referenced, so no
+graphs run at once; the static inputs, the prefix K/V and the bank are
+allocated outside the pool; and each graph's static output stays referenced, so no
 other capture reuses it, while the caller gets a clone made before any
 other replay. A graph's intermediates are dead once its replay ends, so a
 later replay of another graph may overwrite them.
@@ -88,14 +92,19 @@ def _signature(t: torch.Tensor) -> tuple:
     return tuple(t.shape), t.dtype
 
 
+# inputs bound into a graph by address: per layer, a pair of tensors
+BOUND = ("prefix_kv", "prefix_bank")
+
+
 def step_key(arrays: dict) -> tuple:
     """The step's input signature: (name, shape, dtype) of each input array,
-    and for ``prefix_kv`` (per layer, a pair of tensors) each tensor's shape,
-    dtype and address, since the graph reads those tensors where they lie."""
+    and for ``prefix_kv`` and ``prefix_bank`` (per layer, a pair of tensors)
+    each tensor's shape, dtype and address, since the graph reads those
+    tensors where they lie."""
     key = []
     for name in sorted(arrays):
         value = arrays[name]
-        if name == "prefix_kv":
+        if name in BOUND:
             key.append((name, tuple((*_signature(t), t.data_ptr())
                                     for layer in value for t in layer)))
         else:
@@ -104,17 +113,16 @@ def step_key(arrays: dict) -> tuple:
 
 
 class StepGraphs:
-    """``model``'s forward (inference mode) as one CUDA graph per
-    ``step_key`` on ``device``. ``graphs`` maps each key to (its graph,
+    """``step(arrays)`` (inference mode) as one CUDA graph per ``step_key``
+    on ``device``. ``graphs`` maps each key to (its graph,
     the static inputs, the static output, the launches one replay makes);
     ``capture_ms`` holds each capture's wall milliseconds (the warm-up
     apart)."""
 
-    def __init__(self, model: torch.nn.Module, device: torch.device,
-                 counters: dict | None = None):
+    def __init__(self, step, device: torch.device, counters: dict | None = None):
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs capture a CUDA device's work, not {device}")
-        self.model, self.device = model, device
+        self.step, self.device = step, device
         self.counters = launch_counters() if counters is None else counters
         self.graphs: dict[tuple, tuple] = {}
         self.capture_ms: list[float] = []
@@ -147,13 +155,13 @@ class StepGraphs:
             self._stream = torch.cuda.Stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        # the static inputs, outside the pool; the prefix K/V as it lies
-        inputs = {name: v.clone() for name, v in arrays.items() if name != "prefix_kv"}
+        # the static inputs, outside the pool; the prefix K/V and bank as they lie
+        inputs = {name: v.clone() for name, v in arrays.items() if name not in BOUND}
         static = {**arrays, **inputs}
         side = self._stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.model(static)  # the warm-up, counted: its kernels run
+            out = self.step(static)  # the warm-up, counted: its kernels run
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = read_counts(self.counters)
@@ -161,7 +169,7 @@ class StepGraphs:
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=side,
                                   capture_error_mode="thread_local"):
-                static_out = self.model(static)
+                static_out = self.step(static)
             delta = count_delta(before, read_counts(self.counters))
         finally:
             # the capture launched nothing; a failed capture may leave the

@@ -1,9 +1,10 @@
 """The task runtime (port of ``medtsllm_tpu/tasks/base.py``): datasets and
 pipelines, parameter init, the optimizer and the loss, ``train_step`` and
 the epoch loop ``train``, ``train_model_inputs`` / ``eval_model_inputs``,
-``eval_prepare`` / ``eval_dispatch`` for the plain kind, the prefill of the
-1-D prompt-head cache, ``run_eval``, ``eval_n_points``, ``finalize_series``
-and the score bookkeeping (``log_scores``, ``best_score``).
+``eval_prepare`` / ``eval_dispatch`` (plain and banked), the prefill of the
+1-D prompt-head cache, the per-clip KV bank (``_clip_bank_lookup``),
+``run_eval``, ``eval_n_points``, ``finalize_series`` (the clip mask) and
+the score bookkeeping (``log_scores``, ``best_score``).
 
 The dtype policy is the JAX package's (``setup.dtype``, ``Precision``):
 every float parameter at one dtype, or under "mixed" the trainable fusion
@@ -19,7 +20,11 @@ Everything lives on one explicit device. The constant prompt head is
 prefilled once per eval pass and every window attends it as prefix K/V (or
 resumes the Mamba scan from its state); each pass refills the same tensors
 in place. The train step serves it from the same cache when the model says
-that is safe (frozen backbone, no backbone dropout).
+that is safe (frozen backbone, no backbone dropout). Per-clip heads ([B, P]
+``prefix_ids``) are served in eval from a bank of per-layer K/V rows, one a
+clip, filled on a miss by a batch-1 prefill and evicted least recently
+used; the eval step gathers its rows from the bank by a [B] slot tensor
+(the banked step). The train step embeds per-clip heads in its graph.
 
 On a CUDA device the eval step replays one captured CUDA graph per input
 signature (``runtime/graph.py``, the counterpart of JAX's jitted
@@ -37,6 +42,7 @@ the torch CLIs").
 
 from __future__ import annotations
 
+import functools
 import random
 import warnings
 
@@ -88,13 +94,17 @@ class BaseTask:
                       "quality not meaningful)")
         self._apply_param_dtype()
         self.model.eval()
-        # (head ids, mixed train) -> per-layer prefix tensors:
-        # ``_prefix_kv_store`` keeps them for the trainer's life (a captured
-        # step reads them where they lie); ``_prefix_kv_cache`` holds the
-        # entries filled this pass
+        # (head ids, mixed train) or ("clip_bank", P, mixed train) ->
+        # per-layer prefix tensors: ``_prefix_kv_store`` keeps them for the
+        # trainer's life (a captured step reads them where they lie);
+        # ``_prefix_kv_cache`` holds this pass's entries (a bank's
+        # bookkeeping)
         self._prefix_kv_store = {}
         self._prefix_kv_cache = {}
-        self.step_graphs = (StepGraphs(self.model, self.device)
+        # (the step holds the model, not the trainer: no reference cycle
+        # keeps a dropped trainer's device memory alive)
+        self.step_graphs = (StepGraphs(functools.partial(eval_forward, self.model),
+                                       self.device)
                             if self.device.type == "cuda" else None)
 
         self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
@@ -146,14 +156,11 @@ class BaseTask:
                 for k, t in tensors.items()}
 
     def eval_model_inputs(self, batch: dict) -> dict:
-        """Model inputs with the constant prompt head (``prefix_ids``)
-        swapped for its cached per-layer KV."""
-        host = self.model_inputs(batch)
-        ids = host.pop("prefix_ids", None)
-        arrays = self._to_device(host)
-        if ids is not None:
-            arrays["prefix_kv"] = self._prefix_kv(ids)
-        return arrays
+        """Model inputs with the prompt head (``prefix_ids``) swapped for
+        its per-layer KV: the cached constant head, or the per-clip rows
+        gathered from the bank."""
+        _, arrays = self.eval_prepare(batch)
+        return gather_bank(arrays)
 
     def train_model_inputs(self, batch: dict) -> dict:
         """Train-side inputs: the 1-D prompt head served from the cache when
@@ -195,8 +202,22 @@ class BaseTask:
 
     def eval_prepare(self, batch: dict):
         """Host side of ``eval_dispatch`` (split out so a caller can time
-        host preparation apart from the device work)."""
-        return ("plain", self.eval_model_inputs(batch))
+        host preparation apart from the device work): ("plain", inputs with
+        the constant head's cached ``prefix_kv``) or, for per-clip heads,
+        ("banked", inputs with the bank (``prefix_bank``) and the rows'
+        slots (``prefix_slots`` [B])). The bank's misses are prefilled into
+        it here, on the current stream: after the previous step's work,
+        which may still be reading the bank."""
+        host = self.model_inputs(batch)
+        ids = host.pop("prefix_ids", None)
+        if ids is not None and ids.ndim == 2:
+            bank, slots = self._clip_bank_lookup(ids)
+            host["prefix_slots"] = np.asarray(slots, dtype=np.int64)
+            return ("banked", dict(self._to_device(host), prefix_bank=bank))
+        arrays = self._to_device(host)
+        if ids is not None:
+            arrays["prefix_kv"] = self._prefix_kv(ids)
+        return ("plain", arrays)
 
     def eval_step(self, arrays: dict) -> torch.Tensor:
         """The eval step: on a card the captured graph of the inputs'
@@ -208,13 +229,13 @@ class BaseTask:
     @torch.inference_mode()
     def eval_step_eager(self, arrays: dict) -> torch.Tensor:
         """The eval step op by op, whatever the device."""
-        return self.model(arrays)
+        return eval_forward(self.model, arrays)
 
     def eval_dispatch(self, batch: dict | None = None, prepared=None):
         if prepared is None:
             prepared = self.eval_prepare(batch)
         kind, arrays = prepared
-        assert kind == "plain", kind
+        assert kind in ("plain", "banked"), kind
         return self.eval_step(arrays)
 
     @torch.no_grad()
@@ -230,10 +251,6 @@ class BaseTask:
         parameters, which are stored at bf16 already. Built under
         ``no_grad``, not ``inference_mode``: the train step's backward saves
         the cached K/V (K2) and SSM state (K9)."""
-        if ids.ndim != 1:
-            raise NotImplementedError("per-clip 2-D prompt heads are ROADMAP queue 1, "
-                                      "\"Clip datasets, per-clip heads and the banked "
-                                      "eval\"")
         mixed_train = train and self.precision.mixed
         key = (ids.tobytes(), mixed_train)
         kv = self._prefix_kv_cache.get(key)
@@ -248,6 +265,88 @@ class BaseTask:
                         t.copy_(n)
             self._prefix_kv_cache[key] = kv
         return kv
+
+    # -- the per-clip KV bank (medtsllm_tpu/tasks/base.py:375-463) ---------
+    #
+    # Clip descriptions come from a small finite set, so each distinct head
+    # row [P] is prefilled once and banked; eval batches gather their rows
+    # from the bank. Eval windows come in position order, so a clip's
+    # windows arrive together and a few slots get nearly every hit.
+
+    def _clip_cache_slots(self) -> int:
+        return max(2, self.preprocessor.cfg["clip_cache_slots"])
+
+    @torch.no_grad()
+    def _clip_bank_lookup(self, ids: np.ndarray):
+        """Fill the bank's misses for a [B, P] batch of head rows: each
+        missed row is prefilled (batch 1) into a free slot or over the
+        least recently used one (the rows of this batch pinned); returns
+        (the bank, per layer (k, v) [cap, KV, P, D], and the B slots).
+
+        The bookkeeping (capacity ``max(clip_cache_slots, B)``, growing
+        with a wider batch; the slot of each row; the tick of each slot's
+        last use; the pass's misses and evictions) lives in
+        ``_prefix_kv_cache``, so it starts afresh every pass, as JAX's.
+        The tensors live in ``_prefix_kv_store``: allocated at the first
+        miss of their key (outside any graph's pool), written in place row
+        by row, and kept across passes and ``load_state_dict``, so a
+        captured step that reads them stays valid. Growth allocates anew,
+        and the steps then capture anew. Eval only (JAX's key with
+        ``mixed_train`` False): the train step embeds per-clip heads."""
+        key = ("clip_bank", ids.shape[1], False)
+        book = self._prefix_kv_cache.get(key)
+        if book is None:
+            # cap >= B: a batch pins at most B rows, so an unpinned slot is
+            # always left to evict
+            book = {"slot_of": {}, "row_of": {}, "last_use": {}, "tick": 0,
+                    "cap": max(self._clip_cache_slots(), ids.shape[0]),
+                    "misses": 0, "evictions": 0}
+            self._prefix_kv_cache[key] = book
+        book["cap"] = max(book["cap"], ids.shape[0])
+        if key in self._prefix_kv_store:  # room for a wider batch
+            self._bank_tensors(key, self._prefix_kv_store[key], book["cap"])
+        slots = []
+        for row in ids:
+            rb = row.tobytes()
+            slot = book["slot_of"].get(rb)
+            if slot is None:
+                fresh = self.model.prefill(torch.as_tensor(row[None], device=self.device))
+                bank = self._bank_tensors(key, fresh, book["cap"])
+                if len(book["slot_of"]) < book["cap"]:
+                    slot = len(book["slot_of"])
+                else:  # evict the least recently used row not in this batch
+                    pinned = set(slots)
+                    slot = min((s for s in book["last_use"] if s not in pinned),
+                               key=book["last_use"].__getitem__)
+                    del book["slot_of"][book["row_of"][slot]]
+                    book["evictions"] += 1
+                for layer, new in zip(bank, fresh):
+                    for t, n in zip(layer, new):
+                        t[slot].copy_(n[0])
+                book["slot_of"][rb] = slot
+                book["row_of"][slot] = rb
+                book["misses"] += 1
+            book["tick"] += 1
+            book["last_use"][slot] = book["tick"]
+            slots.append(slot)
+        return self._prefix_kv_store[key], slots
+
+    def _bank_tensors(self, key, like, cap: int):
+        """The bank of ``key`` with room for ``cap`` rows: the kept tensors,
+        or new zeros shaped like ``like``'s rows with the old rows copied
+        in."""
+        bank = self._prefix_kv_store.get(key)
+        if bank is not None and bank[0][0].shape[0] >= cap:
+            return bank
+        grown = tuple(tuple(torch.zeros((cap,) + t.shape[1:], dtype=t.dtype,
+                                        device=t.device) for t in layer)
+                      for layer in like)
+        if bank is not None:
+            for layer, old in zip(grown, bank):
+                for t, o in zip(layer, old):
+                    t[:o.shape[0]].copy_(o)
+        self._prefix_kv_store[key] = grown
+        return grown
 
     # ------------------------------------------------------------------
     # train loop (medtsllm_tpu/tasks/base.py:577-617)
@@ -340,15 +439,21 @@ class BaseTask:
 
     def eval_n_points(self, dataset, include_history: bool = False) -> int:
         """Full-series buffer length (``eval_n_points`` of the JAX trainer;
-        the port's datasets are neither clip nor univariate datasets)."""
+        the port's datasets are not univariate datasets): a clip dataset's
+        whole series, else the span its windows cover."""
+        if dataset.clip_dataset:
+            return dataset.n_points
         n = self.config.pred_len + (len(dataset) - 1) * dataset.step_size
         return n + self.config.history_len if include_history else n
 
     def finalize_series(self, dataset, *series):
-        """Apply the step > pred_len de-duplication and check that every
-        float series is complete."""
+        """Keep a clip dataset's ``mask`` points, else apply the step >
+        pred_len de-duplication; check that every float series is
+        complete."""
         step, pred = dataset.step_size, self.config.pred_len
-        out = [dedup_eval_series(arr, step, pred) if step > pred else arr for arr in series]
+        out = [arr[dataset.mask] if dataset.clip_dataset
+               else dedup_eval_series(arr, step, pred) if step > pred else arr
+               for arr in series]
         for arr in out:
             if np.issubdtype(arr.dtype, np.floating) and np.isnan(arr).any():
                 raise ValueError("unfilled points after stitching")
@@ -368,6 +473,26 @@ class BaseTask:
 
     def test(self):
         return self._eval_split(self.test_pipeline, "test")
+
+
+def eval_forward(model, arrays: dict) -> torch.Tensor:
+    """The forward of the eval step, captured as it is: the bank's rows
+    gathered first (the banked step), then the model."""
+    return model(gather_bank(arrays))
+
+
+def gather_bank(arrays: dict) -> dict:
+    """Banked inputs -> model inputs: ``prefix_kv`` = the bank's rows at
+    ``prefix_slots`` (per layer, ``index_select`` on dim 0: K2 then runs
+    with a per-row prefix); other inputs as they are."""
+    bank = arrays.get("prefix_bank")
+    if bank is None:
+        return arrays
+    slots = arrays["prefix_slots"]
+    out = {k: v for k, v in arrays.items() if k not in ("prefix_bank", "prefix_slots")}
+    out["prefix_kv"] = tuple(tuple(t.index_select(0, slots) for t in layer)
+                             for layer in bank)
+    return out
 
 
 def _cast(tree, dtype: torch.dtype):

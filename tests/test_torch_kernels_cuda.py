@@ -206,6 +206,7 @@ def test_w4a8_kernel_rejects_bad_input(cuda):
     (2, 144, 16, 4, 128, 30, 2),   # G 4, PB = B
     (1, 2011, 4, 4, 128, 37, 1),   # 2048 keys, K2's limit
     (1, 1000, 8, 1, 64, 48, 1),    # 1048 keys, G 8
+    (16, 64, 32, 32, 128, 32, 16),  # ecgmit-seg.toml's clip shape: per-clip head rows
 ])
 def test_rope_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
     g = torch.Generator(cuda).manual_seed(0)
@@ -1030,6 +1031,71 @@ def test_graphed_step_bit_equal_to_eager(cuda, path):
     assert [t.data_ptr() for layer in kv for t in layer] == ptrs
     assert tr._prefix_kv_store[next(iter(tr._prefix_kv_store))] is kv
     assert len(graphs) == n
+
+
+@pytest.mark.cuda
+def test_graphed_banked_step_bit_equal_to_eager(cuda):
+    """The banked step (per-clip head rows gathered from the KV bank inside
+    the graph) on a 2-layer cut of ecgmit-seg.toml with 12 clips through a
+    bank of 8 rows: each batch, prepared in turn (its misses prefilled into
+    the bank, evicting), replayed equals the eager step bit for bit with its
+    launches, in two passes and after ``load_state_dict``; the bank's
+    tensors stay where they are and nothing is captured anew; the banked
+    step agrees with the same batch with its head embedded (2^-6 x max)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import ECG_SEG_TOML, task_config
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.runtime.graph import launch_counters, read_counts
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    counters = launch_counters()
+    tr = get_trainer("graph-clip", task_config(Config, ECG_SEG_TOML, n_points=12 * 128,
+                                               llm="llama-1b", llm_layers=2, history=64,
+                                               batch=4, n_clips=12), device=cuda)
+    for batch in tr.test_pipeline:  # settle the prompt buckets (host only)
+        tr.model_inputs(batch)
+    tr.test()
+    n = len(tr.step_graphs)
+    (key, bank), = [(k, v) for k, v in tr._prefix_kv_store.items() if k[0] == "clip_bank"]
+    ptrs = [t.data_ptr() for layer in bank for t in layer]
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        return out, read_counts(counters)
+
+    def one_pass():
+        tr._prefix_kv_cache.clear()
+        outs = []
+        for batch in tr.test_pipeline:
+            prepared = tr.eval_prepare(batch)
+            assert prepared[0] == "banked"
+            out_e, n_e = counted(lambda: tr.eval_step_eager(prepared[1]))
+            out_g, n_g = counted(lambda: tr.eval_dispatch(prepared=prepared))
+            assert torch.equal(out_g, out_e) and n_g == n_e and n_e["rope_attention"] == 2
+            outs.append(out_g)
+        assert tr._prefix_kv_cache[key]["evictions"] > 0
+        return outs
+
+    before = one_pass()
+    assert all(torch.equal(a, b) for a, b in zip(one_pass(), before))
+    first = next(iter(tr.test_pipeline))
+    embedded = tr.eval_step_eager(tr._to_device(tr.model_inputs(first))).float()
+    tr._prefix_kv_cache.clear()
+    banked = tr.eval_step(tr.eval_prepare(first)[1]).float()
+    assert (banked - embedded).abs().max() <= 2 ** -6 * embedded.abs().max()
+    g = torch.Generator(cuda).manual_seed(1)
+    tr.load_state_dict({k: v + 0.05 * v.abs().amax() * torch.randn(
+        v.shape, device=cuda, generator=g).to(v.dtype) if v.is_floating_point() else v
+        for k, v in tr.model.state_dict().items()})
+    after = one_pass()
+    assert not any(torch.equal(a, b) for a, b in zip(after, before))
+    assert tr._prefix_kv_store[key] is bank
+    assert [t.data_ptr() for layer in bank for t in layer] == ptrs
+    assert len(tr.step_graphs) == n
 
 
 @pytest.mark.cuda

@@ -536,8 +536,7 @@ def test_remaining_refusals_name_their_roadmap_items():
         with pytest.raises(NotImplementedError, match='"The Bayesian optimize thresholds"'):
             get_trainer("x", cfg, device="cpu")
     cfg = _cfg("semseg-2", **{"datasets.synthetic.clips": True})
-    with pytest.raises(NotImplementedError, match='"Clip datasets, per-clip heads'):
-        get_trainer("x", cfg, device="cpu")
+    assert get_trainer("x", cfg, device="cpu").test_dataset.clip_dataset  # ported
     for task in ("forecasting", "classification", "imputation", "pretraining"):
         cfg = _cfg("semseg-2")
         cfg.task = task

@@ -4,17 +4,19 @@ card.
 
     python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|
                                                    llama-long|mamba-train|bidmc|
-                                                   ecgmit-anom|ventilator|bidmc-train]
+                                                   ecgmit-anom|ventilator|ecgmit-seg|ludb|
+                                                   bidmc-train]
                                            [--steps 4] [--eager]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
 weights from its seed; ``llama-int4`` and ``moe-int4`` load the backbone in
 4 bits, absmax int4, as chip_smoke phases 14 and 15; ``llama-long`` is the
 long window of phase 17, history 16384 with d_ff 64, two test batches of 8,
-whose decoder attention runs on K4; ``bidmc``, ``ecgmit-anom`` and
-``ventilator`` are the task paths of phases 6a-6c under ``mixed``, 32 test
-batches of 16, and ``bidmc-train`` bidmc.toml's train step at four batches
-an epoch). For a serving path it
+whose decoder attention runs on K4; ``bidmc``, ``ecgmit-anom``,
+``ventilator``, ``ecgmit-seg`` and ``ludb`` are the task paths of phases
+6a-6c, 6e and 6f under ``mixed`` (ventilator and ecgmit-seg on clips, their
+per-clip heads gathered from the KV bank inside the step), and
+``bidmc-train`` bidmc.toml's train step at four batches an epoch). For a serving path it
 runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache and captures the
 step's CUDA graph), prepares ``--steps`` test batches on the host, then
@@ -77,7 +79,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
                                        "llama-long", "mamba-train", "bidmc", "ecgmit-anom",
-                                       "ventilator", "bidmc-train"), default="mamba")
+                                       "ventilator", "ecgmit-seg", "ludb", "bidmc-train"),
+                    default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--eager", action="store_true",
                     help="profile the serving step op by op, not its CUDA graph")
@@ -112,7 +115,16 @@ def main() -> None:
            "ecgmit-anom": lambda: chip_smoke.task_config(Config, chip_smoke.ECG_ANOM_TOML,
                                                          n_points=served[128]),
            "ventilator": lambda: chip_smoke.task_config(Config, chip_smoke.VENTILATOR_TOML,
-                                                        n_points=served[256], llm_layers=4),
+                                                        n_points=served[256], llm_layers=4,
+                                                        n_clips=64),
+           "ecgmit-seg": lambda: chip_smoke.task_config(
+               Config, chip_smoke.ECG_SEG_TOML,
+               n_points=chip_smoke.SEG_CLIPS * chip_smoke.SEG_CLIP_POINTS,
+               n_clips=chip_smoke.SEG_CLIPS),
+           "ludb": lambda: chip_smoke.task_config(
+               Config, chip_smoke.LUDB_TOML,
+               n_points=chip_smoke.LUDB_CLIPS * chip_smoke.LUDB_CLIP_POINTS,
+               n_clips=chip_smoke.LUDB_CLIPS, n_features=1, n_classes=4),
            # four train batches of 16 per epoch, as chip_smoke phase 6a
            "bidmc-train": lambda: chip_smoke.task_config(Config, chip_smoke.BIDMC_TOML,
                                                          n_points=8320),
