@@ -50,9 +50,24 @@ nvidia-smi. Phases:
   6f. ludb.toml's 4-class semantic segmentation as shipped at full depth
      (``covariate_mode = "univariate"``, one feature, history 512, 64
      patches, K3 at E 128) on 200 clips through ``serve()`` (38 batches);
+  6g-6i. the forecasting, classification and imputation tasks under mixed
+     at full depth, each configuration composed of a shipped task file's
+     task block (``task``, ``history_len``, ``pred_len``, ``data.step``,
+     ``[training]``, ``[tasks.*]``) and bidmc.toml's MedTsLLM settings
+     (``task_block_config``): 6g bidmc-gpt4ts.toml's BIDMC forecasting
+     (batch 16, history 256, pred 64, step 64), 6h
+     dreams-classification.toml's artifact classification (batch 16,
+     history 128, ``window_label = "any"``, 5 features, ce), 6i
+     etth1-imputation.toml's imputation (batch 32, history 96, 7 features,
+     ``mask_rate`` 0.25). Each as 6a: the build's seconds and peak, K2 and
+     K3 at its shapes (printed), ``train()`` four steps and ``val()``, the
+     train step's p50 and peak, then ``serve()`` over 32 test batches on a
+     trainer that loads the trained weights (imputation's ``mask`` an input
+     of the captured step);
   6d. each task's window predictions on a 2-layer llama-1b slice under
      mixed, card against the CPU's plain versions (2^-5 x max), ecgmit-seg
-     on 12 clips through a bank of 8 rows on both;
+     on 12 clips through a bank of 8 rows on both, forecasting (pred 16),
+     classification and imputation at history 64;
   6. the Mamba serving path: ``get_trainer(...).test()`` of
      configs/ablation/mamba-backbone.toml's model (mamba-130m, 24 layers,
      bf16, batch 48, prompt-state cache) on synthetic data; the launches of
@@ -144,7 +159,7 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6a-6c, 6e, 6f, 6, 11, 13, 14, 15, 17 and 18) runs
+Every served path (phases 4, 6a-6c, 6e-6i, 6, 11, 13, 14, 15, 17 and 18) runs
 through ``serve()``: the eager step (``eval_step_eager``) on each test batch,
 each batch prepared just before it (its head's or its bank misses' prefill
 counted apart), then
@@ -190,6 +205,11 @@ ECG_ANOM_TOML = ROOT / "configs" / "datasets" / "ecgmit-anom.toml"
 VENTILATOR_TOML = ROOT / "configs" / "datasets" / "ventilator.toml"
 ECG_SEG_TOML = ROOT / "configs" / "datasets" / "ecgmit-seg.toml"
 LUDB_TOML = ROOT / "configs" / "datasets" / "ludb.toml"
+# the task blocks of phases 6g-6i (each file's model is a baseline the port
+# lacks; bidmc.toml gives the MedTsLLM settings)
+BIDMC_FORECAST_TOML = ROOT / "configs" / "baseline-models" / "bidmc-gpt4ts.toml"
+DREAMS_CLS_TOML = ROOT / "configs" / "ablation" / "dreams-classification.toml"
+ETTH1_IMP_TOML = ROOT / "configs" / "ablation" / "etth1-imputation.toml"
 # points a split of a served task path, by history (= pred_len = the test
 # split's step): 512 test windows, 32 batches of 16
 SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
@@ -208,6 +228,9 @@ TASK_KEYS = {
     "anomaly_detection": {"accuracy", "f1", "auroc", "precision", "recall", "iou",
                           "recon_mse", "recon_mae", "anomaly_quantile", "anomaly_threshold"},
     "semantic_segmentation": {"accuracy", "f1", "precision", "recall", "iou"},
+    "forecasting": {"mse", "mae"},
+    "classification": {"accuracy", "f1", "precision", "recall", "auroc"},
+    "imputation": {"masked_mse", "masked_mae", "full_mse"},
 }
 
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): HBM bytes
@@ -340,6 +363,60 @@ def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
     if batch is not None:
         raw["training"]["batch_size"] = batch
     return Config(raw)
+
+
+def task_block_config(Config, task_toml, n_points, n_features, epochs=1, llm=None,
+                      llm_layers=None, history=None, pred=None, batch=None):
+    """A task the port's MedTsLLM runs but no shipped file pairs it with:
+    the task block of ``task_toml`` (``task``, ``history_len``,
+    ``pred_len``, ``data.step``, ``[training]``, ``[tasks.*]``; its own
+    model is a baseline) on configs/datasets/bidmc.toml's MedTsLLM settings
+    (``[models.timellm]``: patching, prompting, the dense Llama-2-7B, and
+    ``setup.dtype = "mixed"``), on the synthetic data at the dataset's
+    feature count. ``llm``, ``llm_layers``, ``history`` / ``pred`` (step =
+    pred) and ``batch`` cut the card-vs-CPU slices."""
+    from medtsllm_tpu_torch.config import load_config
+    raw = load_config(BIDMC_TOML).to_dict()
+    block = load_config(task_toml).to_dict()
+    for key in ("task", "history_len", "pred_len", "training", "tasks"):
+        raw.pop(key, None)
+        if key in block:
+            raw[key] = block[key]
+    raw["data"]["step"] = block["data"]["step"]
+    raw["data"]["dataset"] = "synthetic"
+    raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": n_features}}
+    raw["training"]["epochs"] = epochs
+    mc = raw["models"]["timellm"]
+    if llm is not None:
+        mc["llm"]["llm"] = llm
+    if llm_layers is not None:
+        mc["llm"]["llm_layers"] = llm_layers
+    if history is not None:
+        raw["history_len"], raw["pred_len"] = history, pred or history
+        raw["data"]["step"] = pred or history // 2
+    if batch is not None:
+        raw["training"]["batch_size"] = batch
+    return Config(raw)
+
+
+def one_class(tr, split) -> bool:
+    """A classification split whose window labels hold one class: its
+    AUROC is NaN by the task's rule."""
+    ds = getattr(tr, f"{split}_dataset")
+    return tr.config.task == "classification" and len(
+        np.unique([ds[i]["labels"] for i in range(len(ds))])) == 1
+
+
+def scores_ok(tr, scores, split) -> bool:
+    """Every score finite, but a one-class classification split's AUROC,
+    which must be NaN."""
+    nan = {f"{split}/auroc"} if one_class(tr, split) else set()
+    return all(math.isnan(v) if k in nan else math.isfinite(v) for k, v in scores.items())
+
+
+def same_scores(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
 
 
 def window_shapes(tr):
@@ -653,15 +730,15 @@ def main() -> None:
         err = (o.float() - o0.float()).abs().max().item()
         share = row_share(o, o0)
         tol = 2.0 ** -6 * o0.float().abs().max().item()
-        if PB > 1:
-            # per-row prefix: each query row within 2^-6 x its max against
-            # the plain version fed K2's once-rounded rotation, and the
-            # whole tensor within 2^-6 x max |plain| of the plain version
-            ones, zeros = torch.ones_like(cos), torch.zeros_like(sin)
-            share1 = row_share(o, k2.rope_attention_plain(
-                k4.rope_once(q, cos, sin), k4.rope_once(k, cos, sin), v, ones, zeros, pk, pv))
-            check(share1 <= 1, f"{name}: a query row is {share1} of 2^-6 x its max against "
-                  "the plain version fed the once-rounded rotation")
+        # each query row within 2^-6 x its max against the plain version fed
+        # K2's once-rounded rotation (the per-row prefix is held so alone,
+        # with the whole tensor within 2^-6 x max |plain| of the plain
+        # version itself)
+        ones, zeros = torch.ones_like(cos), torch.zeros_like(sin)
+        share1 = row_share(o, k2.rope_attention_plain(
+            k4.rope_once(q, cos, sin), k4.rope_once(k, cos, sin), v, ones, zeros, pk, pv))
+        check(share1 <= 1, f"{name}: a query row is {share1} of 2^-6 x its max against "
+              "the plain version fed the once-rounded rotation")
         per_row = PB == 1 and share <= 1
         record(name, "medtsllm_tpu_torch/csrc/rope_attention.cu",
                "medtsllm_tpu/ops/pallas/rope_attention.py:182", err,
@@ -674,9 +751,12 @@ def main() -> None:
                f" (B={B} L={L} H={H} KV={KV} D={D} P={P} PB={PB}"
                + (f"; each query row at most {share1:.4f} of 2^-6 x its max against the "
                   f"plain version fed the once-rounded rotation, {share:.4f} against the "
-                  "plain version itself)" if PB > 1 else ")" if per_row
+                  "plain version itself)" if PB > 1 else
+                  f"; each query row at most {share1:.4f} of 2^-6 x its max against the "
+                  "plain version fed the once-rounded rotation)" if per_row
                   else f"; worst row at {share:.4f} of 2^-6 x its max |plain|, so the "
-                  "whole-tensor bound holds it)"),
+                  f"whole-tensor bound holds it; {share1:.4f} against the plain version "
+                  "fed the once-rounded rotation)"),
                listed=listed, share=share if per_row else None)
 
     check_k2("rope_attention", B, L, H, KV, D, P, lcfg.rope_theta)
@@ -1228,12 +1308,13 @@ def main() -> None:
         print(f"[{label}] launches {counts} (the preparations' and the eager batches'); peak "
               f"memory {test_peak / 2**30:.2f} GiB")
         print(f"[{label}] scores {scores}")
-        check(all(math.isfinite(s) for s in scores.values()), f"non-finite {scores}")
+        check(scores_ok(tr, scores, "test"), f"non-finite {scores}")
         t0 = time.perf_counter()
         second = tr.test()
         wall2 = time.perf_counter() - t0
         books.append(dict(bank_book(tr) or {}))
-        check(second == scores, f"[{label}] the second pass scores {second}, not {scores}")
+        check(same_scores(second, scores),
+              f"[{label}] the second pass scores {second}, not {scores}")
         preds = tr.run_eval(tr.test_pipeline)["pred"]  # the window predictions
         check(preds.shape[0] == n_windows and bool(np.isfinite(preds).all()),
               f"[{label}] window predictions {preds.shape}, finite {np.isfinite(preds).all()}")
@@ -1421,10 +1502,10 @@ def main() -> None:
                  tm.d_ff, tm.num_tokens, listed=False)
         return tr
 
-    def check_scores(label, task, scores, split):
-        want = {f"{split}/{k}" for k in TASK_KEYS[task]}
+    def check_scores(label, tr, scores, split):
+        want = {f"{split}/{k}" for k in TASK_KEYS[tr.config.task]}
         check(set(scores) == want, f"[{label}] {split} keys {sorted(scores)}, not {sorted(want)}")
-        check(finite(scores.values()), f"[{label}] non-finite {split} scores {scores}")
+        check(scores_ok(tr, scores, split), f"[{label}] non-finite {split} scores {scores}")
 
     def serve_task(tr, label):
         """``serve()`` (the graphs an earlier ``val()`` captured dropped
@@ -1434,7 +1515,7 @@ def main() -> None:
         never. Returns test()'s launches."""
         tr.step_graphs.clear()
         counts, _, scores, books = serve(tr, label)
-        check_scores(label, tr.config.task, scores, "test")
+        check_scores(label, tr, scores, "test")
         n_b, n_l = len(tr.test_pipeline), tr.model.llm_cfg.n_layers
         prefills = books[0]["misses"] if books[0] else 1
         check(n_b >= 32, f"[{label}] the test split gives {n_b} batches, not 32 or more")
@@ -1468,7 +1549,7 @@ def main() -> None:
               f"val {tr.val_scores}; launches {counts}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check(len(tr.losses) == n_steps and finite(tr.losses), f"{label} losses {tr.losses}")
-        check_scores(label, cfg.task, tr.val_scores[0], "val")
+        check_scores(label, tr, tr.val_scores[0], "val")
         n_val = len(tr.val_pipeline)
         check(counts["rope_attention"] == n_l * (n_steps + n_val + val_prefills(tr))
               and counts["reprogramming_attention"] == n_val
@@ -1486,7 +1567,7 @@ def main() -> None:
                  warmup=1)
         print(f"[{label}-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
               "GiB")
-        check_scores(label, cfg.task, tr.val(), "val")
+        check_scores(label, tr, tr.val(), "val")
         return tr
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
@@ -1566,19 +1647,64 @@ def main() -> None:
     del tr
     torch.cuda.empty_cache()
 
+    # 6g-6i. forecasting, classification and imputation at full depth, each
+    # composed from a shipped task file's task block and bidmc.toml's
+    # MedTsLLM settings (task_block_config), as 6a: train() on four batches
+    # (and val()), then served from a trainer of 32 test batches that loads
+    # the trained weights. The train step serves the head from its bf16
+    # cache (forecasting, classification: two prefills beside val's steps)
+    # or, for imputation as in JAX, embeds it (one prefill: val's)
+    for label, toml, n_feat, (n_train, n_served), prefills, check_model in (
+            # 6g: history 256, pred 64, step 64: 64 train windows, 512 test
+            ("bidmc-forecast", BIDMC_FORECAST_TOML, 3, (64 * 64 + 319, 512 * 64 + 319), 2,
+             lambda m: m.head_steps == 64 and m.n_outputs_per_step == 3),
+            # 6h: history 128, step 64, window_label "any": one row of 2 logits
+            ("dreams-classification", DREAMS_CLS_TOML, 5, (63 * 64 + 128, 512 * 128), 2,
+             lambda m: m.head_steps == 1 and m.n_outputs_per_step == 2),
+            # 6i: history 96, step 1, batch 32: 128 train windows, 1024 test
+            ("etth1-imputation", ETTH1_IMP_TOML, 7, (127 + 96, 1024 * 96), 1,
+             lambda m: m.head_steps == 96 and m.n_outputs_per_step == 7)):
+        tr = train_task(label, task_block_config(Config, toml, n_train, n_feat),
+                        lambda tr, n=prefills: n)
+        check(check_model(tr.model) and tr.model.llm_cfg.n_layers == 32,
+              f"[{label}] head {tr.model.head_steps} x {tr.model.n_outputs_per_step}, "
+              f"{tr.model.llm_cfg.n_layers} layers")
+        served = get_trainer(f"chip-smoke-{label}-served",
+                             task_block_config(Config, toml, n_served, n_feat), device=dev)
+        served.load_state_dict(tr.model.state_dict())
+        del tr
+        torch.cuda.empty_cache()
+        if label == "dreams-classification" and one_class(served, "test"):
+            print(f"[{label}] every test window holds a nonzero label (window_label \"any\" "
+                  "over 128 points of 64-point class segments): AUROC is NaN by the task's "
+                  "rule")
+        serve_task(served, label)
+        del served
+        torch.cuda.empty_cache()
+
     # 6d. each task's window predictions on the card against the CPU's plain
     # versions, same seeded weights: 2-layer llama-1b (GQA 32 / 4 x 64),
     # history 64, batch 2, under mixed; ecgmit-seg on 12 clips (per-clip
-    # heads through a bank of 8 rows, banked on both). The card's K2 rounds
+    # heads through a bank of 8 rows, banked on both); forecasting (pred 16),
+    # classification (both classes in its test split) and imputation on
+    # their composed configurations. The card's K2 rounds
     # the rotation once where the plain version rounds it three times (a
     # bf16 row within 1.1-1.3 x 2^-6 of its max, PERF.md), and cuBLAS and the
     # CPU sum the bf16 matmuls in their own orders: 2^-5 x max |CPU|
-    for label, toml, n_points, n_clips in (
-            ("bidmc", BIDMC_TOML, 512, None), ("ecgmit-anom", ECG_ANOM_TOML, 512, None),
-            ("ventilator", VENTILATOR_TOML, 512, None),
-            ("ecgmit-seg", ECG_SEG_TOML, 12 * 128, 12)):
-        small = task_config(Config, toml, n_points=n_points, llm="llama-1b", llm_layers=2,
-                            history=64, batch=2, n_clips=n_clips)
+    slice_kw = dict(llm="llama-1b", llm_layers=2, history=64, batch=2)
+    smalls = [(label, task_config(Config, toml, n_points=n_points, n_clips=n_clips,
+                                  **slice_kw), n_clips)
+              for label, toml, n_points, n_clips in (
+                  ("bidmc", BIDMC_TOML, 512, None), ("ecgmit-anom", ECG_ANOM_TOML, 512, None),
+                  ("ventilator", VENTILATOR_TOML, 512, None),
+                  ("ecgmit-seg", ECG_SEG_TOML, 12 * 128, 12))]
+    smalls += [(label, task_block_config(Config, toml, 512, n_feat, pred=pred, **slice_kw),
+                None)
+               for label, toml, n_feat, pred in (
+                   ("bidmc-forecast", BIDMC_FORECAST_TOML, 3, 16),
+                   ("dreams-classification", DREAMS_CLS_TOML, 5, None),
+                   ("etth1-imputation", ETTH1_IMP_TOML, 7, None))]
+    for label, small, n_clips in smalls:
         gpu = get_trainer("chip-smoke-task-small", small, device=dev)
         cpu = get_trainer("chip-smoke-task-small", small, device="cpu")
         cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
@@ -1594,7 +1720,7 @@ def main() -> None:
             check(bank_book(gpu)["evictions"] > 0 and bank_book(cpu)["evictions"] > 0,
                   f"[reference-task] {label}: no bank row evicted")
         sg, sc = gpu.test(), cpu.test()
-        check_scores(label, small.task, sg, "test")
+        check_scores(label, gpu, sg, "test")
         print(f"[reference-task] {label} ({small.task}) llama-1b 2-layer mixed slice, card vs "
               f"CPU test() window predictions {out_cpu.shape}: max_abs_err {err:.3e} (tol "
               f"{tol:.3e}); scores card {sg} / CPU {sc}")

@@ -1,6 +1,7 @@
 """Host data: the synthetic dataset family on the reconstruction,
-anomaly-detection, segmentation and semantic-segmentation tasks (train,
-val and test splits, with their labels), as one series or as clips
+anomaly-detection, segmentation, semantic-segmentation, forecasting,
+classification and imputation tasks (train, val and test splits, with
+their labels), as one series or as clips
 (``datasets.synthetic.clips``: windows that never cross a clip, each with
 its clip's description), fixed-shape batches (shuffled for training), the
 background prefetch of batches and window stitching.
@@ -8,8 +9,9 @@ background prefetch of batches and window stitching.
 A copy of the parts of ``medtsllm_tpu/data`` (synthetic.py rng_for /
 sine_mixture / inject_anomalies / periodic_boundaries /
 segment_class_labels / patient_descriptions, base.py StandardScaler, label
-conversion, windowing and item access, readers/synthetic.py, pipeline.py
-BatchPipeline and prefetch, windowing.py ClipWindows /
+conversion, windowing, ``window_label`` and item access,
+readers/synthetic.py, pipeline.py BatchPipeline and prefetch, windowing.py
+ForecastWindows / ClipWindows /
 steps_to_boundary_labels / stitch_windows / dedup_eval_series) the port
 runs, so it runs without the JAX package. The same config gives the same
 arrays as the JAX package's ``get_dataset`` (tests/test_torch_tasks.py,
@@ -96,6 +98,31 @@ def patient_descriptions(ids, prefix="Patient description") -> dict:
             for i in np.unique(ids)}
 
 
+class ForecastWindows:
+    """Forecasting windows: x = [s, s + hist), y = [s + hist, s + hist +
+    pred) at s = i * step, ``(n - hist - pred + 1) // step`` of them."""
+
+    def __init__(self, n_points: int, history_len: int, pred_len: int, step: int):
+        self.step = step
+        self._len = max(0, (n_points - history_len - pred_len + 1) // step)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def x_starts(self, idx) -> np.ndarray:
+        return np.asarray(idx) * self.step
+
+
+# tasks.classification.window_label -> the window's label from its per-step
+# labels: the most frequent (ties to the lowest id), the last, or whether
+# any is nonzero
+WINDOW_LABELS = {
+    "majority": lambda seg: np.int64(np.bincount(seg).argmax()),
+    "last": lambda seg: np.int64(seg[-1]),
+    "any": lambda seg: np.int64((seg != 0).any()),
+}
+
+
 class ClipWindows:
     """Windows that never cross a clip (``clip_ids`` non-decreasing): each
     clip holds ``(len - pred_len) // step + 1`` windows, indexed clip after
@@ -149,7 +176,12 @@ class SyntheticDataset:
     anomalies injected into val and test (anomaly detection), jittered
     periodic boundaries (segmentation; as distances to the next one in
     ``steps-to-boundary`` mode) or piecewise-constant classes (semantic
-    segmentation, ``datasets.synthetic.n_classes``, default 2).
+    segmentation and classification, ``datasets.synthetic.n_classes``,
+    default 2; classification's ``window_label`` "any" makes 2). A
+    classification item's label is one per window (``window_label``).
+    Forecasting windows are ``ForecastWindows``: ``x_enc`` the history
+    before ``y``, never on clips; imputation's items are bare windows (the
+    task masks them).
 
     With ``datasets.synthetic.clips`` the series is ``n_clips`` (default 4)
     equal clips, the last taking the remainder (``clip_ids``), each with a
@@ -170,11 +202,12 @@ class SyntheticDataset:
             raise NotImplementedError("the port reads multivariate, all-column data "
                                       "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
         ds = config.get("datasets", {}).get("synthetic", {})
-        if config.history_len != config.pred_len:
+        if self.task != "forecasting" and config.history_len != config.pred_len:
             raise ValueError(f"{self.task} requires history_len == pred_len")
         self.task_config = config.get("tasks", {}).get(self.task, {})
         self.dataset_config = ds
         self.split = split
+        self.history_len = config.history_len
         self.pred_len = config.pred_len
         self.step_size = config.pred_len if split == "test" else config.data.step
         got = self.generate(split)
@@ -192,7 +225,7 @@ class SyntheticDataset:
         self.clip_descriptions = got.get("clip_descriptions")
         if self.clip_ids is not None:
             self.clip_ids = self.clip_ids.astype(np.int32)
-        # clip windows for every task but forecasting, which the port lacks
+        # clip windows for every task but forecasting
         self.clip_dataset = self.clip_ids is not None and self.task != "forecasting"
         if self.task == "segmentation":
             mode = self.task_config.mode
@@ -200,11 +233,19 @@ class SyntheticDataset:
                 self.labels = steps_to_boundary_labels(self.labels)
             elif mode != "boundary-prediction":
                 raise ValueError(f"Segmentation mode {mode} not supported")
-        if self.clip_dataset:
+        if self.task == "classification":
+            mode = self.task_config.get("window_label", "majority")
+            self.window_label = WINDOW_LABELS.get(mode)
+            if self.window_label is None:
+                raise ValueError(f"Unknown classification window_label {mode!r}")
+        self.windows = None
+        if self.task == "forecasting":
+            self.windows = ForecastWindows(self.n_points, self.history_len, self.pred_len,
+                                           self.step_size)
+        elif self.clip_dataset:
             self.windows = ClipWindows(self.clip_ids, self.pred_len, self.step_size)
-            self._len = len(self.windows)
-        else:
-            self._len = max(0, (self.n_points - self.pred_len) // self.step_size + 1)
+        self._len = (len(self.windows) if self.windows is not None
+                     else max(0, (self.n_points - self.pred_len) // self.step_size + 1))
 
     def generate(self, split: str) -> dict:
         n = int(self.dataset_config.get("n_points", 2048))
@@ -217,7 +258,7 @@ class SyntheticDataset:
                 out["data"], out["labels"] = inject_anomalies(rng, data, rate=0.05)
         elif self.task == "segmentation":
             out["labels"] = periodic_boundaries(rng, n, mean_period=100)
-        elif self.task == "semantic_segmentation":
+        elif self.task in ("semantic_segmentation", "classification"):
             out["labels"] = segment_class_labels(rng, n, self.n_classes, mean_seg=64)
         if self.dataset_config.get("clips", False):
             n_clips = int(self.dataset_config.get("n_clips", 4))
@@ -241,7 +282,10 @@ class SyntheticDataset:
 
     @property
     def n_classes(self) -> int:
-        if self.task == "semantic_segmentation":
+        if self.task == "classification" and self.task_config.get(
+                "window_label", "majority") == "any":
+            return 2
+        if self.task in ("semantic_segmentation", "classification"):
             return int(self.dataset_config.get("n_classes", 2))
         return 0
 
@@ -250,14 +294,20 @@ class SyntheticDataset:
         return self.windows.mask
 
     def x_starts(self, idx) -> np.ndarray:
-        if self.clip_dataset:
+        if self.windows is not None:
             return self.windows.x_starts(idx)
         return np.asarray(idx) * self.step_size
 
     def __getitem__(self, idx: int) -> dict:
         s = int(self.x_starts(int(idx)))
-        out = {"x_enc": self.data[s:s + self.pred_len]}
-        if self.labels is not None:
+        if self.task == "forecasting":
+            h = s + self.history_len
+            out = {"x_enc": self.data[s:h], "y": self.data[h:h + self.pred_len]}
+        else:
+            out = {"x_enc": self.data[s:s + self.pred_len]}
+        if self.task == "classification":
+            out["labels"] = self.window_label(np.asarray(self.labels[s:s + self.pred_len]))
+        elif self.labels is not None:
             out["labels"] = self.labels[s:s + self.pred_len]
         if self.clip_descriptions is not None:
             out["descriptions"] = self.clip_descriptions[int(self.clip_ids[s])]

@@ -123,8 +123,8 @@ def resolve_config(llm_id: str, llm_layers: int = -1) -> DecoderConfig | MambaCo
     if llm_id not in presets:
         raise NotImplementedError(
             f"backbone {llm_id!r}: the port has the presets {sorted(presets)}; "
-            "other backbones and snapshot loading are ROADMAP queue 1 items 8 "
-            "and 12")
+            "other backbones are ROADMAP queue 1, \"Other backbone families and LoRA\", "
+            "and snapshot loading \"Llama decoder, open parts\"")
     cfg = presets[llm_id]
     if llm_layers and 0 < llm_layers < cfg.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=llm_layers)

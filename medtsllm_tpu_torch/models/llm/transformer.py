@@ -87,7 +87,7 @@ class QuantLinear(nn.Module):
         if torch.is_grad_enabled() and x.requires_grad:
             raise NotImplementedError(
                 "training through 4-bit projections (the straight-through backward "
-                "of the w4a8 GEMM) is ROADMAP queue 1 item 6")
+                "of the w4a8 GEMM) is ROADMAP queue 1, \"Training on the served backbones\"")
         if self.codebook != "absmax":
             w = dequant_codebook(self.weight_q, self.d_in, self.codebook).to(cd)
             return (x.to(cd) @ w.T) * self.scale.to(cd)
@@ -163,7 +163,7 @@ class Attention(nn.Module):
             raise NotImplementedError(
                 f"training through attention over {keys} keys needs a backward of the "
                 "flash-attention kernel, which the JAX package does not have (ROADMAP "
-                "queue 1 item 4)")
+                "queue 1, \"Training on the served backbones\")")
         new_kv = None
         if not needs_grad and (keys > MAX_KEYS or keys >= K4_MIN_KEYS):
             out = rope_flash_attention(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
@@ -318,7 +318,8 @@ class MoEMLP(nn.Module):
         if torch.is_grad_enabled() and x.requires_grad:
             raise NotImplementedError(
                 "training through a MoE backbone (the straight-through backward "
-                "of the expert matmuls, router_aux_loss) is ROADMAP queue 1 item 11")
+                "of the expert matmuls, router_aux_loss) is ROADMAP queue 1, "
+                "\"Training on the served backbones\"")
         cfg = self.cfg
         E, k = cfg.n_experts, cfg.n_experts_per_tok
         B, L, D = x.shape
@@ -389,7 +390,7 @@ class TransformerDecoder(nn.Module):
         if cfg.style != "llama":
             raise NotImplementedError(
                 f"decoder style {cfg.style!r}: other backbone families are "
-                "ROADMAP queue 1 item 8")
+                "ROADMAP queue 1, \"Other backbone families and LoRA\"")
         self.cfg = cfg
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)

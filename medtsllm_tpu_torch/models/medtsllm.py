@@ -6,9 +6,13 @@ RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
 cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
 (llama: kernels K1, K2; Mamba: the selective-scan kernel) -> d_ff
 downsample -> FlattenHead -> the task's head: RevIN denorm
-(reconstruction, anomaly detection) or the per-step scores of
+(reconstruction, anomaly detection, forecasting's ``pred_len`` steps past
+the window, imputation), classification's one row of ``n_classes`` logits
+(no activation: the task softmaxes on the host) or the per-step scores of
 segmentation (one logit) and semantic segmentation (one logit, or one per
-class past two), with the sigmoid / softmax in eval. The constant prompt
+class past two), with the sigmoid / softmax in eval. Imputation's RevIN
+statistics cover the observed points only (``inputs["mask"]``,
+``masked_window_norm``). The constant prompt
 head is prefilled once and served as per-layer prefix K/V (llama) or
 per-layer (conv tail, SSM state) (Mamba); on a clip dataset with a llama
 backbone the head also holds the clip's description, one row per window
@@ -39,7 +43,7 @@ from torch import nn
 
 from ..ops.embed import PatchEmbedding, dropout
 from ..ops.kernels.reprogramming import reprogramming_attention
-from ..ops.revin import revin_denorm, revin_norm
+from ..ops.revin import masked_window_norm, revin_denorm, revin_norm
 from .llm.config import resolve_config
 from .llm.mamba import MambaBackbone
 from .llm.tokenizer import get_tokenizer
@@ -48,8 +52,10 @@ from .llm.transformer import Linear, TransformerDecoder
 # batch keys that enter the model as arrays (medtsllm_tpu/utils.py)
 ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
 
-# the task prompts (medtsllm_tpu/models/medtsllm.py:926-945), by task
+# the task prompts (medtsllm_tpu/models/medtsllm.py:926-950), by task; formatted
+# with the history ``seq`` and the prediction length ``pred``
 TASK_DESCRIPTIONS = {
+    "forecasting": "Forecast the next {pred} steps given the previous {seq} steps of data.",
     "reconstruction": "Reconstruct the past {seq} steps of data as accurately as possible "
                       "using the following information.",
     "anomaly_detection": "Reconstruct the past {seq} steps of data as accurately as "
@@ -58,7 +64,13 @@ TASK_DESCRIPTIONS = {
                              "possible using the following information.",
     "segmentation": "Identify the change points in the past {seq} steps of data to segment "
                     "the sequence.",
+    "classification": "Classify the past {seq} steps of data into a single category using "
+                      "the following information.",
+    "imputation": "Fill in the missing values in the past {seq} steps of data using the "
+                  "following information.",
 }
+# the tasks whose head is RevIN-denormalized (medtsllm.py:669-670)
+DENORM_TASKS = ("forecasting", "reconstruction", "anomaly_detection", "imputation")
 
 # the covariate modes the JAX model knows (medtsllm_tpu/models/medtsllm.py:242)
 COVARIATE_MODES = ("univariate", "independent", "concat", "interleave", "add",
@@ -161,6 +173,7 @@ class MedTsLLM(nn.Module):
         self.n_outputs_per_step = {
             "segmentation": 1,
             "semantic_segmentation": n_classes if n_classes > 2 else 1,
+            "classification": n_classes,
         }.get(task, n_features)
         backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
         self.llm = backbone(
@@ -171,7 +184,7 @@ class MedTsLLM(nn.Module):
         self.reprogramming_layer = ReprogrammingLayer(
             n_features * d_model, n_heads, d_ff, self.d_llm, dropout)
         self.output_projection = Linear(d_ff * self.n_patches,
-                                        self.n_outputs_per_step * pred_len)
+                                        self.n_outputs_per_step * self.head_steps)
         self.embedding_downsample_layer = Linear(self.d_llm, d_ff)
 
     @classmethod
@@ -252,7 +265,8 @@ class MedTsLLM(nn.Module):
             prefix_cache=bool(mc.llm.get("prefix_cache", True)),
             cache_dir=cache_dir,
             dropout=float(config.training.get("dropout", 0.0) or 0.0),
-            task=task, n_classes=dataset.n_classes if task == "semantic_segmentation" else 0,
+            task=task, n_classes=(dataset.n_classes if task in (
+                "classification", "semantic_segmentation") else 0),
             seg_mode=seg_mode, covariate_mode=covariate_mode)
 
     # derived sizes (reference medtsllm.py:52,71-87)
@@ -265,6 +279,12 @@ class MedTsLLM(nn.Module):
         return self.llm_cfg.d_model
 
     @property
+    def head_steps(self) -> int:
+        """The steps the FlattenHead emits: ``pred_len``, but one row for
+        classification's per-window label."""
+        return 1 if self.task == "classification" else self.pred_len
+
+    @property
     def train_prefix_cache_safe(self) -> bool:
         """The train step may serve the prompt head from the cache when the
         cached values are constants of the optimization: a frozen backbone
@@ -272,11 +292,16 @@ class MedTsLLM(nn.Module):
         every trainable parameter are then those of the embedded head."""
         return self.prefix_cache and getattr(self.llm_cfg, "dropout", 0.0) == 0.0
 
-    def encode_ts(self, x_enc, generator=None):
+    def encode_ts(self, x_enc, generator=None, mask=None):
         """RevIN -> patch embed -> reprogramming. Returns (enc [B, P, d_llm],
-        revin stats)."""
+        revin stats). With ``mask`` (imputation) the statistics cover the
+        observed points only."""
         B, L, C = x_enc.shape
-        xn, stats = revin_norm(x_enc)
+        if mask is None:
+            xn, stats = revin_norm(x_enc)
+        else:
+            xn, means, stdev = masked_window_norm(x_enc, mask)
+            stats = {"center": means, "stdev": stdev}
         enc = self.patch_embedding(xn.transpose(1, 2), generator)  # [B*C, P, d_model]
         if self.covariate_mode == "concat":  # univariate: C == 1, [B, P, d_model]
             P = enc.shape[1]
@@ -289,7 +314,8 @@ class MedTsLLM(nn.Module):
         """``generator`` draws the dropout masks in training."""
         x_enc = inputs["x_enc"]
         B = x_enc.shape[0]
-        ts_emb, stats = self.encode_ts(x_enc, generator)
+        mask = inputs.get("mask") if self.task == "imputation" else None
+        ts_emb, stats = self.encode_ts(x_enc, generator, mask)
 
         parts = []
         prefix_kv = inputs.get("prefix_kv")
@@ -311,9 +337,11 @@ class MedTsLLM(nn.Module):
         # FlattenHead (medtsllm.py:541-552) on [B, d_ff, P]
         dec_out = dec_out.transpose(1, 2).reshape(B, -1)
         dec_out = self.output_projection(dec_out)
-        dec_out = dec_out.reshape(B, self.pred_len, self.n_outputs_per_step)
-        # the task's head (medtsllm.py:669-681)
-        if self.task in ("reconstruction", "anomaly_detection"):
+        dec_out = dec_out.reshape(B, self.head_steps, self.n_outputs_per_step)
+        # the task's head (medtsllm.py:667-681)
+        if self.task == "classification":
+            return dec_out[:, 0]  # [B, n_classes] logits
+        if self.task in DENORM_TASKS:
             return revin_denorm(dec_out, stats)
         if dec_out.shape[-1] == 1:
             dec_out = dec_out.squeeze(-1)
@@ -433,7 +461,8 @@ class PromptBuilder:
         self.bos = getattr(self.tokenizer, "bos_token", None)
         self.dataset_description = dataset.description
         self.task_description = getattr(dataset, "task_description", None) or (
-            TASK_DESCRIPTIONS[config.task].format(seq=config.history_len))
+            TASK_DESCRIPTIONS[config.task].format(seq=config.history_len,
+                                                  pred=config.pred_len))
         self.split_prefix = model.prefix_cache
         self.max_bucket = 16
         self.max_bucket_suffix = 16

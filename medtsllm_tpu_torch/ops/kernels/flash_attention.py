@@ -24,7 +24,7 @@ kernel defines no custom_vjp. Two entries launch the same kernel:
 The kernel never holds the [L, S] scores: it keeps an f32 running max, sum
 and accumulator per query row and writes ``acc / max(l, 1e-30)`` rounded to
 q's dtype. The t5 additive bias is not ported (it takes JAX's reference
-path; ROADMAP queue 1 item 7).
+path; ROADMAP queue 1, "Other backbone families and LoRA").
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -67,7 +67,7 @@ def _no_grad(name, *tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} has no backward (the JAX kernel defines none): "
-            "training above 2048 keys is ROADMAP queue 1 item 4")
+            "training above 2048 keys is ROADMAP queue 1, \"Training on the served backbones\"")
 
 
 def _check_dims(B, H, KV, D, dtypes):

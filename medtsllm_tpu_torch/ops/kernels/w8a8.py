@@ -15,7 +15,8 @@ package stores ``kernel_q [K, N]``; ``weights.py`` transposes once).
 Training: ``act_quant_matmul`` carries the straight-through backward of
 ``_act_quant_matmul_bwd`` (``transformer.py:261-285``), so the gradient
 reaches the trainable layers below a frozen int8 backbone. The opt-in
-int8 dx GEMM (``llm.int8_backward``) is not ported (ROADMAP queue 1 item 6).
+int8 dx GEMM (``llm.int8_backward``) is not ported (ROADMAP queue 1,
+"Training on the served backbones").
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-_UNPORTED = "(ROADMAP queue 1 item 6)"
+_UNPORTED = '(ROADMAP queue 1, "Training on the served backbones")'
 
 
 class Optimizer:

@@ -1,9 +1,13 @@
 """Task runtimes (port of ``medtsllm_tpu/tasks``): reconstruction, anomaly
-detection, segmentation and semantic segmentation."""
+detection, segmentation, semantic segmentation, forecasting,
+classification and imputation."""
 
 from __future__ import annotations
 
 from .anomaly_detection import AnomalyDetectionTask
+from .classification import ClassificationTask
+from .forecasting import ForecastTask
+from .imputation import ImputationTask
 from .reconstruction import ReconstructionTask
 from .segmentation import SegmentationTask
 from .semantic_segmentation import SemanticSegmentationTask
@@ -11,7 +15,10 @@ from .semantic_segmentation import SemanticSegmentationTask
 task_lookup = {"reconstruction": ReconstructionTask,
                "anomaly_detection": AnomalyDetectionTask,
                "segmentation": SegmentationTask,
-               "semantic_segmentation": SemanticSegmentationTask}
+               "semantic_segmentation": SemanticSegmentationTask,
+               "forecasting": ForecastTask,
+               "classification": ClassificationTask,
+               "imputation": ImputationTask}
 
 
 def get_trainer(run_id, config, device="cuda"):
@@ -19,6 +26,7 @@ def get_trainer(run_id, config, device="cuda"):
     without a card; nothing drops to the CPU on its own)."""
     if config.task not in task_lookup:
         raise NotImplementedError(
-            f"task {config.task!r}: the port serves {sorted(task_lookup)} (ROADMAP queue "
-            "1, \"The forecasting, classification, imputation and pretraining tasks\")")
+            f"task {config.task!r}: the port serves {sorted(task_lookup)}; pretraining mixes "
+            "the ECG, ventilator, bidmc and ludb families (ROADMAP queue 1, \"The file "
+            "readers\")")
     return task_lookup[config.task](run_id, config, device=device)

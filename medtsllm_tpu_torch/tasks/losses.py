@@ -1,8 +1,9 @@
 """Loss functions with batch-validity masking (port of
 ``medtsllm_tpu/tasks/losses.py``: the regression losses, the binary and
-multiclass cross-entropies, the soft Jaccard loss and the Lovasz hinge,
-and ``build_loss``'s table for the reconstruction, anomaly-detection,
-segmentation and semantic-segmentation tasks).
+multiclass cross-entropies, imputation's held-out point loss, the soft
+Jaccard loss and the Lovasz hinge, and ``build_loss``'s table for the
+reconstruction, anomaly-detection, segmentation, semantic-segmentation,
+forecasting, classification and imputation tasks).
 
 The batch pipeline pads the final batch to a fixed shape, so every loss is
 computed per sample and averaged over the valid rows only.
@@ -52,6 +53,18 @@ def cross_entropy(logits, labels, valid):
     return _masked_mean(_per_sample(torch.logsumexp(logits, dim=-1) - picked), valid)
 
 
+def masked_point_loss(pred, target, mask, valid, kind: str = "mse"):
+    """Imputation's loss: the mean error over the held-out points only.
+    pred, target, mask [B, L, C] (mask 1 = observed, 0 = held out)."""
+    hold = 1.0 - mask.to(pred.dtype)
+    d = pred - target
+    err = (d * d if kind == "mse" else d.abs()) * hold
+    B = pred.shape[0]
+    per_sample = (err.reshape(B, -1).sum(dim=1)
+                  / hold.reshape(B, -1).sum(dim=1).clamp(min=1.0))
+    return _masked_mean(per_sample, valid)
+
+
 def jaccard_loss(pred, target, valid, binary: bool = True, eps: float = 1e-7):
     """Soft IoU loss: sigmoid scores against 0/1 targets, or (``binary``
     False) softmax scores [B, L, C] against one-hot integer targets [B, L],
@@ -95,12 +108,27 @@ _REGRESSION = {"mse": mse, "mae": mae, "smooth_l1": smooth_l1, "smooth_mae": smo
 def build_loss(name: str, task: str, n_classes: int = 0):
     """(pred, arrays, valid) -> scalar loss for the config's loss name and
     task, in the order of ``build_loss``'s table in the JAX package:
-    reconstruction and anomaly detection regress the input window
-    (``x_enc``, no gradient); segmentation takes bce or mse / mae on its
-    labels; semantic segmentation bce (two classes) or cross-entropy;
-    iou / jaccard and, with two classes, lovasz."""
+    classification takes cross-entropy on its window labels and nothing
+    else (a regression arm would broadcast [B, C] logits against [B]
+    labels); imputation mse or mae on the held-out points of the unmasked
+    window ``y`` (no gradient); forecasting regresses ``y``, reconstruction
+    and anomaly detection the input window (``x_enc``), both without
+    gradient; segmentation takes bce or mse / mae on its labels; semantic
+    segmentation bce (two classes) or cross-entropy; iou / jaccard and,
+    with two classes, lovasz."""
     is_binary = n_classes == 2
-    key = "x_enc" if task in ("reconstruction", "anomaly_detection") else "labels"
+    key = {"forecasting": "y", "reconstruction": "x_enc",
+           "anomaly_detection": "x_enc"}.get(task, "labels")
+
+    if task == "classification":
+        if name not in ("ce", "cross_entropy", "auto"):
+            raise ValueError("classification requires a cross-entropy loss "
+                             f"(ce/cross_entropy/auto), got {name!r}")
+        return lambda p, b, v: cross_entropy(p, b["labels"], v)
+    if task == "imputation":
+        if name not in ("mse", "mae"):
+            raise ValueError(f"imputation supports mse/mae losses, got {name!r}")
+        return lambda p, b, v: masked_point_loss(p, b["y"].detach(), b["mask"], v, kind=name)
 
     def regression(fn):
         return lambda p, b, v: fn(p, b[key].detach(), v)

@@ -136,8 +136,8 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="covariate_mode"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.task = "forecasting"
-    with pytest.raises(NotImplementedError, match="forecasting"):
+    cfg.task = "pretraining"
+    with pytest.raises(NotImplementedError, match="pretraining"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.models.medtsllm.llm.llm = "gpt2"
