@@ -33,9 +33,10 @@ nvidia-smi. Phases:
      bidmc.toml's segmentation: the build's seconds and peak memory, K2
      and K3 held at its shapes (printed), ``train()`` four steps and
      ``val()`` (finite losses, the full key set, a frozen backbone, K2 per
-     layer per step), the train step's p50 over 16 steps after one
-     untimed, and its peak, then ``serve()`` over 32 test batches on a
-     trainer that loads the trained weights;
+     layer per step), then ``train_graphed``: the train step's p50 over 16
+     steps after one untimed, op by op and captured, and both peaks, then
+     ``serve()`` over 32 test batches on a trainer that loads the trained
+     weights;
   6b. ecgmit-anom.toml's anomaly detection through ``serve()`` (32 test
      batches);
   6c. ventilator.toml's semantic segmentation (binary) as shipped
@@ -43,7 +44,7 @@ nvidia-smi. Phases:
      at 4 layers through ``serve()`` (32 test batches);
   6e. ecgmit-seg.toml's boundary segmentation as shipped at full depth:
      ``train()`` four steps on 32 clips (the per-clip heads embedded in the
-     train step) and ``val()`` (banked), the train step's p50 and peak,
+     train step) and ``val()`` (banked), ``train_graphed``,
      then ``serve()`` over 33 test batches of 48 clips (MIT-BIH's record
      count) through a bank of 16 rows, on a trainer that loads the trained
      weights;
@@ -60,8 +61,8 @@ nvidia-smi. Phases:
      history 128, ``window_label = "any"``, 5 features, ce), 6i
      etth1-imputation.toml's imputation (batch 32, history 96, 7 features,
      ``mask_rate`` 0.25). Each as 6a: the build's seconds and peak, K2 and
-     K3 at its shapes (printed), ``train()`` four steps and ``val()``, the
-     train step's p50 and peak, then ``serve()`` over 32 test batches on a
+     K3 at its shapes (printed), ``train()`` four steps and ``val()``,
+     ``train_graphed``, then ``serve()`` over 32 test batches on a
      trainer that loads the trained weights (imputation's ``mask`` an input
      of the captured step);
   6d. each task's window predictions on a 2-layer llama-1b slice under
@@ -80,16 +81,20 @@ nvidia-smi. Phases:
      mamba-130m configuration (one epoch of four shuffled batches of 48,
      then ``val()``), the launches of K9 (the scan that records its
      chunk-start states) and K10 (its backward) in that run and in each
-     further train step (24 each, and no K7/K8), the train step's p50 ms
-     per batch, windows/s and peak memory; one train step with the prompt
-     head embedded (K9/K10 at the uncached shape);
+     further train step (24 each, and no K7/K8), ``train_graphed``; the
+     train step with the prompt head embedded (K9/K10 at the uncached
+     shape), a second signature: its capture, then a replay;
   9. the llama finetune step: ``train()`` of the Llama-2-7B-shaped w8a8
      bf16 configuration (frozen int8 backbone, trainable fusion layers,
      batch 8): finite losses, changed fusion layers, an unchanged backbone,
-     K1 and K2 launched; p50 ms per step and peak memory;
+     K1 and K2 launched; ``train_graphed``;
  10. one f32 train step of 2-layer slices (mamba-130m widths; llama-1b
      dense, GQA) on the card against the CPU with the same weights: the
-     loss and the gradient of every trainable parameter;
+     loss and the gradient of every trainable parameter; then the card's
+     update (capturable Adam with a clip that bites; SGD) against a CPU
+     optimizer given the card's state and gradients, after the first step
+     and after a replay under the next epoch's LR: every parameter and
+     optimizer-state tensor;
  11. the MoE serving path: ``get_trainer(...).test()`` of
      configs/ablation/moe-backbone.toml's model (moe-8x1b: 22 blocks, d 2048,
      GQA 32/4 x 64, 8 experts top-2, d_ff 5632; w8a8, bf16, batch 48,
@@ -175,6 +180,17 @@ carries. A path with a per-clip KV bank (6c, 6e) also prints each pass's
 hits, misses and evictions (evictions required), the bank's GiB and one
 miss's prefill ms, and holds the banked step against the same batch with
 its head embedded (2^-6 x max); its replays run across evictions.
+Every train path (6a, 6e, 6g-6i, 8, 9) trains through ``train()``, whose
+train step replays one CUDA graph per input signature (forward, backward,
+clip and Adam; ``TrainGraphs``), and then ``train_graphed``: the train
+step's p50 op by op (``train_step_eager``) and captured (``train_step``)
+side by side, each's peak memory, the graphs, their capture ms and the
+train pool's GiB, every graphed step with the eager step's launches; then
+the parameters, the optimizer's state and the dropout generator snapshot
+in place, 4 graphed steps across an LR change, the snapshot restored and 4
+eager steps: the losses, the trainable parameters, the optimizer's state,
+the gradients and the generator's state bit-equal, and the backbone
+unchanged.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -210,6 +226,15 @@ LUDB_TOML = ROOT / "configs" / "datasets" / "ludb.toml"
 BIDMC_FORECAST_TOML = ROOT / "configs" / "baseline-models" / "bidmc-gpt4ts.toml"
 DREAMS_CLS_TOML = ROOT / "configs" / "ablation" / "dreams-classification.toml"
 ETTH1_IMP_TOML = ROOT / "configs" / "ablation" / "etth1-imputation.toml"
+# phase -> (task file, features, (points a split for train(), for serve()))
+TASK_BLOCKS = {
+    # 6g: history 256, pred 64, step 64: 64 train windows, 512 test
+    "bidmc-forecast": (BIDMC_FORECAST_TOML, 3, (64 * 64 + 319, 512 * 64 + 319)),
+    # 6h: history 128, step 64, window_label "any": one row of 2 logits
+    "dreams-classification": (DREAMS_CLS_TOML, 5, (63 * 64 + 128, 512 * 128)),
+    # 6i: history 96, step 1, batch 32: 128 train windows, 1024 test
+    "etth1-imputation": (ETTH1_IMP_TOML, 7, (127 + 96, 1024 * 96)),
+}
 # points a split of a served task path, by history (= pred_len = the test
 # split's step): 512 test windows, 32 batches of 16
 SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
@@ -487,6 +512,32 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def train_state(opt) -> list:
+    """The tensors a step of ``opt`` (the port's ``runtime/optim.py``
+    ``Optimizer``) updates, detached (their storage shared): the trainable
+    parameters, then the optimizer's state parameter by parameter (Adam's
+    step count and moments, SGD's momentum buffer). A captured step reads
+    and writes them where they lie, so a snapshot is restored into them
+    with ``copy_``."""
+    import torch
+
+    state = [t for p in opt.params for t in opt._opt.state.get(p, {}).values()
+             if isinstance(t, torch.Tensor)]
+    return [t.detach() for t in (*opt.params, *state)]
+
+
+def pool_bytes(graphs) -> int:
+    """The device memory the pool of ``graphs`` (``runtime/graph.py``'s
+    ``StepGraphs`` or ``TrainGraphs``) holds: its segments' sizes."""
+    import torch
+
+    if graphs._pool is None:
+        return 0
+    pool = tuple(graphs._pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -513,6 +564,7 @@ def main() -> None:
     from medtsllm_tpu_torch.ops.kernels import selective_scan as ss
     from medtsllm_tpu_torch.ops.kernels import w4a8 as k5
     from medtsllm_tpu_torch.ops.kernels import w8a8 as k1
+    from medtsllm_tpu_torch.runtime.optim import Optimizer
     from medtsllm_tpu_torch.tasks import get_trainer
 
     dev = torch.device("cuda", 0)
@@ -1399,24 +1451,27 @@ def main() -> None:
         _, counts = counted(lambda: (fn(), torch.cuda.synchronize()))
         return counts, time.perf_counter() - t0
 
-    def step_p50(tr, label, n_steps, expect=None, warmup=0):
-        """p50 of ``train_step`` (CUDA events) over the next ``n_steps``
-        shuffled train batches (epoch after epoch), their inputs prepared
-        first, after ``warmup`` untimed steps; ``expect`` maps kernels to
-        their launches in every step."""
+    def step_p50(tr, label, n_steps, expect=None, warmup=0, step=None):
+        """p50 of ``step`` (``train_step`` unless given; CUDA events) over
+        the next ``n_steps`` shuffled train batches (epoch after epoch),
+        their inputs prepared first, after ``warmup`` untimed steps;
+        ``expect`` maps kernels to their launches in every step. Returns
+        the p50 and each step's launches."""
+        step = tr.train_step if step is None else step
         epochs = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
         arrays = [tr.train_model_inputs(b) for b in itertools.islice(epochs, warmup + n_steps)]
-        step_ms = []
+        step_ms, step_counts = [], []
         for i, a in enumerate(arrays):
             for w in wrappers.values():
                 w.launches = 0
             start.record()
-            loss = tr.train_step(a, a["valid"])
+            loss = step(a, a["valid"])
             end.record()
             end.synchronize()
             if i >= warmup:
                 step_ms.append(start.elapsed_time(end))
             counts = {name: w.launches for name, w in wrappers.items()}
+            step_counts.append(counts)
             check(math.isfinite(float(loss)), f"{label}: non-finite loss {float(loss)}")
             for name, n in (expect or {}).items():
                 check(counts[name] == n, f"{label}: {name} launched {counts[name]} times "
@@ -1426,7 +1481,109 @@ def main() -> None:
         print(f"[{label}] train step p50 {p50:.2f} ms per batch of {bsz} "
               f"({bsz * 1000 / p50:.1f} windows/s at p50; {len(step_ms)} steps after {warmup} "
               f"untimed: {step_ms}); launches in the last step {counts}")
-        return p50
+        return p50, step_counts
+
+    def train_graphed(tr, label, n_steps, expect=None, warmup=1):
+        """The train step op by op (``train_step_eager``) and captured
+        (``train_step``: one CUDA graph per input signature): the p50 of
+        each over ``n_steps`` after ``warmup`` untimed, each's peak memory,
+        the graphs, their capture ms and the train pool's GiB; every
+        graphed step launches what the eager step launches. Then
+        ``hold_train_graph``."""
+        graphs = tr.train_graphs
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p50_e, counts_e = step_p50(tr, f"{label}-train[eager]", n_steps, expect, warmup,
+                                   tr.train_step_eager)
+        peak_e = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n_captures = len(graphs.capture_ms)
+        p50_g, counts_g = step_p50(tr, f"{label}-train", n_steps, expect, warmup)
+        # a replay allocates nothing: its intermediates live in the pool,
+        # which the reserved peak counts and the allocated one does not
+        peak_g = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        check(all(c == counts_e[-1] for c in counts_e + counts_g),
+              f"[{label}-train] launches a step: eager {counts_e}, graphed {counts_g}")
+        print(f"[{label}-train] train step p50 eager {p50_e:.2f} -> graphed {p50_g:.2f} ms "
+              f"({p50_e / p50_g:.2f}x); peak memory allocated / reserved: eager "
+              f"{peak_e[0] / 2**30:.2f} / {peak_e[1] / 2**30:.2f} GiB, graphed "
+              f"{peak_g[0] / 2**30:.2f} / {peak_g[1] / 2**30:.2f} GiB; {len(graphs)} train "
+              f"graph(s), captures {graphs.capture_ms} ms ({len(graphs.capture_ms) - n_captures}"
+              f" in the timed run), the train pool {pool_bytes(graphs) / 2**30:.2f} GiB; "
+              f"launches a step, eager = graphed: {counts_e[-1]}")
+        hold_train_graph(tr, label)
+        return p50_e, p50_g
+
+    def hold_train_graph(tr, label, k=4):
+        """The parameters, the optimizer's state and the dropout generator
+        snapshot in place; k graphed steps across an LR change (epoch 0's LR,
+        then epoch 1's, under a two-epoch warmup set for the check: 0.5x,
+        then 1x); the snapshot restored; k eager steps on the same batches.
+        Bit-equal: the losses, every trainable parameter, the optimizer's
+        state, the last gradients and the generator's state; the launches a
+        step; the frozen backbone unchanged (exact float64 sums); no new
+        capture."""
+        opt, gen = tr.optimizer, tr.dropout_generator
+        epochs = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
+        arrays = [tr.train_model_inputs(b) for b in itertools.islice(epochs, k)]
+        frozen = {n: torch.sum(t, dtype=torch.float64)
+                  for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+        n_captures = len(tr.train_graphs.capture_ms)
+        snap = [t.clone() for t in train_state(opt)]
+        gen_state = gen.get_state()
+
+        def run(step):
+            losses, counts, lrs = [], [], []
+            for i, a in enumerate(arrays):
+                if i in (0, k // 2):
+                    opt.set_epoch(2 * i // k)
+                lrs.append(opt.get_last_lr()[0])
+                loss, c = counted(lambda: step(a, a["valid"]))
+                losses.append(loss)
+                counts.append(c)
+            grads = [None if p.grad is None else p.grad.clone() for p in opt.params]
+            return (torch.stack(losses), counts, [t.clone() for t in train_state(opt)], grads,
+                    gen.get_state(), lrs)
+
+        warmup_epochs = opt.lr_warmup_epochs
+        opt.lr_warmup_epochs = 2
+        try:
+            graphed = run(tr.train_step)
+            for t, v in zip(train_state(opt), snap):
+                t.copy_(v)
+            gen.set_state(gen_state)
+            eager = run(tr.train_step_eager)
+        finally:
+            opt.lr_warmup_epochs = warmup_epochs
+            opt.set_epoch(0)
+        check(len(set(eager[5])) == 2, f"[{label}-train] the check's LRs {eager[5]}")
+        check(torch.equal(graphed[0], eager[0]),
+              f"[{label}-train] losses graphed {graphed[0].tolist()}, eager {eager[0].tolist()}")
+        check(graphed[1] == eager[1], f"[{label}-train] launches graphed {graphed[1]}, eager "
+              f"{eager[1]}")
+        n_params = len(opt.params)
+        for i, (g, e) in enumerate(zip(graphed[2] + graphed[3], eager[2] + eager[3])):
+            what = ("parameter" if i < n_params else "optimizer state"
+                    if i < len(graphed[2]) else "gradient")
+            check((g is None and e is None) or torch.equal(g, e),
+                  f"[{label}-train] a {what} ({i}) differs: graphed vs eager max |diff| "
+                  f"{(g.float() - e.float()).abs().max().item() if g is not None else None}")
+        check(torch.equal(graphed[4], eager[4]) and not torch.equal(gen_state, eager[4]),
+              f"[{label}-train] the dropout generator's state after the graphed steps differs "
+              "from the eager steps', or did not advance")
+        moved = sum(not torch.equal(a, b) for a, b in zip(snap[:n_params], eager[2]))
+        check(moved > 0, f"[{label}-train] no trainable parameter moved")
+        check(all(torch.sum(t, dtype=torch.float64) == frozen[n]
+                  for n, t in tr.model.state_dict().items() if n.startswith("llm.")),
+              f"[{label}-train] the backbone changed")
+        check(len(tr.train_graphs.capture_ms) == n_captures,
+              f"[{label}-train] the check captured anew")
+        print(f"[{label}-train] {k} replays across an LR change ({eager[5]}) bit-equal to {k} "
+              f"eager steps from the same state: losses {eager[0].tolist()}, {n_params} "
+              f"trainable tensors ({moved} moved), {len(snap) - n_params} optimizer state "
+              f"tensors, the gradients, the generator's state; launches a step "
+              f"{eager[1][0]}; the backbone unchanged")
 
     # 4. the llama serving path, through the user's entry point
     counts, *_ = serve(trainer, "slice")
@@ -1562,11 +1719,8 @@ def main() -> None:
         check(all(torch.sum(state[n], dtype=torch.float64) == v for n, v in frozen.items()),
               f"the {label} backbone changed")
         del trainable, frozen, state
-        step_p50(tr, f"{label}-train", 16, {"rope_attention": n_l,
-                                             "reprogramming_attention": 0, "w8a8_gemm": 0},
-                 warmup=1)
-        print(f"[{label}-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              "GiB")
+        train_graphed(tr, label, 16, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                      "w8a8_gemm": 0})
         check_scores(label, tr, tr.val(), "val")
         return tr
 
@@ -1654,16 +1808,12 @@ def main() -> None:
     # the trained weights. The train step serves the head from its bf16
     # cache (forecasting, classification: two prefills beside val's steps)
     # or, for imputation as in JAX, embeds it (one prefill: val's)
-    for label, toml, n_feat, (n_train, n_served), prefills, check_model in (
-            # 6g: history 256, pred 64, step 64: 64 train windows, 512 test
-            ("bidmc-forecast", BIDMC_FORECAST_TOML, 3, (64 * 64 + 319, 512 * 64 + 319), 2,
-             lambda m: m.head_steps == 64 and m.n_outputs_per_step == 3),
-            # 6h: history 128, step 64, window_label "any": one row of 2 logits
-            ("dreams-classification", DREAMS_CLS_TOML, 5, (63 * 64 + 128, 512 * 128), 2,
+    for label, prefills, check_model in (
+            ("bidmc-forecast", 2, lambda m: m.head_steps == 64 and m.n_outputs_per_step == 3),
+            ("dreams-classification", 2,
              lambda m: m.head_steps == 1 and m.n_outputs_per_step == 2),
-            # 6i: history 96, step 1, batch 32: 128 train windows, 1024 test
-            ("etth1-imputation", ETTH1_IMP_TOML, 7, (127 + 96, 1024 * 96), 1,
-             lambda m: m.head_steps == 96 and m.n_outputs_per_step == 7)):
+            ("etth1-imputation", 1, lambda m: m.head_steps == 96 and m.n_outputs_per_step == 7)):
+        toml, n_feat, (n_train, n_served) = TASK_BLOCKS[label]
         tr = train_task(label, task_block_config(Config, toml, n_train, n_feat),
                         lambda tr, n=prefills: n)
         check(check_model(tr.model) and tr.model.llm_cfg.n_layers == 32,
@@ -1803,17 +1953,21 @@ def main() -> None:
                           "selective_scan_bwd": "selective_scan_bwd"})
     per_step = {"selective_scan_bounds": n_layers, "selective_scan_bwd": n_layers,
                 "selective_scan": 0, "selective_scan_h0": 0, "selective_scan_final": 0}
-    step_p50(tr, "mamba-train", n_steps, per_step)
-    print(f"[mamba-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # one step with the prompt head embedded in the graph: K9 from h = 0
+    train_graphed(tr, "mamba", 16, per_step)
+    # the step with the prompt head embedded in the graph (a second
+    # signature: its warm-up and capture, then a replay): K9 from h = 0
     # over [head | region], K10 from its states
     batch = next(iter(tr.train_pipeline))
     arrays = tr._to_device(tr.model_inputs(batch))
     check("prefix_ids" in arrays, "the uncached train step needs the embedded head")
-    counts, _ = drive(lambda: check(math.isfinite(float(tr.train_step(arrays, arrays["valid"]))),
-                                    "non-finite uncached Mamba loss"))
-    check(all(counts[k] == n for k, n in per_step.items()),
-          f"uncached Mamba train step launches {counts}")
+    n_graphs = len(tr.train_graphs)
+    for _ in range(2):
+        counts, _ = drive(lambda: check(
+            math.isfinite(float(tr.train_step(arrays, arrays["valid"]))),
+            "non-finite uncached Mamba loss"))
+        check(all(counts[k] == n for k, n in per_step.items()),
+              f"uncached Mamba train step launches {counts}")
+    check(len(tr.train_graphs) == n_graphs + 1, "the uncached train step captured no graph")
     set_launches(counts, {"selective_scan_bounds[uncached]": "selective_scan_bounds",
                           "selective_scan_bwd[uncached]": "selective_scan_bwd"})
     del tr, arrays
@@ -1850,10 +2004,8 @@ def main() -> None:
     check(all(torch.equal(t, frozen[n]) for n, t in backbone().items()), "the backbone changed")
     del trainable, frozen, state
     n_block = lcfg.n_layers
-    step_p50(tr, "llama-train", n_steps, {"w8a8_quantize": 7 * n_block,
-                                          "w8a8_gemm": 7 * n_block,
-                                          "rope_attention": n_block})
-    print(f"[llama-train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    train_graphed(tr, "llama", 16, {"w8a8_quantize": 7 * n_block, "w8a8_gemm": 7 * n_block,
+                                    "rope_attention": n_block})
     del tr
     torch.cuda.empty_cache()
 
@@ -1864,18 +2016,35 @@ def main() -> None:
     # multiply-adds only, so 1e-3. The reprogramming key bias is left out:
     # its exact gradient is 0 (the softmax over keys ignores a constant
     # added to a query's scores), both sides hold rounding noise; it is
-    # held below 1e-4 of the largest gradient instead
+    # held below 1e-4 of the largest gradient instead. Then the update, on
+    # the same inputs: a CPU ``Optimizer`` (torch's Adam, the port's SGD;
+    # tests/test_torch_train_graph.py holds both to JAX) given the card's
+    # parameters, optimizer state and gradients, after the first step (the
+    # card's warm-up, op by op) and after a second on the same batch (a
+    # replay of the captured step) under the next epoch's LR (cosine over
+    # three epochs: 0.55x, read from the card's LR tensor): every
+    # trainable parameter within rtol 1e-4, atol 1e-5, every state tensor
+    # within rtol 1e-4, atol 1e-5 of its largest element. Adam at lr 1e-3
+    # with a clip of 0.01 that bites, SGD at 1e-2 unclipped, so that each
+    # step moves some parameter by over 10x the tolerance
     slices = (("mamba-130m 2-layer f32",
                mamba_config(Config, n_points=512, batch=2, history=64, dtype="float32",
-                            llm_layers=2, dropout=0.0)),
+                            llm_layers=2, dropout=0.0),
+               dict(optimizer="adam", learning_rate=1e-3, grad_clip_norm=0.01)),
               ("llama-1b 2-layer GQA dense f32",
                bench_config(Config, llm="llama-1b", batch=2, history=64, dtype="float32",
                             n_points=256, num_tokens=128, d_ff=64, llm_layers=2,
-                            load_in_8bit=False, dropout=0.0)))
-    for label, scfg_t in slices:
+                            load_in_8bit=False, dropout=0.0),
+               dict(optimizer="sgd", learning_rate=1e-2, grad_clip_norm=0.0)))
+    for label, scfg_t, training in slices:
+        raw = scfg_t.to_dict()
+        raw["training"].update(training, lr_scheduler="cosine", lr_min_factor=0.1, epochs=3)
+        scfg_t = Config(raw)
         gpu = get_trainer("chip-smoke-train-small", scfg_t, device=dev)
         cpu = get_trainer("chip-smoke-train-small", scfg_t, device="cpu")
         cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+        ref = Optimizer(scfg_t, [p.detach().cpu().clone().requires_grad_()
+                                 for p in gpu.optimizer.params])
         batch = next(iter(gpu.train_pipeline))
         ag, ac = gpu.train_model_inputs(batch), cpu.train_model_inputs(batch)
         lg = float(gpu.train_step(ag, ag["valid"]))
@@ -1897,11 +2066,55 @@ def main() -> None:
         check(loss_err <= 1e-5, f"{label}: train loss card {lg} vs CPU {lc}")
         check(worst <= 1e-3, f"{label}: gradient of {worst_name} differs by {worst} "
               "of its largest element (tolerance 1e-3)")
+        clip = ref.clip_norm
+        if clip > 0:
+            norm = torch.stack([g.double().square().sum() for g in grads_g.values()]).sum()
+            check(abs(norm.sqrt().item() - clip) <= 1e-4 * clip,
+                  f"{label}: the clip did not bite: clipped norm {norm.sqrt().item()}")
         print(f"[reference-train] {label} train step, card vs CPU: loss {lg:.6f} vs "
               f"{lc:.6f} (relative {loss_err:.2e}, tol 1e-5); largest gradient error "
               f"{worst:.3e} of its tensor's max ({worst_name}; tol 1e-3) over "
               f"{len(grads_c)} trainable tensors")
-        del gpu, cpu
+        del cpu
+        n_captures = len(gpu.train_graphs.capture_ms)
+        for step in (1, 2):
+            if step == 2:  # the card's state into the reference, the next LR
+                for r, t in zip(train_state(ref), train_state(gpu.optimizer)):
+                    r.copy_(t)
+                gpu.optimizer.set_epoch(1)
+                ref.set_epoch(1)
+                check(ref.get_last_lr() == gpu.optimizer.get_last_lr()
+                      and gpu.optimizer.lr.item() < 0.6 * ref.base_lr,
+                      f"{label}: epoch 1's LR {gpu.optimizer.lr.item()}")
+                gpu.train_step(ag, ag["valid"])
+                check(len(gpu.train_graphs) == 1
+                      and len(gpu.train_graphs.capture_ms) == n_captures,
+                      f"{label}: the second step was not a replay")
+            before = [p.detach().clone() for p in ref.params]
+            for r, p in zip(ref.params, gpu.optimizer.params):
+                r.grad = p.grad.cpu()
+            ref.step()
+            n_params = len(ref.params)
+            errs, move = [], 0.0
+            for i, (r, t) in enumerate(zip(train_state(ref), train_state(gpu.optimizer))):
+                t = t.cpu()
+                atol = 1e-5 if i < n_params else 1e-5 * r.abs().max().item()
+                excess = ((t - r).abs() - 1e-4 * r.abs()).max().item()
+                check(excess <= atol, f"{label}: step {step}: the card's "
+                      f"{'parameter' if i < n_params else 'optimizer state'} {i} is off "
+                      f"the CPU optimizer's by {excess} past rtol 1e-4, over atol {atol}")
+                errs.append((t - r).abs().max().item())
+                if i < n_params:
+                    move = max(move, (r - before[i]).abs().max().item())
+            check(move >= 10 * 1e-5, f"{label}: step {step} moved no parameter by 10x the "
+                  f"tolerance: {move}")
+            print(f"[reference-train] {label} {scfg_t.training.optimizer} update, step "
+                  f"{step} ({'warm-up, op by op' if step == 1 else 'replay'}; LR "
+                  f"{ref.get_last_lr()[0]:.3e}), card vs the CPU optimizer on the card's "
+                  f"gradients: largest |diff| {max(errs[:n_params]):.3e} over {n_params} "
+                  f"parameters (largest move {move:.3e}), {max(errs[n_params:]):.3e} over "
+                  f"{len(errs) - n_params} state tensors; rtol 1e-4, atol 1e-5")
+        del gpu, ref
 
     # 11. the MoE serving path (K6 both forms, K1, K2, K3)
     n_layers = xcfg.n_layers

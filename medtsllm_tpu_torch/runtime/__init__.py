@@ -1,1 +1,1 @@
-"""Training runtime: the optimizer and its schedules."""
+"""Training runtime: the optimizer and its schedules, the captured steps."""

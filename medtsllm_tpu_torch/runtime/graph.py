@@ -1,5 +1,5 @@
-"""The captured serving step: the port's counterpart of ``jax.jit`` on the
-eval step (``medtsllm_tpu/tasks/base.py:547``).
+"""The captured steps: the port's counterpart of ``jax.jit`` on the eval
+step (``medtsllm_tpu/tasks/base.py:547``) and on the train step (``:501``).
 
 ``StepGraphs`` runs a step function (the task's eval forward) as one CUDA
 graph per input signature. The key (``step_key``) is the shape and dtype of
@@ -20,7 +20,8 @@ graph.
 - Every later call copies its inputs into the static buffers, replays the
   graph and returns a clone of the static output, which the next replay
   overwrites.
-- A capture that fails raises. Nothing falls back to the eager step.
+- A capture that fails raises, the generators it registered set back to
+  where they were. Nothing falls back to the eager step.
 
 What the graph freezes: parameter and buffer addresses (``load_state_dict``
 copies in place, so they hold), and every host-side choice the forward made
@@ -39,6 +40,27 @@ Launch counters: a replay makes no Python call, so the kernel wrappers'
 counters (``launch_counters``) are read around the capture, set back to
 their values before it (a capture launches nothing), and each replay adds
 the capture's delta: the counts stay those of the kernels the card runs.
+
+``TrainGraphs`` captures a whole train step the same way: the forward in
+train mode, the loss, ``backward`` (its kernels run on autograd's device
+thread, on the stream of their forward: the capturing one), the clip and
+the optimizer's update. What it adds:
+
+- The warm-up is a real step: it updates the parameters, advances the
+  dropout generator and creates the optimizer's state (outside any pool),
+  and its loss is the call's. The capture then computes nothing, so the
+  parameters, the optimizer's state and the generator stay as the warm-up
+  left them.
+- The parameters, the optimizer's state and the epoch's LR tensor are read
+  and written where they lie (they are updated in place); the dropout
+  generator is registered with every graph, so a replay draws the masks
+  the eager step would and advances the generator as far.
+- Each graph's gradients (``.grad``, allocated in the pool by its
+  ``backward``) stay referenced with it: a later warm-up sets every
+  ``.grad`` to None. After a call, each parameter's ``.grad`` holds that
+  step's gradient, as after the eager step (after a capture, the
+  warm-up's, copied in).
+- Its graphs share a pool of their own, apart from the eval graphs'.
 """
 
 from __future__ import annotations
@@ -139,6 +161,9 @@ class StepGraphs:
 
     @torch.inference_mode()
     def __call__(self, arrays: dict) -> torch.Tensor:
+        return self._call(arrays)
+
+    def _call(self, arrays: dict):
         key = step_key(arrays)
         if key not in self.graphs:
             return self._capture(key, arrays)
@@ -147,7 +172,18 @@ class StepGraphs:
             buf.copy_(arrays[name], non_blocking=True)
         graph.replay()
         add_counts(self.counters, delta)
+        return self._replayed(out)
+
+    # what a subclass changes: the generators registered with each graph,
+    # the call's result after a replay and after the warm-up and capture
+    def _generators(self) -> tuple:
+        return ()
+
+    def _replayed(self, out):
         return out.clone()
+
+    def _captured(self, out, static_out):
+        return out
 
     def _capture(self, key, arrays):
         main = torch.cuda.current_stream(self.device)
@@ -164,6 +200,8 @@ class StepGraphs:
             out = self.step(static)  # the warm-up, counted: its kernels run
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        for g in self._generators():
+            graph.register_generator_state(g)
         before = read_counts(self.counters)
         t0 = time.perf_counter()
         try:
@@ -171,6 +209,17 @@ class StepGraphs:
                                   capture_error_mode="thread_local"):
                 static_out = self.step(static)
             delta = count_delta(before, read_counts(self.counters))
+        except BaseException:
+            # torch ends the capture of the generators a graph registered
+            # (the device's default one and ``_generators()``) only when the
+            # capture succeeds; left in capture, every later draw from them
+            # raises. Each gets a fresh state at its seed and offset
+            index = self.device.index
+            for g in (torch.cuda.default_generators[
+                    torch.cuda.current_device() if index is None else index],
+                      *self._generators()):
+                g.graphsafe_set_state(g.clone_state())
+            raise
         finally:
             # the capture launched nothing; a failed capture may leave the
             # side stream current
@@ -182,4 +231,46 @@ class StepGraphs:
         # the warm-up's output was made on the side stream; the main stream
         # waited for it above, and the side stream's next use waits for the
         # main stream, so its block is not reused while this output is read
-        return out
+        return self._captured(out, static_out)
+
+
+class TrainGraphs(StepGraphs):
+    """A whole train step, ``step(arrays) -> loss`` (forward, backward, clip
+    and update of ``params``), as one CUDA graph per ``step_key`` on
+    ``device``, with ``generators`` registered with each graph. Runs with
+    autograd on (not in inference mode); returns the step's loss, a clone
+    after a replay."""
+
+    def __init__(self, step, device: torch.device, params, generators=(),
+                 counters: dict | None = None):
+        params = list(params)
+
+        def with_grads(arrays):  # the loss and the gradients the step made
+            return step(arrays), tuple(p.grad for p in params)
+        super().__init__(with_grads, device, counters)
+        self.params = params
+        self.generators = tuple(generators)
+
+    def __call__(self, arrays: dict) -> torch.Tensor:
+        return self._call(arrays)
+
+    def _generators(self) -> tuple:
+        return self.generators
+
+    def _set_grads(self, grads) -> None:
+        for p, g in zip(self.params, grads):
+            p.grad = g
+
+    def _replayed(self, out):
+        loss, grads = out
+        self._set_grads(grads)
+        return loss.clone()
+
+    @torch.no_grad()
+    def _captured(self, out, static_out):
+        (loss, warm), (_, grads) = out, static_out
+        for g, w in zip(grads, warm):
+            if g is not None:
+                g.copy_(w)
+        self._set_grads(grads)
+        return loss

@@ -6,14 +6,24 @@ Only the trainable parameters reach it (the frozen backbone's have
 ``requires_grad = False``). The update rules are optax's: ``adam`` (b1 0.9,
 b2 0.999, eps 1e-8), ``adamw`` (weight decay 0.01, decoupled: ``p -= lr *
 (adam + 0.01 p)``) and ``sgd`` (momentum 0.9, nesterov), which
-``torch.optim.Adam`` / ``AdamW`` / ``SGD`` compute with these arguments
-(tests/test_torch_train.py holds them to optax). The moments live at the
+``torch.optim.Adam`` / ``AdamW`` with these arguments and ``DeviceLRSGD``
+compute (tests/test_torch_train.py holds them to optax). The moments live at the
 parameters' dtype, as optax keeps them.
+
+The epoch's learning rate lives in a tensor on the parameters' device
+(``lr``), which ``set_epoch`` writes in place. The update reads it there,
+so a captured train step (``runtime/graph.py``) follows the schedule. SGD
+is ``DeviceLRSGD`` on every device (torch's SGD turns a tensor LR into a
+host number). Adam and AdamW are ``capturable`` on a CUDA device (the step
+count and the bias correction on the device too); on the CPU, where torch
+makes no optimizer capturable, their groups take the LR as a Python
+number. The clip makes no host read.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -42,17 +52,20 @@ class Optimizer:
         self.clip_norm = float(t.get("grad_clip_norm", 0.0) or 0.0)
 
         self.params = [p for p in params if p.requires_grad]
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.on_device = device.type == "cuda"
+        self.lr = torch.tensor(self.base_lr, dtype=torch.float32, device=device)
+        adam_lr = self.lr if self.on_device else self.base_lr
         match self.name:
             case "adam":
-                self._opt = torch.optim.Adam(self.params, lr=self.base_lr,
-                                             betas=(0.9, 0.999), eps=1e-8)
+                self._opt = torch.optim.Adam(self.params, lr=adam_lr, betas=(0.9, 0.999),
+                                             eps=1e-8, capturable=self.on_device)
             case "adamw":
-                self._opt = torch.optim.AdamW(self.params, lr=self.base_lr,
-                                              betas=(0.9, 0.999), eps=1e-8,
-                                              weight_decay=0.01)
+                self._opt = torch.optim.AdamW(self.params, lr=adam_lr, betas=(0.9, 0.999),
+                                              eps=1e-8, weight_decay=0.01,
+                                              capturable=self.on_device)
             case "sgd":
-                self._opt = torch.optim.SGD(self.params, lr=self.base_lr, momentum=0.9,
-                                            nesterov=True)
+                self._opt = DeviceLRSGD(self.params, lr=self.lr, momentum=0.9)
             case _:
                 raise ValueError(f"Invalid optimizer selection: {self.name}")
         self.last_lrs = [self.base_lr]
@@ -74,9 +87,13 @@ class Optimizer:
         return 1.0 - (1.0 - mf) * t
 
     def set_epoch(self, epoch: int) -> None:
+        """The epoch's LR, written into ``lr`` in place (on a card, on the
+        current stream: after every step enqueued before it)."""
         lr = self.base_lr * self.schedule_factor(epoch)
+        self.lr.fill_(lr)
         for group in self._opt.param_groups:
-            group["lr"] = lr
+            if not isinstance(group["lr"], torch.Tensor):  # Adam on the CPU
+                group["lr"] = lr
         self.last_lrs = [lr]
 
     def get_last_lr(self) -> list[float]:
@@ -88,7 +105,8 @@ class Optimizer:
     def step(self) -> None:
         """Clip (one global norm over every gradient, in f32; scale
         min(1, max_norm / max(norm, 1e-16)) as ``clip_global_norm_float``),
-        then update."""
+        then update. Nothing is read back to the host: whether there are
+        gradients to clip is a choice made in Python."""
         if self.clip_norm > 0:
             grads = [p.grad for p in self.params if p.grad is not None]
             if grads:
@@ -96,4 +114,47 @@ class Optimizer:
                 scale = (self.clip_norm / norm.clamp(min=1e-16)).clamp(max=1.0)
                 for g in grads:
                     g.mul_(scale.to(g.dtype))
-        self._opt.step()
+        with warnings.catch_warnings():
+            # a capturable optimizer stepped outside a capture (the warm-up
+            # of each captured step, the eager step beside it) is meant
+            warnings.filterwarnings("ignore", message=r".*running without CUDA graph capture")
+            self._opt.step()
+
+
+class DeviceLRSGD(torch.optim.Optimizer):
+    """``torch.optim.SGD(momentum=m, nesterov=True)``'s multi-tensor update
+    with the learning rate read from a tensor on the parameters' device
+    (a Python number works too).
+    torch's SGD reads a tensor LR back to the host (``alpha=-lr``), so a
+    captured step would keep its first value; here the last operation is
+    ``p -= g * lr`` on the device. The rest is torch's, in its order: the
+    first step's buffer is a copy of the gradient, later ones
+    ``buf * m + g``; then the step's direction ``g + m * buf`` (the
+    gradient itself stays as it is)."""
+
+    def __init__(self, params, lr: torch.Tensor, momentum: float):
+        super().__init__(params, {"lr": lr, "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            m = group["momentum"]
+            if all("momentum_buffer" in s for s in states):
+                bufs = [s["momentum_buffer"] for s in states]
+                torch._foreach_mul_(bufs, m)
+                torch._foreach_add_(bufs, grads)
+            else:
+                for s, g in zip(states, grads):
+                    if "momentum_buffer" in s:
+                        s["momentum_buffer"].mul_(m).add_(g)
+                    else:
+                        s["momentum_buffer"] = g.detach().clone()
+                bufs = [s["momentum_buffer"] for s in states]
+            step = torch._foreach_add(grads, bufs, alpha=m)
+            torch._foreach_mul_(step, group["lr"])
+            torch._foreach_sub_(params, step)

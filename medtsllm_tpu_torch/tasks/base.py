@@ -26,12 +26,16 @@ clip, filled on a miss by a batch-1 prefill and evicted least recently
 used; the eval step gathers its rows from the bank by a [B] slot tensor
 (the banked step). The train step embeds per-clip heads in its graph.
 
-On a CUDA device the eval step replays one captured CUDA graph per input
-signature (``runtime/graph.py``, the counterpart of JAX's jitted
-``eval_step``); ``eval_step_eager`` is the same step run op by op, which is
-what the CPU runs. Both loops take their batches from a prefetch thread,
-host inputs go to the card by pinned, non-blocking copies, and ``run_eval``
-reads batch i-1 back while batch i runs, as the JAX loops do.
+On a CUDA device the eval step and the train step each replay one
+captured CUDA graph per input signature (``runtime/graph.py``, the
+counterparts of JAX's jitted ``eval_step`` and ``train_step``; the train
+graph holds the forward, the loss, the backward, the clip and the
+optimizer's update, with the dropout generator registered);
+``eval_step_eager`` and ``train_step_eager`` are the same steps run op by
+op, which is what the CPU runs. Both loops take their batches from a
+prefetch thread, host inputs go to the card by pinned, non-blocking
+copies, and ``run_eval`` reads batch i-1 back while batch i runs, as the
+JAX loops do.
 
 Dropout masks come from a generator on the trainer's device seeded from
 ``setup.seed``. No logger or checkpoint files yet: the losses and each
@@ -53,7 +57,7 @@ from ..config import validate_config
 from ..data import BatchPipeline, SyntheticDataset, dedup_eval_series, prefetch
 from ..device import resolve_device
 from ..models.medtsllm import MedTsLLM, Precision, PromptBuilder
-from ..runtime.graph import StepGraphs
+from ..runtime.graph import StepGraphs, TrainGraphs
 from ..runtime.optim import Optimizer
 from ..weights import init_random_
 from .losses import build_loss
@@ -111,6 +115,14 @@ class BaseTask:
         self.optimizer = Optimizer(config, self.model.parameters())
         self.loss_fn = build_loss(config.training.loss, self.task,
                                   getattr(self.train_dataset, "n_classes", 0))
+        # the step binds the model, the policy, the loss, the optimizer and
+        # the generator (not the trainer, as the eval step)
+        self._train_update = functools.partial(train_update, self.model, self.precision,
+                                               self.loss_fn, self.optimizer,
+                                               self.dropout_generator)
+        self.train_graphs = (TrainGraphs(self._train_update, self.device,
+                                         self.optimizer.params, (self.dropout_generator,))
+                             if self.device.type == "cuda" else None)
         self.epoch = 1
         self.step = 0
         self.losses: list[float] = []
@@ -176,29 +188,16 @@ class BaseTask:
 
     def train_step(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch of model inputs -> the loss
-        (detached, on the device). The model runs in train mode (dropout,
-        the einsum reprogramming graph), under "mixed" at bf16 over bf16
-        casts of the parameters and the float inputs; its predictions are
-        taken in f32 against the uncast inputs, and only the fusion layers
-        update."""
-        self.model.train()
-        try:
-            if self.precision.mixed:
-                cd = self.precision.compute_dtype
-                params = {n: _cast(p, cd) for n, p in self.model.named_parameters()}
-                pred = torch.func.functional_call(
-                    self.model, params, (_cast(arrays, cd),),
-                    {"generator": self.dropout_generator})
-            else:
-                pred = self.model(arrays, generator=self.dropout_generator)
-            pred = pred.float()
-            loss = self.loss_fn(pred, arrays, valid)
-            self.optimizer.zero_grad()
-            loss.backward()
-            self.optimizer.step()
-        finally:
-            self.model.eval()
-        return loss.detach()
+        (detached, on the device; ``train_update``): on a card the captured
+        graph of the inputs' signature (captured at its first call, which
+        runs the step eagerly as the warm-up), on the CPU the eager step."""
+        if self.train_graphs is None:
+            return self.train_step_eager(arrays, valid)
+        return self.train_graphs(dict(arrays, valid=valid))
+
+    def train_step_eager(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
+        """The train step op by op, whatever the device."""
+        return self._train_update(dict(arrays, valid=valid))
 
     def eval_prepare(self, batch: dict):
         """Host side of ``eval_dispatch`` (split out so a caller can time
@@ -355,7 +354,9 @@ class BaseTask:
     def train(self):
         """For each epoch: set the epoch's learning rate, run the shuffled
         train batches through ``train_step``, log the losses, then ``val()``.
-        A step's loss is read back while the next step runs, as JAX does."""
+        A step's loss is read back while the next step runs, as JAX does (on
+        a card the loss held is a clone of the graph's, which the next replay
+        overwrites)."""
         epochs = int(self.config.training.epochs)
         for epoch in range(self.epoch - 1, epochs):
             print(f"Epoch {epoch + 1}/{epochs}")
@@ -473,6 +474,32 @@ class BaseTask:
 
     def test(self):
         return self._eval_split(self.test_pipeline, "test")
+
+
+def train_update(model, precision, loss_fn, optimizer, generator,
+                 arrays: dict) -> torch.Tensor:
+    """One optimizer step on a batch of model inputs (``arrays["valid"]``
+    the rows the loss averages) -> the loss, detached. The model runs in
+    train mode (dropout from ``generator``, the einsum reprogramming graph),
+    under "mixed" at bf16 over bf16 casts of the parameters and the float
+    inputs; its predictions are taken in f32 against the uncast inputs, and
+    only the fusion layers update."""
+    model.train()
+    try:
+        if precision.mixed:
+            cd = precision.compute_dtype
+            params = {n: _cast(p, cd) for n, p in model.named_parameters()}
+            pred = torch.func.functional_call(model, params, (_cast(arrays, cd),),
+                                              {"generator": generator})
+        else:
+            pred = model(arrays, generator=generator)
+        loss = loss_fn(pred.float(), arrays, arrays["valid"])
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+    finally:
+        model.eval()
+    return loss.detach()
 
 
 def eval_forward(model, arrays: dict) -> torch.Tensor:

@@ -1138,3 +1138,171 @@ def test_graph_capture_that_cannot_succeed_raises(cuda):
     assert len(graphs) == 0 and counter.launches == 1  # the warm-up only
     assert torch.cuda.current_stream(cuda) == stream
     assert torch.equal(x * 2, torch.full((4,), 2.0, device=cuda))
+
+
+# --------------------------------------------------------------------------
+# the captured train step (runtime/graph.py::TrainGraphs)
+# --------------------------------------------------------------------------
+
+def _train_trainer(cuda, path, optimizer):
+    """A 2-layer cut of a trained configuration at its published widths,
+    batch 4, dropout 0.1, ``optimizer`` with a cosine schedule over 4
+    epochs and a global-norm clip of 0.5: ``llama`` the w8a8 finetune
+    (K1's STE backward, K2's), ``mamba`` mamba-130m (K9 / K10), ``mixed``
+    bidmc.toml's segmentation under mixed (the casts through
+    ``functional_call``, the bf16 train cache). (llama-tiny's head dim 16
+    is one K2 refuses on the card: the llama cuts are llama-1b's.)"""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import BIDMC_TOML, bench_config, mamba_config, task_config
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    cfg = {"llama": lambda: bench_config(Config, llm="llama-1b", batch=4, history=64,
+                                         n_points=512, num_tokens=128, d_ff=64,
+                                         llm_layers=2),
+           "mamba": lambda: mamba_config(Config, n_points=768, batch=4, history=64,
+                                         llm_layers=2),
+           "mixed": lambda: task_config(Config, BIDMC_TOML, n_points=512, llm="llama-1b",
+                                        llm_layers=2, history=64, batch=4)}[path]().to_dict()
+    cfg["training"].update(optimizer=optimizer, lr_scheduler="cosine", epochs=4,
+                           grad_clip_norm=0.5, dropout=0.1, learning_rate=1e-3)
+    return get_trainer(f"train-graph-{path}", Config(cfg), device=cuda)
+
+
+def _train_run(tr, step, batches, counters):
+    """``step`` on each batch, the epoch's LR set to epoch 0's before the
+    first and to epoch 2's before the third: (the losses, each step's
+    launches, the train state, the gradients, the generator's state)."""
+    from chip_smoke import train_state
+    from medtsllm_tpu_torch.runtime.graph import read_counts
+
+    losses, counts = [], []
+    for i, a in enumerate(batches):
+        if i in (0, 2):
+            tr.optimizer.set_epoch(i)
+        for c in counters.values():
+            c.launches = 0
+        losses.append(step(a, a["valid"]))
+        counts.append(read_counts(counters))
+    grads = [None if p.grad is None else p.grad.clone() for p in tr.optimizer.params]
+    return (torch.stack(losses), counts, [t.clone() for t in train_state(tr.optimizer)], grads,
+            tr.dropout_generator.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,optimizer", [("llama", "adam"), ("mamba", "adamw"),
+                                            ("mixed", "adam"), ("mixed", "sgd")])
+def test_graphed_train_step_bit_equal_to_eager(cuda, path, optimizer):
+    """After one captured step (the warm-up, a real step), 4 replays across
+    one ``set_epoch`` change equal 4 eager steps from the same state (the
+    parameters, the optimizer's state and the dropout generator restored in
+    place) bit for bit: the losses, every trainable parameter, the
+    optimizer's state, the last step's gradients and the generator's state;
+    each replay launches what the eager step launches; nothing is captured
+    anew; the backbone does not move. Under mixed, the eval graph captured
+    before training then replays the trained weights bit-equal to the
+    eager eval step."""
+    import itertools
+
+    from medtsllm_tpu_torch.runtime.graph import launch_counters
+
+    counters = launch_counters()
+    tr = _train_trainer(cuda, path, optimizer)
+    from chip_smoke import train_state
+    pipe = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
+    batches = [tr.train_model_inputs(b) for b in itertools.islice(pipe, 5)]
+    _, eval_arrays = tr.eval_prepare(next(iter(tr.test_pipeline)))
+    before_eval = tr.eval_step(eval_arrays)  # the eval graph's warm-up and capture
+    frozen = {n: t.clone() for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+    tr.train_step(batches[0], batches[0]["valid"])
+    assert len(tr.train_graphs) == 1
+    snap = [t.clone() for t in train_state(tr.optimizer)]
+    gen = tr.dropout_generator.get_state()
+    graphed = _train_run(tr, tr.train_step, batches[1:], counters)
+    for t, s in zip(train_state(tr.optimizer), snap):
+        t.copy_(s)
+    tr.dropout_generator.set_state(gen)
+    eager = _train_run(tr, tr.train_step_eager, batches[1:], counters)
+    assert torch.equal(graphed[0], eager[0]) and bool(torch.isfinite(eager[0]).all())
+    assert graphed[1] == eager[1] and any(eager[1][0].values())
+    for g, e in zip(graphed[2] + graphed[3], eager[2] + eager[3]):
+        assert (g is None and e is None) or torch.equal(g, e)
+    assert torch.equal(graphed[4], eager[4]) and not torch.equal(gen, eager[4])
+    assert not all(torch.equal(s, t) for s, t in zip(snap, eager[2]))
+    assert len(tr.train_graphs) == 1
+    assert all(torch.equal(tr.model.state_dict()[n], t) for n, t in frozen.items())
+    if path == "mixed":
+        after = tr.eval_step(eval_arrays)
+        assert torch.equal(after, tr.eval_step_eager(eval_arrays))
+        assert not torch.equal(after, before_eval)
+
+
+@pytest.mark.cuda
+def test_graphed_train_steps_alternate_two_signatures(cuda):
+    """The Mamba cut's train step with the prompt head cached and with it
+    embedded: two graphs on the train pool, replayed in turn; each call
+    (the two warm-ups included) equals the eager step from the same
+    state."""
+    tr = _train_trainer(cuda, "mamba", "adam")
+    from chip_smoke import train_state
+    batch = next(iter(tr.train_pipeline))
+    cached = tr.train_model_inputs(batch)
+    embedded = tr._to_device(tr.model_inputs(batch))
+    assert "prefix_kv" in cached and "prefix_ids" in embedded
+    tr.train_step_eager(cached, cached["valid"])  # the optimizer's state
+    for i in range(6):
+        a = embedded if i % 2 else cached
+        snap = [t.clone() for t in train_state(tr.optimizer)]
+        gen = tr.dropout_generator.get_state()
+        loss_e = tr.train_step_eager(a, a["valid"])
+        want = [t.clone() for t in train_state(tr.optimizer)]
+        for t, s in zip(train_state(tr.optimizer), snap):
+            t.copy_(s)
+        tr.dropout_generator.set_state(gen)
+        loss_g = tr.train_step(a, a["valid"])  # a warm-up and capture at i < 2
+        assert torch.equal(loss_g, loss_e)
+        assert all(torch.equal(t, w) for t, w in zip(train_state(tr.optimizer), want))
+    assert len(tr.train_graphs) == 2
+
+
+@pytest.mark.cuda
+def test_train_capture_that_cannot_succeed_raises(cuda):
+    """A train step that reads its loss back to the host runs as the
+    warm-up (its update applied), then its capture raises: no graph is
+    kept, the counters, the current stream and the generators the capture
+    registered are as before, and the generators draw again."""
+    from types import SimpleNamespace
+
+    from medtsllm_tpu_torch.runtime.graph import TrainGraphs
+
+    w = torch.nn.Parameter(torch.ones(4, device=cuda))
+    counter = SimpleNamespace(launches=0)
+
+    def step(arrays):
+        counter.launches += 1
+        w.grad = None
+        loss = (w * arrays["x"]).sum()
+        loss.backward()
+        with torch.no_grad():
+            w.sub_(w.grad * loss.item())
+        return loss.detach()
+
+    gen = torch.Generator(cuda).manual_seed(5)
+    graphs = TrainGraphs(step, cuda, [w], (gen,), {"fake": counter})
+    stream = torch.cuda.current_stream(cuda)
+    state, default = gen.get_state(), torch.cuda.get_rng_state(cuda)
+    with pytest.raises(RuntimeError):
+        graphs({"x": torch.ones(4, device=cuda)})
+    assert len(graphs) == 0 and counter.launches == 1  # the warm-up only
+    assert torch.cuda.current_stream(cuda) == stream
+    assert torch.equal(w.detach(), torch.full((4,), -3.0, device=cuda))
+    # the registered generator and the default one draw again, from where
+    # they were
+    assert torch.equal(gen.get_state(), state)
+    assert torch.equal(torch.cuda.get_rng_state(cuda), default)
+    first = torch.rand(8, generator=gen, device=cuda)
+    assert torch.equal(first, torch.rand(8, generator=torch.Generator(cuda).manual_seed(5),
+                                         device=cuda))
+    torch.rand(8, device=cuda)

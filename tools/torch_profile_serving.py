@@ -3,9 +3,12 @@
 card.
 
     python3 tools/torch_profile_serving.py [--path mamba|llama|moe|llama-int4|moe-int4|
-                                                   llama-long|mamba-train|bidmc|
-                                                   ecgmit-anom|ventilator|ecgmit-seg|ludb|
-                                                   bidmc-train]
+                                                   llama-long|bidmc|ecgmit-anom|ventilator|
+                                                   ecgmit-seg|ludb|forecasting|
+                                                   classification|imputation|mamba-train|
+                                                   llama-train|bidmc-train|ecgmit-seg-train|
+                                                   forecasting-train|classification-train|
+                                                   imputation-train]
                                            [--steps 4] [--eager]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
@@ -15,17 +18,21 @@ long window of phase 17, history 16384 with d_ff 64, two test batches of 8,
 whose decoder attention runs on K4; ``bidmc``, ``ecgmit-anom``,
 ``ventilator``, ``ecgmit-seg`` and ``ludb`` are the task paths of phases
 6a-6c, 6e and 6f under ``mixed`` (ventilator and ecgmit-seg on clips, their
-per-clip heads gathered from the KV bank inside the step), and
-``bidmc-train`` bidmc.toml's train step at four batches an epoch). For a serving path it
-runs one warm-up ``test()``
+per-clip heads gathered from the KV bank inside the step), ``forecasting``,
+``classification`` and ``imputation`` the served task blocks of phases
+6g-6i; ``-train`` names the train step of phase 8 (``mamba-train``), 9
+(``llama-train``, the 7B w8a8 finetune), 6a, 6e and 6g-6i at four batches
+an epoch). For a serving path it runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache and captures the
 step's CUDA graph), prepares ``--steps`` test batches on the host, then
 runs their eval steps under ``torch.profiler``: the graph's replays, as
 serving runs them, or with ``--eager`` the step op by op
 (``eval_step_eager``). For a train path it prepares ``--steps`` + 1
 shuffled train batches, epoch after epoch (the prompt-head or prompt-state
-cache included), runs one warm-up ``train_step`` and profiles the next
-``--steps`` train steps (forward, backward, Adam). Prints the card, the host-clock time of each
+cache included), runs one warm-up step (``train_step``: the capture of its
+CUDA graph) and profiles the next ``--steps`` train steps (forward,
+backward, clip, Adam): the graph's replays, or with ``--eager`` the step
+op by op (``train_step_eager``). Prints the card, the host-clock time of each
 step, the device's busy time and idle share over the profiled span (first
 event to last kernel end), the device time and launch count by category,
 the top kernels by device time and every depthwise-conv kernel. Writes the
@@ -35,6 +42,7 @@ Chrome trace to ``chiprun_out/torch_profile_<path>.json``.
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import re
 import statistics
@@ -78,12 +86,15 @@ def category(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=("mamba", "llama", "moe", "llama-int4", "moe-int4",
-                                       "llama-long", "mamba-train", "bidmc", "ecgmit-anom",
-                                       "ventilator", "ecgmit-seg", "ludb", "bidmc-train"),
+                                       "llama-long", "bidmc", "ecgmit-anom", "ventilator",
+                                       "ecgmit-seg", "ludb", "forecasting", "classification",
+                                       "imputation", "mamba-train", "llama-train",
+                                       "bidmc-train", "ecgmit-seg-train", "forecasting-train",
+                                       "classification-train", "imputation-train"),
                     default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--eager", action="store_true",
-                    help="profile the serving step op by op, not its CUDA graph")
+                    help="profile the step op by op, not its CUDA graph")
     args = ap.parse_args()
 
     import torch
@@ -102,6 +113,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     train = args.path.endswith("-train")
     served = chip_smoke.SERVED_POINTS
+
+    def task_block(block, suffix):
+        toml, n_features, (n_train, n_served) = chip_smoke.TASK_BLOCKS[block]
+        return chip_smoke.task_block_config(Config, toml, n_train if suffix else n_served,
+                                            n_features)
     cfg = {"mamba": lambda: chip_smoke.mamba_config(Config),
            "llama": lambda: chip_smoke.bench_config(Config),
            "moe": lambda: chip_smoke.moe_config(Config),
@@ -128,17 +144,28 @@ def main() -> None:
            # four train batches of 16 per epoch, as chip_smoke phase 6a
            "bidmc-train": lambda: chip_smoke.task_config(Config, chip_smoke.BIDMC_TOML,
                                                          n_points=8320),
+           # three train batches of 8, as chip_smoke phase 9
+           "llama-train": lambda: chip_smoke.bench_config(Config, n_points=3200),
+           # 32 clips, four train batches of 16, as chip_smoke phase 6e
+           "ecgmit-seg-train": lambda: chip_smoke.task_config(
+               Config, chip_smoke.ECG_SEG_TOML, n_points=32 * 512, n_clips=32),
+           **{f"{name}{suffix}": functools.partial(task_block, block, suffix)
+              for name, block in (("forecasting", "bidmc-forecast"),
+                                  ("classification", "dreams-classification"),
+                                  ("imputation", "etth1-imputation"))
+              for suffix in ("", "-train")},
            }[args.path]()
     trainer = get_trainer(f"profile-{args.path}", cfg, device=dev)
     if train:
         epochs = itertools.chain.from_iterable(itertools.repeat(trainer.train_pipeline))
         batches = list(itertools.islice(epochs, args.steps + 1))
         prepared = [trainer.train_model_inputs(b) for b in batches]
-        trainer.train_step(prepared[0], prepared[0]["valid"])  # warm-up
+        step = trainer.train_step_eager if args.eager else trainer.train_step
+        step(prepared[0], prepared[0]["valid"])  # warm-up (the capture)
         prepared = prepared[1:]
 
         def run(a):
-            trainer.train_step(a, a["valid"])
+            step(a, a["valid"])
     else:
         trainer.test()  # warm-up: kernels built, the prompt-head cache filled
         batches = [b for _, b in zip(range(args.steps), trainer.test_pipeline)]
@@ -159,7 +186,8 @@ def main() -> None:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
     bsz = cfg.training.batch_size
-    kind = "train" if train else "eager eval" if args.eager else "graphed eval"
+    kind = (("eager " if args.eager else "graphed ")
+            + ("train" if train else "eval"))
     print(f"[profile] {args.path}: {len(step_ms)} {kind} steps of "
           f"batch {bsz}, host clock ms {step_ms} (p50 {statistics.median(step_ms):.3f})")
 
