@@ -65,6 +65,20 @@ nvidia-smi. Phases:
      ``train_graphed``, then ``serve()`` over 32 test batches on a
      trainer that loads the trained weights (imputation's ``mask`` an input
      of the captured step);
+  6j. bidmc.toml as shipped, ``data.dataset = "bidmc"``: the BIDMC family's
+     stand-in (the recordings are not in the repository; it warns) and its
+     description in the cached head, ``training.epochs`` cut to 1:
+     ``train()`` (20 captured steps and ``val()``), ``train_graphed``,
+     ``serve()`` (4 test batches), then one ``test()`` with
+     ``distance_thresh = "optimize"`` (the Bayesian search on the host:
+     the chosen distance, its host seconds, no scikit-learn loaded); K2 at
+     its head listed as ``rope_attention[bidmc-shipped]``;
+  6k. pretraining at full width (bidmc.toml's MedTsLLM settings, ``task =
+     "pretraining"``, the ECG, ventilator, bidmc and ludb stand-ins mixed):
+     no cached head, no ``prefix_ids``, K2 with no prefix over [prompt |
+     32 patches] (listed as ``rope_attention[pretraining]``, 32 launches a
+     batch); ``train_graphed``'s captured steps, then ``serve()`` (24
+     test batches);
   6d. each task's window predictions on a 2-layer llama-1b slice under
      mixed, card against the CPU's plain versions (2^-5 x max), ecgmit-seg
      on 12 clips through a bank of 8 rows on both, forecasting (pred 16),
@@ -256,6 +270,7 @@ TASK_KEYS = {
     "forecasting": {"mse", "mae"},
     "classification": {"accuracy", "f1", "precision", "recall", "auroc"},
     "imputation": {"masked_mse", "masked_mae", "full_mse"},
+    "pretraining": {"mse", "mae"},
 }
 
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): HBM bytes
@@ -424,6 +439,33 @@ def task_block_config(Config, task_toml, n_points, n_features, epochs=1, llm=Non
     return Config(raw)
 
 
+def shipped_config(Config, toml, epochs=1, **tasks):
+    """A shipped config as it is, its ``data.dataset`` included (the
+    family's stand-in when the recordings are absent, with its warning),
+    ``training.epochs`` cut to ``epochs``; ``tasks`` replaces entries of
+    its ``[tasks.<task>]`` table."""
+    from medtsllm_tpu_torch.config import load_config
+    raw = load_config(toml).to_dict()
+    raw["training"]["epochs"] = epochs
+    raw["tasks"][raw["task"]].update(tasks)
+    return Config(raw)
+
+
+def pretraining_config(Config):
+    """Pretraining on configs/datasets/bidmc.toml's MedTsLLM settings
+    (mixed, dense Llama-2-7B, batch 16, history 256, d_ff 64, its
+    prompting): ``task = "pretraining"``, ``[tasks.pretraining]
+    downsample_pct = 1.0, n_features = "auto"``; loss and eval metric
+    mse (bidmc.toml's bce and segment_miou are segmentation's)."""
+    from medtsllm_tpu_torch.config import load_config
+    raw = load_config(BIDMC_TOML).to_dict()
+    raw["task"] = "pretraining"
+    raw["training"].update(epochs=1, loss="mse", eval_metric="mse",
+                           eval_metric_direction="min")
+    raw["tasks"] = {"pretraining": {"downsample_pct": 1.0, "n_features": "auto"}}
+    return Config(raw)
+
+
 def one_class(tr, split) -> bool:
     """A classification split whose window labels hold one class: its
     AUROC is NaN by the task's rule."""
@@ -445,11 +487,14 @@ def same_scores(a: dict, b: dict) -> bool:
 
 
 def window_shapes(tr):
-    """(P, L): the prompt head (its bucket, for per-clip head rows) and the
-    computed region (prompt suffix + patches) of a built trainer's first
-    test batch (host only)."""
+    """(P, L): the prompt head (its bucket, for per-clip head rows; 0 where
+    no head is cached, as in the pretraining mixture) and the computed
+    region (prompt suffix + patches) of a built trainer's first test batch
+    (host only)."""
     first = tr.model_inputs(next(iter(tr.test_pipeline)))
-    return first["prefix_ids"].shape[-1], first["prompt_ids"].shape[1] + tr.model.n_patches
+    head = first.get("prefix_ids")
+    return (0 if head is None else head.shape[-1],
+            first["prompt_ids"].shape[1] + tr.model.n_patches)
 
 
 def row_share(out, ref, rel=2.0 ** -6):
@@ -756,20 +801,25 @@ def main() -> None:
 
     def check_k2(name, B, L, H, KV, D, P, theta, listed=True, PB=1):
         """K2 with a prefix of PB rows: 1 (the constant head) or B (per-clip
-        head rows gathered from the bank)."""
+        head rows gathered from the bank); P 0: no prefix (``pk = None``,
+        as the pretraining mixture's step runs it)."""
         q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
         k = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
-        pk = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
-        pv = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+        pk = pv = None
+        if P:
+            pk = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+            pv = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
         cos, sin = k2.rope_tables(torch.arange(P, P + L, device=dev), D, theta)
         o = k2.rope_attention(q, k, v, cos, sin, pk, pv)
         o0 = k2.rope_attention_plain(q, k, v, cos, sin, pk, pv)
         mask = torch.ones(L, P + L, dtype=torch.bool, device=dev).tril(P)
 
         def rope_sdpa():  # plain RoPE, then the library's attention
-            kr = torch.cat([pk.expand(B, -1, -1, -1), k2.rope(k, cos, sin).transpose(1, 2)], 2)
-            vv = torch.cat([pv.expand(B, -1, -1, -1), v.transpose(1, 2)], 2)
+            kr, vv = k2.rope(k, cos, sin).transpose(1, 2), v.transpose(1, 2)
+            if P:
+                kr = torch.cat([pk.expand(B, -1, -1, -1), kr], 2)
+                vv = torch.cat([pv.expand(B, -1, -1, -1), vv], 2)
             return F.scaled_dot_product_attention(k2.rope(q, cos, sin).transpose(1, 2), kr,
                                                   vv, attn_mask=mask, enable_gqa=KV < H)
         # each query i sees the P prefix keys and region keys 0..i
@@ -1626,10 +1676,10 @@ def main() -> None:
     # per-row prefix, PB = B); K3 at f32 in eval (the train step runs the
     # einsum graph at bf16). Their K2 / K3 launches and shapes are printed
     # here; the kernels line keeps the main paths' and ecgmit-seg's per-row K2
-    def build_task(label, cfg):
+    def build_task(label, cfg, listed=False):
         """Build a task's trainer on the card: seconds, peak memory, the
         storage policy; K2 and K3 held at the shapes its eval step gives
-        them (printed, not listed)."""
+        them (printed; K2's row ``listed`` with ``listed``)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1646,15 +1696,20 @@ def main() -> None:
               f"parameters, {n_train:,} trainable at f32, the backbone at bf16; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        # the prompt buckets only grow: settle them over the test split
+        # (host only), so the shapes held are the ones its batches are served at
+        for batch in tr.test_pipeline:
+            tr.model_inputs(batch)
         Pt, Lt = window_shapes(tr)
         Bt, tl, tm = cfg.training.batch_size, tr.model.llm_cfg, cfg.models.timellm
-        per_clip = tr.model_inputs(next(iter(tr.test_pipeline)))["prefix_ids"].ndim == 2
+        head = tr.model_inputs(next(iter(tr.test_pipeline))).get("prefix_ids")
+        per_clip = head is not None and head.ndim == 2
         print(f"[shapes] {label}: task {cfg.task}, P={Pt} L={Lt} B={Bt} "
               f"patches={tr.model.n_patches} layers={tl.n_layers} d={tl.d_model}"
               f"{', clips ' + str(len(np.unique(tr.test_dataset.clip_ids))) if tr.test_dataset.clip_dataset else ''}"
               f"{', per-clip head rows' if per_clip else ''}")
         check_k2(f"rope_attention[{label}]", Bt, Lt, tl.n_heads, tl.kv_heads, tl.head_dim, Pt,
-                 tl.rope_theta, listed=False, PB=Bt if per_clip else 1)
+                 tl.rope_theta, listed=listed, PB=Bt if per_clip else 1)
         check_k3(f"reprogramming_attention[{label}]", Bt, tr.model.n_patches, tm.n_heads,
                  tm.d_ff, tm.num_tokens, listed=False)
         return tr
@@ -1831,6 +1886,119 @@ def main() -> None:
         serve_task(served, label)
         del served
         torch.cuda.empty_cache()
+
+    # 6j. configs/datasets/bidmc.toml as shipped: data.dataset = "bidmc", the
+    # BIDMC family's stand-in (5 train clips of 8,000 points, 2 test clips;
+    # val reads the test series, as the reader does) and its 47-token
+    # description in the cached head; the one cut, training.epochs 10 -> 1
+    # (311 train windows: 20 steps of 16, no cap). train() graphed (and
+    # val()), train_graphed's replays against eager steps, then serve()
+    # (test(): 62 windows, 4 batches), then one more test() with
+    # distance_thresh = "optimize": the Bayesian search on the host, with no
+    # scikit-learn
+    from medtsllm_tpu_torch.tasks import segmentation as seg_task
+    t_phase = time.perf_counter()
+    tr = build_task("bidmc-shipped", shipped_config(Config, BIDMC_TOML), listed=True)
+    ds = tr.test_dataset
+    check(type(ds).__name__ == "BIDMCFamily" and ds.name == "bidmc"
+          and tr.preprocessor.dataset_description == ds.description,
+          f"[bidmc-shipped] the test split is {type(ds).__name__}, not the BIDMC family")
+    head = tr.model_inputs(next(iter(tr.test_pipeline)))["prefix_ids"]
+    n_desc = len(tr.preprocessor._encode(f"Dataset: {ds.description} "))
+    n_steps, n_val, n_l = (len(tr.train_pipeline), len(tr.val_pipeline),
+                           tr.model.llm_cfg.n_layers)
+    print(f"[bidmc-shipped] data.dataset \"bidmc\": the BIDMC stand-in, "
+          f"{len(tr.train_dataset)} / {len(tr.val_dataset)} / {len(ds)} windows a split; the "
+          f"head P={head.shape[-1]} ({n_desc} tokens of \"Dataset: <description>\"); cuts: "
+          f"training.epochs 10 -> 1 ({n_steps} train steps, not capped)")
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    print(f"[bidmc-shipped-train] train() {n_steps} graphed steps of 16 and val() over "
+          f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; val "
+          f"{tr.val_scores}; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; train captures "
+          f"{tr.train_graphs.capture_ms} ms")
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"bidmc-shipped losses {tr.losses}")
+    check_scores("bidmc-shipped", tr, tr.val_scores[0], "val")
+    check(counts["rope_attention"] == n_l * (n_steps + n_val + 2)
+          and counts["reprogramming_attention"] == n_val and counts["w8a8_gemm"] == 0,
+          f"bidmc-shipped train(): K2 once per layer per step, per val batch and in two "
+          f"prefills, K3 per val batch: {counts}")
+    train_graphed(tr, "bidmc-shipped", 4, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                           "w8a8_gemm": 0})
+    tr.step_graphs.clear()
+    counts, _, scores, _ = serve(tr, "bidmc-shipped")
+    check_scores("bidmc-shipped", tr, scores, "test")
+    n_b = len(tr.test_pipeline)
+    check(counts["rope_attention"] == n_l * (n_b + 1)
+          and counts["reprogramming_attention"] == n_b,
+          f"[bidmc-shipped] test(): K2 32 a batch and in the head's prefill: {counts}")
+    set_launches(counts, {"rope_attention[bidmc-shipped]": "rope_attention"})
+    tr.config = shipped_config(Config, BIDMC_TOML, distance_thresh="optimize")
+    t0 = time.perf_counter()
+    opt_scores = tr.test()
+    opt_wall = time.perf_counter() - t0
+    check(math.isfinite(opt_scores["test/segment_miou"]),
+          f"[bidmc-shipped] optimize: segment_miou {opt_scores['test/segment_miou']}")
+    sk = sorted(m for m in sys.modules if m.split(".")[0] == "sklearn")
+    check(not sk, f"[bidmc-shipped] the optimize pass loaded scikit-learn: {sk[:3]}")
+    res = tr.predict(tr.test_pipeline)
+    est = len(res["labels"]) / max(res["labels"].sum(), 1)
+    t0 = time.perf_counter()
+    chosen = seg_task.optimize_threshold(res["preds_raw"], res["labels"], est)
+    host_s = time.perf_counter() - t0
+    print(f"[bidmc-shipped] distance_thresh \"optimize\": the distance {chosen:.4f} in "
+          f"[{0.5 * est:.2f}, {1.25 * est:.2f}] (host {host_s:.3f} s for 15 evaluations and 10 "
+          f"GP fits over {len(res['preds_raw'])} points; test() {opt_wall:.2f} s wall); "
+          f"segment_miou {opt_scores['test/segment_miou']:.4f} (auto: "
+          f"{scores['test/segment_miou']:.4f}); no sklearn module loaded")
+    del tr, res
+    torch.cuda.empty_cache()
+    print(f"[bidmc-shipped] phase 6j: {time.perf_counter() - t_phase:.1f} s wall")
+
+    # 6k. pretraining at full width (pretraining_config: bidmc.toml's
+    # MedTsLLM settings, task = "pretraining", every window of the four
+    # families' stand-ins: ECG, ventilator, bidmc, ludb, rewired to
+    # reconstruction, their features tiled to 3). Each row carries its own
+    # dataset's prompt, so no head is cached: no prefix_ids, and K2 runs
+    # with no prefix (pk = None) over [prompt | 32 patches], the prompt
+    # left-padded to a power-of-two bucket. A few captured train steps
+    # (train_graphed: the epoch's 130 steps are cut to 4 timed), then
+    # serve() (test(): 377 windows, 24 batches)
+    t_phase = time.perf_counter()
+    tr = build_task("pretraining", pretraining_config(Config), listed=True)
+    batch = next(iter(tr.test_pipeline))
+    inputs = tr.model_inputs(batch)
+    _, arrays = tr.eval_prepare(batch)
+    check("prefix_ids" not in inputs and "prefix_kv" not in arrays
+          and "prefix_kv" not in tr.train_model_inputs(batch),
+          f"[pretraining] the batch has a head: {sorted(inputs)}")
+    mix = tr.train_dataset
+    members = ", ".join(f"{n} {k}" for n, k in zip(mix.dataset_names, mix.lens))
+    n_tok = {d.name: len(tr.preprocessor._encode(f"Dataset: {d.description} "))
+             for d in mix.datasets}
+    print(f"[pretraining] the mixture: {len(mix)} / {len(tr.val_dataset)} / "
+          f"{len(tr.test_dataset)} windows a split (train: {members}), {mix.n_features} "
+          f"features; dataset prompt tokens {n_tok}; prompt bucket "
+          f"{inputs['prompt_ids'].shape[1]} (L = {inputs['prompt_ids'].shape[1]} + "
+          f"{tr.model.n_patches}); no prefix_ids; cuts: train() skipped for "
+          f"{len(tr.train_pipeline)} steps (train_graphed's 4 timed steps)")
+    n_l = tr.model.llm_cfg.n_layers
+    train_graphed(tr, "pretraining", 4, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                         "w8a8_gemm": 0})
+    counts, _, scores, _ = serve(tr, "pretraining")
+    check_scores("pretraining", tr, scores, "test")
+    n_b = len(tr.test_pipeline)
+    check(counts["rope_attention"] == n_l * n_b and counts["reprogramming_attention"] == n_b
+          and not tr._prefix_kv_store,
+          f"[pretraining] test(): K2 32 a batch with no prefill, K3 one: {counts}")
+    print(f"[pretraining] K2 {counts['rope_attention']} launches ({n_l} layers x {n_b} "
+          "batches, no prefix, no prefill), K3 "
+          f"{counts['reprogramming_attention']}")
+    set_launches(counts, {"rope_attention[pretraining]": "rope_attention"})
+    del tr, arrays
+    torch.cuda.empty_cache()
+    print(f"[pretraining] phase 6k: {time.perf_counter() - t_phase:.1f} s wall")
 
     # 6d. each task's window predictions on the card against the CPU's plain
     # versions, same seeded weights: 2-layer llama-1b (GQA 32 / 4 x 64),

@@ -6,9 +6,10 @@ RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
 cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
 (llama: kernels K1, K2; Mamba: the selective-scan kernel) -> d_ff
 downsample -> FlattenHead -> the task's head: RevIN denorm
-(reconstruction, anomaly detection, forecasting's ``pred_len`` steps past
-the window, imputation), classification's one row of ``n_classes`` logits
-(no activation: the task softmaxes on the host) or the per-step scores of
+(reconstruction, anomaly detection, pretraining, forecasting's
+``pred_len`` steps past the window, imputation), classification's one row
+of ``n_classes`` logits (no activation: the task softmaxes on the host) or
+the per-step scores of
 segmentation (one logit) and semantic segmentation (one logit, or one per
 class past two), with the sigmoid / softmax in eval. Imputation's RevIN
 statistics cover the observed points only (``inputs["mask"]``,
@@ -16,7 +17,9 @@ statistics cover the observed points only (``inputs["mask"]``,
 head is prefilled once and served as per-layer prefix K/V (llama) or
 per-layer (conv tail, SSM state) (Mamba); on a clip dataset with a llama
 backbone the head also holds the clip's description, one row per window
-([B, P] ``prefix_ids``, served from the task's per-clip KV bank).
+([B, P] ``prefix_ids``, served from the task's per-clip KV bank). The
+pretraining mixture's rows each carry their own dataset prompt: no head is
+cached and the whole prompt goes through the step.
 
 Training (``model.train()``): the backbone is frozen (``requires_grad =
 False`` under ``llm``, ``param_labels`` of the JAX model) and every fusion
@@ -29,7 +32,7 @@ Scope: covariate modes ``concat`` and ``univariate`` (one feature), an
 enabled llama (dense or mixtral-style MoE, served on one device) or dense
 Mamba backbone, no in-context examples; anything else raises
 NotImplementedError naming its ROADMAP item. The tasks are those of
-``tasks.task_lookup`` (``get_trainer`` refuses the others).
+``tasks.task_lookup``, all eight of the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
 # with the history ``seq`` and the prediction length ``pred``
 TASK_DESCRIPTIONS = {
     "forecasting": "Forecast the next {pred} steps given the previous {seq} steps of data.",
+    "pretraining": "Forecast the next {pred} steps given the previous {seq} steps of data.",
     "reconstruction": "Reconstruct the past {seq} steps of data as accurately as possible "
                       "using the following information.",
     "anomaly_detection": "Reconstruct the past {seq} steps of data as accurately as "
@@ -70,7 +74,8 @@ TASK_DESCRIPTIONS = {
                   "following information.",
 }
 # the tasks whose head is RevIN-denormalized (medtsllm.py:669-670)
-DENORM_TASKS = ("forecasting", "reconstruction", "anomaly_detection", "imputation")
+DENORM_TASKS = ("forecasting", "reconstruction", "anomaly_detection", "pretraining",
+                "imputation")
 
 # the covariate modes the JAX model knows (medtsllm_tpu/models/medtsllm.py:242)
 COVARIATE_MODES = ("univariate", "independent", "concat", "interleave", "add",
@@ -512,6 +517,11 @@ class PromptBuilder:
         stats_prompts = (self._stats_prompts(np.asarray(batch["x_enc"]))
                          if self.cfg["input_stats"] else [""] * bs)
         task_prompt = f"Task: {self.task_description}" if self.cfg["task"] else ""
+        if "dataset_description" in batch:  # the pretraining mixture: one a row
+            dataset_prompts = [f"Dataset: {d}" if self.cfg["dataset"] else ""
+                               for d in batch["dataset_description"]]
+        else:
+            dataset_prompts = [dataset_prompt] * bs
         bos = self.bos if self.bos is not None else ""
         task_in_head = bool(self.cfg["cache_order"] and task_prompt)
         clip_in_head = self.clip_in_head(batch)
@@ -519,7 +529,7 @@ class PromptBuilder:
         for b in range(bs):
             # the clip joins the per-clip head; the token order is the same
             # either way (the clip precedes the stats)
-            pre = ([bos, dataset_prompt] + ([task_prompt] if task_in_head else [])
+            pre = ([bos, dataset_prompts[b]] + ([task_prompt] if task_in_head else [])
                    + ([clip_prompts[b]] if clip_in_head else []))
             post = ["" if clip_in_head else clip_prompts[b], stats_prompts[b],
                     "" if task_in_head else task_prompt, "Time series:"]
@@ -552,15 +562,18 @@ class PromptBuilder:
     def clip_in_head(self, batch: dict) -> bool:
         """Whether the clip description joins the cacheable head (the
         per-clip KV bank): the prefix cache, clip prompting under
-        ``clip_head`` with descriptions in the batch, and a llama backbone
-        (the Mamba state cache keeps one entry)."""
+        ``clip_head`` with descriptions in the batch, no per-row dataset
+        prompts (the pretraining mixture), and a llama backbone (the Mamba
+        state cache keeps one entry)."""
         return bool(self.split_prefix and self.cfg["clip"] and self.cfg["clip_head"]
-                    and "descriptions" in batch
+                    and "descriptions" in batch and "dataset_description" not in batch
                     and self.model.llm_cfg.style != "mamba")
 
     def _head_part_count(self, batch: dict) -> int:
-        """Leading parts of ``pre`` that form the cacheable head."""
-        if not self.split_prefix:
+        """Leading parts of ``pre`` that form the cacheable head: none for
+        the pretraining mixture, whose dataset prompt differs row by row
+        (the whole prompt then goes through the step, no ``prefix_ids``)."""
+        if not self.split_prefix or "dataset_description" in batch:
             return 0
         return (int(bool(self.bos)) + int(bool(self.cfg["dataset"]))
                 + int(bool(self.cfg["task"] and self.cfg["cache_order"]))

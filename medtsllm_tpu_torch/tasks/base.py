@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..config import validate_config
-from ..data import BatchPipeline, SyntheticDataset, dedup_eval_series, prefetch
+from ..data import BatchPipeline, dedup_eval_series, get_dataset, prefetch, stitch_windows
 from ..device import resolve_device
 from ..models.medtsllm import MedTsLLM, Precision, PromptBuilder
 from ..runtime.graph import StepGraphs, TrainGraphs
@@ -81,9 +81,7 @@ class BaseTask:
         np.random.seed(seed)
 
         bs = config.training.batch_size
-        self.train_dataset = SyntheticDataset(config, "train")
-        self.val_dataset = SyntheticDataset(config, "val")
-        self.test_dataset = SyntheticDataset(config, "test")
+        self.build_datasets()
         self.train_pipeline = BatchPipeline(self.train_dataset, bs, shuffle=True, seed=seed)
         self.val_pipeline = BatchPipeline(self.val_dataset, bs)
         self.test_pipeline = BatchPipeline(self.test_dataset, bs)
@@ -129,6 +127,12 @@ class BaseTask:
         self.val_scores: list[dict] = []
         direction = config.training.get("eval_metric_direction", "min")
         self.best_score = float("inf") if direction == "min" else float("-inf")
+
+    def build_datasets(self) -> None:
+        """The three splits of ``data.dataset`` (``get_dataset``)."""
+        self.train_dataset = get_dataset(self.config, "train")
+        self.val_dataset = get_dataset(self.config, "val")
+        self.test_dataset = get_dataset(self.config, "test")
 
     # ------------------------------------------------------------------
     # eval step
@@ -439,12 +443,15 @@ class BaseTask:
         return result
 
     def eval_n_points(self, dataset, include_history: bool = False) -> int:
-        """Full-series buffer length (``eval_n_points`` of the JAX trainer;
-        the port's datasets are not univariate datasets): a clip dataset's
-        whole series, else the span its windows cover."""
+        """Full-series buffer length (``eval_n_points`` of the JAX trainer):
+        a clip dataset's whole series, else the span its windows cover (a
+        univariate view's windows counted once, not once a feature)."""
         if dataset.clip_dataset:
             return dataset.n_points
-        n = self.config.pred_len + (len(dataset) - 1) * dataset.step_size
+        n_windows = len(dataset)
+        if dataset.univariate:
+            n_windows //= dataset.real_features
+        n = self.config.pred_len + (n_windows - 1) * dataset.step_size
         return n + self.config.history_len if include_history else n
 
     def finalize_series(self, dataset, *series):
@@ -460,12 +467,12 @@ class BaseTask:
                 raise ValueError("unfilled points after stitching")
         return out if len(out) > 1 else out[0]
 
-    def evaluate(self, pipeline) -> dict:
+    def evaluate(self, pipeline, split: str | None = None) -> dict:
         """A split's scores, unprefixed: ``score`` of ``predict``'s series."""
         return self.score(*self.predict(pipeline))
 
     def _eval_split(self, pipeline, split: str) -> dict:
-        scores = {f"{split}/{k}": v for k, v in self.evaluate(pipeline).items()}
+        scores = {f"{split}/{k}": v for k, v in self.evaluate(pipeline, split).items()}
         self.log_scores(scores)
         return scores
 
@@ -474,6 +481,16 @@ class BaseTask:
 
     def test(self):
         return self._eval_split(self.test_pipeline, "test")
+
+
+def stitch_channels(dataset, values: np.ndarray, starts: np.ndarray, n_points: int,
+                    idx: np.ndarray) -> np.ndarray:
+    """Per-window values [W, L, C] -> a series [n_points, real_features];
+    under the univariate view (``data.mode = "univariate"``) window ``idx``
+    fills its own feature."""
+    feats = dataset.features(idx) if dataset.univariate else None
+    return stitch_windows(values[..., 0] if feats is not None else values, starts, n_points,
+                          n_channels=dataset.real_features, features=feats)
 
 
 def train_update(model, precision, loss_fn, optimizer, generator,

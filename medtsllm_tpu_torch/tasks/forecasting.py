@@ -8,8 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..data import stitch_windows
-from .base import BaseTask
+from .base import BaseTask, stitch_channels
 
 
 class ForecastTask(BaseTask):
@@ -22,10 +21,10 @@ class ForecastTask(BaseTask):
         out = self.run_eval(pipeline, extra_keys=("y", "index"))
         pred = out["pred"].reshape(out["pred"].shape[0], self.config.pred_len, -1)
         target = out["y"].reshape(pred.shape)
-        starts = np.asarray(dataset.x_starts(out["index"])) + ctx
-        kw = dict(n_points=n_points, n_channels=dataset.real_features)
-        preds = stitch_windows(pred, starts, **kw)[ctx:]
-        targets = stitch_windows(target, starts, **kw)[ctx:]
+        idx = out["index"]
+        starts = np.asarray(dataset.x_starts(idx)) + ctx
+        preds = stitch_channels(dataset, pred, starts, n_points, idx)[ctx:]
+        targets = stitch_channels(dataset, target, starts, n_points, idx)[ctx:]
         return self.finalize_series(dataset, preds, targets)
 
     def score(self, pred, target):

@@ -111,14 +111,14 @@ def build_loss(name: str, task: str, n_classes: int = 0):
     classification takes cross-entropy on its window labels and nothing
     else (a regression arm would broadcast [B, C] logits against [B]
     labels); imputation mse or mae on the held-out points of the unmasked
-    window ``y`` (no gradient); forecasting regresses ``y``, reconstruction
-    and anomaly detection the input window (``x_enc``), both without
+    window ``y`` (no gradient); forecasting regresses ``y``, reconstruction,
+    pretraining and anomaly detection the input window (``x_enc``), all without
     gradient; segmentation takes bce or mse / mae on its labels; semantic
     segmentation bce (two classes) or cross-entropy; iou / jaccard and,
     with two classes, lovasz."""
     is_binary = n_classes == 2
-    key = {"forecasting": "y", "reconstruction": "x_enc",
-           "anomaly_detection": "x_enc"}.get(task, "labels")
+    key = {"forecasting": "y", "reconstruction": "x_enc", "anomaly_detection": "x_enc",
+           "pretraining": "x_enc"}.get(task, "labels")
 
     if task == "classification":
         if name not in ("ce", "cross_entropy", "auto"):

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..data import stitch_windows
-from .base import BaseTask
+from .base import BaseTask, stitch_channels
 
 
 class ReconstructionTask(BaseTask):
@@ -20,10 +19,10 @@ class ReconstructionTask(BaseTask):
         out = self.run_eval(pipeline, extra_keys=("x_enc", "index"))
         pred = out["pred"].reshape(out["pred"].shape[0], self.config.pred_len, -1)
         target = out["x_enc"].reshape(pred.shape)
-        starts = np.asarray(dataset.x_starts(out["index"]))
-        kw = dict(n_points=n_points, n_channels=dataset.real_features)
-        preds = stitch_windows(pred, starts, **kw)
-        targets = stitch_windows(target, starts, **kw)
+        idx = out["index"]
+        starts = np.asarray(dataset.x_starts(idx))
+        preds = stitch_channels(dataset, pred, starts, n_points, idx)
+        targets = stitch_channels(dataset, target, starts, n_points, idx)
         return self.finalize_series(dataset, preds, targets)
 
     def score(self, pred, target):

@@ -3,7 +3,9 @@ is imported in a fresh interpreter (this process already holds jax, see
 conftest.py), which then must not have jax, flax or the JAX package, nor
 scikit-learn, matplotlib or tensorboard, which the card's machine lacks
 (the task modules compute their metrics in numpy and scipy); nor jax after
-the tokenizer has run."""
+the tokenizer has run. And with pandas and scikit-learn blocked, which the
+card's machine lacks too, every module imports and the readers, a
+stand-in and the Bayesian threshold search run."""
 
 import os
 import subprocess
@@ -54,3 +56,50 @@ def test_port_imports_no_jax():
     names = set(names.split())
     assert len(names) >= 18 and _TRAIN_MODULES <= names  # every module was imported
     assert leaked == "[]", leaked
+
+
+_BLOCKED = """
+import sys
+for name in ("pandas", "sklearn"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import importlib, pkgutil, tempfile, warnings
+import numpy as np
+import medtsllm_tpu_torch as pkg
+import medtsllm_tpu_torch.data.readers as readers
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from medtsllm_tpu_torch.config import Config
+from medtsllm_tpu_torch.data import get_dataset
+from medtsllm_tpu_torch.data.readers.table import Table
+from medtsllm_tpu_torch.tasks.bayesopt import BayesianOptimization
+with tempfile.TemporaryDirectory() as root:
+    cfg = Config({"task": "segmentation", "history_len": 64, "pred_len": 64,
+                  "data": {"dataset": "bidmc", "mode": "multivariate", "cols": "all",
+                           "normalize": True, "step": 32},
+                  "tasks": {"segmentation": {"mode": "boundary-prediction"}},
+                  "paths": {"data": root}, "model": "medtsllm", "models": {}})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ds = get_dataset(cfg, "test")
+    with open(root + "/t.csv", "w") as f:
+        f.write("a,b\\n1.5,2\\n")
+    assert Table(root + "/t.csv").floats("a")[0] == 1.5
+opt = BayesianOptimization(lambda q: -(q - 0.7) ** 2, {"q": (0.5, 1.0)})
+opt.maximize(init_points=3, n_iter=3)
+readers_loaded = sorted(m for m in sys.modules if m.startswith("medtsllm_tpu_torch.data.readers."))
+print(len(names), len(ds), len(readers_loaded), round(opt.max["params"]["q"], 3))
+"""
+
+
+def test_port_runs_without_pandas_or_sklearn():
+    """The card's machine has neither package: with both blocked, every
+    module imports, each reader with them, a family's stand-in is built,
+    a CSV is read and the Bayesian threshold search runs."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, n_windows, n_readers, q = out.stdout.split()
+    assert int(n_modules) >= 30 and int(n_windows) > 0 and int(n_readers) >= 10
+    assert 0.5 <= float(q) <= 1.0

@@ -23,7 +23,7 @@ import torch
 from conftest import make_config
 from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
 from medtsllm_tpu_torch.config import Config
-from medtsllm_tpu_torch.data import SyntheticDataset
+from medtsllm_tpu_torch.data import get_dataset
 from medtsllm_tpu_torch.device import resolve_device
 from medtsllm_tpu_torch.tasks import get_trainer
 from medtsllm_tpu_torch.weights import from_flax
@@ -136,17 +136,21 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="covariate_mode"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.task = "pretraining"
-    with pytest.raises(NotImplementedError, match="pretraining"):
-        get_trainer("x", cfg, device="cpu")
+    cfg.task = "pretraining"  # ported: the mixture of the four families' stand-ins
+    cfg["tasks"]["pretraining"] = {"downsample_pct": 0.002, "n_features": "auto"}
+    pre = get_trainer("x", cfg, device="cpu")
+    assert pre.test_dataset.dataset_names == ["ECG", "ventilator", "bidmc", "ludb"]
+    assert "prefix_ids" not in pre.model_inputs(next(iter(pre.test_pipeline)))
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.models.medtsllm.llm.llm = "gpt2"
     with pytest.raises(NotImplementedError, match="gpt2"):
         get_trainer("x", cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        cfg = _cfg(tmp_path, 8, "float32")
-        cfg.data.dataset = "ETTh1"
-        SyntheticDataset(cfg, "test")
+    cfg = _cfg(tmp_path, 8, "float32")
+    cfg.data.dataset = "ETTh1"  # ported: the ETT family (its stand-in here)
+    assert type(get_dataset(cfg, "test")).__name__ == "ETTFamily"
+    with pytest.raises(NotImplementedError, match="data.cols"):
+        cfg.data.cols = "OT"  # every column is read, as in the JAX package
+        get_dataset(cfg, "test")
 
 
 def test_cuda_without_card_raises():

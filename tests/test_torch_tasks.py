@@ -528,20 +528,28 @@ def test_shipped_configs_load_and_validate(name):
 
 
 def test_remaining_refusals_name_their_roadmap_items():
+    """The Bayesian optimize thresholds, clip datasets and pretraining are
+    ported (tests/test_torch_bayesopt.py, test_torch_clip.py,
+    test_torch_pretraining.py): each builds and scores; the refusals that
+    remain name their item."""
     cfg = _cfg("seg-boundary", **{"tasks.segmentation.distance_thresh": "optimize"})
-    with pytest.raises(NotImplementedError, match='"The Bayesian optimize thresholds"'):
-        get_trainer("x", cfg, device="cpu")
+    scores = get_trainer("x", cfg, device="cpu").test()
+    assert np.isfinite(scores["test/segment_miou"])
     for thr in ("optimize", "optimize-test"):
         cfg = _cfg("anomaly", **{"tasks.anomaly_detection.threshold": thr})
-        with pytest.raises(NotImplementedError, match='"The Bayesian optimize thresholds"'):
-            get_trainer("x", cfg, device="cpu")
+        scores = get_trainer("x", cfg, device="cpu").test()
+        assert 0.5 <= scores["test/anomaly_quantile"] <= 1.0
     cfg = _cfg("semseg-2", **{"datasets.synthetic.clips": True})
     assert get_trainer("x", cfg, device="cpu").test_dataset.clip_dataset  # ported
-    for task in ("pretraining",):
-        cfg = _cfg("semseg-2")
-        cfg.task = task
-        with pytest.raises(NotImplementedError, match='"The file readers"'):
-            get_trainer("x", cfg, device="cpu")
+    cfg = _cfg("anomaly", **{"tasks.pretraining": {"downsample_pct": 0.002,
+                                                   "n_features": "auto"}})
+    cfg.task = "pretraining"
+    assert get_trainer("x", cfg, device="cpu").test_dataset.name == (
+        "pretrain:ECG+ventilator+bidmc+ludb")
+    cfg = _cfg("semseg-2")
+    cfg.models.medtsllm.prompting.examples = True
+    with pytest.raises(NotImplementedError, match="\"MedTsLLM's remaining modes\""):
+        get_trainer("x", cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             get_trainer("x", _cfg("seg-boundary", "mixed"), device="cuda")
