@@ -79,6 +79,25 @@ nvidia-smi. Phases:
      32 patches] (listed as ``rope_attention[pretraining]``, 32 launches a
      batch); ``train_graphed``'s captured steps, then ``serve()`` (24
      test batches);
+  6l. the run lifecycle at bidmc.toml's full width, its run directories
+     under a temporary directory: (a) ``python -m medtsllm_tpu_torch.train``
+     as a subprocess on bidmc.toml as shipped (``dumps_toml`` of it, only
+     ``training.epochs = 1`` and ``paths.logdir`` changed; the logger as
+     shipped, tensorboard: the print logger's behaviour with a warning on a
+     machine without it), printing the logger used, the checkpoint's bytes
+     and the run directory's layout; (b) ``python -m
+     medtsllm_tpu_torch.test <run_id> test latest <logdir>``, its scores
+     equal to (a)'s exactly; (c) a second train subprocess sent SIGUSR1
+     after its first step line: exit 0, ``latest`` at epoch 1 with
+     ``step > 0``; then ``from_run_id`` in this process (the trainable
+     parameters bit-equal to the checkpoint's), a sync and an async save
+     timed, and ``train()`` finishing the epoch; (d) 6k's
+     ``pretraining_config`` 4 captured steps saved as ``latest``, then
+     bidmc.toml with ``[finetuning]`` from it (warmup 1 epoch at 0.1): the
+     loaded tensors (no ``output_projection``) bit-equal to the
+     checkpoint's, LRs [1e-4, 1e-5] in epoch 0, ``train()`` moving them;
+     K2 / K3 launches printed, not listed. The other phases' configs set
+     ``DEBUG`` (as bench.py does): no run directory;
   6d. each task's window predictions on a 2-layer llama-1b slice under
      mixed, card against the CPU's plain versions (2^-5 x max), ecgmit-seg
      on 12 clips through a bank of 8 rows on both, forecasting (pred 16),
@@ -217,9 +236,13 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import tomllib
 from pathlib import Path
@@ -283,14 +306,23 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
+def quiet(Config, raw: dict):
+    """``raw`` as a Config with ``DEBUG`` set, as bench.py sets it on every
+    config it runs: the debug logger, which writes no run directory and no
+    checkpoint (phase 6l runs the lifecycle with ``DEBUG`` off)."""
+    return Config(dict(raw, DEBUG=True))
+
+
 def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
                  dtype="bf16", n_points=8192, num_tokens=1024, d_ff=128,
                  llm_layers=-1, load_in_8bit=True, dropout=0.1, quant_type=None):
     """The configuration of ``bench.py`` (build_trainer defaults): served by
     ``test()``, trained (the frozen-w8a8 finetune step) by ``train()``.
     ``quant_type`` ("int4", "nf4", "fp4") loads the backbone in 4 bits in
-    place of 8 (``bench.py --quant 4``)."""
+    place of 8 (``bench.py --quant 4``). ``DEBUG`` as in bench.py: no run
+    directory is written (the debug logger)."""
     return Config({
+        "DEBUG": True,
         "task": "reconstruction", "model": "medtsllm",
         "history_len": history, "pred_len": history,
         "data": {"dataset": "synthetic", "mode": "multivariate", "cols": "all",
@@ -310,7 +342,7 @@ def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
             "llm": {"enabled": True, "llm": llm, "llm_layers": llm_layers,
                     "prefix_cache": True, "load_in_8bit": load_in_8bit and not quant_type,
                     "load_in_4bit": bool(quant_type), "quant_type": quant_type or "int4"}}},
-        "setup": {"seed": SEED, "dtype": dtype},
+        "setup": {"seed": SEED, "dtype": dtype, "logger": "print"},
     })
 
 
@@ -337,7 +369,7 @@ def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
         raw["setup"]["dtype"] = dtype
     llm = raw["models"]["timellm"]["llm"]
     llm["llm_layers"], llm["prefix_cache"] = llm_layers, prefix_cache
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=None,
@@ -359,7 +391,7 @@ def moe_config(Config, n_points=49152, batch=None, llm_layers=-1, moe_grouped=No
         llm["moe_grouped"] = moe_grouped
     if int4:
         llm["load_in_4bit"], llm["load_in_8bit"] = True, False
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def long_config(Config, history=16384, d_ff=64):
@@ -402,7 +434,7 @@ def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
         raw["data"]["step"] = history // 2
     if batch is not None:
         raw["training"]["batch_size"] = batch
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def task_block_config(Config, task_toml, n_points, n_features, epochs=1, llm=None,
@@ -436,7 +468,7 @@ def task_block_config(Config, task_toml, n_points, n_features, epochs=1, llm=Non
         raw["data"]["step"] = pred or history // 2
     if batch is not None:
         raw["training"]["batch_size"] = batch
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def shipped_config(Config, toml, epochs=1, **tasks):
@@ -448,7 +480,7 @@ def shipped_config(Config, toml, epochs=1, **tasks):
     raw = load_config(toml).to_dict()
     raw["training"]["epochs"] = epochs
     raw["tasks"][raw["task"]].update(tasks)
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def pretraining_config(Config):
@@ -463,7 +495,7 @@ def pretraining_config(Config):
     raw["training"].update(epochs=1, loss="mse", eval_metric="mse",
                            eval_metric_direction="min")
     raw["tasks"] = {"pretraining": {"downsample_pct": 1.0, "n_features": "auto"}}
-    return Config(raw)
+    return quiet(Config, raw)
 
 
 def one_class(tr, split) -> bool:
@@ -581,6 +613,188 @@ def pool_bytes(graphs) -> int:
     pool = tuple(graphs._pool)
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def cli_scores(stdout: str, prefix: str) -> dict:
+    """The score dict a CLI printed after ``prefix`` ("Test results:" or
+    "Results:"), a Python dict's repr (NaN printed as ``nan``)."""
+    line = next(ln for ln in stdout.splitlines() if ln.startswith(prefix))
+    return eval(line[len(prefix):], {"__builtins__": {}, "nan": math.nan, "inf": math.inf})
+
+
+def run_cli(module: str, *args: str, timeout: float = 600) -> subprocess.CompletedProcess:
+    """``python -m medtsllm_tpu_torch.<module> args`` from the repository's
+    root, on the card; fails unless it exits 0."""
+    out = subprocess.run([sys.executable, "-u", "-m", f"medtsllm_tpu_torch.{module}", *args],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0, f"[lifecycle] {module} {' '.join(args)} exited "
+          f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-3000:]}")
+    return out
+
+
+def lifecycle(runs: Path, dev, drive, Config) -> None:
+    """Phase 6l: the train and test CLIs, SIGUSR1 and the resume, and
+    pretraining -> finetuning, on the card at bidmc.toml's full width, the
+    run directories under ``runs``."""
+    import torch
+
+    from medtsllm_tpu_torch.config import dumps_toml, load_config
+    from medtsllm_tpu_torch.runtime.checkpoint import load_checkpoint, wait_for_saves
+    from medtsllm_tpu_torch.tasks import get_trainer, task_lookup
+
+    def shipped(**top) -> dict:
+        raw = load_config(BIDMC_TOML).to_dict()
+        raw["training"]["epochs"] = 1
+        raw["paths"] = {"logdir": str(runs)}
+        return dict(raw, **top)
+
+    def trainable(tr) -> dict:
+        return {n: p.detach() for n, p in tr.model.named_parameters() if p.requires_grad}
+
+    cfg_path = runs / "bidmc.toml"
+    cfg_path.write_text(dumps_toml(shipped()))
+
+    # (a) the train CLI
+    t0 = time.perf_counter()
+    out = run_cli("train", str(cfg_path), "bidmc-cli")
+    train_s = time.perf_counter() - t0
+    test_a = cli_scores(out.stdout, "Test results:")
+    run = runs / "bidmc-cli"
+    warned = "tensorboard not installed" in out.stderr
+    logger = ("tensorboard" if (run / "tensorboard").is_dir()
+              else "print (tensorboard missing: warned)" if warned else "print")
+    latest = run / "checkpoints" / "latest.ckpt"
+    state, meta = load_checkpoint(latest)
+    n_bytes = latest.stat().st_size
+    n_params = sum(t.numel() for t in state.values())
+    check(tomllib.loads((run / "config.toml").read_text()) == shipped()
+          and json.loads((run / "config.json").read_text()) == shipped()
+          and (run / "checkpoints" / "best.ckpt").is_file(),
+          f"[lifecycle] the run directory: {sorted(p.name for p in run.rglob('*'))}")
+    check(not any(n.startswith("llm.") for n in state) and meta["epoch"] == 2
+          and meta["step"] > 0 and math.isfinite(meta["best_score"]),
+          f"[lifecycle] latest: {meta}, names {sorted(state)[:4]}")
+    check(all(math.isfinite(v) for v in test_a.values()), f"[lifecycle] test scores {test_a}")
+    print(f"[lifecycle] (a) train CLI on bidmc.toml (epochs 1): {train_s:.1f} s wall; logger "
+          f"{logger}; latest.ckpt {n_bytes:,} bytes: {len(state)} tensors, {n_params:,} "
+          f"parameters (no llm.*), meta epoch {meta['epoch']} step {meta['step']} best "
+          f"{meta['best_score']:.6f}; test {test_a}")
+
+    # (b) the test CLI on (a)'s run directory
+    t0 = time.perf_counter()
+    out = run_cli("test", "bidmc-cli", "test", "latest", str(runs))
+    test_b = cli_scores(out.stdout, "Results:")
+    check(same_scores(test_a, test_b), f"[lifecycle] test CLI {test_b} != train CLI {test_a}")
+    print(f"[lifecycle] (b) test CLI: {time.perf_counter() - t0:.1f} s wall; the scores equal "
+          "(a)'s exactly")
+
+    # (c) SIGUSR1 after the first step line, then the resume in this process
+    t0 = time.perf_counter()
+    err_path = runs / "bidmc-sig.stderr"
+    with open(err_path, "w") as err:  # a file: a full pipe would stall the child
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "medtsllm_tpu_torch.train", str(cfg_path),
+             "bidmc-sig"], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("step "):
+                    proc.send_signal(signal.SIGUSR1)
+                    break
+            rest, _ = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+            proc.wait()
+    stdout = "".join(lines) + rest
+    check(proc.returncode == 0 and "Interrupted!" in stdout and "Test results" not in stdout,
+          f"[lifecycle] SIGUSR1: exit {proc.returncode}: {stdout[-1500:]} "
+          f"{err_path.read_text()[-2000:]}")
+    sig_ckpt = runs / "bidmc-sig" / "checkpoints" / "latest.ckpt"
+    saved, meta = load_checkpoint(sig_ckpt)
+    check(meta["epoch"] == 1 and meta["step"] > 0, f"[lifecycle] SIGUSR1 latest meta {meta}")
+    sig_s = time.perf_counter() - t0
+    tr = task_lookup["segmentation"].from_run_id("bidmc-sig", basepath=runs, device=dev)
+    check(tr.epoch == 1 and tr.step == meta["step"],
+          f"[lifecycle] resumed at epoch {tr.epoch} step {tr.step}")
+    params = trainable(tr)
+    check(params.keys() == saved.keys() and all(torch.equal(params[n].cpu(), saved[n])
+                                                  for n in saved),
+          "[lifecycle] the restored trainable parameters differ from the checkpoint's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.logger.save_state("timing-sync", async_=False)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr.logger.save_state("timing-async")
+    call_s = time.perf_counter() - t0
+    wait_for_saves()
+    async_s = time.perf_counter() - t0
+    counts, wall = drive(tr.train)
+    check(len(tr.losses) == len(tr.train_pipeline) and finite(tr.losses) and tr.epoch == 2,
+          f"[lifecycle] the resumed epoch: losses {tr.losses}, epoch {tr.epoch}")
+    tr.log_end()
+    _, meta2 = load_checkpoint(sig_ckpt)
+    check(meta2["epoch"] == 2, f"[lifecycle] the resumed run's latest {meta2}")
+    print(f"[lifecycle] (c) SIGUSR1 after the first step line: exit 0 in {sig_s:.1f} s wall, "
+          f"latest epoch {meta['epoch']} step {meta['step']}; from_run_id: the "
+          f"{len(saved)} trainable tensors bit-equal to the checkpoint's; save of "
+          f"{n_bytes:,} bytes: sync {sync_s:.3f} s, async call {call_s:.3f} s (written "
+          f"{async_s:.3f} s after it); the resumed epoch {len(tr.losses)} captured steps and "
+          f"val() in {wall:.2f} s, losses finite; launches {counts}")
+    del tr, params
+    torch.cuda.empty_cache()
+
+    # (d) pretraining -> finetuning
+    t0 = time.perf_counter()
+    pre_raw = dict(pretraining_config(Config).to_dict(), DEBUG=False)
+    pre_raw["paths"] = {"logdir": str(runs)}
+    pre = get_trainer("pretrain", Config(pre_raw), device=dev)
+    pre.optimizer.set_epoch(0)
+    for batch, _ in zip(pre.train_pipeline, range(4)):
+        arrays = pre.train_model_inputs(batch)
+        check(math.isfinite(float(pre.train_step(arrays, arrays["valid"]))),
+              "[lifecycle] a pretraining step's loss")
+    pre.logger.save_state("latest")
+    pre.log_end()
+    graphs = pre.train_graphs
+    check(graphs is not None and len(graphs) == 1, f"[lifecycle] pretraining graphs {graphs}")
+    del pre
+    torch.cuda.empty_cache()
+    pre_ckpt, _ = load_checkpoint(runs / "pretrain" / "checkpoints" / "latest.ckpt")
+    ft = get_trainer("finetune", Config(shipped(finetuning={
+        "enabled": True, "pretrained_id": "pretrain", "pretrained_ckpt": "latest",
+        "warmup_epochs": 1, "warmup_factor": 0.1})), device=dev)
+    loaded = set(ft.loaded_params)
+    check(loaded and loaded == set(pre_ckpt) - {n for n in pre_ckpt
+                                                 if n.startswith("output_projection")},
+          f"[lifecycle] loaded {sorted(loaded)}")
+    params = trainable(ft)
+    check(all(torch.equal(params[n].cpu(), pre_ckpt[n]) for n in loaded),
+          "[lifecycle] the loaded tensors differ from the pretraining checkpoint's")
+    ft.optimizer.set_epoch(0)
+    lrs = ft.optimizer.get_last_lr()
+    check(len(lrs) == 2 and math.isclose(lrs[0], 1e-4, rel_tol=1e-12)
+          and math.isclose(lrs[1], 1e-5, rel_tol=1e-12)
+          and math.isclose(ft.optimizer.loaded_lr.item(), 1e-5, rel_tol=1e-6),
+          f"[lifecycle] epoch 0 LRs {lrs}")
+    counts, wall = drive(ft.train)
+    check(len(ft.losses) == len(ft.train_pipeline) and finite(ft.losses),
+          f"[lifecycle] finetune losses {ft.losses}")
+    moved = [n for n in loaded if not torch.equal(params[n].cpu(), pre_ckpt[n])]
+    check(len(moved) >= len(loaded) - 1, f"[lifecycle] loaded tensors unmoved: "
+          f"{sorted(loaded - set(moved))}")
+    ft.log_end()
+    print(f"[lifecycle] (d) pretraining 4 captured steps saved, then bidmc.toml finetuning: "
+          f"{len(loaded)} tensors loaded (output_projection not among them), bit-equal to the "
+          f"checkpoint's; epoch 0 LRs {lrs}; train() {len(ft.losses)} captured steps and val() "
+          f"in {wall:.2f} s, {len(moved)} loaded tensors moved; K2 {counts['rope_attention']} "
+          f"and K3 {counts['reprogramming_attention']} launches (not listed); "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    del ft, params
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1999,6 +2213,22 @@ def main() -> None:
     del tr, arrays
     torch.cuda.empty_cache()
     print(f"[pretraining] phase 6k: {time.perf_counter() - t_phase:.1f} s wall")
+
+    # 6l. the run lifecycle at full width, its run directories under a
+    # temporary directory: (a) the train CLI on bidmc.toml as shipped (but
+    # training.epochs 1 and paths.logdir; the logger as shipped,
+    # tensorboard, which the card's machine lacks); (b) the test CLI on
+    # (a)'s run; (c) a second train CLI run stopped by SIGUSR1 after its
+    # first step line, then resumed in this process by from_run_id; (d)
+    # pretraining_config's 4 captured steps saved as ``latest``, then
+    # bidmc.toml finetuning from it (warmup 1 epoch at 0.1)
+    t_phase = time.perf_counter()
+    runs = Path(tempfile.mkdtemp(prefix="chip-smoke-runs-"))
+    try:
+        lifecycle(runs, dev, drive, Config)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    print(f"[lifecycle] phase 6l: {time.perf_counter() - t_phase:.1f} s wall")
 
     # 6d. each task's window predictions on the card against the CPU's plain
     # versions, same seeded weights: 2-layer llama-1b (GQA 32 / 4 x 64),

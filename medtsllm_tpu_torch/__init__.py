@@ -7,8 +7,10 @@ Every Pallas kernel on the ported path is a hand-written CUDA kernel for
 sm_90a under ``csrc/``, built with nvcc at first use
 (ops/kernels/_build.py). This package imports no jax.
 
-Slice 1 covers the MedTsLLM serving path on the reconstruction task:
-``tasks.get_trainer(run_id, config, device=...).test()``.
+Entry points: ``python -m medtsllm_tpu_torch.train <config.toml> [run_id]``
+and ``python -m medtsllm_tpu_torch.test <run_id> [split] [ckpt] [basepath]``
+(the root ``train.py`` / ``test.py``'s, on a CUDA card; ``--device cpu``
+for the CPU), or ``tasks.get_trainer(run_id, config, device=...)``.
 """
 
 __version__ = "0.1.0"

@@ -366,6 +366,23 @@ class MedTsLLM(nn.Module):
         emb = self.llm.embed(prefix_ids).to(embed_dtype)
         return self.llm.prefill(emb[None] if prefix_ids.dim() == 1 else emb)
 
+    # -- checkpoints (medtsllm_tpu/models/medtsllm.py:757-774) -------------
+
+    @staticmethod
+    def checkpoint_tree(state: dict) -> dict:
+        """The entries of a state dict a checkpoint keeps: every one but the
+        frozen backbone (``llm.*``, its word embeddings included), which a
+        restore rebuilds. JAX keeps the LoRA adapters under ``llm``; the
+        port has no LoRA, so nothing under ``llm`` is kept."""
+        return {k: v for k, v in state.items() if k.split(".")[0] != "llm"}
+
+    @staticmethod
+    def drop_pretrained_heads(saved: dict) -> dict:
+        """Pretraining -> finetuning transfer leaves the output head behind
+        (and the word embeddings, which no checkpoint of the port holds)."""
+        return {k: v for k, v in saved.items()
+                if k.split(".")[0] not in ("output_projection", "word_embeddings")}
+
 
 def _resolve_moe(llm_cfg, llm, quantize: int, device: torch.device):
     """``llm.expert_capacity`` and ``llm.moe_grouped`` on the backbone's

@@ -1,6 +1,6 @@
 """The optimizer of the train step (port of ``medtsllm_tpu/runtime/optim.py``:
-``Optimizer`` with adam, adamw and sgd, the per-epoch learning-rate schedules
-and the global-norm gradient clip).
+``Optimizer`` with adam, adamw and sgd, the per-epoch learning-rate schedules,
+the global-norm gradient clip and finetuning's ``loaded`` group).
 
 Only the trainable parameters reach it (the frozen backbone's have
 ``requires_grad = False``). The update rules are optax's: ``adam`` (b1 0.9,
@@ -18,6 +18,16 @@ host number). Adam and AdamW are ``capturable`` on a CUDA device (the step
 count and the bias correction on the device too); on the CPU, where torch
 makes no optimizer capturable, their groups take the LR as a Python
 number. The clip makes no host read.
+
+Finetuning from a pretraining run (``finetuning.enabled``): the parameters
+restored from the pretraining checkpoint (``loaded``) form a second group
+with an LR tensor of its own (``loaded_lr``), the shared schedule's factor
+times the group's own: 0 for ``frozen_epochs`` and then 1, or
+``linspace(warmup_factor, 1, warmup_epochs)`` then 1 (JAX's
+``loaded_factor``). A frozen epoch's LR is 0, not a skipped update: Adam's
+moments advance and the parameters stay put, as optax's do at LR 0; and a
+step captured in a frozen epoch reads the group's LR tensor as any other,
+so it moves the group once ``set_epoch`` makes the LR non-zero.
 """
 
 from __future__ import annotations
@@ -25,13 +35,17 @@ from __future__ import annotations
 import math
 import warnings
 
+import numpy as np
 import torch
 
 _UNPORTED = '(ROADMAP queue 1, "Training on the served backbones")'
 
 
 class Optimizer:
-    def __init__(self, config, params):
+    def __init__(self, config, params, loaded=()):
+        """``params``: the model's parameters (the trainable ones are kept);
+        ``loaded``: those of them restored from a pretraining run, finetuning's
+        second group."""
         t = config.training
         self.name = t.optimizer
         self.base_lr = float(t.learning_rate)
@@ -39,9 +53,6 @@ class Optimizer:
             raise NotImplementedError(f"optimizer {self.name!r} is not ported {_UNPORTED}")
         if int(t.get("grad_accum_steps", 1) or 1) > 1:
             raise NotImplementedError(f"training.grad_accum_steps > 1 is not ported {_UNPORTED}")
-        if config.get("finetuning", {}).get("enabled", False):
-            raise NotImplementedError("finetuning from a pretrained run (the 'loaded' "
-                                      f"parameter group) is not ported {_UNPORTED}")
         scheduler = t.get("lr_scheduler")
         if scheduler not in (None, "none", "constant", "cosine", "linear"):
             raise ValueError(f"Invalid scheduler selection: {scheduler}")
@@ -52,23 +63,52 @@ class Optimizer:
         self.clip_norm = float(t.get("grad_clip_norm", 0.0) or 0.0)
 
         self.params = [p for p in params if p.requires_grad]
+        loaded_ids = {id(p) for p in loaded}
+        groups = ([p for p in self.params if id(p) not in loaded_ids],
+                  [p for p in self.params if id(p) in loaded_ids])
+        self.has_loaded = bool(groups[1])
+        ft = config.get("finetuning", {})
+        enabled = bool(ft.get("enabled", False)) and self.has_loaded
+        self.frozen_epochs = int(ft.get("frozen_epochs", 0) or 0) if enabled else 0
+        self.warmup_epochs = int(ft.get("warmup_epochs", 0) or 0) if enabled else 0
+        if self.frozen_epochs and self.warmup_epochs:
+            raise ValueError("finetuning.frozen_epochs and finetuning.warmup_epochs are "
+                             "mutually exclusive")
+        if self.warmup_epochs:
+            self.warmup_factors = np.linspace(float(ft.warmup_factor), 1.0,
+                                              self.warmup_epochs)
+
         device = self.params[0].device if self.params else torch.device("cpu")
         self.on_device = device.type == "cuda"
         self.lr = torch.tensor(self.base_lr, dtype=torch.float32, device=device)
-        adam_lr = self.lr if self.on_device else self.base_lr
+        self.loaded_lr = torch.tensor(self.base_lr, dtype=torch.float32, device=device)
+        # (params, the group's LR tensor): the new group, then the loaded one
+        self._groups = [(g, lr) for g, lr in zip(groups, (self.lr, self.loaded_lr)) if g]
+        param_groups = [{"params": g, "lr": lr if self.on_device or self.name == "sgd"
+                         else self.base_lr} for g, lr in self._groups]
         match self.name:
             case "adam":
-                self._opt = torch.optim.Adam(self.params, lr=adam_lr, betas=(0.9, 0.999),
+                self._opt = torch.optim.Adam(param_groups, betas=(0.9, 0.999),
                                              eps=1e-8, capturable=self.on_device)
             case "adamw":
-                self._opt = torch.optim.AdamW(self.params, lr=adam_lr, betas=(0.9, 0.999),
+                self._opt = torch.optim.AdamW(param_groups, betas=(0.9, 0.999),
                                               eps=1e-8, weight_decay=0.01,
                                               capturable=self.on_device)
             case "sgd":
-                self._opt = DeviceLRSGD(self.params, lr=self.lr, momentum=0.9)
+                self._opt = DeviceLRSGD(param_groups, lr=self.lr, momentum=0.9)
             case _:
                 raise ValueError(f"Invalid optimizer selection: {self.name}")
-        self.last_lrs = [self.base_lr]
+        self.last_lrs = [self.base_lr, self.base_lr] if self.has_loaded else [self.base_lr]
+
+    def loaded_factor(self, epoch: int) -> float:
+        """The loaded group's own LR factor (0-based epoch): 0 through
+        ``frozen_epochs``, or the warmup ramp, then 1."""
+        if self.frozen_epochs > 0:
+            return 0.0 if epoch < self.frozen_epochs else 1.0
+        if self.warmup_epochs > 0:
+            return (float(self.warmup_factors[epoch]) if epoch < self.warmup_epochs
+                    else 1.0)
+        return 1.0
 
     def schedule_factor(self, epoch: int) -> float:
         """Per-epoch LR factor (0-based epoch): linear warmup over
@@ -87,14 +127,17 @@ class Optimizer:
         return 1.0 - (1.0 - mf) * t
 
     def set_epoch(self, epoch: int) -> None:
-        """The epoch's LR, written into ``lr`` in place (on a card, on the
-        current stream: after every step enqueued before it)."""
-        lr = self.base_lr * self.schedule_factor(epoch)
-        self.lr.fill_(lr)
-        for group in self._opt.param_groups:
+        """The epoch's LRs, written into ``lr`` and ``loaded_lr`` in place (on
+        a card, on the current stream: after every step enqueued before it)."""
+        sched = self.schedule_factor(epoch)
+        self.last_lrs = [self.base_lr * sched]
+        if self.has_loaded:
+            self.last_lrs.append(self.base_lr * sched * self.loaded_factor(epoch))
+        self.lr.fill_(self.last_lrs[0])
+        self.loaded_lr.fill_(self.last_lrs[-1])
+        for group, (_, lr) in zip(self._opt.param_groups, self._groups):
             if not isinstance(group["lr"], torch.Tensor):  # Adam on the CPU
-                group["lr"] = lr
-        self.last_lrs = [lr]
+                group["lr"] = self.last_lrs[-1] if lr is self.loaded_lr else self.last_lrs[0]
 
     def get_last_lr(self) -> list[float]:
         return list(self.last_lrs)

@@ -26,16 +26,20 @@ from .postproc import adjust_anomalies, running_mean
 class AnomalyDetectionTask(BaseTask):
     task = "anomaly_detection"
 
-    def __init__(self, run_id, config, device="cuda"):
+    def __init__(self, run_id, config, newrun=True, device="cuda"):
         self.task_config = config.tasks.anomaly_detection
         if config.history_len != config.pred_len:
             raise ValueError("Anomaly detection task requires history_len == pred_len")
         if self.task_config.get("score_metric", "mse") != "mse":
             raise ValueError("anomaly detection scores by mse")
-        super().__init__(run_id, config, device)
+        super().__init__(run_id, config, newrun, device)
+
+    figure = "predictions"
 
     def evaluate(self, pipeline, split: str | None = None) -> dict:
         results = self.predict(pipeline, split)
+        if split is not None:
+            self.log_figure(f"{split}/{self.figure}", self.plot_predictions, results)
         return (self.score_anomalies(results["anomaly_preds"], results["anomaly_labels"],
                                      scores=results["anomaly_scores"])
                 | self.score(results["recon_preds"], results["recon_targets"])
@@ -59,6 +63,21 @@ class AnomalyDetectionTask(BaseTask):
         if (labels < 0).any():
             raise ValueError("unfilled labels after stitching")
         return self.detect(preds, targets, labels, n_points, split)
+
+    def plot_predictions(self, results: dict, xrange=(0, 2000)):
+        """The first 2000 points of up to three features, reconstructed
+        against the target."""
+        import matplotlib.pyplot as plt
+        preds, targets = results["recon_preds"], results["recon_targets"]
+        sl = slice(*xrange)
+        fig, ax = plt.subplots(figsize=(12, 4))
+        xs = np.arange(*xrange)[: len(preds[sl])]
+        for i in range(min(preds.shape[-1], 3)):
+            ax.plot(xs, targets[sl, i], label=f"target-{i+1}", lw=0.8)
+            ax.plot(xs, preds[sl, i], label=f"pred-{i+1}", lw=0.8)
+        ax.legend(loc="upper right")
+        fig.tight_layout()
+        return fig
 
     def detect(self, preds, targets, labels, n_points: int, split: str | None = None) -> dict:
         """The stitched series of ``split`` -> per-point scores, the

@@ -38,25 +38,43 @@ copies, and ``run_eval`` reads batch i-1 back while batch i runs, as the
 JAX loops do.
 
 Dropout masks come from a generator on the trainer's device seeded from
-``setup.seed``. No logger or checkpoint files yet: the losses and each
-epoch's val scores are kept in ``self.losses`` and ``self.val_scores`` and
-printed (checkpoints are ROADMAP queue 1, "Checkpoints, the loggers and
-the torch CLIs").
+``setup.seed``. The losses and each epoch's val scores are also kept in
+``self.losses`` and ``self.val_scores``.
+
+The run's lifecycle is JAX's: the logger (``loggers/``) is made last in
+``__init__`` and writes the run directory; ``log_epoch`` saves ``latest``
+every epoch and ``best`` on an improvement (``runtime/checkpoint.py``:
+the fusion layers only, the frozen backbone rebuilt from ``setup.seed``);
+SIGUSR1 saves ``latest`` at the next step boundary and exits 0;
+``from_run_id`` rebuilds a run from its ``config.toml`` and a checkpoint,
+restored in place (the captured steps and the optimizer bind the
+parameters by address), with a fresh optimizer state, as JAX's. With
+``finetuning.enabled`` the trainer restores a pretraining run's checkpoint
+(its output head left out) before the optimizer is built, and those
+parameters form the optimizer's ``loaded`` group.
 """
 
 from __future__ import annotations
 
 import functools
 import random
+import signal
+import sys
+import tomllib
 import warnings
+import weakref
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..config import validate_config
+from ..config import Config, validate_config
 from ..data import BatchPipeline, dedup_eval_series, get_dataset, prefetch, stitch_windows
 from ..device import resolve_device
+from ..loggers import get_logger
+from ..loggers.base import logdir_base
 from ..models.medtsllm import MedTsLLM, Precision, PromptBuilder
+from ..runtime.checkpoint import load_checkpoint, restore_partial, wait_for_saves
 from ..runtime.graph import StepGraphs, TrainGraphs
 from ..runtime.optim import Optimizer
 from ..weights import init_random_
@@ -65,8 +83,10 @@ from .losses import build_loss
 
 class BaseTask:
     task: str = ""
+    # the name of the task's figure of a split's predictions, if it has one
+    figure: str | None = None
 
-    def __init__(self, run_id, config, device="cuda"):
+    def __init__(self, run_id, config, newrun=True, device="cuda"):
         if config.model not in ("medtsllm", "timellm"):
             raise NotImplementedError(f"model {config.model!r}: the port has MedTsLLM "
                                       "(ROADMAP queue 1, \"Baseline models and the ops "
@@ -109,8 +129,13 @@ class BaseTask:
                                        self.device)
                             if self.device.type == "cuda" else None)
 
+        self.load_pretrained()
+
         self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
-        self.optimizer = Optimizer(config, self.model.parameters())
+        loaded = set(self.loaded_params)
+        self.optimizer = Optimizer(config, self.model.parameters(),
+                                   loaded=[p for n, p in self.model.named_parameters()
+                                           if n in loaded])
         self.loss_fn = build_loss(config.training.loss, self.task,
                                   getattr(self.train_dataset, "n_classes", 0))
         # the step binds the model, the policy, the loss, the optimizer and
@@ -123,10 +148,26 @@ class BaseTask:
                              if self.device.type == "cuda" else None)
         self.epoch = 1
         self.step = 0
+        self._step_in_flight = False
+        self._preempt_requested = False
         self.losses: list[float] = []
         self.val_scores: list[dict] = []
         direction = config.training.get("eval_metric_direction", "min")
         self.best_score = float("inf") if direction == "min" else float("-inf")
+
+        self.logger = get_logger(self, config, newrun)
+        # the handler holds the trainer weakly: a dropped trainer's device
+        # memory is freed, not kept until the next trainer replaces it
+        ref = weakref.ref(self)
+
+        def on_sigusr1(signum, frame):
+            trainer = ref()
+            if trainer is not None:
+                trainer.handle_termination(signum, frame)
+        try:
+            signal.signal(signal.SIGUSR1, on_sigusr1)
+        except ValueError:
+            pass  # not on the main thread
 
     def build_datasets(self) -> None:
         """The three splits of ``data.dataset`` (``get_dataset``)."""
@@ -145,6 +186,37 @@ class BaseTask:
         for p in self.model.parameters():
             if p.is_floating_point():
                 p.data = p.data.to(self.precision.storage(frozen=not p.requires_grad))
+
+    def load_pretrained(self) -> None:
+        """Pretraining -> finetuning transfer (``finetuning.enabled``): the
+        checkpoint ``finetuning.pretrained_ckpt`` of run
+        ``finetuning.pretrained_id`` under the logdir, its output head left
+        out, restored in place; ``loaded_params`` names what it set."""
+        ft = self.config.get("finetuning", {})
+        self.finetuning = bool(ft.get("enabled", False))
+        self.loaded_params: list[str] = []
+        if not self.finetuning:
+            return
+        path = (logdir_base(self.config) / ft.pretrained_id / "checkpoints"
+                / f"{ft.pretrained_ckpt}.ckpt")
+        if not path.is_file():
+            raise FileNotFoundError(f"finetuning.pretrained_id {ft.pretrained_id!r}: "
+                                    f"no checkpoint at {path}")
+        saved, _ = load_checkpoint(path)
+        self.loaded_params = self.restore(self.model.drop_pretrained_heads(saved))
+
+    def checkpoint_params(self) -> dict:
+        """The state-dict entries a checkpoint holds (the model's
+        ``checkpoint_tree``: not the frozen backbone), on the device."""
+        return self.model.checkpoint_tree(self.model.state_dict())
+
+    def restore(self, saved: dict) -> list[str]:
+        """Copy a checkpoint's tensors into the parameters in place
+        (``runtime.checkpoint.restore_partial``'s rules); returns the names
+        set. The prompt-head caches are refilled at the next pass."""
+        _, loaded = restore_partial(self.model.state_dict(), saved)
+        self._prefix_kv_cache.clear()
+        return loaded
 
     def load_state_dict(self, state: dict) -> None:
         """Replace every parameter (e.g. ``weights.from_flax``); each keeps
@@ -368,7 +440,12 @@ class BaseTask:
             pending = None
             for batch in prefetch(iter(self.train_pipeline)):
                 arrays = self.train_model_inputs(batch)
+                # a SIGUSR1 in the step waits for its end (handle_termination)
+                self._step_in_flight = True
                 loss = self.train_step(arrays, arrays["valid"])
+                self._step_in_flight = False
+                if self._preempt_requested:
+                    self._save_and_exit()
                 if pending is not None:
                     self.log_step(*pending)
                 pending = (loss, int(batch["valid"].sum()))
@@ -376,25 +453,99 @@ class BaseTask:
                 self.log_step(*pending)
             self.log_epoch(self.val())
 
+    # ------------------------------------------------------------------
+    # logging, checkpoints, the lifecycle (medtsllm_tpu/tasks/base.py:709-782)
+    # ------------------------------------------------------------------
+
     def log_step(self, loss, n_valid: int) -> None:
         self.step += n_valid  # real samples: the padded final batch counts fewer
         self.losses.append(float(loss))
         print(f"step {self.step}: train/loss {self.losses[-1]:.6f}")
+        self.logger.log_scores({"train/loss": self.losses[-1]})
 
     def log_epoch(self, scores: dict) -> None:
-        """Keep an epoch's val scores; ``best_score`` follows
-        ``training.eval_metric`` in its direction."""
+        """Log an epoch's val scores and LRs (``train/finetune_lr``: the
+        loaded group's); then, the epoch and ``best_score`` (by
+        ``training.eval_metric`` in its direction) advanced first so the
+        meta is the resume point, save ``latest``, and ``best`` on an
+        improvement (``training.save_best``)."""
         self.val_scores.append(dict(scores))
-        self.log_scores(dict(scores, **{"train/lr": self.optimizer.get_last_lr()[0]}))
+        lrs = self.optimizer.get_last_lr()
+        scores = dict(scores, **{"train/lr": lrs[0]})
+        if len(lrs) > 1:
+            scores["train/finetune_lr"] = lrs[1]
+        self.logger.log_scores(scores)
         self.epoch += 1
         metric = scores["val/" + self.config.training.get("eval_metric", "mse")]
-        if self.config.training.get("eval_metric_direction", "min") == "min":
-            self.best_score = min(self.best_score, metric)
-        else:
-            self.best_score = max(self.best_score, metric)
+        direction = self.config.training.get("eval_metric_direction", "min")
+        improved = ((direction == "min" and metric < self.best_score)
+                    or (direction == "max" and metric > self.best_score))
+        if improved:
+            self.best_score = metric
+        self.logger.save_state("latest")
+        if improved and self.config.training.get("save_best", True):
+            self.logger.save_state("best")
 
-    def log_scores(self, scores: dict) -> None:
-        print(f"epoch {self.epoch}: {scores}")
+    def log_scores(self, scores=None, **kwscores) -> None:
+        self.logger.log_scores(dict(scores or {}) | kwscores)
+
+    def log_figure(self, name: str, plot, *args) -> None:
+        """Hand the figure ``plot(*args)`` draws to the logger, when the
+        logger takes figures (tensorboard, wandb) and matplotlib imports;
+        without matplotlib, warn once and draw nothing. No score depends on
+        a figure."""
+        if not self.logger.takes_figures:
+            return
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            warnings.warn("matplotlib not installed: the task figures are not drawn")
+            return
+        fig = plot(*args)
+        self.logger.log_figure(fig, name)
+        plt.close(fig)
+
+    def log_end(self) -> None:
+        wait_for_saves()  # the async checkpoint writes are on disk
+        self.logger.log_end()
+
+    def handle_termination(self, signum, frame) -> None:
+        """SIGUSR1: save ``latest`` and exit 0; in a train step, at its end
+        (the train loop's check), so the checkpoint is a step boundary."""
+        print("Interrupted!")
+        if self._step_in_flight:
+            self._preempt_requested = True
+            return
+        self._save_and_exit()
+
+    def _save_and_exit(self) -> None:
+        self.logger.save_state("latest", async_=False)  # on disk before the exit
+        self.log_end()
+        sys.exit(0)
+
+    @classmethod
+    def from_run_id(cls, run_id, cfg=None, ckpt="latest", basepath=None, device="cuda"):
+        """The run ``run_id`` rebuilt from ``<basepath>/<run_id>/config.toml``
+        (``cfg`` deep-merged on top) and its checkpoint ``ckpt``, restored in
+        place, with ``epoch``, ``step`` and ``best_score`` from the
+        checkpoint's meta and a fresh optimizer state."""
+        ckpt = ckpt or "latest"
+        rundir = (Path(basepath) if basepath is not None
+                  else Path.cwd() / "outputs" / "logs") / run_id
+        config = Config(tomllib.loads((rundir / "config.toml").read_text()))
+        if cfg is not None:
+            # {"training": {"epochs": 20}} tweaks one field of [training]
+            config = config.merge(cfg)
+        trainer = cls(run_id, config, newrun=False, device=device)
+        saved, meta = load_checkpoint(rundir / "checkpoints" / f"{ckpt}.ckpt")
+        trainer.restore(saved)
+        trainer.epoch = meta["epoch"]
+        trainer.step = meta["step"]
+        if "best_score" in meta:
+            trainer.best_score = meta["best_score"]
+        return trainer
 
     # ------------------------------------------------------------------
     # eval loop
@@ -468,8 +619,13 @@ class BaseTask:
         return out if len(out) > 1 else out[0]
 
     def evaluate(self, pipeline, split: str | None = None) -> dict:
-        """A split's scores, unprefixed: ``score`` of ``predict``'s series."""
-        return self.score(*self.predict(pipeline))
+        """A split's scores, unprefixed: ``score`` of ``predict``'s series;
+        a task with a figure (``figure``) draws ``plot_predictions`` of them
+        as ``<split>/<figure>``."""
+        results = self.predict(pipeline)
+        if split is not None and self.figure is not None:
+            self.log_figure(f"{split}/{self.figure}", self.plot_predictions, *results)
+        return self.score(*results)
 
     def _eval_split(self, pipeline, split: str) -> dict:
         scores = {f"{split}/{k}": v for k, v in self.evaluate(pipeline, split).items()}

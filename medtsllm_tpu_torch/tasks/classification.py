@@ -4,9 +4,7 @@
 them on the host in float64 and scores the argmax against the window
 labels (no stitching: a window is one sample): accuracy, F1, precision and
 recall, binary at two classes, else macro, and AUROC at two classes (NaN
-when the labels hold one class). The JAX task's confusion figure waits for
-the loggers (ROADMAP queue 1, "Checkpoints, the loggers and the torch
-CLIs")."""
+when the labels hold one class). Its figure is the confusion matrix."""
 
 from __future__ import annotations
 
@@ -24,6 +22,7 @@ def softmax(x: np.ndarray) -> np.ndarray:
 
 class ClassificationTask(BaseTask):
     task = "classification"
+    figure = "confusion"
 
     def predict(self, pipeline):
         out = self.run_eval(pipeline, extra_keys=("labels",))
@@ -42,3 +41,20 @@ class ClassificationTask(BaseTask):
             scores["auroc"] = (M.roc_auc(target, probs[:, 1])
                                if len(np.unique(target)) > 1 else float("nan"))
         return scores
+
+    def plot_predictions(self, probs, target):
+        """The confusion matrix (rows true, columns predicted)."""
+        import matplotlib.pyplot as plt
+        n_classes = probs.shape[1]
+        cm = np.zeros((n_classes, n_classes), dtype=np.int64)
+        np.add.at(cm, (target, probs.argmax(axis=1)), 1)
+        fig, ax = plt.subplots(figsize=(4.5, 4))
+        im = ax.imshow(cm, cmap="Blues")
+        for i in range(n_classes):
+            for j in range(n_classes):
+                ax.text(j, i, str(cm[i, j]), ha="center", va="center", fontsize=8)
+        ax.set_xlabel("predicted")
+        ax.set_ylabel("true")
+        fig.colorbar(im, ax=ax)
+        fig.tight_layout()
+        return fig

@@ -11,8 +11,8 @@ runs before the mask, as in JAX). The train step salts the masks by epoch
 and, as JAX's, builds its inputs with the base ``model_inputs``: the
 prompt head is embedded in the train step, not served from the cache.
 Scores: ``masked_mse`` and ``masked_mae`` over the held-out points and
-``full_mse`` over every point. The JAX task's figure waits for the loggers
-(ROADMAP queue 1, "Checkpoints, the loggers and the torch CLIs")."""
+``full_mse`` over every point. Its figure is a window's first feature,
+imputed against the target, the held-out points marked."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from .base import BaseTask
 
 class ImputationTask(BaseTask):
     task = "imputation"
+    figure = "imputation"
 
     def mask_for(self, indices, shape, salt: int = 0) -> np.ndarray:
         """[len(indices), *shape] float32 masks, one generator per window."""
@@ -62,3 +63,16 @@ class ImputationTask(BaseTask):
         return {"masked_mse": float((diff[hold] ** 2).sum() / n_hold),
                 "masked_mae": float(np.abs(diff[hold]).sum() / n_hold),
                 "full_mse": float((diff ** 2).mean())}
+
+    def plot_predictions(self, pred, target, mask, window: int = 0):
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(12, 4))
+        t, p = target[window, :, 0], pred[window, :, 0]
+        m = mask[window, :, 0].astype(bool)
+        xs = np.arange(len(t))
+        ax.plot(xs, t, label="target", lw=0.8)
+        ax.plot(xs, p, label="imputed", lw=0.8)
+        ax.scatter(xs[~m], t[~m], s=10, c="red", label="held out")
+        ax.legend(loc="upper right")
+        fig.tight_layout()
+        return fig

@@ -23,9 +23,9 @@ from .postproc import all_pairs_iou, points_to_segments
 class SegmentationTask(BaseTask):
     task = "segmentation"
 
-    def __init__(self, run_id, config, device="cuda"):
+    def __init__(self, run_id, config, newrun=True, device="cuda"):
         self.segmentation_mode = config.tasks.segmentation.mode
-        super().__init__(run_id, config, device)
+        super().__init__(run_id, config, newrun, device)
 
     def evaluate(self, pipeline, split: str | None = None) -> dict:
         return self.score(self.predict(pipeline))

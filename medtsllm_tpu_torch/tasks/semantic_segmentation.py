@@ -2,7 +2,8 @@
 ``medtsllm_tpu/tasks/semantic_segmentation.py``): a class per time step.
 The per-class score series are stitched (two classes: the class-1 sigmoid
 and its complement; more: the softmax per class) and scored on their
-argmax: accuracy, F1, precision, recall and IoU, binary or macro."""
+argmax: accuracy, F1, precision, recall and IoU, binary or macro. Its
+figure overlays the first 1000 points' labels and predictions."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from .base import BaseTask
 
 class SemanticSegmentationTask(BaseTask):
     task = "semantic_segmentation"
+    figure = "predictions"
 
     def predict(self, pipeline):
         dataset = pipeline.dataset
@@ -46,3 +48,16 @@ class SemanticSegmentationTask(BaseTask):
                 "precision": M.precision(target, pred, avg),
                 "recall": M.recall(target, pred, avg),
                 "iou": M.jaccard(target, pred, avg)}
+
+    def plot_predictions(self, pred_scores, targets, xrange=(0, 1000)):
+        import matplotlib.pyplot as plt
+        sl = slice(*xrange)
+        fig, ax = plt.subplots(figsize=(12, 4))
+        xs = np.arange(len(targets[sl]))
+        ax.plot(xs, targets[sl], label="target", lw=0.8)
+        pred = (pred_scores[sl, 1] if pred_scores.shape[1] == 2
+                else pred_scores.argmax(axis=1)[sl])
+        ax.plot(xs, pred, label="pred", lw=0.8)
+        ax.legend(loc="upper right")
+        fig.tight_layout()
+        return fig

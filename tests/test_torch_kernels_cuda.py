@@ -1306,3 +1306,58 @@ def test_train_capture_that_cannot_succeed_raises(cuda):
     assert torch.equal(first, torch.rand(8, generator=torch.Generator(cuda).manual_seed(5),
                                          device=cuda))
     torch.rand(8, device=cuda)
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_moves_loaded_group_after_unfreeze(cuda, tmp_path):
+    """Finetuning with ``frozen_epochs = 1`` on a 2-layer bidmc cut under
+    mixed (Adam): the train graph captured in the frozen epoch (the loaded
+    group's LR tensor at 0) leaves the loaded tensors bit-equal to the
+    pretraining checkpoint's; after ``set_epoch(1)`` writes that tensor in
+    place, a replay (no new capture) moves them, and equals the eager step
+    from the same state bit for bit."""
+    import itertools
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import BIDMC_TOML, task_config, train_state
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.runtime.checkpoint import load_checkpoint
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    raw = task_config(Config, BIDMC_TOML, n_points=512, llm="llama-1b", llm_layers=2,
+                      history=64, batch=4).to_dict()
+    raw.update(DEBUG=False, paths={"logdir": str(tmp_path)})
+    raw["training"]["epochs"] = 2
+    pre = get_trainer("pre", Config(raw), device=cuda)
+    pre.logger.save_state("latest", async_=False)
+    del pre
+    saved, _ = load_checkpoint(tmp_path / "pre" / "checkpoints" / "latest.ckpt")
+    raw["finetuning"] = {"enabled": True, "pretrained_id": "pre", "pretrained_ckpt": "latest",
+                         "frozen_epochs": 1}
+    tr = get_trainer("ft", Config(raw), device=cuda)
+    loaded = set(tr.loaded_params)
+    params = dict(tr.model.named_parameters())
+    assert loaded and not any(n.startswith("output_projection") for n in loaded)
+    pipe = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
+    batches = [tr.train_model_inputs(b) for b in itertools.islice(pipe, 3)]
+    tr.optimizer.set_epoch(0)
+    assert tr.optimizer.loaded_lr.item() == 0.0
+    for a in batches[:2]:  # the warm-up and the capture, then a replay
+        tr.train_step(a, a["valid"])
+    assert len(tr.train_graphs) == 1
+    assert all(torch.equal(params[n].detach().cpu(), saved[n]) for n in loaded)
+    tr.optimizer.set_epoch(1)
+    assert tr.optimizer.loaded_lr.item() == pytest.approx(raw["training"]["learning_rate"])
+    snap = [t.clone() for t in train_state(tr.optimizer)]
+    gen = tr.dropout_generator.get_state()
+    tr.train_step(batches[2], batches[2]["valid"])
+    graphed = [t.clone() for t in train_state(tr.optimizer)]
+    assert len(tr.train_graphs) == 1
+    moved = [n for n in loaded if not torch.equal(params[n].detach().cpu(), saved[n])]
+    assert len(moved) >= len(loaded) - 1  # the key bias's gradient is ~0
+    for t, s in zip(train_state(tr.optimizer), snap):
+        t.copy_(s)
+    tr.dropout_generator.set_state(gen)
+    tr.train_step_eager(batches[2], batches[2]["valid"])
+    assert all(torch.equal(g, e) for g, e in zip(graphed, train_state(tr.optimizer)))
