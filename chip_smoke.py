@@ -27,6 +27,33 @@ nvidia-smi. Phases:
      memory; finite scores;
   5. a small 2-layer GQA slice (dense f32 projections) on the card against
      the same slice on the CPU (plain versions) with the same weights;
+  6m. (the first of the 6 phases) configs/ablation/ecgmit-seg-examples.toml
+     as shipped (in-context examples; the ECG family's stand-in and its
+     example pool, mixed, the dense Llama-2-7B at full depth, batch 16,
+     ``training.epochs`` cut to 1): the example length and the head / prompt / post buckets, K2 over
+     [prompt | example | post | patches] and K3 at the window's and the
+     example's patch counts (listed as ``rope_attention[ecgmit-seg-
+     examples]``, ``reprogramming_attention[ecgmit-seg-examples]`` and
+     ``[ecgmit-seg-examples-example]``), ``train()`` (captured steps, then
+     ``val()``: K3 twice a val batch), ``train_graphed``, ``serve()`` (K3
+     twice a batch), then the cached head against the head embedded in the
+     step (2^-5 x max: 6d's bound for two orders of bf16 sums);
+  6n. the mode sweep at the 7B's width cut to 4 layers on bidmc.toml's
+     settings (3 features, 4 test batches): ``independent``,
+     ``interleave``, ``add``, ``weighted-average``, ``merge-end``, the
+     ``truncate`` and ``average`` downsamples and ``llm.enabled = false``,
+     each through ``build_task`` (its build's peak; K2 and K3 held at its
+     shapes: B * C rows for the per-channel modes, a P * C-token region
+     for ``interleave``), ``serve()`` (replays bit-equal) and
+     ``train_graphed`` over 2 steps; the disabled backbone's build peak
+     against a 4-layer one's (no decoder block built); then
+     ``independent`` and ``merge-end`` on ecgmit-seg.toml's settings (24
+     clips through the 16-row bank: K2 with B * C per-row prefixes) and
+     ``independent`` on mamba-backbone.toml's (the gated scan over B * C
+     rows from the one-row cached state). Listed: ``rope_attention[mode-
+     independent]`` / ``[mode-interleave]`` / ``[mode-independent-bank]``,
+     ``reprogramming_attention[mode-independent]`` and
+     ``selective_scan_gated_h0[mode-independent-mamba]``;
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
      configs/datasets/*.toml as they are but for synthetic data; a dense
      Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
@@ -258,6 +285,7 @@ ECG_ANOM_TOML = ROOT / "configs" / "datasets" / "ecgmit-anom.toml"
 VENTILATOR_TOML = ROOT / "configs" / "datasets" / "ventilator.toml"
 ECG_SEG_TOML = ROOT / "configs" / "datasets" / "ecgmit-seg.toml"
 LUDB_TOML = ROOT / "configs" / "datasets" / "ludb.toml"
+ECG_EXAMPLES_TOML = ROOT / "configs" / "ablation" / "ecgmit-seg-examples.toml"
 # the task blocks of phases 6g-6i (each file's model is a baseline the port
 # lacks; bidmc.toml gives the MedTsLLM settings)
 BIDMC_FORECAST_TOML = ROOT / "configs" / "baseline-models" / "bidmc-gpt4ts.toml"
@@ -282,6 +310,9 @@ SEG_CLIPS, SEG_CLIP_POINTS = 48, 11 * 256
 # ludb.toml's (phase 6f): LUDB's 200 records, 3 test windows of 512 a clip
 # (600 windows, 38 batches)
 LUDB_CLIPS, LUDB_CLIP_POINTS = 200, 3 * 512
+# the mode sweep (phase 6n) on bidmc.toml's settings: 64 test windows of 256,
+# 4 batches of 16
+SWEEP_POINTS = 64 * 256
 # each task's score keys (without the split's prefix)
 TASK_KEYS = {
     "segmentation": {"point_mae", "point_rmse", "segment_miou", "pred_label_ratio",
@@ -347,12 +378,13 @@ def bench_config(Config, llm="meta-llama/Llama-2-7b-hf", batch=8, history=256,
 
 
 def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
-                 llm_layers=-1, prefix_cache=True, epochs=None, dropout=None):
+                 llm_layers=-1, prefix_cache=True, epochs=None, dropout=None, model=None):
     """configs/ablation/mamba-backbone.toml (mamba-130m, reconstruction,
     concat covariates, history 256, patch 16 / 8, bf16, dense projections,
     batch 48, adam at 1e-4, mse, dropout 0.1) on the synthetic 3-feature
     data: the ventilator files are not in the repository. The default
-    n_points gives 192 test windows, four batches of 48."""
+    n_points gives 192 test windows, four batches of 48. ``model`` as in
+    ``task_config``."""
     raw = tomllib.loads(MAMBA_TOML.read_text())
     raw["data"]["dataset"] = "synthetic"
     raw["datasets"] = {"synthetic": {"n_points": n_points, "n_features": 3}}
@@ -369,6 +401,7 @@ def mamba_config(Config, n_points=49152, batch=None, history=None, dtype=None,
         raw["setup"]["dtype"] = dtype
     llm = raw["models"]["timellm"]["llm"]
     llm["llm_layers"], llm["prefix_cache"] = llm_layers, prefix_cache
+    set_model(raw["models"]["timellm"], model)
     return quiet(Config, raw)
 
 
@@ -405,7 +438,8 @@ def long_config(Config, history=16384, d_ff=64):
 
 
 def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
-                history=None, batch=None, n_clips=None, n_features=3, n_classes=None):
+                history=None, batch=None, n_clips=None, n_features=3, n_classes=None,
+                model=None):
     """A shipped dataset config (configs/datasets/*.toml) as it is, its
     model, prompting and task settings, ``setup.dtype = "mixed"`` and the
     Llama-2-7B shapes included, on the synthetic data (the recordings are
@@ -414,7 +448,9 @@ def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
     when given (each clip with its description: a clip dataset), one
     epoch; ``llm``, ``llm_layers``,
     ``history`` (step = history / 2) and ``batch`` cut the card-vs-CPU
-    slices."""
+    slices; ``model`` sets entries of ``[models.timellm]`` (a mode: its
+    ``covariate_mode``, ``embedding_downsample_mode`` or ``llm``'s
+    ``enabled``)."""
     from medtsllm_tpu_torch.config import load_config
     raw = load_config(toml).to_dict()
     raw["data"]["dataset"] = "synthetic"
@@ -434,7 +470,18 @@ def task_config(Config, toml, n_points, epochs=1, llm=None, llm_layers=None,
         raw["data"]["step"] = history // 2
     if batch is not None:
         raw["training"]["batch_size"] = batch
+    set_model(mc, model)
     return quiet(Config, raw)
+
+
+def set_model(mc: dict, entries: dict | None) -> None:
+    """Set ``entries`` in a ``[models.timellm]`` table, a nested dict merged
+    (``{"llm": {"enabled": False}}`` keeps the other ``llm`` entries)."""
+    for key, value in (entries or {}).items():
+        if isinstance(value, dict):
+            set_model(mc[key], value)
+        else:
+            mc[key] = value
 
 
 def task_block_config(Config, task_toml, n_points, n_features, epochs=1, llm=None,
@@ -521,12 +568,32 @@ def same_scores(a: dict, b: dict) -> bool:
 def window_shapes(tr):
     """(P, L): the prompt head (its bucket, for per-clip head rows; 0 where
     no head is cached, as in the pretraining mixture) and the computed
-    region (prompt suffix + patches) of a built trainer's first test batch
-    (host only)."""
+    region (prompt suffix, the in-context example's patches and the prompt
+    after it, then the window's patches, C a patch under ``interleave``)
+    of a built trainer's first test batch (host only)."""
     first = tr.model_inputs(next(iter(tr.test_pipeline)))
     head = first.get("prefix_ids")
-    return (0 if head is None else head.shape[-1],
-            first["prompt_ids"].shape[1] + tr.model.n_patches)
+    L = tr.model.n_patches + sum(first[k].shape[1] for k in ("prompt_ids", "post_prompt_ids")
+                                 if k in first)
+    if "example_ts" in first:
+        L += example_patches(tr)
+    return (0 if head is None else head.shape[-1]), L
+
+
+def example_patches(tr) -> int:
+    """The tokens of the in-context example's encoding: its patches at
+    ``example_len`` (C a patch under ``interleave``)."""
+    m = tr.model
+    n = int((tr.preprocessor.example_len - m.patch_len) / m.stride + 2)
+    return n * m.n_features if m.covariate_mode == "interleave" else n
+
+
+def k3_rows(tr, B) -> int:
+    """The query rows K3 runs on for a batch of B windows: B under
+    ``concat`` and ``univariate``, a row per channel (B * C) in the other
+    covariate modes."""
+    m = tr.model
+    return B if m.covariate_mode in ("concat", "univariate") else B * m.n_features
 
 
 def row_share(out, ref, rel=2.0 ** -6):
@@ -1702,10 +1769,14 @@ def main() -> None:
               f"{tol:.3e})")
         tr._prefix_kv_cache.clear()
 
-    def set_launches(counts, names):
+    def set_launches(counts, names, share=1):
+        """Each listed row of ``names`` gets the launches of its counter in
+        ``counts``, over ``share`` (a counter whose launches ``share`` rows
+        of one run split evenly: K3 at the window's and at the example's
+        patches)."""
         for entry in kernels:
             if entry["name"] in names:
-                entry["launches"] = counts[names[entry["name"]]]
+                entry["launches"] = counts[names[entry["name"]]] // share
 
     def drive(fn):
         """Run ``fn`` with every launch count set to 0 just before and read
@@ -1890,10 +1961,17 @@ def main() -> None:
     # per-row prefix, PB = B); K3 at f32 in eval (the train step runs the
     # einsum graph at bf16). Their K2 / K3 launches and shapes are printed
     # here; the kernels line keeps the main paths' and ecgmit-seg's per-row K2
-    def build_task(label, cfg, listed=False):
+    build_peak = {}  # label -> the peak device bytes of its trainer's build
+
+    def build_task(label, cfg, listed=False, k3_listed=False):
         """Build a task's trainer on the card: seconds, peak memory, the
         storage policy; K2 and K3 held at the shapes its eval step gives
-        them (printed; K2's row ``listed`` with ``listed``)."""
+        them (printed; K2's row ``listed`` with ``listed``, K3's with
+        ``k3_listed``): K2 on a row per window, or per channel under
+        ``independent`` / ``merge-end`` (their prefix rows repeated per
+        channel on a clip dataset), none with the backbone disabled; K3 on
+        ``k3_rows``, and a second time at the in-context example's patches
+        (``[<label>-example]``)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1906,6 +1984,7 @@ def main() -> None:
         check(not wrong, f"[{label}] parameters off the mixed policy: {wrong[:5]}")
         n_all = sum(p.numel() for p in tr.model.parameters())
         n_train = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+        build_peak[label] = torch.cuda.max_memory_allocated()
         print(f"[{label}] model built in {time.perf_counter() - t0:.1f} s: {n_all:,} "
               f"parameters, {n_train:,} trainable at f32, the backbone at bf16; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
@@ -1915,17 +1994,31 @@ def main() -> None:
         for batch in tr.test_pipeline:
             tr.model_inputs(batch)
         Pt, Lt = window_shapes(tr)
-        Bt, tl, tm = cfg.training.batch_size, tr.model.llm_cfg, cfg.models.timellm
-        head = tr.model_inputs(next(iter(tr.test_pipeline))).get("prefix_ids")
+        Bt, tl, tm, m = cfg.training.batch_size, tr.model.llm_cfg, cfg.models.timellm, tr.model
+        first = tr.model_inputs(next(iter(tr.test_pipeline)))
+        head = first.get("prefix_ids")
         per_clip = head is not None and head.ndim == 2
+        rows = Bt * m.n_features if m.covariate_mode in ("independent", "merge-end") else Bt
         print(f"[shapes] {label}: task {cfg.task}, P={Pt} L={Lt} B={Bt} "
-              f"patches={tr.model.n_patches} layers={tl.n_layers} d={tl.d_model}"
+              f"patches={m.n_patches} layers={tl.n_layers} d={tl.d_model}"
               f"{', clips ' + str(len(np.unique(tr.test_dataset.clip_ids))) if tr.test_dataset.clip_dataset else ''}"
-              f"{', per-clip head rows' if per_clip else ''}")
-        check_k2(f"rope_attention[{label}]", Bt, Lt, tl.n_heads, tl.kv_heads, tl.head_dim, Pt,
-                 tl.rope_theta, listed=listed, PB=Bt if per_clip else 1)
-        check_k3(f"reprogramming_attention[{label}]", Bt, tr.model.n_patches, tm.n_heads,
-                 tm.d_ff, tm.num_tokens, listed=False)
+              f"{', per-clip head rows' if per_clip else ''}"
+              f"; covariate_mode {m.covariate_mode}, downsample {m.embedding_downsample_mode}, "
+              f"llm.enabled {m.llm_enabled}; K2 rows {rows if m.llm_enabled else 0}, K3 rows "
+              f"{k3_rows(tr, Bt)}"
+              + (f"; example_len {tr.preprocessor.example_len} ({example_patches(tr)} patches), "
+                 f"buckets prompt {first['prompt_ids'].shape[1]} / post "
+                 f"{first['post_prompt_ids'].shape[1]} / head {Pt}"
+                 if "example_ts" in first else ""))
+        if m.llm_enabled:
+            check_k2(f"rope_attention[{label}]", rows, Lt, tl.n_heads, tl.kv_heads, tl.head_dim,
+                     Pt, tl.rope_theta, listed=listed, PB=rows if per_clip else 1)
+        check_k3(f"reprogramming_attention[{label}]", k3_rows(tr, Bt), m.base_n_patches,
+                 tm.n_heads, tm.d_ff, tm.num_tokens, listed=k3_listed)
+        if "example_ts" in first:
+            check_k3(f"reprogramming_attention[{label}-example]", k3_rows(tr, Bt),
+                     int((tr.preprocessor.example_len - m.patch_len) / m.stride + 2),
+                     tm.n_heads, tm.d_ff, tm.num_tokens, listed=k3_listed)
         return tr
 
     def check_scores(label, tr, scores, split):
@@ -1992,6 +2085,177 @@ def main() -> None:
                                       "w8a8_gemm": 0})
         check_scores(label, tr, tr.val(), "val")
         return tr
+
+    # 6m. configs/ablation/ecgmit-seg-examples.toml as shipped: the ECG
+    # family's stand-in with its in-context example pool (the data between
+    # consecutive boundaries), mixed, the dense Llama-2-7B at full depth and
+    # width, batch 16; the one cut, training.epochs 10 -> 1 (93 train
+    # windows: 6 steps). The head is [bos + dataset] (1-D, cached); each
+    # window's prompt is [prompt_ids (clip, "Example segment:") | the
+    # example's encoding | post_prompt_ids (task, "Time series:")], then its
+    # patches, so K3 runs twice a step (the window's 32 patches, the
+    # example's). train() (captured steps, then val()), train_graphed's
+    # replays against eager steps, serve() (test(): 46 windows, 3 batches),
+    # then the cached head against the head embedded in the step
+    t_phase = time.perf_counter()
+    label = "ecgmit-seg-examples"
+    tr = build_task(label, shipped_config(Config, ECG_EXAMPLES_TOML), listed=True,
+                    k3_listed=True)
+    first = tr.model_inputs(next(iter(tr.test_pipeline)))
+    check(type(tr.test_dataset).__name__ == "ECGMITFamily" and tr.test_dataset.examples_enabled
+          and "example_ts" in first and first["prefix_ids"].ndim == 1,
+          f"[{label}] the batch carries no example or the head is not 1-D: {sorted(first)}")
+    n_steps, n_val, n_l = (len(tr.train_pipeline), len(tr.val_pipeline),
+                           tr.model.llm_cfg.n_layers)
+    print(f"[{label}] the ECG stand-in: {len(tr.train_dataset)} / {len(tr.val_dataset)} / "
+          f"{len(tr.test_dataset)} windows a split, a pool of {tr.train_dataset.n_examples} "
+          f"examples; the example length {tr.preprocessor.example_len} (the pool's median "
+          f"within [patch_len, history_len]); "
+          f"example_ts {first['example_ts'].shape}, buckets: head {first['prefix_ids'].shape[0]}"
+          f", prompt {first['prompt_ids'].shape[1]}, post {first['post_prompt_ids'].shape[1]};"
+          f" K3 at {tr.model.base_n_patches} and {example_patches(tr)} patches; cuts: "
+          f"training.epochs 10 -> 1 ({n_steps} train steps)")
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    print(f"[{label}-train] train() {n_steps} graphed steps of 16 and val() over "
+          f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; val "
+          f"{tr.val_scores}; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; train captures "
+          f"{tr.train_graphs.capture_ms} ms")
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"[{label}] losses {tr.losses}")
+    check_scores(label, tr, tr.val_scores[0], "val")
+    # the train cache (bf16) and the eval cache (f32): two prefills; K3 twice
+    # a val batch (training runs the einsum graph)
+    check(counts["rope_attention"] == n_l * (n_steps + n_val + 2)
+          and counts["reprogramming_attention"] == 2 * n_val and counts["w8a8_gemm"] == 0,
+          f"[{label}] train(): K2 once per layer per step, per val batch and in two "
+          f"prefills, K3 twice per val batch: {counts}")
+    train_graphed(tr, label, 4, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                 "w8a8_gemm": 0})
+    tr.step_graphs.clear()
+    counts, _, scores, _ = serve(tr, label)
+    check_scores(label, tr, scores, "test")
+    n_b = len(tr.test_pipeline)
+    check(counts["rope_attention"] == n_l * (n_b + 1)
+          and counts["reprogramming_attention"] == 2 * n_b,
+          f"[{label}] test(): K2 32 a batch and in the head's prefill, K3 twice: {counts}")
+    set_launches(counts, {f"rope_attention[{label}]": "rope_attention"})
+    set_launches(counts, {f"reprogramming_attention[{label}]": "reprogramming_attention",
+                          f"reprogramming_attention[{label}-example]":
+                          "reprogramming_attention"}, share=2)
+    # the two paths compute the head's activations at other row counts (the
+    # head alone in the batch-1 prefill, 16 windows of [head | region] in
+    # the step), so cuBLAS sums the bf16 GEMMs in other orders and 32
+    # layers carry that on: 6d's bound for two orders of bf16 sums, 2^-5 x
+    # max (CPU f32: 1e-5, tests/test_torch_examples.py)
+    batch = next(iter(tr.test_pipeline))
+    tr._prefix_kv_cache.clear()
+    cached = tr.eval_step_eager(tr.eval_prepare(batch)[1]).float()
+    embedded = tr.eval_step_eager(tr._to_device(tr.model_inputs(batch))).float()
+    err = (cached - embedded).abs().max().item()
+    tol = 2.0 ** -5 * embedded.abs().max().item()
+    check(err <= tol, f"[{label}] cached vs head embedded: {err} > {tol}")
+    print(f"[{label}] cached head vs head embedded in the step: max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}, 2^-5 x max; {2 * err / tol:.4f} of 2^-6 x max); K2 "
+          f"{counts['rope_attention']} launches ({n_l} layers x ({n_b} batches + 1 prefill)), "
+          f"K3 {counts['reprogramming_attention']} (2 a batch)")
+    del tr, cached, embedded
+    torch.cuda.empty_cache()
+    print(f"[{label}] phase 6m: {time.perf_counter() - t_phase:.1f} s wall")
+
+    # 6n. the mode sweep at Llama-2-7B's width (d 4096, 32 x 128 heads) cut
+    # to 4 layers (as 6c), bidmc.toml's settings (mixed, batch 16, history
+    # 256, 32 patches, d_ff 64) on SWEEP_POINTS points a split of 3 features
+    # (64 test windows, 4 batches): each of the other covariate modes, the
+    # truncate and average downsamples and llm.enabled = false. Each:
+    # build_task (its peak, K2 / K3 held at its shapes), serve() (every
+    # replay bit-equal to its eager step, finite scores), train_graphed's
+    # captured steps (2 timed, then 4 replays against 4 eager steps). Then
+    # independent and merge-end on ecgmit-seg.toml's settings (24 clips of
+    # 512 points through its 16-row bank: the bank's rows repeated per
+    # channel, K2 with B * C per-row prefixes) and independent on
+    # mamba-backbone.toml's (the gated scan over B * C rows from the
+    # one-row cached state)
+    t_phase = time.perf_counter()
+
+    def mode_run(label, cfg, listed=False, k3_listed=False):
+        """One run of the sweep: build_task, serve() and its launches (K2
+        once per layer per batch and per prefill, none with the backbone
+        disabled; K3 once a batch), train_graphed over 2 steps. Returns
+        test()'s launches."""
+        tr = build_task(label, cfg, listed=listed, k3_listed=k3_listed)
+        m = tr.model
+        check(m.n_features > 1, f"[{label}] one feature: the modes need C > 1")
+        check(m.llm_enabled or not any(".blocks." in n for n, _ in m.named_parameters()),
+              f"[{label}] the disabled backbone built decoder blocks")
+        counts, _, scores, books = serve(tr, label)
+        check_scores(label, tr, scores, "test")
+        n_b, n_l = len(tr.test_pipeline), (m.llm_cfg.n_layers if m.llm_enabled else 0)
+        prefills = books[0]["misses"] if books[0] else int(bool(tr._prefix_kv_store))
+        check(counts["rope_attention"] == n_l * (n_b + prefills)
+              and counts["reprogramming_attention"] == n_b,
+              f"[{label}] test() launches {counts}")
+        train_graphed(tr, label, 2, {"rope_attention": n_l, "reprogramming_attention": 0,
+                                     "w8a8_gemm": 0})
+        del tr
+        torch.cuda.empty_cache()
+        return counts
+
+    sweep = {"independent": {"covariate_mode": "independent"},
+             "interleave": {"covariate_mode": "interleave"},
+             "add": {"covariate_mode": "add"},
+             "weighted-average": {"covariate_mode": "weighted-average"},
+             "merge-end": {"covariate_mode": "merge-end"},
+             "truncate": {"embedding_downsample_mode": "truncate"},
+             "average": {"embedding_downsample_mode": "average"},
+             "llm-disabled": {"llm": {"enabled": False}}}
+    for mode, entries in sweep.items():
+        label = f"mode-{mode}"
+        counts = mode_run(label, task_config(Config, BIDMC_TOML, n_points=SWEEP_POINTS,
+                                             llm_layers=4, model=entries),
+                          listed=mode in ("independent", "interleave"),
+                          k3_listed=mode == "independent")
+        set_launches(counts, {f"rope_attention[{label}]": "rope_attention",
+                              f"reprogramming_attention[{label}]": "reprogramming_attention"})
+    # the disabled backbone: its word embeddings only, no decoder block (4
+    # blocks of the 7B hold 1.62 GB at bf16, drawn at f32 first; the 32 of
+    # the shipped file 12.9 GB at bf16)
+    off, on = build_peak["mode-llm-disabled"], build_peak["mode-truncate"]
+    check(on - off > 1.62e9,
+          f"the disabled backbone's build peaks at {off / 2**30:.2f} GiB, the 4-layer one at "
+          f"{on / 2**30:.2f} GiB")
+    print(f"[mode-llm-disabled] build peak {off / 2**30:.2f} GiB against the 4-layer "
+          f"backbone's {on / 2**30:.2f} GiB (truncate): no decoder block built")
+    for mode in ("independent", "merge-end"):
+        label = f"mode-{mode}-bank"
+        counts = mode_run(label, task_config(Config, ECG_SEG_TOML, n_points=24 * 512,
+                                             n_clips=24, llm_layers=4,
+                                             model={"covariate_mode": mode}),
+                          listed=mode == "independent")
+        set_launches(counts, {f"rope_attention[{label}]": "rope_attention",
+                              f"reprogramming_attention[{label}]": "reprogramming_attention"})
+    label = "mode-independent-mamba"
+    mtr = get_trainer(label, mamba_config(Config, model={"covariate_mode": "independent"}),
+                      device=dev)
+    n_l, C = mtr.model.llm_cfg.n_layers, mtr.model.n_features
+    check(C > 1, f"[{label}] one feature")
+    Pmi, Lmi = window_shapes(mtr)
+    print(f"[shapes] {label}: P={Pmi} L={Lmi} B={Bm} x C {C} = {Bm * C} rows, h0 one row "
+          f"(the cached state broadcast), layers {n_l}")
+    check_gated(f"selective_scan_gated_h0[{label}]",
+                "medtsllm_tpu/ops/pallas/selective_scan.py:272", Bm * C, Lmi, 1, False)
+    counts, _, scores, _ = serve(mtr, label)
+    check(scores_ok(mtr, scores, "test"), f"[{label}] non-finite {scores}")
+    n_b = len(mtr.test_pipeline)
+    check(counts["selective_scan_h0"] == n_l * n_b and counts["selective_scan_final"] == n_l
+          and counts["reprogramming_attention"] == n_b,
+          f"[{label}] test(): the gated scan from h0 once per layer per batch, the prefill "
+          f"once per layer: {counts}")
+    set_launches(counts, {f"selective_scan_gated_h0[{label}]": "selective_scan_h0"})
+    train_graphed(mtr, label, 2, {"selective_scan_bounds": n_l, "selective_scan_bwd": n_l})
+    del mtr
+    torch.cuda.empty_cache()
+    print(f"[mode-sweep] phase 6n: {time.perf_counter() - t_phase:.1f} s wall")
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train

@@ -28,20 +28,42 @@ reprogramming attention weights, with masks from the generator ``forward``
 is given. The reprogramming attention then runs the plain einsum/softmax
 graph, as JAX does (K3 has no backward).
 
-Scope: covariate modes ``concat`` and ``univariate`` (one feature), an
-enabled llama (dense or mixtral-style MoE, served on one device) or dense
-Mamba backbone, no in-context examples; anything else raises
-NotImplementedError naming its ROADMAP item. The tasks are those of
-``tasks.task_lookup``, all eight of the JAX package.
+The covariate modes (``covariate_mode``, the seven of the JAX model):
+``concat`` folds the C features into each patch's query (C * d_model
+wide); every other mode runs K3 on B * C rows of d_model-wide queries,
+then ``add`` averages the C rows, ``weighted-average`` mixes them with
+``feature_weighting`` (a Dense over C), ``interleave`` lays them out as C
+tokens a patch (the region is P * C tokens long), and ``independent`` /
+``merge-end`` send each channel through the backbone as a row of its own
+(the prompt and a per-row prefix repeated C times, a one-row prefix
+broadcast), the head then averaging the C rows or mixing them with
+``feature_weighting``. The backbone's output goes from d_llm to d_ff by
+``embedding_downsample_mode``: a Dense (``linear``), its first d_ff columns
+(``truncate``) or the mean of d_llm / d_ff groups (``average``). With
+``llm.enabled = false`` a small MLP (``llm_replacement``: Dense, exact
+GELU, Dense, LayerNorm) takes the place of the backbone and the
+downsample; the backbone then holds its word embeddings only (the
+reprogramming basis), as JAX's lazily built tree does, and no prompt is
+built. In-context examples (``prompting.examples``): the example's text
+ends the prompt's first part, and the example series, cropped or tiled to
+one length fixed from the dataset's pool, goes through ``encode_ts`` (K3 a
+second time) between that part and the rest of the prompt.
+
+Scope: an llama (dense or mixtral-style MoE, served on one device) or
+dense Mamba backbone, or none; anything else raises NotImplementedError
+naming its ROADMAP item. The tasks are those of ``tasks.task_lookup``, all
+eight of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.embed import PatchEmbedding, dropout
@@ -80,6 +102,9 @@ DENORM_TASKS = ("forecasting", "reconstruction", "anomaly_detection", "pretraini
 # the covariate modes the JAX model knows (medtsllm_tpu/models/medtsllm.py:242)
 COVARIATE_MODES = ("univariate", "independent", "concat", "interleave", "add",
                    "weighted-average", "merge-end")
+# the modes that send each channel through the backbone as a row of its own
+# (medtsllm_tpu/models/medtsllm.py:618-626)
+PER_CHANNEL_MODES = ("independent", "merge-end")
 
 # models.<m>.llm.quant_type under load_in_4bit -> the 4-bit codebook
 # (medtsllm_tpu/models/medtsllm.py:259-267)
@@ -160,12 +185,59 @@ class ReprogrammingLayer(nn.Module):
         return self.out_projection(out.reshape(B, L, H * E))
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (epsilon 1e-6, parameters ``scale`` and
+    ``bias``): the statistics in f32 as E[x^2] - E[x]^2 clipped at 0, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at the
+    promoted type of the input and the parameters."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
+class LLMReplacement(nn.Module):
+    """The ablation's MLP in place of the backbone and the downsample
+    (``llm_replacement``, flax ``nn.Sequential``: ``layers_0`` Dense(d_llm),
+    ``layers_1`` the exact-erf GELU, ``layers_2`` Dense(d_ff), ``layers_3``
+    LayerNorm)."""
+
+    def __init__(self, d_llm: int, d_ff: int):
+        super().__init__()
+        self.layers_0 = Linear(d_llm, d_llm)
+        self.layers_2 = Linear(d_llm, d_ff)
+        self.layers_3 = LayerNorm(d_ff)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers_3(self.layers_2(F.gelu(self.layers_0(x))))
+
+
+class WordEmbeddings(nn.Module):
+    """The backbone under ``llm.enabled = false``: its word embeddings only
+    (``wte``, the reprogramming layer's basis), as JAX's tree holds them;
+    no decoder block is built."""
+
+    def __init__(self, vocab_size: int, d_model: int):
+        super().__init__()
+        self.wte = nn.Parameter(torch.zeros(vocab_size, d_model), requires_grad=False)
+
+
 class MedTsLLM(nn.Module):
     def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
                  num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
                  dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None,
-                 covariate_mode="concat"):
+                 covariate_mode="concat", embedding_downsample_mode="linear",
+                 llm_enabled=True):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
@@ -174,23 +246,44 @@ class MedTsLLM(nn.Module):
         self.prefix_cache = prefix_cache
         self.task, self.n_classes, self.seg_mode = task, n_classes, seg_mode
         self.covariate_mode = covariate_mode
+        self.embedding_downsample_mode = embedding_downsample_mode
+        self.llm_enabled = llm_enabled
         # medtsllm_tpu/models/medtsllm.py:161-181
         self.n_outputs_per_step = {
             "segmentation": 1,
             "semantic_segmentation": n_classes if n_classes > 2 else 1,
             "classification": n_classes,
         }.get(task, n_features)
-        backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
-        self.llm = backbone(
-            llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
+        if llm_enabled:
+            backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
+            self.llm = backbone(
+                llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
+        else:
+            self.llm = WordEmbeddings(llm_cfg.vocab_size, llm_cfg.d_model)
         self.llm.requires_grad_(False)  # the frozen backbone (param_labels)
         self.patch_embedding = PatchEmbedding(d_model, patch_len, stride, dropout)
         self.mapping_layer = Linear(llm_cfg.vocab_size, num_tokens)
         self.reprogramming_layer = ReprogrammingLayer(
-            n_features * d_model, n_heads, d_ff, self.d_llm, dropout)
+            n_features * d_model if covariate_mode == "concat" else d_model, n_heads, d_ff,
+            self.d_llm, dropout)
         self.output_projection = Linear(d_ff * self.n_patches,
                                         self.n_outputs_per_step * self.head_steps)
-        self.embedding_downsample_layer = Linear(self.d_llm, d_ff)
+        # the layers JAX's tree holds (medtsllm.py:494-509): the downsample's
+        # Dense only where the backbone's output is downsampled by it
+        if embedding_downsample_mode == "average" and self.d_llm % d_ff:
+            raise ValueError(f"embedding_downsample_mode \"average\" needs d_ff {d_ff} to "
+                             f"divide d_llm {self.d_llm}")
+        if llm_enabled and embedding_downsample_mode not in ("linear", "truncate", "average"):
+            raise ValueError(f"Unknown embedding downsample mode {embedding_downsample_mode}")
+        if llm_enabled and embedding_downsample_mode == "linear":
+            self.embedding_downsample_layer = Linear(self.d_llm, d_ff)
+        if covariate_mode == "merge-end":
+            self.feature_weighting = Linear(self.n_outputs_per_step * n_features,
+                                            self.n_outputs_per_step)
+        elif covariate_mode == "weighted-average":
+            self.feature_weighting = Linear(n_features, 1)
+        if not llm_enabled:
+            self.llm_replacement = LLMReplacement(self.d_llm, d_ff)
 
     @classmethod
     def model_config(cls, config):
@@ -214,16 +307,7 @@ class MedTsLLM(nn.Module):
         if covariate_mode == "univariate" and dataset.n_features != 1:
             raise ValueError(f"covariate_mode \"univariate\" needs one feature, not "
                              f"{dataset.n_features}")
-        if covariate_mode not in ("concat", "univariate"):
-            unported.append(f"covariate_mode {covariate_mode!r} "
-                            "(ROADMAP queue 1, \"MedTsLLM's remaining modes\")")
-        if mc.embedding_downsample_mode != "linear":
-            unported.append(f"embedding_downsample_mode "
-                            f"{mc.embedding_downsample_mode!r} (ROADMAP queue 1, "
-                            "\"MedTsLLM's remaining modes\")")
-        if not mc.llm.enabled:
-            unported.append("llm.enabled = false (ROADMAP queue 1, \"MedTsLLM's "
-                            "remaining modes\")")
+        enabled = bool(mc.llm.enabled)
         in4, in8 = mc.llm.get("load_in_4bit", False), mc.llm.get("load_in_8bit", False)
         codebook = "absmax"
         if in4:
@@ -240,10 +324,11 @@ class MedTsLLM(nn.Module):
         if mc.llm.get("int8_backward", False):
             unported.append("llm.int8_backward, the int8 dx GEMM of the STE backward "
                             "(ROADMAP queue 1, \"Training on the served backbones\")")
-        if mc.llm.get("fuse_projections", False):
+        # (JAX reads these two only for an enabled backbone)
+        if mc.llm.get("fuse_projections", False) and enabled:
             unported.append("llm.fuse_projections (ROADMAP queue 1, \"Llama decoder, open "
                             "parts\")")
-        if "lora" in mc and mc.lora.enabled:
+        if "lora" in mc and mc.lora.enabled and enabled:
             unported.append("LoRA (ROADMAP queue 1, \"Other backbone families and LoRA\")")
         for key in ("pipeline_parallel", "tensor_parallel", "expert_parallel"):
             if int(config.setup.get(key, 1) or 1) > 1:
@@ -272,12 +357,19 @@ class MedTsLLM(nn.Module):
             dropout=float(config.training.get("dropout", 0.0) or 0.0),
             task=task, n_classes=(dataset.n_classes if task in (
                 "classification", "semantic_segmentation") else 0),
-            seg_mode=seg_mode, covariate_mode=covariate_mode)
+            seg_mode=seg_mode, covariate_mode=covariate_mode,
+            embedding_downsample_mode=mc.embedding_downsample_mode, llm_enabled=enabled)
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property
-    def n_patches(self) -> int:
+    def base_n_patches(self) -> int:
         return int((self.seq_len - self.patch_len) / self.stride + 2)
+
+    @property
+    def n_patches(self) -> int:
+        """The region's tokens: the patches, C a patch under ``interleave``."""
+        n = self.base_n_patches
+        return n * self.n_features if self.covariate_mode == "interleave" else n
 
     @property
     def d_llm(self) -> int:
@@ -290,17 +382,26 @@ class MedTsLLM(nn.Module):
         return 1 if self.task == "classification" else self.pred_len
 
     @property
+    def supports_prefix_cache(self) -> bool:
+        """The prompt head is prefilled and served from a cache: an enabled
+        backbone with ``llm.prefix_cache``."""
+        return self.llm_enabled and self.prefix_cache
+
+    @property
     def train_prefix_cache_safe(self) -> bool:
         """The train step may serve the prompt head from the cache when the
         cached values are constants of the optimization: a frozen backbone
         (always, here: LoRA is not ported) without dropout. Gradients of
         every trainable parameter are then those of the embedded head."""
-        return self.prefix_cache and getattr(self.llm_cfg, "dropout", 0.0) == 0.0
+        return self.supports_prefix_cache and getattr(self.llm_cfg, "dropout", 0.0) == 0.0
 
-    def encode_ts(self, x_enc, generator=None, mask=None):
-        """RevIN -> patch embed -> reprogramming. Returns (enc [B, P, d_llm],
-        revin stats). With ``mask`` (imputation) the statistics cover the
-        observed points only."""
+    def encode_ts(self, x_enc, source, generator=None, mask=None):
+        """RevIN -> patch embed -> reprogramming (K3) against ``source`` (the
+        mapping layer over the word embeddings, [num_tokens, d_llm]) -> the
+        covariate mode's merge. Returns (enc, the RevIN stats): enc [B, P,
+        d_llm], [B, P * C, d_llm] under ``interleave``, [B * C, P, d_llm]
+        under the per-channel modes. With ``mask`` (imputation) the
+        statistics cover the observed points only."""
         B, L, C = x_enc.shape
         if mask is None:
             xn, stats = revin_norm(x_enc)
@@ -308,19 +409,41 @@ class MedTsLLM(nn.Module):
             xn, means, stdev = masked_window_norm(x_enc, mask)
             stats = {"center": means, "stdev": stdev}
         enc = self.patch_embedding(xn.transpose(1, 2), generator)  # [B*C, P, d_model]
-        if self.covariate_mode == "concat":  # univariate: C == 1, [B, P, d_model]
-            P = enc.shape[1]
+        P, mode = enc.shape[1], self.covariate_mode
+        if mode == "concat":  # univariate: C == 1, [B, P, d_model]
             enc = enc.reshape(B, C, P, self.d_model).transpose(1, 2).reshape(
                 B, P, C * self.d_model)
-        source = self.mapping_layer(self.llm.wte.T).T  # [T, d_llm]
-        return self.reprogramming_layer(enc, source, source, generator), stats
+        enc = self.reprogramming_layer(enc, source, source, generator)
+        if mode == "add":
+            enc = enc.reshape(B, C, P, self.d_llm).mean(1)
+        elif mode == "weighted-average":
+            enc = self.feature_weighting(
+                enc.reshape(B, C, P, self.d_llm).permute(0, 2, 3, 1)).squeeze(-1)
+        elif mode == "interleave":
+            enc = enc.reshape(B, C, P, self.d_llm).transpose(1, 2).reshape(B, P * C, self.d_llm)
+        return enc, stats
+
+    def _downsample(self, dec_out: torch.Tensor) -> torch.Tensor:
+        """d_llm -> d_ff (medtsllm.py:352-367)."""
+        mode = self.embedding_downsample_mode
+        if mode == "truncate":
+            return dec_out[:, :, :self.d_ff]
+        if mode == "average":
+            return dec_out.reshape(dec_out.shape[0], self.n_patches, self.d_ff, -1).mean(-1)
+        return self.embedding_downsample_layer(dec_out)
 
     def forward(self, inputs: dict, generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator`` draws the dropout masks in training."""
+        """``generator`` draws the dropout masks in training. The prompt is
+        [head | prompt_ids | example | post_prompt_ids], then the series."""
         x_enc = inputs["x_enc"]
-        B = x_enc.shape[0]
+        B, _, C = x_enc.shape
+        example_ts = inputs.get("example_ts")
+        if example_ts is not None and self.covariate_mode in PER_CHANNEL_MODES:
+            raise ValueError("in-context examples require a batch-preserving covariate "
+                             f"mode, not {self.covariate_mode!r}")
         mask = inputs.get("mask") if self.task == "imputation" else None
-        ts_emb, stats = self.encode_ts(x_enc, generator, mask)
+        source = self.mapping_layer(self.llm.wte.T).T  # once for both encodings
+        ts_emb, stats = self.encode_ts(x_enc, source, generator, mask)
 
         parts = []
         prefix_kv = inputs.get("prefix_kv")
@@ -334,15 +457,37 @@ class MedTsLLM(nn.Module):
         prompt_ids = inputs.get("prompt_ids")
         if prompt_ids is not None:
             parts.append(self.llm.embed(prompt_ids).to(ts_emb.dtype))
+        if example_ts is not None:
+            parts.append(self.encode_ts(example_ts.to(x_enc.dtype), source, generator)[0])
+        post_ids = inputs.get("post_prompt_ids")
+        if post_ids is not None:
+            parts.append(self.llm.embed(post_ids).to(ts_emb.dtype))
+        if parts and self.covariate_mode in PER_CHANNEL_MODES:
+            # a row per channel: the prompt repeated C times; a per-row
+            # prefix too, while a one-row (constant) prefix broadcasts
+            parts = [torch.cat(parts, dim=1).repeat_interleave(C, dim=0)]
+            if prefix_kv is not None:
+                prefix_kv = tuple(tuple(t.repeat_interleave(C, dim=0) if t.shape[0] > 1
+                                        else t for t in layer) for layer in prefix_kv)
         enc = torch.cat(parts + [ts_emb], dim=1)
-        dec_out = self.llm(enc, prefix_kv=prefix_kv)
-        # linear d_llm -> d_ff downsample (medtsllm.py:352-367)
-        dec_out = self.embedding_downsample_layer(dec_out[:, -self.n_patches:, :])
+        if self.llm_enabled:
+            dec_out = self.llm(enc, prefix_kv=prefix_kv)
+            dec_out = self._downsample(dec_out[:, -self.n_patches:, :])
+        else:  # the ablation's MLP in place of the backbone and the downsample
+            dec_out = self.llm_replacement(enc)[:, -self.n_patches:, :]
 
-        # FlattenHead (medtsllm.py:541-552) on [B, d_ff, P]
-        dec_out = dec_out.transpose(1, 2).reshape(B, -1)
+        # FlattenHead (medtsllm.py:541-552) on [B', d_ff, P]
+        dec_out = dec_out.transpose(1, 2).reshape(dec_out.shape[0], -1)
         dec_out = self.output_projection(dec_out)
-        dec_out = dec_out.reshape(B, self.head_steps, self.n_outputs_per_step)
+        steps, n_out = self.head_steps, self.n_outputs_per_step
+        if self.covariate_mode == "independent":
+            dec_out = dec_out.reshape(B, C, steps, n_out).mean(1)
+        elif self.covariate_mode == "merge-end":
+            # [B, steps, n_out * C], C fastest, as JAX flattens it
+            dec_out = self.feature_weighting(
+                dec_out.reshape(B, C, steps, n_out).permute(0, 2, 3, 1).reshape(B, steps, -1))
+        else:
+            dec_out = dec_out.reshape(B, steps, n_out)
         # the task's head (medtsllm.py:667-681)
         if self.task == "classification":
             return dec_out[:, 0]  # [B, n_classes] logits
@@ -451,9 +596,15 @@ class PromptBuilder:
     backbone gets per-window head rows [bos + dataset (+ task) + clip],
     left-padded into a grow-only 16-granular bucket: [B, P] ``prefix_ids``
     for the task's per-clip KV bank (``clip_cache_slots`` rows, default
-    8)."""
+    8). With in-context examples (a batch with ``examples``) the head stops
+    at [bos + dataset]; the rest of the first part, ending in the example's
+    text, is ``prompt_ids``, the example series ``example_ts`` [B,
+    ``example_len``, C] (f32), and the second part ``post_prompt_ids`` in a
+    grow-only 16-granular bucket of its own. No prompt at all with the
+    backbone disabled."""
 
     N_LAGS = 5
+    PARTS = ("dataset", "clip", "input_stats", "task", "examples")
 
     def __init__(self, config, dataset, model: MedTsLLM):
         self.model = model
@@ -464,17 +615,17 @@ class PromptBuilder:
             "clip": prompting.get("clip", True),
             "input_stats": prompting.get("input_stats", True),
             "task": prompting.get("task", True),
+            "examples": prompting.get("examples", False),
             "input_stats_dim": prompting.get("input_stats_dim", 0),
             "input_stats_select": prompting.get("input_stats_select", "all"),
             "cache_order": prompting.get("cache_order", False),
             "clip_head": prompting.get("clip_head", True),
             "clip_cache_slots": int(prompting.get("clip_cache_slots", 8)),
         }
-        if prompting.get("examples", False):
-            raise NotImplementedError("prompting.examples (in-context examples): ROADMAP "
-                                      "queue 1, \"MedTsLLM's remaining modes\"")
-        self.enabled = any(self.cfg[k] for k in
-                           ("dataset", "clip", "input_stats", "task"))
+        wanted = any(self.cfg[k] for k in self.PARTS)
+        self.enabled = model.llm_enabled and wanted
+        if not model.llm_enabled and wanted:
+            warnings.warn("llm.enabled=false: prompts are disabled")
         self.tokenizer = get_tokenizer(mc.llm.llm, model.cache_dir,
                                        vocab_size=model.llm_cfg.vocab_size)
         self.pad_id = self.tokenizer.pad_token_id
@@ -485,11 +636,22 @@ class PromptBuilder:
         self.task_description = getattr(dataset, "task_description", None) or (
             TASK_DESCRIPTIONS[config.task].format(seq=config.history_len,
                                                   pred=config.pred_len))
-        self.split_prefix = model.prefix_cache
+        self.split_prefix = model.supports_prefix_cache
         self.max_bucket = 16
         self.max_bucket_suffix = 16
         self.max_bucket_head = 16
+        self.max_bucket_post = 16
         self._cache: dict[str, list[int]] = {}
+        pool = getattr(dataset, "examples", None) if self.cfg["examples"] else None
+        if pool:
+            # one example length, from the dataset's pool median: the same
+            # whatever the shuffle or the batch size (medtsllm.py:916-924)
+            med = int(np.median([np.asarray(e).shape[0] for e in pool]))
+            self.example_len = min(model.seq_len, max(model.patch_len, med))
+            if self.enabled and model.covariate_mode in PER_CHANNEL_MODES:
+                # JAX's init asserts it on its first batch (medtsllm.py:607)
+                raise ValueError("in-context examples require a batch-preserving covariate "
+                                 f"mode, not {model.covariate_mode!r}")
 
     def _encode(self, text: str) -> list[int]:
         if text not in self._cache:
@@ -524,8 +686,12 @@ class PromptBuilder:
                 f"the top {self.N_LAGS} lags are {[int(v) for v in lags[b]]}."
                 for b in range(x.shape[0])]
 
+    def has_examples(self, batch: dict) -> bool:
+        return bool(self.cfg["examples"] and "examples" in batch)
+
     def build_prompts(self, batch: dict):
-        """(pre_parts, post_parts): ordered prompt strings per sample."""
+        """(pre_parts, post_parts): ordered prompt strings per sample, before
+        and after the in-context example's series."""
         bs = len(batch["x_enc"])
         dataset_prompt = (f"Dataset: {self.dataset_description}"
                           if self.cfg["dataset"] else "")
@@ -540,14 +706,17 @@ class PromptBuilder:
         else:
             dataset_prompts = [dataset_prompt] * bs
         bos = self.bos if self.bos is not None else ""
-        task_in_head = bool(self.cfg["cache_order"] and task_prompt)
+        examples = self.has_examples(batch)
+        example_texts = [e[0] for e in batch["examples"]] if examples else [""] * bs
+        # the example's text breaks the head: the task stays in the second part
+        task_in_head = bool(self.cfg["cache_order"] and task_prompt and not examples)
         clip_in_head = self.clip_in_head(batch)
         pre_prompts, post_prompts = [], []
         for b in range(bs):
             # the clip joins the per-clip head; the token order is the same
             # either way (the clip precedes the stats)
             pre = ([bos, dataset_prompts[b]] + ([task_prompt] if task_in_head else [])
-                   + ([clip_prompts[b]] if clip_in_head else []))
+                   + ([clip_prompts[b]] if clip_in_head else []) + [example_texts[b]])
             post = ["" if clip_in_head else clip_prompts[b], stats_prompts[b],
                     "" if task_in_head else task_prompt, "Time series:"]
             pre = [p for p in pre if p != ""]
@@ -576,24 +745,31 @@ class PromptBuilder:
         self.max_bucket_head = max(self.max_bucket_head, ((maxlen + 15) // 16) * 16)
         return self.max_bucket_head
 
+    def _bucket_post(self, maxlen: int) -> int:
+        self.max_bucket_post = max(self.max_bucket_post, ((maxlen + 15) // 16) * 16)
+        return self.max_bucket_post
+
     def clip_in_head(self, batch: dict) -> bool:
         """Whether the clip description joins the cacheable head (the
         per-clip KV bank): the prefix cache, clip prompting under
-        ``clip_head`` with descriptions in the batch, no per-row dataset
-        prompts (the pretraining mixture), and a llama backbone (the Mamba
-        state cache keeps one entry)."""
+        ``clip_head`` with descriptions in the batch, no in-context
+        examples, no per-row dataset prompts (the pretraining mixture), and
+        a llama backbone (the Mamba state cache keeps one entry)."""
         return bool(self.split_prefix and self.cfg["clip"] and self.cfg["clip_head"]
                     and "descriptions" in batch and "dataset_description" not in batch
+                    and not self.has_examples(batch)
                     and self.model.llm_cfg.style != "mamba")
 
     def _head_part_count(self, batch: dict) -> int:
         """Leading parts of ``pre`` that form the cacheable head: none for
         the pretraining mixture, whose dataset prompt differs row by row
-        (the whole prompt then goes through the step, no ``prefix_ids``)."""
+        (the whole prompt then goes through the step, no ``prefix_ids``);
+        never the example's text."""
         if not self.split_prefix or "dataset_description" in batch:
             return 0
         return (int(bool(self.bos)) + int(bool(self.cfg["dataset"]))
-                + int(bool(self.cfg["task"] and self.cfg["cache_order"]))
+                + int(bool(self.cfg["task"] and self.cfg["cache_order"]
+                           and not self.has_examples(batch)))
                 + int(self.clip_in_head(batch)))
 
     def __call__(self, batch: dict) -> dict:
@@ -614,11 +790,34 @@ class PromptBuilder:
             if head_ids:
                 arrays["prefix_ids"] = np.asarray(head_ids, dtype=np.int64)
                 has_head = True
-        pre_prompts = [parts[n_head:] for parts in pre_prompts]
-        ids = [sum((self._encode(p) for p in pre + post), [])
-               for pre, post in zip(pre_prompts, post_prompts)]
+        pre_ids = [sum((self._encode(p) for p in pre[n_head:]), []) for pre in pre_prompts]
+        post_ids = [sum((self._encode(p) for p in post), []) for post in post_prompts]
+        bucket = self._bucket_suffix if has_head else self._bucket_for
+        if self.has_examples(batch):
+            if any(map(len, pre_ids)) or not has_head:
+                arrays["prompt_ids"] = self._pad_ids(pre_ids, bucket(max(map(len, pre_ids))))
+            arrays["example_ts"] = self._example_tensor(batch)
+            arrays["post_prompt_ids"] = self._pad_ids(
+                post_ids, self._bucket_post(max(map(len, post_ids))))
+            return arrays
+        ids = [pre + post for pre, post in zip(pre_ids, post_ids)]
         if any(map(len, ids)) or not has_head:
-            bucket = (self._bucket_suffix if has_head else self._bucket_for)(
-                max(map(len, ids)))
-            arrays["prompt_ids"] = self._pad_ids(ids, bucket)
+            arrays["prompt_ids"] = self._pad_ids(ids, bucket(max(map(len, ids))))
         return arrays
+
+    def _example_tensor(self, batch: dict) -> np.ndarray:
+        """The batch's example series cropped or tiled to ``example_len``
+        (without a pool at ``__init__``, a length from the model's sizes
+        alone: never from a batch)."""
+        tensors = [np.asarray(e[1])[0] for e in batch["examples"]]
+        if not hasattr(self, "example_len"):
+            self.example_len = min(self.model.seq_len,
+                                   max(self.model.patch_len, self.model.seq_len // 4))
+        fixed = self.example_len
+        out = np.zeros((len(tensors), fixed, tensors[0].shape[-1]), np.float32)
+        for i, t in enumerate(tensors):
+            if t.shape[0] >= fixed:
+                out[i] = t[:fixed]
+            else:
+                out[i] = np.tile(t, (-(-fixed // t.shape[0]), 1))[:fixed]
+        return out

@@ -148,7 +148,7 @@ class BaseTask:
                              if self.device.type == "cuda" else None)
         self.epoch = 1
         self.step = 0
-        self._step_in_flight = False
+        self._in_train = False
         self._preempt_requested = False
         self.losses: list[float] = []
         self.val_scores: list[dict] = []
@@ -434,24 +434,29 @@ class BaseTask:
         a card the loss held is a clone of the graph's, which the next replay
         overwrites)."""
         epochs = int(self.config.training.epochs)
-        for epoch in range(self.epoch - 1, epochs):
-            print(f"Epoch {epoch + 1}/{epochs}")
-            self.optimizer.set_epoch(epoch)
-            pending = None
-            for batch in prefetch(iter(self.train_pipeline)):
-                arrays = self.train_model_inputs(batch)
-                # a SIGUSR1 in the step waits for its end (handle_termination)
-                self._step_in_flight = True
-                loss = self.train_step(arrays, arrays["valid"])
-                self._step_in_flight = False
-                if self._preempt_requested:
-                    self._save_and_exit()
+        # a SIGUSR1 in the loop waits for the next step boundary, or the
+        # epoch's end (handle_termination)
+        self._in_train = True
+        try:
+            for epoch in range(self.epoch - 1, epochs):
+                print(f"Epoch {epoch + 1}/{epochs}")
+                self.optimizer.set_epoch(epoch)
+                pending = None
+                for batch in prefetch(iter(self.train_pipeline)):
+                    arrays = self.train_model_inputs(batch)
+                    loss = self.train_step(arrays, arrays["valid"])
+                    if self._preempt_requested:
+                        self._save_and_exit()
+                    if pending is not None:
+                        self.log_step(*pending)
+                    pending = (loss, int(batch["valid"].sum()))
                 if pending is not None:
                     self.log_step(*pending)
-                pending = (loss, int(batch["valid"].sum()))
-            if pending is not None:
-                self.log_step(*pending)
-            self.log_epoch(self.val())
+                self.log_epoch(self.val())
+                if self._preempt_requested:
+                    self._save_and_exit()
+        finally:
+            self._in_train = False
 
     # ------------------------------------------------------------------
     # logging, checkpoints, the lifecycle (medtsllm_tpu/tasks/base.py:709-782)
@@ -512,15 +517,19 @@ class BaseTask:
         self.logger.log_end()
 
     def handle_termination(self, signum, frame) -> None:
-        """SIGUSR1: save ``latest`` and exit 0; in a train step, at its end
-        (the train loop's check), so the checkpoint is a step boundary."""
-        print("Interrupted!")
-        if self._step_in_flight:
+        """SIGUSR1: save ``latest`` and exit 0; in ``train()``, at the next
+        step boundary or the epoch's end (the loop's checks), so the
+        checkpoint is a step boundary. There the handler only sets a flag:
+        it runs between any two bytecodes of the main thread, which may
+        hold a lock the save and the exit need (a logger's writer's, in the
+        middle of a step's log)."""
+        if self._in_train:
             self._preempt_requested = True
             return
         self._save_and_exit()
 
     def _save_and_exit(self) -> None:
+        print("Interrupted!")
         self.logger.save_state("latest", async_=False)  # on disk before the exit
         self.log_end()
         sys.exit(0)

@@ -28,6 +28,7 @@ from torch import nn
 
 from .models.llm.mamba import MambaBackbone, MambaBlock
 from .models.llm.transformer import MoEMLP, QuantLinear, RMSNorm, TransformerDecoder
+from .models.medtsllm import LayerNorm, WordEmbeddings
 from .ops.embed import TokenEmbedding
 from .ops.kernels.w4a8 import CODEBOOKS, pack4_split
 
@@ -101,7 +102,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     each expert's fan-in (transformer.py:1040-1083); the conv patch embedding
     N(0, 2 / fan_in); the Mamba block's depthwise conv lecun-normal (fan_in
     = K), its conv bias 0, ``A_log = log(1..N)`` and ``D = 1``
-    (mamba.py:104-143 of the JAX package). The values differ from JAX's
+    (mamba.py:104-143 of the JAX package); LayerNorm (``llm_replacement``'s)
+    scale 1, bias 0. The values differ from JAX's
     (another generator)."""
     def int8_(wq: torch.Tensor) -> None:
         w = torch.randn(wq.shape, generator=generator, device=wq.device) * 0.02
@@ -151,6 +153,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
                 module.bias.zero_()
         elif isinstance(module, RMSNorm):
             module.weight.fill_(1.0)
+        elif isinstance(module, LayerNorm):
+            module.scale.fill_(1.0)
+            module.bias.zero_()
         elif isinstance(module, TokenEmbedding):
             fan_in = module.weight.shape[1] * module.weight.shape[2]
             module.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
@@ -163,5 +168,5 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
                 1, N + 1, dtype=torch.float32, device=module.A_log.device)).expand(
                     module.A_log.shape))
             module.D.fill_(1.0)
-        elif isinstance(module, (TransformerDecoder, MambaBackbone)):
+        elif isinstance(module, (TransformerDecoder, MambaBackbone, WordEmbeddings)):
             module.wte.normal_(0.0, 0.02, generator=generator)

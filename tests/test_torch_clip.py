@@ -31,9 +31,10 @@ ludb.toml: 6 or 5 clips of ~66-80 points, batch 4, 2 bank slots asked):
       gradient cancels to 0.050 of its terms, shown as that file's (f)
       shows it);
   (g) ``covariate_mode = "univariate"`` with more than one feature raises,
-      the other known modes refuse, an unknown one is a ValueError; the
-      in-context examples refuse; on a Mamba backbone the clip stays in the
-      computed remainder (its state cache keeps one entry).
+      the other known modes build and serve through the banked step, an
+      unknown one is a ValueError; the in-context examples without an
+      example pool change nothing; on a Mamba backbone the clip stays in
+      the computed remainder (its state cache keeps one entry).
 """
 
 import functools
@@ -404,6 +405,10 @@ def test_mapping_bias_gap_on_clips():
 # --------------------------------------------------------------------------
 
 def test_covariate_modes():
+    """The other known modes build and serve the clip dataset through the
+    banked step (tests/test_torch_modes.py holds them against JAX);
+    ``prompting.examples`` on a dataset without an example pool builds and
+    serves as without it."""
     cfg = _cfg("ludb")
     cfg.datasets.synthetic.n_features = 3
     with pytest.raises(ValueError, match="univariate"):
@@ -411,15 +416,20 @@ def test_covariate_modes():
     for mode in ("independent", "interleave", "add", "weighted-average", "merge-end"):
         cfg = _cfg("ecgmit-seg")
         cfg.models.medtsllm.covariate_mode = mode
-        with pytest.raises(NotImplementedError, match="\"MedTsLLM's remaining modes\""):
-            get_trainer("x", cfg, device="cpu")
+        tt = get_trainer("x", cfg, device="cpu")
+        batch = next(iter(tt.test_pipeline))
+        assert tt.eval_prepare(batch)[0] == "banked"
+        out = tt.eval_dispatch(batch)
+        assert out.shape == (4, 32) and torch.isfinite(out).all(), mode
     cfg.models.medtsllm.covariate_mode = "sideways"
     with pytest.raises(ValueError, match="Unknown covariate_mode"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg("ecgmit-seg")
     cfg.models.medtsllm.prompting.examples = True
-    with pytest.raises(NotImplementedError, match="\"MedTsLLM's remaining modes\""):
-        get_trainer("x", cfg, device="cpu")
+    tt = get_trainer("x", cfg, device="cpu")
+    batch = next(iter(tt.test_pipeline))
+    assert "example_ts" not in tt.model_inputs(batch)
+    assert torch.isfinite(tt.eval_dispatch(batch)).all()
 
 
 def test_mamba_keeps_the_clip_in_the_remainder():

@@ -207,6 +207,13 @@ def test_w4a8_kernel_rejects_bad_input(cuda):
     (1, 2011, 4, 4, 128, 37, 1),   # 2048 keys, K2's limit
     (1, 1000, 8, 1, 64, 48, 1),    # 1048 keys, G 8
     (16, 64, 32, 32, 128, 32, 16),  # ecgmit-seg.toml's clip shape: per-clip head rows
+    # the covariate modes: a row per channel (independent, merge-end on
+    # ecgmit-seg's 2 features: the bank's rows repeated, PB = B * C; on
+    # bidmc's 3, the constant head), C tokens a patch (interleave)
+    (32, 64, 32, 32, 128, 32, 32),
+    (48, 64, 32, 32, 128, 14, 1),
+    (16, 128, 32, 32, 128, 14, 1),
+    (16, 110, 32, 32, 128, 53, 1),  # ecgmit-seg-examples.toml: [prompt | example | post | ts]
 ])
 def test_rope_attention_kernel_vs_plain(cuda, dtype, B, L, H, KV, D, P, PB):
     g = torch.Generator(cuda).manual_seed(0)
@@ -439,6 +446,8 @@ def test_rope_flash_attention_kernel_rejects_bad_input(cuda):
     (5, 13, 8, 128, 1024),    # B * L = 65 rows: a partial row tile, 16 splits
     (3, 7, 2, 32, 100),       # a partial second key tile, two splits
     (7, 9, 8, 64, 1025),
+    (16, 14, 8, 64, 1024),    # ecgmit-seg-examples.toml's example: 14 patches
+    (32, 32, 8, 64, 1024),    # a row per channel: B * C = 16 x 2
 ])
 def test_reprogramming_kernel_vs_plain(cuda, B, L, H, E, S):
     g = torch.Generator(cuda).manual_seed(0)

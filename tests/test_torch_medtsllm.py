@@ -132,8 +132,13 @@ def test_port_config_and_random_init(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.models.medtsllm.covariate_mode = "independent"
-    with pytest.raises(NotImplementedError, match="covariate_mode"):
+    cfg.models.medtsllm.covariate_mode = "independent"  # ported: a row per channel
+    tt = get_trainer("x", cfg, device="cpu")
+    out = tt.eval_dispatch(next(iter(tt.test_pipeline)))
+    assert out.shape == (4, 32, 3) and torch.isfinite(out).all()
+    cfg = _cfg(tmp_path, 8, "float32")
+    cfg.models.medtsllm.llm.fuse_projections = True
+    with pytest.raises(NotImplementedError, match="fuse_projections"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.task = "pretraining"  # ported: the mixture of the four families' stand-ins

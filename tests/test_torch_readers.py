@@ -33,7 +33,8 @@ pandas) against the JAX package's ``get_dataset``, on the CPU:
       composes them) building a CPU trainer with its ``data.dataset``
       unchanged (the family's stand-in and its description in the prompt
       head), only the backbone and the sizes cut, one eval batch finite;
-      the examples ablation refused by the prompt builder.
+      the examples ablation's pool, its batches' example inputs and a
+      ``val()`` through them.
 """
 
 import tomllib
@@ -525,12 +526,19 @@ def test_shipped_configs_run_on_their_standins(tmp_path, path):
     assert out.shape[0] == cfg.training.batch_size and torch.isfinite(out).all()
 
 
-def test_examples_ablation_builds_its_pool_then_refuses(tmp_path):
+def test_examples_ablation_builds_its_pool_and_runs_val(tmp_path):
+    """configs/ablation/ecgmit-seg-examples.toml on the ECG stand-in: the
+    pool, then a trainer whose batches carry the example (``example_ts``,
+    ``post_prompt_ids``) through ``val()``."""
     raw = _cut(tomllib.loads((ROOT / "configs/ablation/ecgmit-seg-examples.toml").read_text()),
                "llama-tiny")
-    raw["paths"] = {"data": str(tmp_path)}
+    raw["paths"] = {"data": str(tmp_path), "logdir": str(tmp_path / "logs")}
     with pytest.warns(UserWarning, match="synthetic fixture"):
         ds = get_dataset(Config(raw), "test")
     assert ds.examples_enabled and ds.n_examples > 0 and "examples" in ds[0]
-    with pytest.raises(NotImplementedError, match="\"MedTsLLM's remaining modes\""):
-        get_trainer("port", Config(raw), device="cpu")
+    tt = get_trainer("port", Config(raw), device="cpu")
+    inputs = tt.model_inputs(next(iter(tt.val_pipeline)))
+    assert inputs["example_ts"].shape == (4, tt.preprocessor.example_len, 2)
+    assert "post_prompt_ids" in inputs and inputs["prefix_ids"].ndim == 1
+    scores = tt.val()
+    assert "val/segment_miou" in scores and np.isfinite(scores["val/point_mae"])

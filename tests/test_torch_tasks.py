@@ -528,10 +528,10 @@ def test_shipped_configs_load_and_validate(name):
 
 
 def test_remaining_refusals_name_their_roadmap_items():
-    """The Bayesian optimize thresholds, clip datasets and pretraining are
-    ported (tests/test_torch_bayesopt.py, test_torch_clip.py,
-    test_torch_pretraining.py): each builds and scores; the refusals that
-    remain name their item."""
+    """The Bayesian optimize thresholds, clip datasets, pretraining and the
+    in-context examples are ported (tests/test_torch_bayesopt.py,
+    test_torch_clip.py, test_torch_pretraining.py, test_torch_examples.py):
+    each builds and scores; the refusals that remain name their item."""
     cfg = _cfg("seg-boundary", **{"tasks.segmentation.distance_thresh": "optimize"})
     scores = get_trainer("x", cfg, device="cpu").test()
     assert np.isfinite(scores["test/segment_miou"])
@@ -547,9 +547,9 @@ def test_remaining_refusals_name_their_roadmap_items():
     assert get_trainer("x", cfg, device="cpu").test_dataset.name == (
         "pretrain:ECG+ventilator+bidmc+ludb")
     cfg = _cfg("semseg-2")
-    cfg.models.medtsllm.prompting.examples = True
-    with pytest.raises(NotImplementedError, match="\"MedTsLLM's remaining modes\""):
-        get_trainer("x", cfg, device="cpu")
+    cfg.models.medtsllm.prompting.examples = True  # ported: no example pool here
+    scores = get_trainer("x", cfg, device="cpu").test()
+    assert np.isfinite(scores["test/iou"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             get_trainer("x", _cfg("seg-boundary", "mixed"), device="cuda")
