@@ -54,6 +54,19 @@ nvidia-smi. Phases:
      independent]`` / ``[mode-interleave]`` / ``[mode-independent-bank]``,
      ``reprogramming_attention[mode-independent]`` and
      ``selective_scan_gated_h0[mode-independent-mamba]``;
+  6o. the baseline models: the eight shipped files that name DLinear,
+     PatchTST, TimesNet or FEDformer (configs/config.toml,
+     baseline-models/etth1-dlinear, psm-patchtst, msl-timesnet,
+     msl-fedformer, msl-fedformer-wavelets, ablation/dreams-classification
+     and etth1-imputation), each as shipped on its family's stand-in,
+     ``training.epochs`` cut to 1; no kernel of the port lies on their path
+     (none launches): ``train()`` (captured steps, then ``val()``),
+     ``train_graphed`` over 8 steps, ``serve()``, then a line each with
+     the eval p50 eager and graphed, the train p50, ``test()``'s
+     windows/s and the peak GiB beside the card's name and power limit;
+     then configs/config.toml through the train and test CLIs'
+     ``__main__`` in this process (``run_main``; 6l runs them as
+     subprocesses): the scores equal;
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
      configs/datasets/*.toml as they are but for synthetic data; a dense
      Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
@@ -224,7 +237,7 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6a-6c, 6e-6i, 6, 11, 13, 14, 15, 17 and 18) runs
+Every served path (phases 4, 6a-6c, 6e-6i, 6o, 6, 11, 13, 14, 15, 17 and 18) runs
 through ``serve()``: the eager step (``eval_step_eager``) on each test batch,
 each batch prepared just before it (its head's or its bank misses' prefill
 counted apart), then
@@ -240,7 +253,7 @@ carries. A path with a per-clip KV bank (6c, 6e) also prints each pass's
 hits, misses and evictions (evictions required), the bank's GiB and one
 miss's prefill ms, and holds the banked step against the same batch with
 its head embedded (2^-6 x max); its replays run across evictions.
-Every train path (6a, 6e, 6g-6i, 8, 9) trains through ``train()``, whose
+Every train path (6a, 6e, 6g-6i, 6o, 8, 9) trains through ``train()``, whose
 train step replays one CUDA graph per input signature (forward, backward,
 clip and Adam; ``TrainGraphs``), and then ``train_graphed``: the train
 step's p50 op by op (``train_step_eager``) and captured (``train_step``)
@@ -249,7 +262,8 @@ train pool's GiB, every graphed step with the eager step's launches; then
 the parameters, the optimizer's state and the dropout generator snapshot
 in place, 4 graphed steps across an LR change, the snapshot restored and 4
 eager steps: the losses, the trainable parameters, the optimizer's state,
-the gradients and the generator's state bit-equal, and the backbone
+the gradients and the generator's state bit-equal (the generator advanced
+where the model draws dropout masks; DLinear draws none), and the backbone
 unchanged.
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
@@ -300,6 +314,18 @@ TASK_BLOCKS = {
     # 6i: history 96, step 1, batch 32: 128 train windows, 1024 test
     "etth1-imputation": (ETTH1_IMP_TOML, 7, (127 + 96, 1024 * 96)),
 }
+# phase 6o: the shipped files that name a baseline model (the four gpt4ts
+# files need the GPT-2 backbone the port lacks)
+BASELINE_TOMLS = {
+    "config": ROOT / "configs" / "config.toml",
+    "etth1-dlinear": ROOT / "configs" / "baseline-models" / "etth1-dlinear.toml",
+    "psm-patchtst": ROOT / "configs" / "baseline-models" / "psm-patchtst.toml",
+    "dreams-patchtst-classification": DREAMS_CLS_TOML,
+    "msl-timesnet": ROOT / "configs" / "baseline-models" / "msl-timesnet.toml",
+    "etth1-timesnet-imputation": ETTH1_IMP_TOML,
+    "msl-fedformer": ROOT / "configs" / "baseline-models" / "msl-fedformer.toml",
+    "msl-fedformer-wavelets": ROOT / "configs" / "baseline-models" / "msl-fedformer-wavelets.toml",
+}
 # points a split of a served task path, by history (= pred_len = the test
 # split's step): 512 test windows, 32 batches of 16
 SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
@@ -325,6 +351,7 @@ TASK_KEYS = {
     "classification": {"accuracy", "f1", "precision", "recall", "auroc"},
     "imputation": {"masked_mse", "masked_mae", "full_mse"},
     "pretraining": {"mse", "mae"},
+    "reconstruction": {"mse", "mae"},
 }
 
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): HBM bytes
@@ -530,6 +557,16 @@ def shipped_config(Config, toml, epochs=1, **tasks):
     return quiet(Config, raw)
 
 
+def baseline_config(Config, toml, epochs=1):
+    """A shipped baseline file as it is, its ``data.dataset`` included (the
+    family's stand-in when the recordings are absent, with its warning),
+    ``training.epochs`` cut to ``epochs``."""
+    from medtsllm_tpu_torch.config import load_config
+    raw = load_config(toml).to_dict()
+    raw["training"]["epochs"] = epochs
+    return quiet(Config, raw)
+
+
 def pretraining_config(Config):
     """Pretraining on configs/datasets/bidmc.toml's MedTsLLM settings
     (mixed, dense Llama-2-7B, batch 16, history 256, d_ff 64, its
@@ -698,6 +735,27 @@ def run_cli(module: str, *args: str, timeout: float = 600) -> subprocess.Complet
     check(out.returncode == 0, f"[lifecycle] {module} {' '.join(args)} exited "
           f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-3000:]}")
     return out
+
+
+def run_main(module: str, *args: str) -> str:
+    """``python -m medtsllm_tpu_torch.<module> args`` in this process (its
+    ``__main__`` block by ``runpy``, as ``-m`` runs it, without a new
+    interpreter's ~20 s of imports and set-up); returns its stdout."""
+    import contextlib
+    import io
+    import runpy
+    import warnings
+
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = [module, *args]
+    try:
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            # a module run again, or imported by another CLI, is in sys.modules
+            warnings.filterwarnings("ignore", ".*found in sys.modules", RuntimeWarning)
+            runpy.run_module(f"medtsllm_tpu_torch.{module}", run_name="__main__")
+    finally:
+        sys.argv = argv
+    return out.getvalue()
 
 
 def lifecycle(runs: Path, dev, drive, Config) -> None:
@@ -1627,6 +1685,8 @@ def main() -> None:
         """This pass's per-clip KV bank bookkeeping (None without a bank)."""
         return next((b for k, b in tr._prefix_kv_cache.items() if k[0] == "clip_bank"), None)
 
+    serve_stats = {}  # label -> serve()'s p50s, test()'s windows/s and its peak bytes
+
     def serve(tr, label):
         """A served path through ``test()``, eager and graphed. First the
         eager step (``eval_step_eager``) on every test batch, each batch's
@@ -1723,6 +1783,9 @@ def main() -> None:
         held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         bsz = tr.config.training.batch_size
         p50, p50_graph = statistics.median(eager_ms), statistics.median(graph_ms)
+        serve_stats[label] = {"p50": p50, "p50_graph": p50_graph,
+                              "windows_s": n_windows / wall,
+                              "peak": max(eager_peak, test_peak, replay_peak)}
         print(f"[{label}] eval step p50 eager {p50:.2f} ms, graphed {p50_graph:.2f} ms per "
               f"batch of {bsz} ({bsz * 1000 / p50:.1f} / {bsz * 1000 / p50_graph:.1f} "
               f"windows/s at p50; per batch eager {eager_ms}, graphed {graph_ms})")
@@ -1818,7 +1881,7 @@ def main() -> None:
               f"untimed: {step_ms}); launches in the last step {counts}")
         return p50, step_counts
 
-    def train_graphed(tr, label, n_steps, expect=None, warmup=1):
+    def train_graphed(tr, label, n_steps, expect=None, warmup=1, draws=True):
         """The train step op by op (``train_step_eager``) and captured
         (``train_step``: one CUDA graph per input signature): the p50 of
         each over ``n_steps`` after ``warmup`` untimed, each's peak memory,
@@ -1847,18 +1910,18 @@ def main() -> None:
               f"graph(s), captures {graphs.capture_ms} ms ({len(graphs.capture_ms) - n_captures}"
               f" in the timed run), the train pool {pool_bytes(graphs) / 2**30:.2f} GiB; "
               f"launches a step, eager = graphed: {counts_e[-1]}")
-        hold_train_graph(tr, label)
+        hold_train_graph(tr, label, draws=draws)
         return p50_e, p50_g
 
-    def hold_train_graph(tr, label, k=4):
+    def hold_train_graph(tr, label, k=4, draws=True):
         """The parameters, the optimizer's state and the dropout generator
         snapshot in place; k graphed steps across an LR change (epoch 0's LR,
         then epoch 1's, under a two-epoch warmup set for the check: 0.5x,
         then 1x); the snapshot restored; k eager steps on the same batches.
         Bit-equal: the losses, every trainable parameter, the optimizer's
-        state, the last gradients and the generator's state; the launches a
-        step; the frozen backbone unchanged (exact float64 sums); no new
-        capture."""
+        state, the last gradients and the generator's state (advanced iff
+        the model ``draws`` dropout masks); the launches a step; the frozen
+        backbone unchanged (exact float64 sums); no new capture."""
         opt, gen = tr.optimizer, tr.dropout_generator
         epochs = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
         arrays = [tr.train_model_inputs(b) for b in itertools.islice(epochs, k)]
@@ -1904,9 +1967,10 @@ def main() -> None:
             check((g is None and e is None) or torch.equal(g, e),
                   f"[{label}-train] a {what} ({i}) differs: graphed vs eager max |diff| "
                   f"{(g.float() - e.float()).abs().max().item() if g is not None else None}")
-        check(torch.equal(graphed[4], eager[4]) and not torch.equal(gen_state, eager[4]),
+        advanced = not torch.equal(gen_state, eager[4])
+        check(torch.equal(graphed[4], eager[4]) and advanced == draws,
               f"[{label}-train] the dropout generator's state after the graphed steps differs "
-              "from the eager steps', or did not advance")
+              f"from the eager steps', or advanced {advanced} where the model draws {draws}")
         moved = sum(not torch.equal(a, b) for a, b in zip(snap[:n_params], eager[2]))
         check(moved > 0, f"[{label}-train] no trainable parameter moved")
         check(all(torch.sum(t, dtype=torch.float64) == frozen[n]
@@ -2256,6 +2320,87 @@ def main() -> None:
     del mtr
     torch.cuda.empty_cache()
     print(f"[mode-sweep] phase 6n: {time.perf_counter() - t_phase:.1f} s wall")
+
+    # 6o. the baseline models: each shipped file that names DLinear,
+    # PatchTST, TimesNet or FEDformer, as shipped (f32, its batch, history
+    # and widths) on its family's stand-in (ETTh1, PSM, DREAMS, MSL: the
+    # recordings are not in the repository), training.epochs cut to 1. Their
+    # JAX counterparts are XLA ops, so no kernel of the port lies on their
+    # path and none may launch. train() (captured steps, then val()),
+    # train_graphed over 8 steps (every replay bit-equal to an eager step;
+    # DLinear draws no dropout mask), serve() (every replay bit-equal, finite
+    # scores), a summary line each; then configs/config.toml through the
+    # train CLI and the test CLI on the card (their __main__ in this process:
+    # 6l runs the CLIs as subprocesses), the scores equal
+    t_phase = time.perf_counter()
+    for label, toml in BASELINE_TOMLS.items():
+        cfg = baseline_config(Config, toml)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what the earlier phases still hold
+        t0 = time.perf_counter()
+        tr = get_trainer(f"chip-smoke-{label}", cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s, build_peak[label] = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        mc = cfg.models[cfg.model]
+        version = f" {mc.version}" if cfg.model == "fedformer" else ""
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        n_steps, bsz = len(tr.train_pipeline), cfg.training.batch_size
+        print(f"[{label}] {toml.relative_to(ROOT)}: {cfg.model}{version}, {cfg.task}, "
+              f"{cfg.data.dataset} stand-in ({tr.train_dataset.n_features} features, "
+              f"{len(tr.train_dataset)} / {len(tr.val_dataset)} / {len(tr.test_dataset)} "
+              f"windows), history {cfg.history_len}, batch {bsz}; {n_params:,} parameters at "
+              f"f32, built in {build_s:.1f} s, peak {build_peak[label] / 2**30:.2f} GiB; cut: "
+              f"training.epochs -> 1 ({n_steps} steps)")
+        torch.cuda.reset_peak_memory_stats()
+        counts, wall = drive(tr.train)
+        train_peak = torch.cuda.max_memory_allocated()
+        check(len(tr.losses) == n_steps and finite(tr.losses),
+              f"[{label}] losses {tr.losses[:4]}...")
+        check_scores(label, tr, tr.val_scores[0], "val")
+        check(not any(counts.values()), f"[{label}] a kernel launched: {counts}")
+        print(f"[{label}-train] train() {n_steps} captured steps and val() over "
+              f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; loss {tr.losses[0]:.6f} -> "
+              f"{tr.losses[-1]:.6f}; val {tr.val_scores[0]}; peak {train_peak / 2**30:.2f} "
+              f"GiB; train captures {tr.train_graphs.capture_ms} ms")
+        p50_e, p50_g = train_graphed(tr, label, 8, draws=cfg.model != "dlinear")
+        tr.step_graphs.clear()
+        counts, _, scores, _ = serve(tr, label)
+        check_scores(label, tr, scores, "test")
+        check(not any(counts.values()), f"[{label}] a kernel launched in test(): {counts}")
+        sv = serve_stats[label]
+        print(f"[baselines] {label}: eval p50 eager {sv['p50']:.3f} ms, graphed "
+              f"{sv['p50_graph']:.3f} ms (batch {bsz}); train p50 eager {p50_e:.3f} ms, graphed "
+              f"{p50_g:.3f} ms; test() {sv['windows_s']:.1f} windows/s; peak GiB over the "
+              f"{held / 2**30:.3f} earlier phases hold, build / train() / test(): "
+              f"{(build_peak[label] - held) / 2**30:.3f} / {(train_peak - held) / 2**30:.3f} / "
+              f"{(sv['peak'] - held) / 2**30:.3f}; {smi.splitlines()[0]}")
+        del tr
+        torch.cuda.empty_cache()
+    from medtsllm_tpu_torch.config import dumps_toml, load_config
+    runs = Path(tempfile.mkdtemp(prefix="chip-smoke-baselines-"))
+    try:
+        raw = load_config(BASELINE_TOMLS["config"]).to_dict()
+        raw["training"]["epochs"] = 1
+        raw["paths"] = {"logdir": str(runs)}
+        cfg_path = runs / "config.toml"
+        cfg_path.write_text(dumps_toml(raw))
+        t0 = time.perf_counter()
+        trained = cli_scores(run_main("train", str(cfg_path), "dlinear-cli"), "Test results:")
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = cli_scores(run_main("test", "dlinear-cli", "test", "latest", str(runs)),
+                           "Results:")
+        check(finite(trained.values()) and same_scores(trained, again),
+              f"[baselines] configs/config.toml: the train CLI's test {trained}, the test "
+              f"CLI's {again}")
+        print(f"[baselines] configs/config.toml (training.epochs 1) through the train CLI's "
+              f"__main__ (as python -m medtsllm_tpu_torch.train runs it, in this process): "
+              f"{train_s:.1f} s wall, test {trained}; the test CLI's on its run directory: "
+              f"{time.perf_counter() - t0:.1f} s wall, the same scores")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    print(f"[baselines] phase 6o: {time.perf_counter() - t_phase:.1f} s wall")
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train

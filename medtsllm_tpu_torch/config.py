@@ -188,9 +188,10 @@ def validate_config(config):
     """The checks of ``medtsllm_tpu/config.py:256-341`` on the keys the
     port reads: task, model, lengths, dataset, optimizer, scheduler,
     ``setup.dtype``, the aligned-window tasks' equal lengths, the
-    anomaly-detection and segmentation tables and finetuning's exclusive
-    ``frozen_epochs`` / ``warmup_epochs``; and the prompting keys of the
-    per-clip head, ``clip_head`` and ``clip_cache_slots``."""
+    anomaly-detection and segmentation tables, FEDformer's f32 and
+    finetuning's exclusive ``frozen_epochs`` / ``warmup_epochs``; and the
+    prompting keys of the per-clip head, ``clip_head`` and
+    ``clip_cache_slots``."""
     def require(cond, msg):
         if not cond:
             raise ConfigError(msg)
@@ -231,6 +232,10 @@ def validate_config(config):
         require(sg is not None and "mode" in sg and "distance_thresh" in sg,
                 "segmentation requires [tasks.segmentation] with `mode` and "
                 "`distance_thresh`")
+    if config.model == "fedformer":
+        dt = config.get("setup", {}).get("dtype", "float32")
+        require(dt in ("float32", "float", "fp32", "32", 32, "mixed"),
+                "fedformer only supports float32 params")
     if "finetuning" in config and config.finetuning.get("enabled", False):
         f = config.finetuning
         require(not (f.get("frozen_epochs", 0) > 0 and f.get("warmup_epochs", 0) > 0),

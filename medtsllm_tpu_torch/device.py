@@ -17,3 +17,21 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r} (cpu or cuda)")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key: tuple, make, device: torch.device) -> torch.Tensor:
+    """A constant table (``make()``: a numpy array) on ``device``, made once
+    per (key, device) and kept. It is made outside inference mode, so a
+    train step may save it for its backward after an eval step made it, and
+    a captured step finds it made by its warm-up: a capture copies nothing
+    from the host."""
+    full = (*key, str(device))
+    t = _CONSTANTS.get(full)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.as_tensor(make(), device=device)
+        _CONSTANTS[full] = t
+    return t

@@ -69,6 +69,7 @@ from torch import nn
 from ..ops.embed import PatchEmbedding, dropout
 from ..ops.kernels.reprogramming import reprogramming_attention
 from ..ops.revin import masked_window_norm, revin_denorm, revin_norm
+from ..ops.transformer import LayerNorm
 from .llm.config import resolve_config
 from .llm.mamba import MambaBackbone
 from .llm.tokenizer import get_tokenizer
@@ -185,26 +186,6 @@ class ReprogrammingLayer(nn.Module):
         return self.out_projection(out.reshape(B, L, H * E))
 
 
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` (epsilon 1e-6, parameters ``scale`` and
-    ``bias``): the statistics in f32 as E[x^2] - E[x]^2 clipped at 0, then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at the
-    promoted type of the input and the parameters."""
-
-    def __init__(self, dim: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
-        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
-
-
 class LLMReplacement(nn.Module):
     """The ablation's MLP in place of the backbone and the downsample
     (``llm_replacement``, flax ``nn.Sequential``: ``layers_0`` Dense(d_llm),
@@ -232,6 +213,10 @@ class WordEmbeddings(nn.Module):
 
 
 class MedTsLLM(nn.Module):
+    supported_tasks = ("forecasting", "reconstruction", "anomaly_detection",
+                       "semantic_segmentation", "segmentation", "pretraining",
+                       "classification", "imputation")
+
     def __init__(self, *, seq_len, pred_len, n_features, d_model, d_ff, n_heads,
                  num_tokens, patch_len, stride, llm_cfg, llm_id, quantize=0,
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,

@@ -6,6 +6,12 @@ the epoch loop ``train``, ``train_model_inputs`` / ``eval_model_inputs``,
 ``run_eval``, ``eval_n_points``, ``finalize_series`` (the clip mask) and
 the score bookkeeping (``log_scores``, ``best_score``).
 
+The model comes from the registry (``models/__init__.py``): MedTsLLM, whose
+inputs the prompt builder makes, or a baseline (DLinear, PatchTST,
+TimesNet, FEDformer), which takes the batch's arrays (``ARRAY_BATCH_KEYS``,
+and imputation's ``mask``) and has no prompt head, so no cache or bank.
+Both run through the same eval and train steps.
+
 The dtype policy is the JAX package's (``setup.dtype``, ``Precision``):
 every float parameter at one dtype, or under "mixed" the trainable fusion
 layers at f32 and the frozen backbone at bf16. The mixed train step runs
@@ -44,7 +50,8 @@ Dropout masks come from a generator on the trainer's device seeded from
 The run's lifecycle is JAX's: the logger (``loggers/``) is made last in
 ``__init__`` and writes the run directory; ``log_epoch`` saves ``latest``
 every epoch and ``best`` on an improvement (``runtime/checkpoint.py``:
-the fusion layers only, the frozen backbone rebuilt from ``setup.seed``);
+MedTsLLM's fusion layers only, the frozen backbone rebuilt from
+``setup.seed``; a baseline's every parameter);
 SIGUSR1 saves ``latest`` at the next step boundary and exits 0;
 ``from_run_id`` rebuilds a run from its ``config.toml`` and a checkpoint,
 restored in place (the captured steps and the optimizer bind the
@@ -73,7 +80,8 @@ from ..data import BatchPipeline, dedup_eval_series, get_dataset, prefetch, stit
 from ..device import resolve_device
 from ..loggers import get_logger
 from ..loggers.base import logdir_base
-from ..models.medtsllm import MedTsLLM, Precision, PromptBuilder
+from ..models import build_model
+from ..models.medtsllm import ARRAY_BATCH_KEYS, MedTsLLM, Precision, PromptBuilder
 from ..runtime.checkpoint import load_checkpoint, restore_partial, wait_for_saves
 from ..runtime.graph import StepGraphs, TrainGraphs
 from ..runtime.optim import Optimizer
@@ -87,10 +95,6 @@ class BaseTask:
     figure: str | None = None
 
     def __init__(self, run_id, config, newrun=True, device="cuda"):
-        if config.model not in ("medtsllm", "timellm"):
-            raise NotImplementedError(f"model {config.model!r}: the port has MedTsLLM "
-                                      "(ROADMAP queue 1, \"Baseline models and the ops "
-                                      "library\")")
         validate_config(config)
         self.run_id = run_id
         self.config = config
@@ -107,13 +111,17 @@ class BaseTask:
         self.test_pipeline = BatchPipeline(self.test_dataset, bs)
 
         with torch.device(self.device):
-            self.model = MedTsLLM.from_config(config, self.train_dataset, self.device)
-        self.preprocessor = PromptBuilder(config, self.train_dataset, self.model)
+            self.model = build_model(config, self.train_dataset, self.device)
+        medtsllm = isinstance(self.model, MedTsLLM)
+        # the prompt builder is MedTsLLM's; a baseline takes the batch's arrays
+        self.preprocessor = (PromptBuilder(config, self.train_dataset, self.model)
+                             if medtsllm else None)
         generator = torch.Generator(self.device).manual_seed(seed)
         init_random_(self.model, generator)
-        warnings.warn(f"LLM {self.model.llm_id!r}: no weights are loaded — "
-                      "random init (shapes and throughput faithful; task "
-                      "quality not meaningful)")
+        if medtsllm:
+            warnings.warn(f"LLM {self.model.llm_id!r}: no weights are loaded — "
+                          "random init (shapes and throughput faithful; task "
+                          "quality not meaningful)")
         self._apply_param_dtype()
         self.model.eval()
         # (head ids, mixed train) or ("clip_bank", P, mixed train) ->
@@ -197,6 +205,8 @@ class BaseTask:
         self.loaded_params: list[str] = []
         if not self.finetuning:
             return
+        if not isinstance(self.model, MedTsLLM):
+            raise ValueError("Only MedTsLLM supports finetuning")
         path = (logdir_base(self.config) / ft.pretrained_id / "checkpoints"
                 / f"{ft.pretrained_ckpt}.ckpt")
         if not path.is_file():
@@ -206,9 +216,12 @@ class BaseTask:
         self.loaded_params = self.restore(self.model.drop_pretrained_heads(saved))
 
     def checkpoint_params(self) -> dict:
-        """The state-dict entries a checkpoint holds (the model's
-        ``checkpoint_tree``: not the frozen backbone), on the device."""
-        return self.model.checkpoint_tree(self.model.state_dict())
+        """The state-dict entries a checkpoint holds, on the device: the
+        model's ``checkpoint_tree`` (MedTsLLM's leaves the frozen backbone
+        out), or every entry when the model has none."""
+        state = self.model.state_dict()
+        tree = getattr(self.model, "checkpoint_tree", None)
+        return state if tree is None else tree(state)
 
     def restore(self, saved: dict) -> list[str]:
         """Copy a checkpoint's tensors into the parameters in place
@@ -230,7 +243,10 @@ class BaseTask:
         self._prefix_kv_cache.clear()
 
     def model_inputs(self, batch: dict) -> dict:
-        """Host batch -> model inputs (prompt token ids via the builder)."""
+        """Host batch -> model inputs: the batch's arrays, with MedTsLLM's
+        prompt token ids from the builder."""
+        if self.preprocessor is None:
+            return {k: v for k, v in batch.items() if k in ARRAY_BATCH_KEYS}
         return self.preprocessor(batch)
 
     def _to_device(self, arrays: dict) -> dict:

@@ -15,6 +15,10 @@ and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
   - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d);
   - the Mamba block's depthwise ``conv_kernel`` [K, 1, E] -> [E, 1, K]
     (F.conv1d with groups=E), under its own name.
+Every other leaf keeps its name and layout: the baselines' DLinear maps
+``{seasonal,trend}_{w,b}``, the inception kernels ``kernel_{i}`` [K, K,
+Nin, Nout] and the Fourier weights ``weights1`` / ``weights2``. The
+baselines' state dicts have the flax tree's keys, so each maps key for key.
 """
 
 from __future__ import annotations
@@ -28,8 +32,14 @@ from torch import nn
 
 from .models.llm.mamba import MambaBackbone, MambaBlock
 from .models.llm.transformer import MoEMLP, QuantLinear, RMSNorm, TransformerDecoder
-from .models.medtsllm import LayerNorm, WordEmbeddings
-from .ops.embed import TokenEmbedding
+from .models.dlinear import DLinear
+from .models.medtsllm import WordEmbeddings
+from .ops.autoformer import CircularConv
+from .ops.embed import Embed, TokenEmbedding
+from .ops.fourier import FourierBlock, FourierCrossAttention
+from .ops.inception import InceptionBlockV1
+from .ops.transformer import LayerNorm
+from .ops.wavelets import SparseKernelFT1d
 from .ops.kernels.w4a8 import CODEBOOKS, pack4_split
 
 # QuantDense random init: one fixed quantization scale, 3.5 sigma of the
@@ -102,9 +112,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     each expert's fan-in (transformer.py:1040-1083); the conv patch embedding
     N(0, 2 / fan_in); the Mamba block's depthwise conv lecun-normal (fan_in
     = K), its conv bias 0, ``A_log = log(1..N)`` and ``D = 1``
-    (mamba.py:104-143 of the JAX package); LayerNorm (``llm_replacement``'s)
-    scale 1, bias 0. The values differ from JAX's
-    (another generator)."""
+    (mamba.py:104-143 of the JAX package); LayerNorm (``llm_replacement``'s
+    and the baselines') scale 1, bias 0; and the baselines': DLinear's maps
+    1 / seq_len and biases 0, the inception kernels N(0, 2 / fan_out)
+    (fan_out = K * K * Nout) and biases 0, the Fourier and multiwavelet
+    weights U[0, 1) / (in * out) (the sparse kernel's over (c * k)^2), the
+    decoder's circular conv lecun-normal and ``Embed`` tables N(0, 1 / d).
+    The values differ from JAX's (another generator)."""
     def int8_(wq: torch.Tensor) -> None:
         w = torch.randn(wq.shape, generator=generator, device=wq.device) * 0.02
         wq.copy_(torch.clamp(torch.round(w / S_INIT), -127, 127))
@@ -156,6 +170,29 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, LayerNorm):
             module.scale.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, DLinear):
+            for name in ("seasonal", "trend"):
+                getattr(module, f"{name}_w").fill_(1.0 / module.seq_len)
+                getattr(module, f"{name}_b").zero_()
+        elif isinstance(module, InceptionBlockV1):
+            for i in range(module.num_kernels):
+                w = getattr(module, f"kernel_{i}")
+                fan_out = w.shape[0] * w.shape[1] * w.shape[3]
+                w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+                getattr(module, f"bias_{i}").zero_()
+        elif isinstance(module, (FourierBlock, FourierCrossAttention)):
+            for w in (module.weights1, module.weights2):
+                w.uniform_(0.0, 1.0, generator=generator).mul_(
+                    1.0 / (module.in_channels * module.out_channels))
+        elif isinstance(module, SparseKernelFT1d):
+            for w in (module.weights1, module.weights2):
+                w.uniform_(0.0, 1.0, generator=generator).mul_(1.0 / w.shape[0] ** 2)
+        elif isinstance(module, Embed):
+            module.embedding.normal_(0.0, 1.0 / math.sqrt(module.embedding.shape[1]),
+                                     generator=generator)
+        elif isinstance(module, CircularConv):
+            _lecun_normal_(module.weight, module.weight.shape[1] * module.weight.shape[2],
+                           generator)
         elif isinstance(module, TokenEmbedding):
             fan_in = module.weight.shape[1] * module.weight.shape[2]
             module.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)

@@ -4,10 +4,11 @@ conftest.py), which then must not have jax, flax or the JAX package, nor
 scikit-learn, matplotlib or tensorboard, which the card's machine lacks
 (the task modules compute their metrics in numpy and scipy); nor jax after
 the tokenizer has run. And with pandas, scikit-learn, tensorboard,
-matplotlib and wandb blocked, which the card's machine lacks too, every
-module imports (the checkpoint, logger and CLI modules among them) and the
-readers, a stand-in, the Bayesian threshold search and the loggers' run
-directory run."""
+matplotlib, wandb and sympy blocked, which the card's machine lacks too,
+and jax and flax, every module imports (the checkpoint, logger and CLI
+modules and the baseline models among them) and the readers, a stand-in,
+the Bayesian threshold search, the loggers' run directory, the wavelet
+filter bank and each baseline model run."""
 
 import os
 import subprocess
@@ -25,7 +26,7 @@ for name in names:
 # the modules themselves: none of these
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "medtsllm_tpu", "sklearn",
-                                       "matplotlib", "tensorboard"))
+                                       "matplotlib", "tensorboard", "sympy"))
 from medtsllm_tpu_torch.models.llm.tokenizer import get_tokenizer
 get_tokenizer("llama-tiny", None, vocab_size=512).encode("Dataset: probe 1.0")
 # a tokenizer from the installed transformers may import scikit-learn; no jax
@@ -47,6 +48,11 @@ _TRAIN_MODULES = {"medtsllm_tpu_torch.runtime.optim", "medtsllm_tpu_torch.tasks.
                   "medtsllm_tpu_torch.ops.kernels.rope_attention",
                   "medtsllm_tpu_torch.ops.kernels.flash_attention",
                   "medtsllm_tpu_torch.ops.kernels.grouped_matmul"}
+# the baseline models and their ops library
+_BASELINE_MODULES = {f"medtsllm_tpu_torch.{m}" for m in (
+    "models.dlinear", "models.patchtst", "models.timesnet", "models.fedformer", "ops.decomp",
+    "ops.embed", "ops.masks", "ops.attention", "ops.transformer", "ops.dft", "ops.inception",
+    "ops.fourier", "ops.autocorr", "ops.autoformer", "ops.wavelets")}
 # the run lifecycle: checkpoints, the loggers, the CLIs
 _LIFECYCLE_MODULES = {"medtsllm_tpu_torch.runtime.checkpoint", "medtsllm_tpu_torch.utils",
                       "medtsllm_tpu_torch.loggers", "medtsllm_tpu_torch.loggers.base",
@@ -66,13 +72,14 @@ def test_port_imports_no_jax():
     names = set(names.split())
     # every module was imported
     assert len(names) >= 18 and _TRAIN_MODULES <= names and _LIFECYCLE_MODULES <= names
+    assert _BASELINE_MODULES <= names
     assert leaked == "[]", leaked
 
 
 _BLOCKED = """
 import sys
 for name in ("pandas", "sklearn", "tensorboard", "torch.utils.tensorboard", "matplotlib",
-             "wandb"):
+             "wandb", "jax", "flax", "sympy"):
     sys.modules[name] = None  # any import of them raises ImportError
 import importlib, pkgutil, tempfile, warnings
 import numpy as np
@@ -119,17 +126,40 @@ with tempfile.TemporaryDirectory() as root:
     logger.save_state("latest", async_=False)
     state, meta = load_checkpoint(root + "/probe/checkpoints/latest.ckpt")
     assert meta["epoch"] == 1 and torch.equal(state["w"], torch.ones(2))
+# the baselines build (the wavelet filters without sympy) and run a step
+import types
+from medtsllm_tpu_torch.models import build_model
+from medtsllm_tpu_torch.ops.wavelets import filter_bank
+assert filter_bank("legendre", 8)[0].shape == (16, 8)
+models = {"dlinear": {"individual": False, "moving_avg": 5},
+          "patchtst": {"e_layers": 1, "d_model": 8, "d_ff": 8, "n_heads": 2,
+                       "covariate_mode": "independent",
+                       "patching": {"patch_len": 4, "stride": 2}},
+          "timesnet": {"e_layers": 1, "d_model": 4, "d_ff": 4, "num_kernels": 2, "top_k": 2},
+          "fedformer": {"version": "fourier", "mode_select": "random", "modes": 4,
+                        "label_len": 8, "e_layers": 1, "d_layers": 1, "d_model": 8,
+                        "n_heads": 2, "d_ff": 8, "moving_avg": 5, "activation": "gelu"}}
+for model, mc in models.items():
+    cfg = Config({"task": "reconstruction", "model": model, "history_len": 16,
+                  "pred_len": 16, "training": {"dropout": 0.0}, "tasks": {},
+                  "models": {model: mc}})
+    m = build_model(cfg, types.SimpleNamespace(n_features=2, n_classes=0), torch.device("cpu"))
+    assert m({"x_enc": torch.zeros(1, 16, 2)}).shape == (1, 16, 2)
+assert not [m for m in sys.modules if m.split(".")[0] in ("medtsllm_tpu", "jax", "flax", "sympy")
+            and sys.modules[m] is not None]
 print(len(names), len(ds), len(readers_loaded), round(opt.max["params"]["q"], 3))
 """
 
 
 def test_port_runs_without_pandas_or_sklearn():
     """The card's machine has none of pandas, scikit-learn, tensorboard,
-    matplotlib and wandb: with them blocked, every module imports, each
-    reader with them, a family's stand-in is built, a CSV is read, the
-    Bayesian threshold search runs, and the tensorboard and wandb loggers
-    fall back to the print logger, which writes the run directory and a
-    checkpoint."""
+    matplotlib, wandb and sympy (nor does the port use jax or flax): with
+    them blocked, every module imports, each reader with them, a family's
+    stand-in is built, a CSV is read, the Bayesian threshold search runs,
+    the tensorboard and wandb loggers fall back to the print logger, which
+    writes the run directory and a checkpoint, the wavelet filter bank is
+    synthesized and each baseline model is built and run; nothing of the
+    JAX package is imported."""
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

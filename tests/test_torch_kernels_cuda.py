@@ -1370,3 +1370,52 @@ def test_graphed_train_step_moves_loaded_group_after_unfreeze(cuda, tmp_path):
     tr.dropout_generator.set_state(gen)
     tr.train_step_eager(batches[2], batches[2]["valid"])
     assert all(torch.equal(g, e) for g, e in zip(graphed, train_state(tr.optimizer)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("toml,model", [("configs/baseline-models/msl-timesnet.toml", "timesnet"),
+                                        ("configs/baseline-models/msl-fedformer.toml",
+                                         "fedformer")])
+def test_graphed_baseline_train_step_bit_equal_to_eager(cuda, toml, model):
+    """A baseline's captured train step (TimesNet: the periods stay device
+    tensors, the folded conv's backward a GEMM; FEDformer: the shared
+    Fourier block), the shipped file cut to one layer: after the warm-up
+    step, 4 replays across one ``set_epoch`` change equal 4 eager steps
+    from the same state bit for bit (the losses, the parameters, Adam's
+    state, the gradients, the dropout generator's state); nothing is
+    captured anew; then the eval graph replays the trained weights
+    bit-equal to the eager eval step."""
+    import itertools
+    import tomllib
+    from pathlib import Path
+
+    from chip_smoke import train_state
+    from medtsllm_tpu_torch.config import Config
+    from medtsllm_tpu_torch.runtime.graph import launch_counters
+    from medtsllm_tpu_torch.tasks import get_trainer
+
+    raw = tomllib.loads((Path(__file__).resolve().parents[1] / toml).read_text())
+    raw["models"][model]["e_layers"] = 1
+    raw["training"].update(batch_size=4, epochs=4, lr_scheduler="cosine")
+    tr = get_trainer(f"baseline-graph-{model}", Config(dict(raw, DEBUG=True)), device=cuda)
+    pipe = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
+    batches = [tr.train_model_inputs(b) for b in itertools.islice(pipe, 5)]
+    tr.train_step(batches[0], batches[0]["valid"])
+    assert len(tr.train_graphs) == 1
+    snap = [t.clone() for t in train_state(tr.optimizer)]
+    gen = tr.dropout_generator.get_state()
+    counters = launch_counters()
+    graphed = _train_run(tr, tr.train_step, batches[1:], counters)
+    for t, s in zip(train_state(tr.optimizer), snap):
+        t.copy_(s)
+    tr.dropout_generator.set_state(gen)
+    eager = _train_run(tr, tr.train_step_eager, batches[1:], counters)
+    assert torch.equal(graphed[0], eager[0]) and bool(torch.isfinite(eager[0]).all())
+    assert graphed[1] == eager[1] and not any(eager[1][0].values())  # no kernel of the port
+    for g, e in zip(graphed[2] + graphed[3], eager[2] + eager[3]):
+        assert (g is None and e is None) or torch.equal(g, e)
+    assert torch.equal(graphed[4], eager[4]) and not torch.equal(gen, eager[4])
+    assert len(tr.train_graphs) == 1
+    _, arrays = tr.eval_prepare(next(iter(tr.test_pipeline)))
+    tr.eval_step(arrays)  # the eval graph's warm-up and capture
+    assert torch.equal(tr.eval_step(arrays), tr.eval_step_eager(arrays))
