@@ -67,6 +67,19 @@ nvidia-smi. Phases:
      then configs/config.toml through the train and test CLIs'
      ``__main__`` in this process (``run_main``; 6l runs them as
      subprocesses): the scores equal;
+  6p. GPT4TS: the four shipped files that name it (baseline-models/
+     bidmc-gpt4ts, dreams, ecgmit-anom, ecgmit-seg), each as shipped (f32,
+     gpt2 at d 768, 6 or 12 layers) on its family's stand-in,
+     ``training.epochs`` cut to 1; at their 128-320-token windows JAX's
+     attention dispatcher runs its plain attention, so no kernel launches:
+     ``train()``, ``train_graphed`` over 8 steps (the frozen gpt2 weights
+     unchanged), ``serve()``, a summary line each and the device memory left
+     after its ``del`` and ``gc.collect()``; then what a trainer leaves when
+     it captures on a stream of its own against the shared capture stream;
+     then one eval of dreams.toml at history = pred_len = 512, which the
+     gate sends to K4 (once a layer a batch, nothing else launched), and K4
+     at gpt2's shape (B 16, H = KV 12, L = S 512, D 64, f32, causal) against
+     its plain version, listed as ``flash_attention[gpt2]``;
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
      configs/datasets/*.toml as they are but for synthetic data; a dense
      Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
@@ -157,6 +170,14 @@ nvidia-smi. Phases:
      further train step (24 each, and no K7/K8), ``train_graphed``; the
      train step with the prompt head embedded (K9/K10 at the uncached
      shape), a second signature: its capture, then a replay;
+  8b. MoE training: ``train()`` of configs/ablation/moe-backbone.toml as
+     shipped (moe-8x1b, w8a8, bf16, batch 48, expert capacity 1.25) on the
+     ventilator stand-in, ``training.epochs`` cut to 1: the capacity path
+     (K1's quantizer once and its GEMM per expert for gate, up and down, the
+     straight-through backward; K1 and K2 in the attention), the launches of
+     a step held, ``train_graphed`` over 8 steps, ``serve()`` (K6, K3); K1's
+     GEMM at the capacity shape (C slots an expert) bit-equal, listed as
+     ``w8a8_gemm[moe-train]``;
   9. the llama finetune step: ``train()`` of the Llama-2-7B-shaped w8a8
      bf16 configuration (frozen int8 backbone, trainable fusion layers,
      batch 8): finite losses, changed fusion layers, an unchanged backbone,
@@ -237,7 +258,7 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6a-6c, 6e-6i, 6o, 6, 11, 13, 14, 15, 17 and 18) runs
+Every served path (phases 4, 6a-6c, 6e-6i, 6o, 6p, 6, 8b, 11, 13, 14, 15, 17 and 18) runs
 through ``serve()``: the eager step (``eval_step_eager``) on each test batch,
 each batch prepared just before it (its head's or its bank misses' prefill
 counted apart), then
@@ -253,7 +274,7 @@ carries. A path with a per-clip KV bank (6c, 6e) also prints each pass's
 hits, misses and evictions (evictions required), the bank's GiB and one
 miss's prefill ms, and holds the banked step against the same batch with
 its head embedded (2^-6 x max); its replays run across evictions.
-Every train path (6a, 6e, 6g-6i, 6o, 8, 9) trains through ``train()``, whose
+Every train path (6a, 6e, 6g-6i, 6o, 6p, 8, 8b, 9) trains through ``train()``, whose
 train step replays one CUDA graph per input signature (forward, backward,
 clip and Adam; ``TrainGraphs``), and then ``train_graphed``: the train
 step's p50 op by op (``train_step_eager``) and captured (``train_step``)
@@ -264,7 +285,7 @@ in place, 4 graphed steps across an LR change, the snapshot restored and 4
 eager steps: the losses, the trainable parameters, the optimizer's state,
 the gradients and the generator's state bit-equal (the generator advanced
 where the model draws dropout masks; DLinear draws none), and the backbone
-unchanged.
+unchanged (GPT4TS: its frozen gpt2 weights).
 Then one JSON line with the kernels and, last, the result line. Any failure
 raises (exit code != 0) and prints no result line; without a CUDA card it
 fails before any work.
@@ -274,6 +295,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -300,8 +322,8 @@ VENTILATOR_TOML = ROOT / "configs" / "datasets" / "ventilator.toml"
 ECG_SEG_TOML = ROOT / "configs" / "datasets" / "ecgmit-seg.toml"
 LUDB_TOML = ROOT / "configs" / "datasets" / "ludb.toml"
 ECG_EXAMPLES_TOML = ROOT / "configs" / "ablation" / "ecgmit-seg-examples.toml"
-# the task blocks of phases 6g-6i (each file's model is a baseline the port
-# lacks; bidmc.toml gives the MedTsLLM settings)
+# the task blocks of phases 6g-6i (each file's own model, GPT4TS, PatchTST or
+# TimesNet, runs as shipped in 6o / 6p; bidmc.toml gives the MedTsLLM settings)
 BIDMC_FORECAST_TOML = ROOT / "configs" / "baseline-models" / "bidmc-gpt4ts.toml"
 DREAMS_CLS_TOML = ROOT / "configs" / "ablation" / "dreams-classification.toml"
 ETTH1_IMP_TOML = ROOT / "configs" / "ablation" / "etth1-imputation.toml"
@@ -315,7 +337,7 @@ TASK_BLOCKS = {
     "etth1-imputation": (ETTH1_IMP_TOML, 7, (127 + 96, 1024 * 96)),
 }
 # phase 6o: the shipped files that name a baseline model (the four gpt4ts
-# files need the GPT-2 backbone the port lacks)
+# files are 6p's)
 BASELINE_TOMLS = {
     "config": ROOT / "configs" / "config.toml",
     "etth1-dlinear": ROOT / "configs" / "baseline-models" / "etth1-dlinear.toml",
@@ -326,6 +348,9 @@ BASELINE_TOMLS = {
     "msl-fedformer": ROOT / "configs" / "baseline-models" / "msl-fedformer.toml",
     "msl-fedformer-wavelets": ROOT / "configs" / "baseline-models" / "msl-fedformer-wavelets.toml",
 }
+# phase 6p: the shipped files that name GPT4TS (gpt2 at d 768, 6 or 12 layers)
+GPT4TS_TOMLS = {name: ROOT / "configs" / "baseline-models" / f"{name}.toml"
+                for name in ("bidmc-gpt4ts", "dreams", "ecgmit-anom", "ecgmit-seg")}
 # points a split of a served task path, by history (= pred_len = the test
 # split's step): 512 test windows, 32 batches of 16
 SERVED_POINTS = {256: 512 * 256, 128: 512 * 128}
@@ -1055,6 +1080,12 @@ def main() -> None:
                bound(q_bytes, 0, "int8"), None,
                f" (per decoder block, {sum(n for *_, n in quants)} calls at M={M}; xq and "
                f"x_scale bit-equal; device time, queued: {q_dev:.4f} ms)")
+        check_k1_gemm(label, M, gemms, f"per decoder block, {note}")
+
+    def check_k1_gemm(label, M, gemms, note, out_dtype=torch.bfloat16):
+        """K1's GEMM at M rows: ``gemms`` (K, N, calls), written as
+        ``out_dtype``; s32 accumulators and outputs held bit-equal to the
+        plain version."""
         g_err, g_ms, g_plain, g_dense, g_lib, g_bytes, g_ops = (0.0,) * 7
         for K, N, n in gemms:
             xq = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8,
@@ -1066,24 +1097,24 @@ def main() -> None:
             check(torch.equal(k1.int8_gemm(xq, wq, xs, ws, torch.int32),
                               k1.int8_matmul_plain(xq, wq)),
                   f"w8a8 s32 accumulators not bit-equal at {M}x{K}x{N}")
-            y = k1.int8_gemm(xq, wq, xs, ws, torch.bfloat16)
-            y0 = k1.int8_gemm_plain(xq, wq, xs, ws, torch.bfloat16)
+            y = k1.int8_gemm(xq, wq, xs, ws, out_dtype)
+            y0 = k1.int8_gemm_plain(xq, wq, xs, ws, out_dtype)
             g_err = max(g_err, (y.float() - y0.float()).abs().max().item())
             xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)  # dense reference
-            g_ms += n * cuda_ms(torch, lambda: k1.int8_gemm(xq, wq, xs, ws, torch.bfloat16))
+            g_ms += n * cuda_ms(torch, lambda: k1.int8_gemm(xq, wq, xs, ws, out_dtype))
             g_plain += n * cuda_ms(torch, lambda: k1.int8_gemm_plain(xq, wq, xs, ws,
-                                                                      torch.bfloat16))
+                                                                      out_dtype))
             g_dense += n * cuda_ms(torch, lambda: xb @ wb.T)
             # the library's int8 GEMM (cuBLASLt) and the same rescale
             g_lib += n * cuda_ms(torch, lambda: (torch._int_mm(xq, wq.T).float() * (
-                xs[:, None] * ws[None, :])).to(torch.bfloat16))
-            g_bytes += n * (M * K + N * K + M * 4 + N * 4 + M * N * 2)
+                xs[:, None] * ws[None, :])).to(out_dtype))
+            g_bytes += n * (M * K + N * K + M * 4 + N * 4 + M * N * y.element_size())
             g_ops += n * 2 * M * K * N
         # same integers and the same f32 epilogue order: bit-equal
         record("w8a8_gemm" + label, "medtsllm_tpu_torch/csrc/w8a8.cu",
                "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", g_err, 0.0, g_ms, g_plain,
                bound(g_bytes, g_ops, "int8"), g_lib,
-               f" (per decoder block, {note}; s32 bit-equal; library = torch._int_mm "
+               f" ({note}; s32 bit-equal; library = torch._int_mm "
                f"+ rescale; cuBLAS dense bf16 GEMMs of the same shapes {g_dense:.4f} ms)")
 
     # the 7B block's seven projections: q, k, v, gate and up quantize the f32
@@ -1881,7 +1912,7 @@ def main() -> None:
               f"untimed: {step_ms}); launches in the last step {counts}")
         return p50, step_counts
 
-    def train_graphed(tr, label, n_steps, expect=None, warmup=1, draws=True):
+    def train_graphed(tr, label, n_steps, expect=None, warmup=1, draws=True, frozen="llm."):
         """The train step op by op (``train_step_eager``) and captured
         (``train_step``: one CUDA graph per input signature): the p50 of
         each over ``n_steps`` after ``warmup`` untimed, each's peak memory,
@@ -1910,10 +1941,10 @@ def main() -> None:
               f"graph(s), captures {graphs.capture_ms} ms ({len(graphs.capture_ms) - n_captures}"
               f" in the timed run), the train pool {pool_bytes(graphs) / 2**30:.2f} GiB; "
               f"launches a step, eager = graphed: {counts_e[-1]}")
-        hold_train_graph(tr, label, draws=draws)
+        hold_train_graph(tr, label, draws=draws, frozen=frozen)
         return p50_e, p50_g
 
-    def hold_train_graph(tr, label, k=4, draws=True):
+    def hold_train_graph(tr, label, k=4, draws=True, frozen="llm."):
         """The parameters, the optimizer's state and the dropout generator
         snapshot in place; k graphed steps across an LR change (epoch 0's LR,
         then epoch 1's, under a two-epoch warmup set for the check: 0.5x,
@@ -1921,12 +1952,16 @@ def main() -> None:
         Bit-equal: the losses, every trainable parameter, the optimizer's
         state, the last gradients and the generator's state (advanced iff
         the model ``draws`` dropout masks); the launches a step; the frozen
-        backbone unchanged (exact float64 sums); no new capture."""
+        backbone (the state under ``frozen`` but its trainable parameters)
+        unchanged (exact float64 sums); no new capture."""
         opt, gen = tr.optimizer, tr.dropout_generator
         epochs = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
         arrays = [tr.train_model_inputs(b) for b in itertools.islice(epochs, k)]
+        trainable = {n for n, p in tr.model.named_parameters() if p.requires_grad}
+        backbone = {n for n in tr.model.state_dict()
+                    if n.startswith(frozen) and n not in trainable}
         frozen = {n: torch.sum(t, dtype=torch.float64)
-                  for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+                  for n, t in tr.model.state_dict().items() if n in backbone}
         n_captures = len(tr.train_graphs.capture_ms)
         snap = [t.clone() for t in train_state(opt)]
         gen_state = gen.get_state()
@@ -1974,7 +2009,7 @@ def main() -> None:
         moved = sum(not torch.equal(a, b) for a, b in zip(snap[:n_params], eager[2]))
         check(moved > 0, f"[{label}-train] no trainable parameter moved")
         check(all(torch.sum(t, dtype=torch.float64) == frozen[n]
-                  for n, t in tr.model.state_dict().items() if n.startswith("llm.")),
+                  for n, t in tr.model.state_dict().items() if n in backbone),
               f"[{label}-train] the backbone changed")
         check(len(tr.train_graphs.capture_ms) == n_captures,
               f"[{label}-train] the check captured anew")
@@ -2402,6 +2437,163 @@ def main() -> None:
         shutil.rmtree(runs, ignore_errors=True)
     print(f"[baselines] phase 6o: {time.perf_counter() - t_phase:.1f} s wall")
 
+    # 6p. GPT4TS: the four shipped files that name it (bidmc-gpt4ts: BIDMC
+    # forecasting over 256 + 64 tokens; dreams and ecgmit-anom: anomaly
+    # detection over 128; ecgmit-seg: boundary segmentation over 256), as
+    # shipped (f32, their batch, history and widths: gpt2 at d 768, 12 x 64
+    # heads, 6 or 12 layers) on their families' stand-ins, training.epochs
+    # cut to 1. JAX's attention dispatcher runs its plain attention below 512
+    # tokens, so no kernel of the port lies on these paths and none may
+    # launch. Each as 6o (train(), train_graphed over 8 steps with the
+    # dropout generator advanced and the frozen gpt2 weights unchanged,
+    # serve(), a summary line), then the device memory left after its del
+    # and gc.collect(). Then what a trainer leaves on a capture stream of its
+    # own (each StepGraphs' layout before the shared capture stream) against
+    # the shared one. Then one eval of dreams.toml at history = pred_len =
+    # 512, the variant JAX's gate sends to K4: K4 through its JAX interface
+    # in every gpt2 layer, held at gpt2's shape and listed as
+    # flash_attention[gpt2]
+    from medtsllm_tpu_torch.runtime import graph as rgraph
+    t_phase = time.perf_counter()
+
+    def released(label, held):
+        """Collect, then the device bytes held over ``held``, printed."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - held
+        print(f"[{label}] after del and gc.collect(): {left:,} bytes ({left / 2**30:.4f} GiB) "
+              "allocated over what was allocated before the build")
+        return left
+
+    for name, toml in GPT4TS_TOMLS.items():
+        label = name if "gpt4ts" in name else f"gpt4ts-{name}"
+        cfg = baseline_config(Config, toml)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = get_trainer(f"chip-smoke-{label}", cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s, build_peak[label] = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        gcfg = tr.model.gpt2.cfg
+        tokens = cfg.history_len + (cfg.pred_len if cfg.task == "forecasting" else 0)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        n_train = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+        n_steps, bsz = len(tr.train_pipeline), cfg.training.batch_size
+        print(f"[{label}] {toml.relative_to(ROOT)}: gpt4ts over {cfg.models.gpt4ts.llm} "
+              f"({gcfg.n_layers} layers, d {gcfg.d_model}, {gcfg.n_heads} x {gcfg.head_dim} "
+              f"heads), {cfg.task}, {cfg.data.dataset} stand-in "
+              f"({tr.train_dataset.n_features} features, {len(tr.train_dataset)} / "
+              f"{len(tr.val_dataset)} / {len(tr.test_dataset)} windows), {tokens} tokens a "
+              f"window, batch {bsz}; {n_params:,} parameters at f32, {n_train:,} trainable; "
+              f"built in {build_s:.1f} s, peak {build_peak[label] / 2**30:.2f} GiB; cut: "
+              f"training.epochs -> 1 ({n_steps} steps)")
+        check(k4.attention_route(tokens, tokens, gcfg.head_dim, True) == "plain",
+              f"[{label}] {tokens} tokens must take the plain attention")
+        torch.cuda.reset_peak_memory_stats()
+        counts, wall = drive(tr.train)
+        train_peak = torch.cuda.max_memory_allocated()
+        check(len(tr.losses) == n_steps and finite(tr.losses),
+              f"[{label}] losses {tr.losses[:4]}...")
+        check_scores(label, tr, tr.val_scores[0], "val")
+        check(not any(counts.values()), f"[{label}] a kernel launched: {counts}")
+        print(f"[{label}-train] train() {n_steps} captured steps and val() over "
+              f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; loss {tr.losses[0]:.6f} -> "
+              f"{tr.losses[-1]:.6f}; val {tr.val_scores[0]}; peak {train_peak / 2**30:.2f} "
+              f"GiB; train captures {tr.train_graphs.capture_ms} ms")
+        p50_e, p50_g = train_graphed(tr, label, 8, frozen="gpt2.")
+        tr.step_graphs.clear()
+        counts, _, scores, _ = serve(tr, label)
+        check_scores(label, tr, scores, "test")
+        check(not any(counts.values()), f"[{label}] a kernel launched in test(): {counts}")
+        sv = serve_stats[label]
+        print(f"[gpt4ts] {name}: eval p50 eager {sv['p50']:.3f} ms, graphed "
+              f"{sv['p50_graph']:.3f} ms (batch {bsz}); train p50 eager {p50_e:.3f} ms, graphed "
+              f"{p50_g:.3f} ms; test() {sv['windows_s']:.1f} windows/s; peak GiB over the "
+              f"{held / 2**30:.3f} earlier phases hold, build / train() / test(): "
+              f"{(build_peak[label] - held) / 2**30:.3f} / {(train_peak - held) / 2**30:.3f} / "
+              f"{(sv['peak'] - held) / 2**30:.3f}; {smi.splitlines()[0]}")
+        del tr
+        left = released(label, held)
+        check(left <= 16 << 20, f"[{label}] the deleted trainer left {left:,} bytes")
+
+    def leftover(label, stream):
+        """What a dreams.toml trainer leaves after 3 captured train steps and
+        2 captured eval steps, del and gc.collect(), capturing on ``stream``
+        (None: the shared capture stream)."""
+        index = dev.index
+        shared = rgraph.capture_stream(dev)
+        if stream is not None:
+            rgraph._CAPTURE_STREAMS[index] = stream
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            tr = get_trainer("chip-smoke-gpt4ts-release",
+                             baseline_config(Config, GPT4TS_TOMLS["dreams"]), device=dev)
+            for batch, _ in zip(tr.train_pipeline, range(3)):
+                a = tr.train_model_inputs(batch)
+                tr.train_step(a, a["valid"])
+            for batch, _ in zip(tr.test_pipeline, range(2)):
+                tr.eval_dispatch(batch)
+            torch.cuda.synchronize()
+            del tr, a
+            return released(label, held)
+        finally:
+            rgraph._CAPTURE_STREAMS[index] = shared
+
+    own = leftover("gpt4ts-own-stream", torch.cuda.Stream(dev))
+    left = leftover("gpt4ts-shared-stream", None)
+    check(left <= 16 << 20, f"[gpt4ts] a trainer on the shared capture stream left {left:,} bytes")
+    print(f"[gpt4ts] device memory a deleted trainer leaves: {own / 2**30:.4f} GiB when it "
+          f"captured on a stream of its own (cuBLAS's workspaces for that stream stay with "
+          f"the process), {left / 2**30:.4f} GiB on the shared capture stream")
+
+    # one eval of dreams.toml at 512 tokens: K4 in every layer, each batch
+    raw = load_config(GPT4TS_TOMLS["dreams"]).to_dict()
+    raw["history_len"] = raw["pred_len"] = 512
+    raw["training"]["epochs"] = 1
+    tr = get_trainer("chip-smoke-gpt4ts-dreams-512", quiet(Config, raw), device=dev)
+    gcfg = tr.model.gpt2.cfg
+    check(k4.attention_route(512, 512, gcfg.head_dim, True) == "k4",
+          "512 tokens of gpt2 must take K4")
+    counts, *_ = serve(tr, "gpt4ts-dreams-512")
+    n_batches = len(tr.test_pipeline)
+    check(counts["flash_attention"] == gcfg.n_layers * n_batches
+          and sum(counts.values()) == counts["flash_attention"],
+          f"[gpt4ts-dreams-512] K4 must run once a layer a batch and nothing else: {counts}")
+    print(f"[gpt4ts-dreams-512] dreams.toml at history = pred_len = 512 (the variant JAX's gate sends "
+          f"to K4; eval only): K4 {counts['flash_attention']} launches in test() "
+          f"({gcfg.n_layers} layers x {n_batches} batch(es)); nothing else launched")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K4 at gpt2's shape through its JAX interface: f32, causal, L = S = 512,
+    # B 16, H = KV 12, D 64 (q, k, v from the split c_attn). f32 end to end:
+    # summation order and the online softmax only, so 1e-5 x max(1, max
+    # |plain|). Bound: the (query, key) pairs the causal mask keeps (QK^T and
+    # PV, 4 x D operations each) at the f32 peak, or q, k and v read and the
+    # output written once; library: SDPA, causal
+    Bg, Hg, Lg, Dg = 16, gcfg.n_heads, 512, gcfg.head_dim
+    q, kk, vv = (torch.randn(Bg, Hg, Lg, Dg, device=dev, generator=g) for _ in range(3))
+    o = k4.flash_attention(q, kk, vv, True)
+    o0 = k4.flash_attention_plain(q, kk, vv, True)
+    err = (o - o0).abs().max().item()
+    pairs = Lg * (Lg + 1) // 2
+    record("flash_attention[gpt2]", "medtsllm_tpu_torch/csrc/flash_attention.cu",
+           "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
+           1e-5 * max(1.0, o0.abs().max().item()),
+           cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
+           cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
+           bound(4 * 4 * Bg * Hg * Lg * Dg, 4 * Bg * Hg * Dg * pairs, "f32"),
+           cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=True)),
+           f" (B={Bg} H=KV={Hg} L=S={Lg} D={Dg} f32 causal, gpt2 at 512 tokens; library = "
+           "SDPA, causal)")
+    set_launches(counts, {"flash_attention[gpt2]": "flash_attention"})
+    del q, kk, vv, o, o0
+    print(f"[gpt4ts] phase 6p: {time.perf_counter() - t_phase:.1f} s wall")
+
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train
     # windows, four batches; 64 val windows; the train cache at bf16 and the
@@ -2780,6 +2972,75 @@ def main() -> None:
     del tr, arrays
     torch.cuda.empty_cache()
 
+    # 8b. MoE training: configs/ablation/moe-backbone.toml as shipped
+    # (moe-8x1b: 22 blocks, 8 experts top-2, d_ff 5632; w8a8, bf16, batch 48,
+    # expert_capacity 1.25, its cached head) on the ventilator stand-in,
+    # training.epochs cut to 1. The train step takes the capacity path, as
+    # JAX's does when not deterministic: a block runs K1 on its four
+    # attention projections and, for each of gate, up and down, K1's
+    # quantizer once over the E x C dispatch rows and its GEMM per expert,
+    # their straight-through backward a bf16 bmm; K2 once (the cached head
+    # as prefix, the reference-graph backward). val() and test() serve
+    # through K6 and K3. train() through the captured steps, train_graphed
+    # over 8 steps (replays bit-equal, the launches of one replay), serve();
+    # then K1's GEMM at the capacity shape (C slots an expert), listed as
+    # w8a8_gemm[moe-train]
+    t_phase = time.perf_counter()
+    tr = get_trainer("chip-smoke-moe-train", shipped_config(Config, MOE_TOML), device=dev)
+    xl = tr.model.llm_cfg
+    n_layers, E_x, k_x = xl.n_layers, xl.n_experts, xl.n_experts_per_tok
+    P_t, L_t = window_shapes(tr)
+    bsz = tr.config.training.batch_size
+    C_t = tfm.moe_capacity(bsz * L_t, E_x, k_x, xl.expert_capacity)
+    n_steps = len(tr.train_pipeline)
+    print(f"[moe-train] {MOE_TOML.relative_to(ROOT)}: {xl.n_layers} blocks, {E_x} experts "
+          f"top-{k_x}, d {xl.d_model}, d_ff {xl.d_ff}, w8a8 bf16; ventilator stand-in "
+          f"({len(tr.train_dataset)} / {len(tr.val_dataset)} / {len(tr.test_dataset)} "
+          f"windows), batch {bsz}, head P={P_t}, region L={L_t}: T={bsz * L_t} tokens, "
+          f"capacity {xl.expert_capacity} -> C={C_t} slots an expert; cut: training.epochs "
+          f"-> 1 ({n_steps} steps)")
+    trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                 if p.requires_grad}
+    check(trainable and not any(n.startswith("llm.") for n in trainable),
+          "[moe-train] the backbone must be frozen")
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    train_peak = torch.cuda.max_memory_allocated()
+    check(len(tr.losses) == n_steps and finite(tr.losses), f"[moe-train] losses {tr.losses}")
+    check_scores("moe-train", tr, tr.val_scores[0], "val")
+    state = tr.model.state_dict()
+    unchanged = [n for n, t in trainable.items() if torch.equal(state[n], t)]
+    check(len(unchanged) <= 1, f"[moe-train] trainable parameters unmoved: {unchanged}")
+    for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention", "grouped_matmul_gate_up",
+                 "grouped_matmul_down", "reprogramming_attention"):
+        check(counts[name] > 0, f"[moe-train] {name} not launched in train(): {counts}")
+    print(f"[moe-train] train() {n_steps} captured steps of {bsz} and val() over "
+          f"{len(tr.val_dataset)} windows in {wall:.2f} s wall; losses {tr.losses}; val "
+          f"{tr.val_scores[0]}; peak {train_peak / 2**30:.2f} GiB; train captures "
+          f"{tr.train_graphs.capture_ms} ms; launches {counts}")
+    train_counts = counts
+    del trainable, state
+    # a step: per block 4 + 3 quantizer calls, 4 + 3 x E GEMMs, one K2; no
+    # K6 (the capacity path) and no K3 (training runs the einsum graph)
+    per_step = {"w8a8_quantize": 7 * n_layers, "w8a8_gemm": (4 + 3 * E_x) * n_layers,
+                "rope_attention": n_layers, "grouped_matmul_gate_up": 0,
+                "grouped_matmul_down": 0, "reprogramming_attention": 0}
+    train_graphed(tr, "moe", 8, per_step)
+    tr.step_graphs.clear()
+    counts, _, scores, _ = serve(tr, "moe-train")
+    check_scores("moe-train", tr, scores, "test")
+    check(counts["grouped_matmul_gate_up"] > 0 and counts["reprogramming_attention"] > 0,
+          f"[moe-train] test() must serve through K6 and K3: {counts}")
+    del tr
+    torch.cuda.empty_cache()
+    # K1's GEMM per expert at the capacity shape: gate and up (d x d_ff),
+    # then down (d_ff x d), f32 out as act_quant_bmm writes it; bit-equal
+    check_k1_gemm("[moe-train]", C_t, ((xl.d_model, xl.d_ff, 2), (xl.d_ff, xl.d_model, 1)),
+                  f"per expert per block at the train step's C={C_t} slots: gate and up, "
+                  f"then down; {E_x} experts x {n_layers} blocks a step", torch.float32)
+    set_launches(train_counts, {"w8a8_gemm[moe-train]": "w8a8_gemm"})
+    print(f"[moe-train] phase 8b: {time.perf_counter() - t_phase:.1f} s wall")
+
     # 9. the llama finetune step: the 7B-shaped w8a8 bf16 configuration
     # trained through train() (n_points 3200: three shuffled batches of 8,
     # then val() over 24 windows); the int8 backbone is frozen, the fusion
@@ -2861,13 +3122,13 @@ def main() -> None:
         grads_g = {n: p.grad.cpu() for n, p in gpu.model.named_parameters() if p.requires_grad}
         top = max(t.abs().max().item() for t in grads_c.values())
         worst, worst_name = 0.0, ""
-        for n, gc in grads_c.items():
-            diff = (grads_g[n] - gc).abs().max().item()
+        for n, grad_c in grads_c.items():
+            diff = (grads_g[n] - grad_c).abs().max().item()
             if n.endswith("key_projection.bias"):
-                check(max(gc.abs().max().item(), grads_g[n].abs().max().item()) <= 1e-4 * top,
+                check(max(grad_c.abs().max().item(), grads_g[n].abs().max().item()) <= 1e-4 * top,
                       f"{label}: {n} should hold rounding noise only")
                 continue
-            rel = diff / max(gc.abs().max().item(), 1e-30)
+            rel = diff / max(grad_c.abs().max().item(), 1e-30)
             if rel > worst:
                 worst, worst_name = rel, n
         check(loss_err <= 1e-5, f"{label}: train loss card {lg} vs CPU {lc}")

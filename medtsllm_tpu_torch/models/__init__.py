@@ -2,10 +2,9 @@
 ``model_lookup`` and ``build_model``. The models load on first use, as
 JAX's do.
 
-MedTsLLM (and its alias ``timellm``) and the four baselines that need no
-LLM backbone (DLinear, PatchTST, TimesNet, FEDformer) are ported. GPT4TS
-runs a GPT-2 backbone, which the port lacks: it raises, naming its
-ROADMAP item.
+MedTsLLM (and its alias ``timellm``), GPT4TS over its GPT-2 backbone and
+the four baselines that need no LLM backbone (DLinear, PatchTST, TimesNet,
+FEDformer): every model of the JAX registry.
 """
 
 from __future__ import annotations
@@ -14,10 +13,11 @@ from __future__ import annotations
 def _lazy_lookup() -> dict:
     from .dlinear import DLinear
     from .fedformer import FEDformer
+    from .gpt4ts import GPT4TS
     from .medtsllm import MedTsLLM
     from .patchtst import PatchTST
     from .timesnet import TimesNet
-    return {"medtsllm": MedTsLLM, "timellm": MedTsLLM, "dlinear": DLinear,
+    return {"medtsllm": MedTsLLM, "timellm": MedTsLLM, "gpt4ts": GPT4TS, "dlinear": DLinear,
             "patchtst": PatchTST, "timesnet": TimesNet, "fedformer": FEDformer}
 
 
@@ -34,9 +34,6 @@ def build_model(config, dataset, device):
     """The model of ``config.model`` for ``config.task`` on ``dataset``'s
     features, on ``device`` (MedTsLLM resolves its kernels' routes for
     it)."""
-    if config.model == "gpt4ts":
-        raise NotImplementedError("model 'gpt4ts' runs a GPT-2 backbone, which the port lacks "
-                                  "(ROADMAP queue 1, \"Other backbone families and LoRA\")")
     cls = model_lookup[config.model]
     if config.task not in cls.supported_tasks:
         raise ValueError(f"{config.task} not supported by {config.model}")

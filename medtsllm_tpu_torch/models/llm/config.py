@@ -1,7 +1,7 @@
 """Backbone configurations and the presets the port serves.
 
-Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (llama
-and mixtral-style MoE fields), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
+Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (llama,
+gpt2 and mixtral-style MoE fields), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
 ``_mamba_presets`` / ``resolve_config`` of ``models/llm/loader.py``. The
 backbone is random-initialised with the preset's shapes (weights.py);
 local snapshots are not loaded yet.
@@ -16,7 +16,7 @@ from pathlib import Path
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    style: str  # "llama" only in this port
+    style: str  # "llama" or "gpt2" in this port
     vocab_size: int
     d_model: int
     n_layers: int
@@ -51,6 +51,16 @@ class DecoderConfig:
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
+    @property
+    def ln_family(self) -> bool:
+        """LayerNorm + biased projections (gpt2 here; opt, neox and bart in
+        the JAX package), vs the RMSNorm bias-free llama family."""
+        return self.style in ("gpt2", "opt", "neox", "bart")
+
+    @property
+    def learned_positions(self) -> bool:
+        return self.style in ("gpt2", "opt")
+
 
 @dataclasses.dataclass(frozen=True)
 class MambaConfig:
@@ -78,6 +88,14 @@ class MambaConfig:
 
 
 PRESETS = {
+    "gpt2": DecoderConfig(style="gpt2", vocab_size=50257, d_model=768,
+                          n_layers=12, n_heads=12, d_ff=3072,
+                          max_position=1024, dropout=0.1,
+                          bos_token_id=50256, eos_token_id=50256),
+    "gpt2-tiny": DecoderConfig(  # test-sized gpt2-style backbone
+        style="gpt2", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, max_position=512, dropout=0.1,
+        bos_token_id=0, eos_token_id=0),
     "meta-llama/Llama-2-7b-hf": DecoderConfig(
         style="llama", vocab_size=32000, d_model=4096, n_layers=32,
         n_heads=32, d_ff=11008, max_position=4096, norm_eps=1e-5,

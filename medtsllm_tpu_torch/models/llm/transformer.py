@@ -1,22 +1,31 @@
-"""The llama decoder (port of ``medtsllm_tpu/models/llm/transformer.py``:
-RMSNorm, rotary, QuantDense w8a8 / w4a8 / plain Dense, Attention, the SwiGLU MLP,
-the mixtral-style sparse-MoE FFN (``MoEMLP``, single device, serving), the
-pre-norm Block and TransformerDecoder with ``prefill``).
+"""The decoders (port of ``medtsllm_tpu/models/llm/transformer.py``): the
+llama style (RMSNorm, rotary, QuantDense w8a8 / w4a8 / plain Dense,
+Attention, the SwiGLU MLP, the mixtral-style sparse-MoE FFN ``MoEMLP``,
+the pre-norm Block and ``TransformerDecoder`` with ``prefill``) and the
+gpt2 style (learned positions, pre-LN blocks of LayerNorms, the fused
+biased ``c_attn``, the biased ``c_proj``, the ``c_fc`` -> tanh GELU ->
+``c_proj`` MLP, dropout after the embeddings and each sublayer, the final
+``ln_f``); with them flax's Dense (``Linear``), LayerNorm and Dropout,
+which the other models share.
 
 Dtypes follow the JAX module's: parameters are stored at the storage dtype
 (f32 or bf16); ``dtype`` (None for f32, else the compute dtype) is where
 projections emit and attention runs, while the residual stream keeps the
 promoted type of the input embeddings (f32), as flax promotion does.
-Attention (prefill included) goes through the fused RoPE + prefix + causal
-kernel (K2) up to ``K4_MIN_KEYS`` keys, and above that, or past K2's 2048,
-through the flash-attention route (K4 with the rotation, the head
-transpose and the prefix concat of JAX's unfused path folded in); every
-projection at ``quantize=8`` through the
-w8a8 kernel (K1), at ``quantize=4`` with the absmax codebook through K1's
-quantizer and the w4a8 kernel (K5). The MoE FFN routes each token to its
-top-k experts and runs them either as the dropless grouped chain (K6,
-``moe_grouped``, int8 or absmax int4 experts) or as the static-capacity
-per-expert bmm (K1 per expert for integer experts).
+llama attention (prefill included) goes through the fused RoPE + prefix +
+causal kernel (K2) up to ``K4_MIN_KEYS`` keys, and above that, or past
+K2's 2048, through the flash-attention route (K4 with the rotation, the
+head transpose and the prefix concat of JAX's unfused path folded in);
+every projection at ``quantize=8`` through the w8a8 kernel (K1), at
+``quantize=4`` with the absmax codebook through K1's quantizer and the
+w4a8 kernel (K5). gpt2 attention (no rotary) goes through JAX's
+``flash_attention`` dispatcher as ported (``dispatch_attention``): plain
+causal attention below 512 tokens, K4 from there. The MoE FFN routes each
+token to its top-k experts and runs them either as the dropless grouped
+chain (K6, ``moe_grouped``, int8 or absmax int4 experts, in eval) or as
+the static-capacity per-expert bmm (K1 per expert for integer experts),
+which also trains: the straight-through backward of the expert matmuls
+and the router's load-balancing loss (``router_aux_loss``).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.kernels.flash_attention import rope_flash_attention
+from ...ops.kernels.flash_attention import dispatch_attention, rope_flash_attention
 from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
                                             row_quant)
 from ...ops.kernels.rope_attention import MAX_KEYS, rope, rope_attention, rope_tables
@@ -110,6 +119,36 @@ class Linear(nn.Linear):
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (epsilon 1e-6 unless given, parameters ``scale`` and
+    ``bias``): the statistics in f32 as E[x^2] - E[x]^2 clipped at 0, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at the
+    promoted type of the input and the parameters."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale it by 1 / (1 - p); the mask is drawn from ``generator`` (on x's
+    device), so a seeded trainer repeats its masks."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def projection(d_in: int, d_out: int, quantize: int, dtype,
@@ -201,17 +240,61 @@ def moe_capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> in
     return min(((cap + 7) // 8) * 8, n_tokens)
 
 
-def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Per-expert w8a8 matmul with per-row activation quantization (the
-    forward of ``transformer.py::_act_quant_bmm``): h [E, C, K] f32, wq
-    [E, N, K] int8, scale [E, N] -> [E, C, N] f32 = acc * (x_scale *
-    scale). K1's quantizer over the E*C rows, then K1's GEMM per expert.
-    Forward only: the straight-through backward comes with MoE training."""
+def _act_quant_bmm(h, wq, scale):
     E, C, K = h.shape
     xq, xs = quantize_rows(h.reshape(E * C, K).contiguous())
     xq, xs, ws = xq.reshape(E, C, K), xs.reshape(E, C), scale.float()
     return torch.stack([int8_gemm(xq[e], wq[e], xs[e], ws[e].contiguous())
                         for e in range(E)])
+
+
+class _ActQuantBmm(torch.autograd.Function):
+    """The custom_vjp of ``transformer.py::_act_quant_bmm`` of the JAX
+    package: the forward is K1 (its quantizer over the E*C rows, then its
+    GEMM per expert); the backward is ``_act_quant_bmm_bwd``'s
+    straight-through estimator (its non-int8 branch), ``dh = (g * scale)
+    @ W_q`` per expert at g's dtype, the quantization taken as identity. A
+    plain ``torch.bmm``, as JAX leaves it to an XLA dot (the pattern of
+    ``ops/kernels/w8a8.py::_ActQuantMatmul``). The int8 weight and its
+    scale are frozen: no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, wq, scale):
+        ctx.save_for_backward(wq, scale)
+        ctx.h_dtype = h.dtype
+        return _act_quant_bmm(h, wq, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, scale = ctx.saved_tensors
+        dh = torch.bmm(g * scale[:, None, :].to(g.dtype), wq.to(g.dtype))
+        return dh.to(ctx.h_dtype), None, None
+
+
+def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-expert w8a8 matmul with per-row activation quantization
+    (``transformer.py::_act_quant_bmm``): h [E, C, K] f32, wq [E, N, K]
+    int8, scale [E, N] -> [E, C, N] f32 = acc * (x_scale * scale). K1's
+    quantizer over the E*C rows, then K1's GEMM per expert.
+    Differentiable in h through the straight-through estimator when h
+    requires grad."""
+    if torch.is_grad_enabled() and h.requires_grad:
+        return _ActQuantBmm.apply(h, wq, scale)
+    return _act_quant_bmm(h, wq, scale)
+
+
+def router_aux_loss(probs: torch.Tensor, top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The Switch / Mixtral load-balancing loss (``transformer.py::
+    router_aux_loss``): E * sum_e f_e * P_e, f_e the per-token count of
+    assignments to expert e (the [T, k, E] one-hot averaged over T, summed
+    over k) and P_e the mean router probability on e; top_k at perfect
+    balance."""
+    probs = probs.reshape(-1, n_experts).float()
+    experts = torch.arange(n_experts, device=probs.device)
+    onehot = (top_i.reshape(-1)[:, None] == experts[None, :]).float()
+    top_k = top_i.numel() // probs.shape[0]
+    f = onehot.mean(0) * top_k
+    return n_experts * torch.sum(f * probs.mean(0))
 
 
 def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d, wb,
@@ -240,15 +323,24 @@ def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d, wb,
 
 class MoEMLP(nn.Module):
     """Mixtral-style sparse-MoE SwiGLU FFN (``transformer.py::MoEMLP``,
-    single device, serving): router softmax in f32, top-k of the
-    probabilities renormalized, rank within expert by a cumsum over the
-    one-hot assignment. Experts run either as the dropless grouped chain
-    (``moe_grouped`` with int8 or absmax int4 experts, in eval: K6 twice) or
-    as the static-capacity dispatch into an [E, C, d] buffer, slots beyond C
-    dropped in token order, then E-batched matmuls (K1 per expert for int8
-    and absmax int4 experts, the int4 unpacked first; a table dequant and
-    ``torch.bmm`` for the nf4 / fp4 codebooks; ``torch.bmm`` for dense
+    single device): router softmax in f32, top-k of the probabilities
+    renormalized, rank within expert by a cumsum over the one-hot
+    assignment. Experts run either as the dropless grouped chain
+    (``moe_grouped`` with int8 or absmax int4 experts, in eval without a
+    gradient: K6 twice) or as the static-capacity dispatch into an [E, C, d]
+    buffer, slots beyond C dropped in token order (to a trash row that no
+    kept value or gradient reads), then E-batched matmuls (K1 per expert for
+    int8 and absmax int4 experts, the int4 unpacked first; a table dequant
+    and ``torch.bmm`` for the nf4 / fp4 codebooks; ``torch.bmm`` for dense
     experts).
+
+    Training takes the capacity path, as JAX does when not deterministic:
+    the expert matmuls carry the straight-through backward
+    (``act_quant_bmm``) and the router's gradient flows through the
+    renormalized top-k weights. In train mode each call records its
+    ``router_aux_loss`` in ``router_aux`` (JAX sows it per layer), which the
+    train step adds when ``training.router_aux_coef`` is set; in eval it is
+    None.
 
     Parameters: ``gate`` [D, E]; int8 experts ``w_{gate,up,down}_q``
     [E, N, K] (the kernels' layout, the transpose of JAX's [E, K, N]) or
@@ -270,6 +362,7 @@ class MoEMLP(nn.Module):
                         nn.Parameter(torch.ones(E, d_out), requires_grad=False))
             else:
                 setattr(self, name, nn.Parameter(torch.zeros(E, d_in, d_out)))
+        self.router_aux = None
 
     def _grouped(self, xt, eid, pos, src, cd):
         """The dropless grouped chain -> per-(token, slot) outputs [T*k, D]
@@ -315,11 +408,6 @@ class MoEMLP(nn.Module):
         return act_quant_bmm(h.float(), wq, scale).to(h.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "training through a MoE backbone (the straight-through backward "
-                "of the expert matmuls, router_aux_loss) is ROADMAP queue 1, "
-                "\"Training on the served backbones\"")
         cfg = self.cfg
         E, k = cfg.n_experts, cfg.n_experts_per_tok
         B, L, D = x.shape
@@ -332,6 +420,7 @@ class MoEMLP(nn.Module):
         top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
         top_p, top_i = top_p[:, :k], top_i[:, :k]
         weights = (top_p / top_p.sum(dim=-1, keepdim=True)).reshape(T * k)
+        self.router_aux = router_aux_loss(probs, top_i, E) if self.training else None
         eid = top_i.reshape(T * k)
         # rank of each slot within its expert: a running count over the slots,
         # taken along the inner axis of an [E, T*k] one-hot (a cumsum over the
@@ -342,7 +431,10 @@ class MoEMLP(nn.Module):
 
         int_experts = self.quantize == 8 or (self.quantize == 4
                                              and cfg.quant4_codebook == "absmax")
-        if cfg.moe_grouped and int_experts and not self.training:
+        # K6 has no backward: a call that needs a gradient takes the capacity
+        # path, as does training
+        needs_grad = torch.is_grad_enabled() and x.requires_grad
+        if cfg.moe_grouped and int_experts and not (self.training or needs_grad):
             y = self._grouped(xt, eid, pos, src, cd)
             if y is not None:
                 return (y * weights[:, None].to(cd)).reshape(T, k, D).sum(1).reshape(B, L, D)
@@ -382,36 +474,121 @@ class Block(nn.Module):
         return (x, new_kv) if return_kv else x
 
 
+class GPT2Attention(nn.Module):
+    """gpt2 self-attention (``Attention`` of the JAX package under
+    ``style == "gpt2"``): the fused biased ``c_attn`` split q | k | v, no
+    rotary, causal attention through ``dispatch_attention`` (plain below
+    512 tokens, K4 from there, as JAX's ``flash_attention`` picks), the
+    biased ``c_proj``, then the residual dropout. No attention-probability
+    dropout: JAX leaves it out on purpose (the kernel never holds the
+    probabilities), although HF gpt2 has it."""
+
+    def __init__(self, cfg: DecoderConfig, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.c_attn = Linear(cfg.d_model, 3 * cfg.d_model, dtype=dtype)
+        self.c_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype)
+
+    def forward(self, x, generator=None):
+        cfg = self.cfg
+        B, L, d = x.shape
+        H, D = cfg.n_heads, cfg.head_dim
+        q, k, v = (t.reshape(B, L, H, D).transpose(1, 2)
+                   for t in self.c_attn(x).split(d, dim=-1))
+        out = dispatch_attention(q, k, v, causal=True)
+        out = self.c_proj(out.transpose(1, 2).reshape(B, L, H * D))
+        return dropout(out, cfg.dropout, generator) if self.training else out
+
+
+class GPT2MLP(nn.Module):
+    """``c_fc`` -> tanh GELU (HF's "gelu_new") -> ``c_proj`` -> dropout."""
+
+    def __init__(self, cfg: DecoderConfig, dtype=None):
+        super().__init__()
+        self.p = cfg.dropout
+        self.c_fc = Linear(cfg.d_model, cfg.d_ff, dtype=dtype)
+        self.c_proj = Linear(cfg.d_ff, cfg.d_model, dtype=dtype)
+
+    def forward(self, x, generator=None):
+        h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        return dropout(h, self.p, generator) if self.training else h
+
+
+class GPT2Block(nn.Module):
+    """Pre-LN gpt2 block: ``x + attn(ln_1(x))``, then ``x + mlp(ln_2(x))``,
+    the LayerNorms at ``cfg.norm_eps``."""
+
+    def __init__(self, cfg: DecoderConfig, dtype=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.d_model, cfg.norm_eps)
+        self.attn = GPT2Attention(cfg, dtype)
+        self.ln_2 = LayerNorm(cfg.d_model, cfg.norm_eps)
+        self.mlp = GPT2MLP(cfg, dtype)
+
+    def forward(self, x, generator=None):
+        x = x + self.attn(self.ln_1(x), generator)
+        return x + self.mlp(self.ln_2(x), generator)
+
+
 class TransformerDecoder(nn.Module):
-    """Returns the last hidden state (no LM head), like HF ``AutoModel``."""
+    """Returns the last hidden state (no LM head), like HF ``AutoModel``.
+
+    llama: RMSNorm blocks with rotary attention, the final ``norm``, the
+    prompt-prefix cache (``prefix_kv``, ``prefill``). gpt2: the learned
+    positions ``wpe`` added at positions 0..L, the embedding dropout, the
+    pre-LN blocks and the final ``ln_f``; dropout (``cfg.dropout``) in
+    train mode from ``generator``. The prefix cache and quantized
+    projections are llama's only."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
         super().__init__()
-        if cfg.style != "llama":
+        if cfg.style not in ("llama", "gpt2"):
             raise NotImplementedError(
                 f"decoder style {cfg.style!r}: other backbone families are "
                 "ROADMAP queue 1, \"Other backbone families and LoRA\"")
+        if cfg.style == "gpt2" and quantize:
+            raise NotImplementedError(
+                "quantized gpt2 projections: ROADMAP queue 1, \"Other backbone "
+                "families and LoRA\"")
         self.cfg = cfg
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, quantize, dtype)
-                                    for _ in range(cfg.n_layers))
-        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        if cfg.style == "gpt2":
+            self.wpe = nn.Parameter(torch.zeros(cfg.max_position, cfg.d_model))
+            self.blocks = nn.ModuleList(GPT2Block(cfg, dtype) for _ in range(cfg.n_layers))
+            self.ln_f = LayerNorm(cfg.d_model, cfg.norm_eps)
+        else:
+            self.blocks = nn.ModuleList(Block(cfg, quantize, dtype)
+                                        for _ in range(cfg.n_layers))
+            self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
 
     def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.wte[token_ids]
 
-    def forward(self, inputs_embeds: torch.Tensor, prefix_kv=None) -> torch.Tensor:
-        """``prefix_kv``: per-layer (k, v) from ``prefill``; inputs_embeds
-        is then the suffix at positions P.."""
+    def forward(self, inputs_embeds: torch.Tensor, prefix_kv=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``prefix_kv`` (llama): per-layer (k, v) from ``prefill``;
+        inputs_embeds is then the suffix at positions P..; ``generator``
+        draws gpt2's dropout masks in train mode."""
         x = inputs_embeds
+        if self.cfg.style == "gpt2":
+            if prefix_kv is not None:
+                raise NotImplementedError(
+                    "a prompt-prefix cache over gpt2: ROADMAP queue 1, \"Other backbone "
+                    "families and LoRA\"")
+            x = x + self.wpe[None, :x.shape[1]].to(x.dtype)
+            if self.training:
+                x = dropout(x, self.cfg.dropout, generator)
+            for block in self.blocks:
+                x = block(x, generator)
+            return self.ln_f(x)
         offset = prefix_kv[0][0].shape[2] if prefix_kv is not None else 0
         for i, block in enumerate(self.blocks):
             x = block(x, None if prefix_kv is None else prefix_kv[i], offset)
         return self.norm(x)
 
     def prefill(self, inputs_embeds: torch.Tensor) -> tuple:
-        """Per-layer rotated (k, v) of a prompt prefix [1, P, d]."""
+        """Per-layer rotated (k, v) of a prompt prefix [1, P, d] (llama)."""
         x = inputs_embeds
         kvs = []
         for block in self.blocks:

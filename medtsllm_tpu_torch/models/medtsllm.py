@@ -327,6 +327,12 @@ class MedTsLLM(nn.Module):
             cache_dir = None
         quantize = 4 if in4 else 8 if in8 else 0  # 4 wins, as in JAX
         llm_cfg = resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1))
+        if getattr(llm_cfg, "style", "mamba") not in ("llama", "mamba"):
+            # (the gpt2 decoder serves GPT4TS; MedTsLLM's prompt-prefix cache,
+            # prefill and quantized projections are llama's and Mamba's only)
+            raise NotImplementedError(
+                f"MedTsLLM over the {llm_cfg.style} backbone {mc.llm.llm!r}: ROADMAP queue 1, "
+                "\"Other backbone families and LoRA\"")
         if quantize == 4:
             llm_cfg = dataclasses.replace(llm_cfg, quant4_codebook=codebook)
         llm_cfg = _resolve_moe(llm_cfg, mc.llm, quantize, torch.device(device))

@@ -3,7 +3,8 @@
 embeddings (``FixedEmbedding``, ``TemporalEmbedding``,
 ``TimeFeatureEmbedding``), ``DataEmbedding`` with its ``_wo_pos`` and
 ``_wo_time`` forms, ``patch_unfold`` and ``PatchEmbedding`` (with
-``pos_embed=False``, as MedTsLLM uses it); and the dropout of every layer.
+``pos_embed=False``, as MedTsLLM uses it); ``dropout`` (every layer's) lives
+in ``models/llm/transformer.py`` beside flax's Dense and LayerNorm.
 
 Where JAX builds a submodule only when its input is given (the temporal
 embedding of ``DataEmbedding`` under an ``x_mark``), the port builds it
@@ -20,17 +21,7 @@ import torch
 from torch import nn
 
 from ..device import device_constant
-from ..models.llm.transformer import Linear
-
-
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep each element with probability 1 - p and
-    scale it by 1 / (1 - p); the mask is drawn from ``generator`` (on x's
-    device), so a seeded trainer repeats its masks."""
-    if p == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+from ..models.llm.transformer import Linear, dropout
 
 
 def positional_embedding(max_len: int, d_model: int) -> np.ndarray:

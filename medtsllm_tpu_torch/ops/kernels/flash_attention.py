@@ -21,6 +21,15 @@ kernel defines no custom_vjp. Two entries launch the same kernel:
   are K2's: f32 with the tables rounded to the compute dtype, one rounding
   (``rope_once``); the plain version rotates with torch's ``rope``.
 
+``dispatch_attention(q, k, v, causal)`` is JAX's ``flash_attention``
+itself, the dispatcher in front of the kernel (``flash_attention.py:196-249``),
+with its exact gate (``attention_route``): the plain version below 512
+tokens; from 512, K4 when S is a multiple of 256 (and D % 64, L % 8, S % 8
+and L, S >= 128); causal self-attention at another length padded at the
+end to the next multiple of 256 when the pad is at most S // 10, K4 on the
+padded q/k/v, then sliced; the plain version otherwise. gpt2's attention
+takes it (no rotary).
+
 The kernel never holds the [L, S] scores: it keeps an f32 running max, sum
 and accumulator per query row and writes ``acc / max(l, 1e-30)`` rounded to
 q's dtype. The t5 additive bias is not ported (it takes JAX's reference
@@ -112,6 +121,45 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
                   ctypes.c_float(sm_scale))
     flash_attention.launches += 1
     return out
+
+
+# JAX's dispatcher launches the kernel from this many tokens (its
+# ``_MIN_SEQ_FOR_KERNEL``)
+K4_MIN_SEQ = 512
+
+
+def attention_route(L: int, S: int, D: int, causal: bool) -> str:
+    """The route JAX's ``flash_attention`` takes for q [B, H, L, D] against
+    S keys, its ``_use_pallas()`` true: "plain" (``_attention_reference``),
+    "k4", or "k4-padded" (causal self-attention padded at the end to a
+    multiple of 256)."""
+    if max(L, S) < K4_MIN_SEQ:
+        return "plain"
+    if S % 256:
+        pad = -S % 256
+        if causal and L == S and D % 64 == 0 and pad <= S // 10:
+            return "k4-padded"
+        return "plain"
+    if D % 64 == 0 and L % 8 == 0 and S % 8 == 0 and L >= 128 and S >= 128:
+        return "k4"
+    return "plain"
+
+
+def dispatch_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
+    """q [B, H, L, D], k/v [B, KV, S, D] -> [B, H, L, D] by
+    ``attention_route``: the plain version (differentiable), or K4 through
+    ``flash_attention`` (which raises where a gradient is needed), on the
+    padded q/k/v for "k4-padded"."""
+    L, S, D = q.shape[2], k.shape[2], q.shape[-1]
+    route = attention_route(L, S, D, causal)
+    if route == "plain":
+        return flash_attention_plain(q, k, v, causal, sm_scale)
+    if route == "k4":
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                               sm_scale)
+    pad = -S % 256  # real query i still sees exactly keys <= i; padded rows dropped
+    q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    return flash_attention(q, k, v, True, sm_scale)[:, :, :L]
 
 
 def rope_once(x, cos, sin):

@@ -1,5 +1,6 @@
 """Transformer encoder (port of ``medtsllm_tpu/ops/transformer.py``:
-``EncoderLayer`` and ``Encoder``), flax's ``LayerNorm`` and ``borrow``.
+``EncoderLayer`` and ``Encoder``) and ``borrow``; flax's ``LayerNorm`` (in
+``models/llm/transformer.py``, which gpt2's blocks share) is imported from here too.
 
 As in the JAX package, the point-wise conv FFN is a Dense over features
 and the activation is relu or the exact-erf GELU (``F.gelu``'s default).
@@ -16,12 +17,10 @@ package.
 
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.llm.transformer import Linear
-from .embed import dropout
+from ..models.llm.transformer import LayerNorm, Linear, dropout
 
 
 def borrow(owner: nn.Module, name: str, module: nn.Module) -> None:
@@ -34,26 +33,6 @@ def borrow(owner: nn.Module, name: str, module: nn.Module) -> None:
 def activation(name: str):
     """relu, or the exact-erf GELU."""
     return F.relu if name == "relu" else F.gelu
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` (epsilon 1e-6, parameters ``scale`` and
-    ``bias``): the statistics in f32 as E[x^2] - E[x]^2 clipped at 0, then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at the
-    promoted type of the input and the parameters."""
-
-    def __init__(self, dim: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
-        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
 
 
 class EncoderLayer(nn.Module):

@@ -61,6 +61,16 @@ the optimizer's update. What it adds:
   step's gradient, as after the eager step (after a capture, the
   warm-up's, copied in).
 - Its graphs share a pool of their own, apart from the eval graphs'.
+
+Every ``StepGraphs`` and ``TrainGraphs`` on a device warms up and captures
+on one side stream (``capture_stream``), made once for the process. cuBLAS
+allocates a workspace (through the caching allocator) for each (handle,
+stream) pair it runs on and keeps it until the process ends, since a
+captured graph binds it by address; the caller's thread and autograd's
+backward thread hold a handle each. With a stream per ``StepGraphs``, each
+deleted trainer left its streams' workspaces behind (0.0635 GiB for a
+GPT4TS trainer on an H100, chip_smoke phase 6p); on the shared stream they
+are made once, by the first capture, and every later trainer reuses them.
 """
 
 from __future__ import annotations
@@ -118,6 +128,19 @@ def _signature(t: torch.Tensor) -> tuple:
 BOUND = ("prefix_kv", "prefix_bank")
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every step graph on ``device`` warms up and captures
+    on, one for the process (its cuBLAS workspaces with it)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
+
+
 def step_key(arrays: dict) -> tuple:
     """The step's input signature: (name, shape, dtype) of each input array,
     and for ``prefix_kv`` and ``prefix_bank`` (per layer, a pair of tensors)
@@ -149,7 +172,6 @@ class StepGraphs:
         self.graphs: dict[tuple, tuple] = {}
         self.capture_ms: list[float] = []
         self._pool = None
-        self._stream = None
 
     def __len__(self) -> int:
         return len(self.graphs)
@@ -187,14 +209,12 @@ class StepGraphs:
 
     def _capture(self, key, arrays):
         main = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         # the static inputs, outside the pool; the prefix K/V and bank as they lie
         inputs = {name: v.clone() for name, v in arrays.items() if name not in BOUND}
         static = {**arrays, **inputs}
-        side = self._stream
+        side = capture_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self.step(static)  # the warm-up, counted: its kernels run

@@ -7,10 +7,12 @@ the epoch loop ``train``, ``train_model_inputs`` / ``eval_model_inputs``,
 the score bookkeeping (``log_scores``, ``best_score``).
 
 The model comes from the registry (``models/__init__.py``): MedTsLLM, whose
-inputs the prompt builder makes, or a baseline (DLinear, PatchTST,
-TimesNet, FEDformer), which takes the batch's arrays (``ARRAY_BATCH_KEYS``,
-and imputation's ``mask``) and has no prompt head, so no cache or bank.
-Both run through the same eval and train steps.
+inputs the prompt builder makes, or GPT4TS or a baseline (DLinear,
+PatchTST, TimesNet, FEDformer), which take the batch's arrays
+(``ARRAY_BATCH_KEYS``, and imputation's ``mask``) and have no prompt head,
+so no cache or bank. All run through the same eval and train steps; the
+optimizer sees the trainable parameters only (GPT4TS's gpt2 backbone is
+frozen but for its LayerNorms and ``wpe``).
 
 The dtype policy is the JAX package's (``setup.dtype``, ``Precision``):
 every float parameter at one dtype, or under "mixed" the trainable fusion
@@ -51,7 +53,7 @@ The run's lifecycle is JAX's: the logger (``loggers/``) is made last in
 ``__init__`` and writes the run directory; ``log_epoch`` saves ``latest``
 every epoch and ``best`` on an improvement (``runtime/checkpoint.py``:
 MedTsLLM's fusion layers only, the frozen backbone rebuilt from
-``setup.seed``; a baseline's every parameter);
+``setup.seed``; GPT4TS's and a baseline's every parameter, as JAX's);
 SIGUSR1 saves ``latest`` at the next step boundary and exits 0;
 ``from_run_id`` rebuilds a run from its ``config.toml`` and a checkpoint,
 restored in place (the captured steps and the optimizer bind the
@@ -81,6 +83,7 @@ from ..device import resolve_device
 from ..loggers import get_logger
 from ..loggers.base import logdir_base
 from ..models import build_model
+from ..models.llm.transformer import MoEMLP
 from ..models.medtsllm import ARRAY_BATCH_KEYS, MedTsLLM, Precision, PromptBuilder
 from ..runtime.checkpoint import load_checkpoint, restore_partial, wait_for_saves
 from ..runtime.graph import StepGraphs, TrainGraphs
@@ -122,6 +125,8 @@ class BaseTask:
             warnings.warn(f"LLM {self.model.llm_id!r}: no weights are loaded — "
                           "random init (shapes and throughput faithful; task "
                           "quality not meaningful)")
+        elif hasattr(self.model, "load_backbone_weights"):  # GPT4TS's backbone
+            self.model.load_backbone_weights()
         self._apply_param_dtype()
         self.model.eval()
         # (head ids, mixed train) or ("clip_bank", P, mixed train) ->
@@ -146,11 +151,12 @@ class BaseTask:
                                            if n in loaded])
         self.loss_fn = build_loss(config.training.loss, self.task,
                                   getattr(self.train_dataset, "n_classes", 0))
-        # the step binds the model, the policy, the loss, the optimizer and
-        # the generator (not the trainer, as the eval step)
-        self._train_update = functools.partial(train_update, self.model, self.precision,
-                                               self.loss_fn, self.optimizer,
-                                               self.dropout_generator)
+        # the step binds the model, the policy, the loss, the optimizer, the
+        # generator and the router's loss coefficient (not the trainer, as the
+        # eval step)
+        self._train_update = functools.partial(
+            train_update, self.model, self.precision, self.loss_fn, self.optimizer,
+            self.dropout_generator, float(config.training.get("router_aux_coef", 0) or 0))
         self.train_graphs = (TrainGraphs(self._train_update, self.device,
                                          self.optimizer.params, (self.dropout_generator,))
                              if self.device.type == "cuda" else None)
@@ -674,14 +680,19 @@ def stitch_channels(dataset, values: np.ndarray, starts: np.ndarray, n_points: i
                           n_channels=dataset.real_features, features=feats)
 
 
-def train_update(model, precision, loss_fn, optimizer, generator,
+def train_update(model, precision, loss_fn, optimizer, generator, aux_coef: float,
                  arrays: dict) -> torch.Tensor:
     """One optimizer step on a batch of model inputs (``arrays["valid"]``
     the rows the loss averages) -> the loss, detached. The model runs in
-    train mode (dropout from ``generator``, the einsum reprogramming graph),
-    under "mixed" at bf16 over bf16 casts of the parameters and the float
-    inputs; its predictions are taken in f32 against the uncast inputs, and
-    only the fusion layers update."""
+    train mode (dropout from ``generator``, the einsum reprogramming graph,
+    the MoE experts on the capacity path), under "mixed" at bf16 over bf16
+    casts of the parameters and the float inputs; its predictions are taken
+    in f32 against the uncast inputs, and only the trainable parameters
+    update. With ``aux_coef`` (``training.router_aux_coef``) the loss gains
+    ``aux_coef`` x the mean over the MoE layers of each one's
+    ``router_aux_loss`` (JAX's sown ``intermediates``); a model without a
+    MoE layer raises, as JAX's step does."""
+    moe = [m for m in model.modules() if isinstance(m, MoEMLP)]
     model.train()
     try:
         if precision.mixed:
@@ -692,11 +703,18 @@ def train_update(model, precision, loss_fn, optimizer, generator,
         else:
             pred = model(arrays, generator=generator)
         loss = loss_fn(pred.float(), arrays, arrays["valid"])
+        if aux_coef:
+            if not moe:
+                raise ValueError("training.router_aux_coef set but the model sowed no "
+                                 "router_aux_loss — not a MoE backbone")
+            loss = loss + aux_coef * torch.stack([m.router_aux for m in moe]).mean()
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
     finally:
         model.eval()
+        for m in moe:  # (no step's graph outlives it)
+            m.router_aux = None
     return loss.detach()
 
 

@@ -15,7 +15,10 @@ and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
   - Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (Conv1d);
   - the Mamba block's depthwise ``conv_kernel`` [K, 1, E] -> [E, 1, K]
     (F.conv1d with groups=E), under its own name.
-Every other leaf keeps its name and layout: the baselines' DLinear maps
+GPT4TS's tree maps as it is: the backbone under ``gpt2`` (``wte``, ``wpe``,
+``h_{i}/{ln_1, attn/{c_attn, c_proj}, ln_2, mlp/{c_fc, c_proj}}``, ``ln_f``),
+then ``enc_embedding``, ``predict_linear_pre``, ``ln_proj`` and
+``out_layer``. Every other leaf keeps its name and layout: the baselines' DLinear maps
 ``{seasonal,trend}_{w,b}``, the inception kernels ``kernel_{i}`` [K, K,
 Nin, Nout] and the Fourier weights ``weights1`` / ``weights2``. The
 baselines' state dicts have the flax tree's keys, so each maps key for key.
@@ -101,7 +104,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
 def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in place, on the model's device, drawing from
     ``generator`` (on that device) with the JAX init's distributions:
-    word embeddings N(0, 0.02); RMSNorm ones; int8 projections
+    word embeddings N(0, 0.02), gpt2's learned positions N(0, 0.01); RMSNorm
+    ones; int8 projections
     clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; int4 ones
     clip(round(w / S_INIT4), +-7) (absmax) or the nearest table entry of
     w / S_INIT4 (nf4, fp4: the first on ties, so fp4's -0 is never drawn)
@@ -207,3 +211,5 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
             module.D.fill_(1.0)
         elif isinstance(module, (TransformerDecoder, MambaBackbone, WordEmbeddings)):
             module.wte.normal_(0.0, 0.02, generator=generator)
+            if getattr(module, "wpe", None) is not None:  # gpt2's learned positions
+                module.wpe.normal_(0.0, 0.01, generator=generator)

@@ -23,9 +23,9 @@ them.
       ``python -m medtsllm_tpu_torch.train`` runs it) with ``--device
       cpu``, then the test CLI's on its run directory: the same test
       scores;
-  (f) gpt4ts still refused, by its ROADMAP item's title, and finetuning
-      for a baseline, as JAX asserts; FEDformer's ``mode_select =
-      "random"`` draws JAX's four index tuples.
+  (f) finetuning refused for a baseline, as JAX asserts; FEDformer's
+      ``mode_select = "random"`` draws JAX's four index tuples. (GPT4TS,
+      the fifth model of the registry, is tests/test_torch_gpt4ts.py's.)
 """
 
 import contextlib
@@ -260,14 +260,6 @@ def test_config_toml_through_the_clis(tmp_path, monkeypatch, capsys):
     again = run("medtsllm_tpu_torch.test", "Results:", "cli-dlinear", "test", "latest",
                 str(tmp_path / "logs"))
     assert again == trained
-
-
-def test_gpt4ts_refused_by_item_title(tmp_path):
-    """(f) gpt4ts (a GPT-2 backbone) raises, naming its item by title."""
-    raw = _raw("config", tmp_path)
-    raw["model"] = "gpt4ts"
-    with pytest.raises(NotImplementedError, match='"Other backbone families and LoRA"'):
-        get_trainer("gpt4ts", JaxConfig(raw), device="cpu")
 
 
 def test_finetuning_refused_for_baselines(tmp_path):

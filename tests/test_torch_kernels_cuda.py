@@ -57,12 +57,15 @@ def _int8_operands(cuda, M, K, N, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(1, 64, 8), (37, 176, 72), (129, 4096, 200),
-                                   (896, 11008, 4096), (17024, 4096, 4096), (37, 176, 75)])
+                                   (896, 11008, 4096), (17024, 4096, 4096), (37, 176, 75),
+                                   (2160, 2048, 5632), (2160, 5632, 2048)])
 def test_w8a8_gemm_bit_equal_in_every_output_kind(cuda, M, K, N):
     """s32, f32 and bf16 outputs bit-equal to the plain version: K shorter
     than one 128-byte stage and K tails (64, 176), ragged M and N, the
     7B down projection and the long window's M; N 75 leaves output rows
-    that are not 16-byte aligned (the epilogue's element-wise stores)."""
+    that are not 16-byte aligned (the epilogue's element-wise stores); the
+    moe-8x1b train step's per-expert capacity shape (C = 2160 slots: gate
+    and up, then down)."""
     xq, wq, xs, ws = _int8_operands(cuda, M, K, N)
     n = k1.int8_gemm.launches
     for dt in (torch.int32, torch.float32, torch.bfloat16):
@@ -275,6 +278,7 @@ def test_rope_attention_kernel_rejects_bad_input(cuda):
     (2, 8, 2, 100, 333, 128, False),     # non-causal, partial last k-tile
     (3, 4, 2, 40, 40, 64, True),         # the first k-tile is partial
     (1, 2, 1, 1, 1, 128, True),          # one query, one key
+    (16, 12, 12, 512, 512, 64, True),    # gpt2 at JAX's 512-token gate
 ])
 def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal):
     g = torch.Generator(cuda).manual_seed(0)
@@ -299,6 +303,48 @@ def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal)
     else:
         err = (out.float() - ref.float()).abs().amax(-1)
         assert (err <= 2 ** -6 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,route", [(1000, "k4-padded"), (1024, "k4"), (300, "plain")])
+def test_dispatch_attention_routes_on_the_card(cuda, L, route):
+    """JAX's dispatcher as ported, at gpt2's head dim: K4 launched on the
+    padded (1000 -> 1024) and the aligned route, not below 512 tokens; f32
+    within 1e-5 of the plain version."""
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 12, L, 64, device=cuda, generator=g) for _ in range(3))
+    assert k4.attention_route(L, L, 64, True) == route
+    n = k4.flash_attention.launches
+    out = k4.dispatch_attention(q, k, v, causal=True)
+    assert k4.flash_attention.launches == n + (route != "plain")
+    torch.testing.assert_close(out, k4.flash_attention_plain(q, k, v, True), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_act_quant_bmm_trains_through_k1(cuda):
+    """The capacity experts' matmul with a gradient: K1's quantizer once and
+    its GEMM per expert, bit-equal to the plain forward; the backward the
+    straight-through ``(g * scale) @ W_q``."""
+    from medtsllm_tpu_torch.models.llm.transformer import act_quant_bmm
+
+    g = torch.Generator(cuda).manual_seed(3)
+    E, C, K, N = 8, 2160, 2048, 256
+    h = torch.randn(E, C, K, device=cuda, generator=g).requires_grad_()
+    wq = torch.randint(-127, 128, (E, N, K), device=cuda, dtype=torch.int8, generator=g)
+    scale = torch.rand(E, N, device=cuda, generator=g) * 1e-3
+    nq, ng = k1.quantize_rows.launches, k1.int8_gemm.launches
+    y = act_quant_bmm(h, wq, scale)
+    assert (k1.quantize_rows.launches, k1.int8_gemm.launches) == (nq + 1, ng + E)
+    with torch.no_grad():
+        xq, xs = k1.quantize_rows_plain(h.reshape(E * C, K))
+        want = torch.stack([k1.int8_gemm_plain(xq.reshape(E, C, K)[e], wq[e],
+                                               xs.reshape(E, C)[e], scale[e])
+                            for e in range(E)])
+    assert torch.equal(y, want)
+    cot = torch.randn(E, C, N, device=cuda, generator=g)
+    y.backward(cot)
+    assert torch.equal(h.grad, torch.bmm(cot * scale[:, None, :], wq.float()))
 
 
 @pytest.mark.cuda
@@ -1159,12 +1205,14 @@ def _train_trainer(cuda, path, optimizer):
     epochs and a global-norm clip of 0.5: ``llama`` the w8a8 finetune
     (K1's STE backward, K2's), ``mamba`` mamba-130m (K9 / K10), ``mixed``
     bidmc.toml's segmentation under mixed (the casts through
-    ``functional_call``, the bf16 train cache). (llama-tiny's head dim 16
+    ``functional_call``, the bf16 train cache), ``moe`` moe-8x1b (the
+    capacity path: K1 per expert with its straight-through backward, the
+    router's aux loss at 0.01). (llama-tiny's head dim 16
     is one K2 refuses on the card: the llama cuts are llama-1b's.)"""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import BIDMC_TOML, bench_config, mamba_config, task_config
+    from chip_smoke import BIDMC_TOML, bench_config, mamba_config, moe_config, task_config
     from medtsllm_tpu_torch.config import Config
     from medtsllm_tpu_torch.tasks import get_trainer
 
@@ -1174,9 +1222,15 @@ def _train_trainer(cuda, path, optimizer):
            "mamba": lambda: mamba_config(Config, n_points=768, batch=4, history=64,
                                          llm_layers=2),
            "mixed": lambda: task_config(Config, BIDMC_TOML, n_points=512, llm="llama-1b",
-                                        llm_layers=2, history=64, batch=4)}[path]().to_dict()
+                                        llm_layers=2, history=64, batch=4),
+           "moe": lambda: moe_config(Config, n_points=768, batch=4,
+                                     llm_layers=2)}[path]().to_dict()
     cfg["training"].update(optimizer=optimizer, lr_scheduler="cosine", epochs=4,
                            grad_clip_norm=0.5, dropout=0.1, learning_rate=1e-3)
+    if path == "moe":  # the capacity path and the router's loss, at history 64
+        cfg.update(history_len=64, pred_len=64)
+        cfg["data"]["step"] = 32
+        cfg["training"]["router_aux_coef"] = 0.01
     return get_trainer(f"train-graph-{path}", Config(cfg), device=cuda)
 
 
@@ -1202,7 +1256,8 @@ def _train_run(tr, step, batches, counters):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path,optimizer", [("llama", "adam"), ("mamba", "adamw"),
-                                            ("mixed", "adam"), ("mixed", "sgd")])
+                                            ("mixed", "adam"), ("mixed", "sgd"),
+                                            ("moe", "adam")])
 def test_graphed_train_step_bit_equal_to_eager(cuda, path, optimizer):
     """After one captured step (the warm-up, a real step), 4 replays across
     one ``set_epoch`` change equal 4 eager steps from the same state (the
@@ -1375,11 +1430,14 @@ def test_graphed_train_step_moves_loaded_group_after_unfreeze(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("toml,model", [("configs/baseline-models/msl-timesnet.toml", "timesnet"),
                                         ("configs/baseline-models/msl-fedformer.toml",
-                                         "fedformer")])
+                                         "fedformer"),
+                                        ("configs/baseline-models/dreams.toml", "gpt4ts")])
 def test_graphed_baseline_train_step_bit_equal_to_eager(cuda, toml, model):
     """A baseline's captured train step (TimesNet: the periods stay device
     tensors, the folded conv's backward a GEMM; FEDformer: the shared
-    Fourier block), the shipped file cut to one layer: after the warm-up
+    Fourier block; GPT4TS: gpt2 at full width, its dropout from the
+    registered generator, plain attention at 128 tokens), the shipped file
+    cut to one layer: after the warm-up
     step, 4 replays across one ``set_epoch`` change equal 4 eager steps
     from the same state bit for bit (the losses, the parameters, Adam's
     state, the gradients, the dropout generator's state); nothing is
@@ -1395,7 +1453,7 @@ def test_graphed_baseline_train_step_bit_equal_to_eager(cuda, toml, model):
     from medtsllm_tpu_torch.tasks import get_trainer
 
     raw = tomllib.loads((Path(__file__).resolve().parents[1] / toml).read_text())
-    raw["models"][model]["e_layers"] = 1
+    raw["models"][model]["gpt_layers" if model == "gpt4ts" else "e_layers"] = 1
     raw["training"].update(batch_size=4, epochs=4, lr_scheduler="cosine")
     tr = get_trainer(f"baseline-graph-{model}", Config(dict(raw, DEBUG=True)), device=cuda)
     pipe = itertools.chain.from_iterable(itertools.repeat(tr.train_pipeline))
@@ -1419,3 +1477,30 @@ def test_graphed_baseline_train_step_bit_equal_to_eager(cuda, toml, model):
     _, arrays = tr.eval_prepare(next(iter(tr.test_pipeline)))
     tr.eval_step(arrays)  # the eval graph's warm-up and capture
     assert torch.equal(tr.eval_step(arrays), tr.eval_step_eager(arrays))
+
+
+@pytest.mark.cuda
+def test_deleted_trainer_releases_its_device_memory(cuda):
+    """A trainer's device memory goes with it: after a first trainer (the
+    shared capture stream's cuBLAS workspaces made), a second one of the
+    same configuration, built, trained and served through its captured
+    steps, then deleted, leaves ``memory_allocated`` where it was."""
+    import gc
+
+    def run():
+        tr = _train_trainer(cuda, "llama", "adam")
+        for batch, _ in zip(tr.train_pipeline, range(3)):
+            a = tr.train_model_inputs(batch)
+            tr.train_step(a, a["valid"])
+        for batch, _ in zip(tr.test_pipeline, range(3)):
+            tr.eval_dispatch(batch)
+        assert len(tr.train_graphs) == 1 and len(tr.step_graphs) >= 1
+        torch.cuda.synchronize()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(cuda)
+
+    first = run()
+    assert run() == first
+

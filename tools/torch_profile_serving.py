@@ -8,7 +8,8 @@ card.
                                                    classification|imputation|mamba-train|
                                                    llama-train|bidmc-train|ecgmit-seg-train|
                                                    forecasting-train|classification-train|
-                                                   imputation-train]
+                                                   imputation-train|moe-train|bidmc-gpt4ts|
+                                                   bidmc-gpt4ts-train]
                                            [--steps 4] [--eager]
 
 Builds the trainer of ``chip_smoke.py`` (the same configuration and random
@@ -22,7 +23,9 @@ per-clip heads gathered from the KV bank inside the step), ``forecasting``,
 ``classification`` and ``imputation`` the served task blocks of phases
 6g-6i; ``-train`` names the train step of phase 8 (``mamba-train``), 9
 (``llama-train``, the 7B w8a8 finetune), 6a, 6e and 6g-6i at four batches
-an epoch). For a serving path it runs one warm-up ``test()``
+an epoch; ``moe-train`` is phase 8b's, configs/ablation/moe-backbone.toml
+as shipped on the capacity path; ``bidmc-gpt4ts`` and its ``-train`` are
+phase 6p's configs/baseline-models/bidmc-gpt4ts.toml as shipped). For a serving path it runs one warm-up ``test()``
 pass (it builds the kernels and the prompt-head cache and captures the
 step's CUDA graph), prepares ``--steps`` test batches on the host, then
 runs their eval steps under ``torch.profiler``: the graph's replays, as
@@ -90,7 +93,8 @@ def main() -> None:
                                        "ecgmit-seg", "ludb", "forecasting", "classification",
                                        "imputation", "mamba-train", "llama-train",
                                        "bidmc-train", "ecgmit-seg-train", "forecasting-train",
-                                       "classification-train", "imputation-train"),
+                                       "classification-train", "imputation-train",
+                                       "moe-train", "bidmc-gpt4ts", "bidmc-gpt4ts-train"),
                     default="mamba")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--eager", action="store_true",
@@ -149,6 +153,11 @@ def main() -> None:
            # 32 clips, four train batches of 16, as chip_smoke phase 6e
            "ecgmit-seg-train": lambda: chip_smoke.task_config(
                Config, chip_smoke.ECG_SEG_TOML, n_points=32 * 512, n_clips=32),
+           # the shipped files of phases 8b and 6p, on their stand-ins
+           "moe-train": lambda: chip_smoke.shipped_config(Config, chip_smoke.MOE_TOML),
+           **{f"bidmc-gpt4ts{suffix}": functools.partial(
+               chip_smoke.baseline_config, Config, chip_smoke.GPT4TS_TOMLS["bidmc-gpt4ts"])
+              for suffix in ("", "-train")},
            **{f"{name}{suffix}": functools.partial(task_block, block, suffix)
               for name, block in (("forecasting", "bidmc-forecast"),
                                   ("classification", "dreams-classification"),
