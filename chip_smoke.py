@@ -80,6 +80,30 @@ nvidia-smi. Phases:
      gate sends to K4 (once a layer a batch, nothing else launched), and K4
      at gpt2's shape (B 16, H = KV 12, L = S 512, D 64, f32, causal) against
      its plain version, listed as ``flash_attention[gpt2]``;
+  6q. MedTsLLM over gpt2 at its published widths (12 layers, d 768, 12 x
+     64 heads, d_ff 3072, vocab 50257): bidmc-like reconstruction, history
+     256, patch 16 / 8, ``concat``, batch 16, bf16, ``load_in_8bit`` (K1 on
+     the fused ``c_attn``, ``c_proj``, ``c_fc`` and the MLP's ``c_proj``, the
+     bias added after the rescale), the prompt head cached: K1 held at the
+     gpt2 block (``w8a8_quantize[gpt2]``, ``w8a8_gemm[gpt2]``), ``serve()``,
+     the cached head against the head embedded in the step; the banked step
+     on a clip config (per-clip heads) against the embedded head; LoRA
+     (rank 8, alpha 16, rslora, on the q third of ``c_attn``) through
+     ``train_graphed`` over 4 steps (K1's straight-through dx; replays
+     bit-equal to the eager steps; every ``lora_b`` moved, every other
+     ``llm.`` tensor unchanged); a 2-layer dense f32 slice at d 768 with
+     random adapters, card vs CPU;
+  6r. the same over opt-125m's and pythia-160m's published config.json
+     (written to a temporary snapshot directory beside a tokenizer, read by
+     the port's ``config_from_hf_json``; seeded weights): opt's learned
+     positions from row 2 and relu, neox's partial rotary (16 of 64 dims)
+     and parallel residual, six K1 GEMMs a block;
+  6s. gpt2 at a long window: per-clip heads (a 16-token bucket) and the
+     history chosen so that [prefix | region] is 768 keys, which JAX's gate
+     sends to K4 (end-aligned, L < S) once a layer a batch through
+     ``serve()``; K4 held there (``flash_attention[gpt2-prefix]``), the
+     route table printed, and K4's D 192 and D 256 instances, f32 and bf16,
+     against the plain version at one shape each (printed, not listed);
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
      configs/datasets/*.toml as they are but for synthetic data; a dense
      Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
@@ -605,6 +629,67 @@ def pretraining_config(Config):
                            eval_metric_direction="min")
     raw["tasks"] = {"pretraining": {"downsample_pct": 1.0, "n_features": "auto"}}
     return quiet(Config, raw)
+
+
+# phases 6q-6r: the published config.json entries of opt-125m and pythia-160m
+# (HF's facebook/opt-125m and EleutherAI/pythia-160m), written to a temporary
+# snapshot directory and read by the port's config_from_hf_json (no weights:
+# the backbone is seeded)
+OPT_125M = {"model_type": "opt", "vocab_size": 50272, "hidden_size": 768,
+            "num_hidden_layers": 12, "num_attention_heads": 12, "ffn_dim": 3072,
+            "max_position_embeddings": 2048, "do_layer_norm_before": True,
+            "word_embed_proj_dim": 768, "dropout": 0.1, "activation_function": "relu",
+            "bos_token_id": 2, "eos_token_id": 2, "pad_token_id": 1}
+PYTHIA_160M = {"model_type": "gpt_neox", "vocab_size": 50304, "hidden_size": 768,
+               "num_hidden_layers": 12, "num_attention_heads": 12,
+               "intermediate_size": 3072, "max_position_embeddings": 2048,
+               "rotary_pct": 0.25, "rotary_emb_base": 10000, "use_parallel_residual": True,
+               "hidden_act": "gelu", "layer_norm_eps": 1e-5, "hidden_dropout": 0.0,
+               "bos_token_id": 0, "eos_token_id": 0}
+# the LoRA of phases 6q-6r: rank 8, alpha 16, rslora (peft's targets: the q
+# third of gpt2's c_attn, opt's and neox's q_proj)
+LORA = {"enabled": True, "rank": 8, "alpha": 16, "rslora": True, "dropout": 0.0,
+        "layers": "auto"}
+
+
+def family_config(Config, llm, batch=16, history=256, n_points=8320, dtype="bf16",
+                  load_in_8bit=True, lora=False, n_clips=None, n_features=3,
+                  input_stats=True, llm_layers=-1, d_ff=128, num_tokens=1024):
+    """``bench_config`` over ``llm`` (a preset id or a snapshot directory):
+    bidmc-like reconstruction of ``n_features`` synthetic features, the
+    prompt head cached; the default n_points gives 64 windows a split (4
+    batches of 16). ``lora`` adds the ``LORA`` adapters; ``n_clips`` makes
+    the data a clip dataset with per-clip head rows (``prompting.clip``)."""
+    raw = bench_config(Config, llm=llm, batch=batch, history=history, dtype=dtype,
+                       n_points=n_points, num_tokens=num_tokens, d_ff=d_ff,
+                       llm_layers=llm_layers, load_in_8bit=load_in_8bit).to_dict()
+    raw["datasets"]["synthetic"]["n_features"] = n_features
+    mc = raw["models"]["medtsllm"]
+    mc["prompting"]["input_stats"] = input_stats
+    if lora:
+        mc["lora"] = dict(LORA)
+    if n_clips:
+        raw["datasets"]["synthetic"].update(clips=True, n_clips=n_clips)
+        mc["prompting"]["clip"] = True
+    return quiet(Config, raw)
+
+
+def write_snapshot(root: Path, name: str, fields: dict) -> str:
+    """A snapshot directory: ``config.json`` and, as its tokenizer, the
+    port's fallback byte-level BPE (``tokenizer.json`` with a
+    ``tokenizer_config.json`` naming ``PreTrainedTokenizerFast``), so that
+    where transformers is installed it loads a real tokenizer from the
+    snapshot, and elsewhere the port's fallback reads the same BPE; returns
+    its path. No weights: the backbone is seeded."""
+    path = root / name
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(fields))
+    shutil.copyfile(ROOT / "medtsllm_tpu_torch" / "models" / "llm" / "assets" /
+                    "fallback_bpe.json", path / "tokenizer.json")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "pad_token": "<pad>"}))
+    return str(path)
 
 
 def one_class(tr, split) -> bool:
@@ -2593,6 +2678,267 @@ def main() -> None:
     set_launches(counts, {"flash_attention[gpt2]": "flash_attention"})
     del q, kk, vv, o, o0
     print(f"[gpt4ts] phase 6p: {time.perf_counter() - t_phase:.1f} s wall")
+
+    def ln_families():
+        """Phases 6q-6s, their names kept out of main's scope (later phases
+        read main's B, H, KV, D)."""
+        # 6q-6s. MedTsLLM over the LayerNorm decoder families at their published
+        # widths (12 layers, d 768, 12 x 64 heads, d_ff 3072): gpt2 (the JAX
+        # package's default backbone, its preset), then opt-125m's and
+        # pythia-160m's config.json read from a temporary snapshot directory
+        # (weights seeded). Each: bidmc-like reconstruction at history 256, patch
+        # 16 / 8, concat, batch 16, bf16, load_in_8bit (K1 on c_attn / q_proj,
+        # k_proj, v_proj, the output projection, c_fc and the MLP's c_proj, the
+        # bias added after K1's rescale), the prompt head cached; serve() (eager,
+        # graphed, test()); the cached head against the head embedded in the step;
+        # then a trainer with LoRA (rank 8, alpha 16, rslora on the q projection:
+        # the q third of gpt2's c_attn) through train_graphed over 4 steps (K1's
+        # straight-through dx under the adapters; replays bit-equal to the eager
+        # steps; lora_b moved, every other llm. tensor unchanged); then a 2-layer
+        # dense f32 slice at the full width with random adapters, card vs CPU.
+        # gpt2 also holds K1 at its block (listed as w8a8_*[gpt2]) and the banked
+        # step on a clip config (per-clip heads) against the embedded head.
+        t_phase = time.perf_counter()
+        snapdir = Path(tempfile.mkdtemp(prefix="chip-smoke-snapshots-"))
+        families = (("gpt2", "gpt2"),
+                    ("opt", write_snapshot(snapdir, "opt-125m", OPT_125M)),
+                    ("neox", write_snapshot(snapdir, "pythia-160m", PYTHIA_160M)))
+        widths = (12, 768, 12, 64, 3072)
+        try:
+            for label, llm in families:
+                t_fam = time.perf_counter()
+                tr = get_trainer(f"chip-smoke-{label}", family_config(Config, llm), device=dev)
+                lc = tr.model.llm_cfg
+                n_l, n_b = lc.n_layers, len(tr.test_pipeline)
+                # K1 GEMMs a block: gpt2's fused c_attn, c_proj, c_fc, mlp.c_proj;
+                # opt's and neox's q, k, v, o_proj and the MLP's two
+                n_proj = 4 if label == "gpt2" else 6
+                check((lc.n_layers, lc.d_model, lc.n_heads, lc.head_dim, lc.d_ff) == widths
+                      and lc.style == label and tr.model.supports_prefix_cache,
+                      f"[{label}] the backbone {lc}")
+                head = tr.model_inputs(next(iter(tr.test_pipeline)))["prefix_ids"]
+                check(len(head) > 1, f"[{label}] the prompt head is {len(head)} token(s): the "
+                      f"tokenizer {type(tr.preprocessor.tokenizer).__name__} encodes no text")
+                for batch in tr.test_pipeline:  # settle the prompt buckets (host only)
+                    tr.model_inputs(batch)
+                Pf, Lf = window_shapes(tr)
+                Bf = tr.config.training.batch_size
+                print(f"[shapes] {label}: {llm} -> style {lc.style}, {lc.n_layers} layers, d "
+                      f"{lc.d_model}, {lc.n_heads} x {lc.head_dim} heads, d_ff {lc.d_ff}, vocab "
+                      f"{lc.vocab_size}, act {lc.act_fn or 'gelu_tanh'}, rotary_dims "
+                      f"{lc.rotary_dims if lc.style == 'neox' else 0}, learned positions "
+                      f"{lc.learned_positions} (offset {lc.pos_offset}), parallel residual "
+                      f"{lc.parallel_residual}, backbone dropout {lc.dropout}; tokenizer "
+                      f"{type(tr.preprocessor.tokenizer).__name__}; P={Pf} L={Lf} B={Bf}; "
+                      f"route {k4.attention_route(Lf, Pf + Lf, lc.head_dim, True)}")
+                if label == "gpt2":
+                    # the gpt2 block's K1: c_attn, attn.c_proj and c_fc quantize the
+                    # bf16 LayerNorm / attention outputs at K = d, mlp.c_proj the bf16
+                    # GELU output at K = d_ff; GEMMs d x 3d, d x d, d x d_ff, d_ff x d
+                    d, f = lc.d_model, lc.d_ff
+                    check_k1("[gpt2]", Bf * Lf, ((torch.bfloat16, d, 3), (torch.bfloat16, f, 1)),
+                             ((d, 3 * d, 1), (d, d, 1), (d, f, 1), (f, d, 1)),
+                             "4 GEMMs of the gpt2 block, the bias added after the rescale")
+                counts, _, scores, _ = serve(tr, label)
+                check_scores(label, tr, scores, "test")
+                want = {"w8a8_gemm": n_proj * n_l * (n_b + 1),
+                        "w8a8_quantize": n_proj * n_l * (n_b + 1),
+                        "reprogramming_attention": n_b, "rope_attention": 0, "flash_attention": 0,
+                        "rope_flash_attention": 0}
+                check(all(counts[k] == n for k, n in want.items()),
+                      f"[{label}] test() launches {counts}, not {want}")
+                if label == "gpt2":
+                    set_launches(counts, {"w8a8_quantize[gpt2]": "w8a8_quantize",
+                                          "w8a8_gemm[gpt2]": "w8a8_gemm"})
+                batch = next(iter(tr.test_pipeline))
+                tr._prefix_kv_cache.clear()
+                cached = tr.eval_step_eager(tr.eval_prepare(batch)[1]).float()
+                embedded = tr.eval_step_eager(tr._to_device(tr.model_inputs(batch))).float()
+                err = (cached - embedded).abs().max().item()
+                tol = 2.0 ** -6 * embedded.abs().max().item()
+                check(err <= tol, f"[{label}] cached vs head embedded: {err} > {tol}")
+                print(f"[{label}] K1 {counts['w8a8_gemm']} GEMMs in test() ({n_proj} a block "
+                      f"x {n_l} layers x ({n_b} batches + 1 prefill)), K3 "
+                      f"{counts['reprogramming_attention']}, no attention kernel (plain "
+                      f"attention below 512 tokens, JAX's gate); cached head vs head embedded: "
+                      f"max_abs_err {err:.3e} (tol 2^-6 x max {tol:.3e}); {smi.splitlines()[0]}")
+                del tr, cached, embedded
+                torch.cuda.empty_cache()
+
+                if label == "gpt2":
+                    # the per-clip head rows through the bank: banked = embedded
+                    ct = get_trainer("chip-smoke-gpt2-clips",
+                                     family_config(Config, llm, n_points=12 * 512, n_clips=12),
+                                     device=dev)
+                    for batch in ct.test_pipeline:
+                        ct.model_inputs(batch)
+                    worst = 0.0
+                    for i, batch in zip(range(2), ct.test_pipeline):
+                        kind, arrays = ct.eval_prepare(batch)
+                        check(kind == "banked", f"[gpt2-clips] a {kind} step on a clip dataset")
+                        banked = ct.eval_step_eager(arrays).float()
+                        embedded = ct.eval_step_eager(ct._to_device(ct.model_inputs(batch))).float()
+                        err = (banked - embedded).abs().max().item()
+                        tol = 2.0 ** -6 * embedded.abs().max().item()
+                        check(err <= tol,
+                              f"[gpt2-clips] batch {i}: banked vs embedded {err} > {tol}")
+                        worst = max(worst, err / tol)
+                    book = bank_book(ct)
+                    print(f"[gpt2-clips] per-clip head rows (P "
+                          f"{ct.model_inputs(batch)['prefix_ids'].shape[1]}) from the bank: "
+                          f"{book['misses']} misses in 2 batches of "
+                          f"{ct.config.training.batch_size}; "
+                          f"banked vs head embedded within {worst:.4f} of 2^-6 x max")
+                    del ct, banked, embedded
+                    torch.cuda.empty_cache()
+
+                # LoRA: 4 captured train steps through K1's straight-through dx
+                lt = get_trainer(f"chip-smoke-{label}-lora", family_config(Config, llm, lora=True),
+                                 device=dev)
+                lora = {n: p.detach().clone() for n, p in lt.model.named_parameters()
+                        if n.startswith("llm.") and p.requires_grad}
+                check(lora and all(n.rsplit(".", 1)[1] in ("lora_a", "lora_b") for n in lora)
+                      and len(lora) == 2 * n_l and not lt.model.train_prefix_cache_safe,
+                      f"[{label}-lora] the trainable backbone tensors {sorted(lora)[:4]}")
+                frozen = {n: torch.sum(t, dtype=torch.float64)
+                          for n, t in lt.model.state_dict().items()
+                          if n.startswith("llm.") and n not in lora}
+                p50_e, p50_g = train_graphed(
+                    lt, f"{label}-lora", 4, {"w8a8_gemm": n_proj * n_l,
+                                             "w8a8_quantize": n_proj * n_l,
+                                             "reprogramming_attention": 0, "flash_attention": 0,
+                                             "rope_attention": 0})
+                state = lt.model.state_dict()
+                moved_b = sum(not torch.equal(state[n], t) for n, t in lora.items()
+                              if n.endswith("lora_b"))
+                check(moved_b == n_l, f"[{label}-lora] {moved_b} of {n_l} lora_b moved")
+                check(all(torch.sum(state[n], dtype=torch.float64) == v for n, v in frozen.items()),
+                      f"[{label}-lora] a backbone tensor other than the adapters changed")
+                print(f"[{label}-lora] rank 8, alpha 16, rslora on "
+                      f"{sorted(lora)[0].rsplit('.', 1)[0]} and the {n_l - 1} layers after: train "
+                      f"step p50 eager {p50_e:.2f} ms, graphed "
+                      f"{p50_g:.2f} ms (batch 16); every lora_b moved, every other llm. tensor "
+                      f"unchanged; K1 {n_proj * n_l} GEMMs a step; {smi.splitlines()[0]}")
+                del lt, lora, frozen, state
+                torch.cuda.empty_cache()
+
+                # a 2-layer dense f32 slice at the full width, random adapters
+                small = family_config(Config, llm, batch=2, history=64, dtype="float32",
+                                      n_points=256, num_tokens=128, d_ff=64, llm_layers=2,
+                                      load_in_8bit=False, lora=True)
+                gpu = get_trainer(f"chip-smoke-{label}-small", small, device=dev)
+                with torch.no_grad():
+                    for n, p in gpu.model.named_parameters():
+                        if n.endswith("lora_b"):
+                            p.normal_(0.0, 0.02, generator=g)
+                cpu = get_trainer(f"chip-smoke-{label}-small", small, device="cpu")
+                cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+                batch = next(iter(gpu.test_pipeline))
+                out_gpu = gpu.eval_dispatch(batch).cpu()
+                out_cpu = cpu.eval_dispatch(batch)
+                err = (out_gpu - out_cpu).abs().max().item()
+                tol = 1e-3 * max(1.0, out_cpu.abs().max().item())
+                check(err <= tol, f"[{label}] small slice: card vs CPU max err {err} > {tol}")
+                print(f"[reference] {label} 2-layer dense f32 slice at d {lc.d_model} with random "
+                      f"adapters, card vs CPU: max_abs_err {err:.3e} (tol {tol:.3e}); "
+                      f"{time.perf_counter() - t_fam:.1f} s for the family")
+                del gpu, cpu
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(snapdir, ignore_errors=True)
+        print(f"[families] phases 6q-6r: {time.perf_counter() - t_phase:.1f} s wall")
+
+        # 6s. gpt2 at a long window: a clip dataset of one feature, the per-clip
+        # head [bos + dataset + task + clip] in its 16-token bucket, the suffix
+        # "Time series:" in its own, and the history chosen so that [prefix |
+        # region] is 768 keys (gpt2 has 1024 positions): JAX's gate then sends the
+        # end-aligned attention (L < S, S a multiple of 256, L a multiple of 8) to
+        # K4 once a layer a batch. A one-layer build reads the buckets first. The
+        # backbone is dense bf16: the banked step (the heads prefilled at 64
+        # tokens, the plain attention) and the embedded one (768 tokens, K4) take
+        # different attention kernels, and int8 projections would turn their
+        # bf16 last-bit differences into rounding flips across 12 layers (a
+        # w8a8 run read 1.49 x 2^-6 of the largest output); K1 is 6q's.
+        t_phase = time.perf_counter()
+        S_long = 768
+        probe = get_trainer("chip-smoke-gpt2-long-probe", family_config(
+            Config, "gpt2", batch=8, n_points=12 * 512, n_clips=12, n_features=1,
+            input_stats=False, llm_layers=1, d_ff=32, load_in_8bit=False), device=dev)
+        for batch in probe.test_pipeline:
+            probe.model_inputs(batch)
+        P_h, L_p = window_shapes(probe)
+        suffix = L_p - probe.model.n_patches
+        n_patches = S_long - P_h - suffix
+        history = 8 * (n_patches - 2) + 16
+        del probe
+        tr = get_trainer("chip-smoke-gpt2-long", family_config(
+            Config, "gpt2", batch=8, history=history, n_points=12 * 2 * history, n_clips=12,
+            n_features=1, input_stats=False, d_ff=32, load_in_8bit=False), device=dev)
+        for batch in tr.test_pipeline:
+            tr.model_inputs(batch)
+        P_l, L_l = window_shapes(tr)
+        lc = tr.model.llm_cfg
+        check(P_l + L_l == S_long and k4.attention_route(L_l, S_long, lc.head_dim, True) == "k4",
+              f"[gpt2-long] P {P_l} + L {L_l} keys, route "
+              f"{k4.attention_route(L_l, P_l + L_l, lc.head_dim, True)}")
+        print(f"[shapes] gpt2-long: history {history}, {tr.model.n_patches} patches, per-clip head "
+              f"P={P_l} (suffix {suffix}), L={L_l}, S={P_l + L_l}, B=8, 12 clips, d_ff 32, dense "
+              "bf16")
+        for keys in (256, 512, 768, 1000, 1024):
+            print(f"[route] gpt2 (D 64), causal: L = S = {keys}: "
+                  f"{k4.attention_route(keys, keys, 64, True)}; L = {keys - P_l}, S = {keys} "
+                  f"(a {P_l}-token prefix): {k4.attention_route(keys - P_l, keys, 64, True)}")
+        counts, *_ = serve(tr, "gpt2-long")
+        n_b = len(tr.test_pipeline)
+        check(counts["flash_attention"] == lc.n_layers * n_b and counts["rope_attention"] == 0
+              and counts["reprogramming_attention"] == n_b,
+              f"[gpt2-long] K4 once a layer a batch ({lc.n_layers} x {n_b}), K3 once a batch: "
+              f"{counts}")
+        print(f"[gpt2-long] K4 {counts['flash_attention']} launches in test() ({lc.n_layers} "
+              f"layers x {n_b} batches; the prefills of the clip heads, {P_l} tokens, take the "
+              f"plain attention), K3 {counts['reprogramming_attention']}; {smi.splitlines()[0]}")
+        del tr
+        torch.cuda.empty_cache()
+
+        def check_k4_shape(name, B, H, L, S, D, dtype, listed):
+            """K4 through its JAX interface at one end-aligned causal shape against
+            its plain version: f32 within 1e-5 x max(1, max |plain|), bf16 each
+            query row within 2^-6 x its max; bound: the (query, key) pairs the mask
+            keeps, QK^T and PV at 2 D operations each, at the operands' peak, or q,
+            k, v read and the output written once; library: SDPA, masked alike."""
+            q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
+            kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+            o = k4.flash_attention(q, kk, vv, True)
+            o0 = k4.flash_attention_plain(q, kk, vv, True)
+            err = (o.float() - o0.float()).abs().max().item()
+            f32 = dtype == torch.float32
+            mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
+            pairs = L * (S - L) + L * (L + 1) // 2
+            esz = 4 if f32 else 2
+            record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
+                   "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
+                   1e-5 * max(1.0, o0.abs().max().item()) if f32 else None,
+                   cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
+                   cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
+                   bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
+                         "f32" if f32 else "bf16"),
+                   cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                                         attn_mask=mask)),
+                   f" (B={B} H=KV={H} L={L} S={S} D={D} {'f32' if f32 else 'bf16'} causal, "
+                   f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
+                   listed=listed, share=None if f32 else row_share(o, o0))
+
+        check_k4_shape("flash_attention[gpt2-prefix]", 8, lc.n_heads, L_l, P_l + L_l, lc.head_dim,
+                       torch.bfloat16, True)
+        set_launches(counts, {"flash_attention[gpt2-prefix]": "flash_attention"})
+        # the wide heads K4 gained: pythia-1b's 256 (d 2048, 8 heads) and 192
+        for D, H in ((192, 12), (256, 8)):
+            for dtype in (torch.float32, torch.bfloat16):
+                kind = "f32" if dtype == torch.float32 else "bf16"
+                check_k4_shape(f"flash_attention[D{D}-{kind}]", 8, H, 512, 768, D, dtype, False)
+        print(f"[gpt2-long] phase 6s: {time.perf_counter() - t_phase:.1f} s wall")
+
+    ln_families()
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train

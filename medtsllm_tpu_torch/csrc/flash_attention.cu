@@ -68,9 +68,17 @@
 //     tile loop;
 //   - the output is staged in the warpgroup's own q rows (free once its last
 //     QK^T is done) and written by a TMA store that clips the rows past L.
+// Head dims 192 and 256 (the ln family's wide heads, e.g. pythia-1b's 256;
+// JAX's dispatcher sends every D % 64 == 0 to its kernel) take the same bf16
+// design with 64-key tiles (m64n64k16 for S, m64n{D}k16 for PV): a
+// consumer thread then holds D / 2 accumulators, 32 scores and 16 words of
+// P, 176 registers at D 256, inside setmaxnreg's 240; two stages fit beside
+// q. The fused entry (RoPE in the kernel) stays at D 64 / 128, the route's
+// head dims.
 // f32 inputs take a plain FMA kernel (no TF32): one thread per head-dim
-// column over 16-query x 32-key tiles, for f32 parity with the CPU; on the
-// fused entry a first kernel rotates q for it (torch's f32 rounding).
+// column over 16-query (24 at D 192, 8 at D 256) x 32-key tiles, for f32
+// parity with the CPU; on the fused entry a first kernel rotates q for it
+// (torch's f32 rounding).
 
 #include <type_traits>
 
@@ -156,15 +164,20 @@ rotate_rows_f32_kernel(const float* __restrict__ x, const float* __restrict__ co
 // ---- bf16: wgmma + TMA ------------------------------------------------------
 
 constexpr int kBQ = 128;           // query rows per block: two consumer warpgroups
-constexpr int kBK = 128;           // keys per tile
 constexpr int kThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int kQBox = 64 * kSwizzleBytes;     // 64 rows x 64 columns
-constexpr int kKVBox = kBK * kSwizzleBytes;   // 128 keys x 64 columns
 
+// D 64 / 128: 128-key tiles. D 192 / 256: 64-key tiles, so that a consumer's
+// accumulator (D / 2 floats a thread), scores (kBK / 2) and bf16 P fragments
+// (kBK / 4 words) stay in its 240 registers (176 at D 256), and two stages of
+// K and V fit shared memory beside q (144 KB at D 192, 192 KB at D 256)
 template <int D>
 struct Smem {
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256, "head dim");
+  static constexpr int kBK = D <= 128 ? 128 : 64;           // keys per tile
+  static constexpr int kKVBox = kBK * kSwizzleBytes;        // kBK keys x 64 columns
   static constexpr int kHalves = D / 64;        // 64-column boxes per row
-  static constexpr int kStages = D == 128 ? 2 : 4;
+  static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kQBytes = 2 * kHalves * kQBox;
   static constexpr int kTileBytes = kHalves * kKVBox;  // one K or one V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
@@ -205,6 +218,23 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// m64n64k16 bf16 -> f32 (the 64-key tile of D 192 / 256), A and B from
+// shared memory as wgmma_qk's
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // m64n{D}k16 bf16 -> f32: A (64 rows x 16 keys of P) from registers in the
 // m16n8k16 fragment order of each warp, B (16 keys x D of V) from shared
 // memory MN-major (imm-trans-b 1); d accumulates
@@ -238,6 +268,63 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -306,9 +393,10 @@ __device__ __forceinline__ void rotate_q(unsigned char* q, const QTables<D>& tb,
   for (int it = 0; it < QTables<D>::kIters; ++it) {
     const int i = t + it * 128, r = i / PAIRS, d = 2 * (i % PAIRS);
     if (r_first + r >= L) continue;
-    auto* p1 = reinterpret_cast<__nv_bfloat162*>(q + swizzle128(r, 2 * d));
-    auto* p2 = reinterpret_cast<__nv_bfloat162*>(
-        D == 128 ? q + kQBox + swizzle128(r, 2 * d) : q + swizzle128(r, 2 * (d + HALF)));
+    // column c of a row lies in box c / 64 at byte 2 (c % 64)
+    auto* p1 = reinterpret_cast<__nv_bfloat162*>(q + (d / 64) * kQBox + swizzle128(r, 2 * (d % 64)));
+    auto* p2 = reinterpret_cast<__nv_bfloat162*>(q + ((d + HALF) / 64) * kQBox +
+                                                 swizzle128(r, 2 * ((d + HALF) % 64)));
     __nv_bfloat162 x1 = *p1, x2 = *p2;
     mt::rope_pair(x1, x2, tb.c[it], tb.s[it]);
     *p1 = x1;
@@ -323,6 +411,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_o, const FlashArgs a) {
   using C = Smem<D>;
+  constexpr int kBK = C::kBK, kKVBox = C::kKVBox;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -387,14 +476,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // every row of this warpgroup past L: nothing to compute or store, but
   // its warps still release each stage
   const bool idle = r_first >= a.L;
-  const bool rotate = a.cosb != nullptr && !idle;
-  QTables<D> tb;
-  if (rotate) load_tables<D>(tb, a.cosb, a.sinb, r_first, a.L, t);
-  mbar_wait(&q_full[c], 0);
-  if (rotate) {
-    rotate_q<D>(my_q, tb, r_first, a.L, t);
-    fence_proxy_async();
-    named_bar(1 + c, 128);
+  if constexpr (D <= 128) {  // the route (in-kernel rotation) runs at D 64 / 128 only
+    const bool rotate = a.cosb != nullptr && !idle;
+    QTables<D> tb;
+    if (rotate) load_tables<D>(tb, a.cosb, a.sinb, r_first, a.L, t);
+    mbar_wait(&q_full[c], 0);
+    if (rotate) {
+      rotate_q<D>(my_q, tb, r_first, a.L, t);
+      fence_proxy_async();
+      named_bar(1 + c, 128);
+    }
+  } else {
+    mbar_wait(&q_full[c], 0);
   }
 
   float o[D / 2];
@@ -412,7 +505,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (++s == C::kStages) s = 0, ph ^= 1;
       continue;
     }
-    float sc[64];
+    float sc[kBK / 2];
     mbar_wait(&k_full[s], ph);
     const uint64_t dk = smem_desc(st);
     wgmma_fence();
@@ -430,7 +523,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const bool edge = j0 + kBK > a.S || (a.causal && j0 + kBK - 1 > r_first + offs);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (edge) {
@@ -451,7 +544,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     uint32_t pa[kBK / 16][4];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBK / 8; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -534,7 +627,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const F
   }
   const uint64_t kd[3] = {D, static_cast<uint64_t>(a.S), static_cast<uint64_t>(B) * a.KV};
   const uint64_t ks[2] = {row, a.S * row};
-  const uint32_t kb[3] = {64, kBK, 1};
+  const uint32_t kb[3] = {64, Smem<D>::kBK, 1};
   CUtensorMap mq, mk, mv, mo;
   if (!make_map_bf16_nd(&mq, q, 4, qd, qs, qb) || !make_map_bf16_nd(&mo, out, 4, qd, qs, qb) ||
       !make_map_bf16_nd(&mk, k, 3, kd, ks, kb) || !make_map_bf16_nd(&mv, v, 3, kd, ks, kb))
@@ -549,7 +642,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const F
 }
 
 // ---- f32: plain FMAs, one thread per head-dim column ----------------------
-constexpr int FQ = 16;  // queries per block
+// queries per block: 16, but 24 at D 192 (a multiple of its 6 warps) and 8 at
+// D 256 (the staged tiles stay in the 48 KB of static shared memory)
+template <int D>
+struct F32Tile {
+  static constexpr int kQ = D == 192 ? 24 : D == 256 ? 8 : 16;
+};
 constexpr int FK = 32;  // keys per staged tile (one per lane in the softmax)
 
 // q and out element (b, h, l, d) at b * sb + h * sh + l * sl + d
@@ -562,7 +660,8 @@ __global__ void __launch_bounds__(D)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int H,
                  int KV, int L, int S, int causal, float sm_scale, Strides qs) {
-  constexpr int LD = D + 1, NW = D / 32, RW = FQ / NW;  // rows per warp
+  constexpr int FQ = F32Tile<D>::kQ, LD = D + 1, NW = D / 32, RW = FQ / NW;  // rows per warp
+  static_assert(FQ % NW == 0, "whole rows per warp");
   __shared__ float sq[FQ * LD];
   __shared__ float skv[FK * LD];
   __shared__ float sp[FQ][FK];  // scores, then probabilities
@@ -645,7 +744,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
                int L, int S, int causal, float sm_scale, Strides qs, cudaStream_t stream) {
-  const dim3 grid((L + FQ - 1) / FQ, B * H);
+  const dim3 grid((L + F32Tile<D>::kQ - 1) / F32Tile<D>::kQ, B * H);
   flash_f32_kernel<D><<<grid, D, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), H, KV, L, S, causal, sm_scale, qs);
@@ -661,12 +760,17 @@ int attend(const void* q, const void* k, const void* v, void* out, const float* 
     const FlashArgs a{cosb, sinb, H, KV, L, S, causal, lhd, sm_scale * kLog2e};
     if (D == 128) return launch_wgmma<128>(q, k, v, out, a, B, s);
     if (D == 64) return launch_wgmma<64>(q, k, v, out, a, B, s);
+    if (cosb) return static_cast<int>(cudaErrorInvalidValue);  // the route: D 64 / 128
+    if (D == 192) return launch_wgmma<192>(q, k, v, out, a, B, s);
+    if (D == 256) return launch_wgmma<256>(q, k, v, out, a, B, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long LD = static_cast<long long>(L) * D, HD = static_cast<long long>(H) * D;
   const Strides qs = lhd ? Strides{L * HD, D, HD} : Strides{H * LD, LD, D};
   if (D == 128) return launch_f32<128>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
   if (D == 64) return launch_f32<64>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
+  if (D == 192) return launch_f32<192>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
+  if (D == 256) return launch_f32<256>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

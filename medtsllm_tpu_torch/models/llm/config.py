@@ -1,22 +1,41 @@
 """Backbone configurations and the presets the port serves.
 
-Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (llama,
-gpt2 and mixtral-style MoE fields), ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
-``_mamba_presets`` / ``resolve_config`` of ``models/llm/loader.py``. The
-backbone is random-initialised with the preset's shapes (weights.py);
-local snapshots are not loaded yet.
+Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (the
+llama, gpt2, opt and neox decoder fields and the mixtral-style MoE ones),
+``LoraSpec``, ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
+``_mamba_presets`` / ``config_from_hf_json`` / ``resolve_config`` of
+``models/llm/loader.py``. A local snapshot's ``config.json`` sets the shapes
+(``config_from_hf_json``); the backbone is random-initialised with them
+(weights.py): a snapshot's weights are not loaded yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import warnings
 from pathlib import Path
 
 
 @dataclasses.dataclass(frozen=True)
+class LoraSpec:
+    """Low-rank adapters on the attention projections named by ``targets``
+    (``q``, ``k``, ``v``, ``o``): ``y = base(x) + scaling (x A) B``."""
+    rank: int = 8
+    alpha: int = 16
+    dropout: float = 0.0
+    rslora: bool = True
+    targets: tuple = ("q", "v")
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / math.sqrt(self.rank) if self.rslora else self.alpha / self.rank
+
+
+@dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    style: str  # "llama" or "gpt2" in this port
+    style: str  # "llama", "gpt2", "opt" or "neox" in this port
     vocab_size: int
     d_model: int
     n_layers: int
@@ -42,6 +61,12 @@ class DecoderConfig:
     # or a bnb codebook, "nf4" / "fp4" (table dequant, then a matmul at the
     # compute dtype); resolved from models.<m>.llm.quant_type
     quant4_codebook: str = "absmax"
+    # opt / neox: the MLP's activation (the snapshot's activation_function /
+    # hidden_act; "" = the style's own), neox's rotating share of each head
+    # and its parallel attention + FFN residual
+    act_fn: str = ""
+    rotary_pct: float = 1.0
+    parallel_residual: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -60,6 +85,19 @@ class DecoderConfig:
     @property
     def learned_positions(self) -> bool:
         return self.style in ("gpt2", "opt")
+
+    @property
+    def pos_offset(self) -> int:
+        """opt's learned positions start at row 2 (HF
+        OPTLearnedPositionalEmbedding)."""
+        return 2 if self.style in ("opt", "bart") else 0
+
+    @property
+    def rotary_dims(self) -> int:
+        """The leading head dims that rotate (neox's rotary_pct; all for
+        llama), even."""
+        d = int(self.head_dim * self.rotary_pct)
+        return d - (d % 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +133,15 @@ PRESETS = {
     "gpt2-tiny": DecoderConfig(  # test-sized gpt2-style backbone
         style="gpt2", vocab_size=512, d_model=64, n_layers=2,
         n_heads=4, d_ff=128, max_position=512, dropout=0.1,
+        bos_token_id=0, eos_token_id=0),
+    "opt-tiny": DecoderConfig(  # test-sized OPT-style backbone
+        style="opt", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, max_position=512, act_fn="relu",
+        bos_token_id=2, eos_token_id=2, pad_token_id=1),
+    "neox-tiny": DecoderConfig(  # test-sized GPT-NeoX / pythia backbone
+        style="neox", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, max_position=512, rotary_pct=0.25,
+        parallel_residual=True, act_fn="gelu",
         bos_token_id=0, eos_token_id=0),
     "meta-llama/Llama-2-7b-hf": DecoderConfig(
         style="llama", vocab_size=32000, d_model=4096, n_layers=32,
@@ -133,17 +180,108 @@ MAMBA_PRESETS = {
 }
 
 
-def resolve_config(llm_id: str, llm_layers: int = -1) -> DecoderConfig | MambaConfig:
-    """The preset for ``llm_id`` (a MambaConfig for the ``mamba`` ids), cut
-    to ``llm_layers`` blocks when 0 < llm_layers < n_layers
-    (medtsllm.py:145-146 of the reference)."""
-    presets = {**PRESETS, **MAMBA_PRESETS}
-    if llm_id not in presets:
+# the ln family's hidden activations the MLP maps (transformer.py's ACTS)
+KNOWN_LN_ACTS = ("gelu", "gelu_tanh", "gelu_new", "gelu_fast", "gelu_pytorch_tanh",
+                 "quick_gelu", "relu", "silu", "swish")
+
+
+def config_from_hf_json(path: Path) -> DecoderConfig | MambaConfig:
+    """The backbone's shapes from a local snapshot's ``config.json``
+    (``loader.py::config_from_hf_json`` of the JAX package) for the
+    ``model_type``s the port builds: gpt2, opt, gpt_neox, llama, mistral,
+    mixtral and mamba, with the JAX function's refusals (an unmapped
+    activation, OPT's projection and post-LN variants)."""
+    hf = json.loads((Path(path) / "config.json").read_text())
+    model_type = hf.get("model_type", "gpt2")
+    act = hf.get("activation_function", hf.get("hidden_act"))
+    if (model_type in ("gpt2", "opt", "bart", "gpt_neox")
+            and act is not None and act not in KNOWN_LN_ACTS):
+        raise NotImplementedError(f"{model_type} snapshot uses hidden activation {act!r}; "
+                                  f"supported: {KNOWN_LN_ACTS}")
+    if model_type == "gpt2":
+        return DecoderConfig(
+            style="gpt2", vocab_size=hf["vocab_size"], d_model=hf["n_embd"],
+            n_layers=hf["n_layer"], n_heads=hf["n_head"],
+            d_ff=hf.get("n_inner") or 4 * hf["n_embd"], max_position=hf["n_positions"],
+            norm_eps=hf.get("layer_norm_epsilon", 1e-5), dropout=hf.get("resid_pdrop", 0.1),
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"))
+    if model_type in ("t5", "mt5", "bart"):
         raise NotImplementedError(
-            f"backbone {llm_id!r}: the port has the presets {sorted(presets)}; "
-            "other backbones are ROADMAP queue 1, \"Other backbone families and LoRA\", "
-            "and snapshot loading \"Llama decoder, open parts\"")
-    cfg = presets[llm_id]
+            f"the {model_type} encoder-decoder backbone: ROADMAP queue 1, \"Other backbone "
+            "families and LoRA\"")
+    if model_type == "mamba":
+        rank = hf.get("time_step_rank", "auto")
+        return MambaConfig(
+            vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], d_state=hf.get("state_size", 16),
+            d_conv=hf.get("conv_kernel", 4), expand=hf.get("expand", 2),
+            dt_rank=None if rank == "auto" else int(rank),
+            norm_eps=hf.get("layer_norm_epsilon", 1e-5), use_bias=hf.get("use_bias", False),
+            use_conv_bias=hf.get("use_conv_bias", True),
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"))
+    if model_type in ("llama", "mistral", "mixtral"):
+        moe = {}
+        if model_type == "mixtral":
+            moe = dict(n_experts=hf.get("num_local_experts", 8),
+                       n_experts_per_tok=hf.get("num_experts_per_tok", 2))
+            if hf["intermediate_size"] >= 1024:
+                # a production-size snapshot: the GShard 1.25 bound, as the
+                # moe-8x1b preset (models.<m>.llm.expert_capacity overrides)
+                moe["expert_capacity"] = 1.25
+                warnings.warn("mixtral snapshot: defaulting expert_capacity to 1.25 (GShard "
+                              "bound; set models.<m>.llm.expert_capacity = 0 for exact "
+                              "dropless dispatch at much higher memory)")
+        return DecoderConfig(
+            style="llama", vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
+            n_kv_heads=hf.get("num_key_value_heads"), d_ff=hf["intermediate_size"],
+            max_position=hf.get("max_position_embeddings", 4096),
+            rope_theta=hf.get("rope_theta", 10000.0), norm_eps=hf.get("rms_norm_eps", 1e-5),
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"), **moe)
+    if model_type == "opt":
+        if hf.get("word_embed_proj_dim", hf["hidden_size"]) != hf["hidden_size"]:
+            raise NotImplementedError("OPT word_embed_proj_dim != hidden_size (the 350m "
+                                      "projection variant) is not supported")
+        if not hf.get("do_layer_norm_before", True):
+            raise NotImplementedError("OPT do_layer_norm_before=false (the 350m post-LN "
+                                      "variant) is not supported")
+        return DecoderConfig(
+            style="opt", vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
+            d_ff=hf["ffn_dim"], max_position=hf.get("max_position_embeddings", 2048),
+            norm_eps=1e-5, dropout=hf.get("dropout", 0.1),
+            act_fn=hf.get("activation_function", "relu"),
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"),
+            pad_token_id=hf.get("pad_token_id"))
+    if model_type == "gpt_neox":
+        return DecoderConfig(
+            style="neox", vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
+            d_ff=hf["intermediate_size"], max_position=hf.get("max_position_embeddings", 2048),
+            rope_theta=hf.get("rotary_emb_base", 10000.0),
+            rotary_pct=hf.get("rotary_pct", 0.25),
+            parallel_residual=hf.get("use_parallel_residual", True),
+            act_fn=hf.get("hidden_act", "gelu"), norm_eps=hf.get("layer_norm_eps", 1e-5),
+            dropout=hf.get("hidden_dropout", 0.0),
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"))
+    raise ValueError(f"Unsupported HF model_type {model_type!r}")
+
+
+def resolve_config(llm_id: str, llm_layers: int = -1,
+                   cache_dir: str | None = None) -> DecoderConfig | MambaConfig:
+    """The backbone's configuration for ``llm_id``: a local snapshot's
+    ``config.json`` (``find_snapshot``) first, else the preset (a
+    MambaConfig for the ``mamba`` ids), cut to ``llm_layers`` blocks when
+    0 < llm_layers < n_layers (medtsllm.py:145-146 of the reference)."""
+    presets = {**PRESETS, **MAMBA_PRESETS}
+    snap = find_snapshot(llm_id, cache_dir)
+    if snap is not None:
+        cfg = config_from_hf_json(snap)
+    elif llm_id in presets:
+        cfg = presets[llm_id]
+    else:
+        raise ValueError(f"No local snapshot for {llm_id!r} and no built-in preset; set "
+                         f"paths.llm_path or use one of {sorted(presets)}")
     if llm_layers and 0 < llm_layers < cfg.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=llm_layers)
     return cfg

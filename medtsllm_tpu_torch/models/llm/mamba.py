@@ -151,9 +151,12 @@ class MambaBackbone(nn.Module):
     def word_embeddings(self) -> torch.Tensor:
         return self.wte
 
-    def forward(self, inputs_embeds: torch.Tensor, prefix_kv=None) -> torch.Tensor:
+    def forward(self, inputs_embeds: torch.Tensor, prefix_kv=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``prefix_kv``: per-layer (conv tail, SSM state) from ``prefill``,
-        the SSM's counterpart of a KV cache, O(1) in the head's length."""
+        the SSM's counterpart of a KV cache, O(1) in the head's length.
+        ``generator`` is the decoders' interface: the backbone has no
+        dropout."""
         x = inputs_embeds
         for i, block in enumerate(self.blocks):
             x = block(x, None if prefix_kv is None else prefix_kv[i])

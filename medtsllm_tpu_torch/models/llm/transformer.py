@@ -1,31 +1,35 @@
 """The decoders (port of ``medtsllm_tpu/models/llm/transformer.py``): the
-llama style (RMSNorm, rotary, QuantDense w8a8 / w4a8 / plain Dense,
-Attention, the SwiGLU MLP, the mixtral-style sparse-MoE FFN ``MoEMLP``,
-the pre-norm Block and ``TransformerDecoder`` with ``prefill``) and the
-gpt2 style (learned positions, pre-LN blocks of LayerNorms, the fused
-biased ``c_attn``, the biased ``c_proj``, the ``c_fc`` -> tanh GELU ->
-``c_proj`` MLP, dropout after the embeddings and each sublayer, the final
-``ln_f``); with them flax's Dense (``Linear``), LayerNorm and Dropout,
-which the other models share.
+llama style (RMSNorm, rotary, bias-free projections, the SwiGLU MLP, the
+mixtral-style sparse-MoE FFN ``MoEMLP``) and the LayerNorm family: gpt2
+(learned positions, the fused biased ``c_attn``), opt (learned positions
+from row 2, biased ``q/k/v/o_proj``, relu) and neox (partial rotary on the
+leading ``rotary_dims``, the parallel residual, exact GELU); each with
+QuantDense w8a8 / w4a8 / plain Dense projections (biased in the ln family),
+LoRA adapters (``LoRALinear``), the pre-norm ``Block`` and
+``TransformerDecoder`` with ``prefill`` (the prompt-prefix cache); with them
+flax's Dense (``Linear``), LayerNorm and Dropout, which the other models
+share.
 
 Dtypes follow the JAX module's: parameters are stored at the storage dtype
 (f32 or bf16); ``dtype`` (None for f32, else the compute dtype) is where
-projections emit and attention runs, while the residual stream keeps the
-promoted type of the input embeddings (f32), as flax promotion does.
-llama attention (prefill included) goes through the fused RoPE + prefix +
-causal kernel (K2) up to ``K4_MIN_KEYS`` keys, and above that, or past
-K2's 2048, through the flash-attention route (K4 with the rotation, the
-head transpose and the prefix concat of JAX's unfused path folded in);
-every projection at ``quantize=8`` through the w8a8 kernel (K1), at
-``quantize=4`` with the absmax codebook through K1's quantizer and the
-w4a8 kernel (K5). gpt2 attention (no rotary) goes through JAX's
-``flash_attention`` dispatcher as ported (``dispatch_attention``): plain
-causal attention below 512 tokens, K4 from there. The MoE FFN routes each
-token to its top-k experts and runs them either as the dropless grouped
-chain (K6, ``moe_grouped``, int8 or absmax int4 experts, in eval) or as
-the static-capacity per-expert bmm (K1 per expert for integer experts),
-which also trains: the straight-through backward of the expert matmuls
-and the router's load-balancing loss (``router_aux_loss``).
+projections and the ln family's LayerNorms emit and attention runs, while
+the residual stream keeps the promoted type of the input embeddings (f32),
+as flax promotion does. llama attention at head dim 64 or 128 (prefill
+included) goes through the fused RoPE + prefix + causal kernel (K2) up to
+``K4_MIN_KEYS`` keys, and above that, or past K2's 2048, through the
+flash-attention route (K4 with the rotation, the head transpose and the
+prefix concat of JAX's unfused path folded in). Every other attention (the
+ln family, llama at other head dims) takes JAX's own path: the rotation, the
+transposes and the prefix concat, then JAX's ``flash_attention`` dispatcher
+as ported (``dispatch_attention``): plain attention below 512 tokens, K4
+from there. Every projection at ``quantize=8`` goes through the w8a8 kernel
+(K1), at ``quantize=4`` with the absmax codebook through K1's quantizer and
+the w4a8 kernel (K5). The MoE FFN routes each token to its top-k experts
+and runs them either as the dropless grouped chain (K6, ``moe_grouped``,
+int8 or absmax int4 experts, in eval) or as the static-capacity per-expert
+bmm (K1 per expert for integer experts), which also trains: the
+straight-through backward of the expert matmuls and the router's
+load-balancing loss (``router_aux_loss``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_b
 from ...ops.kernels.rope_attention import MAX_KEYS, rope, rope_attention, rope_tables
 from ...ops.kernels.w4a8 import act_quant_w4a8_matmul, dequant_codebook, unpack4_split
 from ...ops.kernels.w8a8 import act_quant_matmul, int8_gemm, quantize_rows
-from .config import DecoderConfig
+from .config import DecoderConfig, LoraSpec
 
 
 # Least key count (prefix + region) at which an attention that needs no
@@ -81,15 +85,22 @@ class QuantLinear(nn.Module):
     not ported."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype | None = None,
-                 bits: int = 8, codebook: str = "absmax"):
+                 bits: int = 8, codebook: str = "absmax", bias: bool = False):
         super().__init__()
         self.dtype, self.d_in, self.bits = dtype, d_in, bits
         self.codebook = codebook if bits == 4 else "absmax"
         cols = d_in if bits == 8 else (d_in + 1) // 2
         self.register_buffer("weight_q", torch.zeros(d_out, cols, dtype=torch.int8))
         self.scale = nn.Parameter(torch.ones(d_out), requires_grad=False)
+        # the ln family's bias (QuantDense's use_bias), added at the compute
+        # dtype after the GEMM's rescale, as JAX adds it
+        self.bias = nn.Parameter(torch.zeros(d_out), requires_grad=False) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._product(x)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.dtype or x.dtype
         if self.bits == 8:
             return act_quant_matmul(x, self.weight_q, self.scale, cd)
@@ -124,12 +135,12 @@ class Linear(nn.Linear):
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` (epsilon 1e-6 unless given, parameters ``scale`` and
     ``bias``): the statistics in f32 as E[x^2] - E[x]^2 clipped at 0, then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at the
-    promoted type of the input and the parameters."""
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, emitted at ``dtype``
+    when given, else at the promoted type of the input and the parameters."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype | None = None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -138,7 +149,7 @@ class LayerNorm(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
-        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+        return y.to(self.dtype or torch.promote_types(x.dtype, self.scale.dtype))
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -152,49 +163,152 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> tor
 
 
 def projection(d_in: int, d_out: int, quantize: int, dtype,
-               codebook: str = "absmax") -> nn.Module:
+               codebook: str = "absmax", bias: bool = False) -> nn.Module:
     if quantize:
-        return QuantLinear(d_in, d_out, dtype, quantize, codebook)
-    return Linear(d_in, d_out, bias=False, dtype=dtype)
+        return QuantLinear(d_in, d_out, dtype, quantize, codebook, bias)
+    return Linear(d_in, d_out, bias=bias, dtype=dtype)
+
+
+class LoRALinear(nn.Module):
+    """A projection with a low-rank adapter (JAX ``LoRADense``): ``base(x)
+    + scaling * (x A) B``, ``base`` a ``Linear`` or ``QuantLinear`` (under
+    ``base``, as in the flax tree), ``lora_a`` [d_in, rank] and ``lora_b``
+    [rank, d_out] in JAX's layout, the delta at x's dtype. In train mode x
+    first goes through the adapter's dropout (``spec.dropout``, masks from
+    ``generator``). ``out_mask`` [d_out] (0 / 1) restricts the adapter to
+    the targeted thirds of gpt2's fused ``c_attn``: masked columns of
+    ``lora_b`` get a zero delta and a zero gradient."""
+
+    def __init__(self, base: nn.Module, d_in: int, d_out: int, spec: LoraSpec,
+                 out_mask: torch.Tensor | None = None):
+        super().__init__()
+        self.base, self.spec = base, spec
+        self.lora_a = nn.Parameter(torch.zeros(d_in, spec.rank))
+        self.lora_b = nn.Parameter(torch.zeros(spec.rank, d_out))
+        self.register_buffer("lora_out_mask", out_mask, persistent=False)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        y = self.base(x)
+        xd = dropout(x, self.spec.dropout, generator) if self.training else x
+        delta = (xd @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.spec.scaling
+        if self.lora_out_mask is not None:
+            delta = delta * self.lora_out_mask.to(delta.dtype)
+        return y + delta
+
+
+def _project(module: nn.Module, x: torch.Tensor, generator):
+    return module(x, generator) if isinstance(module, LoRALinear) else module(x)
+
+
+# the ln family's MLP activations (HF's activation_function / hidden_act
+# names, transformer.py:672-690 of the JAX package)
+def _gelu_tanh(v):
+    return F.gelu(v, approximate="tanh")
+
+
+ACTS = {"gelu_tanh": _gelu_tanh, "gelu_new": _gelu_tanh, "gelu_fast": _gelu_tanh,
+        "gelu_pytorch_tanh": _gelu_tanh, "quick_gelu": lambda v: v * torch.sigmoid(1.702 * v),
+        "gelu": F.gelu, "relu": F.relu, "silu": F.silu, "swish": F.silu}
+
+
+def ln_activation(cfg: DecoderConfig):
+    """The ln family's MLP activation: gpt2's tanh GELU always; else the
+    config's ``act_fn`` or the style's own (opt relu, neox exact GELU)."""
+    act = "gelu_tanh" if cfg.style == "gpt2" else (
+        cfg.act_fn or {"opt": "relu", "neox": "gelu"}[cfg.style])
+    if act not in ACTS:
+        raise NotImplementedError(f"hidden activation {act!r} (from the snapshot's "
+                                  "activation_function/hidden_act) is not mapped; known: "
+                                  f"{sorted(ACTS)}")
+    return ACTS[act]
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+    """Self-attention of each decoder style (``Attention`` of the JAX
+    package): llama's bias-free ``q/k/v/o_proj``; gpt2's fused biased
+    ``c_attn`` split q | k | v and its biased ``c_proj``; opt's and neox's
+    biased ``q/k/v/o_proj``. Projections are quantized at ``quantize`` 8 or
+    4, and those ``lora`` targets carry adapters (``LoRALinear``; gpt2's
+    fused ``c_attn`` when any of q / k / v is a target, masked to the
+    targeted thirds). The output projection is followed by the residual
+    dropout (``cfg.dropout``, train mode). No attention-probability
+    dropout: JAX leaves it out on purpose (the kernel never holds the
+    probabilities), although HF gpt2 has it."""
+
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 lora: LoraSpec | None = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        cb = cfg.quant4_codebook
-        self.q_proj = projection(cfg.d_model, H * D, quantize, dtype, cb)
-        self.k_proj = projection(cfg.d_model, KV * D, quantize, dtype, cb)
-        self.v_proj = projection(cfg.d_model, KV * D, quantize, dtype, cb)
-        self.o_proj = projection(H * D, cfg.d_model, quantize, dtype, cb)
+        H, KV, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
+        cb, bias = cfg.quant4_codebook, cfg.ln_family
+
+        def proj(d_in, d_out, key, mask=None):
+            base = projection(d_in, d_out, quantize, dtype, cb, bias)
+            if lora is None or key not in lora.targets:
+                return base
+            return LoRALinear(base, d_in, d_out, lora, mask)
+
+        if cfg.style == "gpt2":
+            targeted = tuple(t for t in ("q", "k", "v") if lora and t in lora.targets)
+            mask = None
+            if targeted and targeted != ("q", "k", "v"):
+                mask = torch.tensor([float(t in targeted) for t in ("q", "k", "v")]
+                                    ).repeat_interleave(d)
+            self.c_attn = proj(d, 3 * d, targeted[0] if targeted else "q", mask)
+            self.c_proj = proj(d, d, "o")
+        else:
+            self.q_proj = proj(d, H * D, "q")
+            self.k_proj = proj(d, KV * D, "k")
+            self.v_proj = proj(d, KV * D, "v")
+            self.o_proj = proj(H * D, d, "o")
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
-                return_kv: bool = False):
+                return_kv: bool = False, generator: torch.Generator | None = None):
         """x [B, L, d]. ``prefix_kv`` = (k, v) each [1 or B, KV, P, D],
         already rotated at positions 0..P-1, with x at positions P.. (pass
         ``position_offset=P``). ``return_kv`` also returns this call's
         rotated (k, v) [B, KV, L, D] — the prefill cache.
 
-        The route: K2 when the call has at most ``K4_MIN_KEYS - 1`` keys and
-        at most K2's ``MAX_KEYS``, else K4's route (``rope_flash_attention``,
-        ``transformer.py:591-633`` of the JAX package). K4 has no
-        backward, so a call that needs a gradient keeps K2 and raises past
-        its key limit."""
+        The route: llama at head dim 64 or 128 takes K2 when the call has at
+        most ``K4_MIN_KEYS - 1`` keys and at most K2's ``MAX_KEYS``, else
+        K4's route (``rope_flash_attention``, ``transformer.py:591-633`` of
+        the JAX package); K4 has no backward, so a call that needs a
+        gradient keeps K2 and raises past its key limit. Every other call
+        takes JAX's default path: the rotation (llama; neox on its leading
+        ``rotary_dims``; none for gpt2 and opt), the head transpose, the
+        prefix ahead of k / v, then ``dispatch_attention`` (the plain version
+        below 512 tokens, K4 from there where JAX's gate sends it)."""
         cfg = self.cfg
         B, L, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if cfg.style == "gpt2":
+            q, k, v = _project(self.c_attn, x, generator).split(cfg.d_model, dim=-1)
+        else:
+            q, k, v = (_project(p, x, generator) for p in (self.q_proj, self.k_proj, self.v_proj))
         if self.dtype is not None:  # cast before the head split, as JAX does
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
         q = q.reshape(B, L, H, D)
         k = k.reshape(B, L, KV, D)
         v = v.reshape(B, L, KV, D)
-        positions = torch.arange(position_offset, position_offset + L,
-                                 device=x.device)
-        cos, sin = rope_tables(positions, D, cfg.rope_theta)
         pk, pv = prefix_kv if prefix_kv is not None else (None, None)
+        if cfg.style == "llama" and D in (64, 128):
+            out, new_kv = self._llama_kernels(q, k, v, pk, pv, position_offset, return_kv)
+        else:
+            out, new_kv = self._dispatch(q, k, v, pk, pv, position_offset, return_kv)
+        out = _project(self.o_proj if cfg.style != "gpt2" else self.c_proj,
+                       out.reshape(B, L, H * D), generator)
+        if self.training:
+            out = dropout(out, cfg.dropout, generator)
+        return (out, new_kv) if return_kv else out
+
+    def _llama_kernels(self, q, k, v, pk, pv, position_offset, return_kv):
+        """llama at D 64 / 128: K2, or K4's route -> (out [B, L, H, D], the
+        rotated (k, v) [B, KV, L, D] or None)."""
+        cfg = self.cfg
+        L, D = q.shape[1], q.shape[3]
+        positions = torch.arange(position_offset, position_offset + L, device=q.device)
+        cos, sin = rope_tables(positions, D, cfg.rope_theta)
         keys = L + (pk.shape[2] if pk is not None else 0)
         sm_scale = 1.0 / math.sqrt(D)
         needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
@@ -203,30 +317,62 @@ class Attention(nn.Module):
                 f"training through attention over {keys} keys needs a backward of the "
                 "flash-attention kernel, which the JAX package does not have (ROADMAP "
                 "queue 1, \"Training on the served backbones\")")
-        new_kv = None
         if not needs_grad and (keys > MAX_KEYS or keys >= K4_MIN_KEYS):
             out = rope_flash_attention(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
-            if return_kv:
-                out, new_kv = out
-        else:
-            out = rope_attention(q, k, v, cos, sin, pk, pv, sm_scale)
-            if return_kv:
-                new_kv = (rope(k, cos, sin).transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous())
-        out = self.o_proj(out.reshape(B, L, H * D))
-        return (out, new_kv) if return_kv else out
+            return out if return_kv else (out, None)
+        out = rope_attention(q, k, v, cos, sin, pk, pv, sm_scale)
+        if not return_kv:
+            return out, None
+        return out, (rope(k, cos, sin).transpose(1, 2).contiguous(),
+                     v.transpose(1, 2).contiguous())
+
+    def _dispatch(self, q, k, v, pk, pv, position_offset, return_kv):
+        """JAX's default path (``transformer.py:612-647``) -> (out [B, L, H,
+        D], the rotated (k, v) [B, KV, L, D] or None)."""
+        cfg = self.cfg
+        B, L, D = q.shape[0], q.shape[1], q.shape[3]
+        if cfg.style in ("llama", "neox"):
+            rot = cfg.rotary_dims
+            positions = torch.arange(position_offset, position_offset + L, device=q.device)
+            cos, sin = rope_tables(positions, rot, cfg.rope_theta)
+
+            def rotate(t):
+                if rot == D:
+                    return rope(t, cos, sin)
+                return torch.cat([rope(t[..., :rot], cos, sin), t[..., rot:]], dim=-1)
+            q, k = rotate(q), rotate(k)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        new_kv = (k.contiguous(), v.contiguous()) if return_kv else None
+        if pk is not None:
+            k = torch.cat([pk.to(k.dtype).expand(B, -1, -1, -1), k], dim=2)
+            v = torch.cat([pv.to(v.dtype).expand(B, -1, -1, -1), v], dim=2)
+        out = dispatch_attention(q, k, v, causal=True)
+        return out.transpose(1, 2), new_kv
 
 
 class MLP(nn.Module):
+    """llama's SwiGLU (``gate_proj``, ``up_proj``, ``down_proj``, no bias);
+    the ln family's biased ``c_fc`` -> activation (``ln_activation``) ->
+    ``c_proj`` -> the residual dropout (train mode)."""
+
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
         super().__init__()
         cb = cfg.quant4_codebook
+        self.ln = cfg.ln_family
+        if self.ln:
+            self.p, self.act = cfg.dropout, ln_activation(cfg)
+            self.c_fc = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, True)
+            self.c_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb, True)
+            return
         self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
         self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
         self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, generator=None):
+        if not self.ln:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        h = self.c_proj(self.act(self.c_fc(x)))
+        return dropout(h, self.p, generator) if self.training else h
 
 
 def moe_capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
@@ -407,7 +553,8 @@ class MoEMLP(nn.Module):
             wq = unpack4_split(wq, d_in)
         return act_quant_bmm(h.float(), wq, scale).to(h.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the MLPs' interface (the experts have no dropout)."""
         cfg = self.cfg
         E, k = cfg.n_experts, cfg.n_experts_per_tok
         B, L, D = x.shape
@@ -453,143 +600,104 @@ class MoEMLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm llama block; the FFN is the MoE one when the config has
-    more than one expert."""
+    """Pre-norm block: RMSNorm ``input_layernorm`` / ``post_attention_layernorm``
+    (llama) or LayerNorm ``ln_1`` / ``ln_2`` at ``cfg.norm_eps`` (the ln
+    family); ``x + attn(n1(x))``, then ``x + mlp(n2(x))``, or neox's parallel
+    residual ``x + attn(ln_1(x)) + mlp(ln_2(x))``. The FFN is the MoE one
+    when the config has more than one expert."""
 
-    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 lora: LoraSpec | None = None):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.attn = Attention(cfg, quantize, dtype)
-        self.post_attention_layernorm = RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.cfg = cfg
+        if cfg.ln_family:
+            self.n1, self.n2 = "ln_1", "ln_2"
+            norm = lambda: LayerNorm(cfg.d_model, cfg.norm_eps, dtype)  # noqa: E731
+        else:
+            self.n1, self.n2 = "input_layernorm", "post_attention_layernorm"
+            norm = lambda: RMSNorm(cfg.d_model, cfg.norm_eps)  # noqa: E731
+        setattr(self, self.n1, norm())
+        self.attn = Attention(cfg, quantize, dtype, lora)
+        setattr(self, self.n2, norm())
         self.mlp = (MoEMLP if cfg.n_experts > 1 else MLP)(cfg, quantize, dtype)
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
-                return_kv: bool = False):
-        a = self.attn(self.input_layernorm(x), prefix_kv, position_offset, return_kv)
+                return_kv: bool = False, generator: torch.Generator | None = None):
+        a = self.attn(getattr(self, self.n1)(x), prefix_kv, position_offset, return_kv,
+                      generator)
         new_kv = None
         if return_kv:
             a, new_kv = a
-        x = x + a
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        n2 = getattr(self, self.n2)
+        if self.cfg.parallel_residual:
+            x = x + a + self.mlp(n2(x), generator)
+        else:
+            x = x + a
+            x = x + self.mlp(n2(x), generator)
         return (x, new_kv) if return_kv else x
-
-
-class GPT2Attention(nn.Module):
-    """gpt2 self-attention (``Attention`` of the JAX package under
-    ``style == "gpt2"``): the fused biased ``c_attn`` split q | k | v, no
-    rotary, causal attention through ``dispatch_attention`` (plain below
-    512 tokens, K4 from there, as JAX's ``flash_attention`` picks), the
-    biased ``c_proj``, then the residual dropout. No attention-probability
-    dropout: JAX leaves it out on purpose (the kernel never holds the
-    probabilities), although HF gpt2 has it."""
-
-    def __init__(self, cfg: DecoderConfig, dtype=None):
-        super().__init__()
-        self.cfg = cfg
-        self.c_attn = Linear(cfg.d_model, 3 * cfg.d_model, dtype=dtype)
-        self.c_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype)
-
-    def forward(self, x, generator=None):
-        cfg = self.cfg
-        B, L, d = x.shape
-        H, D = cfg.n_heads, cfg.head_dim
-        q, k, v = (t.reshape(B, L, H, D).transpose(1, 2)
-                   for t in self.c_attn(x).split(d, dim=-1))
-        out = dispatch_attention(q, k, v, causal=True)
-        out = self.c_proj(out.transpose(1, 2).reshape(B, L, H * D))
-        return dropout(out, cfg.dropout, generator) if self.training else out
-
-
-class GPT2MLP(nn.Module):
-    """``c_fc`` -> tanh GELU (HF's "gelu_new") -> ``c_proj`` -> dropout."""
-
-    def __init__(self, cfg: DecoderConfig, dtype=None):
-        super().__init__()
-        self.p = cfg.dropout
-        self.c_fc = Linear(cfg.d_model, cfg.d_ff, dtype=dtype)
-        self.c_proj = Linear(cfg.d_ff, cfg.d_model, dtype=dtype)
-
-    def forward(self, x, generator=None):
-        h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
-        return dropout(h, self.p, generator) if self.training else h
-
-
-class GPT2Block(nn.Module):
-    """Pre-LN gpt2 block: ``x + attn(ln_1(x))``, then ``x + mlp(ln_2(x))``,
-    the LayerNorms at ``cfg.norm_eps``."""
-
-    def __init__(self, cfg: DecoderConfig, dtype=None):
-        super().__init__()
-        self.ln_1 = LayerNorm(cfg.d_model, cfg.norm_eps)
-        self.attn = GPT2Attention(cfg, dtype)
-        self.ln_2 = LayerNorm(cfg.d_model, cfg.norm_eps)
-        self.mlp = GPT2MLP(cfg, dtype)
-
-    def forward(self, x, generator=None):
-        x = x + self.attn(self.ln_1(x), generator)
-        return x + self.mlp(self.ln_2(x), generator)
 
 
 class TransformerDecoder(nn.Module):
     """Returns the last hidden state (no LM head), like HF ``AutoModel``.
 
-    llama: RMSNorm blocks with rotary attention, the final ``norm``, the
-    prompt-prefix cache (``prefix_kv``, ``prefill``). gpt2: the learned
-    positions ``wpe`` added at positions 0..L, the embedding dropout, the
-    pre-LN blocks and the final ``ln_f``; dropout (``cfg.dropout``) in
-    train mode from ``generator``. The prefix cache and quantized
-    projections are llama's only."""
+    llama: RMSNorm blocks with rotary attention and the final ``norm``. The
+    ln family (gpt2, opt, neox): learned positions ``wpe`` (gpt2; opt's with
+    ``pos_offset`` 2 more rows, read from row 2), the embedding dropout, the
+    pre-LN blocks and the final ``ln_f``. Every style serves a prompt-prefix
+    cache (``prefill`` -> ``prefix_kv``: the suffix then sits at positions
+    P.., its learned positions read from row P + ``pos_offset``). Dropout
+    (``cfg.dropout``; LoRA's own) acts in train mode from ``generator``.
+    ``lora`` puts adapters on its target projections (``LoRALinear``)."""
 
-    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 lora: LoraSpec | None = None):
         super().__init__()
-        if cfg.style not in ("llama", "gpt2"):
+        if cfg.style not in ("llama", "gpt2", "opt", "neox"):
             raise NotImplementedError(
-                f"decoder style {cfg.style!r}: other backbone families are "
-                "ROADMAP queue 1, \"Other backbone families and LoRA\"")
-        if cfg.style == "gpt2" and quantize:
-            raise NotImplementedError(
-                "quantized gpt2 projections: ROADMAP queue 1, \"Other backbone "
-                "families and LoRA\"")
+                f"decoder style {cfg.style!r}: the encoder-decoders are ROADMAP queue 1, "
+                "\"Other backbone families and LoRA\"")
         self.cfg = cfg
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
-        if cfg.style == "gpt2":
-            self.wpe = nn.Parameter(torch.zeros(cfg.max_position, cfg.d_model))
-            self.blocks = nn.ModuleList(GPT2Block(cfg, dtype) for _ in range(cfg.n_layers))
-            self.ln_f = LayerNorm(cfg.d_model, cfg.norm_eps)
+        if cfg.learned_positions:
+            self.wpe = nn.Parameter(torch.zeros(cfg.max_position + cfg.pos_offset,
+                                                cfg.d_model))
+        self.blocks = nn.ModuleList(Block(cfg, quantize, dtype, lora)
+                                    for _ in range(cfg.n_layers))
+        if cfg.ln_family:
+            self.ln_f = LayerNorm(cfg.d_model, cfg.norm_eps, dtype)
         else:
-            self.blocks = nn.ModuleList(Block(cfg, quantize, dtype)
-                                        for _ in range(cfg.n_layers))
             self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
 
     def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.wte[token_ids]
 
+    def _positions(self, x: torch.Tensor, offset: int) -> torch.Tensor:
+        """x plus its learned positions from row ``offset + pos_offset``."""
+        if not self.cfg.learned_positions:
+            return x
+        p0 = offset + self.cfg.pos_offset
+        return x + self.wpe[None, p0:p0 + x.shape[1]].to(x.dtype)
+
     def forward(self, inputs_embeds: torch.Tensor, prefix_kv=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """``prefix_kv`` (llama): per-layer (k, v) from ``prefill``;
-        inputs_embeds is then the suffix at positions P..; ``generator``
-        draws gpt2's dropout masks in train mode."""
-        x = inputs_embeds
-        if self.cfg.style == "gpt2":
-            if prefix_kv is not None:
-                raise NotImplementedError(
-                    "a prompt-prefix cache over gpt2: ROADMAP queue 1, \"Other backbone "
-                    "families and LoRA\"")
-            x = x + self.wpe[None, :x.shape[1]].to(x.dtype)
-            if self.training:
-                x = dropout(x, self.cfg.dropout, generator)
-            for block in self.blocks:
-                x = block(x, generator)
-            return self.ln_f(x)
+        """``prefix_kv``: per-layer (k, v) from ``prefill``; inputs_embeds
+        is then the suffix at positions P..; ``generator`` draws the dropout
+        masks in train mode."""
         offset = prefix_kv[0][0].shape[2] if prefix_kv is not None else 0
+        x = self._positions(inputs_embeds, offset)
+        if self.cfg.ln_family and self.training:
+            x = dropout(x, self.cfg.dropout, generator)
         for i, block in enumerate(self.blocks):
-            x = block(x, None if prefix_kv is None else prefix_kv[i], offset)
-        return self.norm(x)
+            x = block(x, None if prefix_kv is None else prefix_kv[i], offset,
+                      generator=generator)
+        return self.ln_f(x) if self.cfg.ln_family else self.norm(x)
 
     def prefill(self, inputs_embeds: torch.Tensor) -> tuple:
-        """Per-layer rotated (k, v) of a prompt prefix [1, P, d] (llama)."""
-        x = inputs_embeds
+        """Per-layer rotated (k, v) of a prompt prefix [1 or N, P, d] at
+        positions 0..P-1 (no dropout: the cache is computed
+        deterministically)."""
+        x = self._positions(inputs_embeds, 0)
         kvs = []
         for block in self.blocks:
             x, kv = block(x, return_kv=True)

@@ -1,10 +1,11 @@
-"""MedTsLLM on a llama or Mamba backbone (port of
+"""MedTsLLM on a llama, gpt2, opt, neox or Mamba backbone (port of
 ``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
 host-side PromptBuilder).
 
 RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
 cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
-(llama: kernels K1, K2; Mamba: the selective-scan kernel) -> d_ff
+(llama: kernels K1, K2; the ln family: K1, K4 from 512 keys; Mamba: the
+selective-scan kernel) -> d_ff
 downsample -> FlattenHead -> the task's head: RevIN denorm
 (reconstruction, anomaly detection, pretraining, forecasting's
 ``pred_len`` steps past the window, imputation), classification's one row
@@ -14,16 +15,17 @@ segmentation (one logit) and semantic segmentation (one logit, or one per
 class past two), with the sigmoid / softmax in eval. Imputation's RevIN
 statistics cover the observed points only (``inputs["mask"]``,
 ``masked_window_norm``). The constant prompt
-head is prefilled once and served as per-layer prefix K/V (llama) or
-per-layer (conv tail, SSM state) (Mamba); on a clip dataset with a llama
-backbone the head also holds the clip's description, one row per window
+head is prefilled once and served as per-layer prefix K/V (the decoders)
+or per-layer (conv tail, SSM state) (Mamba); on a clip dataset with a
+decoder backbone the head also holds the clip's description, one row per window
 ([B, P] ``prefix_ids``, served from the task's per-clip KV bank). The
 pretraining mixture's rows each carry their own dataset prompt: no head is
 cached and the whole prompt goes through the step.
 
 Training (``model.train()``): the backbone is frozen (``requires_grad =
-False`` under ``llm``, ``param_labels`` of the JAX model) and every fusion
-layer trains; dropout ``p`` acts after the patch embedding and on the
+False`` under ``llm``, ``param_labels`` of the JAX model) but for its LoRA
+adapters (``lora_a`` / ``lora_b``, with ``[models.<m>.lora] enabled``), and
+every fusion layer trains; dropout ``p`` acts after the patch embedding and on the
 reprogramming attention weights, with masks from the generator ``forward``
 is given. The reprogramming attention then runs the plain einsum/softmax
 graph, as JAX does (K3 has no backward).
@@ -49,10 +51,10 @@ ends the prompt's first part, and the example series, cropped or tiled to
 one length fixed from the dataset's pool, goes through ``encode_ts`` (K3 a
 second time) between that part and the rest of the prompt.
 
-Scope: an llama (dense or mixtral-style MoE, served on one device) or
-dense Mamba backbone, or none; anything else raises NotImplementedError
-naming its ROADMAP item. The tasks are those of ``tasks.task_lookup``, all
-eight of the JAX package.
+Scope: a decoder backbone (llama, dense or mixtral-style MoE, served on one
+device; gpt2, opt, neox) or a dense Mamba one, or none; anything else
+raises NotImplementedError naming its ROADMAP item. The tasks are those of
+``tasks.task_lookup``, all eight of the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from ..ops.embed import PatchEmbedding, dropout
 from ..ops.kernels.reprogramming import reprogramming_attention
 from ..ops.revin import masked_window_norm, revin_denorm, revin_norm
 from ..ops.transformer import LayerNorm
-from .llm.config import resolve_config
+from .llm.config import LoraSpec, resolve_config
 from .llm.mamba import MambaBackbone
 from .llm.tokenizer import get_tokenizer
 from .llm.transformer import Linear, TransformerDecoder
@@ -222,7 +224,7 @@ class MedTsLLM(nn.Module):
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
                  dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None,
                  covariate_mode="concat", embedding_downsample_mode="linear",
-                 llm_enabled=True):
+                 llm_enabled=True, lora: LoraSpec | None = None):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
@@ -233,19 +235,26 @@ class MedTsLLM(nn.Module):
         self.covariate_mode = covariate_mode
         self.embedding_downsample_mode = embedding_downsample_mode
         self.llm_enabled = llm_enabled
+        self.lora = lora
         # medtsllm_tpu/models/medtsllm.py:161-181
         self.n_outputs_per_step = {
             "segmentation": 1,
             "semantic_segmentation": n_classes if n_classes > 2 else 1,
             "classification": n_classes,
         }.get(task, n_features)
-        if llm_enabled:
-            backbone = MambaBackbone if llm_cfg.style == "mamba" else TransformerDecoder
-            self.llm = backbone(
-                llm_cfg, quantize, None if llm_dtype == torch.float32 else llm_dtype)
-        else:
+        dt = None if llm_dtype == torch.float32 else llm_dtype
+        if not llm_enabled:
             self.llm = WordEmbeddings(llm_cfg.vocab_size, llm_cfg.d_model)
-        self.llm.requires_grad_(False)  # the frozen backbone (param_labels)
+        elif llm_cfg.style == "mamba":
+            if lora is not None:  # (mamba.py:169-180 of the JAX package)
+                raise ValueError("LoRA targets attention projections; the mamba backbone "
+                                 "has none — finetune with llm.lora disabled")
+            self.llm = MambaBackbone(llm_cfg, quantize, dt)
+        else:
+            self.llm = TransformerDecoder(llm_cfg, quantize, dt, lora)
+        # the frozen backbone but for its adapters (param_labels)
+        for name, p in self.llm.named_parameters():
+            p.requires_grad_("lora_" in name)
         self.patch_embedding = PatchEmbedding(d_model, patch_len, stride, dropout)
         self.mapping_layer = Linear(llm_cfg.vocab_size, num_tokens)
         self.reprogramming_layer = ReprogrammingLayer(
@@ -313,8 +322,14 @@ class MedTsLLM(nn.Module):
         if mc.llm.get("fuse_projections", False) and enabled:
             unported.append("llm.fuse_projections (ROADMAP queue 1, \"Llama decoder, open "
                             "parts\")")
-        if "lora" in mc and mc.lora.enabled and enabled:
-            unported.append("LoRA (ROADMAP queue 1, \"Other backbone families and LoRA\")")
+        lc = mc.lora if "lora" in mc and mc.lora.enabled and enabled else None
+        if lc is not None:
+            if lc.get("layers", "auto") != "auto":
+                raise ValueError(f"models.lora.layers must be \"auto\", not {lc.layers!r}")
+            if in4:
+                unported.append("LoRA over load_in_4bit, the 4-bit straight-through "
+                                "backward (ROADMAP queue 1, \"Training on the served "
+                                "backbones\")")
         for key in ("pipeline_parallel", "tensor_parallel", "expert_parallel"):
             if int(config.setup.get(key, 1) or 1) > 1:
                 unported.append(f"setup.{key} (ROADMAP queue 1, \"Parallelism\")")
@@ -326,13 +341,13 @@ class MedTsLLM(nn.Module):
         if cache_dir in ("", "none"):
             cache_dir = None
         quantize = 4 if in4 else 8 if in8 else 0  # 4 wins, as in JAX
-        llm_cfg = resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1))
-        if getattr(llm_cfg, "style", "mamba") not in ("llama", "mamba"):
-            # (the gpt2 decoder serves GPT4TS; MedTsLLM's prompt-prefix cache,
-            # prefill and quantized projections are llama's and Mamba's only)
-            raise NotImplementedError(
-                f"MedTsLLM over the {llm_cfg.style} backbone {mc.llm.llm!r}: ROADMAP queue 1, "
-                "\"Other backbone families and LoRA\"")
+        llm_cfg = resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1), cache_dir)
+        # peft's default targets: llama's q and v, the others' q (gpt2: the q
+        # third of c_attn)
+        lora = None if lc is None else LoraSpec(
+            rank=lc.rank, alpha=lc.alpha, dropout=lc.get("dropout", 0.0),
+            rslora=lc.get("rslora", True),
+            targets=("q", "v") if llm_cfg.style == "llama" else ("q",))
         if quantize == 4:
             llm_cfg = dataclasses.replace(llm_cfg, quant4_codebook=codebook)
         llm_cfg = _resolve_moe(llm_cfg, mc.llm, quantize, torch.device(device))
@@ -349,7 +364,8 @@ class MedTsLLM(nn.Module):
             task=task, n_classes=(dataset.n_classes if task in (
                 "classification", "semantic_segmentation") else 0),
             seg_mode=seg_mode, covariate_mode=covariate_mode,
-            embedding_downsample_mode=mc.embedding_downsample_mode, llm_enabled=enabled)
+            embedding_downsample_mode=mc.embedding_downsample_mode, llm_enabled=enabled,
+            lora=lora)
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property
@@ -375,16 +391,20 @@ class MedTsLLM(nn.Module):
     @property
     def supports_prefix_cache(self) -> bool:
         """The prompt head is prefilled and served from a cache: an enabled
-        backbone with ``llm.prefix_cache``."""
-        return self.llm_enabled and self.prefix_cache
+        backbone of a style that caches (the decoders' per-layer K/V,
+        Mamba's per-layer state) with ``llm.prefix_cache``."""
+        return (self.llm_enabled and self.prefix_cache
+                and self.llm_cfg.style in ("gpt2", "llama", "opt", "neox", "mamba"))
 
     @property
     def train_prefix_cache_safe(self) -> bool:
         """The train step may serve the prompt head from the cache when the
-        cached values are constants of the optimization: a frozen backbone
-        (always, here: LoRA is not ported) without dropout. Gradients of
-        every trainable parameter are then those of the embedded head."""
-        return self.supports_prefix_cache and getattr(self.llm_cfg, "dropout", 0.0) == 0.0
+        cached values are constants of the optimization: no LoRA (the
+        adapters move the head's K/V every step) and no backbone dropout
+        (gpt2's presets have 0.1). Gradients of every trainable parameter
+        are then those of the embedded head."""
+        return (self.supports_prefix_cache and self.lora is None
+                and getattr(self.llm_cfg, "dropout", 0.0) == 0.0)
 
     def encode_ts(self, x_enc, source, generator=None, mask=None):
         """RevIN -> patch embed -> reprogramming (K3) against ``source`` (the
@@ -462,7 +482,7 @@ class MedTsLLM(nn.Module):
                                         else t for t in layer) for layer in prefix_kv)
         enc = torch.cat(parts + [ts_emb], dim=1)
         if self.llm_enabled:
-            dec_out = self.llm(enc, prefix_kv=prefix_kv)
+            dec_out = self.llm(enc, prefix_kv=prefix_kv, generator=generator)
             dec_out = self._downsample(dec_out[:, -self.n_patches:, :])
         else:  # the ablation's MLP in place of the backbone and the downsample
             dec_out = self.llm_replacement(enc)[:, -self.n_patches:, :]
@@ -504,13 +524,13 @@ class MedTsLLM(nn.Module):
 
     # -- checkpoints (medtsllm_tpu/models/medtsllm.py:757-774) -------------
 
-    @staticmethod
-    def checkpoint_tree(state: dict) -> dict:
+    def checkpoint_tree(self, state: dict) -> dict:
         """The entries of a state dict a checkpoint keeps: every one but the
         frozen backbone (``llm.*``, its word embeddings included), which a
-        restore rebuilds. JAX keeps the LoRA adapters under ``llm``; the
-        port has no LoRA, so nothing under ``llm`` is kept."""
-        return {k: v for k, v in state.items() if k.split(".")[0] != "llm"}
+        restore rebuilds from the seed; under LoRA the adapters
+        (``llm.*.lora_a`` / ``lora_b``) stay, as JAX keeps them."""
+        return {k: v for k, v in state.items() if k.split(".")[0] != "llm"
+                or (self.lora is not None and k.rsplit(".", 1)[-1].startswith("lora_"))}
 
     @staticmethod
     def drop_pretrained_heads(saved: dict) -> dict:

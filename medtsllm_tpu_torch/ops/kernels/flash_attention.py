@@ -7,14 +7,16 @@ Replaces ``medtsllm_tpu/ops/pallas/flash_attention.py::flash_attention``
 kernel defines no custom_vjp. Two entries launch the same kernel:
 
 - ``flash_attention(q, k, v, causal)``: the JAX function's interface, q
-  [B, H, L, D] already rotated against k/v [B, KV, S, D] -> [B, H, L, D],
+  [B, H, L, D] already rotated against k/v [B, KV, S, D] -> [B, H, L, D]
+  at D 64, 128, 192 or 256 (``HEAD_DIMS``),
   KV dividing H (query row ``b * H + h`` reads kv row
   ``b * KV + h // (H / KV)``), end-aligned causal (query i sees keys
   <= i + S - L) or non-causal;
 - ``rope_flash_attention(q, k, v, cos, sin, pk, pv)``: the decoder's
   long-window route (``transformer.py:591-633`` of the JAX package) in K2's
-  interface, q [B, L, H, D] and k/v [B, L, KV, D] in the projection layout
-  before rotary, an optional rotated prefix [1 or B, KV, P, D] ->
+  interface (D 64 or 128, llama's heads), q [B, L, H, D] and k/v [B, L, KV,
+  D] in the projection layout before rotary, an optional rotated prefix [1
+  or B, KV, P, D] ->
   [B, L, H, D], end-aligned causal. ``rope_flash_keys`` (a pre-pass kernel,
   counted apart) writes [prefix | rotated keys] and [prefix | values] in
   [B, KV, S, D]; the main kernel rotates q as it loads it. Both rotations
@@ -27,8 +29,9 @@ with its exact gate (``attention_route``): the plain version below 512
 tokens; from 512, K4 when S is a multiple of 256 (and D % 64, L % 8, S % 8
 and L, S >= 128); causal self-attention at another length padded at the
 end to the next multiple of 256 when the pad is at most S // 10, K4 on the
-padded q/k/v, then sliced; the plain version otherwise. gpt2's attention
-takes it (no rotary).
+padded q/k/v, then sliced; the plain version otherwise. The ln family's
+attention (gpt2, opt, neox) and llama's at head dims other than 64 and 128
+take it, after their rotation and the prefix concat.
 
 The kernel never holds the [L, S] scores: it keeps an f32 running max, sum
 and accumulator per query row and writes ``acc / max(l, 1e-30)`` rounded to
@@ -79,11 +82,18 @@ def _no_grad(name, *tensors):
             "training above 2048 keys is ROADMAP queue 1, \"Training on the served backbones\"")
 
 
-def _check_dims(B, H, KV, D, dtypes):
+# the head dims K4 has instances for; JAX's dispatcher sends every D % 64 == 0
+# from 512 tokens to its kernel, and the port's gate is JAX's: D past 256 (no
+# backbone of the port's families has one) is still refused
+HEAD_DIMS = (64, 128, 192, 256)
+
+
+def _check_dims(B, H, KV, D, dtypes, head_dims=HEAD_DIMS):
     if H % KV:
         raise ValueError(f"KV heads {KV} must divide H {H}")
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not supported (64 or 128)")
+    if D not in head_dims:
+        raise ValueError(f"head dim {D} not supported ({head_dims}); wider heads are "
+                         "ROADMAP queue 3, \"The port refuses shapes the reference serves\"")
     if dtypes[0] not in (torch.float32, torch.bfloat16) or len(set(dtypes)) != 1:
         raise ValueError(f"q/k/v must share f32 or bf16, got {dtypes}")
     if B * H > 65535:
@@ -194,7 +204,8 @@ def _check_route(q, k, v, cos, sin, pk, pv):
     if k.dim() != 4 or k.shape[:2] != (B, L) or k.shape[3] != D or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     KV = k.shape[2]
-    _check_dims(B, H, KV, D, (q.dtype, k.dtype, v.dtype))
+    # (the decoder sends the route llama's heads of 64 and 128 only)
+    _check_dims(B, H, KV, D, (q.dtype, k.dtype, v.dtype), (64, 128))
     if L == 0:
         raise ValueError("the route needs L > 0")
     if cos.shape != (L, D // 2) or sin.shape != cos.shape or cos.dtype != torch.float32 \

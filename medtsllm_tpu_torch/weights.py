@@ -3,7 +3,13 @@ initialisation on the device with the JAX init's distributions.
 
 State-dict names follow the flax paths: ``/`` becomes ``.``, the decoder's
 ``h_{i}`` becomes ``blocks.{i}``, and the wrapper scopes ``base`` (LoRADense)
-and ``Conv_0`` are dropped. Layouts differ where PyTorch's do:
+and ``Conv_0`` are dropped, but ``base`` stays where its scope also holds
+the adapters ``lora_a`` [in, rank] / ``lora_b`` [rank, out] (the port's
+``LoRALinear``, which keeps JAX's layout for them). The ln family maps the
+same way: gpt2's ``c_attn`` / ``c_proj`` / ``c_fc``, opt's and neox's
+biased ``q/k/v/o_proj``, ``ln_1`` / ``ln_2`` / ``ln_f``, ``wpe``, and their
+quantized ``kernel_q`` / ``scale`` / ``bias`` leaves. Layouts differ where
+PyTorch's do:
   - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (nn.Linear);
   - int8 ``kernel_q`` [K, N] -> ``weight_q`` [N, K] (the w8a8 kernel's B
     operand, transposed once here); packed int4 [ceil(K/2), N] -> [N,
@@ -34,7 +40,8 @@ import torch
 from torch import nn
 
 from .models.llm.mamba import MambaBackbone, MambaBlock
-from .models.llm.transformer import MoEMLP, QuantLinear, RMSNorm, TransformerDecoder
+from .models.llm.transformer import (LoRALinear, MoEMLP, QuantLinear, RMSNorm,
+                                     TransformerDecoder)
 from .models.dlinear import DLinear
 from .models.medtsllm import WordEmbeddings
 from .ops.autoformer import CircularConv
@@ -74,10 +81,15 @@ def _flatten(tree: dict, prefix: str = ""):
 def from_flax(params: dict) -> dict[str, torch.Tensor]:
     """flax parameter tree (numpy leaves) -> torch state dict."""
     state = {}
-    for path, value in _flatten(params):
-        parts = []
+    leaves = list(_flatten(params))
+    adapted = {path.rpartition("/")[0] for path, _ in leaves
+               if path.rpartition("/")[2] in ("lora_a", "lora_b")}
+    for path, value in leaves:
+        parts, scope = [], []
         for part in path.split("/"):
-            if part in ("base", "Conv_0"):
+            kept = part == "base" and "/".join(scope) in adapted
+            scope.append(part)
+            if part in ("base", "Conv_0") and not kept:
                 continue
             m = re.fullmatch(r"h_(\d+)", part)
             parts += ["blocks", m.group(1)] if m else [part]
@@ -113,7 +125,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     lecun-normal kernels and zero biases; the MoE router N(0, 0.02), int8
     experts as the int8 projections (drawn expert by expert, so the f32
     temporaries stay one expert's size) and dense experts lecun-normal over
-    each expert's fan-in (transformer.py:1040-1083); the conv patch embedding
+    each expert's fan-in (transformer.py:1040-1083); LoRA's ``lora_a``
+    he-uniform (U(+-sqrt(6 / in))) and ``lora_b`` 0; the conv patch embedding
     N(0, 2 / fan_in); the Mamba block's depthwise conv lecun-normal (fan_in
     = K), its conv bias 0, ``A_log = log(1..N)`` and ``D = 1``
     (mamba.py:104-143 of the JAX package); LayerNorm (``llm_replacement``'s
@@ -150,9 +163,16 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         return S_INIT4[codebook]
 
     for module in model.modules():
-        if isinstance(module, QuantLinear):
+        if isinstance(module, LoRALinear):
+            # flax's he_uniform over lora_a [in, rank] (fan_in = in); lora_b 0
+            lim = math.sqrt(6.0 / module.lora_a.shape[0])
+            module.lora_a.uniform_(-lim, lim, generator=generator)
+            module.lora_b.zero_()
+        elif isinstance(module, QuantLinear):
             module.scale.fill_(quant_(module.weight_q, module.bits, module.d_in,
                                       module.codebook))
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, MoEMLP):
             module.gate.normal_(0.0, 0.02, generator=generator)
             cfg = module.cfg

@@ -273,12 +273,16 @@ class _Spy:
         monkeypatch.setattr(ttf, "rope_flash_attention", k4_)
 
 
+# llama-tiny at head dim 64 (d 128, 2 heads): the head dims K2 and the K4
+# route have (llama-tiny's own 16 takes JAX's default path, rotation then the
+# attention dispatcher)
+D64 = dict(d_model=128, n_heads=2)
+
+
 def _cfgs(gqa):
-    jc, tc = JAX_PRESETS["llama-tiny"], PRESETS["llama-tiny"]
-    if gqa:
-        jc, tc = (dataclasses.replace(jc, n_kv_heads=2),
-                  dataclasses.replace(tc, n_kv_heads=2))
-    return jc, tc
+    over = dict(D64, n_kv_heads=1) if gqa else D64
+    return (dataclasses.replace(JAX_PRESETS["llama-tiny"], **over),
+            dataclasses.replace(PRESETS["llama-tiny"], **over))
 
 
 def _x(seed, *shape):
@@ -288,13 +292,13 @@ def _x(seed, *shape):
 @pytest.mark.parametrize("quantize", [0, 8])
 @pytest.mark.parametrize("gqa", [False, True])
 def test_decoder_on_k4_route_matches_jax(monkeypatch, quantize, gqa):
-    """The 2-layer llama-tiny decoder with every attention on K4 (prefill
+    """The 2-layer llama-tiny decoder (at head dim 64) with every attention on K4 (prefill
     included): the uncached forward, the prefill's rotated K/V and the
     forward over the suffix with the prefix K/V, against the JAX decoder."""
     monkeypatch.setattr(ttf, "K4_MIN_KEYS", 1)
     spy = _Spy(monkeypatch)
     jc, tc = _cfgs(gqa)
-    x = jnp.asarray(_x(11, 2, 14, 64))
+    x = jnp.asarray(_x(11, 2, 14, tc.d_model))
     jm = jtf.TransformerDecoder(jc, quantize=quantize)
     params = jax.jit(lambda key, x: jm.init(key, x))(jax.random.PRNGKey(0), x)["params"]
     rng = np.random.default_rng(0)
@@ -332,7 +336,7 @@ def test_decoder_on_k4_route_matches_jax(monkeypatch, quantize, gqa):
 
 
 def _attention():
-    cfg = dataclasses.replace(PRESETS["llama-tiny"], n_kv_heads=2)
+    cfg = dataclasses.replace(PRESETS["llama-tiny"], d_model=256, n_heads=4, n_kv_heads=2)
     torch.manual_seed(0)
     m = ttf.Attention(cfg)
     for p in m.parameters():
@@ -387,10 +391,20 @@ def test_gradient_keeps_k2_and_raises_past_its_limit(monkeypatch):
 # --------------------------------------------------------------------------
 
 _TOL = {(0, "float32"): 1e-5, (8, "float32"): 2e-3}
+LLAMA_D64 = "llama-tiny-d64"
+
+
+@pytest.fixture
+def slice_preset(monkeypatch):
+    """llama-tiny at head dim 64 under its own id, in both packages' presets."""
+    monkeypatch.setitem(JAX_PRESETS, LLAMA_D64,
+                        dataclasses.replace(JAX_PRESETS["llama-tiny"], **D64))
+    monkeypatch.setitem(PRESETS, LLAMA_D64, dataclasses.replace(PRESETS["llama-tiny"], **D64))
 
 
 def _slice_cfg(tmp_path, quant, dtype):
-    """tests/test_torch_medtsllm.py's llama-tiny serving config."""
+    """tests/test_torch_medtsllm.py's llama-tiny serving config, over
+    ``LLAMA_D64`` (llama-tiny at head dim 64, ``slice_preset``)."""
     cfg = make_config(task="reconstruction", model="medtsllm", hist=32, pred=32, step=16)
     cfg["paths"] = {"logdir": str(tmp_path / "logs")}
     cfg.training.batch_size = 4
@@ -404,7 +418,7 @@ def _slice_cfg(tmp_path, quant, dtype):
                       "input_stats": True, "examples": False,
                       "input_stats_dim": 0, "input_stats_select": "all",
                       "cache_order": True},
-        "llm": {"enabled": True, "llm": "llama-tiny", "llm_layers": -1,
+        "llm": {"enabled": True, "llm": LLAMA_D64, "llm_layers": -1,
                 "prefix_cache": True, "load_in_4bit": False,
                 "load_in_8bit": quant == 8},
     }}
@@ -412,7 +426,7 @@ def _slice_cfg(tmp_path, quant, dtype):
 
 
 @pytest.mark.parametrize("quant,dtype", sorted(_TOL))
-def test_slice_on_k4_route_matches_jax(monkeypatch, tmp_path, quant, dtype):
+def test_slice_on_k4_route_matches_jax(monkeypatch, slice_preset, tmp_path, quant, dtype):
     """MedTsLLM's eval_dispatch on every test batch against JAX's eval_step,
     and test() scores, with every decoder attention on K4 (the prefill of
     the prompt head included)."""

@@ -17,7 +17,7 @@ tests/test_torch_gpt4ts.py's.)
       through the train and test CLIs' ``__main__`` with ``--device cpu``:
       finite losses, the task's score keys, the same test scores from both
       CLIs;
-  (g) a local snapshot found is refused by name; MedTsLLM over gpt2 is
+  (g) a local snapshot found is refused by name; MedTsLLM over gpt2 builds, a t5 snapshot is
       refused by its item's title.
 """
 
@@ -242,8 +242,9 @@ def test_snapshot_found_is_refused(tmp_path):
 
 
 def test_medtsllm_over_gpt2_refused(tmp_path):
-    """(g) MedTsLLM's prompt-prefix cache is llama's and Mamba's: over gpt2 it
-    raises, naming its item by title."""
+    """(g) MedTsLLM over gpt2 builds (the ln family is ported, its prompt
+    head cached); what stays refused is an encoder-decoder snapshot (t5),
+    named by its item's title."""
     from conftest import make_config
     cfg = make_config(task="reconstruction", model="medtsllm", hist=32, pred=32, step=16)
     cfg["paths"] = {"logdir": str(tmp_path / "logs")}
@@ -254,5 +255,10 @@ def test_medtsllm_over_gpt2_refused(tmp_path):
         "prompting": {"dataset": True, "task": True, "clip": False, "input_stats": True,
                       "examples": False, "input_stats_dim": 0, "input_stats_select": "all"},
         "llm": {"enabled": True, "llm": "gpt2-tiny", "llm_layers": -1}}}
+    tt = get_trainer("x", cfg, device="cpu")
+    assert tt.model.supports_prefix_cache and tt.model.llm_cfg.style == "gpt2"
+    (tmp_path / "t5").mkdir()
+    (tmp_path / "t5" / "config.json").write_text('{"model_type": "t5"}')
+    cfg.models.medtsllm.llm.llm = str(tmp_path / "t5")
     with pytest.raises(NotImplementedError, match='"Other backbone families and LoRA"'):
         get_trainer("x", cfg, device="cpu")

@@ -279,6 +279,12 @@ def test_rope_attention_kernel_rejects_bad_input(cuda):
     (3, 4, 2, 40, 40, 64, True),         # the first k-tile is partial
     (1, 2, 1, 1, 1, 128, True),          # one query, one key
     (16, 12, 12, 512, 512, 64, True),    # gpt2 at JAX's 512-token gate
+    (16, 12, 12, 576, 768, 64, True),    # gpt2's region after a 192-token prefix
+    (2, 8, 8, 512, 512, 256, True),      # pythia-1b's heads (d 2048 / 8): 64-key tiles
+    (2, 8, 8, 300, 1024, 256, True),     # D 256, a prefix ahead, partial q tile
+    (2, 8, 2, 100, 333, 256, False),     # D 256, GQA, non-causal, partial k-tile
+    (2, 12, 12, 512, 768, 192, True),    # D 192 (e.g. d 2304 / 12)
+    (3, 4, 2, 40, 40, 192, True),        # D 192, the first k-tile partial
 ])
 def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal):
     g = torch.Generator(cuda).manual_seed(0)
@@ -303,6 +309,27 @@ def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal)
     else:
         err = (out.float() - ref.float()).abs().amax(-1)
         assert (err <= 2 ** -6 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [192, 256])
+def test_dispatch_attention_takes_k4_at_wide_heads(cuda, D):
+    """Every head dim JAX's gate sends to its kernel has a K4 instance: D 192
+    and 256 from 512 tokens launch K4 (f32 and bf16) and agree with the plain
+    version (f32 1e-5; bf16 per query row, 2^-6 x its max)."""
+    g = torch.Generator(cuda).manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2, 4, 512, D, device=cuda, generator=g).to(dtype)
+                   for _ in range(3))
+        assert k4.attention_route(512, 512, D, True) == "k4"
+        n = k4.flash_attention.launches
+        out = k4.dispatch_attention(q, k, v, causal=True)
+        assert k4.flash_attention.launches == n + 1
+        ref = k4.flash_attention_plain(q, k, v, True)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        else:
+            assert _row_share(out, ref) <= 1
 
 
 @pytest.mark.cuda
@@ -367,6 +394,9 @@ def test_flash_attention_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):  # head dim 80 has no instance
         k4.flash_attention(z(1, 2, 4, 80, device=cuda), z(1, 2, 4, 80, device=cuda),
                            z(1, 2, 4, 80, device=cuda))
+    with pytest.raises(ValueError, match="queue 3"):  # past 256: the queue-3 refusal
+        k4.flash_attention(z(1, 2, 4, 320, device=cuda), z(1, 2, 4, 320, device=cuda),
+                           z(1, 2, 4, 320, device=cuda))
     with pytest.raises(ValueError):  # mixed dtypes
         k4.flash_attention(z(1, 2, 4, 64, device=cuda),
                            z(1, 2, 4, 64, device=cuda, dtype=torch.bfloat16),

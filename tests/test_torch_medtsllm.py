@@ -147,8 +147,10 @@ def test_unported_options_raise(tmp_path):
     assert pre.test_dataset.dataset_names == ["ECG", "ventilator", "bidmc", "ludb"]
     assert "prefix_ids" not in pre.model_inputs(next(iter(pre.test_pipeline)))
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.models.medtsllm.llm.llm = "gpt2"
-    with pytest.raises(NotImplementedError, match="gpt2"):
+    cfg.models.medtsllm.llm.llm = "gpt2"  # ported: the ln family; LoRA over 4 bits is not
+    cfg.models.medtsllm.llm.load_in_4bit = True
+    cfg.models.medtsllm["lora"] = {"enabled": True, "rank": 4, "alpha": 8, "layers": "auto"}
+    with pytest.raises(NotImplementedError, match="LoRA over load_in_4bit"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.data.dataset = "ETTh1"  # ported: the ETT family (its stand-in here)

@@ -201,7 +201,7 @@ def test_banked_head_per_channel(mode):
     tt.load_state_dict(from_flax(jax.device_get(jt.params)))
     seen = []
     llm_forward = tt.model.llm.forward
-    tt.model.llm.forward = lambda x, prefix_kv=None: (
+    tt.model.llm.forward = lambda x, prefix_kv=None, generator=None: (
         seen.append((x.shape[0], None if prefix_kv is None else prefix_kv[0][0].shape[0]))
         or llm_forward(x, prefix_kv=prefix_kv))
     n = 0
