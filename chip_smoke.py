@@ -206,6 +206,29 @@ nvidia-smi. Phases:
      bf16 configuration (frozen int8 backbone, trainable fusion layers,
      batch 8): finite losses, changed fusion layers, an unchanged backbone,
      K1 and K2 launched; ``train_graphed``;
+  9b. the same finetune with ``llm.int8_backward`` and ``grad_accum_steps
+     = 2`` (n_points 4000: four micro-batches of 8, two optimizer steps):
+     ``train()`` with the gradient rows' quantizer and the int8 dx GEMM 7 x
+     32 times a micro-step, the backbone unchanged; a captured odd
+     micro-step moving nothing and the even one moving the fusion layers;
+     ``train_graphed`` (both phases' graphs, replays bit-equal); the dx at
+     one 7B block's shapes (M 896) bit-equal to its plain version and its
+     cosine with the straight-through dx, the batched dh at one moe-8x1b
+     layer (E 8, C 2160, K 2048, N 5632) bit-equal, the [K, N] copies'
+     GiB, the peak, and the dx GEMM against ``torch._int_mm`` + rescale;
+     listed as ``w8a8_quantize_grad`` and ``w8a8_gemm[dx]``;
+  9c. QLoRA on the 7B: ``load_in_4bit`` (absmax int4: K1's quantizer and
+     K5), LoRA rank 8, alpha 16, rslora on q and v, ``ranger21``, batch 8:
+     ``train_graphed`` over 4 steps (replays bit-equal, ``lora_b`` moved,
+     every other ``llm.`` tensor unchanged, K5 launched); then nf4 at 2
+     layers, f32, card against the CPU;
+  9d. remat at full width: gpt2 (12 layers, d 768, dropout 0.1) w8a8 bf16
+     at batch 16 with LoRA under ``remat`` false / "full" / "dots", three
+     captured steps each: losses, adapters and their gradients bit-equal
+     across the three, K1's GEMM launches a step (the recompute's) and the
+     peak GiB of each; mamba-130m (prompt head embedded) under ``remat =
+     true``: two steps with gradients bit-equal to those without, K9 and
+     K10 launched; one ``ranger_classic`` step on the gpt2 model;
  10. one f32 train step of 2-layer slices (mamba-130m widths; llama-1b
      dense, GQA) on the card against the CPU with the same weights: the
      loss and the gradient of every trainable parameter; then the card's
@@ -805,16 +828,23 @@ def check(cond: bool, msg: str) -> None:
 
 def train_state(opt) -> list:
     """The tensors a step of ``opt`` (the port's ``runtime/optim.py``
-    ``Optimizer``) updates, detached (their storage shared): the trainable
-    parameters, then the optimizer's state parameter by parameter (Adam's
-    step count and moments, SGD's momentum buffer). A captured step reads
-    and writes them where they lie, so a snapshot is restored into them
-    with ``copy_``."""
-    import torch
+    ``Optimizer``) updates, detached (their storage shared):
+    ``Optimizer.state_tensors``, the trainable parameters first. A captured
+    step reads and writes them where they lie, so a snapshot is restored
+    into them with ``copy_``."""
+    return opt.state_tensors()
 
-    state = [t for p in opt.params for t in opt._opt.state.get(p, {}).values()
-             if isinstance(t, torch.Tensor)]
-    return [t.detach() for t in (*opt.params, *state)]
+
+def derived_config(Config, cfg, training=None, llm=None, lora=None):
+    """``cfg`` with entries of ``[training]`` and the model's ``llm`` table
+    set, and ``lora`` as its ``[models.<m>.lora]``."""
+    raw = cfg.to_dict()
+    raw["training"].update(training or {})
+    mc = raw["models"].get("medtsllm") or raw["models"]["timellm"]
+    mc["llm"].update(llm or {})
+    if lora:
+        mc["lora"] = dict(lora)
+    return Config(raw)
 
 
 def pool_bytes(graphs) -> int:
@@ -1786,7 +1816,8 @@ def main() -> None:
                 "grouped_matmul_gate_up": gm.GATE_UP, "grouped_matmul_down": gm.DOWN,
                 "grouped_matmul_requant": gm.REQUANT, "w4a8_gemm": k5.w4a8_gemm,
                 "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
-                "grouped_matmul_w4_down": gm.DOWN_W4}
+                "grouped_matmul_w4_down": gm.DOWN_W4,
+                "w8a8_quantize_grad": k1.quantize_grad_rows}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def counted(fn):
@@ -2049,7 +2080,7 @@ def main() -> None:
                   for n, t in tr.model.state_dict().items() if n in backbone}
         n_captures = len(tr.train_graphs.capture_ms)
         snap = [t.clone() for t in train_state(opt)]
-        gen_state = gen.get_state()
+        gen_state, mini_step = gen.get_state(), opt.mini_step
 
         def run(step):
             losses, counts, lrs = [], [], []
@@ -2071,6 +2102,7 @@ def main() -> None:
             for t, v in zip(train_state(opt), snap):
                 t.copy_(v)
             gen.set_state(gen_state)
+            opt.mini_step = mini_step  # the accumulation window's host count
             eager = run(tr.train_step_eager)
         finally:
             opt.lr_warmup_epochs = warmup_epochs
@@ -3421,6 +3453,256 @@ def main() -> None:
     train_graphed(tr, "llama", 16, {"w8a8_quantize": 7 * n_block, "w8a8_gemm": 7 * n_block,
                                     "rope_attention": n_block})
     del tr
+    torch.cuda.empty_cache()
+
+    # 9b. the 7B w8a8 finetune with llm.int8_backward and grad_accum_steps 2:
+    # n_points 4000 gives four shuffled micro-batches of 8, two windows
+    t_phase = time.perf_counter()
+    tr = get_trainer("chip-smoke-int8bwd", derived_config(
+        Config, bench_config(Config, n_points=4000), training={"grad_accum_steps": 2},
+        llm={"int8_backward": True}), device=dev)
+    projs = [m for m in tr.model.llm.modules() if isinstance(m, tfm.QuantLinear)]
+    check(len(projs) == 7 * n_block and all(m.act_quant == "int8_bwd" for m in projs),
+          "int8_backward must reach every projection")
+
+    def fusion(tr):
+        return {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                if p.requires_grad}
+
+    def backbone_sums(tr):  # exact float64 sums of every llm. tensor
+        return {n: torch.sum(t, dtype=torch.float64)
+                for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+    start_w, frozen = fusion(tr), backbone_sums(tr)
+    torch.cuda.reset_peak_memory_stats()
+    counts, wall = drive(tr.train)
+    peak_train = torch.cuda.max_memory_allocated()
+    n_micro, per = len(tr.train_pipeline), 7 * n_block
+    dx_launches = counts["w8a8_gemm"] - counts["w8a8_quantize"]
+    kn_gib = sum(m.kn_copy.numel() for m in projs) / 2**30
+    print(f"[int8bwd-train] train() {n_micro} micro-batches of {B} (grad_accum_steps 2) and "
+          f"val() in {wall:.2f} s wall; losses {tr.losses}; launches {counts}; the [K, N] "
+          f"copies {kn_gib:.3f} GiB; peak {peak_train / 2**30:.2f} GiB ({smi})")
+    check(n_micro == 4 and tr.optimizer.mini_step == 0 and finite(tr.losses),
+          f"{n_micro} micro-batches, mini_step {tr.optimizer.mini_step}, losses {tr.losses}")
+    check(counts["w8a8_quantize_grad"] == per * n_micro and dx_launches == per * n_micro,
+          f"the int8 dx must launch {per} x {n_micro}: {counts}")
+    state = fusion(tr)
+    check(all(not torch.equal(state[n], t) for n, t in start_w.items()
+              if n.startswith(("mapping_layer", "output_projection"))),
+          "the fusion layers did not move")
+    check(backbone_sums(tr) == frozen, "the backbone changed")
+    # a captured odd micro-step moves nothing, the even one applies the mean
+    a_odd, a_even = (tr.train_model_inputs(b) for b in itertools.islice(tr.train_pipeline, 2))
+    before = fusion(tr)
+    tr.train_step(a_odd, a_odd["valid"])
+    check(all(torch.equal(t, before[n]) for n, t in fusion(tr).items()),
+          "an accumulate-only micro-step moved a parameter")
+    tr.train_step(a_even, a_even["valid"])
+    check(any(not torch.equal(t, before[n]) for n, t in fusion(tr).items()),
+          "the window's last micro-step moved nothing")
+    train_graphed(tr, "int8bwd", 8, {"w8a8_quantize_grad": per, "w8a8_quantize": per,
+                                     "w8a8_gemm": 2 * per, "rope_attention": n_block})
+    check(backbone_sums(tr) == frozen and len(tr.train_graphs) >= 2,
+          f"the backbone changed, or {len(tr.train_graphs)} train graphs (one a phase)")
+    # the dx at one 7B block's shapes (M = B x the 112-token region), on the
+    # trained model's block-0 weights: q, k, v, o (K 4096, N 4096), gate, up
+    # (K 4096, N 11008), down (K 11008, N 4096); g at bf16, as the mixed step's
+    M9 = B * L
+    blk = tr.model.llm.blocks[0]
+    layer_ws = [blk.attn.q_proj, blk.attn.k_proj, blk.attn.v_proj, blk.attn.o_proj,
+                blk.mlp.gate_proj, blk.mlp.up_proj, blk.mlp.down_proj]
+    q_ms = q_plain = q_bytes = 0.0
+    g_ms = g_plain = g_lib = g_bytes = g_ops = 0.0
+    cos_min = 1.0
+    for m in layer_ws:
+        N9, K9 = m.weight_q.shape
+        gr = torch.randn(M9, N9, device=dev, generator=g).to(torch.bfloat16)
+        sc, kn = m.scale.float(), m.weight_kn()
+        gq, gs = k1.quantize_grad_rows(gr, sc, kn.shape[1])
+        gq0, gs0 = k1.quantize_grad_rows_plain(gr, sc, kn.shape[1])
+        check(torch.equal(gq, gq0) and torch.equal(gs, gs0),
+              f"the gradient rows' quantizer not bit-equal at [{M9}, {N9}]")
+        dx = k1.int8_dx(gr, kn, sc, torch.bfloat16)
+        dx0 = k1.int8_gemm_plain(gq0, kn, gs0, torch.ones(K9, device=dev), torch.bfloat16)
+        check(torch.equal(dx, dx0), f"the int8 dx not bit-equal at [{M9}, {K9}, {N9}]")
+        ste = (gr.float() * sc) @ m.weight_q.float()
+        d32 = k1.int8_dx(gr, kn, sc).double().flatten()
+        cos_min = min(cos_min, float(d32 @ ste.double().flatten()
+                                     / (d32.norm() * ste.double().norm())))
+        ones = torch.ones(K9, device=dev)
+        q_ms += cuda_ms(torch, lambda: k1.quantize_grad_rows(gr, sc, kn.shape[1]))
+        q_plain += cuda_ms(torch, lambda: k1.quantize_grad_rows_plain(gr, sc, kn.shape[1]))
+        q_bytes += M9 * N9 * 2 + N9 * 4 + M9 * kn.shape[1] + M9 * 4
+        g_ms += cuda_ms(torch, lambda: k1.int8_gemm(gq, kn, gs, ones, torch.bfloat16))
+        g_plain += cuda_ms(torch, lambda: k1.int8_gemm_plain(gq, kn, gs, ones,
+                                                              torch.bfloat16), iters=3)
+        g_lib += cuda_ms(torch, lambda: (torch._int_mm(gq, kn.T).float()
+                                         * gs[:, None]).to(torch.bfloat16))
+        g_bytes += M9 * kn.shape[1] + K9 * kn.shape[1] + M9 * 4 + K9 * 4 + M9 * K9 * 2
+        g_ops += 2 * M9 * K9 * kn.shape[1]
+    check(cos_min > 0.999, f"cos(int8 dx, straight-through dx) {cos_min} <= 0.999")
+    record("w8a8_quantize_grad", "medtsllm_tpu_torch/csrc/w8a8.cu",
+           "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", 0.0, 0.0, q_ms, q_plain,
+           bound(q_bytes, 0, "int8"), None,
+           f" (per decoder block, 7 calls at M={M9}, g bf16; codes and scales bit-equal)")
+    record("w8a8_gemm[dx]", "medtsllm_tpu_torch/csrc/w8a8.cu",
+           "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", 0.0, 0.0, g_ms, g_plain,
+           bound(g_bytes, g_ops, "int8"), g_lib,
+           f" (per decoder block, the 7 dx GEMMs at M={M9} on the [K, N] copies, bf16 out; "
+           f"bit-equal; cos with the straight-through dx >= {cos_min:.6f}; library = "
+           "torch._int_mm + the row rescale)")
+    set_launches(counts, {"w8a8_quantize_grad": "w8a8_quantize_grad"})
+    next(e for e in kernels if e["name"] == "w8a8_gemm[dx]")["launches"] = dx_launches
+    del tr, projs, layer_ws, blk, gr, gq, gq0, dx, dx0, ste, d32, kn
+    torch.cuda.empty_cache()
+    # the batched dh at one moe-8x1b layer: E 8 experts, C 2160 slots
+    E9, C9, K9, N9 = 8, 2160, 2048, 5632
+    gr = torch.randn(E9, C9, N9, device=dev, generator=g)
+    wq = torch.randint(-127, 128, (E9, N9, K9), device=dev, dtype=torch.int8, generator=g)
+    sc = torch.rand(E9, N9, device=dev, generator=g) * 1e-2
+    kn = k1.kn_weight(wq)
+    dh = tfm.int8_dh(gr, kn, sc)
+    gq0, gs0 = k1.quantize_grad_rows_plain(gr.reshape(E9 * C9, N9), sc, N9)
+    gq0, gs0 = gq0.reshape(E9, C9, N9), gs0.reshape(E9, C9)
+    ones = torch.ones(K9, device=dev)
+    check(all(torch.equal(dh[e], k1.int8_gemm_plain(gq0[e], kn[e], gs0[e], ones))
+              for e in range(E9)), "the batched int8 dh is not bit-equal")
+    dh_ms = cuda_ms(torch, lambda: tfm.int8_dh(gr, kn, sc), iters=5)
+    print(f"[int8bwd] the batched dh at one moe-8x1b layer (E {E9}, C {C9}, K {K9}, N {N9}): "
+          f"bit-equal to its plain version, {dh_ms:.4f} ms; phase 9b "
+          f"{time.perf_counter() - t_phase:.1f} s wall ({smi})")
+    del gr, wq, sc, kn, dh, gq0, gs0
+    torch.cuda.empty_cache()
+
+    # 9c. QLoRA on the 7B: load_in_4bit (absmax int4), LoRA rank 8, alpha 16,
+    # rslora on q and v, ranger21, batch 8, four captured steps
+    t_phase = time.perf_counter()
+    tr = get_trainer("chip-smoke-qlora", derived_config(
+        Config, bench_config(Config, quant_type="int4", n_points=4000),
+        training={"optimizer": "ranger21"}, lora=LORA), device=dev)
+    q_proj = tr.model.llm.blocks[0].attn.q_proj
+    check(isinstance(q_proj, tfm.LoRALinear) and q_proj.base.bits == 4,
+          f"QLoRA's q_proj {type(q_proj).__name__}")
+    lora_b = {n: p for n, p in tr.model.named_parameters() if n.endswith("lora_b")}
+    check(len(lora_b) == 2 * n_block, f"{len(lora_b)} lora_b tensors")
+    torch.cuda.reset_peak_memory_stats()
+    train_graphed(tr, "qlora", 4, {"w4a8_gemm": per, "w8a8_quantize": per,
+                                   "w8a8_gemm": 0, "rope_attention": n_block})
+    check(all(p.detach().abs().max().item() > 0 for p in lora_b.values()),
+          "a lora_b did not move")
+    print(f"[qlora] ranger21 over the fusion layers and {len(lora_b)} adapter pairs: "
+          f"every lora_b moved; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"phase 9c {time.perf_counter() - t_phase:.1f} s wall ({smi})")
+    del tr, q_proj, lora_b
+    torch.cuda.empty_cache()
+    # nf4 at 2 layers with LoRA: one f32 train step, card vs CPU (the table
+    # dequant and the f32 matmul on both: summation order only, 1e-3 of each
+    # gradient's largest element, as phase 10)
+    small = derived_config(Config, bench_config(
+        Config, llm="llama-1b", batch=2, history=64, dtype="float32", n_points=256,
+        num_tokens=128, d_ff=64, llm_layers=2, quant_type="nf4", dropout=0.0), lora=LORA)
+    gpu = get_trainer("chip-smoke-nf4-train", small, device=dev)
+    cpu = get_trainer("chip-smoke-nf4-train", small, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+    with torch.no_grad():  # adapters away from their zero init on both sides
+        for (n, pg), pc in zip(gpu.model.named_parameters(), cpu.model.parameters()):
+            if n.endswith("lora_b"):
+                pc.copy_(torch.randn(pc.shape) * 0.01)
+                pg.copy_(pc)
+    batch = next(iter(gpu.train_pipeline))
+    ag, ac = gpu.train_model_inputs(batch), cpu.train_model_inputs(batch)
+    lg, lc = float(gpu.train_step(ag, ag["valid"])), float(cpu.train_step(ac, ac["valid"]))
+    # (the reprogramming key bias's exact gradient is 0: noise on both sides,
+    # left out as in phase 10)
+    worst = max((p.grad.cpu() - q.grad).abs().max().item()
+                / max(q.grad.abs().max().item(), 1e-30)
+                for (n, p), q in zip(gpu.model.named_parameters(), cpu.model.parameters())
+                if p.requires_grad and not n.endswith("key_projection.bias"))
+    check(abs(lg - lc) <= 1e-5 * abs(lc) and worst <= 1e-3,
+          f"nf4 LoRA slice: loss card {lg} CPU {lc}, worst gradient {worst}")
+    print(f"[qlora-nf4] llama-1b 2-layer nf4 f32 with LoRA, one train step card vs CPU: "
+          f"loss {lg:.6f} vs {lc:.6f}, worst gradient {worst:.3e} of its largest element")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    # 9d. remat at full width: gpt2 (12 layers, d 768, dropout 0.1) w8a8 bf16
+    # at batch 16 with LoRA (its head embedded: the decoder's forward has no
+    # prefix, so remat applies), three captured steps under each setting
+    t_phase = time.perf_counter()
+    runs = {}
+    for remat in (False, "full", "dots"):
+        tr = get_trainer(f"chip-smoke-remat-{remat}", derived_config(
+            Config, family_config(Config, "gpt2", lora=True), llm={"remat": remat}),
+            device=dev)
+        check(tr.model.llm.remat == remat and tr.model.llm.cfg.dropout == 0.1
+              and not tr.model.train_prefix_cache_safe, f"remat {remat}: {tr.model.llm_cfg}")
+        arrays = [tr.train_model_inputs(b) for b in itertools.islice(tr.train_pipeline, 3)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = [counted(lambda: tr.train_step(a, a["valid"])) for a in arrays]
+        peak = torch.cuda.max_memory_allocated() - resident  # the steps' own
+        adapters = {n: (p.detach().clone(), p.grad.clone())
+                    for n, p in tr.model.named_parameters() if "lora_" in n}
+        runs[remat] = (torch.stack([o[0] for o in out]), adapters, out[-1][1], peak)
+        del tr, arrays, out
+        torch.cuda.empty_cache()
+    base = runs[False]
+    for remat, (losses, adapters, c, peak) in runs.items():
+        check(torch.equal(losses, base[0]), f"remat {remat}: losses {losses} vs {base[0]}")
+        check(all(torch.equal(a, base[1][n][0]) and torch.equal(gr, base[1][n][1])
+                  for n, (a, gr) in adapters.items()), f"remat {remat}: the adapters differ")
+    n_gpt2 = 4 * 12  # c_attn, c_proj, c_fc, mlp.c_proj in 12 blocks
+    want = {False: n_gpt2, "full": 2 * n_gpt2, "dots": n_gpt2}
+    check(all(runs[r][2]["w8a8_gemm"] == n for r, n in want.items()),
+          f"K1 GEMM launches a step: {({r: v[2]['w8a8_gemm'] for r, v in runs.items()})}")
+    print("[remat-gpt2] three captured steps bit-equal under remat false / full / dots "
+          f"(losses {base[0].tolist()}, the adapters and their gradients); K1 GEMM launches "
+          "a step " + ", ".join(f"{r}: {v[2]['w8a8_gemm']}" for r, v in runs.items())
+          + "; the steps' peak above what was resident before them "
+          + ", ".join(f"{r}: {v[3] / 2**30:.3f} GiB" for r, v in runs.items())
+          + f" ({smi})")
+    del runs, base
+    # mamba-130m, the prompt head embedded (no prefix state: remat applies)
+    grads = {}
+    for remat in (False, True):
+        tr = get_trainer(f"chip-smoke-mamba-remat-{remat}", mamba_config(
+            Config, n_points=24704, prefix_cache=False, model={"llm": {"remat": remat}}),
+            device=dev)
+        arrays = [tr.train_model_inputs(b) for b in itertools.islice(tr.train_pipeline, 2)]
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = [counted(lambda: tr.train_step_eager(a, a["valid"])) for a in arrays]
+        grads[remat] = ([o[0] for o in out], {n: p.grad.clone() for n, p in
+                                              tr.model.named_parameters() if p.requires_grad},
+                        out[-1][1], torch.cuda.max_memory_allocated() - resident)
+        del tr, arrays, out
+        torch.cuda.empty_cache()
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = grads[False], grads[True]
+    n_l = 24
+    check(all(torch.equal(a, b) for a, b in zip(l0, l1))
+          and all(torch.equal(g0[n], g1[n]) for n in g0), "mamba remat: gradients differ")
+    check(c0["selective_scan_bounds"] == n_l and c1["selective_scan_bounds"] == 2 * n_l
+          and c0["selective_scan_bwd"] == c1["selective_scan_bwd"] == n_l,
+          f"mamba remat: K9 / K10 launches {c0} / {c1}")
+    print(f"[remat-mamba] two steps bit-equal with and without remat; K9 launches a step "
+          f"{c0['selective_scan_bounds']} -> {c1['selective_scan_bounds']} (the recompute), "
+          f"K10 {c1['selective_scan_bwd']}; the steps' peak above what was resident "
+          f"{p0 / 2**30:.3f} -> {p1 / 2**30:.3f} GiB")
+    del grads, g0, g1
+    # one ranger_classic step on the gpt2 model
+    tr = get_trainer("chip-smoke-ranger-classic", derived_config(
+        Config, family_config(Config, "gpt2", lora=True),
+        training={"optimizer": "ranger_classic"}), device=dev)
+    a = tr.train_model_inputs(next(iter(tr.train_pipeline)))
+    before = fusion(tr)
+    loss = float(tr.train_step(a, a["valid"]))
+    moved = [n for n, t in fusion(tr).items() if not torch.equal(t, before[n])]
+    check(math.isfinite(loss) and any("lora_b" in n for n in moved),
+          f"ranger_classic: loss {loss}, moved {moved}")
+    print(f"[ranger-classic] one step on gpt2 with LoRA: loss {loss:.6f}, {len(moved)} "
+          f"tensors moved; phase 9d {time.perf_counter() - t_phase:.1f} s wall ({smi})")
+    del tr, a, before
     torch.cuda.empty_cache()
 
     # 10. one f32 train step of 2-layer slices on the card against the CPU

@@ -421,8 +421,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* v_full = k_full + C::kStages;
   uint64_t* empty = v_full + C::kStages;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  // one block a (query tile, batch x head), the tiles of one batch x head
+  // together and the longest causal rows first; B x H lives in grid.x, whose
+  // range (2^31 - 1) has room for any batch, where grid.y stops at 65535
+  const int nqt = (a.L + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nqt, qt = nqt - 1 - blockIdx.x % nqt;
+  const int b = bh / a.H, h = bh % a.H;
   const int kv_row = b * a.KV + h / (a.H / a.KV);
   const int q0 = qt * kBQ, offs = a.S - a.L;
   const int kend = a.causal ? min(a.S, q0 + kBQ + offs) : a.S;  // keys any row here sees
@@ -636,7 +640,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const F
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.L + kBQ - 1) / kBQ, B * a.H);
+  const dim3 grid(((a.L + kBQ - 1) / kBQ) * B * a.H);
   kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(mq, mk, mv, mo, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -668,7 +672,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float s_alpha[FQ];
   __shared__ float s_l[FQ];
 
-  const int q0 = blockIdx.x * FQ, bh = blockIdx.y;
+  const int nq = (L + FQ - 1) / FQ;  // B x H folded into grid.x, as the bf16 kernel's
+  const int q0 = (blockIdx.x % nq) * FQ, bh = blockIdx.x / nq;
   const int b = bh / H, h = bh % H;
   const size_t kv_row = static_cast<size_t>(b) * KV + h / (H / KV);
   const size_t qoff = static_cast<size_t>(b) * qs.sb + static_cast<size_t>(h) * qs.sh;
@@ -744,7 +749,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
                int L, int S, int causal, float sm_scale, Strides qs, cudaStream_t stream) {
-  const dim3 grid((L + F32Tile<D>::kQ - 1) / F32Tile<D>::kQ, B * H);
+  const dim3 grid(((L + F32Tile<D>::kQ - 1) / F32Tile<D>::kQ) * B * H);
   flash_f32_kernel<D><<<grid, D, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), H, KV, L, S, causal, sm_scale, qs);
@@ -754,7 +759,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 int attend(const void* q, const void* k, const void* v, void* out, const float* cosb,
            const float* sinb, int is_bf16, int causal, int lhd, int B, int H, int KV, int L,
            int S, int D, float sm_scale, cudaStream_t s) {
-  if (B * H > 65535 || KV <= 0 || H % KV || L <= 0 || S <= 0)
+  if (static_cast<long long>(B) * H * ((L + 7) / 8) > 0x7fffffffLL || KV <= 0 || H % KV ||
+      L <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
     const FlashArgs a{cosb, sinb, H, KV, L, S, causal, lhd, sm_scale * kLog2e};

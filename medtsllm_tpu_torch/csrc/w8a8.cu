@@ -80,6 +80,48 @@ act_quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
         __float2int_rn(__fdiv_rn(mt::to_f32(xr[i]), scale)));
 }
 
+// The gradient rows of the int8 dx (llm.int8_backward; transformer.py:269-278
+// of the JAX package, the batched form :814-820): gs = g * scale[col] in f32,
+// then gs's own per-row quantization as above, the codes written into rows of
+// ld >= N bytes whose columns N.. are zero (the GEMM that contracts over N
+// needs a multiple of 16; zero columns add nothing to the s32 sums). Row r
+// reads scale row r / rows_per_scale: one row for a projection, one an
+// expert for the [E, C, N] gradient of the capacity MoE path. gs is
+// formed twice, once for the row's absmax and once for its codes: the same
+// f32 product both times, so no [M, N] f32 copy is written. Bound by bytes:
+// g read twice (the second pass mostly from L2), the codes written once.
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+grad_quant_rows_kernel(const T* __restrict__ g, const float* __restrict__ scales,
+                       int8_t* __restrict__ gq, float* __restrict__ g_scale, int N, int ld,
+                       int rows_per_scale) {
+  const int row = blockIdx.x;
+  const T* gr = g + static_cast<size_t>(row) * N;
+  const float* scale = scales + static_cast<size_t>(row / rows_per_scale) * N;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < N; i += kQuantThreads)
+    amax = fmaxf(amax, fabsf(__fmul_rn(mt::to_f32(gr[i]), scale[i])));
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  __shared__ float warp_max[kQuantThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float m = threadIdx.x < kQuantThreads / 32 ? warp_max[threadIdx.x] : 0.f;
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (threadIdx.x == 0) warp_max[0] = m;
+  }
+  __syncthreads();
+  const float s = fmaxf(__fdiv_rn(warp_max[0], 127.0f), 1e-10f);
+  if (threadIdx.x == 0) g_scale[row] = s;
+  int8_t* qr = gq + static_cast<size_t>(row) * ld;
+  for (int i = threadIdx.x; i < ld; i += kQuantThreads)
+    qr[i] = i < N ? static_cast<int8_t>(__float2int_rn(
+                        __fdiv_rn(__fmul_rn(mt::to_f32(gr[i]), scale[i]), s)))
+                  : static_cast<int8_t>(0);
+}
+
 // ---- the wgmma GEMM ---------------------------------------------------------
 
 constexpr int kBM = 128;       // rows of a block tile: two consumer warpgroups
@@ -280,6 +322,23 @@ int mt_act_quant_rows(const void* x, int x_is_bf16, void* xq, void* x_scale,
     act_quant_rows_kernel<float><<<M, kQuantThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<int8_t*>(xq),
         static_cast<float*>(x_scale), K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mt_grad_quant_rows(const void* g, int g_is_bf16, const void* scale, void* gq,
+                       void* g_scale, int M, int N, int ld, int rows_per_scale,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* sc = static_cast<const float*>(scale);
+  if (M == 0) return static_cast<int>(cudaSuccess);
+  if (g_is_bf16)
+    grad_quant_rows_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(g), sc, static_cast<int8_t*>(gq),
+        static_cast<float*>(g_scale), N, ld, rows_per_scale);
+  else
+    grad_quant_rows_kernel<float><<<M, kQuantThreads, 0, s>>>(
+        static_cast<const float*>(g), sc, static_cast<int8_t*>(gq),
+        static_cast<float*>(g_scale), N, ld, rows_per_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,7 +34,7 @@ from ...ops.kernels.selective_scan import (_wants_grad, scan_operands, selective
                                            selective_ssm_final, selective_ssm_gated,
                                            selective_ssm_h0)
 from .config import MambaConfig
-from .transformer import Linear, RMSNorm
+from .transformer import Linear, RMSNorm, remat_call
 
 
 @contextlib.contextmanager
@@ -131,15 +131,19 @@ class MambaBlock(nn.Module):
 
 class MambaBackbone(nn.Module):
     """Embedding + n_layers MambaBlocks + final RMSNorm; returns the last
-    hidden state (no LM head), like TransformerDecoder."""
+    hidden state (no LM head), like TransformerDecoder. ``remat``
+    (``llm.remat``) recomputes each block in the backward of a forward
+    with no prefix state that needs gradients, as JAX's backbone does
+    (``mamba.py:205``)."""
 
-    def __init__(self, cfg: MambaConfig, quantize: int = 0, dtype=None):
+    def __init__(self, cfg: MambaConfig, quantize: int = 0, dtype=None,
+                 remat: bool | str = False):
         super().__init__()
         if quantize:
             raise NotImplementedError(
                 f"quantize={quantize} on the mamba backbone: quantized Mamba is "
                 "ROADMAP queue 1, \"Mamba, open parts\"")
-        self.cfg = cfg
+        self.cfg, self.remat = cfg, remat
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
         self.blocks = nn.ModuleList(MambaBlock(cfg, dtype) for _ in range(cfg.n_layers))
@@ -158,8 +162,12 @@ class MambaBackbone(nn.Module):
         ``generator`` is the decoders' interface: the backbone has no
         dropout."""
         x = inputs_embeds
-        for i, block in enumerate(self.blocks):
-            x = block(x, None if prefix_kv is None else prefix_kv[i])
+        if self.remat and prefix_kv is None and torch.is_grad_enabled():
+            for block in self.blocks:
+                x = remat_call(lambda h, g, b=block: b(h), x, generator, self.remat)
+        else:
+            for i, block in enumerate(self.blocks):
+                x = block(x, None if prefix_kv is None else prefix_kv[i])
         return self.norm_f(x)
 
     def prefill(self, inputs_embeds: torch.Tensor) -> tuple:

@@ -28,12 +28,21 @@ the w4a8 kernel (K5). The MoE FFN routes each token to its top-k experts
 and runs them either as the dropless grouped chain (K6, ``moe_grouped``,
 int8 or absmax int4 experts, in eval) or as the static-capacity per-expert
 bmm (K1 per expert for integer experts), which also trains: the
-straight-through backward of the expert matmuls and the router's
+straight-through backward of the expert matmuls (or, with
+``llm.int8_backward``, their int8 dx on K1) and the router's
 load-balancing loss (``router_aux_loss``).
+
+``act_quant`` is JAX's: True runs the integer projections on the kernels
+above, "int8_bwd" adds the int8 dx of ``llm.int8_backward``, False is the
+weight-only product ``(x @ W) * scale`` at the compute dtype
+(``int8_matmul = false``). ``remat`` (``llm.remat``) recomputes the blocks
+of the training forward in the backward (``remat_call``), as JAX's
+call-site remat does; prefill and the cached path call them plainly.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,8 +53,10 @@ from ...ops.kernels.flash_attention import dispatch_attention, rope_flash_attent
 from ...ops.kernels.grouped_matmul import (gmm, gmm_metadata, gmm_visits, pick_block_n,
                                             row_quant)
 from ...ops.kernels.rope_attention import MAX_KEYS, rope, rope_attention, rope_tables
-from ...ops.kernels.w4a8 import act_quant_w4a8_matmul, dequant_codebook, unpack4_split
-from ...ops.kernels.w8a8 import act_quant_matmul, int8_gemm, quantize_rows
+from ...ops.kernels.w4a8 import (act_quant_w4a8_matmul, dequant_codebook, pad_packed,
+                                 unpack4_split)
+from ...ops.kernels.w8a8 import (K_ALIGN, act_quant_matmul, int8_gemm, kn_weight, pad_cols,
+                                 quantize_grad_rows, quantize_rows, unit_scale)
 from .config import DecoderConfig, LoraSpec
 
 
@@ -70,25 +81,65 @@ class RMSNorm(nn.Module):
         return x * torch.rsqrt(var + self.eps).to(x.dtype) * self.weight
 
 
-class QuantLinear(nn.Module):
-    """Quantized projection (JAX QuantDense with act_quant): per-channel
-    scale [N], the weight transposed from the JAX kernel_q.
+class DerivedWeights(nn.Module):
+    """A module whose frozen integer weights have copies in another layout
+    for the kernels (``derived``): each made at its first use, kept as a
+    non-persistent buffer (not in ``state_dict``, not in a checkpoint) and
+    refilled in place when ``load_state_dict`` replaces the weights, so a
+    captured step that reads it stays valid."""
+
+    def __init__(self):
+        super().__init__()
+        self._derivers = {}
+
+    def derived(self, name: str, make) -> torch.Tensor:
+        t = self._buffers.get(name)
+        if t is None:
+            # a normal tensor, made outside any autograd graph, even when first
+            # asked for in a serving step under inference mode
+            with torch.inference_mode(False), torch.no_grad():
+                t = make()
+            self.register_buffer(name, t, persistent=False)
+            self._derivers[name] = make
+        return t
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        with torch.no_grad():
+            for name, make in self._derivers.items():
+                self._buffers[name].copy_(make())
+
+
+class QuantLinear(DerivedWeights):
+    """Quantized projection (JAX QuantDense): per-channel scale [N], the
+    weight transposed from the JAX kernel_q.
 
     bits=8: int8 weight [N, K]; w8a8 (K1), activations quantized per row.
     bits=4: split-halves packed int4 [N, ceil(K/2)], three routes as in
     ``QuantDense.__call__``: the absmax codebook with K even runs K1's
     quantizer and K5; with K odd, the unpacked weight on K1; the bnb
     codebooks ("nf4", "fp4") a table dequant and ``(x @ w) * scale`` at the
-    compute dtype (weight-only, as JAX's XLA dot). The f32 product is
-    rounded to ``dtype`` (the input's dtype when None), as JAX casts the f32
-    result. Forward only at bits=4: the straight-through backward of K5 is
-    not ported."""
+    compute dtype (weight-only, as JAX's XLA dot). ``act_quant`` False
+    (``int8_matmul = false``) makes the integer weights weight-only too:
+    ``(x @ W) * scale`` at the compute dtype. The f32 product is rounded to
+    ``dtype`` (the input's dtype when None), as JAX casts the f32 result.
+
+    The gradient reaches x through the straight-through backward of
+    ``_act_quant_matmul`` (at 4 bits the weight unpacked first); with
+    ``act_quant = "int8_bwd"`` through the int8 dx on the weight's ``[K,
+    N]`` copy (``weight_kn()``, the buffer ``kn_copy``, made at the first such
+    backward). The
+    codebook and weight-only products differentiate as plain matmuls. On a
+    card a contraction width off the GEMMs' 16-byte rows gets a padded copy
+    of the weight (the buffer ``pad_copy``), made once."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype | None = None,
-                 bits: int = 8, codebook: str = "absmax", bias: bool = False):
+                 bits: int = 8, codebook: str = "absmax", bias: bool = False,
+                 act_quant: bool | str = True):
         super().__init__()
         self.dtype, self.d_in, self.bits = dtype, d_in, bits
         self.codebook = codebook if bits == 4 else "absmax"
+        self.act_quant = act_quant
         cols = d_in if bits == 8 else (d_in + 1) // 2
         self.register_buffer("weight_q", torch.zeros(d_out, cols, dtype=torch.int8))
         self.scale = nn.Parameter(torch.ones(d_out), requires_grad=False)
@@ -100,21 +151,36 @@ class QuantLinear(nn.Module):
         y = self._product(x)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
+    def _int8_weight(self) -> torch.Tensor:
+        """The weight as int8 [N, K] (unpacked at 4 bits)."""
+        return self.weight_q if self.bits == 8 else unpack4_split(self.weight_q, self.d_in)
+
+    def weight_kn(self) -> torch.Tensor:
+        """The int8 dx's ``[K, N]`` copy of the weight (``kn_weight``)."""
+        return self.derived("kn_copy", lambda: kn_weight(self._int8_weight()))
+
     def _product(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.dtype or x.dtype
-        if self.bits == 8:
-            return act_quant_matmul(x, self.weight_q, self.scale, cd)
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "training through 4-bit projections (the straight-through backward "
-                "of the w4a8 GEMM) is ROADMAP queue 1, \"Training on the served backbones\"")
         if self.codebook != "absmax":
             w = dequant_codebook(self.weight_q, self.d_in, self.codebook).to(cd)
             return (x.to(cd) @ w.T) * self.scale.to(cd)
-        if self.d_in % 2:
-            return act_quant_matmul(x, unpack4_split(self.weight_q, self.d_in),
-                                    self.scale, cd)
-        return act_quant_w4a8_matmul(x, self.weight_q, self.scale, cd)
+        if not self.act_quant:
+            return (x.to(cd) @ self._int8_weight().to(cd).T) * self.scale.to(cd)
+        w_kn = self.weight_kn if self.act_quant == "int8_bwd" else None
+        padded = self.weight_q.is_cuda
+        if self.bits == 4 and not self.d_in % 2:
+            w = self.weight_q
+            if padded and (self.d_in // 2) % K_ALIGN:
+                w = self.derived("pad_copy", lambda: pad_packed(self.weight_q, self.d_in))
+            return act_quant_w4a8_matmul(x, w, self.scale, cd, w_kn)
+        if self.bits == 8:
+            w = self.weight_q
+            if padded and self.d_in % K_ALIGN:
+                w = self.derived("pad_copy", lambda: pad_cols(self.weight_q))
+        else:  # odd K at 4 bits: the unpacked weight on K1
+            w = self._int8_weight()
+            w = pad_cols(w) if padded else w
+        return act_quant_matmul(x, w, self.scale, cd, w_kn)
 
 
 class Linear(nn.Linear):
@@ -152,20 +218,93 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype or torch.promote_types(x.dtype, self.scale.dtype))
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - p and
     scale it by 1 / (1 - p); the mask is drawn from ``generator`` (on x's
-    device), so a seeded trainer repeats its masks."""
+    device), so a seeded trainer repeats its masks, or taken from a
+    ``MaskTape`` (a remat'd block's)."""
     if p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    if isinstance(generator, MaskTape):
+        keep = generator.keep(x.shape, p, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class MaskTape:
+    """The dropout masks of one remat'd block call. Its forward draws them
+    from ``generator`` as the plain call would, in the same order, and
+    keeps them (one byte an element); the recompute in the backward replays
+    them, so it drops exactly what the forward dropped and the generator is
+    read once, as without remat. (``torch.utils.checkpoint``'s
+    ``preserve_rng_state`` restores the default generators only; this is the
+    same guarantee for the explicit one, and it holds inside a CUDA graph
+    capture, where the generator's state cannot be read back.)"""
+
+    def __init__(self, generator: torch.Generator | None):
+        self.generator, self.masks, self.pos = generator, [], None
+
+    def start(self) -> None:
+        """Called at the top of every run of the block: the first records,
+        each later one replays from the first mask."""
+        self.pos = None if self.pos is None and not self.masks else 0
+
+    def keep(self, shape, p: float, device) -> torch.Tensor:
+        if self.pos is None:
+            keep = torch.rand(shape, generator=self.generator, device=device) < 1.0 - p
+            self.masks.append(keep)
+            return keep
+        keep = self.masks[self.pos]
+        self.pos += 1
+        return keep
+
+
+# the matmuls whose outputs remat "dots" keeps: the projections (mm, addmm and
+# the integer GEMMs of K1 and K5); a MoE block also keeps the batched ones, as
+# JAX's dots_saveable does for its expert matmuls
+_DOTS = ("aten.mm.default", "aten.addmm.default", "medtsllm.w8a8_gemm.default",
+         "medtsllm.w4a8_gemm.default")
+_BATCHED_DOTS = ("aten.bmm.default", "aten.baddbmm.default")
+
+
+def _dots_policy(moe: bool):
+    """JAX's ``_dots_policy``: dense blocks save the non-batched matmuls
+    (``dots_with_no_batch_dims_saveable``: the attention scores recompute),
+    MoE blocks every matmul (``dots_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    saved = set(_DOTS + (_BATCHED_DOTS if moe else ()))
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if str(op) in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat_call(fn, x: torch.Tensor, generator, remat, moe: bool = False) -> torch.Tensor:
+    """``fn(x, generator)`` (a block) under JAX's remat policy
+    (``_remat_block_call``): nothing kept but x, the block recomputed in the
+    backward (True / "full"), or its matmul outputs kept and the rest
+    recomputed ("dots", ``_dots_policy``). Non-reentrant
+    ``torch.utils.checkpoint``; the dropout masks through a ``MaskTape``."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    tape = MaskTape(generator)
+
+    def run(h):
+        tape.start()
+        return fn(h, tape)
+    kwargs = {}
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy(moe))
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
 def projection(d_in: int, d_out: int, quantize: int, dtype,
-               codebook: str = "absmax", bias: bool = False) -> nn.Module:
+               codebook: str = "absmax", bias: bool = False,
+               act_quant: bool | str = True) -> nn.Module:
     if quantize:
-        return QuantLinear(d_in, d_out, dtype, quantize, codebook, bias)
+        return QuantLinear(d_in, d_out, dtype, quantize, codebook, bias, act_quant)
     return Linear(d_in, d_out, bias=bias, dtype=dtype)
 
 
@@ -236,7 +375,7 @@ class Attention(nn.Module):
     probabilities), although HF gpt2 has it."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
-                 lora: LoraSpec | None = None):
+                 lora: LoraSpec | None = None, act_quant: bool | str = True):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -244,7 +383,7 @@ class Attention(nn.Module):
         cb, bias = cfg.quant4_codebook, cfg.ln_family
 
         def proj(d_in, d_out, key, mask=None):
-            base = projection(d_in, d_out, quantize, dtype, cb, bias)
+            base = projection(d_in, d_out, quantize, dtype, cb, bias, act_quant)
             if lora is None or key not in lora.targets:
                 return base
             return LoRALinear(base, d_in, d_out, lora, mask)
@@ -355,18 +494,21 @@ class MLP(nn.Module):
     the ln family's biased ``c_fc`` -> activation (``ln_activation``) ->
     ``c_proj`` -> the residual dropout (train mode)."""
 
-    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 act_quant: bool | str = True):
         super().__init__()
         cb = cfg.quant4_codebook
         self.ln = cfg.ln_family
         if self.ln:
             self.p, self.act = cfg.dropout, ln_activation(cfg)
-            self.c_fc = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, True)
-            self.c_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb, True)
+            self.c_fc = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, True, act_quant)
+            self.c_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb, True,
+                                     act_quant)
             return
-        self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
-        self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb)
-        self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb)
+        self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, act_quant=act_quant)
+        self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, act_quant=act_quant)
+        self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb,
+                                    act_quant=act_quant)
 
     def forward(self, x, generator=None):
         if not self.ln:
@@ -390,42 +532,64 @@ def _act_quant_bmm(h, wq, scale):
     E, C, K = h.shape
     xq, xs = quantize_rows(h.reshape(E * C, K).contiguous())
     xq, xs, ws = xq.reshape(E, C, K), xs.reshape(E, C), scale.float()
+    if h.is_cuda and K % K_ALIGN:  # the GEMM's 16-byte rows: zero columns
+        xq, wq = pad_cols(xq), pad_cols(wq)
     return torch.stack([int8_gemm(xq[e], wq[e], xs[e], ws[e].contiguous())
                         for e in range(E)])
+
+
+def int8_dh(g: torch.Tensor, w_kn: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The batched int8 dh (``_act_quant_bmm_bwd``'s int8 branch): g [E, C,
+    N], the experts' ``kn_weight`` copies [E, K, N16], scale [E, N] ->
+    [E, C, K] f32: one gradient-row quantizer over the E*C rows (each
+    expert's scale row), then K1's GEMM per expert."""
+    E, C, N = g.shape
+    K, ld = w_kn.shape[1:]
+    gq, g_scale = quantize_grad_rows(g.reshape(E * C, N).contiguous(),
+                                     scale.float().contiguous(), ld)
+    gq, g_scale = gq.reshape(E, C, ld), g_scale.reshape(E, C)
+    ones = unit_scale(K, g.device)
+    return torch.stack([int8_gemm(gq[e], w_kn[e], g_scale[e], ones) for e in range(E)])
 
 
 class _ActQuantBmm(torch.autograd.Function):
     """The custom_vjp of ``transformer.py::_act_quant_bmm`` of the JAX
     package: the forward is K1 (its quantizer over the E*C rows, then its
     GEMM per expert); the backward is ``_act_quant_bmm_bwd``'s
-    straight-through estimator (its non-int8 branch), ``dh = (g * scale)
-    @ W_q`` per expert at g's dtype, the quantization taken as identity. A
-    plain ``torch.bmm``, as JAX leaves it to an XLA dot (the pattern of
-    ``ops/kernels/w8a8.py::_ActQuantMatmul``). The int8 weight and its
-    scale are frozen: no gradient."""
+    straight-through estimator, ``dh = (g * scale) @ W_q`` per expert at
+    g's dtype, the quantization taken as identity, a plain ``torch.bmm`` as
+    JAX leaves it to an XLA dot (the pattern of
+    ``ops/kernels/w8a8.py::_ActQuantMatmul``); or, given ``w_kn``
+    (``llm.int8_backward``), ``int8_dh``. The int8 weight and its scale are
+    frozen: no gradient."""
 
     @staticmethod
-    def forward(ctx, h, wq, scale):
+    def forward(ctx, h, wq, scale, w_kn):
         ctx.save_for_backward(wq, scale)
-        ctx.h_dtype = h.dtype
+        ctx.h_dtype, ctx.w_kn = h.dtype, w_kn
         return _act_quant_bmm(h, wq, scale)
 
     @staticmethod
     def backward(ctx, g):
         wq, scale = ctx.saved_tensors
-        dh = torch.bmm(g * scale[:, None, :].to(g.dtype), wq.to(g.dtype))
-        return dh.to(ctx.h_dtype), None, None
+        if ctx.w_kn is not None:
+            dh = int8_dh(g, ctx.w_kn(), scale)
+        else:
+            dh = torch.bmm(g * scale[:, None, :].to(g.dtype), wq.to(g.dtype))
+        return dh.to(ctx.h_dtype), None, None, None
 
 
-def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def act_quant_bmm(h: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                  w_kn=None) -> torch.Tensor:
     """Per-expert w8a8 matmul with per-row activation quantization
     (``transformer.py::_act_quant_bmm``): h [E, C, K] f32, wq [E, N, K]
     int8, scale [E, N] -> [E, C, N] f32 = acc * (x_scale * scale). K1's
     quantizer over the E*C rows, then K1's GEMM per expert.
-    Differentiable in h through the straight-through estimator when h
-    requires grad."""
+    Differentiable in h when h requires grad: the straight-through
+    estimator, or the int8 dh when ``w_kn`` (returning the experts'
+    ``kn_weight`` copies) is given."""
     if torch.is_grad_enabled() and h.requires_grad:
-        return _ActQuantBmm.apply(h, wq, scale)
+        return _ActQuantBmm.apply(h, wq, scale, w_kn)
     return _act_quant_bmm(h, wq, scale)
 
 
@@ -467,7 +631,7 @@ def pack_and_run_gmm(xt, src, dest, n_slots, ve, valid, V, bm, bn_f, bn_d, wb,
     return y
 
 
-class MoEMLP(nn.Module):
+class MoEMLP(DerivedWeights):
     """Mixtral-style sparse-MoE SwiGLU FFN (``transformer.py::MoEMLP``,
     single device): router softmax in f32, top-k of the probabilities
     renormalized, rank within expert by a cumsum over the one-hot
@@ -493,9 +657,11 @@ class MoEMLP(nn.Module):
     packed int4 [E, N, ceil(K/2)], with scales [E, N]; dense experts
     ``w_{gate,up,down}`` [E, K, N] (JAX's layout)."""
 
-    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None):
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 act_quant: bool | str = True):
         super().__init__()
         self.cfg, self.quantize, self.dtype = cfg, quantize, dtype
+        self.act_quant = act_quant
         E, D, d_ff = cfg.n_experts, cfg.d_model, cfg.d_ff
         self.gate = nn.Parameter(torch.zeros(D, E))
         shapes = {"w_gate": (D, d_ff), "w_up": (D, d_ff), "w_down": (d_ff, D)}
@@ -545,13 +711,25 @@ class MoEMLP(nn.Module):
         if not self.quantize:
             return torch.bmm(h, getattr(self, name).to(h.dtype))
         wq, scale = getattr(self, name + "_q"), getattr(self, name + "_scale")
+        d_in = h.shape[-1]
         if self.quantize == 4:
-            d_in, cb = h.shape[-1], self.cfg.quant4_codebook
+            cb = self.cfg.quant4_codebook
             if cb != "absmax":  # the table dequant, a bmm at the compute dtype
                 w = dequant_codebook(wq, d_in, cb).to(h.dtype)
                 return torch.bmm(h, w.transpose(1, 2)) * scale[:, None, :].to(h.dtype)
             wq = unpack4_split(wq, d_in)
-        return act_quant_bmm(h.float(), wq, scale).to(h.dtype)
+        if not self.act_quant:  # weight-only: (h @ W) * scale at the compute dtype
+            return torch.bmm(h, wq.transpose(1, 2).to(h.dtype)) * scale[:, None, :].to(h.dtype)
+        w_kn = None
+        if self.act_quant == "int8_bwd":
+            w_kn = functools.partial(self.derived, name + "_kn",
+                                     functools.partial(self._kn, name, d_in))
+        return act_quant_bmm(h.float(), wq, scale, w_kn).to(h.dtype)
+
+    def _kn(self, name: str, d_in: int) -> torch.Tensor:
+        """The experts' ``[E, K, N16]`` copies for the int8 dh."""
+        wq = getattr(self, name + "_q")
+        return kn_weight(unpack4_split(wq, d_in) if self.quantize == 4 else wq)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator``: the MLPs' interface (the experts have no dropout)."""
@@ -581,7 +759,8 @@ class MoEMLP(nn.Module):
         # K6 has no backward: a call that needs a gradient takes the capacity
         # path, as does training
         needs_grad = torch.is_grad_enabled() and x.requires_grad
-        if cfg.moe_grouped and int_experts and not (self.training or needs_grad):
+        if cfg.moe_grouped and int_experts and self.act_quant and not (
+                self.training or needs_grad):
             y = self._grouped(xt, eid, pos, src, cd)
             if y is not None:
                 return (y * weights[:, None].to(cd)).reshape(T, k, D).sum(1).reshape(B, L, D)
@@ -607,7 +786,7 @@ class Block(nn.Module):
     when the config has more than one expert."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
-                 lora: LoraSpec | None = None):
+                 lora: LoraSpec | None = None, act_quant: bool | str = True):
         super().__init__()
         self.cfg = cfg
         if cfg.ln_family:
@@ -617,9 +796,9 @@ class Block(nn.Module):
             self.n1, self.n2 = "input_layernorm", "post_attention_layernorm"
             norm = lambda: RMSNorm(cfg.d_model, cfg.norm_eps)  # noqa: E731
         setattr(self, self.n1, norm())
-        self.attn = Attention(cfg, quantize, dtype, lora)
+        self.attn = Attention(cfg, quantize, dtype, lora, act_quant)
         setattr(self, self.n2, norm())
-        self.mlp = (MoEMLP if cfg.n_experts > 1 else MLP)(cfg, quantize, dtype)
+        self.mlp = (MoEMLP if cfg.n_experts > 1 else MLP)(cfg, quantize, dtype, act_quant)
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
                 return_kv: bool = False, generator: torch.Generator | None = None):
@@ -647,22 +826,27 @@ class TransformerDecoder(nn.Module):
     cache (``prefill`` -> ``prefix_kv``: the suffix then sits at positions
     P.., its learned positions read from row P + ``pos_offset``). Dropout
     (``cfg.dropout``; LoRA's own) acts in train mode from ``generator``.
-    ``lora`` puts adapters on its target projections (``LoRALinear``)."""
+    ``lora`` puts adapters on its target projections (``LoRALinear``).
+    ``remat`` (False, True / "full" or "dots") recomputes each block in the
+    backward of a forward with no prefix that needs gradients
+    (``remat_call``), as JAX's decoder does at its call site; the cached
+    path and the prefill call the blocks plainly."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
-                 lora: LoraSpec | None = None):
+                 lora: LoraSpec | None = None, act_quant: bool | str = True,
+                 remat: bool | str = False):
         super().__init__()
         if cfg.style not in ("llama", "gpt2", "opt", "neox"):
             raise NotImplementedError(
                 f"decoder style {cfg.style!r}: the encoder-decoders are ROADMAP queue 1, "
                 "\"Other backbone families and LoRA\"")
-        self.cfg = cfg
+        self.cfg, self.remat = cfg, remat
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
         if cfg.learned_positions:
             self.wpe = nn.Parameter(torch.zeros(cfg.max_position + cfg.pos_offset,
                                                 cfg.d_model))
-        self.blocks = nn.ModuleList(Block(cfg, quantize, dtype, lora)
+        self.blocks = nn.ModuleList(Block(cfg, quantize, dtype, lora, act_quant)
                                     for _ in range(cfg.n_layers))
         if cfg.ln_family:
             self.ln_f = LayerNorm(cfg.d_model, cfg.norm_eps, dtype)
@@ -688,9 +872,15 @@ class TransformerDecoder(nn.Module):
         x = self._positions(inputs_embeds, offset)
         if self.cfg.ln_family and self.training:
             x = dropout(x, self.cfg.dropout, generator)
-        for i, block in enumerate(self.blocks):
-            x = block(x, None if prefix_kv is None else prefix_kv[i], offset,
-                      generator=generator)
+        if self.remat and prefix_kv is None and torch.is_grad_enabled():
+            moe = self.cfg.n_experts > 1
+            for block in self.blocks:
+                x = remat_call(lambda h, g, b=block: b(h, generator=g), x, generator,
+                               self.remat, moe)
+        else:
+            for i, block in enumerate(self.blocks):
+                x = block(x, None if prefix_kv is None else prefix_kv[i], offset,
+                          generator=generator)
         return self.ln_f(x) if self.cfg.ln_family else self.norm(x)
 
     def prefill(self, inputs_embeds: torch.Tensor) -> tuple:

@@ -214,6 +214,26 @@ class WordEmbeddings(nn.Module):
         self.wte = nn.Parameter(torch.zeros(vocab_size, d_model), requires_grad=False)
 
 
+def resolve_act_quant(llm, quantize: int, codebook: str) -> bool | str:
+    """``models.<m>.llm.{int8_matmul, int8_backward}`` -> the projections'
+    act-quant mode (``MedTsLLM._resolve_act_quant`` of the JAX package):
+    ``int8_matmul`` (default true), or "int8_bwd" with ``int8_backward``,
+    which needs a path that runs the integer matmul: ``int8_matmul``, 8-bit
+    weights or 4-bit with the absmax codebook (nf4 / fp4 dequantize
+    weight-only). JAX's ValueError otherwise."""
+    int8_mm = bool(llm.get("int8_matmul", True))
+    if not llm.get("int8_backward", False):
+        return int8_mm
+    codebook_4 = quantize == 4 and codebook != "absmax"
+    if not int8_mm or quantize not in (4, 8) or codebook_4:
+        raise ValueError(
+            "models.llm.int8_backward requires the s8 MXU matmul path: int8_matmul = true "
+            "and load_in_8bit (or load_in_4bit with the absmax codebook) — got "
+            f"int8_matmul={int8_mm}, quantize={quantize}"
+            + (", codebook=fp4/nf4 (weight-only dequant)" if codebook_4 else ""))
+    return "int8_bwd"
+
+
 class MedTsLLM(nn.Module):
     supported_tasks = ("forecasting", "reconstruction", "anomaly_detection",
                        "semantic_segmentation", "segmentation", "pretraining",
@@ -224,7 +244,8 @@ class MedTsLLM(nn.Module):
                  llm_dtype=torch.float32, prefix_cache=True, cache_dir=None,
                  dropout=0.0, task="reconstruction", n_classes=0, seg_mode=None,
                  covariate_mode="concat", embedding_downsample_mode="linear",
-                 llm_enabled=True, lora: LoraSpec | None = None):
+                 llm_enabled=True, lora: LoraSpec | None = None,
+                 act_quant: bool | str = True, remat: bool | str = False):
         super().__init__()
         self.seq_len, self.pred_len, self.n_features = seq_len, pred_len, n_features
         self.d_model, self.d_ff = d_model, d_ff
@@ -249,9 +270,9 @@ class MedTsLLM(nn.Module):
             if lora is not None:  # (mamba.py:169-180 of the JAX package)
                 raise ValueError("LoRA targets attention projections; the mamba backbone "
                                  "has none — finetune with llm.lora disabled")
-            self.llm = MambaBackbone(llm_cfg, quantize, dt)
+            self.llm = MambaBackbone(llm_cfg, quantize, dt, remat)
         else:
-            self.llm = TransformerDecoder(llm_cfg, quantize, dt, lora)
+            self.llm = TransformerDecoder(llm_cfg, quantize, dt, lora, act_quant, remat)
         # the frozen backbone but for its adapters (param_labels)
         for name, p in self.llm.named_parameters():
             p.requires_grad_("lora_" in name)
@@ -311,13 +332,6 @@ class MedTsLLM(nn.Module):
                 raise ValueError(f"models.llm.quant_type must be int4/nf4/fp4; got {qt!r}")
         if str(mc.llm.llm).startswith("mamba") and (in8 or in4):
             unported.append("quantized Mamba (ROADMAP queue 1, \"Mamba, open parts\")")
-        if ((in4 and codebook == "absmax") or (in8 and not in4)) and not mc.llm.get(
-                "int8_matmul", True):
-            unported.append("weight-only int8 / int4, int8_matmul = false (ROADMAP queue "
-                            "1, \"Llama decoder, open parts\")")
-        if mc.llm.get("int8_backward", False):
-            unported.append("llm.int8_backward, the int8 dx GEMM of the STE backward "
-                            "(ROADMAP queue 1, \"Training on the served backbones\")")
         # (JAX reads these two only for an enabled backbone)
         if mc.llm.get("fuse_projections", False) and enabled:
             unported.append("llm.fuse_projections (ROADMAP queue 1, \"Llama decoder, open "
@@ -326,10 +340,6 @@ class MedTsLLM(nn.Module):
         if lc is not None:
             if lc.get("layers", "auto") != "auto":
                 raise ValueError(f"models.lora.layers must be \"auto\", not {lc.layers!r}")
-            if in4:
-                unported.append("LoRA over load_in_4bit, the 4-bit straight-through "
-                                "backward (ROADMAP queue 1, \"Training on the served "
-                                "backbones\")")
         for key in ("pipeline_parallel", "tensor_parallel", "expert_parallel"):
             if int(config.setup.get(key, 1) or 1) > 1:
                 unported.append(f"setup.{key} (ROADMAP queue 1, \"Parallelism\")")
@@ -341,6 +351,7 @@ class MedTsLLM(nn.Module):
         if cache_dir in ("", "none"):
             cache_dir = None
         quantize = 4 if in4 else 8 if in8 else 0  # 4 wins, as in JAX
+        act_quant = resolve_act_quant(mc.llm, quantize, codebook)
         llm_cfg = resolve_config(mc.llm.llm, mc.llm.get("llm_layers", -1), cache_dir)
         # peft's default targets: llama's q and v, the others' q (gpt2: the q
         # third of c_attn)
@@ -365,7 +376,7 @@ class MedTsLLM(nn.Module):
                 "classification", "semantic_segmentation") else 0),
             seg_mode=seg_mode, covariate_mode=covariate_mode,
             embedding_downsample_mode=mc.embedding_downsample_mode, llm_enabled=enabled,
-            lora=lora)
+            lora=lora, act_quant=act_quant, remat=mc.llm.get("remat", False))
 
     # derived sizes (reference medtsllm.py:52,71-87)
     @property

@@ -96,8 +96,6 @@ def _check_dims(B, H, KV, D, dtypes, head_dims=HEAD_DIMS):
                          "ROADMAP queue 3, \"The port refuses shapes the reference serves\"")
     if dtypes[0] not in (torch.float32, torch.bfloat16) or len(set(dtypes)) != 1:
         raise ValueError(f"q/k/v must share f32 or bf16, got {dtypes}")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
 
 
 def _check_aligned(*tensors):

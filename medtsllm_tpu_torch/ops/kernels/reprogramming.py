@@ -76,18 +76,30 @@ def reprogramming_attention_split(q, k, v, scale=None, splits=None):
     return (acc / l).permute(0, 2, 1, 3)
 
 
+# the head widths the kernel has instances for
+HEAD_WIDTHS = (32, 64, 128)
+
+
+def reprogramming_route(E: int) -> str:
+    """The route of a call at head width E: "k3", or "plain" (the plain
+    version, on any device) for a width the kernel has no instance for, as
+    JAX sends a shape its kernel does not tile to its einsum
+    (``medtsllm_tpu/ops/pallas/reprogramming.py:54-62``). Decided by shape,
+    before any launch."""
+    return "k3" if E in HEAD_WIDTHS else "plain"
+
+
 def reprogramming_attention(q, k, v, scale=None):
     """q [B, L, H, E], k/v [S, H, E], f32 -> [B, L, H, E]. Counts CUDA
     launches in ``reprogramming_attention.launches`` (one per call, the
-    merge of a split call included)."""
-    if q.device.type == "cpu":
+    merge of a split call included); a width off ``HEAD_WIDTHS`` takes the
+    plain version (``reprogramming_route``)."""
+    if q.device.type == "cpu" or reprogramming_route(q.shape[-1]) == "plain":
         return reprogramming_attention_plain(q, k, v, scale)
     B, L, H, E = q.shape
     S = k.shape[0]
     if k.shape != (S, H, E) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if E not in (32, 64, 128):
-        raise ValueError(f"head width {E} not supported (32, 64 or 128)")
     if not q.dtype == k.dtype == v.dtype == torch.float32:
         raise ValueError(f"q/k/v must be f32, got {q.dtype} {k.dtype} {v.dtype}")
     _build.check_cuda(q, k, v)

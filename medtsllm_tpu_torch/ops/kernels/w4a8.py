@@ -17,8 +17,21 @@ packed tile by TMA and unpacks each thread's nibbles in registers straight
 into wgmma's A fragments: no unpacked copy of the weight exists, and it
 reads half the weight bytes of K1.
 
+Training (``act_quant_w4a8_matmul`` with x requiring grad): the
+straight-through backward of ``_act_quant_matmul_bwd`` at 4 bits
+(``transformer.py:261-285``): the weight unpacked, then ``dx = (g * scale)
+@ W`` at g's dtype, or with ``llm.int8_backward`` K1's int8 dx on the
+unpacked weight's ``[K, N]`` copy, as JAX unpacks first (``:264``).
+
+Shapes: TMA reads the packed rows 16 bytes at a time, so K / 2 must be a
+multiple of 16. A weight whose K is not a multiple of 32 is repacked once
+by its owner with zero columns up to the next one (``pad_packed``) and the
+codes are padded per call; the s32 sums are unchanged. The GEMM is a
+``torch.library`` custom op (``medtsllm::w4a8_gemm``) for the selective
+checkpoint policy of ``llm.remat = "dots"``.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Forward only: the straight-through backward is not ported.
+raises.
 """
 
 from __future__ import annotations
@@ -28,9 +41,10 @@ import functools
 import torch
 
 from . import _build
-from .w8a8 import int8_matmul_plain, quantize_rows
+from .w8a8 import _dx, int8_matmul_plain, pad_cols, quantize_rows
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_KIND_DTYPE = {v: k for k, v in _OUT_KIND.items()}
 MAX_K = 131072  # the kernel accumulates 16 x w: 16 * K * 127 * 8 < 2^31
 
 # bnb 4-bit dequant codebooks (medtsllm_tpu/models/llm/transformer.py
@@ -78,6 +92,12 @@ def codebook_table(codebook: str, device: torch.device) -> torch.Tensor:
         return torch.tensor(CODEBOOKS[codebook], dtype=torch.float32).to(device)
 
 
+def pad_packed(packed: torch.Tensor, n_in: int) -> torch.Tensor:
+    """Split-halves weights [..., ceil(n_in/2)] repacked with zero columns up
+    to a multiple of 32 logical columns (the GEMM's 16-byte packed rows)."""
+    return pack4_split(pad_cols(unpack4_split(packed, n_in), 32))
+
+
 def dequant_codebook(packed: torch.Tensor, n_in: int, codebook: str) -> torch.Tensor:
     """Packed codebook weights -> their f32 table values [..., n_in] (the
     scale is applied after the matmul)."""
@@ -121,22 +141,66 @@ def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
     if K > MAX_K:
         raise ValueError(f"K {K} > {MAX_K}: the kernel's s32 sums of 16 x the int4 "
                          "values could wrap")
-    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    _build.launch("mt_w4a8_gemm", xq.device, _build.ptr(xq), _build.ptr(packed),
-                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
-                  _OUT_KIND[out_dtype], M, N, K)
-    w4a8_gemm.launches += 1
-    return out
+    return _gemm_op(xq, packed, x_scale, w_scale, _OUT_KIND[out_dtype])
 
 
 w4a8_gemm.launches = 0
 
 
-def act_quant_w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, w_scale: torch.Tensor,
-                          out_dtype=torch.float32) -> torch.Tensor:
-    """x [..., K] -> [..., N]: K1's per-row quantizer, then K5 (two kernels
-    on a CUDA tensor). K even."""
+@torch.library.custom_op("medtsllm::w4a8_gemm", mutates_args=())
+def _gemm_op(xq: torch.Tensor, packed: torch.Tensor, x_scale: torch.Tensor,
+             w_scale: torch.Tensor, out_kind: int) -> torch.Tensor:
+    """K5's launch as a custom op (the wrapper has checked its operands)."""
+    M, K = xq.shape
+    N = packed.shape[0]
+    out = torch.empty((M, N), dtype=_KIND_DTYPE[out_kind], device=xq.device)
+    _build.launch("mt_w4a8_gemm", xq.device, _build.ptr(xq), _build.ptr(packed),
+                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
+                  out_kind, M, N, K)
+    w4a8_gemm.launches += 1
+    return out
+
+
+@_gemm_op.register_fake
+def _(xq, packed, x_scale, w_scale, out_kind):
+    return xq.new_empty((xq.shape[0], packed.shape[0]), dtype=_KIND_DTYPE[out_kind])
+
+
+def _act_quant_w4a8(x, packed, w_scale, out_dtype):
     lead = x.shape[:-1]
     xq, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    if 2 * packed.shape[1] != xq.shape[1]:  # a weight repacked to the GEMM's width
+        xq = pad_cols(xq, 2 * packed.shape[1])
     y = w4a8_gemm(xq, packed, x_scale, w_scale.float().contiguous(), out_dtype)
     return y.reshape(*lead, -1)
+
+
+class _ActQuantW4Matmul(torch.autograd.Function):
+    """``_act_quant_matmul`` at 4 bits (its custom_vjp): the forward is K1's
+    quantizer and K5; the backward unpacks the weight and takes the
+    straight-through ``(g * scale) @ W`` at g's dtype, or the int8 dx on
+    the unpacked weight's ``[K, N]`` copy (``w_kn``, ``llm.int8_backward``).
+    The packed weight and its scale are frozen: no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed, w_scale, out_dtype, w_kn):
+        ctx.save_for_backward(packed, w_scale)
+        ctx.x_shape, ctx.x_dtype, ctx.w_kn = x.shape, x.dtype, w_kn
+        return _act_quant_w4a8(x, packed, w_scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, w_scale = ctx.saved_tensors
+        w = None if ctx.w_kn is not None else unpack4_split(packed, 2 * packed.shape[1])
+        return _dx(g, ctx.x_shape, ctx.x_dtype, w, w_scale, ctx.w_kn), None, None, None, None
+
+
+def act_quant_w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, w_scale: torch.Tensor,
+                          out_dtype=torch.float32, w_kn=None) -> torch.Tensor:
+    """x [..., K] -> [..., N]: K1's per-row quantizer, then K5 (two kernels
+    on a CUDA tensor). K even; ``packed`` [N, K/2] or repacked to a
+    multiple of 32 columns (``pad_packed``). Differentiable in x when x
+    requires grad (``_ActQuantW4Matmul``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ActQuantW4Matmul.apply(x, packed, w_scale, out_dtype, w_kn)
+    return _act_quant_w4a8(x, packed, w_scale, out_dtype)

@@ -14,9 +14,25 @@ package stores ``kernel_q [K, N]``; ``weights.py`` transposes once).
 
 Training: ``act_quant_matmul`` carries the straight-through backward of
 ``_act_quant_matmul_bwd`` (``transformer.py:261-285``), so the gradient
-reaches the trainable layers below a frozen int8 backbone. The opt-in
-int8 dx GEMM (``llm.int8_backward``) is not ported (ROADMAP queue 1,
-"Training on the served backbones").
+reaches the trainable layers below a frozen int8 backbone. With
+``llm.int8_backward`` (the caller passes the weight's ``[K, N]`` copy) dx
+runs on the int8 tensor cores too (``int8_dx``, the int8 branch at
+``:269-278``): the scale-folded gradient quantized per row by
+``quantize_grad_rows`` (a CUDA entry of its own), then this GEMM on the
+transposed weight with a unit channel scale, bit-equal to JAX's
+``acc * g_scale``. wgmma takes 8-bit operands K-major only, so the dx
+product (a contraction over N) reads a ``[K, N]`` copy of the frozen
+weight, made once by its owner (``kn_weight``).
+
+Shapes: the GEMM reads 16-byte rows by TMA, so its contraction width must
+be a multiple of 16. A width that is not (JAX's XLA dot takes any) is
+padded with zero columns, the weight once by its owner (``pad_cols``) and
+the codes per call; zero columns add nothing to the s32 sums, so the result
+is the same bits.
+
+The GEMM is a ``torch.library`` custom op (``medtsllm::w8a8_gemm``), so a
+selective checkpoint policy (``llm.remat = "dots"``) sees it and keeps its
+output.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -24,11 +40,39 @@ raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_KIND_DTYPE = {v: k for k, v in _OUT_KIND.items()}
+K_ALIGN = 16  # the GEMM's contraction width: 16-byte TMA rows of int8
+
+
+def pad_cols(t: torch.Tensor, mult: int = K_ALIGN) -> torch.Tensor:
+    """``t`` with zero columns appended up to a multiple of ``mult`` (itself
+    when it has one)."""
+    extra = -t.shape[-1] % mult
+    return t if not extra else F.pad(t, (0, extra))
+
+
+def kn_weight(wq_t: torch.Tensor) -> torch.Tensor:
+    """The ``[K, N]`` copy of an int8 weight ``wq_t [N, K]`` (or of each
+    expert's, [E, N, K] -> [E, K, N]) that the dx GEMM reads K-major (its
+    contraction runs over N), N padded to a multiple of 16."""
+    return pad_cols(wq_t.transpose(-1, -2).contiguous())
+
+
+@functools.cache
+def unit_scale(n: int, device: torch.device) -> torch.Tensor:
+    """Ones [n] f32 on ``device``, made once (the dx GEMM's channel scale: x
+    * 1.0 is exact, so the epilogue's ``acc * (g_scale * 1)`` is JAX's
+    ``acc * g_scale``); a normal tensor even under inference mode."""
+    with torch.inference_mode(False):
+        return torch.ones(n, dtype=torch.float32, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -70,6 +114,18 @@ def act_quant_matmul_plain(x, wq_t, w_scale, out_dtype=torch.float32):
     return int8_gemm_plain(xq, wq_t, x_scale, w_scale, out_dtype)
 
 
+def quantize_grad_rows_plain(g: torch.Tensor, scale: torch.Tensor, ld: int | None = None):
+    """g [M, N] f32 / bf16, scale [N] (or [E, N], one row a block of M / E
+    rows) -> (gq [M, ld] int8, g_scale [M] f32): ``quantize_rows_plain`` of
+    gs = f32(g) * scale (JAX's ``_act_quant_matmul_bwd`` int8 branch; the
+    batched one of ``_act_quant_bmm_bwd``), columns N.. of the codes zero."""
+    M, N = g.shape
+    s = scale.float().reshape(-1, 1, N)
+    gs = (g.float().reshape(s.shape[0], -1, N) * s).reshape(M, N)
+    gq, g_scale = quantize_rows_plain(gs)
+    return F.pad(gq, (0, (ld or N) - N)), g_scale
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -95,6 +151,55 @@ def quantize_rows(x: torch.Tensor):
 quantize_rows.launches = 0
 
 
+def quantize_grad_rows(g: torch.Tensor, scale: torch.Tensor, ld: int | None = None):
+    """The dx's gradient rows: g [M, N] (f32 or bf16) times the channel
+    scale [N] in f32, quantized per row -> (gq [M, ld] int8, columns N..
+    zero; g_scale [M] f32). ``scale`` [E, N] gives each block of M / E rows
+    its own row (the experts of the capacity MoE path). ``ld`` (>= N,
+    default N) is the padded width of the GEMM that reads the codes. Counts
+    CUDA launches in ``quantize_grad_rows.launches``."""
+    M, N = g.shape
+    ld = N if ld is None else ld
+    n_scales = scale.numel() // N if scale.shape[-1:] == (N,) else 0
+    if ld < N or scale.dim() > 2 or not n_scales or M % n_scales:
+        raise ValueError(f"g {tuple(g.shape)}, scale {tuple(scale.shape)}, ld {ld}: scale "
+                         "must be [N] or [E, N] with E dividing M, and ld >= N")
+    if g.device.type == "cpu":
+        return quantize_grad_rows_plain(g, scale, ld)
+    if g.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32:
+        raise ValueError(f"g must be f32/bf16 and scale f32, got {g.dtype}, {scale.dtype}")
+    _build.check_cuda(g, scale)
+    gq = torch.empty((M, ld), dtype=torch.int8, device=g.device)
+    g_scale = torch.empty((M,), dtype=torch.float32, device=g.device)
+    _build.launch("mt_grad_quant_rows", g.device, _build.ptr(g),
+                  int(g.dtype == torch.bfloat16), _build.ptr(scale), _build.ptr(gq),
+                  _build.ptr(g_scale), M, N, ld, max(M // n_scales, 1))
+    quantize_grad_rows.launches += 1
+    return gq, g_scale
+
+
+quantize_grad_rows.launches = 0
+
+
+@torch.library.custom_op("medtsllm::w8a8_gemm", mutates_args=())
+def _gemm_op(xq: torch.Tensor, wq_t: torch.Tensor, x_scale: torch.Tensor,
+             w_scale: torch.Tensor, out_kind: int) -> torch.Tensor:
+    """K1's launch as a custom op (the wrapper has checked its operands)."""
+    M, K = xq.shape
+    N = wq_t.shape[0]
+    out = torch.empty((M, N), dtype=_KIND_DTYPE[out_kind], device=xq.device)
+    _build.launch("mt_w8a8_gemm", xq.device, _build.ptr(xq), _build.ptr(wq_t),
+                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
+                  out_kind, M, N, K)
+    int8_gemm.launches += 1
+    return out
+
+
+@_gemm_op.register_fake
+def _(xq, wq_t, x_scale, w_scale, out_kind):
+    return xq.new_empty((xq.shape[0], wq_t.shape[0]), dtype=_KIND_DTYPE[out_kind])
+
+
 def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
     """s8 [M, K] x s8 [N, K]^T with the fused rescale -> [M, N] f32/bf16,
     or the raw s32 accumulators when ``out_dtype`` is int32. Counts CUDA
@@ -113,25 +218,49 @@ def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
     if K != K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
         raise ValueError(f"shapes xq {tuple(xq.shape)} wq_t {tuple(wq_t.shape)} "
                          f"x_scale {tuple(x_scale.shape)} w_scale {tuple(w_scale.shape)}")
-    if K % 16 or xq.data_ptr() % 16 or wq_t.data_ptr() % 16:
+    if K % K_ALIGN or xq.data_ptr() % 16 or wq_t.data_ptr() % 16:
         raise ValueError("TMA reads rows 16-byte aligned: K % 16 == 0 and "
-                         "16-byte aligned operands")
-    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    _build.launch("mt_w8a8_gemm", xq.device, _build.ptr(xq), _build.ptr(wq_t),
-                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
-                  _OUT_KIND[out_dtype], M, N, K)
-    int8_gemm.launches += 1
-    return out
+                         "16-byte aligned operands (pad_cols pads K)")
+    return _gemm_op(xq, wq_t, x_scale, w_scale, _OUT_KIND[out_dtype])
 
 
 int8_gemm.launches = 0
 
 
+def int8_dx(g: torch.Tensor, w_kn: torch.Tensor, scale: torch.Tensor,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """The int8 dx of ``llm.int8_backward`` (``_act_quant_matmul_bwd``'s int8
+    branch): g [M, N] (f32 or bf16, taken at f32 as JAX's f32 cotangent),
+    the weight's ``kn_weight`` copy [K, N16], the channel scale [N] ->
+    ``(s32 acc of gq . W over N) * g_scale`` [M, K] at ``out_dtype`` (one
+    rounding of JAX's f32 result). Two kernels on a CUDA tensor: the
+    gradient rows' quantizer, then K1's GEMM with a unit channel scale."""
+    K, ld = w_kn.shape
+    gq, g_scale = quantize_grad_rows(g.contiguous(), scale.float().contiguous(), ld)
+    return int8_gemm(gq, w_kn, g_scale, unit_scale(K, g.device), out_dtype)
+
+
 def _act_quant_matmul(x, wq_t, w_scale, out_dtype):
     lead = x.shape[:-1]
     xq, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    if wq_t.shape[1] != xq.shape[1]:  # a weight padded to the GEMM's width
+        xq = pad_cols(xq)
     y = int8_gemm(xq, wq_t, x_scale, w_scale.float().contiguous(), out_dtype)
     return y.reshape(*lead, -1)
+
+
+def _dx(g, x_shape, x_dtype, wq_t, w_scale, w_kn):
+    """The input gradient of a w8a8 / w4a8 projection: the int8 dx when the
+    caller gave the ``[K, N]`` copy's maker ``w_kn``, else the
+    straight-through ``(g * scale) @ W_q`` at g's dtype (``wq_t`` the int8
+    [N, K'] weight, K' >= K: columns past K are padding)."""
+    K = x_shape[-1]
+    if w_kn is not None:
+        out = x_dtype if x_dtype in (torch.float32, torch.bfloat16) else torch.float32
+        dx = int8_dx(g.reshape(-1, g.shape[-1]), w_kn(), w_scale, out)
+        return dx.reshape(x_shape).to(x_dtype)
+    dx = (g * w_scale.to(g.dtype)) @ wq_t.to(g.dtype)
+    return dx[..., :K].to(x_dtype)
 
 
 class _ActQuantMatmul(torch.autograd.Function):
@@ -139,28 +268,30 @@ class _ActQuantMatmul(torch.autograd.Function):
     K1; the backward is the straight-through estimator, the quantization
     taken as identity and the gradient sent through the dequantized weight,
     ``dx = (g * scale) @ W_q`` at g's dtype with the scale folded into g
-    (O(M N), not O(K N)). A plain matmul, as JAX leaves it to an XLA dot.
-    The int8 weight and its scale are frozen: no gradient."""
+    (O(M N), not O(K N)), a plain matmul as JAX leaves it to an XLA dot; or,
+    given ``w_kn`` (``llm.int8_backward``), the int8 dx (``int8_dx``). The
+    int8 weight and its scale are frozen: no gradient."""
 
     @staticmethod
-    def forward(ctx, x, wq_t, w_scale, out_dtype):
+    def forward(ctx, x, wq_t, w_scale, out_dtype, w_kn):
         ctx.save_for_backward(wq_t, w_scale)
-        ctx.x_dtype = x.dtype
+        ctx.x_shape, ctx.x_dtype, ctx.w_kn = x.shape, x.dtype, w_kn
         return _act_quant_matmul(x, wq_t, w_scale, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         wq_t, w_scale = ctx.saved_tensors
-        dx = (g * w_scale.to(g.dtype)) @ wq_t.to(g.dtype)
-        return dx.to(ctx.x_dtype), None, None, None
+        return _dx(g, ctx.x_shape, ctx.x_dtype, wq_t, w_scale, ctx.w_kn), None, None, None, None
 
 
 def act_quant_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
-                     out_dtype=torch.float32) -> torch.Tensor:
+                     out_dtype=torch.float32, w_kn=None) -> torch.Tensor:
     """x [..., K] -> [..., N]: quantize rows, int8 GEMM, rescale (the
-    transformer's w8a8 projection: two kernels on a CUDA tensor).
-    Differentiable in x through the straight-through estimator when x
-    requires grad."""
+    transformer's w8a8 projection: two kernels on a CUDA tensor). ``wq_t``
+    [N, K] or padded to [N, K16] (``pad_cols``). Differentiable in x when x
+    requires grad: the straight-through estimator, or the int8 dx when
+    ``w_kn`` (a function returning the weight's ``kn_weight`` copy) is
+    given."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _ActQuantMatmul.apply(x, wq_t, w_scale, out_dtype)
+        return _ActQuantMatmul.apply(x, wq_t, w_scale, out_dtype, w_kn)
     return _act_quant_matmul(x, wq_t, w_scale, out_dtype)

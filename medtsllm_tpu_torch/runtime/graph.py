@@ -61,6 +61,9 @@ the optimizer's update. What it adds:
   step's gradient, as after the eager step (after a capture, the
   warm-up's, copied in).
 - Its graphs share a pool of their own, apart from the eval graphs'.
+- ``phase`` (a function of no arguments, read before each call) joins the
+  key: the optimizer's accumulation phase, so an accumulate-only step and
+  an accumulate-and-update step are two graphs.
 
 Every ``StepGraphs`` and ``TrainGraphs`` on a device warms up and captures
 on one side stream (``capture_stream``), made once for the process. cuBLAS
@@ -101,7 +104,7 @@ def launch_counters() -> dict:
             "selective_scan_bwd": ss.selective_ssm_bwd,
             "grouped_matmul_gate_up": gm.GATE_UP, "grouped_matmul_down": gm.DOWN,
             "grouped_matmul_rows": gm.PLAIN, "grouped_matmul_requant": gm.REQUANT,
-            "w4a8_gemm": k5.w4a8_gemm, "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
+            "w4a8_gemm": k5.w4a8_gemm, "w8a8_quantize_grad": k1.quantize_grad_rows, "grouped_matmul_w4_gate_up": gm.GATE_UP_W4,
             "grouped_matmul_w4_down": gm.DOWN_W4, "grouped_matmul_w4_rows": gm.PLAIN_W4}
 
 
@@ -185,8 +188,11 @@ class StepGraphs:
     def __call__(self, arrays: dict) -> torch.Tensor:
         return self._call(arrays)
 
+    def _key(self, arrays: dict) -> tuple:
+        return step_key(arrays)
+
     def _call(self, arrays: dict):
-        key = step_key(arrays)
+        key = self._key(arrays)
         if key not in self.graphs:
             return self._capture(key, arrays)
         graph, inputs, out, delta = self.graphs[key]
@@ -262,7 +268,7 @@ class TrainGraphs(StepGraphs):
     after a replay."""
 
     def __init__(self, step, device: torch.device, params, generators=(),
-                 counters: dict | None = None):
+                 counters: dict | None = None, phase=None):
         params = list(params)
 
         def with_grads(arrays):  # the loss and the gradients the step made
@@ -270,9 +276,14 @@ class TrainGraphs(StepGraphs):
         super().__init__(with_grads, device, counters)
         self.params = params
         self.generators = tuple(generators)
+        self.phase = phase
 
     def __call__(self, arrays: dict) -> torch.Tensor:
         return self._call(arrays)
+
+    def _key(self, arrays: dict) -> tuple:
+        key = step_key(arrays)
+        return key if self.phase is None else (*key, ("phase", self.phase()))
 
     def _generators(self) -> tuple:
         return self.generators

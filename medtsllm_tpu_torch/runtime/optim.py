@@ -1,6 +1,7 @@
 """The optimizer of the train step (port of ``medtsllm_tpu/runtime/optim.py``:
-``Optimizer`` with adam, adamw and sgd, the per-epoch learning-rate schedules,
-the global-norm gradient clip and finetuning's ``loaded`` group).
+``Optimizer`` with adam, adamw, sgd, ranger21 / ranger and ranger_classic,
+the per-epoch learning-rate schedules, the global-norm gradient clip,
+gradient accumulation and finetuning's ``loaded`` group).
 
 Only the trainable parameters reach it (the frozen backbone's have
 ``requires_grad = False``). The update rules are optax's: ``adam`` (b1 0.9,
@@ -28,6 +29,32 @@ times the group's own: 0 for ``frozen_epochs`` and then 1, or
 moments advance and the parameters stay put, as optax's do at LR 0; and a
 step captured in a frozen epoch reads the group's LR tensor as any other,
 so it moves the group once ``set_epoch`` makes the LR non-zero.
+
+``ranger21`` (and ``ranger``, its alias, as in JAX) is ``Ranger21``, JAX's
+own composition (``ranger21``, ``optim.py:192-428``) written out: adaptive
+gradient clipping, centralization, normalization, positive-negative
+momentum, the softplus denominator, stable weight decay, the norm loss, its
+warmup / flat / warmdown schedule over ``num_iterations`` (the run's
+micro-batches, ``len(train_pipeline) * epochs``, from the trainer) and its
+lookahead. ``ranger_classic`` is ``RangerClassic``: ``optax.radam``'s rule
+(rectification where rho_t >= 5, eps outside the square root; torch's
+``RAdam`` takes rho_t > 5 and differs there) inside JAX's ``lookahead``.
+Both keep their step count, and every value of their schedule, in tensors
+on the parameters' device, one count a group (JAX's ``multi_transform``
+gives each group a state of its own), so a captured step replays the whole
+schedule.
+
+``training.grad_accum_steps = K`` (JAX's ``grad_accumulation``): each
+micro-step adds its gradients to an accumulator a trainable parameter
+(``acc + g``, from zeros, in step order; frozen tensors and integer weights
+have none); every K-th the gradients become ``acc / K``, which the clip and
+the update see, and the accumulators return to zero. The update, its state
+and its schedule advance only then. The window's position is a host count
+(``mini_step``), advanced by ``end_micro_step`` after each step; windows
+span epochs. ``applies()`` says whether the next step ends a window, and
+the captured train step keeps one graph for each answer. No checkpoint
+holds the optimizer's state, in either package, so the accumulators start
+afresh with it.
 """
 
 from __future__ import annotations
@@ -38,21 +65,17 @@ import warnings
 import numpy as np
 import torch
 
-_UNPORTED = '(ROADMAP queue 1, "Training on the served backbones")'
-
-
 class Optimizer:
-    def __init__(self, config, params, loaded=()):
+    def __init__(self, config, params, loaded=(), num_iterations: int | None = None):
         """``params``: the model's parameters (the trainable ones are kept);
         ``loaded``: those of them restored from a pretraining run, finetuning's
-        second group."""
+        second group; ``num_iterations``: the run's micro-batch count, which
+        ranger21's schedule needs."""
         t = config.training
         self.name = t.optimizer
         self.base_lr = float(t.learning_rate)
-        if self.name in ("ranger", "ranger21", "ranger_classic"):
-            raise NotImplementedError(f"optimizer {self.name!r} is not ported {_UNPORTED}")
-        if int(t.get("grad_accum_steps", 1) or 1) > 1:
-            raise NotImplementedError(f"training.grad_accum_steps > 1 is not ported {_UNPORTED}")
+        self.accum_steps = int(t.get("grad_accum_steps", 1) or 1)
+        self.mini_step = 0
         scheduler = t.get("lr_scheduler")
         if scheduler not in (None, "none", "constant", "cosine", "linear"):
             raise ValueError(f"Invalid scheduler selection: {scheduler}")
@@ -84,8 +107,10 @@ class Optimizer:
         self.loaded_lr = torch.tensor(self.base_lr, dtype=torch.float32, device=device)
         # (params, the group's LR tensor): the new group, then the loaded one
         self._groups = [(g, lr) for g, lr in zip(groups, (self.lr, self.loaded_lr)) if g]
-        param_groups = [{"params": g, "lr": lr if self.on_device or self.name == "sgd"
-                         else self.base_lr} for g, lr in self._groups]
+        device_lr = self.on_device or self.name in ("sgd", "ranger", "ranger21",
+                                                     "ranger_classic")
+        param_groups = [{"params": g, "lr": lr if device_lr else self.base_lr}
+                        for g, lr in self._groups]
         match self.name:
             case "adam":
                 self._opt = torch.optim.Adam(param_groups, betas=(0.9, 0.999),
@@ -96,9 +121,24 @@ class Optimizer:
                                               capturable=self.on_device)
             case "sgd":
                 self._opt = DeviceLRSGD(param_groups, lr=self.lr, momentum=0.9)
+            case "ranger_classic":
+                self._opt = RangerClassic(param_groups)
+            case "ranger" | "ranger21":
+                if num_iterations is None:
+                    raise ValueError(
+                        "ranger21 needs the total optimizer-step count for its "
+                        "warmup/warmdown schedule (len(train_pipeline) * epochs); pass "
+                        "num_iterations to Optimizer(...)")
+                self._opt = Ranger21(param_groups, num_iterations)
             case _:
                 raise ValueError(f"Invalid optimizer selection: {self.name}")
         self.last_lrs = [self.base_lr, self.base_lr] if self.has_loaded else [self.base_lr]
+        if self.accum_steps > 1:
+            self._acc = [torch.zeros_like(p, memory_format=torch.preserve_format)
+                         for p in self.params]
+            # a tensor divisor: true division, as XLA's a / every (see
+            # quantize_rows_plain on division by a Python number on CUDA)
+            self._every = torch.tensor(float(self.accum_steps), device=device)
 
     def loaded_factor(self, epoch: int) -> float:
         """The loaded group's own LR factor (0-based epoch): 0 through
@@ -145,11 +185,57 @@ class Optimizer:
     def zero_grad(self) -> None:
         self._opt.zero_grad(set_to_none=True)
 
+    def applies(self) -> bool:
+        """Whether the next ``step`` ends an accumulation window (always,
+        without accumulation)."""
+        return self.mini_step + 1 >= self.accum_steps
+
+    def end_micro_step(self) -> None:
+        """Advance the window's host count after a step (the trainer calls it
+        after each train step, captured or not)."""
+        if self.accum_steps > 1:
+            self.mini_step = 0 if self.applies() else self.mini_step + 1
+
+    def state_tensors(self) -> list:
+        """Every tensor a step writes, detached (their storage shared): the
+        trainable parameters, the update's state parameter by parameter and
+        group by group, and the accumulators. A captured step reads and
+        writes them where they lie, so a snapshot is restored with
+        ``copy_``."""
+        state = [t for p in self.params for t in self._opt.state.get(p, {}).values()
+                 if isinstance(t, torch.Tensor)]
+        groups = [v for g in self._opt.param_groups for k, v in g.items()
+                  if k not in ("params", "lr") and isinstance(v, torch.Tensor)]
+        return [t.detach() for t in (*self.params, *state, *groups,
+                                     *getattr(self, "_acc", ()))]
+
+    @torch.no_grad()
+    def _accumulate(self) -> bool:
+        """Add this micro-step's gradients to the accumulators; at a window's
+        end set each gradient to the mean and zero the accumulators. Returns
+        whether the update runs."""
+        for p, acc in zip(self.params, self._acc):
+            if p.grad is not None:
+                acc.add_(p.grad)
+        if not self.applies():
+            return False
+        for p, acc in zip(self.params, self._acc):
+            if p.grad is None:
+                p.grad = acc / self._every
+            else:
+                torch.div(acc, self._every, out=p.grad)
+            acc.zero_()
+        return True
+
     def step(self) -> None:
-        """Clip (one global norm over every gradient, in f32; scale
-        min(1, max_norm / max(norm, 1e-16)) as ``clip_global_norm_float``),
-        then update. Nothing is read back to the host: whether there are
-        gradients to clip is a choice made in Python."""
+        """With accumulation, accumulate (``_accumulate``) and stop there but
+        at a window's end. Then clip (one global norm over every gradient, in
+        f32; scale min(1, max_norm / max(norm, 1e-16)) as
+        ``clip_global_norm_float``) and update. Nothing is read back to the
+        host: whether there are gradients to clip is a choice made in
+        Python."""
+        if self.accum_steps > 1 and not self._accumulate():
+            return
         if self.clip_norm > 0:
             grads = [p.grad for p in self.params if p.grad is not None]
             if grads:
@@ -201,3 +287,189 @@ class DeviceLRSGD(torch.optim.Optimizer):
             step = torch._foreach_add(grads, bufs, alpha=m)
             torch._foreach_mul_(step, group["lr"])
             torch._foreach_sub_(params, step)
+
+
+def _unit_norm(x: torch.Tensor) -> torch.Tensor:
+    """L2 norm per unit (output row): over all but dim 0 (kept, to
+    broadcast back) for rank >= 2, over the whole tensor for rank <= 1."""
+    if x.dim() <= 1:
+        return x.square().sum().sqrt()
+    return x.square().sum(dim=tuple(range(1, x.dim())), keepdim=True).sqrt()
+
+
+def adaptive_grad_clip(p, g, clip: float = 1e-2, eps: float = 1e-3):
+    """AGC: each unit's gradient norm clipped to ``clip`` x the unit's
+    parameter norm (floored at ``eps``)."""
+    max_norm = torch.clamp(_unit_norm(p), min=eps) * clip
+    g_norm = _unit_norm(g)
+    scaled = g * (max_norm / torch.clamp(g_norm, min=1e-6))
+    return torch.where(g_norm > max_norm, scaled, g)
+
+
+def centralize_gradient(g):
+    """Zero mean over all but dim 0 (rank >= 2)."""
+    if g.dim() <= 1:
+        return g
+    return g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True)
+
+
+def normalize_gradient(g, eps: float = 1e-8):
+    """g / (population std + eps), tensors of more than 2 elements only."""
+    if g.numel() <= 2:
+        return g
+    return g / (g.std(correction=0) + eps)
+
+
+def ranger21_lr(stepf, lr, num_warmup: int, warmdown_start: int, num_warmdown: int,
+                min_lr: float):
+    """Ranger21's schedule (tensors in, a tensor out): linear warmup over
+    ``num_warmup`` steps, flat, then linear warmdown to ``min_lr`` from
+    ``warmdown_start`` over ``num_warmdown`` steps."""
+    lr_warm = lr * torch.clamp(stepf / num_warmup, max=1.0)
+    prog = torch.clamp((stepf - warmdown_start) / max(num_warmdown, 1), 0.0, 1.0)
+    return torch.where(stepf > warmdown_start,
+                       torch.clamp(lr_warm * (1.0 - prog) + min_lr * prog, min=min_lr),
+                       lr_warm)
+
+
+class Ranger21(torch.optim.Optimizer):
+    """JAX's ``ranger21`` (``medtsllm_tpu/runtime/optim.py:274-428``) at its
+    defaults, one state a group: per step, the gradient clipped per unit
+    (AGC), centralized and normalized; the second moment and the global
+    variance for stable weight decay; positive-negative momentum (two
+    buffers updated on alternate steps); the softplus(beta 50) denominator;
+    the norm loss; the schedule's LR; then every 5th step the lookahead
+    toward the slow weights. The parameter moves by JAX's update, ``p + u``
+    (``p + (slow' - p)`` on a lookahead step). The count, the LR and every
+    value derived from them are tensors on the device."""
+
+    def __init__(self, param_groups, num_iterations: int, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-4, agc_clip: float = 1e-2,
+                 agc_eps: float = 1e-3, norm_loss_factor: float = 1e-4, pnm_beta: float = 1.0,
+                 beta_softplus: float = 50.0, min_lr: float = 3e-5,
+                 lookahead_merge_time: int = 5, lookahead_alpha: float = 0.5):
+        beta2 = float(betas[1])
+        num_warmup = math.ceil(2.0 / (1.0 - beta2))
+        if num_warmup > num_iterations:
+            num_warmup = max(1, math.ceil(0.22 * num_iterations))
+        num_warmdown = math.ceil(0.28 * num_iterations)
+        self.hp = dict(beta1=float(betas[0]), beta2=beta2, eps=eps, wd=weight_decay,
+                       agc_clip=agc_clip, agc_eps=agc_eps, nlf=norm_loss_factor,
+                       pnm=pnm_beta, beta_sp=beta_softplus, min_lr=min_lr,
+                       merge=lookahead_merge_time, alpha=lookahead_alpha,
+                       num_warmup=num_warmup, num_warmdown=num_warmdown,
+                       warmdown_start=max(num_iterations - num_warmdown, num_warmup),
+                       noise_norm=math.sqrt((1.0 + pnm_beta) ** 2 + pnm_beta ** 2))
+        super().__init__(param_groups, {})
+        for group in self.param_groups:
+            group["count"] = torch.zeros((), dtype=torch.int32,
+                                         device=group["params"][0].device)
+            for p in group["params"]:
+                self.state[p] = {"pos_m": torch.zeros_like(p), "neg_m": torch.zeros_like(p),
+                                 "nu": torch.zeros_like(p), "slow": p.detach().clone()}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        h = self.hp
+        b1, b2 = h["beta1"], h["beta2"]
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            count = group["count"]
+            step = count + 1
+            stepf = step.float()
+            bc1 = 1.0 - torch.pow(b1, stepf)
+            bc2 = 1.0 - torch.pow(b2, stepf)
+            conds, var_sum, n = [], torch.zeros((), device=count.device), 0
+            for p in params:
+                st = self.state[p]
+                g = adaptive_grad_clip(p, p.grad, h["agc_clip"], h["agc_eps"])
+                g = normalize_gradient(centralize_gradient(g))
+                st["nu"].copy_(b2 * st["nu"] + (1.0 - b2) * g.square())
+                conds.append(g)
+                var_sum = var_sum + st["nu"].float().sum() / bc2
+                n += p.numel()
+            variance_normalized = torch.sqrt(torch.clamp(var_sum / max(n, 1), min=1e-12))
+            lr = ranger21_lr(stepf, group["lr"], h["num_warmup"], h["warmdown_start"],
+                             h["num_warmdown"], h["min_lr"])
+            parity = (step % 2) == 1
+            sync = (step % h["merge"]) == 0
+            b1sq = b1 ** 2
+            wd_scale = lr * h["wd"] / variance_normalized
+            for p, g in zip(params, conds):
+                st = self.state[p]
+                pos, neg = st["pos_m"], st["neg_m"]
+                new_pos = torch.where(parity, b1sq * pos + (1.0 - b1sq) * g, pos)
+                new_neg = torch.where(parity, neg, b1sq * neg + (1.0 - b1sq) * g)
+                cur = torch.where(parity, new_pos, new_neg)
+                other = torch.where(parity, new_neg, new_pos)
+                m_eff = ((1.0 + h["pnm"]) * cur - h["pnm"] * other) / h["noise_norm"]
+                de_nom = torch.sqrt(st["nu"] / bc2) + h["eps"]
+                x = h["beta_sp"] * de_nom
+                de_nom = torch.logaddexp(x, torch.zeros_like(x)) / h["beta_sp"]
+                correction = 2.0 * h["nlf"] * (1.0 - 1.0 / (_unit_norm(p) + h["eps"]))
+                scale = (1.0 - wd_scale) * (1.0 - lr * correction)
+                u = (p * (scale - 1.0) - (lr / bc1) * m_eff / de_nom).to(p.dtype)
+                slow = st["slow"]
+                new_slow = torch.where(sync, slow + h["alpha"] * (p + u - slow), slow)
+                p.add_(torch.where(sync, new_slow - p, u))
+                pos.copy_(new_pos)
+                neg.copy_(new_neg)
+                slow.copy_(new_slow)
+            count.copy_(step)
+
+
+class RangerClassic(torch.optim.Optimizer):
+    """JAX's ``ranger_classic``, ``lookahead(optax.radam(lr))``
+    (``optim.py:49-95``, ``:439-441``): RAdam at b1 0.9, b2 0.999, eps 1e-8
+    (optax's ``scale_by_radam``: rectified where rho_t >= 5, else the
+    bias-corrected momentum alone; eps added outside the square root),
+    scaled by -lr, inside a lookahead of period 5 and step 0.5. The count
+    and the LR are tensors on the device, one count a group."""
+
+    def __init__(self, param_groups, betas=(0.9, 0.999), eps: float = 1e-8,
+                 threshold: float = 5.0, sync_period: int = 5, slow_step: float = 0.5):
+        self.hp = dict(b1=float(betas[0]), b2=float(betas[1]), eps=eps, threshold=threshold,
+                       sync=sync_period, alpha=slow_step,
+                       ro_inf=2.0 / (1.0 - float(betas[1])) - 1.0)
+        super().__init__(param_groups, {})
+        for group in self.param_groups:
+            group["count"] = torch.zeros((), dtype=torch.int32,
+                                         device=group["params"][0].device)
+            for p in group["params"]:
+                self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p),
+                                 "slow": p.detach().clone()}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        h = self.hp
+        b1, b2, ro_inf = h["b1"], h["b2"], h["ro_inf"]
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            count = group["count"]
+            step = count + 1
+            stepf = step.float()
+            b2t = torch.pow(b2, stepf)
+            ro = ro_inf - 2 * stepf * b2t / (1 - b2t)
+            r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                           / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+            bc1, bc2 = 1 - torch.pow(b1, stepf), 1 - b2t
+            sync = (step % h["sync"]) == 0
+            neg_lr = -1 * group["lr"]
+            for p in params:
+                st = self.state[p]
+                g = p.grad
+                st["mu"].copy_((1 - b1) * g + b1 * st["mu"])
+                st["nu"].copy_((1 - b2) * g.square() + b2 * st["nu"])
+                mu_hat, nu_hat = st["mu"] / bc1, st["nu"] / bc2
+                u = torch.where(ro >= h["threshold"],
+                                r * mu_hat / (torch.sqrt(nu_hat) + h["eps"]), mu_hat)
+                u = neg_lr * u
+                slow = st["slow"]
+                new_slow = torch.where(sync, slow + h["alpha"] * (p + u - slow), slow)
+                p.add_(torch.where(sync, new_slow - p, u))
+                slow.copy_(new_slow)
+            count.copy_(step)

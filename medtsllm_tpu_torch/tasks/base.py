@@ -146,9 +146,24 @@ class BaseTask:
 
         self.dropout_generator = torch.Generator(self.device).manual_seed(seed)
         loaded = set(self.loaded_params)
+        # ranger21's schedule spans the run's micro-batches (JAX's num_iter)
+        total = len(self.train_pipeline) * int(config.training.epochs)
         self.optimizer = Optimizer(config, self.model.parameters(),
                                    loaded=[p for n, p in self.model.named_parameters()
-                                           if n in loaded])
+                                           if n in loaded], num_iterations=total)
+        accum = self.optimizer.accum_steps
+        if accum > 1:
+            # windows span epochs; only the run's last partial window is dropped
+            # (JAX's checks, medtsllm_tpu/tasks/base.py:77-93)
+            if total < accum:
+                raise ValueError(
+                    f"grad_accum_steps={accum} exceeds the total micro-batch count {total} "
+                    f"({len(self.train_pipeline)} steps/epoch x {config.training.epochs} "
+                    "epochs): no optimizer step would ever fire")
+            if total % accum:
+                warnings.warn(f"grad_accum_steps={accum}: the final {total % accum} "
+                              "micro-batches of the run accumulate but never apply "
+                              "(partial windows are dropped at end of training)")
         self.loss_fn = build_loss(config.training.loss, self.task,
                                   getattr(self.train_dataset, "n_classes", 0))
         # the step binds the model, the policy, the loss, the optimizer, the
@@ -157,8 +172,11 @@ class BaseTask:
         self._train_update = functools.partial(
             train_update, self.model, self.precision, self.loss_fn, self.optimizer,
             self.dropout_generator, float(config.training.get("router_aux_coef", 0) or 0))
+        # one graph a signature and accumulation phase (accumulate only, or
+        # accumulate and update)
         self.train_graphs = (TrainGraphs(self._train_update, self.device,
-                                         self.optimizer.params, (self.dropout_generator,))
+                                         self.optimizer.params, (self.dropout_generator,),
+                                         phase=self.optimizer.applies)
                              if self.device.type == "cuda" else None)
         self.epoch = 1
         self.step = 0
@@ -285,17 +303,22 @@ class BaseTask:
         return self._to_device(host)
 
     def train_step(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on a batch of model inputs -> the loss
-        (detached, on the device; ``train_update``): on a card the captured
-        graph of the inputs' signature (captured at its first call, which
-        runs the step eagerly as the warm-up), on the CPU the eager step."""
+        """One optimizer step (a micro-step under accumulation) on a batch of
+        model inputs -> the loss (detached, on the device; ``train_update``):
+        on a card the captured graph of the inputs' signature and the
+        accumulation phase (captured at its first call, which runs the step
+        eagerly as the warm-up), on the CPU the eager step."""
         if self.train_graphs is None:
             return self.train_step_eager(arrays, valid)
-        return self.train_graphs(dict(arrays, valid=valid))
+        loss = self.train_graphs(dict(arrays, valid=valid))
+        self.optimizer.end_micro_step()
+        return loss
 
     def train_step_eager(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
         """The train step op by op, whatever the device."""
-        return self._train_update(dict(arrays, valid=valid))
+        loss = self._train_update(dict(arrays, valid=valid))
+        self.optimizer.end_micro_step()
+        return loss
 
     def eval_prepare(self, batch: dict):
         """Host side of ``eval_dispatch`` (split out so a caller can time

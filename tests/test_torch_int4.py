@@ -33,6 +33,7 @@ import torch
 from conftest import make_config
 from medtsllm_tpu.models.llm.loader import resolve_config as jax_resolve_config
 from medtsllm_tpu.models.llm.transformer import MoEMLP as JaxMoEMLP
+from medtsllm_tpu.models.llm import transformer as jtf
 from medtsllm_tpu.models.llm.transformer import QuantDense
 from medtsllm_tpu.models.llm.transformer import TransformerDecoder as JaxDecoder
 from medtsllm_tpu.ops.pallas import grouped_matmul as jgm
@@ -136,9 +137,27 @@ def test_quant_linear_4bit_matches_quant_dense(codebook, K, rtol):
 
 
 def test_quant_linear_4bit_refuses_training():
-    lin = QuantLinear(64, 16, None, bits=4)
-    with pytest.raises(NotImplementedError, match='"Training on the served backbones"'):
-        lin(torch.zeros(2, 64, requires_grad=True))
+    """Training through 4-bit projections is ported: the straight-through dx
+    of ``_act_quant_matmul`` at 4 bits (the weight unpacked, ``(g * scale)
+    @ W``) against ``jax.vjp``, K even (K5) and odd (K1 on the unpacked
+    weight), within 1e-5 x max (a float matmul summed in another order)."""
+    rs = np.random.RandomState(4)
+    for K in (64, 63):
+        x = rs.randn(3, K).astype(np.float32)
+        g = rs.randn(3, 16).astype(np.float32)
+        kq = np.asarray(jqm.pack4_split(rs.randint(-7, 8, (K, 16)).astype(np.int8)))
+        scale = (rs.rand(16) * 1e-2).astype(np.float32)
+        _, vjp = jax.vjp(lambda xx: jtf._act_quant_matmul(xx, jnp.asarray(kq),
+                                                          jnp.asarray(scale), 4),
+                         jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(g))
+        lin = QuantLinear(K, 16, None, bits=4)
+        lin.load_state_dict({"weight_q": _t(kq.T), "scale": torch.from_numpy(scale)})
+        xt = torch.from_numpy(x).requires_grad_()
+        lin(xt).backward(torch.from_numpy(g))
+        want = np.asarray(want)
+        np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 # --------------------------------------------------------------------------
@@ -341,9 +360,10 @@ def test_from_config_4bit(tmp_path):
     assert build(_cfg(tmp_path)).llm_cfg.quant4_codebook == "absmax"  # int4 by default
     with pytest.raises(ValueError, match="quant_type"):
         build(_cfg(tmp_path, quant_type="int3"))
-    # weight-only absmax int4
-    with pytest.raises(NotImplementedError, match="\"Llama decoder, open parts\""):
-        build(_cfg(tmp_path, int8_matmul=False))
+    # weight-only absmax int4 (int8_matmul = false): the unpacked weight in a
+    # float matmul (tests/test_torch_quant_train.py holds it to QuantDense)
+    proj = build(_cfg(tmp_path, int8_matmul=False)).llm.blocks[0].attn.q_proj
+    assert proj.act_quant is False and proj.codebook == "absmax"
     build(_cfg(tmp_path, quant_type="nf4", int8_matmul=False))  # codebooks are weight-only
     with pytest.raises(NotImplementedError, match='"Mamba, open parts"'):
         build(_cfg(tmp_path, llm="mamba-tiny"))

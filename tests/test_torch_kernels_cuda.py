@@ -1534,3 +1534,117 @@ def test_deleted_trainer_releases_its_device_memory(cuda):
     first = run()
     assert run() == first
 
+
+
+# --------------------------------------------------------------------------
+# the int8 dx of llm.int8_backward: the gradient rows' quantizer and K1's
+# GEMM on the [K, N] copy, each against its plain version
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [
+    (896, 4096, 4096), (896, 4096, 11008), (896, 11008, 4096),  # a 7B block at B 8
+    (1664, 768, 2304), (1664, 3072, 768),                       # gpt2 at B 16
+    (37, 40, 24), (5, 64, 200)])                                # K, N off 16
+def test_int8_dx_bit_equal(cuda, dtype, M, K, N):
+    """``int8_dx``: the scale-folded gradient rows quantized (a bf16
+    gradient taken at f32) and K1's GEMM on the weight's [K, N16] copy with
+    a unit channel scale, bit-equal to the plain version, row for row; N off
+    16 pads the codes' rows and the copy with zeros."""
+    g = torch.Generator(cuda).manual_seed(M + K + N)
+    grad = torch.randn(M, N, device=cuda, generator=g).to(dtype)
+    wq_t = torch.randint(-127, 128, (N, K), device=cuda, dtype=torch.int8, generator=g)
+    scale = torch.rand(N, device=cuda, generator=g) * 1e-2 + 1e-4
+    w_kn = k1.kn_weight(wq_t)
+    assert w_kn.shape == (K, N + (-N % 16))
+    nq, ng = k1.quantize_grad_rows.launches, k1.int8_gemm.launches
+    gq, gs = k1.quantize_grad_rows(grad, scale, w_kn.shape[1])
+    rq, rs = k1.quantize_grad_rows_plain(grad.cpu(), scale.cpu(), w_kn.shape[1])
+    assert torch.equal(gq.cpu(), rq) and torch.equal(gs.cpu(), rs)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        dx = k1.int8_dx(grad, w_kn, scale, out_dtype)
+        ref = k1.int8_gemm_plain(rq.to(cuda), w_kn, rs.to(cuda),
+                                 torch.ones(K, device=cuda), out_dtype)
+        assert torch.equal(dx, ref)
+    assert k1.quantize_grad_rows.launches == nq + 3 and k1.int8_gemm.launches == ng + 2
+
+
+@pytest.mark.cuda
+def test_int8_dh_bit_equal_at_moe_shape(cuda):
+    """The capacity MoE path's batched dh at one moe-8x1b layer (E 8, C
+    2160, K 2048, N 5632): one quantizer launch over the E * C rows with
+    each expert's scale row, then K1 per expert."""
+    from medtsllm_tpu_torch.models.llm import transformer as ttf
+    E, C, K, N = 8, 2160, 2048, 5632
+    g = torch.Generator(cuda).manual_seed(8)
+    grad = torch.randn(E, C, N, device=cuda, generator=g)
+    wq = torch.randint(-127, 128, (E, N, K), device=cuda, dtype=torch.int8, generator=g)
+    scale = torch.rand(E, N, device=cuda, generator=g) * 1e-2
+    w_kn = k1.kn_weight(wq)
+    nq = k1.quantize_grad_rows.launches
+    dh = ttf.int8_dh(grad, w_kn, scale)
+    assert k1.quantize_grad_rows.launches == nq + 1
+    rq, rs = k1.quantize_grad_rows_plain(grad.reshape(E * C, N).cpu(), scale.cpu(), N)
+    rq, rs = rq.reshape(E, C, N).to(cuda), rs.reshape(E, C).to(cuda)
+    ones = torch.ones(K, device=cuda)
+    for e in (0, 3, 7):
+        assert torch.equal(dh[e], k1.int8_gemm_plain(rq[e], w_kn[e], rs[e], ones))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K", [(8, 40), (8, 4104), (4, 40), (4, 4112)])
+def test_quant_linear_pads_k_on_the_card(cuda, bits, K):
+    """A contraction width off the GEMMs' rows (K % 16, K / 2 % 16 at 4
+    bits), which JAX's XLA dot takes: the card pads the weight once
+    (``pad_copy``) and the codes per call, bit-equal to the plain version
+    forward, and the int8 dx bit-equal to its plain version."""
+    from medtsllm_tpu_torch.models.llm import transformer as ttf
+    g = torch.Generator(cuda).manual_seed(K)
+    N = 48
+    lin = ttf.QuantLinear(K, N, None, bits, act_quant="int8_bwd").to(cuda)
+    lo, hi = (-127, 128) if bits == 8 else (-7, 8)
+    q = torch.randint(lo, hi, (N, K), device=cuda, dtype=torch.int8, generator=g)
+    lin.weight_q.copy_(q if bits == 8 else k5.pack4_split(q))
+    lin.scale.data.copy_(torch.rand(N, device=cuda, generator=g) * 1e-2)
+    x = torch.randn(7, K, device=cuda, generator=g, requires_grad=True)
+    y = lin(x)
+    assert "pad_copy" in dict(lin.named_buffers())
+    want = k1.act_quant_matmul_plain(x.detach().cpu(), q.cpu(), lin.scale.detach().cpu())
+    assert torch.equal(y.detach().cpu(), want) if bits == 8 else torch.allclose(
+        y.detach().cpu(), want, rtol=1e-6, atol=0)  # w4a8 rescales (acc * xs) * ws
+    grad = torch.randn(7, N, device=cuda, generator=g)
+    y.backward(grad)
+    rq, rs = k1.quantize_grad_rows_plain(grad.cpu(), lin.scale.detach().cpu(), N + (-N % 16))
+    ref = k1.int8_gemm_plain(rq, k1.kn_weight(q.cpu()), rs, torch.ones(K))
+    assert torch.equal(x.grad.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_reprogramming_takes_the_plain_route_off_its_widths(cuda):
+    """E 48 has no K3 instance: the call takes the plain version, decided by
+    shape before any launch, as JAX sends it to its einsum."""
+    q = torch.randn(2, 8, 4, 48, device=cuda)
+    k = torch.randn(100, 4, 48, device=cuda)
+    assert k3.reprogramming_route(48) == "plain" and k3.reprogramming_route(128) == "k3"
+    n = k3.reprogramming_attention.launches
+    out = k3.reprogramming_attention(q, k, k)
+    assert k3.reprogramming_attention.launches == n
+    assert torch.equal(out, k3.reprogramming_attention_plain(q, k, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_past_65535_batch_heads(cuda, dtype):
+    """B * H = 65,600 (> grid.y's 65535): B x H folded into grid.x; every
+    (batch, head) against the plain version at the K4 tests' bounds."""
+    B, H, L, D = 4100, 16, 8, 64
+    g = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn(B, H, L, D, device=cuda, generator=g).to(dtype) for _ in range(3))
+    out = k4.flash_attention(q, k, v, True)
+    ref = k4.flash_attention_plain(q, k, v, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        err = (out.float() - ref.float()).abs().amax(-1)
+        assert (err <= 2 ** -6 * ref.float().abs().amax(-1)).all()

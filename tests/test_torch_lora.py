@@ -21,9 +21,9 @@
   (c) JAX's ``test_lora_trains_and_is_checkpointed``: ``train()`` moves
       ``lora_b`` and not the base weight; the checkpoint holds the adapters
       and no base weight; ``from_run_id`` restores them bit for bit;
-  (d) the refusals that stay: LoRA over ``load_in_4bit`` (named by its
-      item's title), over Mamba (JAX's ValueError), ``lora.layers`` other
-      than "auto".
+  (d) LoRA over ``load_in_4bit`` built (QLoRA); the refusals that stay:
+      LoRA over Mamba (JAX's ValueError), ``lora.layers`` other than
+      "auto".
 """
 
 import contextlib
@@ -328,10 +328,14 @@ def test_lora_trains_and_is_checkpointed(tmp_path):
 # --------------------------------------------------------------------------
 
 def test_lora_refusals(tmp_path):
+    # LoRA over load_in_4bit (QLoRA) is ported: the adapters wrap the 4-bit
+    # projections and train above their straight-through dx
+    # (tests/test_torch_quant_train.py holds train() to JAX's)
     cfg = _cfg(tmp_path, "gpt2-tiny")
     cfg.models.medtsllm.llm.load_in_4bit = True
-    with pytest.raises(NotImplementedError, match='queue 1, "Training on the served backbones"'):
-        get_trainer("x", cfg, device="cpu")
+    tt = get_trainer("x", cfg, device="cpu")
+    c_attn = tt.model.llm.blocks[0].attn.c_attn
+    assert isinstance(c_attn, ttf.LoRALinear) and c_attn.base.bits == 4
     cfg = _cfg(tmp_path, "mamba-tiny")
     with pytest.raises(ValueError, match="mamba backbone has none"):
         get_trainer("x", cfg, device="cpu")

@@ -147,11 +147,11 @@ def test_unported_options_raise(tmp_path):
     assert pre.test_dataset.dataset_names == ["ECG", "ventilator", "bidmc", "ludb"]
     assert "prefix_ids" not in pre.model_inputs(next(iter(pre.test_pipeline)))
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.models.medtsllm.llm.llm = "gpt2"  # ported: the ln family; LoRA over 4 bits is not
+    cfg.models.medtsllm.llm.llm = "gpt2"  # ported: the ln family and LoRA over 4 bits
     cfg.models.medtsllm.llm.load_in_4bit = True
     cfg.models.medtsllm["lora"] = {"enabled": True, "rank": 4, "alpha": 8, "layers": "auto"}
-    with pytest.raises(NotImplementedError, match="LoRA over load_in_4bit"):
-        get_trainer("x", cfg, device="cpu")
+    c_attn = get_trainer("x", cfg, device="cpu").model.llm.blocks[0].attn.c_attn
+    assert c_attn.base.bits == 4 and c_attn.lora_b.requires_grad
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.data.dataset = "ETTh1"  # ported: the ETT family (its stand-in here)
     assert type(get_dataset(cfg, "test")).__name__ == "ETTFamily"

@@ -590,6 +590,6 @@ def test_no_refusal_names_an_item_number():
                 titled += 'queue 1, "' in node.value
                 if re.search(r"\bitems? \d+", node.value):
                     bad.append(f"{path.relative_to(root)}:{node.lineno}")
-    # (the floors guard the scan itself: 14 raises and 17 titled strings since
-    # MedTsLLM's remaining modes stopped refusing)
-    assert n_raises >= 14 and titled >= 17 and not bad, (n_raises, titled, bad)
+    # (the floors guard the scan itself: 14 raises and 12 titled strings since
+    # the training modes on the served backbones stopped refusing)
+    assert n_raises >= 14 and titled >= 12 and not bad, (n_raises, titled, bad)

@@ -52,6 +52,7 @@ from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
 from medtsllm_tpu.tasks import losses as jlosses
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.data import BatchPipeline
+from medtsllm_tpu_torch.models.llm.transformer import QuantLinear
 from medtsllm_tpu_torch.ops.kernels import rope_attention as k2
 from medtsllm_tpu_torch.ops.kernels import selective_scan as kss
 from medtsllm_tpu_torch.ops.kernels import w8a8 as k1
@@ -327,12 +328,29 @@ def test_optimizer_matches_jax(opt, sched, clip):
 
 
 def test_unported_optimizer_options_raise():
+    """The options once refused (ranger21, ranger_classic, grad_accum_steps)
+    now build, and two micro-steps of each move the parameter as JAX's
+    Optimizer does (f32, rtol 1e-5: tests/test_torch_optim_modes.py holds
+    them over ten steps)."""
     for key, val in (("training.optimizer", "ranger21"),
                      ("training.optimizer", "ranger_classic"),
                      ("training.grad_accum_steps", 2)):
-        cfg = Config(make_config(**{key: val}).to_dict())
-        with pytest.raises(NotImplementedError, match='queue 1, "Training on the served backbones"'):
-            Optimizer(cfg, [torch.zeros(1, requires_grad=True)])
+        cfg = make_config(**{key: val, "training.learning_rate": 1e-2})
+        init = np.linspace(-1, 1, 6, dtype=np.float32).reshape(2, 3)
+        jopt = JaxOptimizer(cfg, None, num_iterations=4)
+        jp = {"w": jnp.asarray(init)}
+        state = jopt.init(jp)
+        tw = torch.from_numpy(init.copy()).requires_grad_()
+        topt = Optimizer(Config(cfg.to_dict()), [tw], num_iterations=4)
+        for g in (0.5, -1.5):
+            grad = np.full((2, 3), g, np.float32) * init
+            updates, state = jopt.update({"w": jnp.asarray(grad)}, state, jp)
+            jp = optax.apply_updates(jp, updates)
+            tw.grad = torch.from_numpy(grad)
+            topt.step()
+            topt.end_micro_step()
+            np.testing.assert_allclose(_np(tw), np.asarray(jp["w"]), rtol=1e-5, atol=1e-7)
+        assert not torch.equal(tw.detach(), torch.from_numpy(init))
 
 
 def test_shuffled_pipeline_order_matches_jax(tmp_path):
@@ -532,9 +550,17 @@ def test_train_loop_runs_epochs_and_val(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
+    # ``llm.int8_backward`` is ported: every projection takes the int8 dx
+    # (tests/test_torch_quant_train.py holds it to JAX's bit for bit), and
+    # JAX's own ValueError stays where the s8 path does not run
     cfg = _cfg(tmp_path, "llama-tiny", True)
     cfg.models.medtsllm.llm.int8_backward = True
-    with pytest.raises(NotImplementedError, match="\"Training on the served backbones\""):
+    tt = get_trainer("x", cfg, device="cpu")
+    assert {m.act_quant for m in tt.model.llm.modules()
+            if isinstance(m, QuantLinear)} == {"int8_bwd"}
+    cfg = _cfg(tmp_path, "llama-tiny", False)
+    cfg.models.medtsllm.llm.int8_backward = True
+    with pytest.raises(ValueError, match="int8_backward requires the s8 MXU matmul path"):
         get_trainer("x", cfg, device="cpu")
     # "mixed" is ported: the w8a8 finetune builds with a bf16 backbone
     # (int8 weights, bf16 scales) and f32 fusion layers
