@@ -104,6 +104,25 @@ nvidia-smi. Phases:
      ``serve()``; K4 held there (``flash_attention[gpt2-prefix]``), the
      route table printed, and K4's D 192 and D 256 instances, f32 and bf16,
      against the plain version at one shape each (printed, not listed);
+  6t. MedTsLLM over google/flan-t5-base's published config.json (12 + 12
+     layers, d 768, 12 x 64 heads, gated-gelu d_ff 2048, vocab 32128, 32
+     relative buckets) with seeded weights in HF's names, written in two
+     shards by the port's safetensors writer and loaded by the trainer
+     (every loaded leaf held bit-equal to the written tensors);
+     bidmc.toml's settings, w8a8 bf16, batch 16, history 256: the prompt
+     through the encoder, the 32 patches through the decoder; K1 held at
+     the decoder's rows and at the encoder's (its blocks' and the cross
+     k / v; ``w8a8_*[t5]``, ``w8a8_*[t5-enc]``) and K3 at E 64
+     (``reprogramming_attention[t5]``); ``serve()`` over 32 test batches,
+     ``train()`` (an epoch of captured steps, then ``val()``; the backbone
+     unchanged), ``train_graphed``; then ``load_in_4bit`` (K1's quantizer and K5,
+     ``w4a8_gemm[t5]``); a 2 + 2-layer dense f32 slice, card vs CPU;
+  6u. the same over facebook/bart-base's config.json (6 + 6 post-LN layers,
+     ffn 3072, vocab 50265, 1024 positions; the weights under the
+     "model." prefix), then at history 4096: 512 patches, JAX's gate
+     sends the decoder's causal self-attention (L = S = 512, D 64) to K4
+     once a layer a batch, held per query row at 2^-6 of its max
+     (``flash_attention[bart-decoder]``);
   6a. the tasks under ``setup.dtype = "mixed"`` (the shipped
      configs/datasets/*.toml as they are but for synthetic data; a dense
      Llama-2-7B backbone stored at bf16, f32 fusion layers, batch 16):
@@ -305,7 +324,7 @@ window's M (8 x 2,128 = 17,024 rows; rows ``w8a8_quantize[long]`` and
 window's shape (B 8, L 2048, H 8, E 64 = the cell's d_ff, S 1024; row
 ``reprogramming_attention[long]``, with SDPA's time; E 128 printed beside
 it), all listed with the launches of the long run.
-Every served path (phases 4, 6a-6c, 6e-6i, 6o, 6p, 6, 8b, 11, 13, 14, 15, 17 and 18) runs
+Every served path (phases 4, 6a-6c, 6e-6i, 6o-6u, 6, 8b, 11, 13, 14, 15, 17 and 18) runs
 through ``serve()``: the eager step (``eval_step_eager``) on each test batch,
 each batch prepared just before it (its head's or its bank misses' prefill
 counted apart), then
@@ -321,7 +340,7 @@ carries. A path with a per-clip KV bank (6c, 6e) also prints each pass's
 hits, misses and evictions (evictions required), the bank's GiB and one
 miss's prefill ms, and holds the banked step against the same batch with
 its head embedded (2^-6 x max); its replays run across evictions.
-Every train path (6a, 6e, 6g-6i, 6o, 6p, 8, 8b, 9) trains through ``train()``, whose
+Every train path (6a, 6e, 6g-6i, 6o, 6p, 6t-6u, 8, 8b, 9) trains through ``train()``, whose
 train step replays one CUDA graph per input signature (forward, backward,
 clip and Adam; ``TrainGraphs``), and then ``train_graphed``: the train
 step's p50 op by op (``train_step_eager``) and captured (``train_step``)
@@ -673,6 +692,102 @@ PYTHIA_160M = {"model_type": "gpt_neox", "vocab_size": 50304, "hidden_size": 768
 # third of gpt2's c_attn, opt's and neox's q_proj)
 LORA = {"enabled": True, "rank": 8, "alpha": 16, "rslora": True, "dropout": 0.0,
         "layers": "auto"}
+
+
+# phases 6t-6u: the published config.json entries of google/flan-t5-base and
+# facebook/bart-base, written to a temporary snapshot directory with seeded
+# weights in HF's names (``encdec_tensors``, written by the port's own
+# safetensors writer) and read by the port's config_from_hf_json and loader
+FLAN_T5_BASE = {"model_type": "t5", "vocab_size": 32128, "d_model": 768, "d_kv": 64,
+                "d_ff": 2048, "num_layers": 12, "num_decoder_layers": 12, "num_heads": 12,
+                "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+                "dropout_rate": 0.1, "layer_norm_epsilon": 1e-6,
+                "feed_forward_proj": "gated-gelu", "is_encoder_decoder": True,
+                "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0}
+BART_BASE = {"model_type": "bart", "vocab_size": 50265, "d_model": 768, "encoder_layers": 6,
+             "decoder_layers": 6, "encoder_attention_heads": 12,
+             "decoder_attention_heads": 12, "encoder_ffn_dim": 3072, "decoder_ffn_dim": 3072,
+             "max_position_embeddings": 1024, "activation_function": "gelu", "dropout": 0.1,
+             "scale_embedding": False, "is_encoder_decoder": True, "bos_token_id": 0,
+             "eos_token_id": 2, "pad_token_id": 1}
+
+
+def encdec_tensors(torch, dev, fields: dict, seed: int) -> dict:
+    """Seeded weights in HF's state-dict names for a t5 or bart
+    ``config.json`` at its widths (the names the loader maps): N(0, 0.02)
+    matrices and tables, norm weights 1 + N(0, 0.02), biases N(0, 0.02);
+    drawn on the card, rounded to bf16 and kept as f32 numpy, so a bf16
+    parameter holds each value exactly."""
+    g = torch.Generator(dev).manual_seed(seed)
+    shapes, V, d = {}, fields["vocab_size"], fields["d_model"]
+    if fields["model_type"] == "t5":
+        inner, f, nb = fields["num_heads"] * fields["d_kv"], fields["d_ff"], \
+            fields["relative_attention_num_buckets"]
+        shapes["shared.weight"] = (V, d)
+        for side, n, sub in (("encoder", fields["num_layers"], ("SelfAttention",)),
+                             ("decoder", fields["num_decoder_layers"],
+                              ("SelfAttention", "EncDecAttention"))):
+            shapes[f"{side}.final_layer_norm.weight"] = (d,)
+            shapes[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+                nb, fields["num_heads"])
+            for i in range(n):
+                for j, attn in enumerate(sub):
+                    p = f"{side}.block.{i}.layer.{j}."
+                    shapes[p + "layer_norm.weight"] = (d,)
+                    for m in ("q", "k", "v"):
+                        shapes[p + f"{attn}.{m}.weight"] = (inner, d)
+                    shapes[p + f"{attn}.o.weight"] = (d, inner)
+                p = f"{side}.block.{i}.layer.{len(sub)}."
+                shapes[p + "layer_norm.weight"] = (d,)
+                shapes[p + "DenseReluDense.wi_0.weight"] = (f, d)
+                shapes[p + "DenseReluDense.wi_1.weight"] = (f, d)
+                shapes[p + "DenseReluDense.wo.weight"] = (d, f)
+    else:  # bart, under BartForConditionalGeneration's "model." prefix
+        f = fields["encoder_ffn_dim"]
+        shapes["model.shared.weight"] = (V, d)
+        for side, n in (("encoder", fields["encoder_layers"]),
+                        ("decoder", fields["decoder_layers"])):
+            shapes[f"model.{side}.embed_positions.weight"] = (
+                fields["max_position_embeddings"] + 2, d)
+            shapes[f"model.{side}.layernorm_embedding.weight"] = (d,)
+            shapes[f"model.{side}.layernorm_embedding.bias"] = (d,)
+            for i in range(n):
+                p = f"model.{side}.layers.{i}."
+                attns = ("self_attn", "encoder_attn") if side == "decoder" else ("self_attn",)
+                for attn in attns:
+                    for m in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                        shapes[p + f"{attn}.{m}.weight"] = (d, d)
+                        shapes[p + f"{attn}.{m}.bias"] = (d,)
+                    shapes[p + f"{attn}_layer_norm.weight"] = (d,)
+                    shapes[p + f"{attn}_layer_norm.bias"] = (d,)
+                shapes[p + "fc1.weight"], shapes[p + "fc1.bias"] = (f, d), (f,)
+                shapes[p + "fc2.weight"], shapes[p + "fc2.bias"] = (d, f), (d,)
+                shapes[p + "final_layer_norm.weight"] = (d,)
+                shapes[p + "final_layer_norm.bias"] = (d,)
+    out = {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, device=dev, generator=g) * 0.02
+        if name.endswith("norm.weight") or name.endswith("layernorm_embedding.weight"):
+            w += 1.0
+        out[name] = w.to(torch.bfloat16).float().cpu().numpy()
+    return out
+
+
+def encdec_config(Config, llm, history=256, n_points=None, batch=16, dtype="bf16",
+                  quant_type=None, load_in_8bit=True, llm_layers=-1):
+    """configs/datasets/bidmc.toml's MedTsLLM settings (segmentation,
+    history 256, patch 16 / 8, concat, d_ff 64, its prompting, batch 16) on
+    the synthetic data over ``llm`` (a snapshot directory), at ``dtype``
+    (bf16 unless given) with ``load_in_8bit`` (or ``quant_type`` in 4 bits);
+    ``n_points`` a split (512 test windows of ``history`` by default: 32
+    batches of 16)."""
+    raw = task_config(Config, BIDMC_TOML, n_points or 512 * history, llm=llm,
+                      llm_layers=llm_layers, history=history, batch=batch).to_dict()
+    raw["setup"]["dtype"] = dtype
+    raw["models"]["timellm"]["llm"].update(load_in_8bit=load_in_8bit and not quant_type,
+                                           load_in_4bit=bool(quant_type),
+                                           quant_type=quant_type or "int4")
+    return quiet(Config, raw)
 
 
 def family_config(Config, llm, batch=16, history=256, n_points=8320, dtype="bf16",
@@ -2711,6 +2826,34 @@ def main() -> None:
     del q, kk, vv, o, o0
     print(f"[gpt4ts] phase 6p: {time.perf_counter() - t_phase:.1f} s wall")
 
+    def check_k4_shape(name, B, H, L, S, D, dtype, listed):
+        """K4 through its JAX interface at one end-aligned causal shape against
+        its plain version: f32 within 1e-5 x max(1, max |plain|), bf16 each
+        query row within 2^-6 x its max; bound: the (query, key) pairs the mask
+        keeps, QK^T and PV at 2 D operations each, at the operands' peak, or q,
+        k, v read and the output written once; library: SDPA, masked alike."""
+        q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
+        kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+        o = k4.flash_attention(q, kk, vv, True)
+        o0 = k4.flash_attention_plain(q, kk, vv, True)
+        err = (o.float() - o0.float()).abs().max().item()
+        f32 = dtype == torch.float32
+        mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
+        pairs = L * (S - L) + L * (L + 1) // 2
+        esz = 4 if f32 else 2
+        record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
+               "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
+               1e-5 * max(1.0, o0.abs().max().item()) if f32 else None,
+               cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
+               cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
+               bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
+                     "f32" if f32 else "bf16"),
+               cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                                     attn_mask=mask)),
+               f" (B={B} H=KV={H} L={L} S={S} D={D} {'f32' if f32 else 'bf16'} causal, "
+               f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
+               listed=listed, share=None if f32 else row_share(o, o0))
+
     def ln_families():
         """Phases 6q-6s, their names kept out of main's scope (later phases
         read main's B, H, KV, D)."""
@@ -2932,34 +3075,6 @@ def main() -> None:
         del tr
         torch.cuda.empty_cache()
 
-        def check_k4_shape(name, B, H, L, S, D, dtype, listed):
-            """K4 through its JAX interface at one end-aligned causal shape against
-            its plain version: f32 within 1e-5 x max(1, max |plain|), bf16 each
-            query row within 2^-6 x its max; bound: the (query, key) pairs the mask
-            keeps, QK^T and PV at 2 D operations each, at the operands' peak, or q,
-            k, v read and the output written once; library: SDPA, masked alike."""
-            q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
-            kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
-            o = k4.flash_attention(q, kk, vv, True)
-            o0 = k4.flash_attention_plain(q, kk, vv, True)
-            err = (o.float() - o0.float()).abs().max().item()
-            f32 = dtype == torch.float32
-            mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
-            pairs = L * (S - L) + L * (L + 1) // 2
-            esz = 4 if f32 else 2
-            record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
-                   "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
-                   1e-5 * max(1.0, o0.abs().max().item()) if f32 else None,
-                   cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
-                   cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
-                   bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
-                         "f32" if f32 else "bf16"),
-                   cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
-                                                                         attn_mask=mask)),
-                   f" (B={B} H=KV={H} L={L} S={S} D={D} {'f32' if f32 else 'bf16'} causal, "
-                   f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
-                   listed=listed, share=None if f32 else row_share(o, o0))
-
         check_k4_shape("flash_attention[gpt2-prefix]", 8, lc.n_heads, L_l, P_l + L_l, lc.head_dim,
                        torch.bfloat16, True)
         set_launches(counts, {"flash_attention[gpt2-prefix]": "flash_attention"})
@@ -2971,6 +3086,229 @@ def main() -> None:
         print(f"[gpt2-long] phase 6s: {time.perf_counter() - t_phase:.1f} s wall")
 
     ln_families()
+
+    def encdec_families():
+        """Phases 6t-6u, their names kept out of main's scope."""
+        from medtsllm_tpu_torch.models.llm.loader import hf_to_tree
+        from medtsllm_tpu_torch.models.llm.safetensors import save_safetensors
+        from medtsllm_tpu_torch.weights import from_flax
+        # 6t-6u. MedTsLLM over the encoder-decoders at their published widths:
+        # flan-t5-base's and bart-base's config.json with seeded weights in
+        # HF's names, written by the port's safetensors writer (t5 in two
+        # shards, bart under the "model." prefix) and loaded through the
+        # trainer's snapshot path; bidmc.toml's settings (segmentation,
+        # history 256, concat, d_ff 64, batch 16), w8a8 bf16: the prompt
+        # through the encoder, the 32 patches through the decoder; every
+        # loaded leaf held bit-equal to the written tensors; serve() over 32
+        # test batches (K1 on every projection, the cross k / v at the
+        # encoder's rows; K3); train() and train_graphed (K1's straight-through
+        # dx); t5
+        # at load_in_4bit (K1's quantizer and K5); bart again at history 4096
+        # (512 patches: JAX's gate sends the decoder's causal self-attention,
+        # L = S = 512, to K4); then 2-layer dense f32 slices, card vs CPU.
+        t_phase = time.perf_counter()
+        snapdir = Path(tempfile.mkdtemp(prefix="chip-smoke-encdec-"))
+        head = smi.splitlines()[0]
+        try:
+            for label, fields, seed in (("t5", FLAN_T5_BASE, 1), ("bart", BART_BASE, 2)):
+                t_fam = time.perf_counter()
+                snap = Path(write_snapshot(snapdir, label, fields))
+                hf = encdec_tensors(torch, dev, fields, seed)
+                names = list(hf)
+                shards = [names[:len(names) // 2], names[len(names) // 2:]] if label == "t5" \
+                    else [names]
+                for i, part in enumerate(shards):
+                    save_safetensors(snap / f"model-{i:05d}-of-{len(shards):05d}.safetensors",
+                                     {n: hf[n] for n in part})
+                gib = sum(v.nbytes for v in hf.values()) / 2**30
+                t0 = time.perf_counter()
+                tr = get_trainer(f"chip-smoke-{label}", encdec_config(Config, str(snap)),
+                                 device=dev)
+                build_s = time.perf_counter() - t0
+                lc = tr.model.llm_cfg
+                n_enc, n_dec = lc.n_layers, lc.n_dec_layers or lc.n_layers
+                check(lc.is_encoder_decoder and lc.style == label and lc.d_model == 768
+                      and lc.head_dim == 64 and lc.n_heads == 12
+                      and not tr.model.supports_prefix_cache
+                      and isinstance(tr.model.llm, tfm.TransformerEncDec),
+                      f"[{label}] the backbone {lc}")
+                # every leaf the snapshot maps, bit-equal after load (the values
+                # are bf16-exact; the projections quantized from the same f32)
+                short = {n.removeprefix("model."): v for n, v in hf.items()}
+                want = from_flax(hf_to_tree(lc, short, 8))
+                state = tr.model.state_dict()
+                bad = [n for n, v in want.items()
+                       if not torch.equal(state[f"llm.{n}"].cpu(), v.to(state[f"llm.{n}"].dtype))]
+                check(not bad and len(want) > 100, f"[{label}] leaves not bit-equal: {bad[:4]}")
+                check(torch.equal(state["llm.wte"].float().cpu(),
+                                  torch.from_numpy(short["shared.weight"])),
+                      f"[{label}] the token table is not the snapshot's")
+                first = tr.model_inputs(next(iter(tr.test_pipeline)))
+                check("prefix_ids" not in first, f"[{label}] a cached prompt head: {list(first)}")
+                for batch in tr.test_pipeline:  # settle the prompt buckets (host only)
+                    tr.model_inputs(batch)
+                P_enc = tr.model_inputs(next(iter(tr.test_pipeline)))["prompt_ids"].shape[1]
+                Lp, Bt = tr.model.n_patches, tr.config.training.batch_size
+                print(f"[shapes] {label}: {lc.style}, {n_enc} + {n_dec} layers, d "
+                      f"{lc.d_model}, {lc.n_heads} x {lc.head_dim} heads, d_ff {lc.d_ff}, vocab "
+                      f"{lc.vocab_size}, gated {lc.t5_gated}, post-LN {lc.post_ln}; snapshot "
+                      f"{len(hf)} tensors, {gib:.3f} GiB f32 in {len(shards)} file(s); trainer "
+                      f"built and the snapshot loaded in {build_s:.1f} s; encoder rows P={P_enc}, "
+                      f"decoder rows L={Lp}, B={Bt}; every loaded leaf bit-equal")
+                d, f = lc.d_model, lc.d_ff
+                # a block's K1: the decoder's rows (self q, k, v, o; cross q, o;
+                # the FFN's two or three) and the encoder's (its block's, plus a
+                # decoder block's cross k, v); t5: wi_0, wi_1, wo; bart: fc1, fc2
+                ffn = ((d, f, 2), (f, d, 1)) if label == "t5" else ((d, f, 1), (f, d, 1))
+                n_ffn = sum(n for *_, n in ffn)
+                per_batch = n_enc * (4 + n_ffn) + n_dec * (8 + n_ffn)
+                if label == "t5":
+                    check_k1("[t5]", Bt * Lp, ((torch.float32, d, 6), (torch.bfloat16, d, 2),
+                                                (torch.bfloat16, f, 1)),
+                             ((d, d, 6),) + ffn, "the decoder block's 9 GEMMs at B x L rows")
+                    check_k1("[t5-enc]", Bt * P_enc,
+                             ((torch.float32, d, 5 + 2), (torch.bfloat16, d, 1),
+                              (torch.bfloat16, f, 1)),
+                             ((d, d, 6),) + ffn, "an encoder block's 7 GEMMs and a decoder "
+                             "block's cross k / v at B x P encoder rows")
+                    mc = tr.config.models.timellm
+                    check_k3("reprogramming_attention[t5]", Bt, Lp, mc.n_heads, mc.d_ff,
+                             mc.num_tokens)
+                counts, _, scores, _ = serve(tr, label)
+                check_scores(label, tr, scores, "test")
+                n_b = len(tr.test_pipeline)
+                want = {"w8a8_gemm": per_batch * n_b, "w8a8_quantize": per_batch * n_b,
+                        "reprogramming_attention": n_b, "rope_attention": 0,
+                        "flash_attention": 0, "rope_flash_attention": 0}
+                check(all(counts[k] == n for k, n in want.items()),
+                      f"[{label}] test() launches {counts}, not {want}")
+                if label == "t5":
+                    dec_m = n_dec * (6 + n_ffn) * n_b
+                    for entry in kernels:
+                        entry["launches"] = {
+                            "w8a8_quantize[t5]": dec_m, "w8a8_gemm[t5]": dec_m,
+                            "w8a8_quantize[t5-enc]": counts["w8a8_gemm"] - dec_m,
+                            "w8a8_gemm[t5-enc]": counts["w8a8_gemm"] - dec_m,
+                            "reprogramming_attention[t5]": counts["reprogramming_attention"],
+                        }.get(entry["name"], entry["launches"])
+                # train(): an epoch of captured steps (K1 forward, its
+                # straight-through dx), then val(); the backbone frozen
+                trainable = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                             if p.requires_grad}
+                frozen = {n: torch.sum(t, dtype=torch.float64)
+                          for n, t in tr.model.state_dict().items() if n.startswith("llm.")}
+                counts, wall = drive(tr.train)
+                n_steps, n_val = len(tr.train_pipeline), len(tr.val_pipeline)
+                check(len(tr.losses) == n_steps and finite(tr.losses),
+                      f"[{label}] train() losses {tr.losses}")
+                check_scores(label, tr, tr.val_scores[0], "val")
+                check(counts["w8a8_gemm"] == per_batch * (n_steps + n_val)
+                      and counts["reprogramming_attention"] == n_val,
+                      f"[{label}] train(): K1 {per_batch} a step and a val batch, K3 a val "
+                      f"batch: {counts}")
+                state = tr.model.state_dict()
+                check(all(not torch.equal(state[n], t) for n, t in trainable.items())
+                      and all(torch.sum(state[n], dtype=torch.float64) == v
+                              for n, v in frozen.items()),
+                      f"[{label}] train() left a fusion layer unmoved or moved the backbone")
+                print(f"[{label}-train] train() {n_steps} steps of {Bt} and val() over "
+                      f"{n_val} batches in {wall:.2f} s wall; losses {tr.losses[0]:.6f} -> "
+                      f"{tr.losses[-1]:.6f}; val {tr.val_scores[0]}; the fusion layers moved, the "
+                      f"backbone unchanged; {head}")
+                del trainable, frozen
+                p50_e, p50_g = train_graphed(
+                    tr, label, 4, {"w8a8_gemm": per_batch, "w8a8_quantize": per_batch,
+                                   "reprogramming_attention": 0, "flash_attention": 0,
+                                   "rope_attention": 0})
+                st = serve_stats[label]
+                print(f"[{label}] summary: eval p50 eager {st['p50']:.2f} / graphed "
+                      f"{st['p50_graph']:.2f} ms a batch of {Bt}, test() {st['windows_s']:.2f} "
+                      f"windows/s, peak {st['peak'] / 2**30:.2f} GiB; train step p50 eager "
+                      f"{p50_e:.2f} / graphed {p50_g:.2f} ms; K1 {per_batch} GEMMs a batch "
+                      f"({n_enc} encoder blocks x {4 + n_ffn} + {n_dec} decoder blocks x "
+                      f"{8 + n_ffn}), K3 one; finite scores; {head}")
+                del tr, state
+                torch.cuda.empty_cache()
+
+                if label == "t5":
+                    # load_in_4bit (absmax): K1's quantizer and K5 on every projection
+                    q4 = get_trainer("chip-smoke-t5-int4",
+                                     encdec_config(Config, str(snap), quant_type="int4"),
+                                     device=dev)
+                    check_k5("[t5]", Bt * Lp, ((d, d, 6),) + ffn,
+                             "the decoder block's 9 GEMMs at B x L rows")
+                    counts, _, scores, _ = serve(q4, "t5-int4")
+                    check_scores("t5-int4", q4, scores, "test")
+                    n_b = len(q4.test_pipeline)
+                    check(counts["w4a8_gemm"] == per_batch * n_b and counts["w8a8_gemm"] == 0
+                          and counts["w8a8_quantize"] == per_batch * n_b,
+                          f"[t5-int4] test() launches {counts}")
+                    dec_m = n_dec * (6 + n_ffn) * n_b
+                    set_launches({"w4a8_gemm": dec_m}, {"w4a8_gemm[t5]": "w4a8_gemm"})
+                    print(f"[t5-int4] K5 {counts['w4a8_gemm']} GEMMs in test() ({per_batch} a "
+                          f"batch), K1's quantizer {counts['w8a8_quantize']}, K1's GEMM none; "
+                          f"{head}")
+                    del q4
+                    torch.cuda.empty_cache()
+                else:
+                    # bart at history 4096: 512 patches through the decoder, its causal
+                    # self-attention (L = S = 512, D 64) on K4 once a layer a batch
+                    lt = get_trainer("chip-smoke-bart-long",
+                                     encdec_config(Config, str(snap), history=4096,
+                                                   n_points=128 * 4096), device=dev)
+                    for batch in lt.test_pipeline:
+                        lt.model_inputs(batch)
+                    Ll = lt.model.n_patches
+                    P_l = lt.model_inputs(next(iter(lt.test_pipeline)))["prompt_ids"].shape[1]
+                    route = k4.attention_route(Ll, Ll, 64, True)
+                    check(Ll == 512 and route == "k4"
+                          and k4.attention_route(Ll, P_l, 64, False) == "plain",
+                          f"[bart-long] {Ll} patches, route {route}")
+                    check_k4_shape("flash_attention[bart-decoder]", Bt, lc.n_heads, Ll, Ll, 64,
+                                   torch.bfloat16, True)
+                    counts, *_ = serve(lt, "bart-long")
+                    n_b = len(lt.test_pipeline)
+                    check(counts["flash_attention"] == n_dec * n_b
+                          and counts["reprogramming_attention"] == n_b
+                          and counts["w8a8_gemm"] == per_batch * n_b,
+                          f"[bart-long] K4 once a decoder layer a batch ({n_dec} x {n_b}): "
+                          f"{counts}")
+                    set_launches(counts, {"flash_attention[bart-decoder]": "flash_attention"})
+                    st = serve_stats["bart-long"]
+                    print(f"[bart-long] history 4096: {Ll} patches (decoder L = S = {Ll}, K4), "
+                          f"the prompt's {P_l} rows (plain attention), the cross-attention L "
+                          f"{Ll} x S {P_l} (plain: S % 256 != 0); K4 {counts['flash_attention']} "
+                          f"launches in test(); eval p50 eager {st['p50']:.2f} / graphed "
+                          f"{st['p50_graph']:.2f} ms, {st['windows_s']:.2f} windows/s, peak "
+                          f"{st['peak'] / 2**30:.2f} GiB; {head}")
+                    del lt
+                    torch.cuda.empty_cache()
+
+                # a 2-layer dense f32 slice (2 + 2 layers) of the same snapshot,
+                # card vs CPU
+                small = encdec_config(Config, str(snap), history=64, n_points=256, batch=2,
+                                      dtype="float32", load_in_8bit=False, llm_layers=2)
+                gpu = get_trainer(f"chip-smoke-{label}-small", small, device=dev)
+                cpu = get_trainer(f"chip-smoke-{label}-small", small, device="cpu")
+                check(torch.equal(gpu.model.llm.wte.cpu(), cpu.model.llm.wte),
+                      f"[{label}-small] card and CPU loaded different token tables")
+                cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+                batch = next(iter(gpu.test_pipeline))
+                out_gpu = gpu.eval_dispatch(batch).cpu()
+                out_cpu = cpu.eval_dispatch(batch)
+                err = (out_gpu - out_cpu).abs().max().item()
+                tol = 1e-3 * max(1.0, out_cpu.abs().max().item())
+                check(err <= tol, f"[{label}] small slice: card vs CPU max err {err} > {tol}")
+                print(f"[reference] {label} 2 + 2-layer dense f32 slice of the snapshot, card "
+                      f"vs CPU: max_abs_err {err:.3e} (tol {tol:.3e}); "
+                      f"{time.perf_counter() - t_fam:.1f} s for the family")
+                del gpu, cpu
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(snapdir, ignore_errors=True)
+        print(f"[encdec] phases 6t-6u: {time.perf_counter() - t_phase:.1f} s wall")
+
+    encdec_families()
 
     # 6a. segmentation, configs/datasets/bidmc.toml (boundary-prediction,
     # bce, history 256, batch 16): train() on 8320 points a split (64 train

@@ -14,16 +14,14 @@ Two traps sit in the same model: the backbone's LayerNorms use its
 LayerNorm (1e-6), and the backbone's GELU is tanh while the classification
 head's is exact.
 
-The backbone's weights: without a local snapshot the seeded random init
-stays and the model warns as JAX's does; a snapshot found is refused
-(loading it is ROADMAP queue 1, "Llama decoder, open parts"), so no weights
-that JAX would load are ignored. The state dict has the flax tree's keys
-(the backbone under ``gpt2``).
+The backbone's weights: a local gpt2 snapshot (``paths.llm_path``) with
+``*.safetensors`` replaces the seeded random init of its first
+``gpt_layers`` blocks (``models/llm/loader.py``); without one the init
+stays and the model warns as JAX's does. The state dict has the flax
+tree's keys (the backbone under ``gpt2``).
 """
 
 from __future__ import annotations
-
-import warnings
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +29,8 @@ from torch import nn
 
 from ..ops.embed import DataEmbedding, patch_unfold
 from ..ops.revin import masked_window_norm
-from .llm.config import DecoderConfig, find_snapshot, resolve_config
+from .llm.config import DecoderConfig, resolve_config
+from .llm.loader import load_backbone_weights_
 from .llm.transformer import LayerNorm, Linear, TransformerDecoder, dropout
 
 
@@ -48,8 +47,8 @@ class GPT4TS(nn.Module):
         self.num_class, self.d_ff, self.seg_mode = num_class, d_ff, seg_mode
         self.patch_size, self.stride = patch_size, stride
         self.llm_id, self.cache_dir = llm_id, cache_dir
-        cfg = resolve_config(llm_id, gpt_layers)
-        if not isinstance(cfg, DecoderConfig):
+        cfg = resolve_config(llm_id, gpt_layers, cache_dir)
+        if not isinstance(cfg, DecoderConfig) or cfg.is_encoder_decoder:
             raise ValueError(f"GPT4TS needs a decoder backbone, not {llm_id!r}")
         self.gpt2 = TransformerDecoder(cfg)
         # ``param_labels``' rule: inside the backbone only its LayerNorms
@@ -103,17 +102,9 @@ class GPT4TS(nn.Module):
             seg_mode=config.tasks.segmentation.mode if task == "segmentation" else None)
 
     def load_backbone_weights(self) -> None:
-        """The trainer's hook (``pretrained_param_loader`` of the JAX model):
-        keep the random init and warn when no local snapshot exists; refuse
-        one that does."""
-        snap = find_snapshot(self.llm_id, self.cache_dir)
-        if snap is None:
-            warnings.warn(f"LLM {self.llm_id!r}: no local weights found — using random init "
-                          "(shapes/throughput faithful; task quality not meaningful)")
-            return
-        raise NotImplementedError(
-            f"LLM {self.llm_id!r}: a local snapshot at {snap}; loading its weights is "
-            "ROADMAP queue 1, \"Llama decoder, open parts\"")
+        """The trainer's hook: a local snapshot's weights into the backbone
+        (``loader.load_backbone_weights_``)."""
+        load_backbone_weights_(self.gpt2, self.gpt2.cfg, self.llm_id, self.cache_dir)
 
     @staticmethod
     def _normalize(x_enc):

@@ -1,12 +1,14 @@
 """Backbone configurations and the presets the port serves.
 
 Port of ``medtsllm_tpu/models/llm/transformer.py::DecoderConfig`` (the
-llama, gpt2, opt and neox decoder fields and the mixtral-style MoE ones),
-``LoraSpec``, ``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
+llama, gpt2, opt and neox decoder fields, the mixtral-style MoE ones and
+the encoder-decoders': t5's explicit head dim, decoder depth, relative
+buckets and gated FFN, bart's embedding scale), ``LoraSpec``,
+``models/llm/mamba.py::MambaConfig`` and the ``PRESETS`` /
 ``_mamba_presets`` / ``config_from_hf_json`` / ``resolve_config`` of
 ``models/llm/loader.py``. A local snapshot's ``config.json`` sets the shapes
-(``config_from_hf_json``); the backbone is random-initialised with them
-(weights.py): a snapshot's weights are not loaded yet.
+(``config_from_hf_json``); its ``*.safetensors`` weights, where it has them,
+replace the random init (``loader.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class LoraSpec:
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    style: str  # "llama", "gpt2", "opt" or "neox" in this port
+    style: str  # "llama", "gpt2", "opt", "neox", "t5" or "bart"
     vocab_size: int
     d_model: int
     n_layers: int
@@ -49,6 +51,14 @@ class DecoderConfig:
     bos_token_id: int | None = None
     eos_token_id: int | None = None
     pad_token_id: int | None = None
+    is_encoder_decoder: bool = False
+    # t5: an explicit head dim, the decoder's depth (None: n_layers), the
+    # relative-position buckets and the gated-gelu FFN (t5 v1.1)
+    d_head: int | None = None
+    n_dec_layers: int | None = None
+    rel_buckets: int = 32
+    rel_max_distance: int = 128
+    t5_gated: bool = False
     # mixtral-style sparse MoE FFN (n_experts > 1): top-k routed SwiGLU
     # experts; expert_capacity is the GShard capacity factor (0 = dropless)
     n_experts: int = 0
@@ -67,10 +77,12 @@ class DecoderConfig:
     act_fn: str = ""
     rotary_pct: float = 1.0
     parallel_residual: bool = False
+    # bart: token embeddings times sqrt(d_model), on the input_ids path only
+    scale_embedding: bool = False
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.d_head or self.d_model // self.n_heads
 
     @property
     def kv_heads(self) -> int:
@@ -78,8 +90,8 @@ class DecoderConfig:
 
     @property
     def ln_family(self) -> bool:
-        """LayerNorm + biased projections (gpt2 here; opt, neox and bart in
-        the JAX package), vs the RMSNorm bias-free llama family."""
+        """LayerNorm + biased projections (gpt2, opt, neox, bart), vs the
+        RMSNorm bias-free llama family (llama, t5)."""
         return self.style in ("gpt2", "opt", "neox", "bart")
 
     @property
@@ -88,9 +100,14 @@ class DecoderConfig:
 
     @property
     def pos_offset(self) -> int:
-        """opt's learned positions start at row 2 (HF
-        OPTLearnedPositionalEmbedding)."""
+        """opt's and bart's learned positions start at row 2 (HF
+        OPTLearnedPositionalEmbedding / BartLearnedPositionalEmbedding)."""
         return 2 if self.style in ("opt", "bart") else 0
+
+    @property
+    def post_ln(self) -> bool:
+        """bart's blocks: each LayerNorm after its residual add."""
+        return self.style == "bart"
 
     @property
     def rotary_dims(self) -> int:
@@ -143,6 +160,20 @@ PRESETS = {
         n_heads=4, d_ff=128, max_position=512, rotary_pct=0.25,
         parallel_residual=True, act_fn="gelu",
         bos_token_id=0, eos_token_id=0),
+    "encdec-tiny": DecoderConfig(  # test-sized encoder-decoder (llama style)
+        style="llama", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, max_position=512, bos_token_id=1,
+        eos_token_id=2, is_encoder_decoder=True),
+    "t5-tiny": DecoderConfig(  # test-sized t5-style encoder-decoder
+        style="t5", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, d_ff=128, d_head=16, max_position=512,
+        norm_eps=1e-6, pad_token_id=0, eos_token_id=1,
+        is_encoder_decoder=True),
+    "bart-tiny": DecoderConfig(  # test-sized BART encoder-decoder
+        style="bart", vocab_size=512, d_model=64, n_layers=2,
+        n_dec_layers=2, n_heads=4, d_ff=128, max_position=512,
+        act_fn="gelu", is_encoder_decoder=True,
+        bos_token_id=0, eos_token_id=2, pad_token_id=1),
     "meta-llama/Llama-2-7b-hf": DecoderConfig(
         style="llama", vocab_size=32000, d_model=4096, n_layers=32,
         n_heads=32, d_ff=11008, max_position=4096, norm_eps=1e-5,
@@ -205,10 +236,17 @@ def config_from_hf_json(path: Path) -> DecoderConfig | MambaConfig:
             d_ff=hf.get("n_inner") or 4 * hf["n_embd"], max_position=hf["n_positions"],
             norm_eps=hf.get("layer_norm_epsilon", 1e-5), dropout=hf.get("resid_pdrop", 0.1),
             bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"))
-    if model_type in ("t5", "mt5", "bart"):
-        raise NotImplementedError(
-            f"the {model_type} encoder-decoder backbone: ROADMAP queue 1, \"Other backbone "
-            "families and LoRA\"")
+    if model_type in ("t5", "mt5"):
+        return DecoderConfig(
+            style="t5", vocab_size=hf["vocab_size"], d_model=hf["d_model"],
+            n_layers=hf["num_layers"], n_heads=hf["num_heads"], d_ff=hf["d_ff"],
+            d_head=hf.get("d_kv"), n_dec_layers=hf.get("num_decoder_layers"),
+            rel_buckets=hf.get("relative_attention_num_buckets", 32),
+            rel_max_distance=hf.get("relative_attention_max_distance", 128),
+            norm_eps=hf.get("layer_norm_epsilon", 1e-6), dropout=hf.get("dropout_rate", 0.1),
+            t5_gated="gated" in str(hf.get("feed_forward_proj", "relu")),
+            is_encoder_decoder=True, bos_token_id=hf.get("bos_token_id"),
+            eos_token_id=hf.get("eos_token_id"), pad_token_id=hf.get("pad_token_id"))
     if model_type == "mamba":
         rank = hf.get("time_step_rank", "auto")
         return MambaConfig(
@@ -253,6 +291,22 @@ def config_from_hf_json(path: Path) -> DecoderConfig | MambaConfig:
             act_fn=hf.get("activation_function", "relu"),
             bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"),
             pad_token_id=hf.get("pad_token_id"))
+    if model_type == "bart":
+        if (hf.get("decoder_attention_heads", hf["encoder_attention_heads"])
+                != hf["encoder_attention_heads"]
+                or hf.get("decoder_ffn_dim", hf["encoder_ffn_dim"]) != hf["encoder_ffn_dim"]):
+            raise NotImplementedError("BART with asymmetric encoder/decoder head or FFN sizes "
+                                      "is not supported (DecoderConfig carries one set)")
+        return DecoderConfig(
+            style="bart", vocab_size=hf["vocab_size"], d_model=hf["d_model"],
+            n_layers=hf["encoder_layers"],
+            n_dec_layers=hf.get("decoder_layers", hf["encoder_layers"]),
+            n_heads=hf["encoder_attention_heads"], d_ff=hf["encoder_ffn_dim"],
+            max_position=hf.get("max_position_embeddings", 1024), norm_eps=1e-5,
+            dropout=hf.get("dropout", 0.1), act_fn=hf.get("activation_function", "gelu"),
+            scale_embedding=hf.get("scale_embedding", False), is_encoder_decoder=True,
+            bos_token_id=hf.get("bos_token_id"), eos_token_id=hf.get("eos_token_id"),
+            pad_token_id=hf.get("pad_token_id"))
     if model_type == "gpt_neox":
         return DecoderConfig(
             style="neox", vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
@@ -272,7 +326,8 @@ def resolve_config(llm_id: str, llm_layers: int = -1,
     """The backbone's configuration for ``llm_id``: a local snapshot's
     ``config.json`` (``find_snapshot``) first, else the preset (a
     MambaConfig for the ``mamba`` ids), cut to ``llm_layers`` blocks when
-    0 < llm_layers < n_layers (medtsllm.py:145-146 of the reference)."""
+    0 < llm_layers < n_layers (medtsllm.py:145-146 of the reference; an
+    encoder-decoder's decoder to at most as many, as JAX's ``_truncate``)."""
     presets = {**PRESETS, **MAMBA_PRESETS}
     snap = find_snapshot(llm_id, cache_dir)
     if snap is not None:
@@ -283,7 +338,10 @@ def resolve_config(llm_id: str, llm_layers: int = -1,
         raise ValueError(f"No local snapshot for {llm_id!r} and no built-in preset; set "
                          f"paths.llm_path or use one of {sorted(presets)}")
     if llm_layers and 0 < llm_layers < cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=llm_layers)
+        extra = {}
+        if getattr(cfg, "n_dec_layers", None):
+            extra["n_dec_layers"] = min(llm_layers, cfg.n_dec_layers)
+        cfg = dataclasses.replace(cfg, n_layers=llm_layers, **extra)
     return cfg
 
 

@@ -6,9 +6,12 @@ from row 2, biased ``q/k/v/o_proj``, relu) and neox (partial rotary on the
 leading ``rotary_dims``, the parallel residual, exact GELU); each with
 QuantDense w8a8 / w4a8 / plain Dense projections (biased in the ln family),
 LoRA adapters (``LoRALinear``), the pre-norm ``Block`` and
-``TransformerDecoder`` with ``prefill`` (the prompt-prefix cache); with them
-flax's Dense (``Linear``), LayerNorm and Dropout, which the other models
-share.
+``TransformerDecoder`` with ``prefill`` (the prompt-prefix cache); the
+encoder-decoders (``TransformerEncDec``: t5 with its relative-position bias
+``t5_relative_buckets`` and relu / gated-gelu FFN, bart's post-LN blocks,
+and llama / gpt2 styles), whose ``Block`` adds a cross-attention sublayer;
+with them flax's Dense (``Linear``), LayerNorm and Dropout, which the other
+models share.
 
 Dtypes follow the JAX module's: parameters are stored at the storage dtype
 (f32 or bf16); ``dtype`` (None for f32, else the compute dtype) is where
@@ -19,10 +22,11 @@ included) goes through the fused RoPE + prefix + causal kernel (K2) up to
 ``K4_MIN_KEYS`` keys, and above that, or past K2's 2048, through the
 flash-attention route (K4 with the rotation, the head transpose and the
 prefix concat of JAX's unfused path folded in). Every other attention (the
-ln family, llama at other head dims) takes JAX's own path: the rotation, the
-transposes and the prefix concat, then JAX's ``flash_attention`` dispatcher
-as ported (``dispatch_attention``): plain attention below 512 tokens, K4
-from there. Every projection at ``quantize=8`` goes through the w8a8 kernel
+ln family, t5, llama at other head dims, the encoders and the
+cross-attention) takes JAX's own path: the rotation, the transposes and the
+prefix concat, then JAX's ``flash_attention`` dispatcher as ported
+(``dispatch_attention``): plain attention below 512 tokens or with t5's
+bias, K4 from there. Every projection at ``quantize=8`` goes through the w8a8 kernel
 (K1), at ``quantize=4`` with the absmax codebook through K1's quantizer and
 the w4a8 kernel (K5). The MoE FFN routes each token to its top-k experts
 and runs them either as the dropless grouped chain (K6, ``moe_grouped``,
@@ -363,22 +367,28 @@ def ln_activation(cfg: DecoderConfig):
 
 
 class Attention(nn.Module):
-    """Self-attention of each decoder style (``Attention`` of the JAX
-    package): llama's bias-free ``q/k/v/o_proj``; gpt2's fused biased
-    ``c_attn`` split q | k | v and its biased ``c_proj``; opt's and neox's
-    biased ``q/k/v/o_proj``. Projections are quantized at ``quantize`` 8 or
-    4, and those ``lora`` targets carry adapters (``LoRALinear``; gpt2's
-    fused ``c_attn`` when any of q / k / v is a target, masked to the
-    targeted thirds). The output projection is followed by the residual
-    dropout (``cfg.dropout``, train mode). No attention-probability
-    dropout: JAX leaves it out on purpose (the kernel never holds the
-    probabilities), although HF gpt2 has it."""
+    """Attention of each style (``Attention`` of the JAX package): llama's
+    and t5's bias-free ``q/k/v/o_proj``; gpt2's fused biased ``c_attn``
+    split q | k | v and its biased ``c_proj``; opt's, neox's and bart's
+    biased ``q/k/v/o_proj``. ``cross`` makes it the encoder-decoders'
+    cross-attention: q from x, k / v from the encoder's output ``kv`` (S
+    rows), no rotation, never causal; gpt2's then takes ``q/k/v_proj`` and
+    ``c_proj``, as JAX builds the fused ``c_attn`` only for self-attention.
+    ``causal`` False is the encoders' self-attention. Projections are
+    quantized at ``quantize`` 8 or 4, and those ``lora`` targets carry
+    adapters (``LoRALinear``; gpt2's fused ``c_attn`` when any of q / k / v
+    is a target, masked to the targeted thirds). The output projection is
+    followed by the residual dropout (``cfg.dropout``, train mode). No
+    attention-probability dropout: JAX leaves it out on purpose (the kernel
+    never holds the probabilities), although HF gpt2 has it."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
-                 lora: LoraSpec | None = None, act_quant: bool | str = True):
+                 lora: LoraSpec | None = None, act_quant: bool | str = True,
+                 causal: bool = True, cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.causal, self.cross = causal and not cross, cross
         H, KV, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
         cb, bias = cfg.quant4_codebook, cfg.ln_family
 
@@ -388,53 +398,63 @@ class Attention(nn.Module):
                 return base
             return LoRALinear(base, d_in, d_out, lora, mask)
 
-        if cfg.style == "gpt2":
+        if cfg.style == "gpt2" and not cross:
             targeted = tuple(t for t in ("q", "k", "v") if lora and t in lora.targets)
             mask = None
             if targeted and targeted != ("q", "k", "v"):
                 mask = torch.tensor([float(t in targeted) for t in ("q", "k", "v")]
                                     ).repeat_interleave(d)
             self.c_attn = proj(d, 3 * d, targeted[0] if targeted else "q", mask)
-            self.c_proj = proj(d, d, "o")
         else:
             self.q_proj = proj(d, H * D, "q")
             self.k_proj = proj(d, KV * D, "k")
             self.v_proj = proj(d, KV * D, "v")
+        if cfg.style == "gpt2":
+            self.c_proj = proj(H * D, d, "o")
+        else:
             self.o_proj = proj(H * D, d, "o")
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
-                return_kv: bool = False, generator: torch.Generator | None = None):
-        """x [B, L, d]. ``prefix_kv`` = (k, v) each [1 or B, KV, P, D],
-        already rotated at positions 0..P-1, with x at positions P.. (pass
-        ``position_offset=P``). ``return_kv`` also returns this call's
-        rotated (k, v) [B, KV, L, D] — the prefill cache.
+                return_kv: bool = False, generator: torch.Generator | None = None, *,
+                kv=None, attn_bias=None):
+        """x [B, L, d]; ``kv`` [B, S, d] the encoder's output (cross);
+        ``attn_bias`` [1, H, L, S] t5's relative-position bias (scores
+        unscaled: t5 folds 1/sqrt(D) into its init). ``prefix_kv`` = (k, v)
+        each [1 or B, KV, P, D], already rotated at positions 0..P-1, with x
+        at positions P.. (pass ``position_offset=P``). ``return_kv`` also
+        returns this call's rotated (k, v) [B, KV, L, D], the prefill cache.
 
-        The route: llama at head dim 64 or 128 takes K2 when the call has at
-        most ``K4_MIN_KEYS - 1`` keys and at most K2's ``MAX_KEYS``, else
-        K4's route (``rope_flash_attention``, ``transformer.py:591-633`` of
-        the JAX package); K4 has no backward, so a call that needs a
-        gradient keeps K2 and raises past its key limit. Every other call
-        takes JAX's default path: the rotation (llama; neox on its leading
-        ``rotary_dims``; none for gpt2 and opt), the head transpose, the
-        prefix ahead of k / v, then ``dispatch_attention`` (the plain version
-        below 512 tokens, K4 from there where JAX's gate sends it)."""
+        The route: causal llama self-attention at head dim 64 or 128 with no
+        bias takes K2 when the call has at most ``K4_MIN_KEYS - 1`` keys and
+        at most K2's ``MAX_KEYS``, else K4's route (``rope_flash_attention``,
+        ``transformer.py:591-633`` of the JAX package); K4 has no backward,
+        so a call that needs a gradient keeps K2 and raises past its key
+        limit. Every other call (the ln family, t5, llama at other head
+        dims, every encoder and every cross-attention) takes JAX's default
+        path: the rotation (llama and neox self-attention; neox on its
+        leading ``rotary_dims``), the head transpose, the prefix ahead of k /
+        v, then ``dispatch_attention`` (the plain version below 512 tokens or
+        with a bias, K4 from there where JAX's gate sends it)."""
         cfg = self.cfg
         B, L, _ = x.shape
+        src = x if kv is None else kv
+        S = src.shape[1]
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        if cfg.style == "gpt2":
+        if cfg.style == "gpt2" and not self.cross:
             q, k, v = _project(self.c_attn, x, generator).split(cfg.d_model, dim=-1)
         else:
-            q, k, v = (_project(p, x, generator) for p in (self.q_proj, self.k_proj, self.v_proj))
+            q = _project(self.q_proj, x, generator)
+            k, v = (_project(p, src, generator) for p in (self.k_proj, self.v_proj))
         if self.dtype is not None:  # cast before the head split, as JAX does
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
         q = q.reshape(B, L, H, D)
-        k = k.reshape(B, L, KV, D)
-        v = v.reshape(B, L, KV, D)
+        k = k.reshape(B, S, KV, D)
+        v = v.reshape(B, S, KV, D)
         pk, pv = prefix_kv if prefix_kv is not None else (None, None)
-        if cfg.style == "llama" and D in (64, 128):
+        if cfg.style == "llama" and D in (64, 128) and self.causal and attn_bias is None:
             out, new_kv = self._llama_kernels(q, k, v, pk, pv, position_offset, return_kv)
         else:
-            out, new_kv = self._dispatch(q, k, v, pk, pv, position_offset, return_kv)
+            out, new_kv = self._dispatch(q, k, v, pk, pv, position_offset, return_kv, attn_bias)
         out = _project(self.o_proj if cfg.style != "gpt2" else self.c_proj,
                        out.reshape(B, L, H * D), generator)
         if self.training:
@@ -465,12 +485,12 @@ class Attention(nn.Module):
         return out, (rope(k, cos, sin).transpose(1, 2).contiguous(),
                      v.transpose(1, 2).contiguous())
 
-    def _dispatch(self, q, k, v, pk, pv, position_offset, return_kv):
-        """JAX's default path (``transformer.py:612-647``) -> (out [B, L, H,
+    def _dispatch(self, q, k, v, pk, pv, position_offset, return_kv, bias=None):
+        """JAX's default path (``transformer.py:591-633``) -> (out [B, L, H,
         D], the rotated (k, v) [B, KV, L, D] or None)."""
         cfg = self.cfg
         B, L, D = q.shape[0], q.shape[1], q.shape[3]
-        if cfg.style in ("llama", "neox"):
+        if cfg.style in ("llama", "neox") and not self.cross:
             rot = cfg.rotary_dims
             positions = torch.arange(position_offset, position_offset + L, device=q.device)
             cos, sin = rope_tables(positions, rot, cfg.rope_theta)
@@ -485,20 +505,31 @@ class Attention(nn.Module):
         if pk is not None:
             k = torch.cat([pk.to(k.dtype).expand(B, -1, -1, -1), k], dim=2)
             v = torch.cat([pv.to(v.dtype).expand(B, -1, -1, -1), v], dim=2)
-        out = dispatch_attention(q, k, v, causal=True)
+        out = dispatch_attention(q, k, v, causal=self.causal,
+                                 sm_scale=1.0 if cfg.style == "t5" else None, bias=bias)
         return out.transpose(1, 2), new_kv
 
 
 class MLP(nn.Module):
     """llama's SwiGLU (``gate_proj``, ``up_proj``, ``down_proj``, no bias);
     the ln family's biased ``c_fc`` -> activation (``ln_activation``) ->
-    ``c_proj`` -> the residual dropout (train mode)."""
+    ``c_proj`` -> the residual dropout (train mode); t5's bias-free ``wi``
+    -> relu, or gated (``t5_gated``) tanh-GELU(``wi_0``) x ``wi_1``, then the
+    dropout (train mode), then ``wo``."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
                  act_quant: bool | str = True):
         super().__init__()
         cb = cfg.quant4_codebook
-        self.ln = cfg.ln_family
+        self.ln, self.t5 = cfg.ln_family, cfg.style == "t5"
+        if self.t5:
+            self.p, self.gated = cfg.dropout, cfg.t5_gated
+            names = ("wi_0", "wi_1") if self.gated else ("wi",)
+            for name in names:
+                setattr(self, name, projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb,
+                                               act_quant=act_quant))
+            self.wo = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb, act_quant=act_quant)
+            return
         if self.ln:
             self.p, self.act = cfg.dropout, ln_activation(cfg)
             self.c_fc = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, True, act_quant)
@@ -511,6 +542,10 @@ class MLP(nn.Module):
                                     act_quant=act_quant)
 
     def forward(self, x, generator=None):
+        if self.t5:
+            h = (_gelu_tanh(self.wi_0(x)) * self.wi_1(x) if self.gated
+                 else F.relu(self.wi(x)))
+            return self.wo(dropout(h, self.p, generator) if self.training else h)
         if not self.ln:
             return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         h = self.c_proj(self.act(self.c_fc(x)))
@@ -779,40 +814,61 @@ class MoEMLP(DerivedWeights):
 
 
 class Block(nn.Module):
-    """Pre-norm block: RMSNorm ``input_layernorm`` / ``post_attention_layernorm``
-    (llama) or LayerNorm ``ln_1`` / ``ln_2`` at ``cfg.norm_eps`` (the ln
-    family); ``x + attn(n1(x))``, then ``x + mlp(n2(x))``, or neox's parallel
-    residual ``x + attn(ln_1(x)) + mlp(ln_2(x))``. The FFN is the MoE one
-    when the config has more than one expert."""
+    """A block: RMSNorm ``input_layernorm`` / ``post_attention_layernorm``
+    (llama, t5) or LayerNorm ``ln_1`` / ``ln_2`` at ``cfg.norm_eps`` (the ln
+    family); pre-norm ``x + attn(n1(x))``, then ``x + mlp(n2(x))``, or
+    neox's parallel residual ``x + attn(ln_1(x)) + mlp(ln_2(x))``, or bart's
+    post-norm ``n1(x + attn(x))``, ``n2(x + mlp(x))``. ``cross`` (the
+    encoder-decoders' decoder) adds the cross-attention sublayer into
+    ``enc_out`` between the two, with its norm ``ln_cross`` /
+    ``cross_attention_layernorm`` in the same order; ``causal`` False is an
+    encoder's block. The FFN is the MoE one when the config has more than
+    one expert."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
-                 lora: LoraSpec | None = None, act_quant: bool | str = True):
+                 lora: LoraSpec | None = None, act_quant: bool | str = True,
+                 causal: bool = True, cross: bool = False):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.cross = cfg, cross
         if cfg.ln_family:
-            self.n1, self.n2 = "ln_1", "ln_2"
+            self.n1, self.n2, self.nc = "ln_1", "ln_2", "ln_cross"
             norm = lambda: LayerNorm(cfg.d_model, cfg.norm_eps, dtype)  # noqa: E731
         else:
             self.n1, self.n2 = "input_layernorm", "post_attention_layernorm"
+            self.nc = "cross_attention_layernorm"
             norm = lambda: RMSNorm(cfg.d_model, cfg.norm_eps)  # noqa: E731
         setattr(self, self.n1, norm())
-        self.attn = Attention(cfg, quantize, dtype, lora, act_quant)
+        self.attn = Attention(cfg, quantize, dtype, lora, act_quant, causal)
+        if cross:
+            setattr(self, self.nc, norm())
+            self.cross_attn = Attention(cfg, quantize, dtype, lora, act_quant, cross=True)
         setattr(self, self.n2, norm())
         self.mlp = (MoEMLP if cfg.n_experts > 1 else MLP)(cfg, quantize, dtype, act_quant)
 
     def forward(self, x, prefix_kv=None, position_offset: int = 0,
-                return_kv: bool = False, generator: torch.Generator | None = None):
-        a = self.attn(getattr(self, self.n1)(x), prefix_kv, position_offset, return_kv,
-                      generator)
+                return_kv: bool = False, generator: torch.Generator | None = None, *,
+                enc_out=None, attn_bias=None):
+        post = self.cfg.post_ln
+        n1, n2 = getattr(self, self.n1), getattr(self, self.n2)
+        a = self.attn(x if post else n1(x), prefix_kv, position_offset, return_kv, generator,
+                      attn_bias=attn_bias)
         new_kv = None
         if return_kv:
             a, new_kv = a
-        n2 = getattr(self, self.n2)
         if self.cfg.parallel_residual:
             x = x + a + self.mlp(n2(x), generator)
-        else:
-            x = x + a
-            x = x + self.mlp(n2(x), generator)
+            return (x, new_kv) if return_kv else x
+        x = x + a
+        if post:
+            x = n1(x)
+        if self.cross:
+            nc = getattr(self, self.nc)
+            x = x + self.cross_attn(x if post else nc(x), generator=generator, kv=enc_out)
+            if post:
+                x = nc(x)
+        x = x + self.mlp(x if post else n2(x), generator)
+        if post:
+            x = n2(x)
         return (x, new_kv) if return_kv else x
 
 
@@ -836,10 +892,10 @@ class TransformerDecoder(nn.Module):
                  lora: LoraSpec | None = None, act_quant: bool | str = True,
                  remat: bool | str = False):
         super().__init__()
-        if cfg.style not in ("llama", "gpt2", "opt", "neox"):
-            raise NotImplementedError(
-                f"decoder style {cfg.style!r}: the encoder-decoders are ROADMAP queue 1, "
-                "\"Other backbone families and LoRA\"")
+        if cfg.style not in ("llama", "gpt2", "opt", "neox") or cfg.is_encoder_decoder:
+            raise ValueError(f"TransformerDecoder builds the decoder-only styles; "
+                             f"{cfg.style!r} (encoder-decoder: {cfg.is_encoder_decoder}) is "
+                             "TransformerEncDec's")
         self.cfg, self.remat = cfg, remat
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
@@ -893,3 +949,135 @@ class TransformerDecoder(nn.Module):
             x, kv = block(x, return_kv=True)
             kvs.append(kv)
         return tuple(kvs)
+
+
+def t5_relative_buckets(L: int, S: int, *, bidirectional: bool, num_buckets: int,
+                        max_distance: int, device=None) -> torch.Tensor:
+    """t5's relative-position bucket ids [L, S] (``t5_relative_buckets`` of
+    the JAX package, HF's ``_relative_position_bucket``): key minus query
+    position; exact buckets below half the (per-sign, when bidirectional)
+    count, log-spaced ones up to ``max_distance``, the last bucket past it."""
+    ctx = torch.arange(L, dtype=torch.int32, device=device)[:, None]
+    mem = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+    rel = mem - ctx
+    if bidirectional:
+        nb = num_buckets // 2
+        base = (rel > 0).to(torch.int32) * nb
+        n = rel.abs()
+    else:
+        nb = num_buckets
+        base = torch.zeros_like(rel)
+        n = torch.clamp_min(-rel, 0)
+    max_exact = nb // 2
+    large = max_exact + (torch.log(torch.clamp_min(n, 1).float() / max_exact)
+                         / math.log(max_distance / max_exact) * (nb - max_exact)
+                         ).to(torch.int32)
+    large = torch.clamp_max(large, nb - 1)
+    return base + torch.where(n < max_exact, n, large)
+
+
+class TransformerEncDec(nn.Module):
+    """The encoder-decoder backbone (``TransformerEncDec`` of the JAX
+    package): the encoder reads ``inputs_embeds`` (MedTsLLM's prompt), the
+    decoder ``decoder_inputs_embeds`` (the series' patches) with
+    cross-attention into the encoder's output, and the decoder's last hidden
+    state is returned (no LM head).
+
+    t5: RMSNorm blocks, unscaled attention with the relative-position bias
+    computed once a side from its table (``enc_rel_bias`` / ``dec_rel_bias``
+    [buckets, heads], HF's block-0 tables) and shared by every block, relu or
+    gated-gelu FFN, the final ``enc_norm`` / ``dec_norm``. bart: post-LN
+    blocks, learned positions ``enc_wpe`` / ``dec_wpe`` read from row
+    ``pos_offset`` 2, ``enc_ln_emb`` / ``dec_ln_emb`` after them, then the
+    embedding dropout (train mode), no final norm. llama (``encdec-tiny``):
+    pre-norm RMSNorm blocks, rotary self-attention (the encoder's non-causal
+    through the dispatcher, never K2), ``enc_norm`` / ``dec_norm``. gpt2:
+    learned positions ``wpe`` on both sides, ``enc_ln_f`` / ``dec_ln_f``.
+    ``embed`` scales the token embeddings by sqrt(d_model) under
+    ``scale_embedding`` (the ids path only). ``remat`` recomputes every block
+    of a forward that needs gradients (``remat_call``); ``lora``,
+    ``quantize`` and ``act_quant`` are the decoder's."""
+
+    def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
+                 lora: LoraSpec | None = None, act_quant: bool | str = True,
+                 remat: bool | str = False):
+        super().__init__()
+        if cfg.style not in ("llama", "gpt2", "t5", "bart") or cfg.n_experts > 1:
+            raise ValueError(f"encoder-decoder style {cfg.style!r} (experts "
+                             f"{cfg.n_experts}) is not one of llama, gpt2, t5, bart")
+        self.cfg, self.remat = cfg, remat
+        d = cfg.d_model
+        self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, d), requires_grad=False)
+        kw = dict(quantize=quantize, dtype=dtype, lora=lora, act_quant=act_quant)
+        self.enc_blocks = nn.ModuleList(Block(cfg, causal=False, **kw)
+                                        for _ in range(cfg.n_layers))
+        self.dec_blocks = nn.ModuleList(Block(cfg, cross=True, **kw)
+                                        for _ in range(cfg.n_dec_layers or cfg.n_layers))
+        if cfg.style == "bart":
+            rows = cfg.max_position + cfg.pos_offset
+            self.enc_wpe = nn.Parameter(torch.zeros(rows, d))
+            self.dec_wpe = nn.Parameter(torch.zeros(rows, d))
+            self.enc_ln_emb = LayerNorm(d, cfg.norm_eps, dtype)
+            self.dec_ln_emb = LayerNorm(d, cfg.norm_eps, dtype)
+        elif cfg.style == "gpt2":
+            self.enc_ln_f = LayerNorm(d, cfg.norm_eps, dtype)
+            self.dec_ln_f = LayerNorm(d, cfg.norm_eps, dtype)
+            self.wpe = nn.Parameter(torch.zeros(cfg.max_position, d))
+        else:
+            self.enc_norm = RMSNorm(d, cfg.norm_eps)
+            self.dec_norm = RMSNorm(d, cfg.norm_eps)
+        if cfg.style == "t5":
+            self.enc_rel_bias = nn.Parameter(torch.zeros(cfg.rel_buckets, cfg.n_heads))
+            self.dec_rel_bias = nn.Parameter(torch.zeros(cfg.rel_buckets, cfg.n_heads))
+
+    def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
+        e = self.wte[token_ids]
+        return e * math.sqrt(self.cfg.d_model) if self.cfg.scale_embedding else e
+
+    def _rel_bias(self, table: torch.Tensor, L: int, bidirectional: bool, dtype):
+        cfg = self.cfg
+        buckets = t5_relative_buckets(L, L, bidirectional=bidirectional,
+                                      num_buckets=cfg.rel_buckets,
+                                      max_distance=cfg.rel_max_distance, device=table.device)
+        return table[buckets].permute(2, 0, 1)[None].to(dtype)  # [1, H, L, L]
+
+    def _side(self, x: torch.Tensor, side: str, generator) -> torch.Tensor:
+        """One side's embeddings: the learned positions (and bart's
+        LayerNorm and dropout)."""
+        cfg = self.cfg
+        if cfg.style == "gpt2":
+            return x + self.wpe[None, :x.shape[1]].to(x.dtype)
+        if cfg.style != "bart":
+            return x
+        p0 = cfg.pos_offset
+        x = x + getattr(self, f"{side}_wpe")[None, p0:p0 + x.shape[1]].to(x.dtype)
+        x = getattr(self, f"{side}_ln_emb")(x)
+        return dropout(x, cfg.dropout, generator) if self.training else x
+
+    def _stack(self, blocks, x, generator, **kw) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            for block in blocks:
+                x = remat_call(lambda h, g, b=block: b(h, generator=g, **kw), x, generator,
+                               self.remat)
+            return x
+        for block in blocks:
+            x = block(x, generator=generator, **kw)
+        return x
+
+    def forward(self, inputs_embeds: torch.Tensor, decoder_inputs_embeds: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        t5 = cfg.style == "t5"
+        enc = self._side(inputs_embeds, "enc", generator)
+        bias = self._rel_bias(self.enc_rel_bias, enc.shape[1], True, enc.dtype) if t5 else None
+        enc = self._stack(self.enc_blocks, enc, generator, attn_bias=bias)
+        if cfg.style == "gpt2":
+            enc = self.enc_ln_f(enc)
+        elif cfg.style != "bart":  # bart's post-LN blocks end with their own norm
+            enc = self.enc_norm(enc)
+        dec = self._side(decoder_inputs_embeds, "dec", generator)
+        bias = self._rel_bias(self.dec_rel_bias, dec.shape[1], False, dec.dtype) if t5 else None
+        dec = self._stack(self.dec_blocks, dec, generator, enc_out=enc, attn_bias=bias)
+        if cfg.style == "gpt2":
+            return self.dec_ln_f(dec)
+        return dec if cfg.style == "bart" else self.dec_norm(dec)

@@ -1,11 +1,13 @@
-"""MedTsLLM on a llama, gpt2, opt, neox or Mamba backbone (port of
-``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
+"""MedTsLLM on a llama, gpt2, opt, neox, Mamba, t5 or bart backbone (port
+of ``medtsllm_tpu/models/medtsllm.py``: ReprogrammingLayer, MedTsLLM and the
 host-side PromptBuilder).
 
 RevIN -> patch unfold -> conv patch embedding -> vocab-mapped reprogramming
 cross-attention (kernel K3) -> [prompt embeds | ts embeds] -> the backbone
 (llama: kernels K1, K2; the ln family: K1, K4 from 512 keys; Mamba: the
-selective-scan kernel) -> d_ff
+selective-scan kernel; an encoder-decoder: the prompt through the encoder,
+the series' patches through the decoder, K1 and, on bart's decoder from 512
+patches, K4) -> d_ff
 downsample -> FlattenHead -> the task's head: RevIN denorm
 (reconstruction, anomaly detection, pretraining, forecasting's
 ``pred_len`` steps past the window, imputation), classification's one row
@@ -51,10 +53,22 @@ ends the prompt's first part, and the example series, cropped or tiled to
 one length fixed from the dataset's pool, goes through ``encode_ts`` (K3 a
 second time) between that part and the rest of the prompt.
 
+An encoder-decoder backbone (``llm_cfg.is_encoder_decoder``: t5, mt5, bart
+or ``encdec-tiny``) reads the prompt in its encoder and the series'
+embeddings in its decoder, and the head takes the decoder's last
+``n_patches`` rows, in every covariate mode (the prompt repeated per
+channel under ``independent`` / ``merge-end``). It needs a prompt (JAX
+asserts one) and has no prompt-head cache: its encoder is bidirectional.
+
+The backbone's weights (``load_backbone_weights``, the trainer's hook):
+a local snapshot with ``*.safetensors`` replaces the random init
+(``models/llm/loader.py``), its projections quantized at load; without one
+the init stays, with JAX's warning.
+
 Scope: a decoder backbone (llama, dense or mixtral-style MoE, served on one
-device; gpt2, opt, neox) or a dense Mamba one, or none; anything else
-raises NotImplementedError naming its ROADMAP item. The tasks are those of
-``tasks.task_lookup``, all eight of the JAX package.
+device; gpt2, opt, neox), an encoder-decoder or a dense Mamba one, or none;
+anything else raises NotImplementedError naming its ROADMAP item. The tasks
+are those of ``tasks.task_lookup``, all eight of the JAX package.
 """
 
 from __future__ import annotations
@@ -73,9 +87,10 @@ from ..ops.kernels.reprogramming import reprogramming_attention
 from ..ops.revin import masked_window_norm, revin_denorm, revin_norm
 from ..ops.transformer import LayerNorm
 from .llm.config import LoraSpec, resolve_config
+from .llm.loader import load_backbone_weights_
 from .llm.mamba import MambaBackbone
 from .llm.tokenizer import get_tokenizer
-from .llm.transformer import Linear, TransformerDecoder
+from .llm.transformer import Linear, TransformerDecoder, TransformerEncDec
 
 # batch keys that enter the model as arrays (medtsllm_tpu/utils.py)
 ARRAY_BATCH_KEYS = ("x_enc", "y", "labels", "index", "valid")
@@ -256,7 +271,8 @@ class MedTsLLM(nn.Module):
         self.covariate_mode = covariate_mode
         self.embedding_downsample_mode = embedding_downsample_mode
         self.llm_enabled = llm_enabled
-        self.lora = lora
+        self.lora, self.quantize = lora, quantize
+        self.encdec = llm_enabled and getattr(llm_cfg, "is_encoder_decoder", False)
         # medtsllm_tpu/models/medtsllm.py:161-181
         self.n_outputs_per_step = {
             "segmentation": 1,
@@ -271,6 +287,8 @@ class MedTsLLM(nn.Module):
                 raise ValueError("LoRA targets attention projections; the mamba backbone "
                                  "has none — finetune with llm.lora disabled")
             self.llm = MambaBackbone(llm_cfg, quantize, dt, remat)
+        elif self.encdec:
+            self.llm = TransformerEncDec(llm_cfg, quantize, dt, lora, act_quant, remat)
         else:
             self.llm = TransformerDecoder(llm_cfg, quantize, dt, lora, act_quant, remat)
         # the frozen backbone but for its adapters (param_labels)
@@ -403,8 +421,10 @@ class MedTsLLM(nn.Module):
     def supports_prefix_cache(self) -> bool:
         """The prompt head is prefilled and served from a cache: an enabled
         backbone of a style that caches (the decoders' per-layer K/V,
-        Mamba's per-layer state) with ``llm.prefix_cache``."""
-        return (self.llm_enabled and self.prefix_cache
+        Mamba's per-layer state) with ``llm.prefix_cache``; never an
+        encoder-decoder, whose bidirectional encoder lets every prompt
+        token see the whole prompt (``encdec-tiny`` has llama's style)."""
+        return (self.llm_enabled and self.prefix_cache and not self.encdec
                 and self.llm_cfg.style in ("gpt2", "llama", "opt", "neox", "mamba"))
 
     @property
@@ -491,12 +511,20 @@ class MedTsLLM(nn.Module):
             if prefix_kv is not None:
                 prefix_kv = tuple(tuple(t.repeat_interleave(C, dim=0) if t.shape[0] > 1
                                         else t for t in layer) for layer in prefix_kv)
-        enc = torch.cat(parts + [ts_emb], dim=1)
-        if self.llm_enabled:
+        if self.encdec:
+            # the prompt -> the encoder, the series -> the decoder (JAX's
+            # medtsllm.py:628-636)
+            if not parts:
+                raise ValueError("encoder-decoder backbones require prompting enabled")
+            dec_out = self.llm(torch.cat(parts, dim=1), ts_emb, generator=generator)
+            dec_out = self._downsample(dec_out[:, -self.n_patches:, :])
+        elif self.llm_enabled:
+            enc = torch.cat(parts + [ts_emb], dim=1)
             dec_out = self.llm(enc, prefix_kv=prefix_kv, generator=generator)
             dec_out = self._downsample(dec_out[:, -self.n_patches:, :])
         else:  # the ablation's MLP in place of the backbone and the downsample
-            dec_out = self.llm_replacement(enc)[:, -self.n_patches:, :]
+            dec_out = self.llm_replacement(torch.cat(parts + [ts_emb], dim=1))
+            dec_out = dec_out[:, -self.n_patches:, :]
 
         # FlattenHead (medtsllm.py:541-552) on [B', d_ff, P]
         dec_out = dec_out.transpose(1, 2).reshape(dec_out.shape[0], -1)
@@ -524,6 +552,14 @@ class MedTsLLM(nn.Module):
             elif self.seg_mode == "boundary-prediction":
                 dec_out = torch.sigmoid(dec_out)
         return dec_out
+
+    def load_backbone_weights(self) -> None:
+        """The trainer's hook: an enabled backbone loads a local snapshot's
+        weights, quantized at the model's ``quantize`` and codebook
+        (``loader.load_backbone_weights_``)."""
+        if self.llm_enabled:
+            load_backbone_weights_(self.llm, self.llm_cfg, self.llm_id, self.cache_dir,
+                                   self.quantize)
 
     def prefill(self, prefix_ids: torch.Tensor, embed_dtype=torch.float32):
         """Per-layer (k, v) of a prompt head: the constant 1-D head (once per

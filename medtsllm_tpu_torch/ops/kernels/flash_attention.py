@@ -35,8 +35,9 @@ take it, after their rotation and the prefix concat.
 
 The kernel never holds the [L, S] scores: it keeps an f32 running max, sum
 and accumulator per query row and writes ``acc / max(l, 1e-30)`` rounded to
-q's dtype. The t5 additive bias is not ported (it takes JAX's reference
-path; ROADMAP queue 1, "Other backbone families and LoRA").
+q's dtype. A call with an additive ``bias`` (t5's relative positions)
+always takes the plain version, as JAX's dispatcher sends it to its
+reference path (``flash_attention.py:212-213``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -55,11 +56,12 @@ from .rope_attention import rope
 _NEG_INF = -1e30
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, sm_scale: float | None = None):
-    """``_attention_reference`` (flash_attention.py:47-78) without the
-    bias: the group folded into the query rows, f32 scores x scale, the
-    end-aligned mask ``tril(k = S - L)`` filled with -1e30, an f32 softmax,
-    the probabilities cast to v's dtype, then PV."""
+def flash_attention_plain(q, k, v, causal: bool = True, sm_scale: float | None = None,
+                          bias=None):
+    """``_attention_reference`` (flash_attention.py:47-78): the group
+    folded into the query rows, f32 scores x scale, ``bias`` [1, H, L, S]
+    added (t5), the end-aligned mask ``tril(k = S - L)`` filled with -1e30,
+    an f32 softmax, the probabilities cast to v's dtype, then PV."""
     B, H, L, D = q.shape
     KV, S = k.shape[1], k.shape[2]
     G = H // KV
@@ -67,6 +69,8 @@ def flash_attention_plain(q, k, v, causal: bool = True, sm_scale: float | None =
         sm_scale = 1.0 / math.sqrt(D)
     q4 = q.reshape(B, KV, G * L, D).float()
     scores = ((q4 @ k.float().transpose(-1, -2)) * sm_scale).reshape(B, KV, G, L, S)
+    if bias is not None:
+        scores = scores + bias.reshape(1, KV, G, L, S).float()
     if causal:
         mask = torch.ones((L, S), dtype=torch.bool, device=q.device).tril(S - L)
         scores = scores.masked_fill(~mask, _NEG_INF)
@@ -153,15 +157,17 @@ def attention_route(L: int, S: int, D: int, causal: bool) -> str:
     return "plain"
 
 
-def dispatch_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
+def dispatch_attention(q, k, v, causal: bool = True, sm_scale: float | None = None,
+                       bias=None):
     """q [B, H, L, D], k/v [B, KV, S, D] -> [B, H, L, D] by
     ``attention_route``: the plain version (differentiable), or K4 through
     ``flash_attention`` (which raises where a gradient is needed), on the
-    padded q/k/v for "k4-padded"."""
+    padded q/k/v for "k4-padded". A ``bias`` [1, H, L, S] always takes the
+    plain version."""
     L, S, D = q.shape[2], k.shape[2], q.shape[-1]
-    route = attention_route(L, S, D, causal)
+    route = "plain" if bias is not None else attention_route(L, S, D, causal)
     if route == "plain":
-        return flash_attention_plain(q, k, v, causal, sm_scale)
+        return flash_attention_plain(q, k, v, causal, sm_scale, bias)
     if route == "k4":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
                                sm_scale)

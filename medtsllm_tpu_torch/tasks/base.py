@@ -121,11 +121,9 @@ class BaseTask:
                              if medtsllm else None)
         generator = torch.Generator(self.device).manual_seed(seed)
         init_random_(self.model, generator)
-        if medtsllm:
-            warnings.warn(f"LLM {self.model.llm_id!r}: no weights are loaded — "
-                          "random init (shapes and throughput faithful; task "
-                          "quality not meaningful)")
-        elif hasattr(self.model, "load_backbone_weights"):  # GPT4TS's backbone
+        if hasattr(self.model, "load_backbone_weights"):  # MedTsLLM's and GPT4TS's
+            # a local snapshot's weights replace the backbone's init, before
+            # the dtype policy, as JAX's pretrained_param_loader
             self.model.load_backbone_weights()
         self._apply_param_dtype()
         self.model.eval()

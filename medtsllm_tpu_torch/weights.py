@@ -2,7 +2,13 @@
 initialisation on the device with the JAX init's distributions.
 
 State-dict names follow the flax paths: ``/`` becomes ``.``, the decoder's
-``h_{i}`` becomes ``blocks.{i}``, and the wrapper scopes ``base`` (LoRADense)
+``h_{i}`` becomes ``blocks.{i}`` (the encoder-decoders' ``enc_h_{i}`` /
+``dec_h_{i}``: ``enc_blocks.{i}`` / ``dec_blocks.{i}``, each decoder block with
+its ``cross_attn`` and ``ln_cross`` / ``cross_attention_layernorm``; t5's MLP
+``wi`` or ``wi_0`` / ``wi_1`` and ``wo``; the backbone's ``enc_rel_bias`` /
+``dec_rel_bias`` (t5), ``enc_wpe`` / ``dec_wpe`` and ``enc_ln_emb`` /
+``dec_ln_emb`` (bart), ``enc_norm`` / ``dec_norm`` or ``enc_ln_f`` /
+``dec_ln_f``, keep their names), and the wrapper scopes ``base`` (LoRADense)
 and ``Conv_0`` are dropped, but ``base`` stays where its scope also holds
 the adapters ``lora_a`` [in, rank] / ``lora_b`` [rank, out] (the port's
 ``LoRALinear``, which keeps JAX's layout for them). The ln family maps the
@@ -41,7 +47,7 @@ from torch import nn
 
 from .models.llm.mamba import MambaBackbone, MambaBlock
 from .models.llm.transformer import (LoRALinear, MoEMLP, QuantLinear, RMSNorm,
-                                     TransformerDecoder)
+                                     TransformerDecoder, TransformerEncDec)
 from .models.dlinear import DLinear
 from .models.medtsllm import WordEmbeddings
 from .ops.autoformer import CircularConv
@@ -91,8 +97,8 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
             scope.append(part)
             if part in ("base", "Conv_0") and not kept:
                 continue
-            m = re.fullmatch(r"h_(\d+)", part)
-            parts += ["blocks", m.group(1)] if m else [part]
+            m = re.fullmatch(r"(enc_|dec_|)h_(\d+)", part)
+            parts += [m.group(1) + "blocks", m.group(2)] if m else [part]
         arr = np.asarray(value)
         leaf = parts[-1]
         if leaf == "kernel_q":
@@ -117,7 +123,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in place, on the model's device, drawing from
     ``generator`` (on that device) with the JAX init's distributions:
     word embeddings N(0, 0.02), gpt2's learned positions N(0, 0.01); RMSNorm
-    ones; int8 projections
+    ones; the encoder-decoders' word embeddings N(0, 0.02), t5's
+    relative-bias tables N(0, 0.02), bart's position tables and the gpt2
+    style's N(0, 0.01) (transformer.py:1575-1634); int8 projections
     clip(round(N(0, 0.02) / S_INIT), +-127) with scale S_INIT; int4 ones
     clip(round(w / S_INIT4), +-7) (absmax) or the nearest table entry of
     w / S_INIT4 (nf4, fp4: the first on ties, so fp4's -0 is never drawn)
@@ -229,7 +237,12 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
                 1, N + 1, dtype=torch.float32, device=module.A_log.device)).expand(
                     module.A_log.shape))
             module.D.fill_(1.0)
-        elif isinstance(module, (TransformerDecoder, MambaBackbone, WordEmbeddings)):
+        elif isinstance(module, (TransformerDecoder, TransformerEncDec, MambaBackbone,
+                                 WordEmbeddings)):
             module.wte.normal_(0.0, 0.02, generator=generator)
-            if getattr(module, "wpe", None) is not None:  # gpt2's learned positions
-                module.wpe.normal_(0.0, 0.01, generator=generator)
+            for name in ("wpe", "enc_wpe", "dec_wpe"):  # learned positions
+                if getattr(module, name, None) is not None:
+                    getattr(module, name).normal_(0.0, 0.01, generator=generator)
+            for name in ("enc_rel_bias", "dec_rel_bias"):  # t5
+                if getattr(module, name, None) is not None:
+                    getattr(module, name).normal_(0.0, 0.02, generator=generator)

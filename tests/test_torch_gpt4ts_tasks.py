@@ -17,8 +17,11 @@ tests/test_torch_gpt4ts.py's.)
       through the train and test CLIs' ``__main__`` with ``--device cpu``:
       finite losses, the task's score keys, the same test scores from both
       CLIs;
-  (g) a local snapshot found is refused by name; MedTsLLM over gpt2 builds, a t5 snapshot is
-      refused by its item's title.
+  (g) a local gpt2 snapshot (config.json and seeded weights written by the
+      port's safetensors writer) loads into GPT4TS's backbone, one that
+      cannot be read raises, none keeps the init with JAX's warning;
+      MedTsLLM over gpt2 builds, and over a t5 snapshot's config.json
+      builds the encoder-decoder (no prompt-head cache) and serves a batch.
 """
 
 import contextlib
@@ -228,13 +231,40 @@ def test_shipped_file_trains_and_tests_through_the_clis(tmp_path, monkeypatch, c
 
 
 def test_snapshot_found_is_refused(tmp_path):
-    """(g) a local snapshot of the backbone: JAX would load it, so the port
-    refuses it by its item's title rather than keep the random init."""
+    """(g) a local gpt2 snapshot found is loaded: GPT4TS's backbone holds its
+    tensors (gpt2-tiny's widths, seeded, in HF's names); a snapshot whose
+    file is cut short raises; without one the init stays, with JAX's
+    warning."""
+    from medtsllm_tpu_torch.models.llm.safetensors import save_safetensors
     raw = _raw("dreams", tmp_path / "logs", llm="gpt2-tiny")
-    (tmp_path / "snap").mkdir()
-    (tmp_path / "snap" / "config.json").write_text("{}")
-    raw["paths"]["llm_path"] = str(tmp_path / "snap")
-    with pytest.raises(NotImplementedError, match='"Llama decoder, open parts"'):
+    snap = tmp_path / "snap"
+    snap.mkdir()
+    (snap / "config.json").write_text(
+        '{"model_type": "gpt2", "vocab_size": 512, "n_embd": 64, "n_layer": 2, '
+        '"n_head": 4, "n_inner": 128, "n_positions": 512}')
+    rng = np.random.default_rng(0)
+    shapes = {"wte.weight": (512, 64), "wpe.weight": (512, 64), "ln_f.weight": (64,),
+              "ln_f.bias": (64,)}
+    for i in range(2):
+        shapes.update({f"h.{i}.ln_1.weight": (64,), f"h.{i}.ln_1.bias": (64,),
+                       f"h.{i}.ln_2.weight": (64,), f"h.{i}.ln_2.bias": (64,),
+                       f"h.{i}.attn.c_attn.weight": (64, 192), f"h.{i}.attn.c_attn.bias": (192,),
+                       f"h.{i}.attn.c_proj.weight": (64, 64), f"h.{i}.attn.c_proj.bias": (64,),
+                       f"h.{i}.mlp.c_fc.weight": (64, 128), f"h.{i}.mlp.c_fc.bias": (128,),
+                       f"h.{i}.mlp.c_proj.weight": (128, 64), f"h.{i}.mlp.c_proj.bias": (64,)})
+    hf = {k: rng.normal(0, 0.02, v).astype(np.float32) for k, v in shapes.items()}
+    save_safetensors(snap / "model.safetensors", hf)
+    raw["paths"]["llm_path"] = str(snap)
+    tt = get_trainer("snap", Config(raw), device="cpu")
+    state = tt.model.state_dict()
+    np.testing.assert_array_equal(state["gpt2.wte"].numpy(), hf["wte.weight"])
+    np.testing.assert_array_equal(state["gpt2.blocks.1.attn.c_attn.weight"].numpy(),
+                                  hf["h.1.attn.c_attn.weight"].T)
+    np.testing.assert_array_equal(state["gpt2.blocks.0.ln_2.bias"].numpy(),
+                                  hf["h.0.ln_2.bias"])
+    data = (snap / "model.safetensors").read_bytes()
+    (snap / "model.safetensors").write_bytes(data[:len(data) // 2])
+    with pytest.raises(ValueError, match="cannot be read"):
         get_trainer("snap", Config(raw), device="cpu")
     raw["paths"].pop("llm_path")
     with pytest.warns(UserWarning, match="no local weights found"):
@@ -243,9 +273,11 @@ def test_snapshot_found_is_refused(tmp_path):
 
 def test_medtsllm_over_gpt2_refused(tmp_path):
     """(g) MedTsLLM over gpt2 builds (the ln family is ported, its prompt
-    head cached); what stays refused is an encoder-decoder snapshot (t5),
-    named by its item's title."""
+    head cached); over a t5 snapshot's config.json (no weights: the seeded
+    init) it builds the encoder-decoder, with no prompt-head cache, and
+    serves a finite batch."""
     from conftest import make_config
+    from medtsllm_tpu_torch.models.llm.transformer import TransformerEncDec
     cfg = make_config(task="reconstruction", model="medtsllm", hist=32, pred=32, step=16)
     cfg["paths"] = {"logdir": str(tmp_path / "logs")}
     cfg["models"] = {"medtsllm": {
@@ -258,7 +290,14 @@ def test_medtsllm_over_gpt2_refused(tmp_path):
     tt = get_trainer("x", cfg, device="cpu")
     assert tt.model.supports_prefix_cache and tt.model.llm_cfg.style == "gpt2"
     (tmp_path / "t5").mkdir()
-    (tmp_path / "t5" / "config.json").write_text('{"model_type": "t5"}')
+    (tmp_path / "t5" / "config.json").write_text(
+        '{"model_type": "t5", "vocab_size": 512, "d_model": 64, "d_kv": 16, "d_ff": 128, '
+        '"num_layers": 2, "num_heads": 4, "feed_forward_proj": "gated-gelu"}')
     cfg.models.medtsllm.llm.llm = str(tmp_path / "t5")
-    with pytest.raises(NotImplementedError, match='"Other backbone families and LoRA"'):
-        get_trainer("x", cfg, device="cpu")
+    with pytest.warns(UserWarning, match="no local weights found"):
+        tt = get_trainer("x", cfg, device="cpu")
+    assert isinstance(tt.model.llm, TransformerEncDec) and tt.model.llm_cfg.t5_gated
+    assert not tt.model.supports_prefix_cache
+    batch = next(iter(tt.test_pipeline))
+    out = tt.eval_dispatch(batch).numpy()
+    assert out.shape == (4, 32, 3) and np.isfinite(out).all()

@@ -7,9 +7,10 @@ shapes) in the port against the JAX package's, on the CPU.
       field of the port's config equal to JAX's, the derived head dim,
       kv heads, learned positions, position offset and rotary dims too;
   (b) the refusals JAX makes, made alike: an unmapped activation, OPT's
-      projection (350m) and post-LN variants, an unknown model_type; the
-      encoder-decoders (t5, bart), which JAX builds and the port does not
-      yet, named by their item's title;
+      projection (350m) and post-LN variants, a bart whose encoder and
+      decoder differ in heads or FFN width, an unknown model_type; and the
+      encoder-decoders' published config.json (flan-t5-base, mt5-small,
+      bart-base), each field equal to JAX's;
   (c) ``resolve_config`` reads a snapshot directory before the presets
       (``paths.llm_path`` as its cache dir) and cuts it to ``llm_layers``;
       MedTsLLM builds over an opt and a gpt_neox config.json of tiny widths
@@ -63,6 +64,24 @@ MAMBA_130M = {"model_type": "mamba", "vocab_size": 50280, "hidden_size": 768,
               "num_hidden_layers": 24, "state_size": 16, "conv_kernel": 4, "expand": 2,
               "time_step_rank": "auto", "layer_norm_epsilon": 1e-5, "use_bias": False,
               "use_conv_bias": True, "bos_token_id": 0, "eos_token_id": 0}
+
+
+# the encoder-decoders: google/flan-t5-base, google/mt5-small, facebook/bart-base
+FLAN_T5_BASE = {"model_type": "t5", "vocab_size": 32128, "d_model": 768, "d_kv": 64,
+                "d_ff": 2048, "num_layers": 12, "num_decoder_layers": 12, "num_heads": 12,
+                "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+                "dropout_rate": 0.1, "layer_norm_epsilon": 1e-6,
+                "feed_forward_proj": "gated-gelu", "is_encoder_decoder": True,
+                "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0}
+MT5_SMALL = dict(FLAN_T5_BASE, model_type="mt5", vocab_size=250112, d_model=512, d_ff=1024,
+                 num_layers=8, num_decoder_layers=8, num_heads=6)
+BART_BASE = {"model_type": "bart", "vocab_size": 50265, "d_model": 768, "encoder_layers": 6,
+             "decoder_layers": 6, "encoder_attention_heads": 12,
+             "decoder_attention_heads": 12, "encoder_ffn_dim": 3072, "decoder_ffn_dim": 3072,
+             "max_position_embeddings": 1024, "activation_function": "gelu", "dropout": 0.1,
+             "scale_embedding": False, "is_encoder_decoder": True, "bos_token_id": 0,
+             "eos_token_id": 2, "pad_token_id": 1}
+ENCDEC = {"t5": FLAN_T5_BASE, "mt5": MT5_SMALL, "bart": BART_BASE}
 
 
 def _strip(hf, *keys):
@@ -129,6 +148,8 @@ def test_config_matches_jax_field_by_field(tmp_path, case):
     (dict(OPT_125M, word_embed_proj_dim=512), NotImplementedError, "word_embed_proj_dim"),
     (dict(OPT_125M, do_layer_norm_before=False), NotImplementedError, "do_layer_norm_before"),
     (dict(PYTHIA_160M, hidden_act="tanh"), NotImplementedError, "tanh"),
+    (dict(BART_BASE, decoder_attention_heads=16), NotImplementedError, "asymmetric"),
+    (dict(BART_BASE, decoder_ffn_dim=4096), NotImplementedError, "asymmetric"),
     ({"model_type": "bert"}, ValueError, "bert"),
 ])
 def test_refusals_match_jax(tmp_path, hf, error, match):
@@ -141,10 +162,24 @@ def test_refusals_match_jax(tmp_path, hf, error, match):
 
 @pytest.mark.parametrize("model_type", ["t5", "mt5", "bart"])
 def test_encoder_decoders_refused_by_title(tmp_path, model_type):
-    """(b) JAX builds these; the port names the item that will."""
-    path = _write(tmp_path, "snap", {"model_type": model_type})
-    with pytest.raises(NotImplementedError, match='queue 1, "Other backbone families and LoRA"'):
-        config_from_hf_json(path)
+    """(b) flan-t5-base's, mt5-small's and bart-base's config.json: every
+    field equal to JAX's, and the derived head dim, post-LN order and
+    position offset; again with the HF defaults left out."""
+    hf = ENCDEC[model_type]
+    lean = _strip(hf, "num_decoder_layers", "relative_attention_num_buckets",
+                  "relative_attention_max_distance", "layer_norm_epsilon", "dropout_rate",
+                  "feed_forward_proj", "decoder_layers", "decoder_attention_heads",
+                  "decoder_ffn_dim", "max_position_embeddings", "activation_function",
+                  "dropout", "scale_embedding")
+    for i, fields in enumerate((hf, lean)):
+        path = _write(tmp_path, f"snap{i}", fields)
+        got, want = config_from_hf_json(path), jax_loader.config_from_hf_json(path)
+        assert got.is_encoder_decoder and got.style == ("bart" if model_type == "bart"
+                                                        else "t5")
+        for field in dataclasses.fields(got):
+            assert getattr(got, field.name) == getattr(want, field.name), field.name
+        for prop in ("head_dim", "kv_heads", "ln_family", "post_ln", "pos_offset"):
+            assert getattr(got, prop) == getattr(want, prop), prop
 
 
 def test_resolve_config_reads_the_snapshot_first(tmp_path):

@@ -27,7 +27,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (37, 176, 72), (5, 64, 200)])
+@pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (37, 176, 72), (5, 64, 200),
+                                   (16 * 48, 768, 768),   # t5 / bart cross k / v: B x P rows
+                                   (16 * 32, 2048, 768)])  # flan-t5-base's wo: B x L rows
 def test_w8a8_kernel_bit_equal(cuda, M, K, N):
     """Kernel vs plain on the card: quantizer, s32 and scaled bf16 output
     all bit-equal (same integer math, same f32 epilogue order)."""
@@ -309,6 +311,38 @@ def test_flash_attention_kernel_vs_plain(cuda, dtype, B, H, KV, L, S, D, causal)
     else:
         err = (out.float() - ref.float()).abs().amax(-1)
         assert (err <= 2 ** -6 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,S,causal,route", [
+    (512, 512, True, "k4"),      # bart's decoder self-attention at 512 patches
+    (512, 48, False, "plain"),   # its cross-attention into a 48-token prompt
+    (512, 256, False, "k4"),     # into a 256-token prompt: JAX's gate sends it to K4
+    (256, 512, False, "k4"),     # a 512-token encoder read by 256 decoder rows
+])
+def test_dispatch_attention_at_encdec_shapes(cuda, dtype, L, S, causal, route):
+    """The encoder-decoders' attention through JAX's dispatcher at bart-base's
+    heads (B 16, H 12, D 64): K4 where the gate sends it, causal or not,
+    against the plain version (f32 1e-5; bf16 per query row, 2^-6 x its
+    max); with t5's additive bias never K4 (JAX's reference path)."""
+    g = torch.Generator(cuda).manual_seed(5)
+    q = torch.randn(16, 12, L, 64, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(16, 12, S, 64, device=cuda, generator=g).to(dtype) for _ in range(2))
+    assert k4.attention_route(L, S, 64, causal) == route
+    n = k4.flash_attention.launches
+    out = k4.dispatch_attention(q, k, v, causal=causal)
+    assert k4.flash_attention.launches == n + (route != "plain")
+    ref = k4.flash_attention_plain(q, k, v, causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert _row_share(out, ref) <= 1
+    bias = torch.randn(1, 12, L, S, device=cuda, generator=g)
+    n = k4.flash_attention.launches
+    out = k4.dispatch_attention(q, k, v, causal=causal, sm_scale=1.0, bias=bias)
+    assert k4.flash_attention.launches == n
+    assert torch.equal(out, k4.flash_attention_plain(q, k, v, causal, 1.0, bias))
 
 
 @pytest.mark.cuda
