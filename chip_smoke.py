@@ -1310,7 +1310,8 @@ def main() -> None:
                bound(q_bytes, 0, "int8"), None,
                f" (per decoder block, {sum(n for *_, n in quants)} calls at M={M}; xq and "
                f"x_scale bit-equal; device time, queued: {q_dev:.4f} ms)")
-        check_k1_gemm(label, M, gemms, f"per decoder block, {note}")
+        if gemms:  # (a caller may list each GEMM apart)
+            check_k1_gemm(label, M, gemms, f"per decoder block, {note}")
 
     def check_k1_gemm(label, M, gemms, note, out_dtype=torch.bfloat16):
         """K1's GEMM at M rows: ``gemms`` (K, N, calls), written as
@@ -1399,13 +1400,21 @@ def main() -> None:
     d = xcfg.d_model
     check_k5("[moe-8x1b]", Be * Le, ((d, d, 2), (d, hkv, 2)), "4 attention GEMMs")
 
-    def check_k2(name, B, L, H, KV, D, P, theta, listed=True, PB=1):
+    def check_k2(name, B, L, H, KV, D, P, theta, listed=True, PB=1, views=False):
         """K2 with a prefix of PB rows: 1 (the constant head) or B (per-clip
         head rows gathered from the bank); P 0: no prefix (``pk = None``,
-        as the pretraining mixture's step runs it)."""
-        q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
-        k = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
-        v = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
+        as the pretraining mixture's step runs it). ``views``: q, k and v
+        are column views of one fused projection output [B, L, (H + 2 KV)
+        D], as ``llm.fuse_projections`` hands them to K2."""
+        if views:
+            qkv = torch.randn(B, L, (H + 2 * KV) * D, device=dev, generator=g).to(
+                torch.bfloat16)
+            q, k, v = (t.reshape(B, L, -1, D)
+                       for t in qkv.split((H * D, KV * D, KV * D), dim=-1))
+        else:
+            q = torch.randn(B, L, H, D, device=dev, generator=g).to(torch.bfloat16)
+            k = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
+            v = torch.randn(B, L, KV, D, device=dev, generator=g).to(torch.bfloat16)
         pk = pv = None
         if P:
             pk = torch.randn(PB, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
@@ -4041,6 +4050,275 @@ def main() -> None:
     print(f"[ranger-classic] one step on gpt2 with LoRA: loss {loss:.6f}, {len(moved)} "
           f"tensors moved; phase 9d {time.perf_counter() - t_phase:.1f} s wall ({smi})")
     del tr, a, before
+    torch.cuda.empty_cache()
+
+    # 6v. quantized Mamba: configs/ablation/mamba-backbone.toml (mamba-130m,
+    # all 24 layers, B 48, bf16) under load_in_8bit, then load_in_4bit with
+    # quant_type int4 and nf4 (n_points 24704: four train batches, 192 test
+    # windows): in_proj, x_proj and out_proj quantized (K1; K1's quantizer and
+    # K5 at absmax int4; the nf4 table dequant and a bf16 matmul), dt_proj
+    # dense. Each through serve() and train_graphed over 4 steps; K1 / K5 held
+    # bit-equal at the three projections' shapes (x_proj N 80: under one
+    # 256-column tile); a 2-layer w8a8 f32 slice card vs CPU
+    t_phase = time.perf_counter()
+    d_m, E_m, R_m = scfg.d_model, scfg.d_inner, scfg.rank
+    n_xp = R_m + 2 * Nm  # x_proj's columns: dt rank 48 + B 16 + C 16
+    M_m = Bm * Lm
+    mamba_gemms = {"in_proj": (d_m, 2 * E_m), "x_proj": (E_m, n_xp), "out_proj": (E_m, d_m)}
+    # the quantizer: in_proj reads the f32 normed residual, x_proj the bf16
+    # conv output, out_proj the bf16 gated scan output
+    check_k1("[mamba-130m]", M_m, ((torch.float32, d_m, 1), (torch.bfloat16, E_m, 2)), (),
+             "3 projections")
+    for name, (K_, N_) in mamba_gemms.items():
+        check_k1_gemm(f"[mamba-{name}]", M_m, ((K_, N_, 1),),
+                      f"mamba-130m {name}, one a block, M {M_m}")
+        check_k5(f"[mamba-{name}]", M_m, ((K_, N_, 1),), f"mamba-130m {name}, M {M_m}")
+    mamba_quant = {"q8": {"load_in_8bit": True},
+                   "int4": {"load_in_4bit": True, "quant_type": "int4"},
+                   "nf4": {"load_in_4bit": True, "quant_type": "nf4"}}
+    m_layers = scfg.n_layers
+    per_step = {"selective_scan_bounds": m_layers, "selective_scan_bwd": m_layers}
+    for label, llm_kw in mamba_quant.items():
+        t0 = time.perf_counter()
+        tr = get_trainer(f"chip-smoke-mamba-{label}", mamba_config(
+            Config, n_points=24704, epochs=1, model={"llm": llm_kw}), device=dev)
+        block = tr.model.llm.blocks[0]
+        bits = 8 if label == "q8" else 4
+        check(all(getattr(block, n).bits == bits for n in mamba_gemms)
+              and isinstance(block.dt_proj, tfm.Linear)
+              and block.x_proj.codebook == ("nf4" if label == "nf4" else "absmax"),
+              f"[mamba-{label}] the projections: {block}")
+        print(f"[mamba-{label}] build {time.perf_counter() - t0:.2f} s; x_proj "
+              f"{tuple(block.x_proj.weight_q.shape)} int8 storage")
+        counts, *_ = serve(tr, f"mamba-{label}")
+        n_gemm = m_layers * 3 * (len(tr.test_pipeline) + 1)  # the batches and the prefill
+        want = {"q8": {"w8a8_quantize": n_gemm, "w8a8_gemm": n_gemm, "w4a8_gemm": 0},
+                "int4": {"w8a8_quantize": n_gemm, "w8a8_gemm": 0, "w4a8_gemm": n_gemm},
+                "nf4": {"w8a8_quantize": 0, "w8a8_gemm": 0, "w4a8_gemm": 0}}[label]
+        check(all(counts[k] == n for k, n in want.items())
+              and counts["selective_scan_h0"] == m_layers * len(tr.test_pipeline),
+              f"[mamba-{label}] test() launches {counts}, want {want}")
+        if label == "q8":  # each projection one GEMM of the three a block
+            set_launches(counts, {"w8a8_quantize[mamba-130m]": "w8a8_quantize"})
+            set_launches(counts, {f"w8a8_gemm[mamba-{n}]": "w8a8_gemm" for n in mamba_gemms},
+                         share=3)
+        elif label == "int4":
+            set_launches(counts, {f"w4a8_gemm[mamba-{n}]": "w4a8_gemm" for n in mamba_gemms},
+                         share=3)
+        train_graphed(tr, f"mamba-{label}", 4, per_step)
+        del tr
+        torch.cuda.empty_cache()
+    small = mamba_config(Config, n_points=512, batch=2, history=64, dtype="float32",
+                         llm_layers=2, model={"llm": {"load_in_8bit": True}})
+    gpu = get_trainer("chip-smoke-mamba-q8-small", small, device=dev)
+    cpu = get_trainer("chip-smoke-mamba-q8-small", small, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.model.state_dict().items()})
+    batch = next(iter(gpu.test_pipeline))
+    out_gpu = gpu.eval_dispatch(batch).cpu()
+    out_cpu = cpu.eval_dispatch(batch)
+    err = (out_gpu - out_cpu).abs().max().item()
+    # f32 but for the int8 codes: K1 is bit-equal to its plain version, the
+    # dense ops sum in another order, and a last-bit activation difference
+    # can flip a code (2^-6 x max, phase 16's bound for the rare flip)
+    tol = 2.0 ** -6 * max(1.0, out_cpu.abs().max().item())
+    check(err <= tol, f"w8a8 mamba slice: card vs CPU max err {err} > {tol}")
+    print(f"[reference] mamba-130m 2-layer w8a8 f32 slice, card vs CPU: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}); phase 6v {time.perf_counter() - t_phase:.1f} s wall "
+          f"({smi})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    # 6w. llm.fuse_projections on the main path (bench_config: the 7B w8a8
+    # bf16, B 8): the fused model takes the separate one's weights, q|k|v and
+    # gate|up concatenated as the loader does (loader.fuse_state_dict); K2
+    # reads q / k / v as column views of qkv (their row pitch). test() of
+    # both: the same scores, the quantizer and the K1 GEMM 4 launches a block
+    # in place of 7; the eager eval step bit-equal; the graphed eval p50 of
+    # both, interleaved in this call
+    from medtsllm_tpu_torch.models.llm.loader import fuse_state_dict
+    t_phase = time.perf_counter()
+    # the repair: K2 reads column views of one fused projection output in
+    # place, bit-equal to its launch on dense copies, and refuses a layout
+    # it cannot read, naming the tensor
+    qkv = torch.randn(B, L, (H + 2 * KV) * D, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.split((H * D, KV * D, KV * D), dim=-1)
+    q, k, v = q.reshape(B, L, H, D), k.reshape(B, L, KV, D), v.reshape(B, L, KV, D)
+    pk = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+    pv = torch.randn(1, KV, P, D, device=dev, generator=g).to(torch.bfloat16)
+    cos, sin = k2.rope_tables(torch.arange(P, P + L, device=dev), D, lcfg.rope_theta)
+    o_view = k2.rope_attention(q, k, v, cos, sin, pk, pv)
+    o_dense = k2.rope_attention(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin, pk, pv)
+    check(not q.is_contiguous() and torch.equal(o_view, o_dense),
+          "K2 on the fused projection's column views differs from its launch on dense copies")
+    refusals = []
+    for name, bad in (("q", q.transpose(1, 2).contiguous().transpose(1, 2)),
+                      ("k", torch.zeros(B, L, KV, 2 * D, device=dev,
+                                        dtype=torch.bfloat16)[..., ::2])):
+        args = {"q": q, "k": k, "v": v, name: bad}
+        try:
+            k2.rope_attention(args["q"], args["k"], args["v"], cos, sin, pk, pv)
+            refusals.append(f"{name}: accepted")
+        except ValueError as e:
+            refusals.append(str(e))
+    check(all(r.startswith(n + " ") for r, n in zip(refusals, ("q", "k"))),
+          f"K2's refusals of unreadable layouts: {refusals}")
+    # K2 in place, on dense tensors (the separate projections' outputs) and
+    # with the three copies, timed in turns
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    k2_ms = {"in place": [], "dense": [], "copies": []}
+    for _ in range(3):
+        k2_ms["in place"].append(cuda_ms(torch, lambda: k2.rope_attention(q, k, v, cos, sin,
+                                                                          pk, pv)))
+        k2_ms["dense"].append(cuda_ms(torch, lambda: k2.rope_attention(qc, kc, vc, cos, sin,
+                                                                       pk, pv)))
+        k2_ms["copies"].append(cuda_ms(torch, lambda: k2.rope_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), cos, sin, pk, pv)))
+    print(f"[fused] K2 on qkv's column views (row pitch {(H + 2 * KV) * D}) bit-equal to "
+          f"its launch on dense copies; ms in turns, 3 rounds of 20 calls: "
+          + ", ".join(f"{n} {statistics.median(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+                      for n, t in k2_ms.items()) + f"; refusals: {refusals}")
+    del qkv, q, k, v, qc, kc, vc, o_view, o_dense
+    # K1 at the fused widths, M = B * L: qkv [d -> (H + 2 KV) D], gate|up
+    # [d -> 2 d_ff]; K2 on the column views of qkv
+    d, f = lcfg.d_model, lcfg.d_ff
+    check_k1_gemm("[fused-qkv]", B * L, ((d, (H + 2 * KV) * D, 1),),
+                  "the fused qkv, one a 7B block")
+    check_k1_gemm("[fused-gateup]", B * L, ((d, 2 * f, 1),), "the fused gate|up, one a 7B block")
+    check_k2("rope_attention[fused]", B, L, H, KV, D, P, lcfg.rope_theta, views=True)
+    sep = get_trainer("chip-smoke-unfused", bench_config(Config), device=dev)
+    fus = get_trainer("chip-smoke-fused", derived_config(
+        Config, bench_config(Config), llm={"fuse_projections": True}), device=dev)
+    check(fus.model.llm_cfg.fused_projections and not sep.model.llm_cfg.fused_projections,
+          "the fused and the separate layouts")
+    fus.load_state_dict(fuse_state_dict(sep.model.state_dict()))
+    torch.cuda.empty_cache()
+    batch = next(iter(sep.test_pipeline))
+    outs = [tr.eval_step_eager(tr.eval_model_inputs(batch)) for tr in (sep, fus)]
+    check(torch.equal(outs[0], outs[1]), f"fused vs separate eval output: max |diff| "
+          f"{(outs[0].float() - outs[1].float()).abs().max().item()}")
+    sep._prefix_kv_cache.clear()
+    fus._prefix_kv_cache.clear()
+    n_batches = len(sep.test_pipeline)
+    scores, test_counts = {}, {}
+    for label, tr in (("separate", sep), ("fused", fus)):
+        scores[label], test_counts[label] = counted(tr.test)
+    check(same_scores(scores["fused"], scores["separate"]),
+          f"fused test() scores {scores['fused']} vs {scores['separate']}")
+    per_block = {"separate": 7, "fused": 4}
+    for label, c in test_counts.items():
+        n = per_block[label] * n_block * (n_batches + 1)  # the batches and the prefill
+        check(c["w8a8_quantize"] == c["w8a8_gemm"] == n
+              and c["rope_attention"] == n_block * (n_batches + 1),
+              f"[{label}] test() launches {c}: the quantizer and K1's GEMM "
+              f"{per_block[label]} a block")
+    set_launches(test_counts["fused"], {"w8a8_gemm[fused-qkv]": "w8a8_gemm",
+                                        "w8a8_gemm[fused-gateup]": "w8a8_gemm"}, share=4)
+    set_launches(test_counts["fused"], {"rope_attention[fused]": "rope_attention"})
+    # the graphed eval step of both on one prepared batch, interleaved
+    prepared = {label: tr.eval_prepare(batch) for label, tr in (("separate", sep),
+                                                                ("fused", fus))}
+    times = {"separate": [], "fused": []}
+    for _ in range(30):
+        for label, tr in (("fused", fus), ("separate", sep)):
+            start.record()
+            tr.eval_dispatch(prepared=prepared[label])
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    p50s = {label: statistics.median(t[5:]) for label, t in times.items()}
+    print(f"[fused] 7B w8a8 bf16 B {B}: test() {n_batches} batches, scores equal; eager eval "
+          f"output bit-equal; launches a step (one batch) quantizer / K1 GEMM: separate "
+          f"{7 * n_block} / {7 * n_block}, fused {4 * n_block} / {4 * n_block} (test(): "
+          f"{test_counts['separate']['w8a8_gemm']} -> {test_counts['fused']['w8a8_gemm']}); "
+          f"graphed eval p50 separate {p50s['separate']:.3f} ms, fused {p50s['fused']:.3f} ms "
+          f"(25 replays each after 5, interleaved; {smi})")
+    del sep, fus, outs, prepared
+    torch.cuda.empty_cache()
+    # 2-layer cuts: LoRA (q, v) on the fused qkv: one captured train step, the
+    # k slice's adapter gradient exactly 0; absmax int4 fused = separate
+    lora = {"enabled": True, "rank": 8, "alpha": 16, "layers": "auto"}
+    tr = get_trainer("chip-smoke-fused-lora", derived_config(
+        Config, bench_config(Config, n_points=3200, llm_layers=2),
+        llm={"fuse_projections": True}, lora=lora), device=dev)
+    a = tr.train_model_inputs(next(iter(tr.train_pipeline)))
+    loss = float(tr.train_step(a, a["valid"]))
+    nq, nk, _ = tr.model.llm.blocks[0].attn.qkv_sizes
+    grads = [b.attn.qkv_proj.lora_b.grad for b in tr.model.llm.blocks]
+    check(math.isfinite(loss) and all(torch.all(gr[:, nq:nq + nk] == 0) for gr in grads)
+          and all(gr[:, :nq].abs().sum() > 0 and gr[:, nq + nk:].abs().sum() > 0
+                  for gr in grads),
+          f"fused LoRA: loss {loss}; the k slice's adapter gradient must be 0 and q / v's not")
+    print(f"[fused-lora] 2-layer 7B w8a8 with LoRA (q, v) on the fused qkv: one captured step, "
+          f"loss {loss:.6f}; lora_b's gradient exactly 0 on the k slice, nonzero on q and v")
+    del tr, a, grads
+    cut4 = bench_config(Config, llm_layers=2, quant_type="int4")
+    sep = get_trainer("chip-smoke-unfused-int4", cut4, device=dev)
+    fus = get_trainer("chip-smoke-fused-int4", derived_config(
+        Config, cut4, llm={"fuse_projections": True}), device=dev)
+    fus.load_state_dict(fuse_state_dict(sep.model.state_dict()))
+    batch = next(iter(sep.test_pipeline))
+    outs = []
+    counts4 = {}
+    for label, tr in (("separate", sep), ("fused", fus)):
+        arrays = tr.eval_model_inputs(batch)  # the head's prefill, not counted
+        out, counts4[label] = counted(lambda: tr.eval_step_eager(arrays))
+        outs.append(out)
+    check(torch.equal(outs[0], outs[1]) and counts4["fused"]["w4a8_gemm"] == 2 * 4
+          and counts4["separate"]["w4a8_gemm"] == 2 * 7,
+          f"int4 fused vs separate: max |diff| "
+          f"{(outs[0].float() - outs[1].float()).abs().max().item()}, K5 launches "
+          f"{counts4['fused']['w4a8_gemm']} / {counts4['separate']['w4a8_gemm']}")
+    print(f"[fused-int4] 2-layer 7B absmax int4: fused eval output bit-equal to separate; "
+          f"K5 {counts4['separate']['w4a8_gemm']} -> {counts4['fused']['w4a8_gemm']} a step; "
+          f"phase 6w {time.perf_counter() - t_phase:.1f} s wall")
+    del sep, fus, outs
+    torch.cuda.empty_cache()
+
+    # 6x. the profiler hooks on bidmc.toml (mixed, 4 layers of the 7B, w8a8
+    # so that K1 runs): train() with setup.profile_dir traces step 2 (a
+    # replay of the captured step) into a Chrome trace that must name
+    # K1's and K2's kernels; then setup.debug_nans: a clean captured step
+    # passes, a batch with a NaN raises FloatingPointError
+    from medtsllm_tpu_torch.runtime import profiler as prof_mod
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = task_config(Config, BIDMC_TOML, n_points=8320, llm_layers=4,
+                          model={"llm": {"load_in_8bit": True}}).to_dict()
+        raw["setup"]["profile_dir"] = tmp
+        tr = get_trainer("chip-smoke-profile", Config(raw), device=dev)
+        counts, wall = drive(tr.train)
+        check(finite(tr.losses) and counts["w8a8_gemm"] > 0 and counts["rope_attention"] > 0,
+              f"[profile] train(): losses {tr.losses}, launches {counts}")
+        path = Path(tmp) / prof_mod.TRACE_NAME
+        names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+        k1_names = sorted(n for n in names if "w8a8_gemm_kernel" in n)
+        k2_names = sorted(n for n in names if "rope_attention" in n and "kernel" in n)
+        check(k1_names and k2_names, f"[profile] the trace names no K1 {k1_names} or K2 "
+              f"{k2_names} kernel: {sorted(names)[:40]}")
+        print(f"[profile] train() {len(tr.losses)} steps in {wall:.2f} s wall; step 2 traced "
+              f"to {path.name} ({path.stat().st_size / 2**20:.2f} MiB, {len(names)} distinct "
+              f"names); K1 {k1_names[0][:60]!r}, K2 {k2_names[0][:60]!r}")
+        del tr
+    raw = task_config(Config, BIDMC_TOML, n_points=8320, llm_layers=4,
+                      model={"llm": {"load_in_8bit": True}}).to_dict()
+    raw["setup"]["debug_nans"] = True
+    tr = get_trainer("chip-smoke-debug-nans", Config(raw), device=dev)
+    batch = next(iter(tr.train_pipeline))
+    a = tr.train_model_inputs(batch)
+    for _ in range(2):  # the warm-up and capture, then a replay
+        check(math.isfinite(float(tr.train_step(a, a["valid"]))), "[debug-nans] a clean step")
+    bad = dict(batch, x_enc=np.array(batch["x_enc"], copy=True))
+    bad["x_enc"][0, 5, 0] = np.nan
+    a = tr.train_model_inputs(bad)
+    try:
+        tr.train_step(a, a["valid"])
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None, "[debug-nans] a NaN in the batch did not raise")
+    print(f"[debug-nans] two clean captured steps passed; the NaN batch's replay raised "
+          f"FloatingPointError ({raised}); phase 6x {time.perf_counter() - t_phase:.1f} s wall")
+    del tr, a
     torch.cuda.empty_cache()
 
     # 10. one f32 train step of 2-layer slices on the card against the CPU

@@ -32,9 +32,9 @@
 //     positions). q is rotated once into shared memory (as the keys are)
 //     and held in registers as mma.sync A fragments.
 //   - 64-key tiles copied by cp.async into a double-buffered ring straight
-//     from the projection layout (a head's rows are H * D apart: no
-//     transpose in front); rows past the keys are zero-filled. The first
-//     tile is in flight while q is rotated.
+//     from the projection layout (values' positions ldv elements apart, the
+//     rotated keys' KV * D: no transpose in front); rows past the keys are
+//     zero-filled. The first tile is in flight while q is rotated.
 //   - Scores: mma.sync m16n8k16 bf16 -> f32 (each warp 16 rows x 64 keys).
 //     mma.sync, not wgmma: the per-(batch, head) products are a few MFLOP,
 //     64-row wgmma tiles would idle on the short causal rows, and the row's
@@ -45,6 +45,13 @@
 //     probabilities to bf16 in the A-fragment order and accumulates P.V (V
 //     read by ldmatrix.trans) in f32. No score row lives in shared memory;
 //     S is bounded only by MAX_KEYS.
+//
+// Row pitches: q, k and v are read as rows of H*D (KV*D) elements whose
+// starts are ldq (ldk, ldv) elements apart, (b, l) row b*L + l, so a column
+// slice of a wider projection output (the fused q|k|v, [B, L, (H + 2 KV) D])
+// is read where it lies; a dense operand has ld = H*D (KV*D). Each pitch
+// keeps rows 16-byte aligned (the wrapper checks it). The output, the
+// rotated-key scratch and the prefix are dense.
 //
 // f32, the card-versus-CPU checks' form (rope_attention_f32_kernel): exact
 // f32 on FMAs, no TF32. One block of D threads per (batch, query head,
@@ -79,7 +86,7 @@ rope_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ sinb,
                       const T* __restrict__ pk, const T* __restrict__ pv,
                       T* __restrict__ out, int L, int H, int KV, int P,
-                      int PB, float sm_scale, int S_pad) {
+                      int PB, int ldq, int ldk, int ldv, float sm_scale, int S_pad) {
   constexpr int HALF = D / 2, LD = D + 1, NW = D / 32;
   extern __shared__ float smem[];
   float* sq = smem;               // [QT][LD] rotated queries
@@ -96,7 +103,7 @@ rope_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < QT; ++r) {
     const int l = l0 + r;
     sq[r * LD + t] =
-        l < L ? rope_elem<T, D>(q + (static_cast<size_t>(b) * L + l) * H * D +
+        l < L ? rope_elem<T, D>(q + (static_cast<size_t>(b) * L + l) * ldq +
                                     static_cast<size_t>(h) * D,
                                 cosb + static_cast<size_t>(l) * HALF,
                                 sinb + static_cast<size_t>(l) * HALF, t)
@@ -113,7 +120,7 @@ rope_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         val = mt::to_f32(pk[((static_cast<size_t>(pb) * KV + kvh) * P + kg) * D + t]);
       } else if (kg < kmax) {
         const int l = kg - P;
-        val = rope_elem<T, D>(k + (static_cast<size_t>(b) * L + l) * KV * D +
+        val = rope_elem<T, D>(k + (static_cast<size_t>(b) * L + l) * ldk +
                                   static_cast<size_t>(kvh) * D,
                               cosb + static_cast<size_t>(l) * HALF,
                               sinb + static_cast<size_t>(l) * HALF, t);
@@ -166,7 +173,7 @@ rope_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (kg < P)
         val = mt::to_f32(pv[((static_cast<size_t>(pb) * KV + kvh) * P + kg) * D + t]);
       else if (kg < kmax)
-        val = mt::to_f32(v[(static_cast<size_t>(b) * L + (kg - P)) * KV * D +
+        val = mt::to_f32(v[(static_cast<size_t>(b) * L + (kg - P)) * ldv +
                            static_cast<size_t>(kvh) * D + t]);
       skv[j * LD + t] = val;
     }
@@ -186,8 +193,8 @@ rope_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* cosb,
            const float* sinb, const void* pk, const void* pv, void* out,
-           int B, int L, int H, int KV, int P, int PB, float sm_scale,
-           cudaStream_t stream) {
+           int B, int L, int H, int KV, int P, int PB, int ldq, int ldk, int ldv,
+           float sm_scale, cudaStream_t stream) {
   const int S_pad = (P + L + KT - 1) / KT * KT;
   const size_t smem = sizeof(float) * ((QT + KT) * (D + 1) + QT * S_pad);
   auto kernel = rope_attention_f32_kernel<T, D>;
@@ -198,7 +205,7 @@ int launch(const void* q, const void* k, const void* v, const float* cosb,
   kernel<<<grid, D, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       cosb, sinb, static_cast<const T*>(pk), static_cast<const T*>(pv),
-      static_cast<T*>(out), L, H, KV, P, PB, sm_scale, S_pad);
+      static_cast<T*>(out), L, H, KV, P, PB, ldq, ldk, ldv, sm_scale, S_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,21 +262,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// k [B * L * KV rows, D] rotated once into kr, row (b, l, kvh) at position
-// l: one thread a pair of pairs (d, d + 1) and (d + D/2, d + D/2 + 1)
+// k [B * L * KV rows, D] (row pitch ldk between positions) rotated once
+// into the dense kr, row (b, l, kvh) at position l: one thread a pair of
+// pairs (d, d + 1) and (d + D/2, d + D/2 + 1)
 template <int D>
 __global__ void __launch_bounds__(256)
 rope_attention_keys_kernel(const bf16* __restrict__ k, const float* __restrict__ cosb,
                  const float* __restrict__ sinb, bf16* __restrict__ kr, int rows, int L,
-                 int KV) {
+                 int KV, int ldk) {
   constexpr int HALF = D / 2, PAIRS = HALF / 2;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(rows) * PAIRS) return;
   const int row = static_cast<int>(idx / PAIRS), d = 2 * static_cast<int>(idx % PAIRS);
   const int l = (row / KV) % L;
   const size_t o = static_cast<size_t>(row) * D + d;
-  __nv_bfloat162 x1 = *reinterpret_cast<const __nv_bfloat162*>(k + o);
-  __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(k + o + HALF);
+  const size_t i = static_cast<size_t>(row / KV) * ldk + (row % KV) * D + d;
+  __nv_bfloat162 x1 = *reinterpret_cast<const __nv_bfloat162*>(k + i);
+  __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(k + i + HALF);
   mt::rope_pair(x1, x2, *reinterpret_cast<const float2*>(cosb + l * HALF + d),
                 *reinterpret_cast<const float2*>(sinb + l * HALF + d));
   *reinterpret_cast<__nv_bfloat162*>(kr + o) = x1;
@@ -285,7 +294,7 @@ rope_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr
                          const bf16* __restrict__ v, const float* __restrict__ cosb,
                          const float* __restrict__ sinb, const bf16* __restrict__ pk,
                          const bf16* __restrict__ pv, bf16* __restrict__ out, int L, int H,
-                         int KV, int P, int PB, float sm_scale) {
+                         int KV, int P, int PB, int ldq, int ldv, float sm_scale) {
   constexpr int HALF = D / 2;
   constexpr int LDS = D + 8;        // row pitch (elements): conflict-free ldmatrix
   constexpr int CH = D / 8;         // 16-byte chunks per row
@@ -315,17 +324,19 @@ rope_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr
     for (int it = 0; it < kKeys * CH / kTcThreads; ++it) {
       const int i = tid + it * kTcThreads, jr = i / CH, ch = i % CH, kg = j0 + jr;
       const bool ok = kg < kmax;
-      size_t off = 0;
+      size_t koff = 0, voff = 0;
       const bf16 *ks = kr, *vs = v;
       if (ok && kg < P) {
-        off = ((static_cast<size_t>(pb) * KV + kvh) * P + kg) * D + ch * 8;
+        koff = voff = ((static_cast<size_t>(pb) * KV + kvh) * P + kg) * D + ch * 8;
         ks = pk, vs = pv;
       } else if (ok) {
-        off = ((static_cast<size_t>(b) * L + kg - P) * KV + kvh) * D + ch * 8;
+        const size_t row = static_cast<size_t>(b) * L + kg - P;
+        koff = (row * KV + kvh) * D + ch * 8;
+        voff = row * ldv + static_cast<size_t>(kvh) * D + ch * 8;
       }
       const int n = ok ? 16 : 0;
-      cp_async16(sK + (buf * kKeys + jr) * LDS + ch * 8, ks + off, n);
-      if (u >= nkt) cp_async16(sV + (buf * kKeys + jr) * LDS + ch * 8, vs + off, n);
+      cp_async16(sK + (buf * kKeys + jr) * LDS + ch * 8, ks + koff, n);
+      if (u >= nkt) cp_async16(sV + (buf * kKeys + jr) * LDS + ch * 8, vs + voff, n);
     }
     cp_async_commit();
   };
@@ -346,7 +357,8 @@ rope_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr
       x1[j] = x2[j] = __float2bfloat162_rn(0.f);
       if (r < rows) {
         const int rr = r0 + r, l = rr / G;
-        const bf16* x = q + ((static_cast<size_t>(b) * L + l) * H + kvh * G + rr % G) * D + d;
+        const bf16* x = q + (static_cast<size_t>(b) * L + l) * ldq +
+                        static_cast<size_t>(kvh * G + rr % G) * D + d;
         x1[j] = *reinterpret_cast<const __nv_bfloat162*>(x);
         x2[j] = *reinterpret_cast<const __nv_bfloat162*>(x + HALF);
         c[j] = *reinterpret_cast<const float2*>(cosb + l * HALF + d);
@@ -487,12 +499,13 @@ rope_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const float* cosb, const float* sinb,
               const void* pk, const void* pv, void* out, void* k_rot, int B, int L, int H,
-              int KV, int P, int PB, float sm_scale, cudaStream_t stream) {
+              int KV, int P, int PB, int ldq, int ldk, int ldv, float sm_scale,
+              cudaStream_t stream) {
   if (!k_rot) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * L * KV;
   const long long pairs = static_cast<long long>(rows) * (D / 4);
   rope_attention_keys_kernel<D><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf16*>(k), cosb, sinb, static_cast<bf16*>(k_rot), rows, L, KV);
+      static_cast<const bf16*>(k), cosb, sinb, static_cast<bf16*>(k_rot), rows, L, KV, ldk);
   const int smem = 4 * kKeys * (D + 8) * static_cast<int>(sizeof(bf16));
   auto kernel = rope_attention_tc_kernel<D>;
   static const cudaError_t attr =
@@ -502,28 +515,34 @@ int launch_tc(const void* q, const void* k, const void* v, const float* cosb, co
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_rot), static_cast<const bf16*>(v),
       cosb, sinb, static_cast<const bf16*>(pk), static_cast<const bf16*>(pv),
-      static_cast<bf16*>(out), L, H, KV, P, PB, sm_scale);
+      static_cast<bf16*>(out), L, H, KV, P, PB, ldq, ldv, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// k_rot: scratch like k for its rotated copy (bf16 only; null for f32)
+// k_rot: dense scratch [B, L, KV, D] for the rotated keys (bf16 only; null
+// for f32); ldq, ldk, ldv: the operands' row pitches in elements
 extern "C" int mt_rope_attention(const void* q, const void* k, const void* v,
                                  const void* cosb, const void* sinb,
                                  const void* pk, const void* pv, void* out,
                                  void* k_rot, int is_bf16, int B, int L, int H, int KV, int D,
-                                 int P, int PB, float sm_scale, void* stream) {
+                                 int P, int PB, int ldq, int ldk, int ldv, float sm_scale,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const float*>(cosb);
   const auto* sn = static_cast<const float*>(sinb);
   if (is_bf16 && D == 128)
-    return launch_tc<128>(q, k, v, c, sn, pk, pv, out, k_rot, B, L, H, KV, P, PB, sm_scale, s);
+    return launch_tc<128>(q, k, v, c, sn, pk, pv, out, k_rot, B, L, H, KV, P, PB, ldq, ldk, ldv,
+                          sm_scale, s);
   if (is_bf16 && D == 64)
-    return launch_tc<64>(q, k, v, c, sn, pk, pv, out, k_rot, B, L, H, KV, P, PB, sm_scale, s);
+    return launch_tc<64>(q, k, v, c, sn, pk, pv, out, k_rot, B, L, H, KV, P, PB, ldq, ldk, ldv,
+                         sm_scale, s);
   if (!is_bf16 && D == 128)
-    return launch<float, 128>(q, k, v, c, sn, pk, pv, out, B, L, H, KV, P, PB, sm_scale, s);
+    return launch<float, 128>(q, k, v, c, sn, pk, pv, out, B, L, H, KV, P, PB, ldq, ldk, ldv,
+                             sm_scale, s);
   if (!is_bf16 && D == 64)
-    return launch<float, 64>(q, k, v, c, sn, pk, pv, out, B, L, H, KV, P, PB, sm_scale, s);
+    return launch<float, 64>(q, k, v, c, sn, pk, pv, out, B, L, H, KV, P, PB, ldq, ldk, ldv,
+                            sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -67,6 +67,14 @@ class DecoderConfig:
     # the dropless grouped-GEMM expert chain (K6) in place of the capacity
     # bmm; resolved from models.<m>.llm.moe_grouped by MedTsLLM.from_config
     moe_grouped: bool = False
+    # q|k|v and gate|up as one wide projection each (llama style, the
+    # decoder's self-attention and its dense MLP; a MoE block's experts stay
+    # apart): qkv_proj [H*D | KV*D | KV*D] and gateup_proj [gate | up], the
+    # column-concat of the separate kernels with their per-channel scales,
+    # so the numerics are the separate path's. Set by MedTsLLM.from_config
+    # from models.<m>.llm.fuse_projections; presets and config.json leave it
+    # off
+    fused_projections: bool = False
     # 4-bit weights (quantize=4): "absmax" (linear int4, the w4a8 kernels)
     # or a bnb codebook, "nf4" / "fp4" (table dequant, then a matmul at the
     # compute dtype); resolved from models.<m>.llm.quant_type
@@ -132,6 +140,9 @@ class MambaConfig:
     style: str = "mamba"
     bos_token_id: int | None = 0
     eos_token_id: int | None = 0
+    # the 4-bit codebook of the quantized projections (DecoderConfig's);
+    # JAX's MambaBlock reads it with getattr and the same default
+    quant4_codebook: str = "absmax"
 
     @property
     def d_inner(self) -> int:

@@ -8,7 +8,10 @@
 experts) to the JAX package's flax tree, numpy leaves, bit for bit as the
 JAX function does: torch Linear weights transposed to [in, out] (gpt2's
 Conv1D ones are already), neox's per-head packed q|k|v split, mixtral's
-experts stacked on a leading E axis, mamba's depthwise conv to [K, 1, E].
+experts stacked on a leading E axis, mamba's depthwise conv to [K, 1, E];
+under ``cfg.fused_projections`` llama's q | k | v and gate | up
+column-concatenated into ``qkv_proj`` / ``gateup_proj`` before any
+quantization, so the per-channel scales concatenate too.
 With ``quantize`` 8 or 4 each projection kernel is quantized at load by
 ``quantize_weight`` (``QuantDense.quantize``: absmax int8; absmax int4, or
 the nearest entry of the nf4 / fp4 codebook, packed in split halves),
@@ -235,13 +238,21 @@ def hf_to_tree(cfg, tensors: dict, quantize: int = 0) -> dict:
     # llama / mistral (and mixtral's experts)
     put("wte", tensors["embed_tokens.weight"])
     put("norm/weight", tensors["norm.weight"])
+    fused = getattr(cfg, "fused_projections", False)
     for i in range(cfg.n_layers):
         p = f"layers.{i}."
         put(f"h_{i}/input_layernorm/weight", tensors[p + "input_layernorm.weight"])
         put(f"h_{i}/post_attention_layernorm/weight",
             tensors[p + "post_attention_layernorm.weight"])
-        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            put_kernel(f"h_{i}/attn/{n}/base/kernel", tensors[p + f"self_attn.{n}.weight"].T)
+        if fused:  # loader.py:536-546 of the JAX package
+            put_kernel(f"h_{i}/attn/qkv_proj/base/kernel", np.concatenate(
+                [tensors[p + f"self_attn.{n}.weight"].T for n in ("q_proj", "k_proj", "v_proj")],
+                axis=1))
+            put_kernel(f"h_{i}/attn/o_proj/base/kernel", tensors[p + "self_attn.o_proj.weight"].T)
+        else:
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                put_kernel(f"h_{i}/attn/{n}/base/kernel",
+                           tensors[p + f"self_attn.{n}.weight"].T)
         if getattr(cfg, "n_experts", 0) > 1:
             put(f"h_{i}/mlp/gate", tensors[p + "block_sparse_moe.gate.weight"].T)
             for hf_n, fx_n in (("w1", "w_gate"), ("w3", "w_up"), ("w2", "w_down")):
@@ -254,10 +265,43 @@ def hf_to_tree(cfg, tensors: dict, quantize: int = 0) -> dict:
                     put(f"h_{i}/mlp/{fx_n}_scale", np.stack([s for _, s in qs]))
                 else:
                     put(f"h_{i}/mlp/{fx_n}", w)
+        elif fused:  # loader.py:584-590
+            put_kernel(f"h_{i}/mlp/gateup_proj/kernel", np.concatenate(
+                [tensors[p + "mlp.gate_proj.weight"].T, tensors[p + "mlp.up_proj.weight"].T],
+                axis=1))
+            put_kernel(f"h_{i}/mlp/down_proj/kernel", tensors[p + "mlp.down_proj.weight"].T)
         else:
             for n in ("gate_proj", "up_proj", "down_proj"):
                 put_kernel(f"h_{i}/mlp/{n}/kernel", tensors[p + f"mlp.{n}.weight"].T)
     return tree
+
+
+# the separate projections each fused one concatenates, in its column order
+FUSED_GROUPS = {"attn.qkv_proj": ("attn.q_proj", "attn.k_proj", "attn.v_proj"),
+                "mlp.gateup_proj": ("mlp.gate_proj", "mlp.up_proj")}
+
+
+def fuse_state_dict(state: dict) -> dict:
+    """A llama backbone's state dict with separate projections -> the same
+    weights in the fused layout (``fused_projections``): q | k | v into
+    ``attn.qkv_proj`` and gate | up into ``mlp.gateup_proj``, each leaf
+    (dense ``weight`` [N, K], ``weight_q`` [N, K] or packed [N, ceil(K/2)],
+    ``scale`` [N]) concatenated along the output rows, as ``hf_to_tree``
+    concatenates the kernels before quantizing. The values are copied, not
+    drawn: the fused model computes what the separate one does. A backbone
+    with LoRA adapters raises (the fused adapter has its own shape)."""
+    if any("lora_" in name for name in state):
+        raise ValueError("fuse_state_dict takes a backbone without LoRA adapters")
+    out, used = {}, set()
+    for name, value in state.items():
+        for fused, parts in FUSED_GROUPS.items():
+            head, sep, leaf = name.partition("." + parts[0] + ".")
+            if sep:
+                names = [f"{head}.{part}.{leaf}" for part in parts]
+                out[f"{head}.{fused}.{leaf}"] = torch.cat([state[n] for n in names])
+                used.update(names)
+    out.update({k: v for k, v in state.items() if k not in used})
+    return out
 
 
 def load_backbone_weights_(module: torch.nn.Module, cfg, llm_id: str, cache_dir: str | None,

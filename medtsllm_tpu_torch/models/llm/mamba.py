@@ -1,6 +1,5 @@
 """The Mamba (selective SSM) backbone (port of
-``medtsllm_tpu/models/llm/mamba.py``: MambaBlock and MambaBackbone, dense
-projections only).
+``medtsllm_tpu/models/llm/mamba.py``: MambaBlock and MambaBackbone).
 
 Same surface as TransformerDecoder (``wte``, ``embed``, ``forward(
 inputs_embeds, prefix_kv=...)``, ``prefill``), so MedTsLLM's fusion path and
@@ -11,14 +10,21 @@ Dtypes follow the JAX module's: projections emit ``dtype`` (None for f32,
 else the compute dtype); the conv runs at the parameters' dtype, then
 ``+ conv_bias``; softplus(dt) and the scan run in f32 (``A = -exp(A_log)``
 in f32); y rounds back to the projections' dtype before the ``silu(z)``
-gate; the residual stream keeps the input embeddings' f32. The scan goes
+gate; the residual stream keeps the input embeddings' f32. With
+``quantize`` 8 or 4 (``load_in_8bit`` / ``load_in_4bit``) ``in_proj``,
+``x_proj`` and ``out_proj`` are ``QuantLinear`` as JAX's ``QuantDense``
+(K1; K1's quantizer and K5 at 4-bit absmax; the table dequant for the
+config's ``quant4_codebook`` nf4 / fp4; weight-only under ``act_quant``
+False), rounded to the compute dtype as ``Linear`` is, so the scan's
+operands keep their dtypes; ``dt_proj`` stays a dense ``Linear``, as in
+JAX (the step size is bias-dominated and tiny). The scan goes
 through the hand-written kernel (csrc/selective_scan.cu): when no operand
 needs a gradient (serving, the prefill) as ``selective_ssm_gated``, which
 takes dt_proj's output, A_log, the x_proj / in_proj outputs' views and the
 conv output as they are and does the softplus, the casts and the gate
 itself; in training as ``selective_ssm`` / ``selective_ssm_h0`` behind the
 PyTorch glue, whose autograd covers the softplus and the gate. The
-depthwise conv and the projections are PyTorch's, as the JAX package
+depthwise conv and the dense projections are PyTorch's, as the JAX package
 leaves them to XLA.
 """
 
@@ -34,7 +40,7 @@ from ...ops.kernels.selective_scan import (_wants_grad, scan_operands, selective
                                            selective_ssm_final, selective_ssm_gated,
                                            selective_ssm_h0)
 from .config import MambaConfig
-from .transformer import Linear, RMSNorm, remat_call
+from .transformer import Linear, RMSNorm, projection, remat_call
 
 
 @contextlib.contextmanager
@@ -58,20 +64,25 @@ def _f32_conv_flags(w: torch.Tensor):
 class MambaBlock(nn.Module):
     """RMSNorm -> mixer -> residual (HF MambaBlock + MambaMixer)."""
 
-    def __init__(self, cfg: MambaConfig, dtype=None):
+    def __init__(self, cfg: MambaConfig, dtype=None, quantize: int = 0,
+                 act_quant: bool | str = True):
         super().__init__()
         self.cfg = cfg
         E, N, R = cfg.d_inner, cfg.d_state, cfg.rank
+
+        def proj(d_in, d_out, bias):  # JAX's ``dense``: QuantDense when quantized
+            return projection(d_in, d_out, quantize, dtype, cfg.quant4_codebook, bias,
+                              act_quant)
         self.norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.in_proj = Linear(cfg.d_model, 2 * E, bias=cfg.use_bias, dtype=dtype)
+        self.in_proj = proj(cfg.d_model, 2 * E, cfg.use_bias)
         # depthwise conv weight in F.conv1d's layout [E, 1, K] (flax [K, 1, E])
         self.conv_kernel = nn.Parameter(torch.zeros(E, 1, cfg.d_conv))
         self.conv_bias = nn.Parameter(torch.zeros(E)) if cfg.use_conv_bias else None
-        self.x_proj = Linear(E, R + 2 * N, bias=False, dtype=dtype)
+        self.x_proj = proj(E, R + 2 * N, False)
         self.dt_proj = Linear(R, E, bias=True, dtype=dtype)
         self.A_log = nn.Parameter(torch.zeros(E, N))
         self.D = nn.Parameter(torch.ones(E))
-        self.out_proj = Linear(E, cfg.d_model, bias=cfg.use_bias, dtype=dtype)
+        self.out_proj = proj(E, cfg.d_model, cfg.use_bias)
 
     def forward(self, x, prefix_state=None, return_state: bool = False):
         """``prefix_state`` (serving) = (conv_ctx [1|B, K-1, E], h0 [1|B, N,
@@ -131,22 +142,20 @@ class MambaBlock(nn.Module):
 
 class MambaBackbone(nn.Module):
     """Embedding + n_layers MambaBlocks + final RMSNorm; returns the last
-    hidden state (no LM head), like TransformerDecoder. ``remat``
+    hidden state (no LM head), like TransformerDecoder. ``quantize`` and
+    ``act_quant`` are the blocks' (JAX's ``setup``). ``remat``
     (``llm.remat``) recomputes each block in the backward of a forward
     with no prefix state that needs gradients, as JAX's backbone does
     (``mamba.py:205``)."""
 
     def __init__(self, cfg: MambaConfig, quantize: int = 0, dtype=None,
-                 remat: bool | str = False):
+                 remat: bool | str = False, act_quant: bool | str = True):
         super().__init__()
-        if quantize:
-            raise NotImplementedError(
-                f"quantize={quantize} on the mamba backbone: quantized Mamba is "
-                "ROADMAP queue 1, \"Mamba, open parts\"")
         self.cfg, self.remat = cfg, remat
         self.wte = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model),
                                 requires_grad=False)
-        self.blocks = nn.ModuleList(MambaBlock(cfg, dtype) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(MambaBlock(cfg, dtype, quantize, act_quant)
+                                    for _ in range(cfg.n_layers))
         self.norm_f = RMSNorm(cfg.d_model, cfg.norm_eps)
 
     def embed(self, token_ids: torch.Tensor) -> torch.Tensor:

@@ -380,7 +380,14 @@ class Attention(nn.Module):
     is a target, masked to the targeted thirds). The output projection is
     followed by the residual dropout (``cfg.dropout``, train mode). No
     attention-probability dropout: JAX leaves it out on purpose (the kernel
-    never holds the probabilities), although HF gpt2 has it."""
+    never holds the probabilities), although HF gpt2 has it.
+
+    ``cfg.fused_projections`` (llama self-attention) builds one ``qkv_proj``
+    [H*D | KV*D | KV*D] in place of q / k / v (JAX's ``transformer.py:537-
+    556``); LoRA then adapts it once when any of q / k / v is a target,
+    masked to the targeted slices as gpt2's ``c_attn``. q, k and v are column
+    views of its output: K2 reads them in place (row-pitched operands), the
+    K4 route takes dense copies."""
 
     def __init__(self, cfg: DecoderConfig, quantize: int = 0, dtype=None,
                  lora: LoraSpec | None = None, act_quant: bool | str = True,
@@ -391,6 +398,8 @@ class Attention(nn.Module):
         self.causal, self.cross = causal and not cross, cross
         H, KV, D, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
         cb, bias = cfg.quant4_codebook, cfg.ln_family
+        self.fused = cfg.fused_projections and cfg.style == "llama" and not cross
+        self.qkv_sizes = (H * D, KV * D, KV * D)
 
         def proj(d_in, d_out, key, mask=None):
             base = projection(d_in, d_out, quantize, dtype, cb, bias, act_quant)
@@ -405,6 +414,14 @@ class Attention(nn.Module):
                 mask = torch.tensor([float(t in targeted) for t in ("q", "k", "v")]
                                     ).repeat_interleave(d)
             self.c_attn = proj(d, 3 * d, targeted[0] if targeted else "q", mask)
+        elif self.fused:
+            sizes = self.qkv_sizes
+            targeted = tuple(t for t in ("q", "k", "v") if lora and t in lora.targets)
+            mask = None
+            if targeted and targeted != ("q", "k", "v"):
+                mask = torch.cat([torch.full((n,), float(t in targeted))
+                                  for t, n in zip(("q", "k", "v"), sizes)])
+            self.qkv_proj = proj(d, sum(sizes), targeted[0] if targeted else "q", mask)
         else:
             self.q_proj = proj(d, H * D, "q")
             self.k_proj = proj(d, KV * D, "k")
@@ -442,6 +459,8 @@ class Attention(nn.Module):
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
         if cfg.style == "gpt2" and not self.cross:
             q, k, v = _project(self.c_attn, x, generator).split(cfg.d_model, dim=-1)
+        elif self.fused:
+            q, k, v = _project(self.qkv_proj, x, generator).split(self.qkv_sizes, dim=-1)
         else:
             q = _project(self.q_proj, x, generator)
             k, v = (_project(p, src, generator) for p in (self.k_proj, self.v_proj))
@@ -477,6 +496,9 @@ class Attention(nn.Module):
                 "flash-attention kernel, which the JAX package does not have (ROADMAP "
                 "queue 1, \"Training on the served backbones\")")
         if not needs_grad and (keys > MAX_KEYS or keys >= K4_MIN_KEYS):
+            # the route reads dense operands: the fused projection's column
+            # views are copied (a no-op for the separate projections' outputs)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             out = rope_flash_attention(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
             return out if return_kv else (out, None)
         out = rope_attention(q, k, v, cos, sin, pk, pv, sm_scale)
@@ -511,7 +533,9 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """llama's SwiGLU (``gate_proj``, ``up_proj``, ``down_proj``, no bias);
+    """llama's SwiGLU (``gate_proj``, ``up_proj``, ``down_proj``, no bias;
+    under ``cfg.fused_projections`` one ``gateup_proj`` [gate | up], split in
+    half, JAX's ``transformer.py:707-709``);
     the ln family's biased ``c_fc`` -> activation (``ln_activation``) ->
     ``c_proj`` -> the residual dropout (train mode); t5's bias-free ``wi``
     -> relu, or gated (``t5_gated``) tanh-GELU(``wi_0``) x ``wi_1``, then the
@@ -536,8 +560,15 @@ class MLP(nn.Module):
             self.c_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb, True,
                                      act_quant)
             return
-        self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, act_quant=act_quant)
-        self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb, act_quant=act_quant)
+        self.fused = cfg.fused_projections
+        if self.fused:
+            self.gateup_proj = projection(cfg.d_model, 2 * cfg.d_ff, quantize, dtype, cb,
+                                          act_quant=act_quant)
+        else:
+            self.gate_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb,
+                                        act_quant=act_quant)
+            self.up_proj = projection(cfg.d_model, cfg.d_ff, quantize, dtype, cb,
+                                      act_quant=act_quant)
         self.down_proj = projection(cfg.d_ff, cfg.d_model, quantize, dtype, cb,
                                     act_quant=act_quant)
 
@@ -547,7 +578,11 @@ class MLP(nn.Module):
                  else F.relu(self.wi(x)))
             return self.wo(dropout(h, self.p, generator) if self.training else h)
         if not self.ln:
-            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+            if self.fused:
+                gate, up = self.gateup_proj(x).chunk(2, dim=-1)
+            else:
+                gate, up = self.gate_proj(x), self.up_proj(x)
+            return self.down_proj(F.silu(gate) * up)
         h = self.c_proj(self.act(self.c_fc(x)))
         return dropout(h, self.p, generator) if self.training else h
 

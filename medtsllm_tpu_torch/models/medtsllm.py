@@ -286,7 +286,7 @@ class MedTsLLM(nn.Module):
             if lora is not None:  # (mamba.py:169-180 of the JAX package)
                 raise ValueError("LoRA targets attention projections; the mamba backbone "
                                  "has none — finetune with llm.lora disabled")
-            self.llm = MambaBackbone(llm_cfg, quantize, dt, remat)
+            self.llm = MambaBackbone(llm_cfg, quantize, dt, remat, act_quant)
         elif self.encdec:
             self.llm = TransformerEncDec(llm_cfg, quantize, dt, lora, act_quant, remat)
         else:
@@ -348,12 +348,8 @@ class MedTsLLM(nn.Module):
             codebook = QUANT4_CODEBOOKS.get(qt)
             if codebook is None:
                 raise ValueError(f"models.llm.quant_type must be int4/nf4/fp4; got {qt!r}")
-        if str(mc.llm.llm).startswith("mamba") and (in8 or in4):
-            unported.append("quantized Mamba (ROADMAP queue 1, \"Mamba, open parts\")")
         # (JAX reads these two only for an enabled backbone)
-        if mc.llm.get("fuse_projections", False) and enabled:
-            unported.append("llm.fuse_projections (ROADMAP queue 1, \"Llama decoder, open "
-                            "parts\")")
+        fuse = bool(mc.llm.get("fuse_projections", False)) and enabled
         lc = mc.lora if "lora" in mc and mc.lora.enabled and enabled else None
         if lc is not None:
             if lc.get("layers", "auto") != "auto":
@@ -379,6 +375,14 @@ class MedTsLLM(nn.Module):
             targets=("q", "v") if llm_cfg.style == "llama" else ("q",))
         if quantize == 4:
             llm_cfg = dataclasses.replace(llm_cfg, quant4_codebook=codebook)
+        if fuse:
+            # q|k|v and gate|up as one wide projection each (medtsllm.py:204-223
+            # of the JAX package); tensor_parallel / tp_overlap raised above
+            if getattr(llm_cfg, "style", "") != "llama":
+                raise ValueError(f"models.llm.fuse_projections supports llama-style "
+                                 f"decoders; {mc.llm.llm!r} is "
+                                 f"{getattr(llm_cfg, 'style', '?')!r}")
+            llm_cfg = dataclasses.replace(llm_cfg, fused_projections=True)
         llm_cfg = _resolve_moe(llm_cfg, mc.llm, quantize, torch.device(device))
         return cls(
             seq_len=config.history_len, pred_len=config.pred_len,

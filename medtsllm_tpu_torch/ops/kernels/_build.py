@@ -41,9 +41,9 @@ SIGNATURES = {
     # xq, packed, x_scale, w_scale, out, out_kind, M, N, K, stream
     "mt_w4a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, cos, sin, pk, pv, out, k_rot, is_bf16, B, L, H, KV, D, P, PB,
-    # sm_scale, stream
+    # ldq, ldk, ldv, sm_scale, stream
     "mt_rope_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _F, _P),
+                          _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, out, is_bf16, causal, B, H, KV, L, S, D, sm_scale, stream
     "mt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # k, v, cos, sin, pk, pv, kc, vc, is_bf16, B, L, KV, D, P, PB, stream
@@ -153,14 +153,20 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
-    """The kernels take contiguous tensors on one CUDA device."""
+def check_cuda(*tensors: torch.Tensor, names: str = "") -> None:
+    """The kernels take contiguous tensors on one CUDA device. ``names``
+    (space-separated, one a tensor) name the operands in the error."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors on one CUDA device")
+    labels = names.split() or [f"operand {i}" for i in range(len(tensors))]
+    for t, name in zip(tensors, labels):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}: the kernel takes "
+                             "tensors on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()} is not "
+                             "contiguous: the kernel reads it as dense rows")
 
 
 def launch(name: str, device: torch.device, *args) -> None:

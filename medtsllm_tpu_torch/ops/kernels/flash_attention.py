@@ -39,6 +39,11 @@ q's dtype. A call with an additive ``bias`` (t5's relative positions)
 always takes the plain version, as JAX's dispatcher sends it to its
 reference path (``flash_attention.py:212-213``).
 
+Operands: both entries and the pre-pass read dense rows, so q, k, v, cos,
+sin and the prefix must be contiguous and 16-byte aligned (the JAX
+interface's dispatcher makes q / k / v contiguous first); any other layout
+raises a ValueError that names the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -124,7 +129,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
     if L == 0 or S == 0 or (causal and L > S):
         raise ValueError(f"L {L} S {S}: the kernel needs L, S > 0 and, when causal, "
                          "L <= S (every query row sees a key)")
-    _build.check_cuda(q, k, v)
+    _build.check_cuda(q, k, v, names="q k v")
     _check_aligned(q, k, v)
     out = torch.empty_like(q)
     ptr = _build.ptr
@@ -223,7 +228,7 @@ def _check_route(q, k, v, cos, sin, pk, pv):
             raise ValueError(f"prefix K/V must be [1 or B, KV, P, D] {q.dtype}, "
                              f"got {tuple(pk.shape)} {pk.dtype}")
     tensors = [q, k, v, cos, sin] + ([pk, pv] if P else [])
-    _build.check_cuda(*tensors)
+    _build.check_cuda(*tensors, names="q k v cos sin pk pv")
     _check_aligned(*tensors)
     return B, L, H, KV, D, P, PB
 

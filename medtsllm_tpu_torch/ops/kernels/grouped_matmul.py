@@ -30,6 +30,11 @@ transposes once. At ``w_bits=4`` they are split-halves packed int4 ``[E, N,
 K/2]`` (``w4a8.pack4_split`` per expert row), K even; a chunked form then
 needs an even chunk count, so that no chunk straddles the nibble halves.
 
+Operands: the codes, the scales, the visit tables and the expert weights
+must be contiguous (the wrapper makes the scales so), the codes and the
+weights 16-byte aligned; any other layout raises a ValueError that names
+the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -302,7 +307,10 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
     w_scales = [s.float().contiguous() for s in w_scales]
     if visit_e.dtype != torch.int32 or visit_valid.dtype != torch.int32:
         raise ValueError("visit_e and visit_valid must be int32")
-    _build.check_cuda(xq, x_scale, visit_e, visit_valid, *weights, *w_scales)
+    _build.check_cuda(xq, x_scale, visit_e, visit_valid, *weights, *w_scales,
+                      names="xq x_scale visit_e visit_valid " + " ".join(
+                          [f"weights[{i}]" for i in range(len(weights))]
+                          + [f"w_scales[{i}]" for i in range(len(w_scales))]))
     if any(t.data_ptr() % 16 for t in (xq, *weights)):
         raise ValueError("xq and the weights must be 16-byte aligned")
     dev = xq.device
@@ -337,7 +345,7 @@ def requant_tiles(t, block_n):
     if t.dtype != torch.float32 or N % block_n:
         raise ValueError(f"requant takes f32 [R_pad, N] with N % block_n == 0: "
                          f"{t.dtype} {tuple(t.shape)}, block_n {block_n}")
-    _build.check_cuda(t)
+    _build.check_cuda(t, names="t")
     q = torch.empty(R_pad, N, dtype=torch.int8, device=t.device)
     scales = torch.empty(N // block_n, 1, R_pad, dtype=torch.float32, device=t.device)
     _build.launch("mt_gmm_requant", t.device, _build.ptr(t), _build.ptr(q), _build.ptr(scales),

@@ -9,6 +9,10 @@ rows share the basis) on f32 FMA micro-tiles, and where those rows give
 too few blocks it splits S across blocks and merges the splits exactly;
 see the CUDA source.
 
+Operands: q, k and v must be contiguous and 16-byte aligned (the kernel
+reads dense 16-byte vectors); any other layout raises a ValueError that
+names the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -102,7 +106,7 @@ def reprogramming_attention(q, k, v, scale=None):
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not q.dtype == k.dtype == v.dtype == torch.float32:
         raise ValueError(f"q/k/v must be f32, got {q.dtype} {k.dtype} {v.dtype}")
-    _build.check_cuda(q, k, v)
+    _build.check_cuda(q, k, v, names="q k v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel reads q, k and v as 16-byte vectors: "
                          "16-byte aligned tensors")

@@ -14,6 +14,14 @@ kernels, one launch counted); f32 runs an exact FMA kernel. See the CUDA
 source for the design. The backward, as ``_fra_bwd`` does, runs autograd
 through the plain version.
 
+Operands: q, k and v may be column views of a wider buffer whose rows are
+evenly spaced (the fused projection's ``qkv`` [B, L, (H + 2 KV) D] sliced
+into q | k | v): each [B, L, H|KV, D] operand needs its heads' D elements
+dense and its (b, l) rows ``ld`` elements apart, ``ld`` a multiple of 16
+bytes (``row_pitch``); the kernel reads them where they lie. cos, sin, the
+prefix K/V and the output are dense (contiguous). Any other layout raises a
+ValueError that names the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -107,6 +115,25 @@ def rope_attention(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None):
     return _forward(q, k, v, cos, sin, pk, pv, sm_scale)
 
 
+def row_pitch(t: torch.Tensor, name: str) -> int:
+    """The elements between the (b, l) rows of a [B, L, heads, D] operand
+    whose rows are dense and evenly spaced (a contiguous tensor, or a column
+    slice of a contiguous [B, L, W] buffer viewed as heads); raises a
+    ValueError naming ``name`` for any other layout or a pitch off 16
+    bytes."""
+    B, L, heads, D = t.shape
+    dense = heads * D
+    ld = t.stride(1) if L > 1 else t.stride(0) if B > 1 else dense
+    if (t.stride(3) != 1 or (heads > 1 and t.stride(2) != D) or ld < dense
+            or (B > 1 and t.stride(0) != L * ld)):
+        raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()}: the kernel "
+                         "reads rows of heads x D dense elements, evenly spaced")
+    if (ld * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies 16-byte rows; its start and its row "
+                         f"pitch ({ld} elements) must be multiples of 16 bytes")
+    return ld
+
+
 def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
     if q.device.type == "cpu":
         return rope_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale)
@@ -124,7 +151,7 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
     if cos.shape != (L, D // 2) or sin.shape != cos.shape or cos.dtype != torch.float32 \
             or sin.dtype != torch.float32:
         raise ValueError("cos/sin must be f32 [L, D/2]")
-    tensors = [q, k, v, cos, sin]
+    dense, names = [cos, sin], "cos sin"
     P, PB = 0, 1
     if pk is not None:
         PB, _, P, _ = pk.shape
@@ -132,22 +159,28 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
                 or pk.dtype != q.dtype or pv.dtype != q.dtype:
             raise ValueError(f"prefix K/V must be [1 or B, KV, P, D] {q.dtype}, "
                              f"got {tuple(pk.shape)} {pk.dtype}")
-        tensors += [pk, pv]
+        dense += [pk, pv]
+        names += " pk pv"
     if P + L > MAX_KEYS:
         raise ValueError(f"{P + L} keys exceed the kernel's {MAX_KEYS}")
-    _build.check_cuda(*tensors)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the kernel copies 16-byte rows: q, k, v, cos, sin and the "
-                         "prefix must be 16-byte aligned")
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"q, k, v must lie on one CUDA device: {dev} {k.device} {v.device}")
+    lds = [row_pitch(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    _build.check_cuda(*dense, names=names)
+    if any(t.data_ptr() % 16 for t in dense):
+        raise ValueError("the kernel copies 16-byte rows: cos, sin and the prefix must "
+                         "be 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     bf16 = q.dtype == torch.bfloat16
-    k_rot = torch.empty_like(k) if bf16 else None  # the bf16 form's rotated keys
+    # the bf16 form's rotated keys, dense
+    k_rot = torch.empty(k.shape, dtype=k.dtype, device=dev) if bf16 else None
     ptr = _build.ptr
-    _build.launch("mt_rope_attention", q.device, ptr(q), ptr(k), ptr(v), ptr(cos),
+    _build.launch("mt_rope_attention", dev, ptr(q), ptr(k), ptr(v), ptr(cos),
                   ptr(sin), ptr(pk), ptr(pv), ptr(out), ptr(k_rot), int(bf16),
-                  B, L, H, KV, D, P, PB, ctypes.c_float(sm_scale))
+                  B, L, H, KV, D, P, PB, *lds, ctypes.c_float(sm_scale))
     rope_attention.launches += 1
     return out
 

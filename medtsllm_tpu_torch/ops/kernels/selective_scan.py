@@ -27,6 +27,13 @@ the glue inside the same kernel. It counts its launches in the form's own
 counter. Each wrapper counts its own launches (``.launches``), so a run can
 tell the variants apart.
 
+Operands: the raw forms (K7-K10) take contiguous f32 tensors. The gated
+form reads dt_raw, xs, z, Bs and Cs as [B, L, W] views whose rows are
+dense and evenly spaced (column slices of x_proj's and in_proj's outputs):
+each row stride comes from the tensor's own strides (``_row_stride``), Bs
+and Cs share theirs, and A_log, D and h0 must be contiguous. Any other
+layout raises a ValueError that names the tensor.
+
 A CPU tensor takes the plain version (the backward's is autograd through
 the plain forward); a CUDA tensor launches the kernel or raises.
 """
@@ -234,13 +241,15 @@ def _check(dt, A_T, Bs, Cs, xs, D=None, h0=None):
                          f"{tuple(Bs.shape)} Cs {tuple(Cs.shape)} xs "
                          f"{tuple(xs.shape)} D {None if D is None else tuple(D.shape)}")
     tensors = [dt, A_T, Bs, Cs, xs] + ([] if D is None else [D])
+    names = "dt A_T Bs Cs xs" + ("" if D is None else " D")
     if h0 is not None:
         if h0.dim() != 3 or h0.shape[0] not in (1, B) or h0.shape[1:] != (N, E):
             raise ValueError(f"h0 must be [1 or {B}, {N}, {E}], got {tuple(h0.shape)}")
         tensors.append(h0)
+        names += " h0"
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"the scan takes f32 operands, got {[t.dtype for t in tensors]}")
-    _build.check_cuda(*tensors)
+    _build.check_cuda(*tensors, names=names)
 
 
 def _launch(dt, xs, z, Bs, Cs, A, D, h0, out, h_final, hb, chunk, lds, is_bf16,
@@ -391,7 +400,7 @@ def selective_ssm_bwd(dt, A_T, Bs, Cs, xs, g, hb, chunk=CHUNK, need_dA=True):
                          f"dt {tuple(dt.shape)}, N {N}")
     if g.dtype != torch.float32 or hb.dtype != torch.float32:
         raise ValueError(f"g and hb must be f32, got {g.dtype} {hb.dtype}")
-    _build.check_cuda(dt, g, hb)
+    _build.check_cuda(dt, g, hb, names="dt g hb")
     ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
     n_slabs = _build.library().mt_selective_scan_bwd_slabs(E, N)  # one per block
     slabs = torch.empty(2, n_slabs, B, L, N, dtype=torch.float32, device=dt.device)

@@ -30,6 +30,11 @@ codes are padded per call; the s32 sums are unchanged. The GEMM is a
 ``torch.library`` custom op (``medtsllm::w4a8_gemm``) for the selective
 checkpoint policy of ``llm.remat = "dots"``.
 
+Operands: the codes, the packed weight and the scales must be contiguous
+(the kernel reads dense rows), the codes and the weight 16-byte aligned;
+``act_quant_w4a8_matmul`` makes its activations contiguous first. Any other
+layout raises a ValueError that names the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -129,7 +134,7 @@ def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
         raise ValueError("scales must be f32")
     if out_dtype not in _OUT_KIND:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    _build.check_cuda(xq, packed, x_scale, w_scale)
+    _build.check_cuda(xq, packed, x_scale, w_scale, names="xq packed x_scale w_scale")
     M, K = xq.shape
     N, K2 = packed.shape
     if K != 2 * K2 or x_scale.shape != (M,) or w_scale.shape != (N,):

@@ -34,6 +34,12 @@ The GEMM is a ``torch.library`` custom op (``medtsllm::w8a8_gemm``), so a
 selective checkpoint policy (``llm.remat = "dots"``) sees it and keeps its
 output.
 
+Operands: the kernels read dense rows from raw pointers, so every operand
+(x, the codes, the weight, the scales, g) must be contiguous, and the GEMM's
+codes and weight 16-byte aligned; the wrappers that take a caller's
+activations (``act_quant_matmul``, ``int8_dx``) make them contiguous first.
+Any other layout raises a ValueError that names the tensor.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -137,7 +143,7 @@ def quantize_rows(x: torch.Tensor):
         return quantize_rows_plain(x)
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be [M, K] f32/bf16, got {tuple(x.shape)} {x.dtype}")
-    _build.check_cuda(x)
+    _build.check_cuda(x, names="x")
     M, K = x.shape
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
@@ -168,7 +174,7 @@ def quantize_grad_rows(g: torch.Tensor, scale: torch.Tensor, ld: int | None = No
         return quantize_grad_rows_plain(g, scale, ld)
     if g.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32:
         raise ValueError(f"g must be f32/bf16 and scale f32, got {g.dtype}, {scale.dtype}")
-    _build.check_cuda(g, scale)
+    _build.check_cuda(g, scale, names="g scale")
     gq = torch.empty((M, ld), dtype=torch.int8, device=g.device)
     g_scale = torch.empty((M,), dtype=torch.float32, device=g.device)
     _build.launch("mt_grad_quant_rows", g.device, _build.ptr(g),
@@ -212,7 +218,7 @@ def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
         raise ValueError("scales must be f32")
     if out_dtype not in _OUT_KIND:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    _build.check_cuda(xq, wq_t, x_scale, w_scale)
+    _build.check_cuda(xq, wq_t, x_scale, w_scale, names="xq wq_t x_scale w_scale")
     M, K = xq.shape
     N, K2 = wq_t.shape
     if K != K2 or x_scale.shape != (M,) or w_scale.shape != (N,):

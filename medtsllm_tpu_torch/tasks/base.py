@@ -49,6 +49,13 @@ Dropout masks come from a generator on the trainer's device seeded from
 ``setup.seed``. The losses and each epoch's val scores are also kept in
 ``self.losses`` and ``self.val_scores``.
 
+``setup.profile_dir`` traces step 2 of ``train()`` (counted from 0; on a
+card a replay of the captured step) with ``torch.profiler`` into that
+directory, as JAX's trainer does; ``setup.debug_nans`` raises ``FloatingPointError`` at the
+first train or eval step whose loss, output or updated parameters hold a
+NaN (``runtime/profiler.py``), checked on the host after the eager step or
+the replay; unset, no check runs.
+
 The run's lifecycle is JAX's: the logger (``loggers/``) is made last in
 ``__init__`` and writes the run directory; ``log_epoch`` saves ``latest``
 every epoch and ``best`` on an improvement (``runtime/checkpoint.py``:
@@ -85,6 +92,7 @@ from ..loggers.base import logdir_base
 from ..models import build_model
 from ..models.llm.transformer import MoEMLP
 from ..models.medtsllm import ARRAY_BATCH_KEYS, MedTsLLM, Precision, PromptBuilder
+from ..runtime import profiler
 from ..runtime.checkpoint import load_checkpoint, restore_partial, wait_for_saves
 from ..runtime.graph import StepGraphs, TrainGraphs
 from ..runtime.optim import Optimizer
@@ -102,6 +110,8 @@ class BaseTask:
         self.run_id = run_id
         self.config = config
         self.device = resolve_device(device)
+        self.debug_nans = profiler.configure_from(config)
+        self.profile_dir = config.get("setup", {}).get("profile_dir") or None
         self.precision = Precision.from_config(config)
         seed = int(config.setup.seed)
         random.seed(seed)
@@ -310,12 +320,20 @@ class BaseTask:
             return self.train_step_eager(arrays, valid)
         loss = self.train_graphs(dict(arrays, valid=valid))
         self.optimizer.end_micro_step()
-        return loss
+        return self._checked_train(loss)
 
     def train_step_eager(self, arrays: dict, valid: torch.Tensor) -> torch.Tensor:
         """The train step op by op, whatever the device."""
         loss = self._train_update(dict(arrays, valid=valid))
         self.optimizer.end_micro_step()
+        return self._checked_train(loss)
+
+    def _checked_train(self, loss: torch.Tensor) -> torch.Tensor:
+        """``setup.debug_nans``: the step's loss and the trainable
+        parameters it updated, checked for NaNs."""
+        if self.debug_nans:
+            profiler.check_finite("train step's loss or updated parameters", loss,
+                                  self.optimizer.params)
         return loss
 
     def eval_prepare(self, batch: dict):
@@ -342,12 +360,18 @@ class BaseTask:
         signature (captured at its first call), on the CPU the eager step."""
         if self.step_graphs is None:
             return self.eval_step_eager(arrays)
-        return self.step_graphs(arrays)
+        out = self.step_graphs(arrays)
+        if self.debug_nans:
+            profiler.check_finite("eval step's output", out)
+        return out
 
     @torch.inference_mode()
     def eval_step_eager(self, arrays: dict) -> torch.Tensor:
         """The eval step op by op, whatever the device."""
-        return eval_forward(self.model, arrays)
+        out = eval_forward(self.model, arrays)
+        if self.debug_nans:
+            profiler.check_finite("eval step's output", out)
+        return out
 
     def eval_dispatch(self, batch: dict | None = None, prepared=None):
         if prepared is None:
@@ -477,6 +501,7 @@ class BaseTask:
         a card the loss held is a clone of the graph's, which the next replay
         overwrites)."""
         epochs = int(self.config.training.epochs)
+        step_in_run = 0
         # a SIGUSR1 in the loop waits for the next step boundary, or the
         # epoch's end (handle_termination)
         self._in_train = True
@@ -487,7 +512,14 @@ class BaseTask:
                 pending = None
                 for batch in prefetch(iter(self.train_pipeline)):
                     arrays = self.train_model_inputs(batch)
-                    loss = self.train_step(arrays, arrays["valid"])
+                    # setup.profile_dir: one steady-state step traced, step 2
+                    # of the run (on a card a replay of the captured step)
+                    traced = self.profile_dir if step_in_run == 2 else None
+                    with profiler.trace(traced):
+                        loss = self.train_step(arrays, arrays["valid"])
+                        if traced and self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                    step_in_run += 1
                     if self._preempt_requested:
                         self._save_and_exit()
                     if pending is not None:

@@ -365,8 +365,12 @@ def test_from_config_4bit(tmp_path):
     proj = build(_cfg(tmp_path, int8_matmul=False)).llm.blocks[0].attn.q_proj
     assert proj.act_quant is False and proj.codebook == "absmax"
     build(_cfg(tmp_path, quant_type="nf4", int8_matmul=False))  # codebooks are weight-only
-    with pytest.raises(NotImplementedError, match='"Mamba, open parts"'):
-        build(_cfg(tmp_path, llm="mamba-tiny"))
+    # a 4-bit Mamba (once refused): its three projections at the codebook
+    for qt, cb in (("int4", "absmax"), ("nf4", "nf4")):
+        mamba = build(_cfg(tmp_path, llm="mamba-tiny", quant_type=qt))
+        assert mamba.llm_cfg.quant4_codebook == cb
+        proj = mamba.llm.blocks[0].x_proj
+        assert proj.bits == 4 and proj.codebook == cb and proj.weight_q.shape == (20, 64)
     # the MoE: absmax int4 experts are integer experts
     moe = _cfg(tmp_path, llm="mixtral-tiny-128")
     assert build(moe).llm_cfg.moe_grouped is False  # "auto" is off on the CPU

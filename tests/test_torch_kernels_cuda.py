@@ -29,7 +29,12 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (37, 176, 72), (5, 64, 200),
                                    (16 * 48, 768, 768),   # t5 / bart cross k / v: B x P rows
-                                   (16 * 32, 2048, 768)])  # flan-t5-base's wo: B x L rows
+                                   (16 * 32, 2048, 768),  # flan-t5-base's wo: B x L rows
+                                   # mamba-130m's x_proj (N 80, under one 256-column
+                                   # tile), in_proj, out_proj at B 48 x 144 rows;
+                                   # mamba-tiny's x_proj (N 20)
+                                   (6912, 1536, 80), (6912, 768, 3072), (6912, 1536, 768),
+                                   (37, 128, 20)])
 def test_w8a8_kernel_bit_equal(cuda, M, K, N):
     """Kernel vs plain on the card: quantizer, s32 and scaled bf16 output
     all bit-equal (same integer math, same f32 epilogue order)."""
@@ -114,7 +119,11 @@ def test_w8a8_kernel_rejects_bad_input(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (896, 11008, 4096), (37, 160, 72),
-                                   (5, 64, 200)])
+                                   (5, 64, 200),
+                                   # 4-bit mamba-130m (x_proj N 80, in_proj, out_proj)
+                                   # and mamba-tiny's x_proj (N 20)
+                                   (6912, 1536, 80), (6912, 768, 3072), (6912, 1536, 768),
+                                   (37, 128, 20)])
 def test_w4a8_kernel_bit_equal(cuda, M, K, N):
     """K5 vs plain on the card: s32, f32 and bf16 outputs bit-equal (the same
     integers, the same f32 epilogue order), and the act-quant chain launches
@@ -261,6 +270,57 @@ def _row_share(out, ref):
     max |ref| of that row."""
     err = (out.float() - ref.float()).abs().amax(-1)
     return (err / (2 ** -6 * ref.float().abs().amax(-1)).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KV,D,P", [
+    (8, 112, 32, 32, 128, 37),  # the 7B serving shape, fused q|k|v (row pitch 12288)
+    (2, 40, 8, 2, 64, 13),      # GQA: [H*D | KV*D | KV*D] unequal slices
+    (3, 1, 8, 2, 128, 5),       # one query: the pitch from the batch stride
+])
+def test_rope_attention_reads_fused_projection_views(cuda, dtype, B, L, H, KV, D, P):
+    """q, k and v as column views of one fused projection output [B, L,
+    (H + 2 KV) D]: the kernel reads them in place (their row pitch), bit-
+    equal to its launch on their dense copies."""
+    g = torch.Generator(cuda).manual_seed(0)
+    qkv = torch.randn(B, L, (H + 2 * KV) * D, device=cuda, generator=g).to(dtype)
+    q, k, v = qkv.split((H * D, KV * D, KV * D), dim=-1)
+    q, k, v = q.reshape(B, L, H, D), k.reshape(B, L, KV, D), v.reshape(B, L, KV, D)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    pk = torch.randn(1, KV, P, D, device=cuda, generator=g).to(dtype)
+    pv = torch.randn(1, KV, P, D, device=cuda, generator=g).to(dtype)
+    cos, sin = k2.rope_tables(torch.arange(P, P + L, device=cuda), D, 10000.0)
+    n = k2.rope_attention.launches
+    out = k2.rope_attention(q, k, v, cos, sin, pk, pv)
+    assert k2.rope_attention.launches == n + 1 and out.is_contiguous()
+    dense = k2.rope_attention(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin, pk, pv)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.cuda
+def test_rope_attention_refuses_layouts_it_cannot_read(cuda):
+    """A layout the kernel cannot read raises a ValueError naming the
+    tensor: heads apart (a [B, H, L, D] tensor transposed), a strided head
+    dim, a row pitch off 16 bytes, non-contiguous tables or prefix."""
+    B, L, H, D = 2, 8, 4, 64
+    dense = torch.zeros(B, L, H, D, device=cuda, dtype=torch.bfloat16)
+    cos = torch.zeros(L, D // 2, device=cuda)
+    heads_apart = torch.zeros(B, H, L, D, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="^q "):
+        k2.rope_attention(heads_apart, dense, dense, cos, cos)
+    strided_d = torch.zeros(B, L, H, 2 * D, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="^k "):
+        k2.rope_attention(dense, strided_d, dense, cos, cos)
+    # a column view whose rows are 4 elements (8 bytes) past a 16-byte pitch
+    odd = torch.zeros(B, L, H * D + 4, device=cuda, dtype=torch.bfloat16)[..., :H * D]
+    with pytest.raises(ValueError, match="^v: .*16 bytes"):
+        k2.rope_attention(dense, dense, odd.reshape(B, L, H, D), cos, cos)
+    with pytest.raises(ValueError, match="^cos "):
+        k2.rope_attention(dense, dense, dense, torch.zeros(D // 2, L, device=cuda).T, cos)
+    pk = torch.zeros(1, H, D, 3, device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="^pk "):
+        k2.rope_attention(dense, dense, dense, cos, cos, pk, pk)
 
 
 @pytest.mark.cuda

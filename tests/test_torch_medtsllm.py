@@ -137,8 +137,13 @@ def test_unported_options_raise(tmp_path):
     out = tt.eval_dispatch(next(iter(tt.test_pipeline)))
     assert out.shape == (4, 32, 3) and torch.isfinite(out).all()
     cfg = _cfg(tmp_path, 8, "float32")
-    cfg.models.medtsllm.llm.fuse_projections = True
-    with pytest.raises(NotImplementedError, match="fuse_projections"):
+    cfg.models.medtsllm.llm.fuse_projections = True  # ported: one qkv and one gate|up
+    fused = get_trainer("x", cfg, device="cpu")
+    assert fused.model.llm_cfg.fused_projections
+    assert {"qkv_proj", "o_proj"} <= dict(fused.model.llm.blocks[0].attn.named_children()).keys()
+    assert torch.isfinite(fused.eval_dispatch(next(iter(fused.test_pipeline)))).all()
+    cfg.setup.tensor_parallel = 2  # the port's parallelism refusal still stands
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
         get_trainer("x", cfg, device="cpu")
     cfg = _cfg(tmp_path, 8, "float32")
     cfg.task = "pretraining"  # ported: the mixture of the four families' stand-ins
