@@ -15,7 +15,8 @@ nvidia-smi. Phases:
      workspace's bytes), its raster at group_m 1 and 16 (``[raster]``) and
      K1's GEMM per expert over the same rows (``[yardstick]``); K2 with a
      per-row prefix at ecgmit-seg.toml's clip shape, each query row held
-     against the plain version fed the once-rounded rotation), with both
+     against the plain version fed the once-rounded rotation; K4's wide
+     heads, D 384 and 512, f32 and bf16, printed), with both
      times from CUDA events, the least time the card could take for the
      same work (bound) and, where one exists, the time of the one PyTorch
      call that computes the same function (timed here only; the port never
@@ -175,10 +176,11 @@ nvidia-smi. Phases:
      32 patches] (listed as ``rope_attention[pretraining]``, 32 launches a
      batch); ``train_graphed``'s captured steps, then ``serve()`` (24
      test batches);
-  6l. the run lifecycle at bidmc.toml's full width, its run directories
-     under a temporary directory: (a) ``python -m medtsllm_tpu_torch.train``
-     as a subprocess on bidmc.toml as shipped (``dumps_toml`` of it, only
-     ``training.epochs = 1`` and ``paths.logdir`` changed; the logger as
+  6l. the run lifecycle at bidmc.toml's full width cut to 4 layers
+     (``LIFECYCLE_LAYERS``), its run directories under a temporary
+     directory: (a) ``python -m medtsllm_tpu_torch.train`` as a subprocess
+     on bidmc.toml as shipped (``dumps_toml`` of it, only ``training.epochs
+     = 1``, the depth and ``paths.logdir`` changed; the logger as
      shipped, tensorboard: the print logger's behaviour with a warning on a
      machine without it), printing the logger used, the checkpoint's bytes
      and the run directory's layout; (b) ``python -m
@@ -248,6 +250,18 @@ nvidia-smi. Phases:
      peak GiB of each; mamba-130m (prompt head embedded) under ``remat =
      true``: two steps with gradients bit-equal to those without, K9 and
      K10 launched; one ``ranger_classic`` step on the gpt2 model;
+  6y. serving export (``runtime/export.py``): each trainer's eager eval
+     step (and its prefill) through ``torch.export``, every kernel a
+     ``medtsllm::`` custom op in the graph, saved, loaded and served: the
+     main path (phase 4's 7B w8a8 at full depth) with the export seconds,
+     the artifact's bytes against the params' (no weight inside) and the
+     loaded program's ms beside the live eager and graphed steps';
+     mamba-130m's state prefill; per-clip bank rows from the exported [1,
+     P] prefill on 4 layers of ecgmit-seg.toml; gpt2 at 768 keys (K4); 2
+     layers of the 7B at int4 (K5) and of moe-8x1b (K6 and its requant).
+     Each round trip exactly 0, the loaded program bit-equal to the eager
+     and the graphed step, each kernel's counter moved by the loaded
+     program;
  10. one f32 train step of 2-layer slices (mamba-130m widths; llama-1b
      dense, GQA) on the card against the CPU with the same weights: the
      loss and the gradient of every trainable parameter; then the card's
@@ -1013,10 +1027,13 @@ def run_main(module: str, *args: str) -> str:
     return out.getvalue()
 
 
+LIFECYCLE_LAYERS = 4  # 6l's depth: the lifecycle, not the backbone, is under test
+
+
 def lifecycle(runs: Path, dev, drive, Config) -> None:
     """Phase 6l: the train and test CLIs, SIGUSR1 and the resume, and
-    pretraining -> finetuning, on the card at bidmc.toml's full width, the
-    run directories under ``runs``."""
+    pretraining -> finetuning, on the card at bidmc.toml's full width cut to
+    ``LIFECYCLE_LAYERS`` layers, the run directories under ``runs``."""
     import torch
 
     from medtsllm_tpu_torch.config import dumps_toml, load_config
@@ -1026,6 +1043,7 @@ def lifecycle(runs: Path, dev, drive, Config) -> None:
     def shipped(**top) -> dict:
         raw = load_config(BIDMC_TOML).to_dict()
         raw["training"]["epochs"] = 1
+        raw["models"]["timellm"]["llm"]["llm_layers"] = LIFECYCLE_LAYERS
         raw["paths"] = {"logdir": str(runs)}
         return dict(raw, **top)
 
@@ -1130,6 +1148,7 @@ def lifecycle(runs: Path, dev, drive, Config) -> None:
     # (d) pretraining -> finetuning
     t0 = time.perf_counter()
     pre_raw = dict(pretraining_config(Config).to_dict(), DEBUG=False)
+    pre_raw["models"]["timellm"]["llm"]["llm_layers"] = LIFECYCLE_LAYERS
     pre_raw["paths"] = {"logdir": str(runs)}
     pre = get_trainer("pretrain", Config(pre_raw), device=dev)
     pre.optimizer.set_epoch(0)
@@ -2260,6 +2279,43 @@ def main() -> None:
               f"tensors, the gradients, the generator's state; launches a step "
               f"{eager[1][0]}; the backbone unchanged")
 
+    def check_k4_shape(name, B, H, L, S, D, dtype, listed):
+        """K4 through its JAX interface at one end-aligned causal shape against
+        its plain version: f32 within 1e-5 x max(1, max |plain|), bf16 each
+        query row within 2^-6 x its max; bound: the (query, key) pairs the mask
+        keeps, QK^T and PV at 2 D operations each, at the operands' peak, or q,
+        k, v read and the output written once; library: SDPA, masked alike."""
+        q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
+        kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+        o = k4.flash_attention(q, kk, vv, True)
+        o0 = k4.flash_attention_plain(q, kk, vv, True)
+        err = (o.float() - o0.float()).abs().max().item()
+        f32 = dtype == torch.float32
+        mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
+        pairs = L * (S - L) + L * (L + 1) // 2
+        esz = 4 if f32 else 2
+        record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
+               "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
+               1e-5 * max(1.0, o0.abs().max().item()) if f32 else None,
+               cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
+               cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
+               bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
+                     "f32" if f32 else "bf16"),
+               cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                                     attn_mask=mask)),
+               f" (B={B} H=KV={H} L={L} S={S} D={D} {'f32' if f32 else 'bf16'} causal, "
+               f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
+               listed=listed, share=None if f32 else row_share(o, o0))
+
+    # K4's wide heads (D 320-512, column passes; JAX's gate sends every
+    # D % 64 == 0 to its kernel), f32 and bf16, printed, not listed: no
+    # backbone of the port's families has such heads
+    for D_w in (384, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = "f32" if dtype == torch.float32 else "bf16"
+            check_k4_shape(f"flash_attention[D{D_w}-{kind}]", 8, 8, 512, 768, D_w, dtype,
+                           False)
+
     # 4. the llama serving path, through the user's entry point
     counts, *_ = serve(trainer, "slice")
     for name in ("w8a8_quantize", "w8a8_gemm", "rope_attention",
@@ -2835,34 +2891,6 @@ def main() -> None:
     del q, kk, vv, o, o0
     print(f"[gpt4ts] phase 6p: {time.perf_counter() - t_phase:.1f} s wall")
 
-    def check_k4_shape(name, B, H, L, S, D, dtype, listed):
-        """K4 through its JAX interface at one end-aligned causal shape against
-        its plain version: f32 within 1e-5 x max(1, max |plain|), bf16 each
-        query row within 2^-6 x its max; bound: the (query, key) pairs the mask
-        keeps, QK^T and PV at 2 D operations each, at the operands' peak, or q,
-        k, v read and the output written once; library: SDPA, masked alike."""
-        q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
-        kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
-        o = k4.flash_attention(q, kk, vv, True)
-        o0 = k4.flash_attention_plain(q, kk, vv, True)
-        err = (o.float() - o0.float()).abs().max().item()
-        f32 = dtype == torch.float32
-        mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
-        pairs = L * (S - L) + L * (L + 1) // 2
-        esz = 4 if f32 else 2
-        record(name, "medtsllm_tpu_torch/csrc/flash_attention.cu",
-               "medtsllm_tpu/ops/pallas/flash_attention.py:196", err,
-               1e-5 * max(1.0, o0.abs().max().item()) if f32 else None,
-               cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True)),
-               cuda_ms(torch, lambda: k4.flash_attention_plain(q, kk, vv, True)),
-               bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
-                     "f32" if f32 else "bf16"),
-               cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
-                                                                     attn_mask=mask)),
-               f" (B={B} H=KV={H} L={L} S={S} D={D} {'f32' if f32 else 'bf16'} causal, "
-               f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
-               listed=listed, share=None if f32 else row_share(o, o0))
-
     def ln_families():
         """Phases 6q-6s, their names kept out of main's scope (later phases
         read main's B, H, KV, D)."""
@@ -3093,8 +3121,9 @@ def main() -> None:
                 kind = "f32" if dtype == torch.float32 else "bf16"
                 check_k4_shape(f"flash_attention[D{D}-{kind}]", 8, H, 512, 768, D, dtype, False)
         print(f"[gpt2-long] phase 6s: {time.perf_counter() - t_phase:.1f} s wall")
+        return history
 
-    ln_families()
+    gpt2_long_history = ln_families()
 
     def encdec_families():
         """Phases 6t-6u, their names kept out of main's scope."""
@@ -3540,7 +3569,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[pretraining] phase 6k: {time.perf_counter() - t_phase:.1f} s wall")
 
-    # 6l. the run lifecycle at full width, its run directories under a
+    # 6l. the run lifecycle at full width (4 layers), its run directories under a
     # temporary directory: (a) the train CLI on bidmc.toml as shipped (but
     # training.epochs 1 and paths.logdir; the logger as shipped,
     # tensorboard, which the card's machine lacks); (b) the test CLI on
@@ -4320,6 +4349,141 @@ def main() -> None:
           f"FloatingPointError ({raised}); phase 6x {time.perf_counter() - t_phase:.1f} s wall")
     del tr, a
     torch.cuda.empty_cache()
+
+    # 6y. serving export (runtime/export.py): each trainer's eager eval
+    # forward (and its prefill) through torch.export, its kernels recorded as
+    # medtsllm:: custom ops, saved, loaded back and served on the card. The
+    # main path (bench_config: the 7B w8a8 bf16, B 8, head cached) at full
+    # width and depth: the loaded program bit-equal to eval_step_eager and to
+    # the graphed eval_step (verify_roundtrip: through the loaded prefill),
+    # K1's quantizer and GEMM, K2 and K3 in its graph, their launch counters
+    # moved by the loaded program alone, the export seconds, the artifact's
+    # bytes against the params' (it holds no weight) and the loaded
+    # program's p50 beside the live graphed step's; then mamba-130m at full
+    # width (4 layers: the gated scan from the exported state prefill) and
+    # cheap cuts that reach the other forward kernels: the per-clip bank on
+    # 4 layers of ecgmit-seg.toml (K2 with a per-row prefix, the prefill at
+    # [1, P], each row bit-equal to the live bank's), gpt2 at 768 keys (6s,
+    # 4 layers: K4 through the dispatcher), 2 layers of the 7B at int4 (K5)
+    # and of moe-8x1b (K6 and its requant)
+    from medtsllm_tpu_torch.runtime.export import (export_serving, load_serving,
+                                                   serve_prefix, serving_params,
+                                                   verify_roundtrip)
+    t_phase = time.perf_counter()
+    export_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-export-"))
+
+    def export_case(label, tr, ops, moved, p50=False, also=None):
+        """Export ``tr`` (one test batch fixes the shapes), check the graph
+        names ``ops`` and the round trip is exact, then serve the batch from
+        the loaded artifact: bit-equal to the eager and the graphed step,
+        each counter of ``moved`` launched by the loaded program; ``also(
+        loaded, params, batch)`` checks more on the same artifact."""
+        batch = next(iter(tr.test_pipeline))
+        out = export_dir / label
+        t0 = time.perf_counter()
+        manifest = export_serving(tr, out, batch=batch)
+        export_s = time.perf_counter() - t0
+        names = set(manifest["custom_ops"]) | set(manifest.get("prefill", {}).get(
+            "custom_ops", ()))
+        check(ops <= names, f"[{label}-export] the graph calls {sorted(names)}, not "
+              f"{sorted(ops)}")
+        loaded = load_serving(out)
+        diff = verify_roundtrip(tr, out, batch=batch, loaded=loaded)
+        check(diff == 0.0, f"[{label}-export] round trip max |diff| {diff}")
+        params = serving_params(tr.model)
+        live = tr.eval_model_inputs(batch)
+        arrays = dict(live)
+        if "prefill" in loaded:
+            arrays["prefix_kv"] = serve_prefix(loaded, params,
+                                               tr.model_inputs(batch)["prefix_ids"], dev)
+        with torch.no_grad():
+            got, counts = counted(lambda: loaded["eval_step"](params, arrays))
+        eager, graphed = tr.eval_step_eager(live), tr.eval_step(live)
+        check(torch.equal(got, eager) and torch.equal(got, graphed),
+              f"[{label}-export] loaded vs eager max |diff| "
+              f"{(got.float() - eager.float()).abs().max().item()}, vs graphed "
+              f"{(got.float() - graphed.float()).abs().max().item()}")
+        check(all(counts[n] > 0 for n in moved), f"[{label}-export] the loaded program's "
+              f"launches {counts}: {sorted(moved)} must move")
+        art = sum(f.stat().st_size for f in out.iterdir())
+        wbytes = sum(t.numel() * t.element_size() for t in params.values())
+        consts = manifest["constants"]["bytes"] + manifest.get("prefill", {}).get(
+            "constants", {}).get("bytes", 0)
+        check(art < wbytes / 10 and consts < 2**20, f"[{label}-export] the artifact "
+              f"{art} B (constants {consts} B) against {wbytes} B of params")
+        line = (f"[{label}-export] export {export_s:.2f} s; artifact {art / 2**20:.2f} MiB "
+                f"({sorted(p.name for p in out.iterdir())}; constants {consts} B) against "
+                f"{wbytes / 2**30:.3f} GiB of params; ops {sorted(names)}; round trip 0.0, "
+                f"loaded = eager = graphed; the loaded step's launches "
+                f"{ {n: counts[n] for n in counts if counts[n]} }")
+        if p50:
+            with torch.no_grad():
+                ms_loaded = cuda_ms(torch, lambda: loaded["eval_step"](params, arrays),
+                                    iters=10, warmup=2)
+            with torch.inference_mode():
+                ms_eager = cuda_ms(torch, lambda: tr.eval_step_eager(live), iters=10,
+                                   warmup=2)
+            ms_graphed = cuda_ms(torch, lambda: tr.eval_step(live), iters=10, warmup=2)
+            line += (f"; eval step ms (CUDA events, mean of 10): loaded {ms_loaded:.2f}, "
+                     f"live eager {ms_eager:.2f}, live graphed {ms_graphed:.2f} ({smi})")
+        print(line)
+        if also is not None:
+            also(loaded, params, batch)
+        shutil.rmtree(out)
+        return counts
+
+    main_ops = {"medtsllm::quantize_rows", "medtsllm::w8a8_gemm", "medtsllm::rope_attention",
+                "medtsllm::reprogramming_attention"}
+    main_moved = {"w8a8_quantize", "w8a8_gemm", "rope_attention", "reprogramming_attention"}
+    tr = get_trainer("chip-smoke-export", bench_config(Config), device=dev)
+    export_case("main", tr, main_ops, main_moved, p50=True)
+    del tr
+    torch.cuda.empty_cache()
+    tr = get_trainer("chip-smoke-export-mamba", mamba_config(Config, llm_layers=4),
+                     device=dev)
+    export_case("mamba-130m", tr, {"medtsllm::selective_ssm_gated",
+                                   "medtsllm::reprogramming_attention"},
+                {"selective_scan_h0", "reprogramming_attention"})
+    del tr
+    tr = get_trainer("chip-smoke-export-clips", task_config(
+        Config, ECG_SEG_TOML, n_points=8 * 512, n_clips=8, llm_layers=4), device=dev)
+
+    def bank_rows(loaded, params, batch):
+        """Each per-clip head row through the exported [1, P] prefill, bit-equal
+        to the live bank's row."""
+        ids = tr.model_inputs(batch)["prefix_ids"]
+        spec = loaded["manifest"]["prefill"]
+        check(ids.ndim == 2 and spec["per_clip"] and spec["prefix_ids_shape"]
+              == [1, ids.shape[1]], f"[clips-export] the prefill {spec}")
+        live = tr.eval_model_inputs(batch)["prefix_kv"]
+        with torch.no_grad():
+            for b in range(ids.shape[0]):
+                row = loaded["prefill"](params, torch.as_tensor(ids[b:b + 1], device=dev))
+                check(all(torch.equal(x, y[b:b + 1]) for lx, ly in zip(row, live)
+                          for x, y in zip(lx, ly)), f"[clips-export] bank row {b} differs")
+        print(f"[clips-export] {ids.shape[0]} rows of the exported [1, {ids.shape[1]}] "
+              "prefill bit-equal to the live bank's")
+    export_case("clips", tr, {"medtsllm::rope_attention"}, {"rope_attention"},
+                also=bank_rows)
+    del tr
+    tr = get_trainer("chip-smoke-export-gpt2-long", family_config(
+        Config, "gpt2", batch=8, history=gpt2_long_history, n_points=12 * 2 * gpt2_long_history,
+        n_clips=12, n_features=1, input_stats=False, d_ff=32, load_in_8bit=False,
+        llm_layers=4), device=dev)
+    export_case("gpt2-long", tr, {"medtsllm::flash_attention"}, {"flash_attention"})
+    del tr
+    tr = get_trainer("chip-smoke-export-int4", bench_config(Config, llm_layers=2,
+                                                           quant_type="int4"), device=dev)
+    export_case("int4", tr, {"medtsllm::w4a8_gemm", "medtsllm::quantize_rows"},
+                {"w4a8_gemm", "w8a8_quantize"})
+    del tr
+    tr = get_trainer("chip-smoke-export-moe", moe_config(Config, llm_layers=2), device=dev)
+    export_case("moe", tr, {"medtsllm::gmm", "medtsllm::requant_tiles"},
+                {"grouped_matmul_gate_up", "grouped_matmul_down", "grouped_matmul_requant"})
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(export_dir)
+    print(f"[export] phase 6y: {time.perf_counter() - t_phase:.1f} s wall ({smi})")
 
     # 10. one f32 train step of 2-layer slices on the card against the CPU
     # (plain versions) with the same weights, dropout 0: the loss and the

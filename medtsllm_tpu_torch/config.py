@@ -188,7 +188,8 @@ def validate_config(config):
     """The checks of ``medtsllm_tpu/config.py:256-341`` on the keys the
     port reads: task, model, lengths, dataset, optimizer, scheduler,
     ``setup.dtype``, the aligned-window tasks' equal lengths, the
-    anomaly-detection and segmentation tables, FEDformer's f32 and
+    anomaly-detection and segmentation tables, classification's window
+    label and loss, imputation's mask rate, FEDformer's f32 and
     finetuning's exclusive ``frozen_epochs`` / ``warmup_epochs``; and the
     prompting keys of the per-clip head, ``clip_head`` and
     ``clip_cache_slots``."""
@@ -232,6 +233,18 @@ def validate_config(config):
         require(sg is not None and "mode" in sg and "distance_thresh" in sg,
                 "segmentation requires [tasks.segmentation] with `mode` and "
                 "`distance_thresh`")
+    if config.task == "classification":
+        cl = tasks.get("classification", {})
+        wl = cl.get("window_label", "majority")
+        require(wl in ("majority", "last", "any"),
+                f"classification window_label must be majority/last/any, got {wl!r}")
+        loss = t.get("loss", "ce")
+        require(loss in ("ce", "cross_entropy", "auto"),
+                f"classification requires loss ce/cross_entropy/auto, got {loss!r}")
+    if config.task == "imputation":
+        rate = tasks.get("imputation", {}).get("mask_rate", 0.25)
+        require(0.0 < float(rate) < 1.0,
+                f"imputation mask_rate must be in (0, 1), got {rate!r}")
     if config.model == "fedformer":
         dt = config.get("setup", {}).get("dtype", "float32")
         require(dt in ("float32", "float", "fp32", "32", 32, "mixed"),

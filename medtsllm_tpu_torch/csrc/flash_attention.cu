@@ -75,6 +75,10 @@
 // P, 176 registers at D 256, inside setmaxnreg's 240; two stages fit beside
 // q. The fused entry (RoPE in the kernel) stays at D 64 / 128, the route's
 // head dims.
+// Head dims 320, 384, 448 and 512 (JAX's dispatcher sends them to its
+// kernel too) take a simple kernel in both dtypes, past wgmma's N of 256:
+// passes of at most 256 output columns that each recompute the scores
+// (flash_wide_kernel below).
 // f32 inputs take a plain FMA kernel (no TF32): one thread per head-dim
 // column over 16-query (24 at D 192, 8 at D 256) x 32-key tiles, for f32
 // parity with the CPU; on the fused entry a first kernel rotates q for it
@@ -756,12 +760,168 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- wide heads (D 320, 384, 448, 512): column passes ----------------------
+// Past wgmma's N of 256 and the f32 kernel's one-thread-a-column block, both
+// dtypes take one simple kernel: a block holds WQ query rows of one (batch,
+// head) and one pass of at most WT output columns (grid.y = the passes, 2 at
+// every wide D). Each pass recomputes the full-D scores of its rows: K tiles
+// of WK keys staged in f32, one (row, key) dot a thread, the online softmax a
+// warp a row (lane = key), then the pass's columns of the V tile and the
+// f32 accumulators, a column a thread. bf16 rounds p to bf16 before the PV
+// product, as the other kernels do (l sums the f32 p); f32 is exact FMAs.
+constexpr int WQ = 8, WK = 32, WT = 256;
+static_assert(WQ * WK == WT, "one (row, key) score a thread");
+static_assert(WT / 32 == WQ, "one warp a query row");
+
+template <typename T>
+__device__ __forceinline__ float wide_load(T x) {
+  if constexpr (std::is_same_v<T, float>) return x;
+  else return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T wide_store(float x) {
+  if constexpr (std::is_same_v<T, float>) return x;
+  else return __float2bfloat16_rn(x);
+}
+
+template <int D>
+struct WideSmem {  // floats: q rows, the K tile (padded rows) or the V pass, p, alpha, l
+  static constexpr int kFloats = WQ * D + WK * (D + 1) + WQ * WK + 2 * WQ;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WT)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ out, int H, int KV, int L, int S, int causal,
+                  float sm_scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* sq = smem;                 // [WQ][D]
+  float* skv = sq + WQ * D;         // [WK][LD] keys, then [WK][WT] the pass's values
+  float* sp = skv + WK * LD;        // [WQ][WK] scores, then probabilities
+  float* s_alpha = sp + WQ * WK;    // [WQ]
+  float* s_l = s_alpha + WQ;        // [WQ]
+
+  const int nq = (L + WQ - 1) / WQ;
+  const int q0 = (blockIdx.x % nq) * WQ, bh = blockIdx.x / nq;
+  const int b = bh / H, h = bh % H;
+  const size_t kv_row = static_cast<size_t>(b) * KV + h / (H / KV);
+  const T* qb = q + static_cast<size_t>(bh) * L * D;
+  const T* kb = k + kv_row * S * D;
+  const T* vb = v + kv_row * S * D;
+  T* ob = out + static_cast<size_t>(bh) * L * D;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int col = blockIdx.y * WT + t;  // this thread's output column
+  const bool has_col = col < D;
+  const int offs = S - L;
+
+  for (int i = t; i < WQ * D; i += WT) {
+    const int r = i / D;
+    sq[i] = q0 + r < L ? wide_load(qb[static_cast<size_t>(q0) * D + i]) : 0.f;
+  }
+  const int kend = causal ? min(S, q0 + WQ + offs) : S;
+  const int ntiles = kend > 0 ? (kend + WK - 1) / WK : 0;
+
+  float m = kNegInf, l = 0.f;  // row `warp`'s statistics, the same in every lane
+  float acc[WQ];
+#pragma unroll
+  for (int r = 0; r < WQ; ++r) acc[r] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int j0 = tile * WK;
+    __syncthreads();  // the previous tile's values and probabilities are read
+    for (int i = t; i < WK * D; i += WT) {
+      const int j = i / D, e = i - j * D;
+      skv[j * LD + e] = j0 + j < S ? wide_load(kb[static_cast<size_t>(j0) * D + i]) : 0.f;
+    }
+    __syncthreads();
+    {
+      const int r = t / WK, j = t % WK;
+      float dot = 0.f;
+#pragma unroll 8
+      for (int e = 0; e < D; ++e) dot = fmaf(sq[r * D + e], skv[j * LD + e], dot);
+      sp[r * WK + j] = dot * sm_scale;
+    }
+    __syncthreads();
+    {
+      const int row = q0 + warp, c = j0 + lane;
+      float val = sp[warp * WK + lane];
+      if (c >= S || (causal && c > row + offs)) val = kNegInf;
+      float mc = val;
+      for (int o = 16; o > 0; o >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
+      const float m_new = fmaxf(m, mc);
+      const float alpha = expf(m - m_new);
+      const float p = expf(val - m_new);
+      float sum = p;
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l = alpha * l + sum;
+      m = m_new;
+      sp[warp * WK + lane] = wide_load(wide_store<T>(p));  // p at v's dtype
+      if (lane == 0) s_alpha[warp] = alpha;
+    }
+    __syncthreads();  // the keys are read: the pass's values take their place
+    if (has_col)
+      for (int j = 0; j < WK; ++j)
+        skv[j * WT + t] = j0 + j < S ? wide_load(vb[static_cast<size_t>(j0 + j) * D + col]) : 0.f;
+    __syncthreads();
+    if (has_col) {
+#pragma unroll
+      for (int r = 0; r < WQ; ++r) {
+        float a = acc[r] * s_alpha[r];
+        for (int j = 0; j < WK; ++j) a = fmaf(sp[r * WK + j], skv[j * WT + t], a);
+        acc[r] = a;
+      }
+    }
+  }
+  if (lane == 0) s_l[warp] = l;
+  __syncthreads();
+  if (has_col) {
+#pragma unroll
+    for (int r = 0; r < WQ; ++r)
+      if (q0 + r < L)
+        ob[static_cast<size_t>(q0 + r) * D + col] =
+            wide_store<T>(__fdiv_rn(acc[r], fmaxf(s_l[r], 1e-30f)));
+  }
+}
+
+template <typename T, int D>
+int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+                int L, int S, int causal, float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_wide_kernel<T, D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem<D>::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(((L + WQ - 1) / WQ) * B * H, (D + WT - 1) / WT);
+  kernel<<<grid, WT, WideSmem<D>::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), H, KV, L, S, causal, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int attend_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+                int L, int S, int D, int causal, float sm_scale, cudaStream_t s) {
+  if (D == 320) return launch_wide<T, 320>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
+  if (D == 384) return launch_wide<T, 384>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
+  if (D == 448) return launch_wide<T, 448>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
+  if (D == 512) return launch_wide<T, 512>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 int attend(const void* q, const void* k, const void* v, void* out, const float* cosb,
            const float* sinb, int is_bf16, int causal, int lhd, int B, int H, int KV, int L,
            int S, int D, float sm_scale, cudaStream_t s) {
   if (static_cast<long long>(B) * H * ((L + 7) / 8) > 0x7fffffffLL || KV <= 0 || H % KV ||
       L <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 256) {  // the JAX interface only: the route's heads are 64 / 128
+    if (cosb || lhd || static_cast<long long>(B) * H * ((L + WQ - 1) / WQ) > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return is_bf16 ? attend_wide<bf16>(q, k, v, out, B, H, KV, L, S, D, causal, sm_scale, s)
+                   : attend_wide<float>(q, k, v, out, B, H, KV, L, S, D, causal, sm_scale, s);
+  }
   if (is_bf16) {
     const FlashArgs a{cosb, sinb, H, KV, L, S, causal, lhd, sm_scale * kLog2e};
     if (D == 128) return launch_wgmma<128>(q, k, v, out, a, B, s);

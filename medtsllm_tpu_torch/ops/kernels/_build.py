@@ -148,6 +148,49 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def op_outputs(outs, *inputs):
+    """An op's CPU kernel's results (a tensor or a sequence of them) made
+    contiguous, as its fake kernel describes them, with any that shares
+    memory with an input or an earlier result copied: a custom op may
+    return no alias. Copies keep the values bit for bit."""
+    seen = {t.untyped_storage().data_ptr() for t in _tensors(inputs) if t.numel()}
+    single = isinstance(outs, torch.Tensor)
+    res = []
+    for t in [outs] if single else outs:
+        t = t.contiguous()
+        key = t.untyped_storage().data_ptr()
+        if t.numel() and key in seen:
+            t = t.clone()
+            key = t.untyped_storage().data_ptr()
+        seen.add(key)
+        res.append(t)
+    return res[0] if single else res
+
+
+def _tensors(items):
+    for t in items:
+        if isinstance(t, torch.Tensor):
+            yield t
+        elif isinstance(t, (list, tuple)):
+            yield from _tensors(t)
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors: a CPU call
+    that does takes the plain version, which differentiates (the ops have
+    no backward of their own)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(tensors))
+
+
+def check_aligned(tensors, message: str) -> None:
+    """Raise ``message`` unless every given tensor starts on a 16-byte
+    boundary. Read in an op's CUDA kernel, on real tensors: a traced
+    (fake) tensor has no address."""
+    if any(t.data_ptr() % 16 for t in tensors if t is not None):
+        raise ValueError(message)
+
+
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     """A tensor's device pointer; NULL for an absent optional operand."""
     return ctypes.c_void_p(0 if t is None else t.data_ptr())

@@ -8,7 +8,7 @@ kernel defines no custom_vjp. Two entries launch the same kernel:
 
 - ``flash_attention(q, k, v, causal)``: the JAX function's interface, q
   [B, H, L, D] already rotated against k/v [B, KV, S, D] -> [B, H, L, D]
-  at D 64, 128, 192 or 256 (``HEAD_DIMS``),
+  at D 64 to 512 in steps of 64 (``HEAD_DIMS``),
   KV dividing H (query row ``b * H + h`` reads kv row
   ``b * KV + h // (H / KV)``), end-aligned causal (query i sees keys
   <= i + S - L) or non-causal;
@@ -44,7 +44,10 @@ sin and the prefix must be contiguous and 16-byte aligned (the JAX
 interface's dispatcher makes q / k / v contiguous first); any other layout
 raises a ValueError that names the tensor.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+Each entry's launches are one custom op (``medtsllm::flash_attention``,
+``medtsllm::rope_flash_keys``, ``medtsllm::rope_flash_attention``; the
+CPU kernel the plain version), which ``torch.export`` records. A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
 
@@ -92,9 +95,10 @@ def _no_grad(name, *tensors):
 
 
 # the head dims K4 has instances for; JAX's dispatcher sends every D % 64 == 0
-# from 512 tokens to its kernel, and the port's gate is JAX's: D past 256 (no
-# backbone of the port's families has one) is still refused
-HEAD_DIMS = (64, 128, 192, 256)
+# from 512 tokens to its kernel, and the port's gate is JAX's: 64-256 run the
+# tensor-core kernel (bf16), 320-512 a simple kernel in column passes; D past
+# 512 (no backbone of the port's families has one) is still refused
+HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 
 
 def _check_dims(B, H, KV, D, dtypes, head_dims=HEAD_DIMS):
@@ -108,19 +112,46 @@ def _check_dims(B, H, KV, D, dtypes, head_dims=HEAD_DIMS):
 
 
 def _check_aligned(*tensors):
-    if any(t.data_ptr() % 16 for t in tensors if t is not None):
-        raise ValueError("the kernel's operands must start on a 16-byte boundary (TMA "
-                         "tiles and 16-byte rows)")
+    _build.check_aligned(tensors, "the kernel's operands must start on a 16-byte "
+                         "boundary (TMA tiles and 16-byte rows)")
+
+
+@torch.library.custom_op("medtsllm::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              sm_scale: float) -> torch.Tensor:
+    """K4's launch as a custom op (the wrapper has checked the operands'
+    shapes; the addresses are read here)."""
+    _check_aligned(q, k, v)
+    B, H, L, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    ptr = _build.ptr
+    _build.launch("mt_flash_attention", q.device, ptr(q), ptr(k), ptr(v), ptr(out),
+                  int(q.dtype == torch.bfloat16), int(causal), B, H, KV, L, S, D,
+                  ctypes.c_float(sm_scale))
+    flash_attention.launches += 1
+    return out
+
+
+@_flash_op.register_kernel("cpu")
+def _(q, k, v, causal, sm_scale):
+    return _build.op_outputs(flash_attention_plain(q, k, v, causal, sm_scale), q, k, v)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
-    """q [B, H, L, D], k/v [B, KV, S, D] -> [B, H, L, D]. Counts CUDA
-    launches in ``flash_attention.launches``. Forward only."""
+    """q [B, H, L, D], k/v [B, KV, S, D] -> [B, H, L, D], through the op
+    ``medtsllm::flash_attention``. Counts CUDA launches in
+    ``flash_attention.launches``. Forward only."""
     _no_grad("flash_attention", q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, sm_scale)
+        return _flash_op(q, k, v, causal, float(sm_scale))
     B, H, L, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -130,14 +161,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
         raise ValueError(f"L {L} S {S}: the kernel needs L, S > 0 and, when causal, "
                          "L <= S (every query row sees a key)")
     _build.check_cuda(q, k, v, names="q k v")
-    _check_aligned(q, k, v)
-    out = torch.empty_like(q)
-    ptr = _build.ptr
-    _build.launch("mt_flash_attention", q.device, ptr(q), ptr(k), ptr(v), ptr(out),
-                  int(q.dtype == torch.bfloat16), int(causal), B, H, KV, L, S, D,
-                  ctypes.c_float(sm_scale))
-    flash_attention.launches += 1
-    return out
+    return _flash_op(q, k, v, causal, float(sm_scale))
 
 
 # JAX's dispatcher launches the kernel from this many tokens (its
@@ -229,27 +253,58 @@ def _check_route(q, k, v, cos, sin, pk, pv):
                              f"got {tuple(pk.shape)} {pk.dtype}")
     tensors = [q, k, v, cos, sin] + ([pk, pv] if P else [])
     _build.check_cuda(*tensors, names="q k v cos sin pk pv")
-    _check_aligned(*tensors)
     return B, L, H, KV, D, P, PB
 
 
-def rope_flash_keys(k, v, cos, sin, pk=None, pv=None):
-    """The pre-pass kernel (``mt_flash_keys``): the region's keys rotated
-    once and the prefix put ahead of keys and values -> (keys, values)
-    [B, KV, P + L, D]. Counts CUDA launches in ``rope_flash_keys.launches``."""
-    if k.device.type == "cpu":
-        return rope_flash_keys_plain(k, v, cos, sin, pk, pv)
+def _launch_keys(k, v, cos, sin, pk, pv):
+    """The pre-pass's launch -> (keys, values) [B, KV, P + L, D]."""
+    _check_aligned(k, v, cos, sin, pk, pv)
     B, L, KV, D = k.shape
-    # the checks of the route, with k standing in for q
-    _, _, _, _, _, P, PB = _check_route(k, k, v, cos, sin, pk, pv)
+    P, PB = (0, 1) if pk is None else (pk.shape[2], pk.shape[0])
     kc = torch.empty(B, KV, P + L, D, dtype=k.dtype, device=k.device)
     vc = torch.empty_like(kc)
     ptr = _build.ptr
     _build.launch("mt_flash_keys", k.device, ptr(k), ptr(v), ptr(cos), ptr(sin),
-                  ptr(pk if P else None), ptr(pv if P else None), ptr(kc), ptr(vc),
+                  ptr(pk), ptr(pv), ptr(kc), ptr(vc),
                   int(k.dtype == torch.bfloat16), B, L, KV, D, P, PB)
     rope_flash_keys.launches += 1
     return kc, vc
+
+
+@torch.library.custom_op("medtsllm::rope_flash_keys", mutates_args=(), device_types="cuda")
+def _keys_op(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             pk: torch.Tensor | None, pv: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass's launch as a custom op (the wrapper has checked the
+    operands' shapes)."""
+    return _launch_keys(k, v, cos, sin, pk, pv)
+
+
+@_keys_op.register_kernel("cpu")
+def _(k, v, cos, sin, pk, pv):
+    return tuple(_build.op_outputs(rope_flash_keys_plain(k, v, cos, sin, pk, pv),
+                                   k, v, cos, sin, pk, pv))
+
+
+@_keys_op.register_fake
+def _(k, v, cos, sin, pk, pv):
+    B, L, KV, D = k.shape
+    P = 0 if pk is None else pk.shape[2]
+    return k.new_empty(B, KV, P + L, D), k.new_empty(B, KV, P + L, D)
+
+
+def rope_flash_keys(k, v, cos, sin, pk=None, pv=None):
+    """The pre-pass kernel (``mt_flash_keys``, the op
+    ``medtsllm::rope_flash_keys``): the region's keys rotated once and the
+    prefix put ahead of keys and values -> (keys, values) [B, KV, P + L,
+    D]. Counts CUDA launches in ``rope_flash_keys.launches``."""
+    if k.device.type == "cpu":
+        if _build.wants_grad(k, v, cos, sin, pk, pv):
+            return rope_flash_keys_plain(k, v, cos, sin, pk, pv)
+        return _keys_op(k, v, cos, sin, pk, pv)
+    # the checks of the route, with k standing in for q
+    P = _check_route(k, k, v, cos, sin, pk, pv)[5]
+    return _keys_op(k, v, cos, sin, pk if P else None, pv if P else None)
 
 
 def rope_flash_attention_plain(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None,
@@ -268,22 +323,19 @@ def rope_flash_attention_plain(q, k, v, cos, sin, pk=None, pv=None, sm_scale=Non
     return out, (kr.contiguous(), vt.contiguous())
 
 
-def rope_flash_attention(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None,
-                         return_kv: bool = False):
-    """q [B, L, H, D], k/v [B, L, KV, D] (pre-rotary), cos/sin [L, D/2] f32,
-    optional prefix pk/pv [1 or B, KV, P, D] (rotated) -> [B, L, H, D],
-    end-aligned causal. ``return_kv`` also returns the region's rotated
-    (k, v) [B, KV, L, D], the prefill's cache: on the card the pre-pass's
-    own keys and values, so a later call attends with the bits this one did.
-    Counts CUDA launches in ``rope_flash_attention.launches`` (the pre-pass
-    in ``rope_flash_keys.launches``). Forward only."""
-    _no_grad("rope_flash_attention", q, k, v)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return rope_flash_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
-    B, L, H, KV, D, P, PB = _check_route(q, k, v, cos, sin, pk, pv)
-    keys, values = rope_flash_keys(k, v, cos, sin, pk, pv)
+@torch.library.custom_op("medtsllm::rope_flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _route_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor, pk: torch.Tensor | None, pv: torch.Tensor | None,
+              sm_scale: float, return_kv: bool) -> list[torch.Tensor]:
+    """The route's two launches as a custom op -> [out] or, with
+    ``return_kv``, [out, region keys, region values] (the wrapper has
+    checked the operands' shapes; the addresses are read here)."""
+    _check_aligned(q)
+    B, L, H, D = q.shape
+    KV = k.shape[2]
+    P = 0 if pk is None else pk.shape[2]
+    keys, values = _launch_keys(k, v, cos, sin, pk, pv)
     out = torch.empty_like(q)
     f32 = q.dtype == torch.float32
     q_rot = torch.empty_like(q) if f32 else None  # the f32 form rotates q first
@@ -293,10 +345,46 @@ def rope_flash_attention(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None,
                   P + L, ctypes.c_float(sm_scale))
     rope_flash_attention.launches += 1
     if not return_kv:
-        return out
+        return [out]
     if P:
-        return out, (keys[:, :, P:].contiguous(), values[:, :, P:].contiguous())
-    return out, (keys, values)
+        return [out, keys[:, :, P:].contiguous(), values[:, :, P:].contiguous()]
+    return [out, keys, values]
+
+
+@_route_op.register_kernel("cpu")
+def _(q, k, v, cos, sin, pk, pv, sm_scale, return_kv):
+    res = rope_flash_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale, return_kv)
+    return _build.op_outputs([res[0], *res[1]] if return_kv else [res],
+                             q, k, v, cos, sin, pk, pv)
+
+
+@_route_op.register_fake
+def _(q, k, v, cos, sin, pk, pv, sm_scale, return_kv):
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not return_kv:
+        return [out]
+    B, L, KV, D = k.shape
+    return [out, k.new_empty(B, KV, L, D), k.new_empty(B, KV, L, D)]
+
+
+def rope_flash_attention(q, k, v, cos, sin, pk=None, pv=None, sm_scale=None,
+                         return_kv: bool = False):
+    """q [B, L, H, D], k/v [B, L, KV, D] (pre-rotary), cos/sin [L, D/2] f32,
+    optional prefix pk/pv [1 or B, KV, P, D] (rotated) -> [B, L, H, D],
+    end-aligned causal, through the op ``medtsllm::rope_flash_attention``.
+    ``return_kv`` also returns the region's rotated (k, v) [B, KV, L, D],
+    the prefill's cache: on the card the pre-pass's own keys and values, so
+    a later call attends with the bits this one did. Counts CUDA launches
+    in ``rope_flash_attention.launches`` (the pre-pass in
+    ``rope_flash_keys.launches``). Forward only."""
+    _no_grad("rope_flash_attention", q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type != "cpu":
+        P = _check_route(q, k, v, cos, sin, pk, pv)[5]
+        pk, pv = (pk, pv) if P else (None, None)
+    res = _route_op(q, k, v, cos, sin, pk, pv, float(sm_scale), return_kv)
+    return (res[0], (res[1], res[2])) if return_kv else res[0]
 
 
 flash_attention.launches = 0

@@ -35,7 +35,9 @@ must be contiguous (the wrapper makes the scales so), the codes and the
 weights 16-byte aligned; any other layout raises a ValueError that names
 the tensor.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+The launches are custom ops (``medtsllm::gmm``, ``medtsllm::requant_tiles``;
+the CPU kernel the plain version), which ``torch.export`` records. A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
 
@@ -280,39 +282,19 @@ def requant_tiles_plain(t, block_n):
 # kernel wrapper
 # --------------------------------------------------------------------------
 
-def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
-        block_n=512, out_dtype=torch.float32, fuse_silu=False, emit_quant=False,
-        w_bits=8):
-    """Grouped w8a8 / w4a8 matmul(s) over expert-packed rows (the JAX ``gmm``).
-
-    xq [R_pad, K] int8 (R_pad = V * block_m); x_scale [R_pad, 1] f32 or
-    chunked [KB, 1, R_pad]; weights: 1 or 2 int8 [E, N, K], or packed int4
-    [E, N, K/2] at ``w_bits=4``; w_scales: one
-    [E, N] each; visit_e / visit_valid [V] int32 from ``gmm_metadata``.
-    Returns a tuple of [R_pad, N] ``out_dtype`` arrays, one per weight (one
-    under ``fuse_silu``: silu(out0) * out1), or (int8 [R_pad, N], scales
-    [N / block_n, 1, R_pad]) under ``emit_quant``."""
-    if xq.device.type == "cpu":
-        return gmm_plain(xq, x_scale, weights, w_scales, visit_e, visit_valid,
-                         block_m=block_m, block_n=block_n, out_dtype=out_dtype,
-                         fuse_silu=fuse_silu, emit_quant=emit_quant, w_bits=w_bits)
-    n_chunks = _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n,
-                      out_dtype, fuse_silu, emit_quant, w_bits)
+@torch.library.custom_op("medtsllm::gmm", mutates_args=(), device_types="cuda")
+def _gmm_op(xq: torch.Tensor, x_scale: torch.Tensor, weights: list[torch.Tensor],
+            w_scales: list[torch.Tensor], visit_e: torch.Tensor, visit_valid: torch.Tensor,
+            block_m: int, out_dtype: torch.dtype, fuse_silu: bool, emit_quant: bool,
+            w_bits: int) -> list[torch.Tensor]:
+    """K6's launch as a custom op (the wrapper has checked the operands'
+    shapes; the addresses are read here) -> one [R_pad, N] output per
+    weight, or [silu(out0) * out1]; under ``emit_quant`` that one in f32,
+    the workspace ``requant_tiles`` reads."""
+    _build.check_aligned((xq, *weights), "xq and the weights must be 16-byte aligned")
     R_pad, K = xq.shape
     E, N, _ = weights[0].shape
-    err = kernel_shape_error(K, block_m, n_chunks, len(weights), w_bits)
-    if err:
-        raise ValueError(err)
-    x_scale = x_scale.float().contiguous()
-    w_scales = [s.float().contiguous() for s in w_scales]
-    if visit_e.dtype != torch.int32 or visit_valid.dtype != torch.int32:
-        raise ValueError("visit_e and visit_valid must be int32")
-    _build.check_cuda(xq, x_scale, visit_e, visit_valid, *weights, *w_scales,
-                      names="xq x_scale visit_e visit_valid " + " ".join(
-                          [f"weights[{i}]" for i in range(len(weights))]
-                          + [f"w_scales[{i}]" for i in range(len(w_scales))]))
-    if any(t.data_ptr() % 16 for t in (xq, *weights)):
-        raise ValueError("xq and the weights must be 16-byte aligned")
+    n_chunks = x_scale.shape[0] if x_scale.dim() == 3 else 0
     dev = xq.device
     V = visit_e.shape[0]
     w1 = weights[1] if len(weights) == 2 else None
@@ -332,23 +314,98 @@ def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
     gate_up, down, plain = (GATE_UP, DOWN, PLAIN) if w_bits == 8 else (
         GATE_UP_W4, DOWN_W4, PLAIN_W4)
     (gate_up if emit_quant else down if n_chunks else plain).launches += 1
+    return outs
+
+
+@_gmm_op.register_kernel("cpu")
+def _(xq, x_scale, weights, w_scales, visit_e, visit_valid, block_m, out_dtype, fuse_silu,
+      emit_quant, w_bits):
+    # emit_quant's workspace: the fused product in f32 (``gmm_plain``'s t)
+    outs = gmm_plain(xq, x_scale, weights, w_scales, visit_e, visit_valid,
+                     block_m=block_m, block_n=weights[0].shape[1],
+                     out_dtype=torch.float32 if emit_quant else out_dtype,
+                     fuse_silu=fuse_silu, w_bits=w_bits)
+    return _build.op_outputs(list(outs), xq, x_scale, weights, w_scales, visit_e,
+                             visit_valid)
+
+
+@_gmm_op.register_fake
+def _(xq, x_scale, weights, w_scales, visit_e, visit_valid, block_m, out_dtype, fuse_silu,
+      emit_quant, w_bits):
+    R_pad, N = xq.shape[0], weights[0].shape[1]
+    dtype = torch.float32 if emit_quant else out_dtype
+    return [xq.new_empty(R_pad, N, dtype=dtype)
+            for _ in range(1 if fuse_silu else len(weights))]
+
+
+def gmm(xq, x_scale, weights, w_scales, visit_e, visit_valid, *, block_m=128,
+        block_n=512, out_dtype=torch.float32, fuse_silu=False, emit_quant=False,
+        w_bits=8):
+    """Grouped w8a8 / w4a8 matmul(s) over expert-packed rows (the JAX ``gmm``).
+
+    xq [R_pad, K] int8 (R_pad = V * block_m); x_scale [R_pad, 1] f32 or
+    chunked [KB, 1, R_pad]; weights: 1 or 2 int8 [E, N, K], or packed int4
+    [E, N, K/2] at ``w_bits=4``; w_scales: one
+    [E, N] each; visit_e / visit_valid [V] int32 from ``gmm_metadata``.
+    Returns a tuple of [R_pad, N] ``out_dtype`` arrays, one per weight (one
+    under ``fuse_silu``: silu(out0) * out1), or (int8 [R_pad, N], scales
+    [N / block_n, 1, R_pad]) under ``emit_quant``: the product through the
+    op ``medtsllm::gmm``, then ``requant_tiles``."""
+    n_chunks = _check(xq, x_scale, weights, w_scales, visit_e, block_m, block_n,
+                      out_dtype, fuse_silu, emit_quant, w_bits)
+    if xq.device.type != "cpu":
+        K = xq.shape[1]
+        err = kernel_shape_error(K, block_m, n_chunks, len(weights), w_bits)
+        if err:
+            raise ValueError(err)
+        x_scale = x_scale.float().contiguous()
+        w_scales = [s.float().contiguous() for s in w_scales]
+        if visit_e.dtype != torch.int32 or visit_valid.dtype != torch.int32:
+            raise ValueError("visit_e and visit_valid must be int32")
+        _build.check_cuda(xq, x_scale, visit_e, visit_valid, *weights, *w_scales,
+                          names="xq x_scale visit_e visit_valid " + " ".join(
+                              [f"weights[{i}]" for i in range(len(weights))]
+                              + [f"w_scales[{i}]" for i in range(len(w_scales))]))
+    outs = _gmm_op(xq, x_scale, list(weights), list(w_scales), visit_e, visit_valid,
+                   block_m, out_dtype, fuse_silu, emit_quant, w_bits)
     return requant_tiles(outs[0], block_n) if emit_quant else tuple(outs)
 
 
-def requant_tiles(t, block_n):
-    """emit_quant's second pass (``requant_kernel``) on the activated f32
-    workspace t [R_pad, N]: ``requant_tiles_plain``'s codes and scales.
-    Counts its launches in ``REQUANT``."""
-    if t.device.type == "cpu":
-        return requant_tiles_plain(t, block_n)
+@torch.library.custom_op("medtsllm::requant_tiles", mutates_args=(), device_types="cuda")
+def _requant_op(t: torch.Tensor, block_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The requantization pass's launch as a custom op (the wrapper has
+    checked t)."""
     R_pad, N = t.shape
-    if t.dtype != torch.float32 or N % block_n:
-        raise ValueError(f"requant takes f32 [R_pad, N] with N % block_n == 0: "
-                         f"{t.dtype} {tuple(t.shape)}, block_n {block_n}")
-    _build.check_cuda(t, names="t")
     q = torch.empty(R_pad, N, dtype=torch.int8, device=t.device)
     scales = torch.empty(N // block_n, 1, R_pad, dtype=torch.float32, device=t.device)
     _build.launch("mt_gmm_requant", t.device, _build.ptr(t), _build.ptr(q), _build.ptr(scales),
                   R_pad, N, block_n)
     REQUANT.launches += 1
     return q, scales
+
+
+@_requant_op.register_kernel("cpu")
+def _(t, block_n):
+    return tuple(_build.op_outputs(requant_tiles_plain(t, block_n), t))
+
+
+@_requant_op.register_fake
+def _(t, block_n):
+    R_pad, N = t.shape
+    return (t.new_empty(R_pad, N, dtype=torch.int8),
+            t.new_empty(N // block_n, 1, R_pad, dtype=torch.float32))
+
+
+def requant_tiles(t, block_n):
+    """emit_quant's second pass (``requant_kernel``, the op
+    ``medtsllm::requant_tiles``) on the activated f32 workspace t [R_pad,
+    N]: ``requant_tiles_plain``'s codes and scales. Counts its launches in
+    ``REQUANT``."""
+    if t.device.type == "cpu":
+        return _requant_op(t, block_n)
+    R_pad, N = t.shape
+    if t.dtype != torch.float32 or N % block_n:
+        raise ValueError(f"requant takes f32 [R_pad, N] with N % block_n == 0: "
+                         f"{t.dtype} {tuple(t.shape)}, block_n {block_n}")
+    _build.check_cuda(t, names="t")
+    return _requant_op(t, block_n)

@@ -13,8 +13,10 @@ Operands: q, k and v must be contiguous and 16-byte aligned (the kernel
 reads dense 16-byte vectors); any other layout raises a ValueError that
 names the tensor.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+The launch is the custom op ``medtsllm::reprogramming_attention`` (its CPU
+kernel the plain version), which ``torch.export`` records. A CPU tensor
+takes the plain version (the plain function itself where autograd records
+the call); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -93,25 +95,15 @@ def reprogramming_route(E: int) -> str:
     return "k3" if E in HEAD_WIDTHS else "plain"
 
 
-def reprogramming_attention(q, k, v, scale=None):
-    """q [B, L, H, E], k/v [S, H, E], f32 -> [B, L, H, E]. Counts CUDA
-    launches in ``reprogramming_attention.launches`` (one per call, the
-    merge of a split call included); a width off ``HEAD_WIDTHS`` takes the
-    plain version (``reprogramming_route``)."""
-    if q.device.type == "cpu" or reprogramming_route(q.shape[-1]) == "plain":
-        return reprogramming_attention_plain(q, k, v, scale)
+@torch.library.custom_op("medtsllm::reprogramming_attention", mutates_args=(),
+                         device_types="cuda")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """K3's launch as a custom op (the wrapper has checked the operands'
+    shapes; the addresses are read here)."""
+    _build.check_aligned((q, k, v), "the kernel reads q, k and v as 16-byte vectors: "
+                         "16-byte aligned tensors")
     B, L, H, E = q.shape
     S = k.shape[0]
-    if k.shape != (S, H, E) or v.shape != k.shape:
-        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not q.dtype == k.dtype == v.dtype == torch.float32:
-        raise ValueError(f"q/k/v must be f32, got {q.dtype} {k.dtype} {v.dtype}")
-    _build.check_cuda(q, k, v, names="q k v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the kernel reads q, k and v as 16-byte vectors: "
-                         "16-byte aligned tensors")
-    if scale is None:
-        scale = 1.0 / math.sqrt(E)
     out = torch.empty_like(q)
     splits = _build.library().mt_reprogramming_splits(B * L, H, S)
     part = part_ml = None
@@ -123,6 +115,40 @@ def reprogramming_attention(q, k, v, scale=None):
                   B, L, H, E, S, ctypes.c_float(scale))
     reprogramming_attention.launches += 1
     return out
+
+
+@_op.register_kernel("cpu")
+def _(q, k, v, scale):
+    return _build.op_outputs(reprogramming_attention_plain(q, k, v, scale), q, k, v)
+
+
+@_op.register_fake
+def _(q, k, v, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def reprogramming_attention(q, k, v, scale=None):
+    """q [B, L, H, E], k/v [S, H, E], f32 -> [B, L, H, E], through the op
+    ``medtsllm::reprogramming_attention``. Counts CUDA launches in
+    ``reprogramming_attention.launches`` (one per call, the merge of a
+    split call included); on a card a width off ``HEAD_WIDTHS`` takes the
+    plain version (``reprogramming_route``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        if _build.wants_grad(q, k, v):
+            return reprogramming_attention_plain(q, k, v, scale)
+        return _op(q, k, v, float(scale))
+    if reprogramming_route(q.shape[-1]) == "plain":
+        return reprogramming_attention_plain(q, k, v, scale)
+    B, L, H, E = q.shape
+    S = k.shape[0]
+    if k.shape != (S, H, E) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype == torch.float32:
+        raise ValueError(f"q/k/v must be f32, got {q.dtype} {k.dtype} {v.dtype}")
+    _build.check_cuda(q, k, v, names="q k v")
+    return _op(q, k, v, float(scale))
 
 
 reprogramming_attention.launches = 0

@@ -22,8 +22,10 @@ bytes (``row_pitch``); the kernel reads them where they lie. cos, sin, the
 prefix K/V and the output are dense (contiguous). Any other layout raises a
 ValueError that names the tensor.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+The launch is the custom op ``medtsllm::rope_attention`` (its CPU kernel
+the plain version), which ``torch.export`` records. A CPU tensor takes the
+plain version (the plain function itself where autograd records the
+call); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -120,7 +122,7 @@ def row_pitch(t: torch.Tensor, name: str) -> int:
     whose rows are dense and evenly spaced (a contiguous tensor, or a column
     slice of a contiguous [B, L, W] buffer viewed as heads); raises a
     ValueError naming ``name`` for any other layout or a pitch off 16
-    bytes."""
+    bytes. Reads strides only (the start's alignment is the op's check)."""
     B, L, heads, D = t.shape
     dense = heads * D
     ld = t.stride(1) if L > 1 else t.stride(0) if B > 1 else dense
@@ -128,15 +130,58 @@ def row_pitch(t: torch.Tensor, name: str) -> int:
             or (B > 1 and t.stride(0) != L * ld)):
         raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()}: the kernel "
                          "reads rows of heads x D dense elements, evenly spaced")
-    if (ld * t.element_size()) % 16 or t.data_ptr() % 16:
+    if (ld * t.element_size()) % 16:
         raise ValueError(f"{name}: the kernel copies 16-byte rows; its start and its row "
                          f"pitch ({ld} elements) must be multiples of 16 bytes")
     return ld
 
 
+@torch.library.custom_op("medtsllm::rope_attention", mutates_args=(), device_types="cuda")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+        sin: torch.Tensor, pk: torch.Tensor | None, pv: torch.Tensor | None,
+        sm_scale: float) -> torch.Tensor:
+    """K2's launch as a custom op (the wrapper has checked the operands'
+    shapes and layouts; the addresses are read here)."""
+    B, L, H, D = q.shape
+    KV = k.shape[2]
+    P, PB = (0, 1) if pk is None else (pk.shape[2], pk.shape[0])
+    lds = [row_pitch(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        _build.check_aligned((t,), f"{n}: the kernel copies 16-byte rows; its start and "
+                             "its row pitch must be multiples of 16 bytes")
+    _build.check_aligned((cos, sin, pk, pv), "the kernel copies 16-byte rows: cos, sin and "
+                         "the prefix must be 16-byte aligned")
+    dev = q.device
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 form's rotated keys, dense
+    k_rot = torch.empty(k.shape, dtype=k.dtype, device=dev) if bf16 else None
+    ptr = _build.ptr
+    _build.launch("mt_rope_attention", dev, ptr(q), ptr(k), ptr(v), ptr(cos),
+                  ptr(sin), ptr(pk), ptr(pv), ptr(out), ptr(k_rot), int(bf16),
+                  B, L, H, KV, D, P, PB, *lds, ctypes.c_float(sm_scale))
+    rope_attention.launches += 1
+    return out
+
+
+@_op.register_kernel("cpu")
+def _(q, k, v, cos, sin, pk, pv, sm_scale):
+    return _build.op_outputs(rope_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale),
+                             q, k, v, cos, sin, pk, pv)
+
+
+@_op.register_fake
+def _(q, k, v, cos, sin, pk, pv, sm_scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return rope_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale)
+        if _build.wants_grad(q, k, v, cos, sin, pk, pv):
+            return rope_attention_plain(q, k, v, cos, sin, pk, pv, sm_scale)
+        return _op(q, k, v, cos, sin, pk, pv, sm_scale)
     B, L, H, D = q.shape
     if k.shape[:2] != (B, L) or k.shape != v.shape or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -152,7 +197,7 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
             or sin.dtype != torch.float32:
         raise ValueError("cos/sin must be f32 [L, D/2]")
     dense, names = [cos, sin], "cos sin"
-    P, PB = 0, 1
+    P = 0
     if pk is not None:
         PB, _, P, _ = pk.shape
         if pk.shape != (PB, KV, P, D) or pv.shape != pk.shape or PB not in (1, B) \
@@ -166,23 +211,10 @@ def _forward(q, k, v, cos, sin, pk, pv, sm_scale):
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"q, k, v must lie on one CUDA device: {dev} {k.device} {v.device}")
-    lds = [row_pitch(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        row_pitch(t, n)
     _build.check_cuda(*dense, names=names)
-    if any(t.data_ptr() % 16 for t in dense):
-        raise ValueError("the kernel copies 16-byte rows: cos, sin and the prefix must "
-                         "be 16-byte aligned")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
-    bf16 = q.dtype == torch.bfloat16
-    # the bf16 form's rotated keys, dense
-    k_rot = torch.empty(k.shape, dtype=k.dtype, device=dev) if bf16 else None
-    ptr = _build.ptr
-    _build.launch("mt_rope_attention", dev, ptr(q), ptr(k), ptr(v), ptr(cos),
-                  ptr(sin), ptr(pk), ptr(pv), ptr(out), ptr(k_rot), int(bf16),
-                  B, L, H, KV, D, P, PB, *lds, ctypes.c_float(sm_scale))
-    rope_attention.launches += 1
-    return out
+    return _op(q, k, v, cos, sin, pk, pv, float(sm_scale))
 
 
 rope_attention.launches = 0

@@ -34,6 +34,11 @@ each row stride comes from the tensor's own strides (``_row_stride``), Bs
 and Cs share theirs, and A_log, D and h0 must be contiguous. Any other
 layout raises a ValueError that names the tensor.
 
+The serving forms' launches are custom ops (``medtsllm::selective_ssm``,
+``_h0``, ``_final`` and ``_gated``; the CPU kernel the plain version),
+which ``torch.export`` records. K9 and K10 run only inside
+``_SelectiveScan``, in training, and are no ops.
+
 A CPU tensor takes the plain version (the backward's is autograd through
 the plain forward); a CUDA tensor launches the kernel or raises.
 """
@@ -329,44 +334,107 @@ def _check_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0):
     return (_row_stride(dt_raw, "dt_raw"), _row_stride(xs, "xs"), _row_stride(z, "z"), ld_bc)
 
 
-def _wants_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+_wants_grad = _build.wants_grad  # (None operands, as h0, skipped)
 
 
-def selective_ssm(dt, A_T, Bs, Cs, xs, D):
-    """The scan from h = 0 -> y [B, L, E]. Differentiable (K9 forward, K10
-    backward) when an operand requires grad; else K7, counted in
-    ``selective_ssm.launches``."""
-    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
-        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, None)
-    if dt.device.type == "cpu":
-        return selective_ssm_plain(dt, A_T, Bs, Cs, xs, D)
+@torch.library.custom_op("medtsllm::selective_ssm", mutates_args=(), device_types="cuda")
+def _scan_op(dt: torch.Tensor, A_T: torch.Tensor, Bs: torch.Tensor, Cs: torch.Tensor,
+             xs: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """K7's launch as a custom op (the wrapper has checked the operands)."""
     y, _, _ = _scan(dt, A_T, Bs, Cs, xs, D, None, final=False)
     selective_ssm.launches += 1
     return y
 
 
-def selective_ssm_h0(dt, A_T, Bs, Cs, xs, D, h0):
-    """The scan resumed from h0 [1 or B, N, E] -> y [B, L, E].
-    Differentiable in all but h0 (K9 forward, K10 backward) when an operand
-    requires grad; else K8, counted in ``selective_ssm_h0.launches``."""
-    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
-        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, h0)
-    if dt.device.type == "cpu":
-        return selective_ssm_plain(dt, A_T, Bs, Cs, xs, D, h0)
+@_scan_op.register_kernel("cpu")
+def _(dt, A_T, Bs, Cs, xs, D):
+    return _build.op_outputs(selective_ssm_plain(dt, A_T, Bs, Cs, xs, D),
+                             dt, A_T, Bs, Cs, xs, D)
+
+
+@_scan_op.register_fake
+def _(dt, A_T, Bs, Cs, xs, D):
+    return torch.empty_like(dt, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("medtsllm::selective_ssm_h0", mutates_args=(), device_types="cuda")
+def _scan_h0_op(dt: torch.Tensor, A_T: torch.Tensor, Bs: torch.Tensor, Cs: torch.Tensor,
+                xs: torch.Tensor, D: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """K8's launch as a custom op (the wrapper has checked the operands)."""
     y, _, _ = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=False)
     selective_ssm_h0.launches += 1
     return y
 
 
-def selective_ssm_final(dt, A_T, Bs, Cs, xs, D, h0=None):
-    """The prefill form -> (y [B, L, E], h_final [B, N, E]). Counts CUDA
-    launches in ``selective_ssm_final.launches``."""
-    if dt.device.type == "cpu":
-        return selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0)
+@_scan_h0_op.register_kernel("cpu")
+def _(dt, A_T, Bs, Cs, xs, D, h0):
+    return _build.op_outputs(selective_ssm_plain(dt, A_T, Bs, Cs, xs, D, h0),
+                             dt, A_T, Bs, Cs, xs, D, h0)
+
+
+@_scan_h0_op.register_fake
+def _(dt, A_T, Bs, Cs, xs, D, h0):
+    return torch.empty_like(dt, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("medtsllm::selective_ssm_final", mutates_args=(),
+                         device_types="cuda")
+def _scan_final_op(dt: torch.Tensor, A_T: torch.Tensor, Bs: torch.Tensor,
+                   Cs: torch.Tensor, xs: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill form's launch as a custom op (the wrapper has checked
+    the operands)."""
     y, h_final, _ = _scan(dt, A_T, Bs, Cs, xs, D, h0, final=True)
     selective_ssm_final.launches += 1
     return y, h_final
+
+
+@_scan_final_op.register_kernel("cpu")
+def _(dt, A_T, Bs, Cs, xs, D, h0):
+    return tuple(_build.op_outputs(selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0),
+                                   dt, A_T, Bs, Cs, xs, D, h0))
+
+
+@_scan_final_op.register_fake
+def _(dt, A_T, Bs, Cs, xs, D, h0):
+    B, _, E = dt.shape
+    return (torch.empty_like(dt, memory_format=torch.contiguous_format),
+            dt.new_empty(B, A_T.shape[0], E, dtype=torch.float32))
+
+
+def selective_ssm(dt, A_T, Bs, Cs, xs, D):
+    """The scan from h = 0 -> y [B, L, E]. Differentiable (K9 forward, K10
+    backward) when an operand requires grad; else K7 (the op
+    ``medtsllm::selective_ssm``), counted in ``selective_ssm.launches``."""
+    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
+        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, None)
+    if dt.device.type != "cpu":
+        _check(dt, A_T, Bs, Cs, xs, D)
+    return _scan_op(dt, A_T, Bs, Cs, xs, D)
+
+
+def selective_ssm_h0(dt, A_T, Bs, Cs, xs, D, h0):
+    """The scan resumed from h0 [1 or B, N, E] -> y [B, L, E].
+    Differentiable in all but h0 (K9 forward, K10 backward) when an operand
+    requires grad; else K8 (the op ``medtsllm::selective_ssm_h0``), counted
+    in ``selective_ssm_h0.launches``."""
+    if _wants_grad(dt, A_T, Bs, Cs, xs, D):
+        return _SelectiveScan.apply(dt, A_T, Bs, Cs, xs, D, h0)
+    if dt.device.type != "cpu":
+        _check(dt, A_T, Bs, Cs, xs, D, h0)
+    return _scan_h0_op(dt, A_T, Bs, Cs, xs, D, h0)
+
+
+def selective_ssm_final(dt, A_T, Bs, Cs, xs, D, h0=None):
+    """The prefill form -> (y [B, L, E], h_final [B, N, E]), through the op
+    ``medtsllm::selective_ssm_final``. Counts CUDA launches in
+    ``selective_ssm_final.launches``."""
+    if dt.device.type == "cpu":
+        if _wants_grad(dt, A_T, Bs, Cs, xs, D, h0):
+            return selective_ssm_final_plain(dt, A_T, Bs, Cs, xs, D, h0)
+    else:
+        _check(dt, A_T, Bs, Cs, xs, D, h0)
+    return _scan_final_op(dt, A_T, Bs, Cs, xs, D, h0)
 
 
 def selective_ssm_bounds(dt, A_T, Bs, Cs, xs, D, h0=None, chunk=CHUNK):
@@ -437,24 +505,13 @@ class _SelectiveScan(torch.autograd.Function):
         return ddt, dA_T, dB, dC, dx + D * g, dD, None
 
 
-def selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0=None, final=False):
-    """The mixer's serving form of the scan -> out [B, L, E] at z's dtype,
-    and h_final [B, N, E] f32 when ``final`` (the prefill): the kernel
-    softplus'es dt_raw (dt_proj's output [B, L, E]) in f32, takes A = -exp(
-    A_log [E, N]), scans from h0 [1 or B, N, E] (or 0), adds D x and writes
-    round(round(y) * round(silu(z))) at the compute dtype, the plain
-    version's ``y.to(dtype) * F.silu(z)``. dt_raw, Bs, Cs, xs and z are at
-    the compute dtype (f32 or bf16) and may be column slices of wider
-    buffers (x_proj's, in_proj's outputs); A_log and D at theirs. Serving
-    only: raises when an operand wants a gradient (training runs
-    ``selective_ssm`` / ``selective_ssm_h0``). Counts CUDA launches in the
-    form's counter: ``selective_ssm_final`` with ``final``, else
-    ``selective_ssm_h0`` with h0, else ``selective_ssm``."""
-    if _wants_grad(dt_raw, A_log, Bs, Cs, xs, D, z):
-        raise ValueError("selective_ssm_gated is the serving form and has no backward; a "
-                         "step that needs gradients runs selective_ssm / selective_ssm_h0")
-    if dt_raw.device.type == "cpu":
-        return selective_ssm_gated_plain(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final)
+@torch.library.custom_op("medtsllm::selective_ssm_gated", mutates_args=(),
+                         device_types="cuda")
+def _gated_op(dt_raw: torch.Tensor, A_log: torch.Tensor, Bs: torch.Tensor,
+              Cs: torch.Tensor, xs: torch.Tensor, D: torch.Tensor, z: torch.Tensor,
+              h0: torch.Tensor | None, final: bool) -> list[torch.Tensor]:
+    """The gated form's launch as a custom op -> [out] or, with ``final``,
+    [out, h_final] (the wrapper has checked the operands)."""
     lds = _check_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0)
     B, L, E = dt_raw.shape
     N = Bs.shape[-1]
@@ -466,7 +523,44 @@ def selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0=None, final=False):
     counter = (selective_ssm_final if final else selective_ssm_h0 if h0 is not None
                else selective_ssm)
     counter.launches += 1
-    return (out, h_final) if final else out
+    return [out, h_final] if final else [out]
+
+
+@_gated_op.register_kernel("cpu")
+def _(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final):
+    res = selective_ssm_gated_plain(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final)
+    return _build.op_outputs(list(res) if final else [res],
+                             dt_raw, A_log, Bs, Cs, xs, D, z, h0)
+
+
+@_gated_op.register_fake
+def _(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final):
+    B, L, E = dt_raw.shape
+    out = z.new_empty(B, L, E)
+    return [out, z.new_empty(B, Bs.shape[-1], E, dtype=torch.float32)] if final else [out]
+
+
+def selective_ssm_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0=None, final=False):
+    """The mixer's serving form of the scan -> out [B, L, E] at z's dtype,
+    and h_final [B, N, E] f32 when ``final`` (the prefill): the kernel
+    softplus'es dt_raw (dt_proj's output [B, L, E]) in f32, takes A = -exp(
+    A_log [E, N]), scans from h0 [1 or B, N, E] (or 0), adds D x and writes
+    round(round(y) * round(silu(z))) at the compute dtype, the plain
+    version's ``y.to(dtype) * F.silu(z)``. dt_raw, Bs, Cs, xs and z are at
+    the compute dtype (f32 or bf16) and may be column slices of wider
+    buffers (x_proj's, in_proj's outputs); A_log and D at theirs. Serving
+    only: raises when an operand wants a gradient (training runs
+    ``selective_ssm`` / ``selective_ssm_h0``). The launch is the op
+    ``medtsllm::selective_ssm_gated``; it counts CUDA launches in the
+    form's counter: ``selective_ssm_final`` with ``final``, else
+    ``selective_ssm_h0`` with h0, else ``selective_ssm``."""
+    if _wants_grad(dt_raw, A_log, Bs, Cs, xs, D, z):
+        raise ValueError("selective_ssm_gated is the serving form and has no backward; a "
+                         "step that needs gradients runs selective_ssm / selective_ssm_h0")
+    if dt_raw.device.type != "cpu":
+        _check_gated(dt_raw, A_log, Bs, Cs, xs, D, z, h0)
+    res = _gated_op(dt_raw, A_log, Bs, Cs, xs, D, z, h0, final)
+    return (res[0], res[1]) if final else res[0]
 
 
 selective_ssm.launches = 0

@@ -27,8 +27,9 @@ Shapes: TMA reads the packed rows 16 bytes at a time, so K / 2 must be a
 multiple of 16. A weight whose K is not a multiple of 32 is repacked once
 by its owner with zero columns up to the next one (``pad_packed``) and the
 codes are padded per call; the s32 sums are unchanged. The GEMM is a
-``torch.library`` custom op (``medtsllm::w4a8_gemm``) for the selective
-checkpoint policy of ``llm.remat = "dots"``.
+``torch.library`` custom op (``medtsllm::w4a8_gemm``; its CPU kernel the
+plain version) for ``torch.export`` and for the selective checkpoint
+policy of ``llm.remat = "dots"``.
 
 Operands: the codes, the packed weight and the scales must be contiguous
 (the kernel reads dense rows), the codes and the weight 16-byte aligned;
@@ -122,12 +123,44 @@ def w4a8_matmul_plain(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
 # kernel wrapper
 # --------------------------------------------------------------------------
 
+@torch.library.custom_op("medtsllm::w4a8_gemm", mutates_args=(), device_types="cuda")
+def _gemm_op(xq: torch.Tensor, packed: torch.Tensor, x_scale: torch.Tensor,
+             w_scale: torch.Tensor, out_kind: int) -> torch.Tensor:
+    """K5's launch as a custom op (the wrapper has checked its operands'
+    shapes; the addresses are read here)."""
+    _build.check_aligned((xq, packed), "TMA reads rows 16-byte aligned: K / 2 % 16 == 0 "
+                         "and 16-byte aligned operands")
+    M, K = xq.shape
+    N = packed.shape[0]
+    out = torch.empty((M, N), dtype=_KIND_DTYPE[out_kind], device=xq.device)
+    _build.launch("mt_w4a8_gemm", xq.device, _build.ptr(xq), _build.ptr(packed),
+                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
+                  out_kind, M, N, K)
+    w4a8_gemm.launches += 1
+    return out
+
+
+@_gemm_op.register_kernel("cpu")
+def _(xq, packed, x_scale, w_scale, out_kind):
+    return _build.op_outputs(w4a8_matmul_plain(xq, packed, x_scale, w_scale,
+                                               _KIND_DTYPE[out_kind]), xq, packed, x_scale,
+                             w_scale)
+
+
+@_gemm_op.register_fake
+def _(xq, packed, x_scale, w_scale, out_kind):
+    return xq.new_empty((xq.shape[0], packed.shape[0]), dtype=_KIND_DTYPE[out_kind])
+
+
 def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
     """s8 [M, K] x split-halves int4 [N, K/2] with the fused rescale -> [M, N]
-    f32 / bf16, or the raw s32 accumulators when ``out_dtype`` is int32.
-    Counts CUDA launches in ``w4a8_gemm.launches``."""
+    f32 / bf16, or the raw s32 accumulators when ``out_dtype`` is int32,
+    through the op ``medtsllm::w4a8_gemm``. Counts CUDA launches in
+    ``w4a8_gemm.launches``."""
     if xq.device.type == "cpu":
-        return w4a8_matmul_plain(xq, packed, x_scale, w_scale, out_dtype)
+        if out_dtype not in _OUT_KIND or _build.wants_grad(x_scale, w_scale):
+            return w4a8_matmul_plain(xq, packed, x_scale, w_scale, out_dtype)
+        return _gemm_op(xq, packed, x_scale, w_scale, _OUT_KIND[out_dtype])
     if xq.dtype != torch.int8 or packed.dtype != torch.int8:
         raise ValueError("xq and packed must be int8")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
@@ -140,7 +173,7 @@ def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
     if K != 2 * K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
         raise ValueError(f"shapes xq {tuple(xq.shape)} packed {tuple(packed.shape)} "
                          f"x_scale {tuple(x_scale.shape)} w_scale {tuple(w_scale.shape)}")
-    if K2 % 16 or xq.data_ptr() % 16 or packed.data_ptr() % 16:
+    if K2 % 16:
         raise ValueError("TMA reads rows 16-byte aligned: K / 2 % 16 == 0 and "
                          "16-byte aligned operands")
     if K > MAX_K:
@@ -150,25 +183,6 @@ def w4a8_gemm(xq, packed, x_scale, w_scale, out_dtype=torch.float32):
 
 
 w4a8_gemm.launches = 0
-
-
-@torch.library.custom_op("medtsllm::w4a8_gemm", mutates_args=())
-def _gemm_op(xq: torch.Tensor, packed: torch.Tensor, x_scale: torch.Tensor,
-             w_scale: torch.Tensor, out_kind: int) -> torch.Tensor:
-    """K5's launch as a custom op (the wrapper has checked its operands)."""
-    M, K = xq.shape
-    N = packed.shape[0]
-    out = torch.empty((M, N), dtype=_KIND_DTYPE[out_kind], device=xq.device)
-    _build.launch("mt_w4a8_gemm", xq.device, _build.ptr(xq), _build.ptr(packed),
-                  _build.ptr(x_scale), _build.ptr(w_scale), _build.ptr(out),
-                  out_kind, M, N, K)
-    w4a8_gemm.launches += 1
-    return out
-
-
-@_gemm_op.register_fake
-def _(xq, packed, x_scale, w_scale, out_kind):
-    return xq.new_empty((xq.shape[0], packed.shape[0]), dtype=_KIND_DTYPE[out_kind])
 
 
 def _act_quant_w4a8(x, packed, w_scale, out_dtype):

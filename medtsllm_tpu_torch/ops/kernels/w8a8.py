@@ -30,9 +30,12 @@ padded with zero columns, the weight once by its owner (``pad_cols``) and
 the codes per call; zero columns add nothing to the s32 sums, so the result
 is the same bits.
 
-The GEMM is a ``torch.library`` custom op (``medtsllm::w8a8_gemm``), so a
-selective checkpoint policy (``llm.remat = "dots"``) sees it and keeps its
-output.
+The quantizer and the GEMM are ``torch.library`` custom ops
+(``medtsllm::quantize_rows``, ``medtsllm::w8a8_gemm``): the CUDA kernel is
+the launch, the CPU kernel the plain version. ``torch.export`` records them
+(``runtime/export.py``), and a selective checkpoint policy (``llm.remat =
+"dots"``) sees the GEMM and keeps its output. The dx's quantizer
+(``quantize_grad_rows``) runs only in training and is no op.
 
 Operands: the kernels read dense rows from raw pointers, so every operand
 (x, the codes, the weight, the scales, g) must be contiguous, and the GEMM's
@@ -40,8 +43,9 @@ codes and weight 16-byte aligned; the wrappers that take a caller's
 activations (``act_quant_matmul``, ``int8_dx``) make them contiguous first.
 Any other layout raises a ValueError that names the tensor.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+A CPU tensor takes the plain version (the op's CPU kernel; the plain
+function itself where autograd records the call); a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -136,14 +140,9 @@ def quantize_grad_rows_plain(g: torch.Tensor, scale: torch.Tensor, ld: int | Non
 # kernel wrappers
 # --------------------------------------------------------------------------
 
-def quantize_rows(x: torch.Tensor):
-    """Per-row int8 quantization of x [M, K] (f32 or bf16). Counts CUDA
-    launches in ``quantize_rows.launches``."""
-    if x.device.type == "cpu":
-        return quantize_rows_plain(x)
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be [M, K] f32/bf16, got {tuple(x.shape)} {x.dtype}")
-    _build.check_cuda(x, names="x")
+@torch.library.custom_op("medtsllm::quantize_rows", mutates_args=(), device_types="cuda")
+def _quantize_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's quantizer launch as a custom op (the wrapper has checked x)."""
     M, K = x.shape
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
@@ -152,6 +151,29 @@ def quantize_rows(x: torch.Tensor):
                   M, K)
     quantize_rows.launches += 1
     return xq, x_scale
+
+
+@_quantize_op.register_kernel("cpu")
+def _(x):
+    return tuple(_build.op_outputs(quantize_rows_plain(x), x))
+
+
+@_quantize_op.register_fake
+def _(x):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty(x.shape[:-1], dtype=torch.float32))
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row int8 quantization of x [M, K] (f32 or bf16), through the
+    op ``medtsllm::quantize_rows``. Counts CUDA launches in
+    ``quantize_rows.launches``."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x) if _build.wants_grad(x) else _quantize_op(x)
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be [M, K] f32/bf16, got {tuple(x.shape)} {x.dtype}")
+    _build.check_cuda(x, names="x")
+    return _quantize_op(x)
 
 
 quantize_rows.launches = 0
@@ -187,10 +209,13 @@ def quantize_grad_rows(g: torch.Tensor, scale: torch.Tensor, ld: int | None = No
 quantize_grad_rows.launches = 0
 
 
-@torch.library.custom_op("medtsllm::w8a8_gemm", mutates_args=())
+@torch.library.custom_op("medtsllm::w8a8_gemm", mutates_args=(), device_types="cuda")
 def _gemm_op(xq: torch.Tensor, wq_t: torch.Tensor, x_scale: torch.Tensor,
              w_scale: torch.Tensor, out_kind: int) -> torch.Tensor:
-    """K1's launch as a custom op (the wrapper has checked its operands)."""
+    """K1's launch as a custom op (the wrapper has checked its operands'
+    shapes; the addresses are read here)."""
+    _build.check_aligned((xq, wq_t), "TMA reads rows 16-byte aligned: K % 16 == 0 and "
+                         "16-byte aligned operands (pad_cols pads K)")
     M, K = xq.shape
     N = wq_t.shape[0]
     out = torch.empty((M, N), dtype=_KIND_DTYPE[out_kind], device=xq.device)
@@ -201,6 +226,13 @@ def _gemm_op(xq: torch.Tensor, wq_t: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
+@_gemm_op.register_kernel("cpu")
+def _(xq, wq_t, x_scale, w_scale, out_kind):
+    return _build.op_outputs(int8_gemm_plain(xq, wq_t, x_scale, w_scale,
+                                             _KIND_DTYPE[out_kind]), xq, wq_t, x_scale,
+                             w_scale)
+
+
 @_gemm_op.register_fake
 def _(xq, wq_t, x_scale, w_scale, out_kind):
     return xq.new_empty((xq.shape[0], wq_t.shape[0]), dtype=_KIND_DTYPE[out_kind])
@@ -208,23 +240,26 @@ def _(xq, wq_t, x_scale, w_scale, out_kind):
 
 def int8_gemm(xq, wq_t, x_scale, w_scale, out_dtype=torch.float32):
     """s8 [M, K] x s8 [N, K]^T with the fused rescale -> [M, N] f32/bf16,
-    or the raw s32 accumulators when ``out_dtype`` is int32. Counts CUDA
-    launches in ``int8_gemm.launches``."""
+    or the raw s32 accumulators when ``out_dtype`` is int32, through the op
+    ``medtsllm::w8a8_gemm``. Counts CUDA launches in
+    ``int8_gemm.launches``."""
     if xq.device.type == "cpu":
-        return int8_gemm_plain(xq, wq_t, x_scale, w_scale, out_dtype)
+        if out_dtype not in _OUT_KIND or _build.wants_grad(x_scale, w_scale):
+            return int8_gemm_plain(xq, wq_t, x_scale, w_scale, out_dtype)
+        return _gemm_op(xq, wq_t, x_scale, w_scale, _OUT_KIND[out_dtype])
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype {out_dtype} not supported")
     if xq.dtype != torch.int8 or wq_t.dtype != torch.int8:
         raise ValueError("xq and wq_t must be int8")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
         raise ValueError("scales must be f32")
-    if out_dtype not in _OUT_KIND:
-        raise ValueError(f"out_dtype {out_dtype} not supported")
     _build.check_cuda(xq, wq_t, x_scale, w_scale, names="xq wq_t x_scale w_scale")
     M, K = xq.shape
     N, K2 = wq_t.shape
     if K != K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
         raise ValueError(f"shapes xq {tuple(xq.shape)} wq_t {tuple(wq_t.shape)} "
                          f"x_scale {tuple(x_scale.shape)} w_scale {tuple(w_scale.shape)}")
-    if K % K_ALIGN or xq.data_ptr() % 16 or wq_t.data_ptr() % 16:
+    if K % K_ALIGN:
         raise ValueError("TMA reads rows 16-byte aligned: K % 16 == 0 and "
                          "16-byte aligned operands (pad_cols pads K)")
     return _gemm_op(xq, wq_t, x_scale, w_scale, _OUT_KIND[out_dtype])

@@ -380,7 +380,7 @@ def test_mapping_bias_gap_on_clips():
                                   jt._cast_for_compute(ja), training=True,
                                   rngs={"dropout": jax.random.PRNGKey(0)})
         return jt.loss_fn(pred.astype(jnp.float32), ja, jnp.asarray(jb["valid"]))
-    loss_jax, (grads, cot) = jax.value_and_grad(loss_j, argnums=(0, 1))(
+    loss_jax, (grads, cot) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(
         jt.params, jnp.zeros((tt.model.llm_cfg.d_model, ml.out_features), jnp.float32))
     cot_j, bias_j = _np(cot), _np(grads["mapping_layer"]["bias"])
     seen = []

@@ -139,7 +139,8 @@ _GATE = [(128, 128, 64, True, "plain"), (511, 511, 64, True, "plain"),
          (512, 512, 64, True, "k4"), (512, 512, 64, False, "k4"),
          (256, 768, 64, True, "k4"), (512, 512, 32, True, "plain"),
          (520, 520, 64, True, "plain"), (1000, 1000, 64, True, "k4-padded"),
-         (1000, 1000, 64, False, "plain"), (1000, 1024, 64, True, "k4")]
+         (1000, 1000, 64, False, "plain"), (1000, 1024, 64, True, "k4"),
+         (512, 512, 384, True, "k4")]
 
 
 @pytest.mark.parametrize("L,S,D,causal,route", _GATE)

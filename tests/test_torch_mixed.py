@@ -99,9 +99,10 @@ def _block_inputs_jax(jt, arrays, params, training):
         if type(context.module).__name__ in ("Block", "RMSNorm"):
             seen.append((type(context.module).__name__, args[0].dtype))
         return next_fun(*args, **kwargs)
-    with fnn.intercept_methods(spy):
-        jt.model.apply({"params": params}, arrays, training=training,
-                       rngs={"dropout": jax.random.PRNGKey(0)})
+    with fnn.intercept_methods(spy):  # traced only: the dtypes, not the values
+        jax.eval_shape(lambda p, a: jt.model.apply({"params": p}, a, training=training,
+                                                   rngs={"dropout": jax.random.PRNGKey(0)}),
+                       params, arrays)
     return seen
 
 
@@ -222,7 +223,7 @@ def test_mapping_bias_gradient_gap():
                                   jt._cast_for_compute(ja), training=True,
                                   rngs={"dropout": jax.random.PRNGKey(0)})
         return jt.loss_fn(pred.astype(jnp.float32), ja, jnp.asarray(jb["valid"]))
-    loss_jax, (grads, cot) = jax.value_and_grad(loss_j, argnums=(0, 1))(
+    loss_jax, (grads, cot) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(
         jt.params, jnp.zeros((d_llm, n_tokens), jnp.float32))
     cot_j, bias_j = _np(cot), _np(grads["mapping_layer"]["bias"])
 

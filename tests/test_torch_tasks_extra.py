@@ -487,7 +487,7 @@ def test_classification_loss_gap_is_the_logits():
     n_valid) (softmax's Jacobian has an infinity norm of at most 1/2), and
     so carries the logits' relative gap into every gradient."""
     jt, tt, ja, ta, valid = _first_train_step("classify")
-    zj = np.asarray(_jax_train_pred(jt, jt.params, ja))
+    zj = np.asarray(jax.jit(lambda p, a: _jax_train_pred(jt, p, a))(jt.params, ja))
     tt.model.train()
     try:
         with torch.no_grad():
@@ -535,7 +535,7 @@ def test_mapping_bias_gradient_gap_forecast():
                 else out
         pred = _jax_train_pred(jt, params, ja, add_delta)
         return jt.loss_fn(pred, ja, jnp.asarray(valid))
-    loss_jax, (grads, cot) = jax.value_and_grad(loss_j, argnums=(0, 1))(
+    loss_jax, (grads, cot) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(
         jt.params, jnp.zeros((d_llm, n_tokens), jnp.float32))
     cot_j, bias_j = _np(cot), _np(grads["mapping_layer"]["bias"])
     seen = []

@@ -173,6 +173,14 @@ def test_bwd_split_matches_plain_and_pallas(B, L, E, N, chunk):
         assert torch.equal(f_, p_)
 
 
+def _jit_vjp(fn, g, *args):
+    """(fn(*args), the vjp of g), computed as one jitted program."""
+    def run(g, *args):
+        y, vjp = jax.vjp(fn, *args)
+        return y, vjp(g)
+    return jax.jit(run)(g, *args)
+
+
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_scan_autograd_matches_jax_vjp(with_h0):
     """(c) the six gradients of selective_ssm / selective_ssm_h0 (h0 a
@@ -182,10 +190,10 @@ def test_scan_autograd_matches_jax_vjp(with_h0):
     jin, g = _j(a, *_ORDER), jnp.asarray(a["g"])
     if with_h0:
         h0 = jnp.asarray(a["h0"])
-        y_j, vjp = jax.vjp(lambda *x: jss.selective_ssm_h0(*x, h0), *jin)
+        fn = lambda *x: jss.selective_ssm_h0(*x, h0)  # noqa: E731
     else:
-        y_j, vjp = jax.vjp(jss.selective_ssm, *jin)
-    want = vjp(g)
+        fn = jss.selective_ssm
+    y_j, want = _jit_vjp(fn, g, *jin)
     tin = [t.clone().requires_grad_() for t in _t(a, *_ORDER)]
     n9, n10 = kss.selective_ssm_bounds.launches, kss.selective_ssm_bwd.launches
     y_t = (kss.selective_ssm_h0(*tin, torch.from_numpy(a["h0"])) if with_h0
@@ -244,10 +252,9 @@ def test_rope_attention_backward_matches_jax_vjp(prefix):
     off = P if prefix else 0
     cos, sin = k2.rope_tables(torch.arange(off, off + L), D, 10000.0)
     jp = (jnp.asarray(pk), jnp.asarray(pv)) if prefix else (None, None)
-    y_j, vjp = jax.vjp(lambda a, b, c: jrope.fused_rope_attention(
+    y_j, want = _jit_vjp(lambda a, b, c: jrope.fused_rope_attention(
         a, b, c, jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()), *jp, D ** -0.5),
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = vjp(jnp.asarray(g))
+        jnp.asarray(g), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
     tp = (torch.from_numpy(pk).requires_grad_(), torch.from_numpy(pv)) if prefix \
         else (None, None)
