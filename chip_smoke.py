@@ -16,7 +16,7 @@ nvidia-smi. Phases:
      K1's GEMM per expert over the same rows (``[yardstick]``); K2 with a
      per-row prefix at ecgmit-seg.toml's clip shape, each query row held
      against the plain version fed the once-rounded rotation; K4's wide
-     heads, D 384 and 512, f32 and bf16, printed), with both
+     heads, D 384, 512 and 768, f32 and bf16, printed), with both
      times from CUDA events, the least time the card could take for the
      same work (bound) and, where one exists, the time of the one PyTorch
      call that computes the same function (timed here only; the port never
@@ -2307,10 +2307,11 @@ def main() -> None:
                f"end-aligned; library = SDPA with the mask; {smi.splitlines()[0]})",
                listed=listed, share=None if f32 else row_share(o, o0))
 
-    # K4's wide heads (D 320-512, column passes; JAX's gate sends every
-    # D % 64 == 0 to its kernel), f32 and bf16, printed, not listed: no
-    # backbone of the port's families has such heads
-    for D_w in (384, 512):
+    # K4's wide heads (JAX's gate sends every D % 64 == 0 to its kernel):
+    # bf16 on the tensor cores in output-column passes, f32 on register
+    # micro-tiles; printed, not listed: no backbone of the port's families
+    # has such heads
+    for D_w in (384, 512, 768):
         for dtype in (torch.float32, torch.bfloat16):
             kind = "f32" if dtype == torch.float32 else "bf16"
             check_k4_shape(f"flash_attention[D{D_w}-{kind}]", 8, 8, 512, 768, D_w, dtype,

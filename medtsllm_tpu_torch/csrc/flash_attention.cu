@@ -68,21 +68,23 @@
 //     tile loop;
 //   - the output is staged in the warpgroup's own q rows (free once its last
 //     QK^T is done) and written by a TMA store that clips the rows past L.
-// Head dims 192 and 256 (the ln family's wide heads, e.g. pythia-1b's 256;
-// JAX's dispatcher sends every D % 64 == 0 to its kernel) take the same bf16
-// design with 64-key tiles (m64n64k16 for S, m64n{D}k16 for PV): a
-// consumer thread then holds D / 2 accumulators, 32 scores and 16 words of
-// P, 176 registers at D 256, inside setmaxnreg's 240; two stages fit beside
-// q. The fused entry (RoPE in the kernel) stays at D 64 / 128, the route's
-// head dims.
-// Head dims 320, 384, 448 and 512 (JAX's dispatcher sends them to its
-// kernel too) take a simple kernel in both dtypes, past wgmma's N of 256:
-// passes of at most 256 output columns that each recompute the scores
-// (flash_wide_kernel below).
-// f32 inputs take a plain FMA kernel (no TF32): one thread per head-dim
-// column over 16-query (24 at D 192, 8 at D 256) x 32-key tiles, for f32
-// parity with the CPU; on the fused entry a first kernel rotates q for it
-// (torch's f32 rounding).
+// Every head dim D % 64 == 0 runs on the card, as JAX's dispatcher sends
+// every such D to its kernel:
+//   - bf16 D 192 and 256 (the ln family's wide heads, e.g. pythia-1b's 256)
+//     take the same bf16 design with 64-key tiles (m64n64k16 for S,
+//     m64n{D}k16 for PV): a consumer thread then holds D / 2 accumulators,
+//     32 scores and 16 words of P, 176 registers at D 256, inside
+//     setmaxnreg's 240; two stages fit beside q;
+//   - bf16 D >= 320 (past wgmma's N of 256 and a resident q) take
+//     flash_wide_kernel: q and K streamed as 64-column boxes, S accumulated
+//     over D / 64 k-steps on the tensor cores, PV in output-column passes of
+//     at most 256 (its note below);
+//   - f32, every D, takes flash_f32_kernel: K3's register micro-tiles on
+//     exact FMAs (no TF32), for f32 parity with the CPU (its note below); on
+//     the fused entry a first kernel rotates q for it (torch's f32
+//     rounding).
+// The fused entry (RoPE in the kernel) stays at D 64 / 128, the route's head
+// dims.
 
 #include <type_traits>
 
@@ -613,32 +615,40 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// q / out [B, L, H, D] (lhd) or [B, H, L, D] as a 4-D map of 64-row boxes
+// 128 bytes wide (64 bf16 or 32 f32 columns)
+bool make_q_map(CUtensorMap* map, const void* p, int lhd, int B, int H, int L, int D, bool f32) {
+  const uint64_t row = static_cast<uint64_t>(D) * (f32 ? 4 : 2);  // bytes
+  const uint64_t h = H, l = L, b = B, d = D;
+  const uint32_t w = f32 ? 32 : 64;
+  const uint64_t dims_l[4] = {d, h, l, b}, st_l[3] = {row, h * row, l * h * row};
+  const uint64_t dims_h[4] = {d, l, h, b}, st_h[3] = {row, l * row, h * l * row};
+  const uint32_t box_l[4] = {w, 1, 64, 1}, box_h[4] = {w, 64, 1, 1};
+  return make_map_nd(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     p, 4, lhd ? dims_l : dims_h, lhd ? st_l : st_h, lhd ? box_l : box_h);
+}
+
+// k / v [B * KV, S, D] as a 3-D map of `keys`-row boxes 128 bytes wide
+bool make_kv_map(CUtensorMap* map, const void* p, int rows, int S, int D, int keys, bool f32) {
+  const uint64_t row = static_cast<uint64_t>(D) * (f32 ? 4 : 2);
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(rows)};
+  const uint64_t st[2] = {row, static_cast<uint64_t>(S) * row};
+  const uint32_t box[3] = {f32 ? 32u : 64u, static_cast<uint32_t>(keys), 1};
+  return make_map_nd(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     p, 3, dims, st, box);
+}
+
 // q / out as 64-row, 64-column boxes of a 4-D map over [B, L, H, D] (lhd)
-// or [B, H, L, D]; k / v as 128-key boxes of a 3-D map over [B * KV, S, D]
+// or [B, H, L, D]; k / v as kBK-key boxes of a 3-D map over [B * KV, S, D]
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, const FlashArgs& a,
                  int B, cudaStream_t stream) {
-  const uint64_t row = D * 2;  // bytes
-  const uint64_t H = a.H, L = a.L;
-  uint64_t qd[4], qs[3];
-  uint32_t qb[4];
-  if (a.lhd) {
-    const uint64_t d[4] = {D, H, L, static_cast<uint64_t>(B)}, st[3] = {row, H * row, L * H * row};
-    const uint32_t bx[4] = {64, 1, 64, 1};
-    for (int i = 0; i < 4; ++i) qd[i] = d[i], qb[i] = bx[i];
-    for (int i = 0; i < 3; ++i) qs[i] = st[i];
-  } else {
-    const uint64_t d[4] = {D, L, H, static_cast<uint64_t>(B)}, st[3] = {row, L * row, H * L * row};
-    const uint32_t bx[4] = {64, 64, 1, 1};
-    for (int i = 0; i < 4; ++i) qd[i] = d[i], qb[i] = bx[i];
-    for (int i = 0; i < 3; ++i) qs[i] = st[i];
-  }
-  const uint64_t kd[3] = {D, static_cast<uint64_t>(a.S), static_cast<uint64_t>(B) * a.KV};
-  const uint64_t ks[2] = {row, a.S * row};
-  const uint32_t kb[3] = {64, Smem<D>::kBK, 1};
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map_bf16_nd(&mq, q, 4, qd, qs, qb) || !make_map_bf16_nd(&mo, out, 4, qd, qs, qb) ||
-      !make_map_bf16_nd(&mk, k, 3, kd, ks, kb) || !make_map_bf16_nd(&mv, v, 3, kd, ks, kb))
+  if (!make_q_map(&mq, q, a.lhd, B, a.H, a.L, D, false) ||
+      !make_q_map(&mo, out, a.lhd, B, a.H, a.L, D, false) ||
+      !make_kv_map(&mk, k, B * a.KV, a.S, D, Smem<D>::kBK, false) ||
+      !make_kv_map(&mv, v, B * a.KV, a.S, D, Smem<D>::kBK, false))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = flash_wgmma_kernel<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -649,279 +659,631 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const F
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- f32: plain FMAs, one thread per head-dim column ----------------------
-// queries per block: 16, but 24 at D 192 (a multiple of its 6 warps) and 8 at
-// D 256 (the staged tiles stay in the 48 KB of static shared memory)
-template <int D>
-struct F32Tile {
-  static constexpr int kQ = D == 192 ? 24 : D == 256 ? 8 : 16;
+// output columns a block computes past D 256 (both dtypes): the fewest passes
+// of at most 256 columns, as even as 64-column chunks allow (192 or 256)
+int pass_width(int D) {
+  if (D <= 256) return D;
+  const int chunks = D / 64, passes = (chunks + 3) / 4;
+  return 64 * ((chunks + passes - 1) / passes);
+}
+
+// ---- bf16, D >= 320: wgmma over streamed 64-column boxes -------------------
+// Replaces the bf16 side of _flash_kernel past D 256. What bounds it: at D
+// 512 (B 8, H 8, L 512, S 768, causal) a call is ~34 GFLOP of bf16 products
+// against ~168 MB, ~205 operations a byte, just under the bf16 ridge (~295):
+// bytes, but only the tensor cores keep the products under that bound
+// (scalar f32 FMAs alone would take ~0.5 ms). The design, on the D <= 256
+// kernel's machinery (one producer warpgroup, two consumer warpgroups of 64
+// query rows, 64-key tiles, the same softmax and rounding):
+//   - no D has to fit shared memory whole: the producer streams each key
+//     tile's q and K as 64-column chunks (the two consumers' q boxes and the
+//     K box, 24 KB) through a 4-stage mbarrier ring, and S = Q K^T
+//     accumulates over the D / 64 chunks on wgmma m64n64k16 (each chunk's
+//     group committed, its stage released once the next chunk's products
+//     are issued and it is done);
+//   - PV on wgmma m64n{PW}k16 over one pass of PW <= 256 output columns
+//     (pass_width: 192 at D 320 / 384 / 576, else 256), V's pass slice
+//     double-buffered by TMA, so a consumer thread holds PW / 2 <= 128
+//     accumulators, 32 scores and 16 words of P, inside setmaxnreg's 240;
+//   - the passes are blocks of their own (grid.y): the accumulators of every
+//     pass of a 64-row tile do not fit one block's registers, so each pass
+//     recomputes S on the tensor cores: D / PW passes do D / PW times the QK^T
+//     products and re-read q and K that often (1.5x the minimal products at
+//     D 512, 2x its q and K bytes, from L2); q itself is re-read per key tile
+//     rather than held (128 rows x D at D 1024 would be 256 KB);
+//   - the output is written from the accumulators (bf16 pairs), rows past L
+//     and columns past D skipped; V columns past D (a last pass narrower
+//     than PW) arrive as TMA's zeros.
+constexpr int kWStages = 4;
+
+template <int PW>
+struct WideSmem {
+  static_assert(PW == 192 || PW == 256, "pass width");
+  static constexpr int kBox = 64 * kSwizzleBytes;       // 64 rows x 64 columns, 8 KB
+  static constexpr int kStageBytes = 3 * kBox;          // q box of each consumer | K box
+  static constexpr int kRingBytes = kWStages * kStageBytes;
+  static constexpr int kVBytes = PW / 64 * kBox;        // one pass's V slice of a key tile
+  // + full / empty per stage, v_full / v_empty per slice; + slack to align to
+  // the 1024-byte swizzle atom
+  static constexpr int kBytes = kRingBytes + 2 * kVBytes + (2 * kWStages + 4) * 8 + 1024;
 };
-constexpr int FK = 32;  // keys per staged tile (one per lane in the softmax)
+
+struct WideArgs {
+  int H, KV, L, S, D, causal;
+  float scale_log2;  // sm_scale * log2(e)
+};
+
+template <int PW>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                  const WideArgs a) {
+  using C = WideSmem<PW>;
+  constexpr int kBox = C::kBox, kBK = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* svb = ring + C::kRingBytes;  // two V slices
+  uint64_t* full = reinterpret_cast<uint64_t*>(svb + 2 * C::kVBytes);
+  uint64_t* empty = full + kWStages;
+  uint64_t* v_full = empty + kWStages;
+  uint64_t* v_empty = v_full + 2;
+
+  const int nqt = (a.L + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nqt, qt = nqt - 1 - blockIdx.x % nqt;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kv_row = b * a.KV + h / (a.H / a.KV);
+  const int q0 = qt * kBQ, offs = a.S - a.L;
+  const int kend = a.causal ? min(a.S, q0 + kBQ + offs) : a.S;
+  const int ntiles = (kend + kBK - 1) / kBK;
+  const int nc = a.D / 64, col0 = blockIdx.y * PW;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx arrival
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&v_full[i], 1);
+      mbar_init(&v_empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      for (int t = 0, s = 0, ph = 0; t < ntiles; ++t) {
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(&empty[s], ph ^ 1);  // passes at once on the first lap
+          unsigned char* st = ring + s * C::kStageBytes;
+          mbar_expect_tx(&full[s], C::kStageBytes);
+          load_q(st, &map_q, 64 * c, q0, h, b, 0, &full[s]);
+          load_q(st + kBox, &map_q, 64 * c, q0 + 64, h, b, 0, &full[s]);
+          tma_load_3d(st + 2 * kBox, &map_k, 64 * c, t * kBK, kv_row, &full[s]);
+          if (++s == kWStages) s = 0, ph ^= 1;
+        }
+        const int vs = t & 1;
+        mbar_wait(&v_empty[vs], ((t >> 1) & 1) ^ 1);
+        mbar_expect_tx(&v_full[vs], C::kVBytes);
+        for (int n = 0; n < PW / 64; ++n)
+          tma_load_3d(svb + vs * C::kVBytes + n * kBox, &map_v, col0 + 64 * n, t * kBK, kv_row,
+                      &v_full[vs]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns query rows [q0 + 64 c, q0 + 64 c + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1, t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r_first = q0 + c * 64;
+  const int row0 = r_first + w * 16 + g;  // this thread's rows: row0, row0 + 8
+  const bool idle = r_first >= a.L;       // still releases every stage
+
+  float o[PW / 2];
+#pragma unroll
+  for (int i = 0; i < PW / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  for (int tile = 0, s = 0, ph = 0; tile < ntiles; ++tile) {
+    const int j0 = tile * kBK, vs = tile & 1, vph = (tile >> 1) & 1;
+    if (idle || (a.causal && j0 > r_first + 63 + offs)) {
+      for (int cc = 0; cc < nc; ++cc) {
+        mbar_wait(&full[s], ph);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (++s == kWStages) s = 0, ph ^= 1;
+      }
+      mbar_wait(&v_full[vs], vph);
+      if (lane == 0) mbar_arrive(&v_empty[vs]);
+      continue;
+    }
+    float sc[kBK / 2];
+    int prev = s;
+    for (int cc = 0; cc < nc; ++cc) {
+      mbar_wait(&full[s], ph);
+      const unsigned char* st = ring + s * C::kStageBytes;
+      const uint64_t dq = smem_desc(st + c * kBox), dk = smem_desc(st + 2 * kBox);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_qk(sc, dq + 2 * kk, dk + 2 * kk, cc > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous chunk's products are done: its stage is free
+      if (cc > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == kWStages) s = 0, ph ^= 1;
+    }
+    wgmma_wait<0>();
+    reg_fence(sc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    // the D <= 256 kernel's softmax at 64-key tiles
+    const bool edge = j0 + kBK > a.S || (a.causal && j0 + kBK - 1 > r_first + offs);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int col = j0 + 8 * j + 2 * t4 + (e & 1), row = row0 + (e >> 1) * 8;
+          if (col >= a.S || (a.causal && col > row + offs)) sc[4 * j + e] = -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i] * a.scale_log2);
+      alpha[i] = ex2(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= alpha[i];
+    }
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = ex2(fmaf(sc[4 * j + e], a.scale_log2, -m_r[e >> 1]));
+        l_r[e >> 1] += p[e];
+      }
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < PW / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+    mbar_wait(&v_full[vs], vph);
+    const unsigned char* sv = svb + vs * C::kVBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_pv(o, pa[kk], smem_desc_mn(sv + kk * 16 * kSwizzleBytes, kBox));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    if (lane == 0) mbar_arrive(&v_empty[vs]);
+  }
+  if (idle) return;
+
+  // out = acc / max(l, 1e-30), rounded once, in bf16 pairs
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    l_r[i] = fmaxf(l_r[i], 1e-30f);
+  }
+  bf16* ob = out + static_cast<size_t>(bh) * a.L * a.D;
+#pragma unroll
+  for (int j = 0; j < PW / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t4;
+    if (col >= a.D) continue;
+    if (row0 < a.L)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row0) * a.D + col) =
+          pack_bf16(__fdiv_rn(o[4 * j], l_r[0]), __fdiv_rn(o[4 * j + 1], l_r[0]));
+    if (row0 + 8 < a.L)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row0 + 8) * a.D + col) =
+          pack_bf16(__fdiv_rn(o[4 * j + 2], l_r[1]), __fdiv_rn(o[4 * j + 3], l_r[1]));
+  }
+}
+
+template <int PW>
+int launch_wide(const void* q, const void* k, const void* v, void* out, const WideArgs& a, int B,
+                cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_q_map(&mq, q, 0, B, a.H, a.L, a.D, false) ||
+      !make_kv_map(&mk, k, B * a.KV, a.S, a.D, 64, false) ||
+      !make_kv_map(&mv, v, B * a.KV, a.S, a.D, 64, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = flash_wide_kernel<PW>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem<PW>::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(((a.L + kBQ - 1) / kBQ) * B * a.H, (a.D + PW - 1) / PW);
+  kernel<<<grid, kThreads, WideSmem<PW>::kBytes, stream>>>(mq, mk, mv, static_cast<bf16*>(out),
+                                                           a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- f32, every D: register micro-tiles (K3's design) ----------------------
+// Replaces the f32 side of _flash_kernel. What bounds it: at gpt2's shape (B
+// 16, H 12, L = S 512, D 64, causal) a call does 4 B H D x pairs = 6.45 GFLOP
+// against ~101 MB of q, k, v and output, ~64 operations a byte against the
+// f32 ridge of ~20: the FP32 units (no TF32: f32 parity with the CPU). The
+// design is K3's (csrc/reprogramming.cu), which moved that kernel from
+// shared-memory reads to the FMAs:
+//   - one block per 64 query rows of one (batch, head), the longest causal
+//     rows first; row groups of 16 threads, thread (ty, tx) owning RM rows
+//     (ty + NTY i, NTY = 64 / RM, so the two row groups of a warp read
+//     adjacent rows) and the keys tx + 16 j of a 64-key tile: K3's 16 x 16
+//     threads with 4 x 4 scores (RM 4) for every D but 64, where 8 x 16
+//     threads with 8 x 4 scores (RM 8, three blocks an SM) timed 8-9%
+//     faster on an H100 (0.278-0.284 against 0.307 ms at gpt2's shape, in
+//     turns in one call). Timed there and not kept: two blocks an SM at RM 8
+//     (0.302-0.306 ms: no spills, fewer warps), the 8-step slice loop
+//     unrolled by 4 (0.296-0.301), 128-row blocks of 8 x 4 or 8 x 8 scores
+//     (0.356-0.365: a quarter of the diagonal tiles' pairs masked, and 8 x 8
+//     spills). Per 4-column slice a thread reads RM q and 4 K float4s for
+//     16 RM FMAs, q as broadcasts, K rows in the 128-byte swizzle (16-byte
+//     chunk c of row r at c ^ (r & 7), K3's XOR layout, here TMA's own), so
+//     the 8 keys of a quarter-warp hit distinct banks;
+//   - the online softmax across the 16 threads of a row group (the max by
+//     four xor shuffles; each thread's share of l, reduced once at the
+//     end); p through shared memory (16-byte chunks XOR-swizzled by row
+//     group), read back as broadcast float4s, as the A operand of PV into
+//     an RM-row x (PW / 16)-column accumulator;
+//   - q, K and V arrive by TMA (one thread issues, mbarriers complete), one
+//     buffer each, staggered: V(t) lands while QK^T(t) runs and K(t + 1)
+//     while the softmax and PV(t) run, so every tile's copy overlaps the
+//     FMAs with one buffer per operand; rows past L and keys past S arrive
+//     as zeros;
+//   - D <= 256: q stays resident (64 rows x D; with K, V and p 64 KB at D
+//     64, 208 KB at D 256, one block an SM past D 64); past 256, q and K
+//     stream as 64-column chunks through a 2-stage ring each key tile (q
+//     re-read from L2 per tile; 64 x D floats at D 1024 would be 256 KB),
+//     and the output columns split into passes of PW <= 256 (pass_width,
+//     grid.y): PW / 16 x 4 accumulators a thread (64 at PW 256) is the
+//     register budget, and each pass recomputes the scores (1.5x the
+//     minimal FMAs at D 512);
+//   - the end-aligned causal mask (query i sees keys <= i + S - L), key tiles
+//     wholly above it skipped; GQA as b * KV + h / (H / KV); q and out in
+//     [B, H, L, D] or the route's [B, L, H, D].
+// Held back (H100 runs): a thread's float4 feeds only 4 (K) or RM (q) x 4
+// FMAs, and with the softmax's expf and the staggered barriers the FMA
+// pipes stay ~35% busy: gpt2's shape and D 192 / 256 at ~2.9x their
+// bounds; past 256 the passes' recomputed scores add to that (D 512 4.3x,
+// D 1024 6.9x).
+// Exact: expf, plain FMAs, masked scores -1e30 (as JAX's), out = acc /
+// max(l, 1e-30) by __fdiv_rn; only the summation order differs from the
+// plain version.
+constexpr int FQ = 64;                       // query rows a block
+constexpr int FK = 64;                       // keys a tile
+constexpr int kFBox = 64 * kSwizzleBytes;    // one [64 rows][32 floats] TMA box, 8 KB
+
+// The block's shape: 64 query rows as NTY = 64 / RM row groups of TR
+// threads; thread (ty, tx) owns the RM rows ty + NTY i (i < RM) and the 64 /
+// TR keys tx + TR j of a tile. TR is 16 in every instance; as a parameter
+// the kernels timed 3-5% faster on an H100 than with 16 written in (the
+// same arithmetic, in turns in one call)
+template <int RM, int TR>
+struct F32Tile {
+  static constexpr int kGroups = FQ / RM;          // row groups (NTY)
+  static constexpr int kThreads = kGroups * TR;
+  static constexpr int kKeys = FK / TR;            // keys a thread
+  static constexpr int kTyWarp = 32 / TR;          // row groups a warp
+  static_assert(kGroups % 8 == 0 && TR % 8 == 0, "row & 7 = ty & 7, key & 7 = tx & 7");
+};
 
 // q and out element (b, h, l, d) at b * sb + h * sh + l * sl + d
 struct Strides {
   long long sb, sh, sl;
 };
 
-template <int D>
-__global__ void __launch_bounds__(D)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int H,
-                 int KV, int L, int S, int causal, float sm_scale, Strides qs) {
-  constexpr int FQ = F32Tile<D>::kQ, LD = D + 1, NW = D / 32, RW = FQ / NW;  // rows per warp
-  static_assert(FQ % NW == 0, "whole rows per warp");
-  __shared__ float sq[FQ * LD];
-  __shared__ float skv[FK * LD];
-  __shared__ float sp[FQ][FK];  // scores, then probabilities
-  __shared__ float s_alpha[FQ];
-  __shared__ float s_l[FQ];
+struct F32Args {
+  int H, KV, L, S, D, causal, lhd;
+  float sm_scale;
+  Strides os;  // out's strides (q's layout)
+};
 
-  const int nq = (L + FQ - 1) / FQ;  // B x H folded into grid.x, as the bf16 kernel's
-  const int q0 = (blockIdx.x % nq) * FQ, bh = blockIdx.x / nq;
-  const int b = bh / H, h = bh % H;
-  const size_t kv_row = static_cast<size_t>(b) * KV + h / (H / KV);
-  const size_t qoff = static_cast<size_t>(b) * qs.sb + static_cast<size_t>(h) * qs.sh;
-  const float* qb = q + qoff;
-  const float* kb = k + kv_row * S * D;
-  const float* vb = v + kv_row * S * D;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int offs = S - L;
+// QRES (D = PW <= 256): q [D / 32 boxes], the K tile, the V tile, p
+// [64][64]; else a 2-stage ring of [q chunk | K chunk] (2 + 2 boxes), the
+// pass's V tile, p
+template <int PW, bool QRES>
+struct F32Smem {
+  static constexpr int kBoxes = PW / 32;
+  static constexpr int kQBytes = QRES ? kBoxes * kFBox : 0;
+  static constexpr int kStages = QRES ? 1 : 2;
+  static constexpr int kStageBytes = QRES ? kBoxes * kFBox : 4 * kFBox;
+  static constexpr int kVBytes = kBoxes * kFBox;
+  static constexpr int kPBytes = FQ * FK * 4;
+  // + q_full, v_full and full per stage; + slack to align to the swizzle atom
+  static constexpr int kBytes =
+      kQBytes + kStages * kStageBytes + kVBytes + kPBytes + (2 + kStages) * 8 + 1024;
+};
 
-  for (int r = 0; r < FQ; ++r)
-    sq[r * LD + t] = q0 + r < L ? qb[static_cast<size_t>(q0 + r) * qs.sl + t] : 0.f;
-  const int kend = causal ? min(S, q0 + FQ + offs) : S;
-  const int ntiles = kend > 0 ? (kend + FK - 1) / FK : 0;
-
-  float m_w[RW], l_w[RW], acc[FQ];
+// s[i][j] += q[ty + NTY i] . k[tx + 16 j] over nbox boxes of 32 columns. In
+// the 128-byte swizzle chunk c of row r sits at c ^ (r & 7): for q rows that
+// is c ^ (ty & 7) and for keys c ^ (tx & 7), whatever i and j (NTY is 8 or
+// 16), so each load is a per-c base plus an immediate (rows NTY i and keys
+// 16 j apart); the two row groups of a warp read adjacent rows, distinct
+// chunks
+template <int RM, int TR>
+__device__ __forceinline__ void qk_f32(float (&s)[RM][FK / TR], const unsigned char* qb,
+                                       const unsigned char* kb, int nbox, int ty, int tx) {
+  using T = F32Tile<RM, TR>;
+  constexpr int KN = T::kKeys;
+  const unsigned char* qr = qb + 128 * ty;
+  const unsigned char* kr = kb + 128 * tx;
+  const int qx = ty & 7, kx = tx & 7;
+#pragma unroll 1
+  for (int bx = 0; bx < nbox; ++bx, qr += kFBox, kr += kFBox) {
 #pragma unroll
-  for (int i = 0; i < RW; ++i) m_w[i] = kNegInf, l_w[i] = 0.f;
+    for (int c = 0; c < 8; ++c) {
+      const unsigned char* qc = qr + 16 * (c ^ qx);
+      const unsigned char* kc = kr + 16 * (c ^ kx);
+      float4 qa[RM], kv[KN];
 #pragma unroll
-  for (int r = 0; r < FQ; ++r) acc[r] = 0.f;
+      for (int i = 0; i < RM; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(qc + 128 * T::kGroups * i);
+#pragma unroll
+      for (int j = 0; j < KN; ++j) kv[j] = *reinterpret_cast<const float4*>(kc + 128 * TR * j);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j) {
+          s[i][j] = fmaf(qa[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kv[j].w, s[i][j]);
+        }
+    }
+  }
+}
+
+// chunk g of the streamed form: q and K columns [64 c, 64 c + 64) of key
+// tile g / nc (c = g % nc) into stage g & 1 of the ring
+__device__ __forceinline__ void f32_chunk(unsigned char* ring, uint64_t* full,
+                                          const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                          int g, int nc, int q0, int h, int b, int lhd,
+                                          int kv_row) {
+  const int tile = g / nc, c = g % nc, s = g & 1;
+  unsigned char* st = ring + s * 4 * kFBox;
+  mbar_expect_tx(&full[s], 4 * kFBox);
+  for (int hf = 0; hf < 2; ++hf) {
+    load_q(st + hf * kFBox, map_q, 64 * c + 32 * hf, q0, h, b, lhd, &full[s]);
+    tma_load_3d(st + (2 + hf) * kFBox, map_k, 64 * c + 32 * hf, tile * FK, kv_row, &full[s]);
+  }
+}
+
+template <int PW, bool QRES, int RM, int TR>
+__global__ void __launch_bounds__(F32Tile<RM, TR>::kThreads, RM == 8 ? 3 : 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, float* __restrict__ out,
+                 const F32Args a) {
+  using C = F32Smem<PW, QRES>;
+  using T = F32Tile<RM, TR>;
+  constexpr int KN = T::kKeys, NTY = T::kGroups;
+  constexpr int NB = C::kBoxes, NC = PW / TR;  // V boxes; output columns a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ring = sq + C::kQBytes;
+  unsigned char* sv = ring + C::kStages * C::kStageBytes;
+  float* sp = reinterpret_cast<float*>(sv + C::kVBytes);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sp + FQ * FK);
+  uint64_t* v_full = q_full + 1;
+  uint64_t* full = v_full + 1;
+
+  const int nqt = (a.L + FQ - 1) / FQ;  // B x H folded into grid.x, as the bf16 kernels'
+  const int bh = blockIdx.x / nqt, qt = nqt - 1 - blockIdx.x % nqt;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kv_row = b * a.KV + h / (a.H / a.KV);
+  const int q0 = qt * FQ, offs = a.S - a.L;
+  const int kend = a.causal ? min(a.S, q0 + FQ + offs) : a.S;
+  const int ntiles = (kend + FK - 1) / FK;
+  const int col0 = blockIdx.y * PW;
+  const int nc = QRES ? 1 : a.D / 64;  // score chunks a tile
+  const int nchunks = ntiles * nc;
+  const int t = threadIdx.x, ty = t / TR, tx = t % TR;
+
+  if (t == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(v_full, 1);
+    for (int s = 0; s < C::kStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    if constexpr (QRES) {
+      mbar_expect_tx(q_full, NB * kFBox);
+      mbar_expect_tx(&full[0], NB * kFBox);
+      for (int bx = 0; bx < NB; ++bx) {
+        load_q(sq + bx * kFBox, &map_q, 32 * bx, q0, h, b, a.lhd, q_full);
+        tma_load_3d(ring + bx * kFBox, &map_k, 32 * bx, 0, kv_row, &full[0]);
+      }
+    } else {
+      for (int g = 0; g < 2 && g < nchunks; ++g)
+        f32_chunk(ring, full, &map_q, &map_k, g, nc, q0, h, b, a.lhd, kv_row);
+    }
+  }
+  __syncthreads();
+
+  // p row r holds key k at 4 (k / 4 ^ psw) + k % 4, psw = 4 (ty & 1): the
+  // two row groups of a warp (rows 1 apart, 256 bytes a row) read and write
+  // 16 banks apart
+  float* sp_row = sp + ty * FK;
+  const int psw = (ty % T::kTyWarp) * (8 / T::kTyWarp);
+  // V: columns 4 tx .. of key j8 + m at vt + 128 (j8 + m) + voff[m] (box
+  // tx / 8, its chunk tx % 8 swizzled by the key's row), + 2 boxes per 64
+  // columns
+  const unsigned char* vt = sv + (tx >> 3) * kFBox;
+  int voff[8];
+#pragma unroll
+  for (int mm = 0; mm < 8; ++mm) voff[mm] = 16 * ((tx & 7) ^ mm);
+  float m[RM], l[RM], acc[RM][NC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+  }
+  if constexpr (QRES) mbar_wait(q_full, 0);
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int j0 = tile * FK;
-    __syncthreads();
-    for (int j = 0; j < FK; ++j)
-      skv[j * LD + t] = j0 + j < S ? kb[static_cast<size_t>(j0 + j) * D + t] : 0.f;
-    __syncthreads();
-    for (int i = t; i < FQ * FK; i += D) {
-      const int r = i / FK, j = i % FK;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) dot = fmaf(sq[r * LD + e], skv[j * LD + e], dot);
-      sp[r][j] = dot * sm_scale;
+    if (t == 0) {  // V's buffer was released by the last tile's closing barrier
+      mbar_expect_tx(v_full, NB * kFBox);
+      for (int bx = 0; bx < NB; ++bx)
+        tma_load_3d(sv + bx * kFBox, &map_v, col0 + 32 * bx, j0, kv_row, v_full);
     }
-    __syncthreads();
-    // online softmax: warp w owns rows w, w + NW, ...; lane j owns key j0 + j
+    float s[RM][KN];
 #pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int r = warp + i * NW, row = q0 + r, col = j0 + lane;
-      float val = sp[r][lane];
-      if (col >= S || (causal && col > row + offs)) val = kNegInf;
-      float mc = val;
-      for (int o = 16; o > 0; o >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
-      const float m_new = fmaxf(m_w[i], mc);
-      const float alpha = expf(m_w[i] - m_new);
-      const float p = expf(val - m_new);
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l_w[i] = alpha * l_w[i] + sum;
-      m_w[i] = m_new;
-      sp[r][lane] = p;
-      if (lane == 0) s_alpha[r] = alpha;
-    }
-    for (int j = 0; j < FK; ++j)
-      skv[j * LD + t] = j0 + j < S ? vb[static_cast<size_t>(j0 + j) * D + t] : 0.f;
-    __syncthreads();
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int r = 0; r < FQ; ++r) {
-      float a = acc[r] * s_alpha[r];
-      for (int j = 0; j < FK; ++j) a = fmaf(sp[r][j], skv[j * LD + t], a);
-      acc[r] = a;
-    }
-  }
-  if (lane == 0)
-    for (int i = 0; i < RW; ++i) s_l[warp + i * NW] = l_w[i];
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < FQ; ++r)
-    if (q0 + r < L)
-      out[qoff + static_cast<size_t>(q0 + r) * qs.sl + t] =
-          __fdiv_rn(acc[r], fmaxf(s_l[r], 1e-30f));
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-               int L, int S, int causal, float sm_scale, Strides qs, cudaStream_t stream) {
-  const dim3 grid(((L + F32Tile<D>::kQ - 1) / F32Tile<D>::kQ) * B * H);
-  flash_f32_kernel<D><<<grid, D, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, KV, L, S, causal, sm_scale, qs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- wide heads (D 320, 384, 448, 512): column passes ----------------------
-// Past wgmma's N of 256 and the f32 kernel's one-thread-a-column block, both
-// dtypes take one simple kernel: a block holds WQ query rows of one (batch,
-// head) and one pass of at most WT output columns (grid.y = the passes, 2 at
-// every wide D). Each pass recomputes the full-D scores of its rows: K tiles
-// of WK keys staged in f32, one (row, key) dot a thread, the online softmax a
-// warp a row (lane = key), then the pass's columns of the V tile and the
-// f32 accumulators, a column a thread. bf16 rounds p to bf16 before the PV
-// product, as the other kernels do (l sums the f32 p); f32 is exact FMAs.
-constexpr int WQ = 8, WK = 32, WT = 256;
-static_assert(WQ * WK == WT, "one (row, key) score a thread");
-static_assert(WT / 32 == WQ, "one warp a query row");
-
-template <typename T>
-__device__ __forceinline__ float wide_load(T x) {
-  if constexpr (std::is_same_v<T, float>) return x;
-  else return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T wide_store(float x) {
-  if constexpr (std::is_same_v<T, float>) return x;
-  else return __float2bfloat16_rn(x);
-}
-
-template <int D>
-struct WideSmem {  // floats: q rows, the K tile (padded rows) or the V pass, p, alpha, l
-  static constexpr int kFloats = WQ * D + WK * (D + 1) + WQ * WK + 2 * WQ;
-  static constexpr int kBytes = kFloats * 4;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(WT)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ out, int H, int KV, int L, int S, int causal,
-                  float sm_scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* sq = smem;                 // [WQ][D]
-  float* skv = sq + WQ * D;         // [WK][LD] keys, then [WK][WT] the pass's values
-  float* sp = skv + WK * LD;        // [WQ][WK] scores, then probabilities
-  float* s_alpha = sp + WQ * WK;    // [WQ]
-  float* s_l = s_alpha + WQ;        // [WQ]
-
-  const int nq = (L + WQ - 1) / WQ;
-  const int q0 = (blockIdx.x % nq) * WQ, bh = blockIdx.x / nq;
-  const int b = bh / H, h = bh % H;
-  const size_t kv_row = static_cast<size_t>(b) * KV + h / (H / KV);
-  const T* qb = q + static_cast<size_t>(bh) * L * D;
-  const T* kb = k + kv_row * S * D;
-  const T* vb = v + kv_row * S * D;
-  T* ob = out + static_cast<size_t>(bh) * L * D;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int col = blockIdx.y * WT + t;  // this thread's output column
-  const bool has_col = col < D;
-  const int offs = S - L;
-
-  for (int i = t; i < WQ * D; i += WT) {
-    const int r = i / D;
-    sq[i] = q0 + r < L ? wide_load(qb[static_cast<size_t>(q0) * D + i]) : 0.f;
-  }
-  const int kend = causal ? min(S, q0 + WQ + offs) : S;
-  const int ntiles = kend > 0 ? (kend + WK - 1) / WK : 0;
-
-  float m = kNegInf, l = 0.f;  // row `warp`'s statistics, the same in every lane
-  float acc[WQ];
-#pragma unroll
-  for (int r = 0; r < WQ; ++r) acc[r] = 0.f;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int j0 = tile * WK;
-    __syncthreads();  // the previous tile's values and probabilities are read
-    for (int i = t; i < WK * D; i += WT) {
-      const int j = i / D, e = i - j * D;
-      skv[j * LD + e] = j0 + j < S ? wide_load(kb[static_cast<size_t>(j0) * D + i]) : 0.f;
-    }
-    __syncthreads();
-    {
-      const int r = t / WK, j = t % WK;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) dot = fmaf(sq[r * D + e], skv[j * LD + e], dot);
-      sp[r * WK + j] = dot * sm_scale;
-    }
-    __syncthreads();
-    {
-      const int row = q0 + warp, c = j0 + lane;
-      float val = sp[warp * WK + lane];
-      if (c >= S || (causal && c > row + offs)) val = kNegInf;
-      float mc = val;
-      for (int o = 16; o > 0; o >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);
-      const float p = expf(val - m_new);
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l = alpha * l + sum;
-      m = m_new;
-      sp[warp * WK + lane] = wide_load(wide_store<T>(p));  // p at v's dtype
-      if (lane == 0) s_alpha[warp] = alpha;
-    }
-    __syncthreads();  // the keys are read: the pass's values take their place
-    if (has_col)
-      for (int j = 0; j < WK; ++j)
-        skv[j * WT + t] = j0 + j < S ? wide_load(vb[static_cast<size_t>(j0 + j) * D + col]) : 0.f;
-    __syncthreads();
-    if (has_col) {
-#pragma unroll
-      for (int r = 0; r < WQ; ++r) {
-        float a = acc[r] * s_alpha[r];
-        for (int j = 0; j < WK; ++j) a = fmaf(sp[r * WK + j], skv[j * WT + t], a);
-        acc[r] = a;
+      for (int j = 0; j < KN; ++j) s[i][j] = 0.f;
+    if constexpr (QRES) {
+      mbar_wait(&full[0], tile & 1);
+      qk_f32<RM, TR>(s, sq, ring, NB, ty, tx);
+      __syncthreads();  // the K tile is read: the next one may land
+      if (t == 0 && tile + 1 < ntiles) {
+        mbar_expect_tx(&full[0], NB * kFBox);
+        for (int bx = 0; bx < NB; ++bx)
+          tma_load_3d(ring + bx * kFBox, &map_k, 32 * bx, j0 + FK, kv_row, &full[0]);
+      }
+    } else {
+      for (int c = 0; c < nc; ++c) {
+        const int g = tile * nc + c, st = g & 1;
+        mbar_wait(&full[st], (g >> 1) & 1);
+        const unsigned char* p = ring + st * C::kStageBytes;
+        qk_f32<RM, TR>(s, p, p + 2 * kFBox, 2, ty, tx);
+        __syncthreads();  // the stage is read
+        if (t == 0 && g + 2 < nchunks)
+          f32_chunk(ring, full, &map_q, &map_k, g + 2, nc, q0, h, b, a.lhd, kv_row);
       }
     }
-  }
-  if (lane == 0) s_l[warp] = l;
-  __syncthreads();
-  if (has_col) {
+
+    // online softmax over the 16 threads of a row group; a tile reaching
+    // past S or the first row's diagonal has masked entries
+    const bool edge = j0 + FK > a.S || (a.causal && j0 + FK - 1 > q0 + offs);
 #pragma unroll
-    for (int r = 0; r < WQ; ++r)
-      if (q0 + r < L)
-        ob[static_cast<size_t>(q0 + r) * D + col] =
-            wide_store<T>(__fdiv_rn(acc[r], fmaxf(s_l[r], 1e-30f)));
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty + NTY * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const int col = j0 + tx + TR * j;
+        float x = s[i][j] * a.sm_scale;
+        if (edge && (col >= a.S || (a.causal && col > row + offs))) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int o = TR / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float alpha = expf(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const float p = expf(s[i][j] - mx);
+        const int key = tx + TR * j;
+        sp_row[NTY * FK * i + 4 * ((key >> 2) ^ psw) + (key & 3)] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) acc[i][n] *= alpha;
+    }
+    mbar_wait(v_full, tile & 1);
+    __syncwarp();  // a row's p is written and read by its own row group
+
+    // keys j8 + m (m < 8): p read as broadcast float4s, V's row j8 + m
+#pragma unroll 1
+    for (int j8 = 0; j8 < FK; j8 += 8) {
+      const unsigned char* vr8 = vt + 128 * j8;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float4 p4[RM];
+        const int pc = 4 * (((j8 >> 2) + half) ^ psw);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          p4[i] = *reinterpret_cast<const float4*>(sp_row + NTY * FK * i + pc);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int mm = 4 * half + jj;
+          const unsigned char* vk = vr8 + 128 * mm + voff[mm];
+          float vr[NC];
+#pragma unroll
+          for (int n4 = 0; n4 < NC / 4; ++n4) {
+            const float4 w = *reinterpret_cast<const float4*>(vk + (TR / 8) * kFBox * n4);
+            vr[4 * n4] = w.x;
+            vr[4 * n4 + 1] = w.y;
+            vr[4 * n4 + 2] = w.z;
+            vr[4 * n4 + 3] = w.w;
+          }
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float p = jj == 0 ? p4[i].x : jj == 1 ? p4[i].y : jj == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) acc[i][n] = fmaf(p, vr[n], acc[i][n]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // V and p are read: the next tile's V may land, p be rewritten
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int o = TR / 2; o > 0; o >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+    const int row = q0 + ty + NTY * i;
+    if (row >= a.L) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+    float* orow = out + b * a.os.sb + h * a.os.sh + row * a.os.sl + col0;
+#pragma unroll
+    for (int n4 = 0; n4 < NC / 4; ++n4) {
+      const int col = 4 * TR * n4 + 4 * tx;
+      if (col0 + col >= a.D) continue;
+      *reinterpret_cast<float4*>(orow + col) =
+          make_float4(__fdiv_rn(acc[i][4 * n4], li), __fdiv_rn(acc[i][4 * n4 + 1], li),
+                      __fdiv_rn(acc[i][4 * n4 + 2], li), __fdiv_rn(acc[i][4 * n4 + 3], li));
+    }
   }
 }
 
-template <typename T, int D>
-int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int L, int S, int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_wide_kernel<T, D>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem<D>::kBytes);
+template <int PW, bool QRES, int RM = 4, int TR = 16>
+int launch_f32(const void* q, const void* k, const void* v, void* out, const F32Args& a, int B,
+               cudaStream_t stream) {
+  using C = F32Smem<PW, QRES>;
+  CUtensorMap mq, mk, mv;
+  if (!make_q_map(&mq, q, a.lhd, B, a.H, a.L, a.D, true) ||
+      !make_kv_map(&mk, k, B * a.KV, a.S, a.D, FK, true) ||
+      !make_kv_map(&mv, v, B * a.KV, a.S, a.D, FK, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = flash_f32_kernel<PW, QRES, RM, TR>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(((L + WQ - 1) / WQ) * B * H, (D + WT - 1) / WT);
-  kernel<<<grid, WT, WideSmem<D>::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, KV, L, S, causal, sm_scale);
+  const dim3 grid(((a.L + FQ - 1) / FQ) * B * a.H, (a.D + PW - 1) / PW);
+  kernel<<<grid, F32Tile<RM, TR>::kThreads, C::kBytes, stream>>>(mq, mk, mv,
+                                                                 static_cast<float*>(out), a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int attend_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int L, int S, int D, int causal, float sm_scale, cudaStream_t s) {
-  if (D == 320) return launch_wide<T, 320>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
-  if (D == 384) return launch_wide<T, 384>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
-  if (D == 448) return launch_wide<T, 448>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
-  if (D == 512) return launch_wide<T, 512>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int attend(const void* q, const void* k, const void* v, void* out, const float* cosb,
            const float* sinb, int is_bf16, int causal, int lhd, int B, int H, int KV, int L,
            int S, int D, float sm_scale, cudaStream_t s) {
-  if (static_cast<long long>(B) * H * ((L + 7) / 8) > 0x7fffffffLL || KV <= 0 || H % KV ||
-      L <= 0 || S <= 0)
+  if (static_cast<long long>(B) * H * ((L + FQ - 1) / FQ) > 0x7fffffffLL || KV <= 0 ||
+      H % KV || L <= 0 || S <= 0 || D < 64 || D % 64)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D > 256) {  // the JAX interface only: the route's heads are 64 / 128
-    if (cosb || lhd || static_cast<long long>(B) * H * ((L + WQ - 1) / WQ) > 0x7fffffffLL)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return is_bf16 ? attend_wide<bf16>(q, k, v, out, B, H, KV, L, S, D, causal, sm_scale, s)
-                   : attend_wide<float>(q, k, v, out, B, H, KV, L, S, D, causal, sm_scale, s);
-  }
+  const int pw = pass_width(D);
   if (is_bf16) {
     const FlashArgs a{cosb, sinb, H, KV, L, S, causal, lhd, sm_scale * kLog2e};
     if (D == 128) return launch_wgmma<128>(q, k, v, out, a, B, s);
@@ -929,15 +1291,21 @@ int attend(const void* q, const void* k, const void* v, void* out, const float* 
     if (cosb) return static_cast<int>(cudaErrorInvalidValue);  // the route: D 64 / 128
     if (D == 192) return launch_wgmma<192>(q, k, v, out, a, B, s);
     if (D == 256) return launch_wgmma<256>(q, k, v, out, a, B, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (lhd) return static_cast<int>(cudaErrorInvalidValue);  // the JAX interface only
+    const WideArgs w{H, KV, L, S, D, causal, sm_scale * kLog2e};
+    return pw == 192 ? launch_wide<192>(q, k, v, out, w, B, s)
+                     : launch_wide<256>(q, k, v, out, w, B, s);
   }
+  if (cosb) return static_cast<int>(cudaErrorInvalidValue);  // f32 takes q rotated
   const long long LD = static_cast<long long>(L) * D, HD = static_cast<long long>(H) * D;
-  const Strides qs = lhd ? Strides{L * HD, D, HD} : Strides{H * LD, LD, D};
-  if (D == 128) return launch_f32<128>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
-  if (D == 64) return launch_f32<64>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
-  if (D == 192) return launch_f32<192>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
-  if (D == 256) return launch_f32<256>(q, k, v, out, B, H, KV, L, S, causal, sm_scale, qs, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Strides os = lhd ? Strides{L * HD, D, HD} : Strides{H * LD, LD, D};
+  const F32Args a{H, KV, L, S, D, causal, lhd, sm_scale, os};
+  if (D == 64) return launch_f32<64, true, 8, 16>(q, k, v, out, a, B, s);
+  if (D == 128) return launch_f32<128, true>(q, k, v, out, a, B, s);
+  if (D == 192) return launch_f32<192, true>(q, k, v, out, a, B, s);
+  if (D == 256) return launch_f32<256, true>(q, k, v, out, a, B, s);
+  return pw == 192 ? launch_f32<192, false>(q, k, v, out, a, B, s)
+                   : launch_f32<256, false>(q, k, v, out, a, B, s);
 }
 
 template <typename T, int D>

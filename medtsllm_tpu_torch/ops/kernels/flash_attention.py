@@ -8,7 +8,8 @@ kernel defines no custom_vjp. Two entries launch the same kernel:
 
 - ``flash_attention(q, k, v, causal)``: the JAX function's interface, q
   [B, H, L, D] already rotated against k/v [B, KV, S, D] -> [B, H, L, D]
-  at D 64 to 512 in steps of 64 (``HEAD_DIMS``),
+  at every head dim D % 64 == 0 (bf16: the tensor-core kernel, D past 256
+  in output-column passes; f32: register micro-tiles on exact FMAs),
   KV dividing H (query row ``b * H + h`` reads kv row
   ``b * KV + h // (H / KV)``), end-aligned causal (query i sees keys
   <= i + S - L) or non-causal;
@@ -94,19 +95,15 @@ def _no_grad(name, *tensors):
             "training above 2048 keys is ROADMAP queue 1, \"Training on the served backbones\"")
 
 
-# the head dims K4 has instances for; JAX's dispatcher sends every D % 64 == 0
-# from 512 tokens to its kernel, and the port's gate is JAX's: 64-256 run the
-# tensor-core kernel (bf16), 320-512 a simple kernel in column passes; D past
-# 512 (no backbone of the port's families has one) is still refused
-HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-
-
-def _check_dims(B, H, KV, D, dtypes, head_dims=HEAD_DIMS):
+def _check_dims(B, H, KV, D, dtypes, head_dims=None):
+    """The kernel takes every head dim JAX's dispatcher sends its kernel (D %
+    64 == 0, D >= 64), or only ``head_dims`` where given (the route's)."""
     if H % KV:
         raise ValueError(f"KV heads {KV} must divide H {H}")
-    if D not in head_dims:
-        raise ValueError(f"head dim {D} not supported ({head_dims}); wider heads are "
-                         "ROADMAP queue 3, \"The port refuses shapes the reference serves\"")
+    if head_dims is not None and D not in head_dims:
+        raise ValueError(f"head dim {D} not supported by this entry ({head_dims})")
+    if D < 64 or D % 64:
+        raise ValueError(f"head dim {D} not supported: K4 takes D % 64 == 0")
     if dtypes[0] not in (torch.float32, torch.bfloat16) or len(set(dtypes)) != 1:
         raise ValueError(f"q/k/v must share f32 or bf16, got {dtypes}")
 

@@ -106,13 +106,19 @@ def _close(got, want, dtype):
 
 # (B, H, KV, L, S, D, causal): a prefix (L < S, partial k- and q-tiles,
 # skipped blocks), L == S, non-causal, GQA with KV 1, 2 and 4 of H 8, D 64
-# and 128
+# and 128; D 576 (past 512, GQA 2 / 1, a prefix, partial tiles)
 _CASES = [(1, 4, 2, 40, 72, 64, True),
           (2, 8, 8, 48, 48, 64, True),
           (1, 8, 4, 24, 56, 128, False),
           (2, 8, 1, 20, 45, 64, True),
           (1, 8, 2, 33, 33, 128, True),
-          (1, 8, 4, 16, 100, 64, False)]
+          (1, 8, 4, 16, 100, 64, False),
+          (1, 2, 1, 20, 40, 576, True)]
+
+# the JAX side compiled once per shape (eager dispatch of the reference's and
+# the interpreter's ops costs more than the compile at these sizes)
+_jit_reference = jax.jit(_attention_reference, static_argnums=(3, 4))
+_jit_pallas = jax.jit(_pallas_flash, static_argnums=(3, 4))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -121,8 +127,8 @@ def test_plain_matches_reference_and_tpu_kernel(B, H, KV, L, S, D, causal, dtype
     qn, kn, vn = _qkv(L * S + D, B, H, KV, L, S, D)
     scale = 1.0 / np.sqrt(D)
     jq, jk, jv = (jnp.asarray(a).astype(JDT[dtype]) for a in (qn, kn, vn))
-    ref = _attention_reference(jq, jk, jv, causal, scale)
-    kern = _pallas_flash(jq, jk, jv, causal, scale)
+    ref = _jit_reference(jq, jk, jv, causal, scale)
+    kern = _jit_pallas(jq, jk, jv, causal, scale)
     tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]) for a in (qn, kn, vn))
     got = k4.flash_attention_plain(tq, tk, tv, causal, scale)
     assert got.dtype == TDT[dtype] and got.shape == (B, H, L, D)
@@ -147,6 +153,10 @@ def _jax_route(q, k, v, positions, theta, pk, pv, scale, attend):
         kr = jnp.concatenate([jnp.broadcast_to(pk, (B,) + pk.shape[1:]), kr], axis=2)
         vt = jnp.concatenate([jnp.broadcast_to(pv, (B,) + pv.shape[1:]), vt], axis=2)
     return attend(qr, kr, vt, True, scale).transpose(0, 2, 1, 3), kr, vt
+
+
+# theta, scale and the attention function static
+_jit_route = jax.jit(_jax_route, static_argnums=(4, 7, 8))
 
 
 # (B, L, H, KV, D, P, PB): no prefix; the served 37-token head shared by the
@@ -181,8 +191,8 @@ def test_route_plain_matches_jax_route(B, L, H, KV, D, P, PB, dtype):
         return None if a is None else torch.from_numpy(a).to(TDT[dtype])
     positions = jnp.arange(P, P + L)
     jargs = (j(qn), j(kn), j(vn), positions, theta, j(pkn), j(pvn), scale)
-    ref, jk, jv = _jax_route(*jargs, _attention_reference)
-    kern = _jax_route(*jargs, _pallas_flash)[0]
+    ref, jk, jv = _jit_route(*jargs, _attention_reference)
+    kern = _jit_route(*jargs, _pallas_flash)[0]
     cos, sin = rope_tables(torch.arange(P, P + L), D, theta)
     targs = (t(qn), t(kn), t(vn), cos, sin, t(pkn), t(pvn), scale)
     got, (kr, vt) = k4.rope_flash_attention_plain(*targs, return_kv=True)
@@ -239,6 +249,22 @@ def test_row_bound_catches_a_dropped_partial_k_tile():
     dropped = (scores.masked_fill(~keep, -1e30).softmax(-1) @ tv.float()).to(torch.bfloat16)
     assert _row_share(_f32(good), _f32(ref)) <= 1
     assert _row_share(_f32(dropped), _f32(ref)) > 1
+
+
+def test_check_dims_takes_every_multiple_of_64():
+    """The kernel's shape rule is JAX's dispatcher's: every D % 64 == 0 (D 576
+    and 1024 past the widest shipped head), not D 80; the route's entry
+    keeps its own head dims (64, 128)."""
+    f32 = (torch.float32,) * 3
+    for D in (64, 320, 576, 1024):
+        k4._check_dims(1, 4, 2, D, f32)
+        assert k4.attention_route(512, 512, D, True) == "k4"
+    with pytest.raises(ValueError, match="D % 64"):
+        k4._check_dims(1, 4, 2, 80, f32)
+    with pytest.raises(ValueError, match="this entry"):
+        k4._check_dims(1, 4, 2, 576, f32, (64, 128))
+    with pytest.raises(ValueError, match="must divide"):
+        k4._check_dims(1, 4, 3, 576, f32)
 
 
 def test_wrapper_raises_on_grad():

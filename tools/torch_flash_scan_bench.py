@@ -2,9 +2,19 @@
 """Times K4 and K10 of the PyTorch port on one CUDA card at the shapes the
 main paths give them.
 
-    python3 tools/torch_flash_scan_bench.py [--only k4|k10|scan] [--keys 512,1024]
-                                            [--ptxas]
+    python3 tools/torch_flash_scan_bench.py [--only k4|k4shapes|k10|scan]
+                                            [--keys 512,1024] [--ptxas] [--root DIR]
 
+K4 shapes (``--only k4shapes``): the JAX interface at the shapes PERF.md's
+K4 rows time, causal and end-aligned: gpt2's (f32, B 16, H 12, L = S 512,
+D 64) and, at B 8, L 512, S 768, D 192 (H 12) and D 256, 384, 512, 576,
+768, 1024 (H 8; ``--dims`` picks), f32 and bf16, each beside SDPA with the
+same mask (and gpt2's beside SDPA with ``is_causal``, chip_smoke's yardstick), its
+bound and its worst error against the plain version (f32 max |diff|, bf16
+the worst row's share of 2^-6 x its max). ``--root DIR`` imports the port
+from another checkout of the repository (a parent commit unpacked beside
+this one), so two versions are timed in one call; a head dim that version
+refuses prints as refused.
 K4: the JAX interface (``flash_attention``, q rotated) at the long
 window's cached (B 8, H 32, D 128, L 2128, S 2167) and uncached (L = S)
 shapes, the route's pre-pass (``rope_flash_keys``) and the whole route
@@ -17,8 +27,9 @@ scan's forward (K7 / K8 / K9 / the prefill through the raw f32 interface,
 K8 / K7 / the prefill through the gated bf16 interface, K8 gated in f32)
 at the Mamba serving shapes, each with its worst error as a share of its
 card test's tolerance, beside the special-function units' floor.
-``--ptxas`` first compiles ``csrc/selective_scan.cu`` with ``-Xptxas -v``
-and prints each forward instance's (N, dtype, gated) registers and spills.
+``--ptxas`` first compiles ``csrc/selective_scan.cu`` and
+``csrc/flash_attention.cu`` with ``-Xptxas -v`` and prints each forward scan
+instance's (N, dtype, gated) and each K4 kernel's registers and spills.
 CUDA events over 20 calls after 3 warm-ups; bounds as chip_smoke.py counts
 them. Prints the card's name and power limit first.
 """
@@ -37,10 +48,15 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("k4", "k10", "scan"))
+    ap.add_argument("--only", choices=("k4", "k4shapes", "k10", "scan"))
     ap.add_argument("--keys", default="512,1024,2048,4096")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--root", help="import medtsllm_tpu_torch from this checkout")
+    ap.add_argument("--dims", default="64,192,256,384,512,576,768,1024",
+                    help="the head dims --only k4shapes times")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
     if args.ptxas:
         ptxas_report()
     import torch
@@ -103,6 +119,8 @@ def main() -> None:
                       if keys <= k2.MAX_KEYS else "-")
             print(f"[route] {keys} keys: K2 {k2_txt} ms, route "
                   f"{cuda_ms(torch, lambda: k4.rope_flash_attention(q, k, v, cos, sin, pk, pv)):.4f} ms")
+    if args.only == "k4shapes":
+        k4_shapes(torch, F, dev, g, k4, cuda_ms, bound, {int(d) for d in args.dims.split(",")})
     if args.only in (None, "k10"):
         Bm, E, N = 48, 1536, 16
         for name, Lm, h0_rows in (("cached", 144, 1), ("uncached", 158, 0)):
@@ -124,8 +142,65 @@ def main() -> None:
         scan_bench(torch, F, dev, g, ss, cuda_ms, SFU_EXP_PER_S)
 
 
+def k4_shapes(torch, F, dev, g, k4, cuda_ms, bound, dims):
+    print(f"[k4shapes] port from {Path(k4.__file__).resolve().parents[2]}")
+    rows = [("gpt2", 16, 12, 512, 512, 64, (torch.float32,))]
+    rows += [(f"D{D}", 8, 12 if D == 192 else 8, 512, 768, D, (torch.float32, torch.bfloat16))
+             for D in (192, 256, 384, 512, 576, 768, 1024)]
+    for name, B, H, L, S, D, dtypes in rows:
+        if D not in dims:
+            continue
+        for dtype in dtypes:
+            kind = "f32" if dtype == torch.float32 else "bf16"
+            q = torch.randn(B, H, L, D, device=dev, generator=g).to(dtype)
+            kk, vv = (torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
+                      for _ in range(2))
+            mask = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
+            pairs = L * (S - L) + L * (L + 1) // 2
+            esz = 4 if dtype == torch.float32 else 2
+            bnd = bound(esz * (2 * B * H * L * D + 2 * B * H * S * D), 4 * B * H * D * pairs,
+                        kind)
+            sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                                         attn_mask=mask))
+            if L == S:
+                causal_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, kk, vv, is_causal=True))
+                sdpa_txt = f"SDPA {sdpa:.4f} ms (is_causal {causal_ms:.4f})"
+            else:
+                sdpa_txt = f"SDPA {sdpa:.4f} ms"
+            try:
+                out = k4.flash_attention(q, kk, vv, True)
+            except ValueError as e:
+                print(f"[k4shapes] {name}-{kind}: refused ({e}); {sdpa_txt}")
+                continue
+            ref = k4.flash_attention_plain(q, kk, vv, True)
+            err = (out.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                acc = f"max |diff| {err.max().item():.3e}"
+            else:
+                lim = 2.0 ** -6 * ref.float().abs().amax(-1)
+                acc = f"worst row {(err.amax(-1) / lim.clamp_min(1e-30)).max().item():.4f}"
+            ms = cuda_ms(torch, lambda: k4.flash_attention(q, kk, vv, True))
+            print(f"[k4shapes] {name}-{kind} (B {B} H {H} L {L} S {S} D {D}, causal): "
+                  f"{ms:.4f} ms, {sdpa_txt}, bound {bnd[0]:.4f} ({bnd[1]}), {acc}")
+            del q, kk, vv, out, ref, err
+            torch.cuda.empty_cache()
+
+
 def ptxas_report() -> None:
     from medtsllm_tpu_torch.ops.kernels import _build
+    src = _build.CSRC / "flash_attention.cu"
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                          "-o", "/dev/null", str(src)], capture_output=True, text=True)
+    name = ""
+    for ln in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if "flash" in m.group(1) else ""
+        if name and ("registers" in ln or "spill" in ln):
+            print(f"[ptxas] {name}: {ln.strip()}")
+    if out.returncode:
+        raise SystemExit(f"nvcc failed: {out.returncode}\n{out.stderr[-4000:]}")
     src = _build.CSRC / "selective_scan.cu"
     out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                           "-o", "/dev/null", str(src)], capture_output=True, text=True)
