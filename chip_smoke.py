@@ -3888,7 +3888,7 @@ def main() -> None:
     blk = tr.model.llm.blocks[0]
     layer_ws = [blk.attn.q_proj, blk.attn.k_proj, blk.attn.v_proj, blk.attn.o_proj,
                 blk.mlp.gate_proj, blk.mlp.up_proj, blk.mlp.down_proj]
-    q_ms = q_plain = q_bytes = 0.0
+    q_ms = q_dev = q_plain = q_bytes = 0.0
     g_ms = g_plain = g_lib = g_bytes = g_ops = 0.0
     cos_min = 1.0
     for m in layer_ws:
@@ -3908,6 +3908,8 @@ def main() -> None:
                                      / (d32.norm() * ste.double().norm())))
         ones = torch.ones(K9, device=dev)
         q_ms += cuda_ms(torch, lambda: k1.quantize_grad_rows(gr, sc, kn.shape[1]))
+        # device time: the calls queued behind a sleeping kernel (check_k1's)
+        q_dev += queued_ms(torch, lambda: k1.quantize_grad_rows(gr, sc, kn.shape[1]))
         q_plain += cuda_ms(torch, lambda: k1.quantize_grad_rows_plain(gr, sc, kn.shape[1]))
         q_bytes += M9 * N9 * 2 + N9 * 4 + M9 * kn.shape[1] + M9 * 4
         g_ms += cuda_ms(torch, lambda: k1.int8_gemm(gq, kn, gs, ones, torch.bfloat16))
@@ -3921,7 +3923,8 @@ def main() -> None:
     record("w8a8_quantize_grad", "medtsllm_tpu_torch/csrc/w8a8.cu",
            "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", 0.0, 0.0, q_ms, q_plain,
            bound(q_bytes, 0, "int8"), None,
-           f" (per decoder block, 7 calls at M={M9}, g bf16; codes and scales bit-equal)")
+           f" (per decoder block, 7 calls at M={M9}, g bf16; codes and scales bit-equal; "
+           f"device time, queued: {q_dev:.4f} ms)")
     record("w8a8_gemm[dx]", "medtsllm_tpu_torch/csrc/w8a8.cu",
            "medtsllm_tpu/ops/pallas/smallm_matmul.py:56", 0.0, 0.0, g_ms, g_plain,
            bound(g_bytes, g_ops, "int8"), g_lib,

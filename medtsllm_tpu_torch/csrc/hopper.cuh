@@ -60,6 +60,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// `bytes` contiguous bytes of global memory into shared memory by one 1-D
+// bulk copy, completing on bar (both addresses and bytes multiples of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // the 3-D and 4-D forms (c0 contiguous; K6's chunked and per-expert views)
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint64_t* bar) {

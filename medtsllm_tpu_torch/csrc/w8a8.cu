@@ -42,6 +42,8 @@
 // holds the barrier, TMA and wgmma helpers K5 shares) and passed by value
 // as __grid_constant__ parameters.
 
+#include <initializer_list>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -49,77 +51,435 @@ namespace {
 
 using namespace mt::hopper;
 
-constexpr int kQuantThreads = 256;
+// ---- the row quantizers -------------------------------------------------------
+//
+// Both quantizers (the activation rows x -> xq, x_scale, and the int8 dx's
+// gradient rows g * scale -> gq, g_scale) are one pass over M rows of K
+// elements: bound by bytes (K * (4 or 2) read, K + 4 written a row), with
+// little arithmetic. Each row is read from device memory once, by one of
+// two kernels the wrapper picks from the shape and the addresses
+// (ops/kernels/w8a8.py::quant_plan):
+//
+// The tile kernel (bf16 rows, and the dx's, of >= 16 MiB a call). A row
+// held in registers ties them up for the whole round trip, and 2,048
+// threads an SM hold too few bytes to cover it; so the rows travel by 1-D
+// bulk copies (TMA, cp.async.bulk) through a ring of shared-memory stages,
+// up to 200 KB in flight an SM:
+//   - a tile is R consecutive rows (R = 16, 8, .. 1: every SM a tile); one
+//     persistent block an SM (two where the ring fits twice) takes every
+//     gridDim.x-th tile of one scale row;
+//   - a producer warp keeps S stages in flight: one bulk copy a row, each
+//     completing on its own full mbarrier, so a row's group starts as soon
+//     as its row is in; a stage is refilled once all 16 consumer warps
+//     have released it (its empty mbarrier);
+//   - each row of a tile belongs to 16 / R consumer warps. They read it
+//     from shared memory in 16-byte vectors, reduce the absmax with
+//     __shfl_xor_sync and, across the group's warps, through a slot of
+//     shared memory under the group's own named barrier (bar.sync 1 +
+//     group; the slot alternates with the tile, so no second barrier
+//     guards its reuse); then they read it again from shared memory and
+//     store the codes as 4- (f32) or 8-byte (bf16) words, a warp's stores
+//     one contiguous span.
+// The dx's channel scale has one row a block (gridDim.y = the scale's rows:
+// 1 for a projection, E for the experts of the capacity MoE path, whose
+// rows a block never straddles): it is bulk-copied into shared memory once
+// a block, and g * scale formed in f32 from it.
+//
+// The row-group kernel (the rest). A row goes to a group of W warps whose
+// lanes hold it in registers: units t, t + 32W, ... of the row on lane t,
+// 16-byte loads (the vector instance, 16 elements a lane) or single
+// elements (the scalar instance, 32 a lane: rows or bases off 16 bytes);
+// the same warp-shuffle and named-barrier reduction; codes stored from
+// registers. A block holds several groups (<= 512 threads) and the grid is
+// cut to the blocks the SMs hold, each group looping over rows, so the dx's
+// scale slice is loaded once into a lane's registers for all its rows.
+// Rows wider than 16 warps hold are read twice (absmax, then codes).
+//
+// Numerics as before, in any order: amax by fmaxf(fabsf(.)) (a max is exact
+// in any order), scale = max(amax / 127, 1e-10) and codes round-half-even(v
+// / scale) with IEEE division (__fdiv_rn), v = f32(g) * scale[col] with one
+// rounding (__fmul_rn).
 
+constexpr int kTileWarps = 16;  // the tile kernel's consumer warps
+constexpr int kTileThreads = 32 * (kTileWarps + 1);  // and one producer warp
+constexpr int kRowThreads = 512;  // the row-group kernel's most threads a block
+constexpr int kVectorLane = 16;   // the elements a lane of its vector instance holds
+constexpr int kScalarLane = 32;   // and of its scalar instance
+
+__device__ __forceinline__ uint32_t code_byte(float v, float scale) {
+  return static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v, scale))) & 0xffu;
+}
+
+// 16 bytes of T as f32: 4 f32 or 8 bf16 elements
 template <typename T>
-__global__ void __launch_bounds__(kQuantThreads)
-act_quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                      float* __restrict__ x_scale, int K) {
-  const int row = blockIdx.x;
-  const T* xr = x + static_cast<size_t>(row) * K;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += kQuantThreads)
-    amax = fmaxf(amax, fabsf(mt::to_f32(xr[i])));
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  __shared__ float warp_max[kQuantThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float m = threadIdx.x < kQuantThreads / 32 ? warp_max[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (threadIdx.x == 0) warp_max[0] = m;
+__device__ __forceinline__ void widen16(uint4 a, float* v) {
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __uint_as_float(w[i]);
+    } else {  // element 2i in the low half of word i, its f32 bits << 16
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// U consecutive elements of a row at p, widened to f32: U * sizeof(T) / 16
+// 16-byte loads, or one element (U 1)
+template <typename T, int U>
+__device__ __forceinline__ void load_unit(const T* __restrict__ p, float* v) {
+  if constexpr (U == 1) {
+    v[0] = mt::to_f32(p[0]);
+  } else {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int n = 0; n < U / kPer; ++n)
+      widen16<T>(__ldg(reinterpret_cast<const uint4*>(p) + n), v + n * kPer);
+  }
+}
+
+// the codes of U elements at q: one U-byte store
+template <int U>
+__device__ __forceinline__ void store_codes(int8_t* q, const float* v, float scale) {
+  if constexpr (U == 1) {
+    q[0] = static_cast<int8_t>(code_byte(v[0], scale));
+  } else {
+    uint32_t w[U / 4];
+#pragma unroll
+    for (int k = 0; k < U / 4; ++k)
+      w[k] = code_byte(v[4 * k], scale) | code_byte(v[4 * k + 1], scale) << 8 |
+             code_byte(v[4 * k + 2], scale) << 16 | code_byte(v[4 * k + 3], scale) << 24;
+    if constexpr (U == 4)
+      *reinterpret_cast<uint32_t*>(q) = w[0];
+    else
+      *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+  }
+}
+
+// unit j of row xr into v, times the scale row's unit j (GRAD): from the
+// lane's registers `s` when the row is held, else from srow
+template <typename T, int U, bool GRAD>
+__device__ __forceinline__ void load_scaled(const T* __restrict__ xr,
+                                            const float* __restrict__ srow, int j, bool held,
+                                            const float* s, float* v) {
+  load_unit<T, U>(xr + static_cast<size_t>(j) * U, v);
+  if constexpr (GRAD) {
+    float sc[U];
+    if (held) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) sc[k] = s[k];
+    } else {
+      load_unit<float, U>(srow + static_cast<size_t>(j) * U, sc);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) v[k] = __fmul_rn(v[k], sc[k]);
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void store_zero(int8_t* q) {
+  if constexpr (U == 1)
+    q[0] = 0;
+  else if constexpr (U == 4)
+    *reinterpret_cast<uint32_t*>(q) = 0u;
+  else
+    *reinterpret_cast<uint2*>(q) = make_uint2(0u, 0u);
+}
+
+// chunk c (16 bytes) of a staged row as f32, times the scale row's chunk
+// (GRAD; the scale row f32 in shared memory)
+template <typename T, bool GRAD>
+__device__ __forceinline__ void chunk_values(const unsigned char* row, const float* srow,
+                                             int c, float* v) {
+  constexpr int VE = 16 / sizeof(T);
+  widen16<T>(*reinterpret_cast<const uint4*>(row + c * 16), v);
+  if constexpr (GRAD) {
+    float s[VE];
+#pragma unroll
+    for (int k = 0; k < VE; k += 4)
+      widen16<float>(*reinterpret_cast<const uint4*>(srow + c * VE + k), s + k);
+#pragma unroll
+    for (int k = 0; k < VE; ++k) v[k] = __fmul_rn(v[k], s[k]);
+  }
+}
+
+// The tile kernel both quantizers run on 16-byte rows: tiles of R rows of
+// the rows_per_scale rows of scale row blockIdx.y, block b taking tiles b,
+// b + gridDim.x, ...; S stages. x's rows K elements, the codes' rows ld >=
+// K bytes (columns K.. zero). Dynamic shared memory: [the scale row, GRAD]
+// [S input tiles of R * K elements][S * R full mbarriers, one a row of a
+// stage][S empty mbarriers][the scale row's mbarrier].
+template <typename T, bool GRAD>
+__device__ __forceinline__ void quant_tiles(const T* __restrict__ x,
+                                            const float* __restrict__ scales,
+                                            int8_t* __restrict__ q, float* __restrict__ q_scale,
+                                            int K, int ld, int rows_per_scale, int R, int S) {
+  constexpr int VE = 16 / sizeof(T);  // elements a 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[2][kTileWarps / 2][kTileWarps];
+  const int W = kTileWarps / R, nt = 32 * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / W, t = threadIdx.x - grp * nt;
+  const int in_bytes = R * K * static_cast<int>(sizeof(T));
+  const int n_chunks = K / VE, n_pad = (ld - K) / VE;
+  float* srow = reinterpret_cast<float*>(smem_raw);
+  unsigned char* in = smem_raw + (GRAD ? K * 4 : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(in + S * in_bytes);
+  uint64_t* empty = full + S * R;
+  uint64_t* sbar = empty + S;
+  const int e = blockIdx.y;
+  const int n_tiles = (rows_per_scale + R - 1) / R;
+  const int n_local = (n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      for (int r = 0; r < R; ++r) mbar_init(&full[s * R + r], 1);
+      mbar_init(&empty[s], kTileWarps);
+    }
+    mbar_init(sbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  const float scale = fmaxf(__fdiv_rn(warp_max[0], 127.0f), 1e-10f);
-  if (threadIdx.x == 0) x_scale[row] = scale;
-  int8_t* qr = xq + static_cast<size_t>(row) * K;
-  for (int i = threadIdx.x; i < K; i += kQuantThreads)
-    qr[i] = static_cast<int8_t>(
-        __float2int_rn(__fdiv_rn(mt::to_f32(xr[i]), scale)));
+
+  if (warp == kTileWarps) {  // the producer warp: one lane issues the copies
+    if (lane == 0) {
+      if constexpr (GRAD) {
+        mbar_expect_tx(sbar, K * 4);
+        bulk_load(srow, scales + static_cast<size_t>(e) * K, K * 4, sbar);
+      }
+      const T* xe = x + static_cast<size_t>(e) * rows_per_scale * K;
+      for (int i = 0; i < n_local; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(&empty[s], (i / S - 1) & 1);
+        const int r0 = (blockIdx.x + i * gridDim.x) * R;
+        const int bytes = K * static_cast<int>(sizeof(T));
+        for (int r = 0; r < R && r0 + r < rows_per_scale; ++r) {  // a copy a row
+          mbar_expect_tx(&full[s * R + r], bytes);
+          bulk_load(in + s * in_bytes + r * bytes, xe + static_cast<size_t>(r0 + r) * K, bytes,
+                    &full[s * R + r]);
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (GRAD) mbar_wait(sbar, 0);
+  for (int i = 0; i < n_local; ++i) {
+    const int s = i % S;
+    const int r0 = (blockIdx.x + i * gridDim.x) * R;
+    if (grp < min(R, rows_per_scale - r0)) {
+      mbar_wait(&full[s * R + grp], (i / S) & 1);
+      const unsigned char* xr = in + s * in_bytes + grp * K * static_cast<int>(sizeof(T));
+      float amax = 0.f;
+      for (int c = t; c < n_chunks; c += nt) {
+        float v[VE];
+        chunk_values<T, GRAD>(xr, srow, c, v);
+#pragma unroll
+        for (int k = 0; k < VE; ++k) amax = fmaxf(amax, fabsf(v[k]));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (W > 1) {
+        if (lane == 0) red[i & 1][grp][warp - grp * W] = amax;
+        named_bar(1 + grp, nt);
+        amax = red[i & 1][grp][0];
+        for (int w = 1; w < W; ++w) amax = fmaxf(amax, red[i & 1][grp][w]);
+      }
+      const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-10f);
+      const size_t row = static_cast<size_t>(e) * rows_per_scale + r0 + grp;
+      if (t == 0) q_scale[row] = scale;
+      int8_t* qr = q + row * ld;
+      for (int c = t; c < n_chunks; c += nt) {
+        float v[VE];
+        chunk_values<T, GRAD>(xr, srow, c, v);
+        store_codes<VE>(qr + c * VE, v, scale);
+      }
+      for (int c = t; c < n_pad; c += nt) store_zero<VE>(qr + K + c * VE);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the warp is done with the stage
+  }
+}
+
+// K1's activation rows on the tile kernel: x [M, K] bf16 -> xq [M, K],
+// x_scale [M]
+__global__ void __launch_bounds__(kTileThreads, 1)
+act_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
+                      float* __restrict__ x_scale, int K, int M, int R, int S) {
+  quant_tiles<__nv_bfloat16, false>(x, nullptr, xq, x_scale, K, K, M, R, S);
 }
 
 // The gradient rows of the int8 dx (llm.int8_backward; transformer.py:269-278
 // of the JAX package, the batched form :814-820): gs = g * scale[col] in f32,
 // then gs's own per-row quantization as above, the codes written into rows of
 // ld >= N bytes whose columns N.. are zero (the GEMM that contracts over N
-// needs a multiple of 16; zero columns add nothing to the s32 sums). Row r
-// reads scale row r / rows_per_scale: one row for a projection, one an
-// expert for the [E, C, N] gradient of the capacity MoE path. gs is
-// formed twice, once for the row's absmax and once for its codes: the same
-// f32 product both times, so no [M, N] f32 copy is written. Bound by bytes:
-// g read twice (the second pass mostly from L2), the codes written once.
+// needs a multiple of 16; zero columns add nothing to the s32 sums). Rows
+// [e * rows_per_scale, (e + 1) * rows_per_scale) read scale row e: one row
+// for a projection, one an expert for the [E, C, N] gradient of the capacity
+// MoE path.
 template <typename T>
-__global__ void __launch_bounds__(kQuantThreads)
+__global__ void __launch_bounds__(kTileThreads, 1)
 grad_quant_rows_kernel(const T* __restrict__ g, const float* __restrict__ scales,
                        int8_t* __restrict__ gq, float* __restrict__ g_scale, int N, int ld,
-                       int rows_per_scale) {
-  const int row = blockIdx.x;
-  const T* gr = g + static_cast<size_t>(row) * N;
-  const float* scale = scales + static_cast<size_t>(row / rows_per_scale) * N;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < N; i += kQuantThreads)
-    amax = fmaxf(amax, fabsf(__fmul_rn(mt::to_f32(gr[i]), scale[i])));
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  __shared__ float warp_max[kQuantThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float m = threadIdx.x < kQuantThreads / 32 ? warp_max[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (threadIdx.x == 0) warp_max[0] = m;
+                       int rows_per_scale, int R, int S) {
+  quant_tiles<T, true>(g, scales, gq, g_scale, N, ld, rows_per_scale, R, S);
+}
+
+// The row-group kernel: rows lr = blockIdx.x * G + group, stepping
+// gridDim.x * G, of the rows_per_scale rows of scale row blockIdx.y, a row
+// to a group of W warps. Units of U elements (16 bytes, or one element for
+// the scalar instance): lane t holds units t, t + 32W, ... of its row in
+// registers, CH of them (a wider row is read twice: once for its absmax,
+// once for its codes), and the scale row's units alike (GRAD).
+template <typename T, int U, bool GRAD>
+__global__ void __launch_bounds__(kRowThreads)
+quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ scales,
+                  int8_t* __restrict__ q, float* __restrict__ q_scale, int K, int ld,
+                  int rows_per_scale, int W) {
+  constexpr int CH = (U == 1 ? kScalarLane : kVectorLane) / U;  // units a lane holds
+  __shared__ float red[2][kRowThreads / 64][kRowThreads / 32];
+  const int nt = 32 * W, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / W, t = threadIdx.x - grp * nt, G = blockDim.x / nt;
+  const int nu = K / U, ldu = ld / U, seg = nt * CH;
+  const bool held = nu <= seg;  // the row fits the group's registers
+  const float* srow = scales + static_cast<size_t>(blockIdx.y) * K;
+  float v[CH][U];
+  float s[GRAD ? CH : 1][U];  // the lane's slice of the scale row, when held
+  if constexpr (GRAD) {
+    if (held) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        if (t + i * nt < nu) load_unit<float, U>(srow + (t + i * nt) * U, s[i]);
+    }
   }
-  __syncthreads();
-  const float s = fmaxf(__fdiv_rn(warp_max[0], 127.0f), 1e-10f);
-  if (threadIdx.x == 0) g_scale[row] = s;
-  int8_t* qr = gq + static_cast<size_t>(row) * ld;
-  for (int i = threadIdx.x; i < ld; i += kQuantThreads)
-    qr[i] = i < N ? static_cast<int8_t>(__float2int_rn(
-                        __fdiv_rn(__fmul_rn(mt::to_f32(gr[i]), scale[i]), s)))
-                  : static_cast<int8_t>(0);
+  int parity = 0;
+  for (int lr = blockIdx.x * G + grp; lr < rows_per_scale; lr += gridDim.x * G, parity ^= 1) {
+    const size_t row = static_cast<size_t>(blockIdx.y) * rows_per_scale + lr;
+    const T* xr = x + row * K;
+    float amax = 0.f;
+    for (int base = 0; base < nu; base += seg) {  // one segment when held
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        if (base + t + i * nt < nu) {
+          load_scaled<T, U, GRAD>(xr, srow, base + t + i * nt, held, s[GRAD ? i : 0], v[i]);
+#pragma unroll
+          for (int k = 0; k < U; ++k) amax = fmaxf(amax, fabsf(v[i][k]));
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (W > 1) {
+      if (lane == 0) red[parity][grp][warp - grp * W] = amax;
+      named_bar(1 + grp, nt);
+      amax = red[parity][grp][0];
+      for (int w = 1; w < W; ++w) amax = fmaxf(amax, red[parity][grp][w]);
+    }
+    const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-10f);
+    if (t == 0) q_scale[row] = scale;
+    int8_t* qr = q + row * ld;
+    for (int base = 0; base < nu; base += seg) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int j = base + t + i * nt;
+        if (j < nu) {
+          if (!held) load_scaled<T, U, GRAD>(xr, srow, j, held, s[GRAD ? i : 0], v[i]);
+          store_codes<U>(qr + static_cast<size_t>(j) * U, v[i], scale);
+        }
+      }
+    }
+    for (int j = nu + t; j < ldu; j += nt) store_zero<U>(qr + static_cast<size_t>(j) * U);
+  }
+}
+
+// The tile kernel's dynamic shared memory for (element bytes, K, R, S, GRAD)
+int tile_smem(int es, int K, int R, int S, bool grad) {
+  return (grad ? K * 4 : 0) + S * R * K * es + (S * R + S + 1) * 8;
+}
+
+// Launch the tile kernel over n_scales x rows_per_scale rows: tiles of R
+// rows, S stages, the grid cut to the blocks the SMs hold (one an SM, two
+// where the ring fits twice), a block's tiles in one scale row.
+template <auto kKernel, typename... Args>
+int launch_tiles(int es, int K, int R, int S, bool grad, int rows_per_scale,
+                 int n_scales, cudaStream_t s, Args... args) {
+  const int smem = tile_smem(es, K, R, S, grad);
+  if (R < 1 || R > kTileWarps || kTileWarps % R || S < 1 || smem > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int attr_bytes = 0;  // the dynamic shared memory the kernel was allowed
+  if (smem > attr_bytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_bytes = smem;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n_tiles = (rows_per_scale + R - 1) / R;
+  // blocks an SM holds: its shared memory over the block's (two at most: the
+  // registers of a third do not fit)
+  const int per_sm = smem <= 110 * 1024 ? 2 : 1;
+  const int per_scale = per_sm * sms / n_scales > 1 ? per_sm * sms / n_scales : 1;
+  const dim3 grid(n_tiles < per_scale ? n_tiles : per_scale, n_scales);
+  kKernel<<<grid, kTileThreads, smem, s>>>(args..., R, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the row-group kernel: `warps` a row, `groups` a block, the grid
+// cut to the blocks the SMs hold at once (each group then loops over rows),
+// in equal shares of row groups.
+template <typename T, int U, bool GRAD>
+int launch_rows(int warps, int groups, int rows_per_scale, int n_scales, cudaStream_t s,
+                const void* x, const float* scales, void* q, void* q_scale, int K, int ld) {
+  auto* kernel = quant_rows_kernel<T, U, GRAD>;
+  static int resident[kRowThreads / 32 + 1];  // blocks an SM holds, by warps a block
+  const int threads = 32 * warps * groups;
+  if (warps < 1 || groups < 1 || threads > kRowThreads || (warps > 1 && groups > 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int& res = resident[threads / 32];
+  if (!res) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res, kernel, threads, 0);
+    res = res > 0 ? res : 1;
+  }
+  const int row_groups = (rows_per_scale + groups - 1) / groups;
+  const int cap = sms * res / n_scales > 1 ? sms * res / n_scales : 1;
+  const int iters = (row_groups + cap - 1) / cap;
+  const dim3 grid((row_groups + iters - 1) / iters, n_scales);
+  kernel<<<grid, threads, 0, s>>>(static_cast<const T*>(x), scales, static_cast<int8_t*>(q),
+                                  static_cast<float*>(q_scale), K, ld, rows_per_scale, warps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the row-group kernel's instance for `unit`: 16 bytes of T (refused unless
+// the rows and bases are 16-byte multiples) or 1 (scalar)
+template <typename T, bool GRAD>
+int launch_rows_unit(int unit, int warps, int groups, int rows_per_scale, int n_scales,
+                     cudaStream_t s, const void* x, const float* scales, void* q,
+                     void* q_scale, int K, int ld) {
+  constexpr int VU = 16 / static_cast<int>(sizeof(T));
+  if (unit == 1)
+    return launch_rows<T, 1, GRAD>(warps, groups, rows_per_scale, n_scales, s, x, scales, q,
+                                   q_scale, K, ld);
+  if (unit != VU || K % VU || ld % VU || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 16 || (GRAD && reinterpret_cast<uintptr_t>(scales) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<T, VU, GRAD>(warps, groups, rows_per_scale, n_scales, s, x, scales, q,
+                                  q_scale, K, ld);
+}
+
+// the tile kernel's operands: 16-byte rows of input and codes on 16-byte
+// bases
+bool tiles_ok(int es, int K, int ld, std::initializer_list<const void*> ptrs) {
+  if ((K * es) % 16 || K % 16 || ld % 16) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // ---- the wgmma GEMM ---------------------------------------------------------
@@ -311,35 +671,55 @@ const char* mt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int mt_act_quant_rows(const void* x, int x_is_bf16, void* xq, void* x_scale,
-                      int M, int K, void* stream) {
+// The two quantizers' entries take the launch plan the wrapper chose from
+// the shape and the addresses (ops/kernels/w8a8.py::quant_plan): R rows a
+// tile and S stages for the tile kernel (refused unless its operands allow
+// it), or, with R 0, the row-group kernel's unit (16 bytes or 1 element),
+// warps a row and groups a block. M 0 launches nothing.
+int mt_act_quant_rows(const void* x, int x_is_bf16, void* xq, void* x_scale, int M, int K,
+                      int R, int S, int unit, int warps, int groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    act_quant_rows_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
-        static_cast<float*>(x_scale), K);
-  else
-    act_quant_rows_kernel<float><<<M, kQuantThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(xq),
-        static_cast<float*>(x_scale), K);
-  return static_cast<int>(cudaGetLastError());
+  if (M == 0) return static_cast<int>(cudaSuccess);
+  if (R == 0)
+    return x_is_bf16 ? launch_rows_unit<__nv_bfloat16, false>(unit, warps, groups, M, 1, s, x,
+                                                              nullptr, xq, x_scale, K, K)
+                     : launch_rows_unit<float, false>(unit, warps, groups, M, 1, s, x, nullptr,
+                                                      xq, x_scale, K, K);
+  // the tile kernel takes bf16 activation rows (f32 ones timed faster on the
+  // row-group kernel)
+  if (!x_is_bf16 || !tiles_ok(2, K, K, {x, xq})) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tiles<act_quant_rows_kernel>(2, K, R, S, false, M, 1, s,
+                                             static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<int8_t*>(xq),
+                                             static_cast<float*>(x_scale), K, M);
 }
 
 int mt_grad_quant_rows(const void* g, int g_is_bf16, const void* scale, void* gq,
-                       void* g_scale, int M, int N, int ld, int rows_per_scale,
-                       void* stream) {
+                       void* g_scale, int M, int N, int ld, int rows_per_scale, int R, int S,
+                       int unit, int warps, int groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* sc = static_cast<const float*>(scale);
   if (M == 0) return static_cast<int>(cudaSuccess);
+  if (rows_per_scale < 1 || M % rows_per_scale || ld < N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int E = M / rows_per_scale;
+  const auto* sc = static_cast<const float*>(scale);
+  if (R == 0)
+    return g_is_bf16 ? launch_rows_unit<__nv_bfloat16, true>(unit, warps, groups,
+                                                             rows_per_scale, E, s, g, sc, gq,
+                                                             g_scale, N, ld)
+                     : launch_rows_unit<float, true>(unit, warps, groups, rows_per_scale, E, s,
+                                                     g, sc, gq, g_scale, N, ld);
+  const int es = g_is_bf16 ? 2 : 4;
+  if (!tiles_ok(es, N, ld, {g, scale, gq})) return static_cast<int>(cudaErrorInvalidValue);
+  auto* q = static_cast<int8_t*>(gq);
+  auto* qs = static_cast<float*>(g_scale);
   if (g_is_bf16)
-    grad_quant_rows_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), sc, static_cast<int8_t*>(gq),
-        static_cast<float*>(g_scale), N, ld, rows_per_scale);
-  else
-    grad_quant_rows_kernel<float><<<M, kQuantThreads, 0, s>>>(
-        static_cast<const float*>(g), sc, static_cast<int8_t*>(gq),
-        static_cast<float*>(g_scale), N, ld, rows_per_scale);
-  return static_cast<int>(cudaGetLastError());
+    return launch_tiles<grad_quant_rows_kernel<__nv_bfloat16>>(
+        es, N, R, S, true, rows_per_scale, E, s, static_cast<const __nv_bfloat16*>(g), sc,
+        q, qs, N, ld, rows_per_scale);
+  return launch_tiles<grad_quant_rows_kernel<float>>(es, N, R, S, true, rows_per_scale, E,
+                                                     s, static_cast<const float*>(g), sc, q,
+                                                     qs, N, ld, rows_per_scale);
 }
 
 int mt_w8a8_gemm(const void* xq, const void* wq_t, const void* x_scale,

@@ -32,10 +32,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); pointers and the stream are
 # c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    # x, x_is_bf16, xq, x_scale, M, K, stream
-    "mt_act_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
-    # g, g_is_bf16, scale, gq, g_scale, M, N, ld, rows_per_scale, stream
-    "mt_grad_quant_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_is_bf16, xq, x_scale, M, K, R, S, unit, warps, groups, stream
+    "mt_act_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # g, g_is_bf16, scale, gq, g_scale, M, N, ld, rows_per_scale, R, S, unit,
+    # warps, groups, stream
+    "mt_grad_quant_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # xq, wq_t, x_scale, w_scale, out, out_kind, M, N, K, stream
     "mt_w8a8_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # xq, packed, x_scale, w_scale, out, out_kind, M, N, K, stream

@@ -9,6 +9,14 @@ the int8 tensor cores at the serving shapes: the kernel stages 128 x 256
 tiles by TMA into a shared-memory ring and multiplies them with wgmma;
 see the CUDA source for the design.
 
+The two row quantizers (the activation rows and the dx's gradient rows)
+are bound by bytes and read each row from device memory once: large calls
+of bf16 rows (and the dx's) by bulk copies through a ring of shared-memory
+stages, the rest into the registers of a group of warps, 16 bytes a load
+where the rows and bases allow (else one element). ``quant_plan`` picks
+the kernel and its launch from the shape and the operands' addresses
+before the launch; ``[0, K]`` rows launch nothing.
+
 Layout: the weight is the transposed int8 kernel ``wq_t [N, K]`` (the JAX
 package stores ``kernel_q [K, N]``; ``weights.py`` transposes once).
 
@@ -60,6 +68,15 @@ from . import _build
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _KIND_DTYPE = {v: k for k, v in _OUT_KIND.items()}
 K_ALIGN = 16  # the GEMM's contraction width: 16-byte TMA rows of int8
+# the row quantizers' launch plan (quant_plan; csrc/w8a8.cu)
+SMS = 132  # the H100's streaming multiprocessors
+TILE_SMEM = 200 * 1024  # the tile kernel's stages (and the dx's scale row) a block
+TILE_MIN_BYTES = 16 << 20  # the least input of a call the tile kernel takes
+TILE_ROWS = 16  # the most rows a tile: one a consumer warp
+TILE_STAGES = 8
+ROW_THREADS = 512  # the row-group kernel's most threads a block
+VECTOR_LANE = 16  # the elements a lane of its vector instance holds
+SCALAR_LANE = 32  # and of its scalar instance
 
 
 def pad_cols(t: torch.Tensor, mult: int = K_ALIGN) -> torch.Tensor:
@@ -140,16 +157,59 @@ def quantize_grad_rows_plain(g: torch.Tensor, scale: torch.Tensor, ld: int | Non
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+def quant_plan(K: int, rows: int, elem_size: int, addrs=(), ld: int | None = None,
+               n_scales: int = 0) -> tuple[int, int, int, int, int]:
+    """(R, S, unit, warps, groups): the launch of a row quantizer
+    (``csrc/w8a8.cu``) over ``rows`` rows of K elements of ``elem_size``
+    bytes, its operands at the byte addresses ``addrs``, the codes' rows
+    ``ld`` (default K) bytes apart; ``n_scales`` the dx's scale rows (0 for
+    the activation rows). Chosen from the shape and the addresses alone:
+
+    - the tile kernel (R rows a tile, S stages; unit, warps and groups 0)
+      for a call of at least ``TILE_MIN_BYTES`` of bf16 rows or of the dx's
+      rows, whose rows and bases are 16-byte multiples: R the largest of
+      16, 8, .. 1 that leaves every SM a tile (of its scale row) and two
+      stages within ``TILE_SMEM``, S as many stages as fit (at most 8);
+    - else the row-group kernel (R, S 0): its vector instance (unit 16 /
+      elem_size, 16-byte loads) on 16-byte rows and bases, its scalar one
+      (unit 1) on any, a row to ceil(K / (32 * lane)) warps (at most 16; a
+      lane holds ``VECTOR_LANE`` or ``SCALAR_LANE`` elements, and a wider
+      row is read twice), groups enough to spread ``rows`` over the SMs
+      within ``ROW_THREADS`` threads a block.
+
+    f32 activation rows stay on the row-group kernel at every size: the
+    tile kernel timed slower there (PERF.md, tools/torch_quant_bench.py)."""
+    ld = K if ld is None else ld
+    vector = K % 16 == 0 and ld % 16 == 0 and all(a % 16 == 0 for a in addrs)
+    if vector and rows * K * elem_size >= TILE_MIN_BYTES and (elem_size == 2 or n_scales):
+        fixed = K * 4 if n_scales else 0  # the dx's scale row, staged once a block
+        row_bytes = K * elem_size
+        per_scale = rows // max(n_scales, 1)  # the rows of one scale row
+        want = max(1, SMS // max(n_scales, 1))  # its tiles: one an SM
+        R = TILE_ROWS
+        while R > 1 and (-(-per_scale // R) < want or fixed + 2 * R * row_bytes > TILE_SMEM):
+            R //= 2
+        S = min(TILE_STAGES, (TILE_SMEM - fixed) // (R * row_bytes))
+        if S >= 1:
+            return R, S, 0, 0, 0
+    unit = 16 // elem_size if vector else 1
+    warps = min(16, max(1, -(-K // (32 * (VECTOR_LANE if vector else SCALAR_LANE)))))
+    groups = max(1, min(ROW_THREADS // (32 * warps), -(-rows // SMS)))
+    return 0, 0, unit, warps, groups
+
+
 @torch.library.custom_op("medtsllm::quantize_rows", mutates_args=(), device_types="cuda")
 def _quantize_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's quantizer launch as a custom op (the wrapper has checked x)."""
     M, K = x.shape
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    _build.launch("mt_act_quant_rows", x.device, _build.ptr(x),
-                  int(x.dtype == torch.bfloat16), _build.ptr(xq), _build.ptr(x_scale),
-                  M, K)
-    quantize_rows.launches += 1
+    if M:
+        plan = quant_plan(K, M, x.element_size(), (x.data_ptr(), xq.data_ptr()))
+        _build.launch("mt_act_quant_rows", x.device, _build.ptr(x),
+                      int(x.dtype == torch.bfloat16), _build.ptr(xq), _build.ptr(x_scale),
+                      M, K, *plan)
+        quantize_rows.launches += 1
     return xq, x_scale
 
 
@@ -199,10 +259,13 @@ def quantize_grad_rows(g: torch.Tensor, scale: torch.Tensor, ld: int | None = No
     _build.check_cuda(g, scale, names="g scale")
     gq = torch.empty((M, ld), dtype=torch.int8, device=g.device)
     g_scale = torch.empty((M,), dtype=torch.float32, device=g.device)
-    _build.launch("mt_grad_quant_rows", g.device, _build.ptr(g),
-                  int(g.dtype == torch.bfloat16), _build.ptr(scale), _build.ptr(gq),
-                  _build.ptr(g_scale), M, N, ld, max(M // n_scales, 1))
-    quantize_grad_rows.launches += 1
+    if M:
+        plan = quant_plan(N, M, g.element_size(),
+                          (g.data_ptr(), scale.data_ptr(), gq.data_ptr()), ld, n_scales)
+        _build.launch("mt_grad_quant_rows", g.device, _build.ptr(g),
+                      int(g.dtype == torch.bfloat16), _build.ptr(scale), _build.ptr(gq),
+                      _build.ptr(g_scale), M, N, ld, M // n_scales, *plan)
+        quantize_grad_rows.launches += 1
     return gq, g_scale
 
 

@@ -64,6 +64,83 @@ def test_w8a8_quantizer_and_s32_bit_equal(seed):
     np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_j))
 
 
+@jax.jit
+def _jax_row_quant(a):
+    """JAX's per-row quantization (``_act_quant_matmul``; the int8 branch of
+    ``_act_quant_matmul_bwd`` on gs = g * scale)."""
+    x_scale = jnp.maximum(jnp.max(jnp.abs(a), axis=-1, keepdims=True) / 127.0, 1e-10)
+    return jnp.round(a / x_scale).astype(jnp.int8), x_scale[:, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K", [(0, 37), (1, 37), (1, 4096), (3, 1), (3, 37), (3, 40),
+                                 (2, 176), (2, 11008), (2, 12288)])
+def test_w8a8_quantizers_match_jax_at_ragged_widths(dtype, M, K):
+    """Both quantizers' plain versions (what a CPU tensor takes) against JAX
+    at the widths that send the kernels to their scalar instance or to wide
+    row groups, [0, K] and [1, K] rows included: codes and scales bit-equal,
+    the dx's codes with 16-column zero padding and, for an even M, two scale
+    rows (M / 2 rows each)."""
+    rng = np.random.default_rng(M * K + K)
+    x = rng.standard_normal((M, K)).astype(np.float32) * 3
+    if M >= 2:
+        x[1] = 0.0
+    if M and K >= 4:
+        x[0] = 0.0
+        x[0, :4] = [127.0, 2.5, -3.5, 0.5]
+    xt = _t(x).to(dtype)
+    xf = xt.float().numpy()  # the values JAX sees: a bf16 row taken at f32
+    xq, xs = k1.quantize_rows(xt)
+    want_q, want_s = _jax_row_quant(xf)
+    assert xq.shape == (M, K) and xs.shape == (M,)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(want_s))
+    E = 2 if M and M % 2 == 0 else 1
+    scale = (rng.random((E, K)) * 1e-2 + 1e-3).astype(np.float32)
+    ld = K + (-K % 16) + 16
+    gq, gs = k1.quantize_grad_rows(xt, _t(scale if E > 1 else scale[0]), ld)
+    want_q, want_s = _jax_row_quant(xf * np.repeat(scale, M // E, axis=0))
+    assert gq.shape == (M, ld) and gs.shape == (M,)
+    np.testing.assert_array_equal(gq[:, :K].numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(want_s))
+    assert not gq[:, K:].any()
+
+
+@pytest.mark.parametrize("elem", [4, 2])  # an f32 / a bf16 element's bytes
+def test_quant_plan_covers_every_width(elem):
+    """The quantizers' launch plan over K 1..16,384, for the activation rows
+    (7B, single-row and long-window row counts, a base one element off 16
+    bytes) and the dx's (ld the 16-column pad): the tile kernel only on
+    16-byte rows and bases, for bf16 rows or the dx's of >= TILE_MIN_BYTES,
+    with R in 1..16 (dividing the 16 consumer warps) and its stages within
+    TILE_SMEM; else the row-group kernel, its vector instance exactly on
+    16-byte rows and bases, a lane holding at most its share of elements
+    (or the row spread over 16 warps), <= 512 threads and 8 multi-warp
+    groups a block."""
+    for K in range(1, 16385):
+        for off, rows, n_scales in ((0, 896, 0), (elem, 1, 0), (0, 17024, 0), (0, 896, 1)):
+            ld = K + (-K % 16) if n_scales else None
+            R, S, unit, warps, groups = k1.quant_plan(
+                K, rows, elem, (1 << 20, (1 << 21) + off), ld, n_scales)
+            vector = K % 16 == 0 and off == 0 and (ld or K) % 16 == 0
+            if R:
+                assert vector and (elem == 2 or n_scales)
+                assert rows * K * elem >= k1.TILE_MIN_BYTES
+                assert R in (1, 2, 4, 8, 16) and 1 <= S <= k1.TILE_STAGES
+                assert (K * 4 if n_scales else 0) + S * R * K * elem <= k1.TILE_SMEM
+                continue
+            assert (S, unit) == (0, 16 // elem if vector else 1)
+            lanes = 32 * warps
+            per_lane = -(-(K // unit) // lanes) * unit
+            assert per_lane <= (k1.VECTOR_LANE if vector else k1.SCALAR_LANE) or warps == 16
+            assert 1 <= warps <= 16 and lanes * groups <= k1.ROW_THREADS
+            assert warps == 1 or groups <= 8
+    # the 7B block's shapes (M 896): f32 and bf16 4096 on the row-group
+    # kernel, down_proj's bf16 11,008 on the tile kernel
+    assert k1.quant_plan(4096, 896, 4)[:3] == (0, 0, 4)
+    assert k1.quant_plan(11008, 896, 2)[:2] == (4, 2)
+
+
 @pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
 def test_w8a8_matches_act_quant_matmul(in_dtype):
     """The scaled output is within 1 ulp (f32) of _act_quant_matmul (the
@@ -295,7 +372,12 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_sources_define_every_entry_point():
-    """Every C signature bound in _build.py is defined in csrc/."""
+    """Every C signature bound in _build.py is defined in csrc/, with as many
+    parameters as the binding passes."""
+    import re
     text = "".join(p.read_text() for p in _build.sources())
     for name in list(_build.SIGNATURES) + ["mt_error_string"]:
         assert f" {name}(" in text, name
+    for name, argtypes in _build.SIGNATURES.items():
+        params = re.search(r"\b(?:int|void)\s+" + name + r"\(([^)]*)\)", text).group(1)
+        assert len(params.split(",")) == len(argtypes), name

@@ -26,7 +26,34 @@ def cuda():
     return torch.device("cuda")
 
 
+def _rows_at(x: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of x whose base lies ``off`` elements past a 16-byte
+    boundary (2 or 4 bytes for one bf16 / f32 element)."""
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape).copy_(x)
+
+
+def _special_rows(x: torch.Tensor) -> torch.Tensor:
+    """x with row 0 the half-way row (scale 1: 127, 2.5, -3.5, 0.5 -> 127, 2,
+    -4, 0, round half to even), row 1 all zero and row 2 near the half-way
+    points at another scale (x / scale within a few ulps of k + 0.5), where
+    there is room."""
+    M, K = x.shape
+    if K >= 4:
+        x[0] = 0
+        x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    if M >= 2:
+        x[1] = 0
+    if M >= 3:
+        j = torch.arange(K, device=x.device, dtype=torch.float32)
+        x[2] = (torch.remainder(j * 37, 254) - 127 + 0.5) * 0.0123
+        x[2, 0] = 127 * 0.0123
+    return x
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1])
 @pytest.mark.parametrize("M,K,N", [(896, 4096, 4096), (37, 176, 72), (5, 64, 200),
                                    (16 * 48, 768, 768),   # t5 / bart cross k / v: B x P rows
                                    (16 * 32, 2048, 768),  # flan-t5-base's wo: B x L rows
@@ -34,23 +61,65 @@ def cuda():
                                    # tile), in_proj, out_proj at B 48 x 144 rows;
                                    # mamba-tiny's x_proj (N 20)
                                    (6912, 1536, 80), (6912, 768, 3072), (6912, 1536, 768),
-                                   (37, 128, 20)])
-def test_w8a8_kernel_bit_equal(cuda, M, K, N):
+                                   (37, 128, 20),
+                                   # the quantizer's ragged widths and row counts (M 1,
+                                   # M not a multiple of a block's row groups); every
+                                   # row-group width (K 1024 W - 48: W warps a row);
+                                   # rows read twice (K > 16,384)
+                                   (1, 1, 16), (133, 37, 24), (133, 40, 16), (1, 11008, 16),
+                                   (3, 12288, 16), (3, 22016, 16),
+                                   # >= 16 MiB of bf16 rows: the tile kernel, tiles of
+                                   # 16, 8, 4, 2 and 1 rows (f32 on the row-group kernel)
+                                   (8192, 1024, 16), (2048, 4096, 16), (896, 11008, 16),
+                                   (400, 22016, 16), (168, 50000, 16)]
+                         + [(137, 1024 * w - 48, 16) for w in range(2, 17)])
+def test_w8a8_kernel_bit_equal(cuda, dtype, off, M, K, N):
     """Kernel vs plain on the card: quantizer, s32 and scaled bf16 output
-    all bit-equal (same integer math, same f32 epilogue order)."""
+    all bit-equal (same integer math, same f32 epilogue order), f32 and bf16
+    rows, on a 16-byte aligned base and one element off it (the quantizer's
+    scalar instance), with the half-way row and a zero row; one quantizer
+    launch a call. K off 16 pads the weight and the codes with zero
+    columns."""
     g = torch.Generator(cuda).manual_seed(0)
-    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    x = _special_rows(torch.randn(M, K, device=cuda, generator=g)).to(dtype)
+    x = _rows_at(x, off) if off else x
     wq = torch.randint(-127, 128, (N, K), device=cuda, dtype=torch.int8, generator=g)
     ws = torch.rand(N, device=cuda, generator=g) * 1e-3
+    nq = k1.quantize_rows.launches
     xq, xs = k1.quantize_rows(x)
+    assert k1.quantize_rows.launches == nq + 1
+    R, _, unit, *_ = k1.quant_plan(K, M, x.element_size(), (x.data_ptr(), xq.data_ptr()))
+    vector = R > 0 or unit == 16 // x.element_size()  # the tile kernel or 16-byte units
+    assert vector == (K % 16 == 0 and not off)
     xq0, xs0 = k1.quantize_rows_plain(x)
     assert torch.equal(xq, xq0) and torch.equal(xs, xs0)
-    assert torch.equal(k1.int8_gemm(xq, wq, xs, ws, torch.int32),
+    if K >= 4:
+        assert xq[0, :4].tolist() == [127, 2, -4, 0] and xs[0].item() == 1.0
+    if M >= 2:
+        assert not xq[1].any() and xs[1].item() == pytest.approx(1e-10)
+    wp = k1.pad_cols(wq)
+    assert torch.equal(k1.int8_gemm(k1.pad_cols(xq), wp, xs, ws, torch.int32),
                        k1.int8_matmul_plain(xq0, wq))
     nq, ng = k1.quantize_rows.launches, k1.int8_gemm.launches
-    y = k1.act_quant_matmul(x, wq, ws, torch.bfloat16)
+    y = k1.act_quant_matmul(x, wp, ws, torch.bfloat16)
     assert (k1.quantize_rows.launches, k1.int8_gemm.launches) == (nq + 1, ng + 1)
     assert torch.equal(y, k1.act_quant_matmul_plain(x, wq, ws, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 40, 4096])
+def test_quantizers_take_empty_rows(cuda, K):
+    """[0, K] rows (f32 and bf16) launch nothing and return empty codes and
+    scales, as the plain versions do."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.empty(0, K, device=cuda, dtype=dtype)
+        nq, ng = k1.quantize_rows.launches, k1.quantize_grad_rows.launches
+        xq, xs = k1.quantize_rows(x)
+        gq, gs = k1.quantize_grad_rows(x, torch.ones(K, device=cuda), K + 16)
+        torch.cuda.synchronize()
+        assert (xq.shape, xs.shape, gq.shape, gs.shape) == ((0, K), (0,), (0, K + 16), (0,))
+        assert (xq.dtype, gq.dtype, xs.dtype) == (torch.int8, torch.int8, torch.float32)
+        assert (k1.quantize_rows.launches, k1.quantize_grad_rows.launches) == (nq, ng)
 
 
 def _int8_operands(cuda, M, K, N, seed=0):
@@ -1646,12 +1715,20 @@ def test_deleted_trainer_releases_its_device_memory(cuda):
 @pytest.mark.parametrize("M,K,N", [
     (896, 4096, 4096), (896, 4096, 11008), (896, 11008, 4096),  # a 7B block at B 8
     (1664, 768, 2304), (1664, 3072, 768),                       # gpt2 at B 16
-    (37, 40, 24), (5, 64, 200)])                                # K, N off 16
+    (37, 40, 24), (5, 64, 200),                                 # K, N off 16
+    # the quantizer's ragged widths, M 1, rows read twice (N > 16,384)
+    (1, 32, 1), (111, 16, 37), (111, 32, 40), (6, 48, 176), (3, 32, 11008),
+    (111, 16, 12288), (3, 16, 22016),
+    # >= 16 MiB: the tile kernel, tiles of 16 / 8 (bf16) and 16 / 4 rows (f32)
+    (8448, 16, 1024), (2112, 16, 4096)])
 def test_int8_dx_bit_equal(cuda, dtype, M, K, N):
     """``int8_dx``: the scale-folded gradient rows quantized (a bf16
     gradient taken at f32) and K1's GEMM on the weight's [K, N16] copy with
     a unit channel scale, bit-equal to the plain version, row for row; N off
-    16 pads the codes' rows and the copy with zeros."""
+    16 pads the codes' rows and the copy with zeros. The quantizer alone:
+    three [E, N] scale rows (M / 3 rows each: a block's rows never span two),
+    16 more zero columns (ld > N), and g one element off a 16-byte boundary
+    (the scalar instance); one launch a call."""
     g = torch.Generator(cuda).manual_seed(M + K + N)
     grad = torch.randn(M, N, device=cuda, generator=g).to(dtype)
     wq_t = torch.randint(-127, 128, (N, K), device=cuda, dtype=torch.int8, generator=g)
@@ -1668,6 +1745,16 @@ def test_int8_dx_bit_equal(cuda, dtype, M, K, N):
                                  torch.ones(K, device=cuda), out_dtype)
         assert torch.equal(dx, ref)
     assert k1.quantize_grad_rows.launches == nq + 3 and k1.int8_gemm.launches == ng + 2
+    E = 3 if M % 3 == 0 else 1
+    scales = torch.rand(E, N, device=cuda, generator=g) * 1e-2 + 1e-4
+    ld = w_kn.shape[1] + 16
+    for gr in (grad, _rows_at(grad, 1)):
+        nq = k1.quantize_grad_rows.launches
+        gq, gs = k1.quantize_grad_rows(gr, scales, ld)
+        assert k1.quantize_grad_rows.launches == nq + 1
+        rq, rs = k1.quantize_grad_rows_plain(gr.cpu(), scales.cpu(), ld)
+        assert torch.equal(gq.cpu(), rq) and torch.equal(gs.cpu(), rs)
+        assert not gq[:, N:].any()
 
 
 @pytest.mark.cuda
