@@ -309,7 +309,26 @@ nvidia-smi. Phases:
      128): the launches ``K4_MIN_KEYS`` says (K2 or the K4 route);
  19. a 2-layer llama-1b dense f32 slice with every attention forced onto
      the K4 route (``K4_MIN_KEYS`` set to 1 for the phase, then restored) on
-     the card against the CPU.
+     the card against the CPU;
+ 20. the ops library no model reaches, at published widths, in eval, f32,
+     seeded weights, each module on the card against its copy on the CPU
+     (1e-5 x max(1, max |CPU|)) with its CUDA-event ms, no kernel of the
+     port launched: Informer as its main_informer.py runs ETTh1 (batch 32,
+     96 steps, d_model 512, 8 heads, d_ff 2048, factor 5: a 2-layer
+     ProbAttention encoder with a ConvLayer between the layers, then a
+     1-layer Decoder over 72 steps with a causal ProbAttention and a
+     FullAttention cross-attention; the card's top-u queries fed to the CPU,
+     the share the CPU picks alike printed), the same on DSAttention with
+     seeded ``tau`` / ``delta``; ``ReformerLayer`` (d_model 512, 8 heads,
+     bucket_size 4, 4 hashes, 96 tokens, batch 32; the share of bucket ids
+     the card and the CPU agree on, then both on the card's ids);
+     ``TwoStageAttentionLayer`` at main_crossformer.py's ETTh1 (7
+     variables, 16 segments of 6, d_model 256, d_ff 512, 4 heads, factor
+     10, batch 32); ``InceptionBlockV2`` at TimesNet's ETTh1 widths (16 to
+     32 channels, 6 kernels, 192 steps) at each of the top-5 periods;
+     ``FlattenHead`` at PatchTST's ETTh1 head (16 x 42 -> 96);
+     ``RevINAffine`` and the complex ``rfft`` / ``irfft`` (96 and 4,096
+     steps).
 Phase 3 also prints the route table behind ``K4_MIN_KEYS``: K2, the K4
 route and RoPE + SDPA at 512, 1024, 2048 and 4096 keys of the 7B layout,
 the route held in three parts up to 2048 keys (the pre-pass and q's
@@ -1194,6 +1213,165 @@ def lifecycle(runs: Path, dev, drive, Config) -> None:
           f"{time.perf_counter() - t0:.1f} s wall")
     del ft, params
     torch.cuda.empty_cache()
+
+
+def ops_library(torch, dev, drive, smi: str) -> None:
+    """Phase 20: the ops library no model reaches, at published widths, in
+    eval, f32, on the card: each module against the same module (the same
+    seeded weights) on the CPU, within 1e-5 x max(1, max |CPU|), with its
+    CUDA-event ms; none launches a kernel of the port (every count 0).
+
+    Where a module picks by comparison (ProbAttention's top-u queries, the
+    LSH buckets), an ulp between the devices can pick apart: the card's
+    picks are fed to the CPU and the share of the CPU's own picks that agree
+    is printed (``select``, ``buckets``)."""
+    from torch import nn
+
+    from medtsllm_tpu_torch.ops import attention as att
+    from medtsllm_tpu_torch.ops import crossformer as cf
+    from medtsllm_tpu_torch.ops import dft, heads, revin
+    from medtsllm_tpu_torch.ops import inception as inc
+    from medtsllm_tpu_torch.ops import transformer as tf
+    from medtsllm_tpu_torch.weights import init_random_
+
+    gen = torch.Generator(device=dev)
+
+    def data(*shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def pair(module):
+        """(the module on the card with seeded weights, in eval; its CPU copy)."""
+        module = module.to(dev)
+        init_random_(module, gen.manual_seed(SEED))
+        return module.eval(), copy.deepcopy(module).cpu().eval()
+
+    def prob_picks(card, cpu):
+        """Feed each of ``cpu``'s ProbAttention modules the queries its card
+        twin picked, call by call; returns [agreeing, total] picks."""
+        tally, picked = [0, 0], []
+        for m in (m for m in card.modules() if isinstance(m, att.ProbAttention)):
+            def on_card(q, k, *a, _m=m, _f=m.forward, **kw):
+                picked.append(_m.select(q, k))
+                return _f(q, k, *a, index=picked[-1], **kw)
+            m.forward = on_card
+        for m in (m for m in cpu.modules() if isinstance(m, att.ProbAttention)):
+            def on_cpu(q, k, *a, _m=m, _f=m.forward, **kw):
+                idx = picked.pop(0).cpu()
+                own = _m.select(q, k)
+                tally[0] += int((own.sort(-1).values == idx.sort(-1).values).all(-1).sum())
+                tally[1] += own.shape[0] * own.shape[1]
+                return _f(q, k, *a, index=idx, **kw)
+            m.forward = on_cpu
+        return tally, picked
+
+    def held(name, card, cpu, args, **kw):
+        """One forward on the card (counted) against the CPU's; its ms."""
+        with torch.no_grad():
+            out = []
+            counts, _ = drive(lambda: out.append(card(*args, **kw)))
+            check(not any(counts.values()), f"[ops] {name} launched a kernel: {counts}")
+            got = out[0][0] if isinstance(out[0], tuple) else out[0]
+            ref = cpu(*[a.cpu() if torch.is_tensor(a) else a for a in args],
+                      **{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()})
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            err = (got.cpu() - ref).abs().max().item()
+            tol = 1e-5 * max(1.0, ref.abs().max().item())
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"[ops] {name}: card vs CPU max err {err} > {tol}")
+            ms = cuda_ms(torch, lambda: card(*args, **kw))
+        print(f"[ops] {name}: out {tuple(got.shape)}, {ms:.4f} ms, max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}); {smi}")
+
+    class Informer(nn.Module):
+        """Informer (ETTh1 in its main_informer.py: d_model 512, 8 heads,
+        d_ff 2048, factor 5, gelu, distil): a 2-layer encoder of ``inner``
+        attention with one ConvLayer between the layers, then a 1-layer
+        Decoder with a causal ``inner`` self-attention and a FullAttention
+        cross-attention, projected to 7 variables."""
+
+        def __init__(self, inner):
+            super().__init__()
+            d, H, d_ff = 512, 8, 2048
+            layers = []
+            for i in range(2):
+                setattr(self, f"enc_attn_{i}", att.AttentionLayer(inner(False), d, H))
+                layers.append(tf.EncoderLayer(getattr(self, f"enc_attn_{i}"), d, d_ff,
+                                              p=0.05, activation_name="gelu"))
+                setattr(self, f"enc_layer_{i}", layers[-1])
+            self.conv_0 = tf.ConvLayer(d)
+            self.encoder = tf.Encoder(layers, d, conv_layers=[self.conv_0])
+            self.dec_self = att.AttentionLayer(inner(True), d, H)
+            self.dec_cross = att.AttentionLayer(att.FullAttention(mask_flag=False), d, H)
+            self.dec_layer_0 = tf.DecoderLayer(self.dec_self, self.dec_cross, d, d_ff, p=0.05,
+                                               activation_name="gelu")
+            self.decoder = tf.Decoder([self.dec_layer_0], d, projection_dim=7)
+
+        def forward(self, x_enc, x_dec, tau=None, delta=None):
+            enc, _ = self.encoder(x_enc, tau=tau, delta=delta)
+            return self.decoder(x_dec, enc, tau=tau)
+
+    # Informer at batch 32, seq_len 96, label_len 48 + pred_len 24 = 72
+    # decoder steps, the inputs at d_model (the embedding is not this
+    # library's); then the same encoder and decoder on DSAttention with tau
+    # [B] and delta [B, 96] from a seed (the Non-stationary Transformer's)
+    x_enc, x_dec = data(32, 96, 512, seed=1), data(32, 72, 512, seed=2)
+    card, cpu = pair(Informer(lambda causal: att.ProbAttention(causal, factor=5)))
+    tally, picked = prob_picks(card, cpu)
+    held("informer[prob]", card, cpu, (x_enc, x_dec))
+    picked.clear()  # the timed calls' picks
+    check(tally[1] == 32 * 8 * 3, f"[ops] informer[prob]: {tally[1]} picks compared")
+    print(f"[ops] informer[prob]: the CPU's own top-u query sets equal the card's on "
+          f"{tally[0] / tally[1]:.4f} of {tally[1]} (B, H) rows of its 3 ProbAttentions")
+    tau = data(32, seed=3).abs() + 0.5
+    delta = data(32, 96, seed=4)
+    card, cpu = pair(Informer(lambda causal: att.DSAttention(causal)))
+    held("informer[ds]", card, cpu, (x_enc, x_dec), tau=tau, delta=delta)
+
+    # ReformerLayer: d_model 512, 8 heads, bucket_size 4, 4 hashes, 96 tokens
+    x = data(32, 96, 512, seed=5)
+    card, cpu = pair(att.ReformerLayer(512, 8, bucket_size=4, n_hashes=4))
+    rot = card.rotations(96, dev)
+    with torch.no_grad():
+        b_card, b_cpu = card.buckets(x, rot), cpu.buckets(x.cpu(), rot.cpu())
+    share = (b_card.cpu() == b_cpu).double().mean().item()
+    print(f"[ops] reformer: bucket ids {tuple(b_card.shape)}, card and CPU agree on "
+          f"{share:.6f}")
+    check(share >= 0.999, f"[ops] reformer: bucket ids agree on {share} only")
+    held("reformer", card, cpu, (x,), rotations=rot, buckets=b_card)
+
+    # Crossformer (ETTh1 in its main_crossformer.py: 7 variables, in_len 96,
+    # seg_len 6 -> 16 segments, d_model 256, d_ff 512, 4 heads, factor 10)
+    card, cpu = pair(cf.TwoStageAttentionLayer(16, 10, 256, 4, 512, p=0.2, attention_p=0.2))
+    held("two_stage_attention", card, cpu, (data(32, 7, 16, 256, seed=6),))
+
+    # TimesNet's inception block V2 at its ETTh1 widths (d_model 16 -> d_ff
+    # 32, num_kernels 6; seq_len 96 + pred_len 96 = 192 steps in the 2T
+    # buffer), at each of the top-5 periods of a seeded series (the card's,
+    # fed to both)
+    series = data(32, 192, 16, seed=7)
+    periods, _ = inc.fft_for_period(series, 5)
+    buf = torch.cat([series, torch.zeros_like(series)], 1)
+    card, cpu = pair(inc.InceptionBlockV2(16, 32, 6))
+    for p in periods.tolist():
+        held(f"inception_v2[period {p}]", card, cpu, (buf, torch.tensor(p, device=dev)),
+             seq_len=192, out_len=384)
+
+    # FlattenHead at PatchTST's ETTh1 head (d_model 16 x 42 patches -> 96)
+    card, cpu = pair(heads.FlattenHead(16 * 42, 96))
+    held("flatten_head", card, cpu, (data(32, 7, 16, 42, seed=8),))
+
+    # RevIN's affine (7 variables) and the complex DFT at 96 and 4,096 steps
+    card, cpu = pair(revin.RevINAffine(7))
+    for p in card.parameters():
+        p.data.copy_(data(7, seed=9))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    held("revin_affine[denorm]", card, cpu, (data(32, 96, 7, seed=10), "denorm"))
+    for n in (96, 4096):
+        x = data(32, 7, n, seed=11)
+        held(f"rfft[{n}]", dft.rfft, dft.rfft, (x,))
+        held(f"irfft[{n}]", lambda s: dft.irfft(s, n), lambda s: dft.irfft(s, n),
+             (dft.rfft(x),))
 
 
 def main() -> None:
@@ -5051,6 +5229,9 @@ def main() -> None:
           f"max_abs_err {err:.3e} (tol {tol:.3e}); K4 route launches "
           f"{counts['rope_flash_attention']}")
     del gpu, cpu
+
+    # 20. the ops library no model reaches, card vs CPU (no kernel launches)
+    ops_library(torch, dev, drive, smi.splitlines()[0])
 
     check(all(e["launches"] for e in kernels), f"unlaunched kernels: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ from torch import nn
 
 from ..models.llm.transformer import Linear
 from .decomp import series_decomp
-from .embed import TokenEmbedding, dropout
+from .embed import CircularConv, dropout
 from .transformer import LayerNorm, activation, borrow
 
 
@@ -29,11 +29,6 @@ class MyLayerNorm(nn.Module):
     def forward(self, x):
         x_hat = self.layernorm(x)
         return x_hat - x_hat.mean(dim=1, keepdim=True)
-
-
-class CircularConv(TokenEmbedding):
-    """A bias-free circular conv (k = 3) over the time axis, drawn with the
-    flax Conv's default init (lecun normal; ``weights.init_random_``)."""
 
 
 class _Layer(nn.Module):

@@ -1,5 +1,6 @@
 """The real DFT as a matmul over a basis (port of ``medtsllm_tpu/ops/dft.py``:
-``rfft_ri``, ``irfft_ri`` and ``complex_einsum_ri``).
+``rfft_ri``, ``irfft_ri``, ``complex_einsum_ri`` and the complex ``rfft`` /
+``irfft``).
 
 Spectra are (re, im) pairs of real tensors. The transform is a GEMM over a
 cos / sin basis built in float64 on the host and kept on the device
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from ..device import device_constant
+
+SEQ_CUTOFF = 2048  # past this length the complex forms take torch.fft, as JAX takes jnp.fft
 
 
 def _rfft_basis(L: int) -> np.ndarray:
@@ -72,3 +75,23 @@ def complex_einsum_ri(order: str, are, aim, bre, bim):
     """einsum(order, a, b) for (re, im) pairs: four real einsums."""
     return (torch.einsum(order, are, bre) - torch.einsum(order, aim, bim),
             torch.einsum(order, are, bim) + torch.einsum(order, aim, bre))
+
+
+def rfft(x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """``jnp.fft.rfft`` over the last axis, x zero-padded or cut to ``n``:
+    the complex spectrum of the basis GEMM, or of ``torch.fft`` past
+    ``SEQ_CUTOFF`` steps."""
+    L = x.shape[-1]
+    if n is not None and n != L:
+        x = torch.nn.functional.pad(x, (0, n - L)) if n > L else x[..., :n]
+    if x.shape[-1] > SEQ_CUTOFF:
+        return torch.fft.rfft(x.float())
+    return torch.complex(*rfft_ri(x))
+
+
+def irfft(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """``jnp.fft.irfft`` over the last axis: the real signal of length n
+    (the spectrum zero-padded or cut to n // 2 + 1 bins), f32."""
+    if n > SEQ_CUTOFF:
+        return torch.fft.irfft(spec, n=n).float()  # pads or cuts the bins itself
+    return irfft_ri(spec.real, spec.imag, n)

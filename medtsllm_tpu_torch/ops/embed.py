@@ -58,6 +58,21 @@ class TokenEmbedding(nn.Module):
         return taps.to(w.dtype) @ w.permute(2, 1, 0).reshape(-1, w.shape[0])
 
 
+class CircularConv(TokenEmbedding):
+    """flax's ``nn.Conv`` (k = 3, circular padding) over the time axis:
+    ``TokenEmbedding``'s conv plus a ``bias`` when asked, drawn with the
+    flax Conv's default init (lecun normal kernel, zero bias;
+    ``weights.init_random_``)."""
+
+    def __init__(self, c_in: int, d_model: int, bias: bool = False):
+        super().__init__(c_in, d_model)
+        self.bias = nn.Parameter(torch.zeros(d_model)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
 def patch_unfold(x: torch.Tensor, patch_len: int, stride: int) -> torch.Tensor:
     """Replication-pad the series end by ``stride`` and unfold:
     [B, C, L] -> [B, C, (L - patch_len) // stride + 2, patch_len]."""

@@ -17,7 +17,9 @@ sum in another order.
 averaged, so they collapse into one composite K_max x K_max kernel. Its
 ``kernel_{i}`` parameters keep the flax layout [K, K, Nin, Nout] under the
 flax names (``weights.from_flax`` converts only 2- and 3-D ``kernel``
-leaves). ``InceptionBlockV2`` is reached by no ported model.
+leaves). ``InceptionBlockV2``'s separable 1 x K and K x 1 kernels and its
+1 x 1 kernel compose into one such kernel the same way, and keep their
+flax layouts ([1, K, Nin, Nout], [K, 1, Nin, Nout], [1, 1, Nin, Nout]).
 """
 
 from __future__ import annotations
@@ -101,6 +103,45 @@ class InceptionBlockV1(nn.Module):
             kernel = kernel + torch.nn.functional.pad(w, (0, 0, 0, 0, pad, pad, pad, pad))
             bias = bias + getattr(self, f"bias_{i}")
         return kernel / self.num_kernels, bias / self.num_kernels
+
+    def forward(self, x, period, seq_len: int | None = None, out_len: int | None = None):
+        kernel, bias = self.composite_kernel(x.dtype)
+        return fold_conv2d(x, period, kernel, bias, seq_len=seq_len, out_len=out_len)
+
+
+class InceptionBlockV2(nn.Module):
+    """Separable 1 x K and K x 1 kernels (K = 3, 5, ..., num_kernels // 2
+    of each) and a 1 x 1 kernel, averaged over the 2 (num_kernels // 2) + 1
+    branches, on the folded grid through one composite kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_kernels: int = 6):
+        super().__init__()
+        self.num_kernels = num_kernels
+        for i in range(num_kernels // 2):
+            K = 2 * i + 3
+            for kind, shape in (("row", (1, K)), ("col", (K, 1))):
+                setattr(self, f"{kind}_kernel_{i}",
+                        nn.Parameter(torch.empty(*shape, in_channels, out_channels)))
+                setattr(self, f"{kind}_bias_{i}", nn.Parameter(torch.zeros(out_channels)))
+        self.one_kernel = nn.Parameter(torch.empty(1, 1, in_channels, out_channels))
+        self.one_bias = nn.Parameter(torch.zeros(out_channels))
+
+    def composite_kernel(self, dtype: torch.dtype):
+        """(the K_max x K_max kernel, the bias), summed in JAX's order: each
+        i's row then column kernel, then the 1 x 1, over the branches."""
+        c = self.num_kernels // 2
+        kernel, bias = 0, 0
+        for i in range(c):
+            pad = c - 1 - i
+            row = getattr(self, f"row_kernel_{i}").to(dtype)
+            col = getattr(self, f"col_kernel_{i}").to(dtype)
+            kernel = kernel + torch.nn.functional.pad(row, (0, 0, 0, 0, pad, pad, c, c))
+            kernel = kernel + torch.nn.functional.pad(col, (0, 0, 0, 0, c, c, pad, pad))
+            bias = bias + getattr(self, f"row_bias_{i}") + getattr(self, f"col_bias_{i}")
+        kernel = kernel + torch.nn.functional.pad(self.one_kernel.to(dtype),
+                                                  (0, 0, 0, 0, c, c, c, c))
+        n = 2 * c + 1
+        return kernel / n, (bias + self.one_bias) / n
 
     def forward(self, x, period, seq_len: int | None = None, out_len: int | None = None):
         kernel, bias = self.composite_kernel(x.dtype)

@@ -1,12 +1,13 @@
 """RevIN: reversible per-window instance normalization (port of
-``medtsllm_tpu/ops/revin.py::revin_norm/revin_denorm/masked_window_norm``).
-The statistics are returned explicitly; they are detached, as the
-reference detaches them.
+``medtsllm_tpu/ops/revin.py``: ``revin_norm``, ``revin_denorm``,
+``RevINAffine`` and ``masked_window_norm``). The statistics are returned
+explicitly; they are detached, as the reference detaches them.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 
 def revin_norm(x: torch.Tensor, eps: float = 1e-5):
@@ -20,6 +21,25 @@ def revin_norm(x: torch.Tensor, eps: float = 1e-5):
 
 def revin_denorm(y: torch.Tensor, stats: dict) -> torch.Tensor:
     return y * stats["stdev"] + stats["center"]
+
+
+class RevINAffine(nn.Module):
+    """RevIN's optional per-channel affine (``affine_weight`` 1,
+    ``affine_bias`` 0 at init): ``mode`` "norm" maps x * w + b, "denorm"
+    (x - b) / (w + eps^2)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.affine_weight = nn.Parameter(torch.ones(num_features))
+        self.affine_bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x, mode: str):
+        if mode == "norm":
+            return x * self.affine_weight + self.affine_bias
+        if mode == "denorm":
+            return (x - self.affine_bias) / (self.affine_weight + self.eps * self.eps)
+        raise NotImplementedError(mode)
 
 
 def masked_window_norm(x: torch.Tensor, mask: torch.Tensor):

@@ -34,6 +34,21 @@ then ``enc_embedding``, ``predict_linear_pre``, ``ln_proj`` and
 ``{seasonal,trend}_{w,b}``, the inception kernels ``kernel_{i}`` [K, K,
 Nin, Nout] and the Fourier weights ``weights1`` / ``weights2``. The
 baselines' state dicts have the flax tree's keys, so each maps key for key.
+So do the ops library's other modules: ``ProbAttention``'s and
+``DSAttention``'s ``AttentionLayer`` projections, ``ReformerLayer``'s
+bias-free ``qk_projection`` / ``value_projection`` and its
+``out_projection``, ``DecoderLayer``'s ``conv1`` / ``conv2`` / ``norm1-3``,
+``Decoder``'s ``norm`` and ``projection``, ``TwoStageAttentionLayer``'s
+``router`` [seg_num, factor, d_model] (its layout kept), its three
+attention layers, ``MLP{1,2}_fc{1,2}`` and ``norm1-4``, ``ConvLayer``'s
+``downConv`` (a 3-D kernel, so Conv1d's layout, and its bias) and
+``norm/{scale,bias}``, ``InceptionBlockV2``'s ``row_kernel_{i}`` [1, K,
+Nin, Nout], ``col_kernel_{i}`` [K, 1, Nin, Nout], ``one_kernel`` [1, 1,
+Nin, Nout] and their biases (layouts kept), ``FlattenHead``'s ``linear``
+and ``RevINAffine``'s ``affine_weight`` / ``affine_bias``. flax keeps a
+BatchNorm's running averages in the ``batch_stats`` collection, apart from
+``params``: ``from_flax``'s second argument maps them (``ConvLayer``'s
+``norm/mean`` and ``norm/var``) to the buffers of the same names.
 """
 
 from __future__ import annotations
@@ -50,11 +65,12 @@ from .models.llm.transformer import (LoRALinear, MoEMLP, QuantLinear, RMSNorm,
                                      TransformerDecoder, TransformerEncDec)
 from .models.dlinear import DLinear
 from .models.medtsllm import WordEmbeddings
-from .ops.autoformer import CircularConv
-from .ops.embed import Embed, TokenEmbedding
+from .ops.crossformer import TwoStageAttentionLayer
+from .ops.embed import CircularConv, Embed, TokenEmbedding
 from .ops.fourier import FourierBlock, FourierCrossAttention
-from .ops.inception import InceptionBlockV1
-from .ops.transformer import LayerNorm
+from .ops.inception import InceptionBlockV1, InceptionBlockV2
+from .ops.revin import RevINAffine
+from .ops.transformer import LayerNorm, RunningBatchNorm
 from .ops.wavelets import SparseKernelFT1d
 from .ops.kernels.w4a8 import CODEBOOKS, pack4_split
 
@@ -84,9 +100,13 @@ def _flatten(tree: dict, prefix: str = ""):
             yield path, value
 
 
-def from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """flax parameter tree (numpy leaves) -> torch state dict."""
+def from_flax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """flax parameter tree (numpy leaves) -> torch state dict; with
+    ``batch_stats`` (the flax collection's tree), its leaves too, under
+    their paths, each keeping its name and layout."""
     state = {}
+    for path, value in _flatten(batch_stats or {}):
+        state[path.replace("/", ".")] = _to_torch(np.asarray(value))
     leaves = list(_flatten(params))
     adapted = {path.rpartition("/")[0] for path, _ in leaves
                if path.rpartition("/")[2] in ("lora_a", "lora_b")}
@@ -140,9 +160,12 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     (mamba.py:104-143 of the JAX package); LayerNorm (``llm_replacement``'s
     and the baselines') scale 1, bias 0; and the baselines': DLinear's maps
     1 / seq_len and biases 0, the inception kernels N(0, 2 / fan_out)
-    (fan_out = K * K * Nout) and biases 0, the Fourier and multiwavelet
+    (fan_out = the kernel's K_rows * K_cols * Nout: V2's separable 1 x K, K
+    x 1 and 1 x 1 kernels too) and biases 0, Crossformer's ``router``
+    N(0, 1), the BatchNorm's scale 1, bias 0 and running averages 0 / 1,
+    ``RevINAffine``'s 1 / 0, the Fourier and multiwavelet
     weights U[0, 1) / (in * out) (the sparse kernel's over (c * k)^2), the
-    decoder's circular conv lecun-normal and ``Embed`` tables N(0, 1 / d).
+    circular convs lecun-normal (biases 0) and ``Embed`` tables N(0, 1 / d).
     The values differ from JAX's (another generator)."""
     def int8_(wq: torch.Tensor) -> None:
         w = torch.randn(wq.shape, generator=generator, device=wq.device) * 0.02
@@ -206,12 +229,23 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
             for name in ("seasonal", "trend"):
                 getattr(module, f"{name}_w").fill_(1.0 / module.seq_len)
                 getattr(module, f"{name}_b").zero_()
-        elif isinstance(module, InceptionBlockV1):
-            for i in range(module.num_kernels):
-                w = getattr(module, f"kernel_{i}")
-                fan_out = w.shape[0] * w.shape[1] * w.shape[3]
-                w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
-                getattr(module, f"bias_{i}").zero_()
+        elif isinstance(module, (InceptionBlockV1, InceptionBlockV2)):
+            for name, w in module.named_parameters(recurse=False):
+                if "kernel" in name:  # fan_out = K_rows * K_cols * Nout
+                    fan_out = w.shape[0] * w.shape[1] * w.shape[3]
+                    w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+                else:
+                    w.zero_()
+        elif isinstance(module, TwoStageAttentionLayer):
+            module.router.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(module, RunningBatchNorm):
+            module.scale.fill_(1.0)
+            module.bias.zero_()
+            module.mean.zero_()
+            module.var.fill_(1.0)
+        elif isinstance(module, RevINAffine):
+            module.affine_weight.fill_(1.0)
+            module.affine_bias.zero_()
         elif isinstance(module, (FourierBlock, FourierCrossAttention)):
             for w in (module.weights1, module.weights2):
                 w.uniform_(0.0, 1.0, generator=generator).mul_(
@@ -225,6 +259,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, CircularConv):
             _lecun_normal_(module.weight, module.weight.shape[1] * module.weight.shape[2],
                            generator)
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, TokenEmbedding):
             fan_in = module.weight.shape[1] * module.weight.shape[2]
             module.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)

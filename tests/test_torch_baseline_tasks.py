@@ -140,6 +140,12 @@ def jitted_flax_init():
         nn.Module.init = eager
 
 
+def jax_get_trainer_jitted(*args, **kwargs):
+    """The JAX package's ``get_trainer`` with ``jitted_flax_init``."""
+    with jitted_flax_init():
+        return jax_get_trainer(*args, **kwargs)
+
+
 def jax_trainer(raw: dict):
     with jitted_flax_init(), warnings.catch_warnings():
         warnings.simplefilter("ignore")

@@ -40,7 +40,7 @@ from conftest import make_config
 from medtsllm_tpu import config as jax_config
 from medtsllm_tpu import utils as jax_utils
 from medtsllm_tpu.runtime import checkpoint as jax_checkpoint
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch import config as port_config
 from medtsllm_tpu_torch import test as test_cli
 from medtsllm_tpu_torch import train as train_cli

@@ -48,7 +48,7 @@ import torch
 from conftest import make_config
 from medtsllm_tpu.data import BatchPipeline as JaxBatchPipeline
 from medtsllm_tpu.data import get_dataset as jax_get_dataset
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.data import BatchPipeline, SyntheticDataset
 from medtsllm_tpu_torch.runtime.graph import step_key
 from medtsllm_tpu_torch.tasks import get_trainer

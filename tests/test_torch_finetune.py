@@ -33,7 +33,7 @@ from medtsllm_tpu.config import ConfigError as JaxConfigError
 from medtsllm_tpu.config import validate_config as jax_validate_config
 from medtsllm_tpu.data.pipeline import BatchPipeline as JaxBatchPipeline
 from medtsllm_tpu.runtime.optim import Optimizer as JaxOptimizer
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.config import Config, ConfigError, validate_config
 from medtsllm_tpu_torch.runtime import checkpoint as ckpt
 from medtsllm_tpu_torch.runtime.optim import Optimizer

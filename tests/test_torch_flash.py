@@ -36,7 +36,7 @@ from conftest import make_config
 from medtsllm_tpu.models.llm import transformer as jtf
 from medtsllm_tpu.models.llm.loader import PRESETS as JAX_PRESETS
 from medtsllm_tpu.ops.pallas.flash_attention import _attention_reference, _flash_kernel
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.models.llm import transformer as ttf
 from medtsllm_tpu_torch.models.llm.config import PRESETS
 from medtsllm_tpu_torch.ops.kernels import flash_attention as k4

@@ -64,8 +64,9 @@ def test_gpt2_decoder_matches_jax(L):
     cfg = jax_loader.resolve_config("gpt2-tiny")[0]
     x = np.random.default_rng(L).standard_normal((2, L, cfg.d_model)).astype(np.float32)
     dec = JaxDecoder(cfg)
-    params = dec.init(jax.random.PRNGKey(L), inputs_embeds=jnp.asarray(x))["params"]
-    want = dec.apply({"params": params}, inputs_embeds=jnp.asarray(x))
+    params = jax.jit(lambda r, e: dec.init(r, inputs_embeds=e))(
+        jax.random.PRNGKey(L), jnp.asarray(x))["params"]
+    want = jax.jit(lambda p, e: dec.apply({"params": p}, inputs_embeds=e))(params, jnp.asarray(x))
     port = TransformerDecoder(port_llm_config.resolve_config("gpt2-tiny")).eval()
     state = from_flax(jax.device_get(params))
     assert set(state) == set(port.state_dict())
@@ -104,8 +105,8 @@ def test_gpt4ts_forward_matches_jax(task):
     if task == "imputation":
         inputs["mask"] = (rng.random((3, 48, 3)) > 0.25).astype(np.float32)
     jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    params = jm.init(jax.random.PRNGKey(3), jin)["params"]
-    want = jm.apply({"params": params}, jin)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(3), jin)["params"]
+    want = jax.jit(jm.apply)({"params": params}, jin)
     state = from_flax(jax.device_get(params))
     assert set(state) == set(tm.state_dict())
     tm.load_state_dict(state)

@@ -32,7 +32,7 @@ import torch
 
 from conftest import make_config
 from medtsllm_tpu.models.llm.transformer import QUANT4_CODEBOOKS
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch import data
 from medtsllm_tpu_torch.ops.kernels import w4a8
 from medtsllm_tpu_torch.runtime import graph

@@ -23,6 +23,8 @@ import medtsllm_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import medtsllm_tpu_torch.ops as ops
+assert all(getattr(ops, name) is not None for name in ops.__all__)
 # the modules themselves: none of these
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "medtsllm_tpu", "sklearn",
@@ -53,6 +55,10 @@ _BASELINE_MODULES = {f"medtsllm_tpu_torch.{m}" for m in (
     "models.dlinear", "models.patchtst", "models.timesnet", "models.fedformer", "ops.decomp",
     "ops.embed", "ops.masks", "ops.attention", "ops.transformer", "ops.dft", "ops.inception",
     "ops.fourier", "ops.autocorr", "ops.autoformer", "ops.wavelets")}
+# the ops library no model reaches
+_OPS_MODULES = {f"medtsllm_tpu_torch.ops.{m}" for m in (
+    "attention", "lsh_attention", "crossformer", "heads", "inception", "masks", "revin",
+    "transformer", "dft")}
 # the run lifecycle: checkpoints, the loggers, the CLIs
 _LIFECYCLE_MODULES = {"medtsllm_tpu_torch.runtime.checkpoint", "medtsllm_tpu_torch.utils",
                       "medtsllm_tpu_torch.loggers", "medtsllm_tpu_torch.loggers.base",
@@ -72,7 +78,7 @@ def test_port_imports_no_jax():
     names = set(names.split())
     # every module was imported
     assert len(names) >= 18 and _TRAIN_MODULES <= names and _LIFECYCLE_MODULES <= names
-    assert _BASELINE_MODULES <= names
+    assert _BASELINE_MODULES <= names and _OPS_MODULES <= names
     assert leaked == "[]", leaked
 
 
@@ -88,6 +94,8 @@ import medtsllm_tpu_torch.data.readers as readers
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import medtsllm_tpu_torch.ops as ops
+assert all(getattr(ops, name) is not None for name in ops.__all__)
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.data import get_dataset
 from medtsllm_tpu_torch.data.readers.table import Table

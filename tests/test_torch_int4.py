@@ -38,7 +38,7 @@ from medtsllm_tpu.models.llm.transformer import QuantDense
 from medtsllm_tpu.models.llm.transformer import TransformerDecoder as JaxDecoder
 from medtsllm_tpu.ops.pallas import grouped_matmul as jgm
 from medtsllm_tpu.ops.pallas import quant_matmul as jqm
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.data import SyntheticDataset
 from medtsllm_tpu_torch.models.llm.config import resolve_config
 from medtsllm_tpu_torch.models.llm.transformer import MoEMLP, QuantLinear, TransformerDecoder
@@ -113,9 +113,9 @@ def test_quant_linear_4bit_matches_quant_dense(codebook, K, rtol):
     kq, scale = QuantDense.quantize(w, bits=4, codebook=codebook)
     x = rs.randn(2, 5, K).astype(np.float32)
     dense = QuantDense(features=N, use_bias=False, bits=4, codebook=codebook)
-    want = np.asarray(dense.apply({"params": {"kernel_q": jnp.asarray(kq),
-                                              "scale": jnp.asarray(scale)}},
-                                  jnp.asarray(x)))
+    want = np.asarray(jax.jit(dense.apply)({"params": {"kernel_q": jnp.asarray(kq),
+                                                       "scale": jnp.asarray(scale)}},
+                                           jnp.asarray(x)))
     lin = QuantLinear(K, N, None, bits=4, codebook=codebook)
     lin.load_state_dict({"weight_q": _t(kq.T), "scale": _t(scale)})
     n = k5.w4a8_gemm.launches
@@ -278,14 +278,15 @@ def test_moe_mlp_4bit_matches_jax(case):
     over = dict(over, quant4_codebook=cb)
     jcfg = dataclasses.replace(jax_resolve_config("mixtral-tiny-128")[0], **over)
     x = np.random.RandomState(seed).randn(B, L, jcfg.d_model).astype(np.float32)
-    pf = JaxMoEMLP(jcfg).init(jax.random.PRNGKey(seed + 1), jnp.asarray(x))["params"]
+    pf = jax.jit(JaxMoEMLP(jcfg).init)(jax.random.PRNGKey(seed + 1), jnp.asarray(x))["params"]
     params = {"gate": pf["gate"]}
     for name in ("w_gate", "w_up", "w_down"):  # the loader's load_in_4bit recipe
         qs = [QuantDense.quantize(np.asarray(pf[name][e]), bits=4, codebook=cb)
               for e in range(jcfg.n_experts)]
         params[name + "_q"] = jnp.stack([jnp.asarray(q) for q, _ in qs])
         params[name + "_scale"] = jnp.stack([jnp.asarray(s) for _, s in qs])
-    want = np.asarray(JaxMoEMLP(jcfg, quantize=4).apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(JaxMoEMLP(jcfg, quantize=4).apply)({"params": params},
+                                                                 jnp.asarray(x)))
     moe = MoEMLP(dataclasses.replace(resolve_config("mixtral-tiny-128"), **over), 4).eval()
     moe.load_state_dict(from_flax(jax.device_get(params)))
     n = gm.GATE_UP_W4.launches, gm.DOWN_W4.launches, k5.w4a8_gemm.launches

@@ -36,7 +36,7 @@ from medtsllm_tpu.models.llm import mamba as jmamba
 from medtsllm_tpu.models.llm.loader import _mamba_presets
 from medtsllm_tpu.models.llm.tokenizer import _BPE_ASSET as JAX_BPE_ASSET
 from medtsllm_tpu.ops.pallas import selective_scan as jss
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.models.llm import mamba as tmamba
 from medtsllm_tpu_torch.models.llm.config import MAMBA_PRESETS, MambaConfig, resolve_config
 from medtsllm_tpu_torch.models.llm.tokenizer import _BPE_ASSET

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from conftest import make_config
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.data import get_dataset
 from medtsllm_tpu_torch.device import resolve_device

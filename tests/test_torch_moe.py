@@ -29,7 +29,7 @@ from medtsllm_tpu.models.llm.transformer import MoEMLP as JaxMoEMLP
 from medtsllm_tpu.models.llm.transformer import QuantDense
 from medtsllm_tpu.models.llm.transformer import TransformerDecoder as JaxDecoder
 from medtsllm_tpu.ops.pallas import grouped_matmul as jgm
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.data import SyntheticDataset
 from medtsllm_tpu_torch.models.llm.config import resolve_config
 from medtsllm_tpu_torch.models.llm.transformer import MoEMLP, TransformerDecoder, moe_capacity
@@ -238,7 +238,7 @@ def test_gmm_argument_checks():
 def _jax_params(cfg, seed, x, quantize):
     """f32-init MoEMLP parameters, quantized expert-wise for w8 (the JAX
     tests' ``_w8a8_params``)."""
-    pf = JaxMoEMLP(cfg).init(jax.random.PRNGKey(seed + 1), jnp.asarray(x))["params"]
+    pf = jax.jit(JaxMoEMLP(cfg).init)(jax.random.PRNGKey(seed + 1), jnp.asarray(x))["params"]
     if not quantize:
         return pf
     qp = {"gate": pf["gate"]}
@@ -274,8 +274,8 @@ def test_moe_mlp_matches_jax(case):
     else:
         x = rs.randn(B, L, jcfg.d_model).astype(np.float32)
     params = _jax_params(jcfg, seed, x, quantize)
-    want = np.asarray(JaxMoEMLP(jcfg, quantize=quantize).apply({"params": params},
-                                                               jnp.asarray(x)))
+    want = np.asarray(jax.jit(JaxMoEMLP(jcfg, quantize=quantize).apply)({"params": params},
+                                                                        jnp.asarray(x)))
     moe = MoEMLP(dataclasses.replace(resolve_config(preset), **over), quantize).eval()
     moe.load_state_dict(from_flax(jax.device_get(params)))
     n = gm.GATE_UP.launches, gm.DOWN.launches

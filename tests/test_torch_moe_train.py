@@ -127,7 +127,7 @@ def test_router_aux_loss_matches_jax(T, E, k):
 def _w8_params(cfg, x, seed):
     """f32-init MoEMLP parameters, quantized expert by expert (the JAX
     tests' ``_w8a8_params``)."""
-    pf = JaxMoEMLP(cfg).init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
+    pf = jax.jit(JaxMoEMLP(cfg).init)(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
     qp = {"gate": pf["gate"]}
     for name in ("w_gate", "w_up", "w_down"):
         qs = [QuantDense.quantize(np.asarray(pf[name][e]), bits=8)
@@ -155,7 +155,7 @@ def test_moe_layer_gradients_match_jax(capacity):
                                  mutable=["intermediates"])
         aux = state["intermediates"]["router_aux_loss"][0]
         return jnp.sum(out * cot) + aux, out
-    (_, want), (dgate_j, dx_j) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (dgate_j, dx_j) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         params["gate"], jnp.asarray(x))
 
     moe = MoEMLP(dataclasses.replace(resolve_config("mixtral-tiny-128"),

@@ -27,7 +27,7 @@ import torch
 
 from conftest import make_config
 from medtsllm_tpu.data.pipeline import BatchPipeline as JaxBatchPipeline
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu.tasks.pretraining import PretrainingTask as JaxPretrainingTask
 from medtsllm_tpu_torch.data import BatchPipeline
 from medtsllm_tpu_torch.tasks import get_trainer

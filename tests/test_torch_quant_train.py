@@ -39,7 +39,7 @@ from conftest import make_config
 from medtsllm_tpu.models.llm import transformer as jtf
 from medtsllm_tpu.models.medtsllm import MedTsLLM as JaxMedTsLLM
 from medtsllm_tpu.ops.pallas import quant_matmul as jqm
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.models.llm import transformer as ttf
 from medtsllm_tpu_torch.models.medtsllm import resolve_act_quant
@@ -224,10 +224,10 @@ def test_weight_only_and_codebooks_match_quantdense(bits, codebook, K):
     act_quant = codebook != "absmax"  # the codebooks ignore it, as in JAX
     jm = jtf.QuantDense(N, use_bias=False, bits=bits, act_quant=act_quant, codebook=codebook)
     x = np.random.RandomState(K).randn(2, 5, K).astype(np.float32)
-    p = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+    p = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
     p["scale"] = (np.random.RandomState(1).rand(N) * 1e-2 + 1e-3).astype(np.float32)
     c = np.random.RandomState(2).randn(2, 5, N).astype(np.float32)
-    y, want = jax.value_and_grad(lambda xx: jnp.sum(jm.apply({"params": p}, xx) * c))(
+    y, want = jax.jit(jax.value_and_grad(lambda xx: jnp.sum(jm.apply({"params": p}, xx) * c)))(
         jnp.asarray(x))
     lin = ttf.QuantLinear(K, N, None, bits, codebook, act_quant=act_quant)
     lin.load_state_dict(from_flax(p))

@@ -51,7 +51,7 @@ from conftest import make_config
 from medtsllm_tpu.data import BatchPipeline as JaxBatchPipeline
 from medtsllm_tpu.data import get_dataset as jax_get_dataset
 from medtsllm_tpu.data.readers.ventilator import TEST_CLIPS_SEG, TRAIN_CLIPS_AD, TRAIN_CLIPS_SEG
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.data import BatchPipeline, dataset_lookup, get_dataset
 from medtsllm_tpu_torch.data.readers.table import Table

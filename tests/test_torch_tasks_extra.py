@@ -365,9 +365,8 @@ def test_imputation_mask_changes_stats():
     assert with_mask.shape == without.shape == x.shape
     assert not np.allclose(with_mask, without)
     for got, inputs in ((with_mask, arrays), (without, {"x_enc": xm})):
-        want = np.asarray(jt.model.apply({"params": jt.params},
-                                         {k: jnp.asarray(v) for k, v in inputs.items()},
-                                         training=False))
+        want = np.asarray(jax.jit(lambda p, a: jt.model.apply({"params": p}, a, training=False))(
+            jt.params, {k: jnp.asarray(v) for k, v in inputs.items()}))
         _close(got, want)
 
 

@@ -48,7 +48,7 @@ from medtsllm_tpu.models.llm.transformer import _act_quant_matmul
 from medtsllm_tpu.ops.pallas import rope_attention as jrope
 from medtsllm_tpu.ops.pallas import selective_scan as jss
 from medtsllm_tpu.runtime.optim import Optimizer as JaxOptimizer
-from medtsllm_tpu.tasks import get_trainer as jax_get_trainer
+from test_torch_baseline_tasks import jax_get_trainer_jitted as jax_get_trainer
 from medtsllm_tpu.tasks import losses as jlosses
 from medtsllm_tpu_torch.config import Config
 from medtsllm_tpu_torch.data import BatchPipeline
